@@ -1,0 +1,241 @@
+"""Configuration dataclasses for the PyTorch port.
+
+The port's own copy of the model, sampling and serving configuration
+(``repro/config.py`` in the JAX package). ``ModelConfig`` (less the JAX
+sharding knobs) and ``RLConfig`` keep the same fields and defaults, so a
+config built here describes the same model as its JAX namesake; only the
+``paged_attn_impl`` default differs (see below). ``ServeConfig`` holds
+the deployment fields this slice serves.
+"""
+from __future__ import annotations
+
+import dataclasses
+from dataclasses import dataclass
+from typing import Optional, Tuple
+
+# Layer kinds usable in ``block_pattern``.
+ATTN = "attn"          # global causal self-attention
+LOCAL = "local"        # sliding-window causal self-attention
+MAMBA = "mamba"        # Mamba2 / SSD block (attention-free)
+CROSS = "cross"        # cross-attention to a stub modality memory (VLM)
+
+# FFN kinds usable in ``ffn_pattern``.
+MLP = "mlp"
+MOE = "moe"
+NONE = "none"          # e.g. Mamba2 blocks carry no separate FFN
+
+PAGED_IMPLS = ("auto", "pallas", "ref", "gather")
+
+
+def _round_up(x: int, m: int) -> int:
+    return ((x + m - 1) // m) * m
+
+
+@dataclass(frozen=True)
+class ModelConfig:
+    name: str
+    family: str                     # dense | moe | ssm | hybrid | vlm | audio
+    num_layers: int
+    d_model: int
+    num_heads: int
+    num_kv_heads: int
+    d_ff: int
+    vocab_size: int
+    head_dim: int = 0               # 0 -> d_model // num_heads
+
+    # layer layout -------------------------------------------------------
+    block_pattern: Tuple[str, ...] = (ATTN,)
+    ffn_pattern: Tuple[str, ...] = (MLP,)
+
+    # attention options ---------------------------------------------------
+    qkv_bias: bool = False
+    sliding_window: int = 4096      # used by LOCAL layers
+    attn_softcap: Optional[float] = None
+    final_softcap: Optional[float] = None
+    rope_theta: float = 1_000_000.0
+
+    # MoE options ---------------------------------------------------------
+    num_experts: int = 0
+    experts_per_token: int = 0
+    shared_expert: bool = False
+    capacity_factor: float = 1.25
+
+    # SSM (Mamba2 / SSD) options -----------------------------------------
+    ssm_state: int = 0
+    ssm_headdim: int = 64
+    ssm_expand: int = 2
+    ssm_ngroups: int = 1
+    ssm_conv: int = 4
+    ssm_chunk: int = 256
+
+    # encoder / multimodal stubs -----------------------------------------
+    encoder_layers: int = 0
+    encoder_seq: int = 0
+    memory_seq: int = 0
+
+    # numerics ------------------------------------------------------------
+    norm_eps: float = 1e-6
+    dtype: str = "bfloat16"
+    tie_embeddings: bool = False
+    scale_embed: bool = False       # multiply embeddings by sqrt(d) (gemma)
+
+    # implementation knobs (not architecture) -----------------------------
+    attn_impl: str = "chunked"      # naive | chunked | pallas
+    attn_chunk: int = 512
+    # Paged-attention backend of the continuous engine
+    # (repro_torch.kernels.ops): "pallas" = the hand-written Hopper
+    # kernel, "ref" = its plain PyTorch twin, "auto" = kernel for CUDA
+    # tensors and twin for CPU tensors. The JAX package defaults to
+    # "gather" to keep its static and continuous engines bit-identical;
+    # the port has no static engine yet, so nothing needs that parity
+    # and "auto" sends the serving path through the kernels. "gather"
+    # raises until the static engine is ported.
+    paged_attn_impl: str = "auto"
+    remat: bool = True
+    local_ring_kv: bool = False     # ring-buffer KV for LOCAL layers (JAX only)
+
+    # ---------------------------------------------------------------------
+    def __post_init__(self):
+        if self.head_dim == 0 and self.num_heads > 0:
+            object.__setattr__(self, "head_dim", self.d_model // self.num_heads)
+        period = len(self.block_pattern)
+        if self.num_layers % period:
+            raise ValueError(f"{self.name}: num_layers={self.num_layers} not "
+                             f"divisible by pattern period {period}")
+        if self.paged_attn_impl not in PAGED_IMPLS:
+            raise ValueError(f"unknown paged_attn_impl "
+                             f"{self.paged_attn_impl!r}; have {PAGED_IMPLS}")
+
+    # derived -------------------------------------------------------------
+    @property
+    def period(self) -> int:
+        return len(self.block_pattern)
+
+    @property
+    def num_blocks(self) -> int:
+        """Number of stacked super-blocks (one pattern period each)."""
+        return self.num_layers // self.period
+
+    @property
+    def padded_vocab(self) -> int:
+        """Vocab rounded up to a multiple of 256 (151936 -> 152064)."""
+        return _round_up(self.vocab_size, 256)
+
+    def ffn_kind(self, layer_in_block: int) -> str:
+        return self.ffn_pattern[layer_in_block % len(self.ffn_pattern)]
+
+    @property
+    def is_encdec(self) -> bool:
+        return self.encoder_layers > 0
+
+    def param_count(self) -> int:
+        """Parameter count of the dense attention + MLP layouts this port
+        serves (embedding, untied head, attention, MLP, norms)."""
+        d, h = self.d_model, self.head_dim
+        n_q, n_kv = self.num_heads, self.num_kv_heads
+        total = self.padded_vocab * d
+        if not self.tie_embeddings:
+            total += self.padded_vocab * d
+        per_layer = (d * (n_q * h) + 2 * d * (n_kv * h) + (n_q * h) * d
+                     + 3 * d * self.d_ff + 2 * d)
+        return total + self.num_layers * per_layer + d
+
+
+@dataclass(frozen=True)
+class RLConfig:
+    """Policy-optimization settings (paper §3/§4 + App. B). The serving
+    slice reads only the sampling profile and ``max_new_tokens``."""
+    loss_type: str = "gepo"
+    group_size: int = 8
+    clip_eps: float = 0.2
+    cispo_eps_low: float = 1.0
+    cispo_eps_high: float = 0.27
+    beta_kl: float = 0.005
+    adv_normalize: bool = True
+    seq_len_normalize: bool = True
+    gepo_smooth: float = 0.0
+    temperature: float = 0.6
+    top_k: int = 20
+    top_p: float = 0.95
+    max_new_tokens: int = 32
+    recompute_sampler_logps: bool = True
+    entropy_bonus: float = 0.0
+    engine: str = "static"
+
+
+@dataclass(frozen=True)
+class ServeConfig:
+    """Deployment settings for a generation engine: engine kind, KV
+    capacity, decode horizon (the fields of the JAX package's
+    ``ServeConfig`` that this slice serves; mesh, front-door and
+    speculative-drafting fields join with their slices)."""
+    engine: str = "continuous"       # static | continuous
+    num_slots: int = 8
+    page_size: int = 16
+    prefill_chunk: int = 0           # prompt tokens per chunk (0 = whole)
+    sync_every: int = 8
+    max_total_tokens: int = 256
+    num_pages: int = 0               # 0 = derive from slots x budget
+    prefix_cache: bool = True
+    prefix_cache_entries: int = 64
+    paged_attn_impl: Optional[str] = None   # ModelConfig override (None=keep)
+    spec_k: int = 0                  # speculative drafts (not ported: > 0 raises)
+    seed: int = 0
+
+    def __post_init__(self):
+        if self.engine not in ("static", "continuous"):
+            raise ValueError(f"engine={self.engine!r} not static|continuous")
+        if self.num_slots < 1 or self.page_size < 1 or self.sync_every < 1:
+            raise ValueError("num_slots, page_size, sync_every must be >= 1")
+        if self.max_total_tokens < 2:
+            raise ValueError("max_total_tokens must hold a prompt token "
+                             "and a completion token at least")
+        if self.prefill_chunk < 0 or self.num_pages < 0:
+            raise ValueError("prefill_chunk / num_pages must be >= 0")
+        if self.spec_k < 0:
+            raise ValueError("spec_k must be >= 0 (0 = speculation off)")
+
+    @property
+    def pages_per_slot(self) -> int:
+        return -(-self.max_total_tokens // self.page_size)
+
+    @property
+    def resolved_num_pages(self) -> int:
+        """Explicit ``num_pages``, or scratch + the full budget of every
+        slot, plus 50% headroom when the prefix cache is on."""
+        if self.num_pages:
+            return self.num_pages
+        base = self.num_slots * self.pages_per_slot
+        headroom = base // 2 if self.prefix_cache else 0
+        return 1 + base + headroom
+
+
+def smoke_variant(cfg: ModelConfig, **overrides) -> ModelConfig:
+    """A reduced same-family variant for CPU smoke tests: <=2 pattern
+    periods of layers, d_model <= 256, f32."""
+    period = cfg.period
+    small = dict(
+        num_layers=2 * period if 2 * period <= 4 else period,
+        d_model=256 if cfg.d_model >= 256 else cfg.d_model,
+        num_heads=min(cfg.num_heads, 4) if cfg.num_heads else 0,
+        num_kv_heads=min(cfg.num_kv_heads, 2) if cfg.num_kv_heads else 0,
+        head_dim=64 if cfg.num_heads else 0,
+        d_ff=512 if cfg.d_ff else 0,
+        vocab_size=512,
+        num_experts=min(cfg.num_experts, 4),
+        experts_per_token=min(cfg.experts_per_token, 2),
+        encoder_layers=2 if cfg.encoder_layers else 0,
+        encoder_seq=32 if cfg.encoder_seq else 0,
+        memory_seq=16 if cfg.memory_seq else 0,
+        ssm_state=min(cfg.ssm_state, 32) if cfg.ssm_state else 0,
+        ssm_headdim=32 if cfg.ssm_state else cfg.ssm_headdim,
+        ssm_chunk=16 if cfg.ssm_state else cfg.ssm_chunk,
+        sliding_window=min(cfg.sliding_window, 64),
+        attn_impl="naive",
+        attn_chunk=32,
+        dtype="float32",
+        remat=False,
+        name=cfg.name + "-smoke",
+    )
+    small.update(overrides)
+    return dataclasses.replace(cfg, **small)

@@ -1,0 +1,23 @@
+"""Registry of the architectures the port serves so far.
+
+``get_config(name)`` returns the full-size config; ``smoke(name)`` the
+reduced same-family variant the CPU tests use. Other families join as
+their slices land (ROADMAP queue 1).
+"""
+from repro_torch.config import ModelConfig, smoke_variant
+from repro_torch.configs.qwen3_paper import CONFIG as _qwen3
+from repro_torch.configs.qwen3_paper import CONFIG_8B as _qwen3_8b
+
+PAPER_ARCHS = {c.name: c for c in (_qwen3, _qwen3_8b)}
+ALL = dict(PAPER_ARCHS)
+
+
+def get_config(name: str) -> ModelConfig:
+    try:
+        return ALL[name]
+    except KeyError as e:
+        raise KeyError(f"unknown arch {name!r}; have {sorted(ALL)}") from e
+
+
+def smoke(name: str, **over) -> ModelConfig:
+    return smoke_variant(get_config(name), **over)

@@ -1,0 +1,269 @@
+"""Paged-attention decode and chunked-prefill: CUDA kernels and their twins.
+
+One decode step attends one query per slot against that slot's KV pages
+*in place*: the pools (num_pages, page_size, Hkv, D) are read through the
+block table and never regathered into a dense per-slot view. Chunked
+prefill does the same for a (B, C, Hq, D) block of queries whose row i
+sits at absolute position ``starts[slot] + i``.
+
+- ``paged_attention`` / ``paged_prefill`` are the kernel wrappers. On a
+  CUDA tensor they launch the hand-written Hopper kernels of
+  ``csrc/paged_attention.cu`` (K3 and K4, replacing the Pallas kernels
+  ``_kernel`` and ``_prefill_kernel`` of ``repro/kernels/paged_attention.py``)
+  or raise. On a CPU tensor they call the twin.
+- ``paged_decode_ref`` / ``paged_prefill_ref`` are the plain PyTorch twins:
+  the same page-loop online softmax as the JAX package's twins, bounded by
+  the batch-max live page count, in float32 whatever the input dtype.
+
+Masking follows the JAX package: decode keys ``col < length`` plus the
+sliding-window band; prefill keys ``col <= pos_q`` plus the band; masked
+scores are ``NEG_INF`` and masked V is *zeroed* (a select, never a
+multiply), so NaN in unwritten page tails or in the scratch page never
+reaches a live output.
+
+``LAUNCHES`` counts kernel launches, one per wrapper call that launched;
+calls that took the twin are not counted.
+"""
+from __future__ import annotations
+
+from typing import Dict, Optional
+
+import torch
+
+from repro_torch.kernels import build
+
+NEG_INF = -1e30
+
+# launches of each CUDA kernel since the last reset_launch_counts()
+LAUNCHES: Dict[str, int] = {"paged_decode": 0, "paged_prefill": 0}
+
+
+def reset_launch_counts() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+# --------------------------------------------------------------------------
+# plain PyTorch twins
+
+
+def _online_update(m, l, acc, s, v_term):
+    """One page of the (m, l, acc) recurrence; ``v_term(p)`` is p @ V."""
+    m_new = torch.maximum(m, s.amax(dim=-1))
+    alpha = torch.exp(m - m_new)
+    p = torch.exp(s - m_new[..., None])
+    l = l * alpha + p.sum(dim=-1)
+    acc = acc * alpha[..., None] + v_term(p)
+    return m_new, l, acc
+
+
+def _n_live(lengths: torch.Tensor, page_size: int, npages: int) -> int:
+    if lengths.numel() == 0:
+        return 0
+    top = int(lengths.max())
+    return max(0, min(-(-top // page_size), npages))
+
+
+def paged_decode_ref(q: torch.Tensor, kp: torch.Tensor, vp: torch.Tensor,
+                     page_table: torch.Tensor, lengths: torch.Tensor, *,
+                     window: Optional[int] = None,
+                     softcap: Optional[float] = None) -> torch.Tensor:
+    """Decode attention against paged pools. q (B, Hq, D); kp/vp
+    (num_pages, page_size, Hkv, D); page_table (B, npages); lengths (B,)
+    valid tokens per slot (the current token's K/V already written).
+    Returns (B, Hq, D) in q's dtype."""
+    b, hq, d = q.shape
+    page_size, hkv = kp.shape[1], kp.shape[2]
+    rep = hq // hkv
+    npages = page_table.shape[1]
+    scale = d ** -0.5
+    dev = q.device
+    qg = q.reshape(b, hkv, rep, d).float()
+    table = page_table.long()
+    lengths = lengths.long()
+    m = torch.full((b, hkv, rep), NEG_INF, dtype=torch.float32, device=dev)
+    l = torch.zeros((b, hkv, rep), dtype=torch.float32, device=dev)
+    acc = torch.zeros((b, hkv, rep, d), dtype=torch.float32, device=dev)
+    cols = torch.arange(page_size, device=dev)
+    for j in range(_n_live(lengths, page_size, npages)):
+        phys = table[:, j]
+        k = kp[phys].float()                              # (B, page, Hkv, D)
+        v = vp[phys].float()
+        s = torch.einsum("bgrd,bpgd->bgrp", qg, k) * scale
+        if softcap is not None:
+            s = softcap * torch.tanh(s / softcap)
+        idx = j * page_size + cols
+        valid = idx[None, :] < lengths[:, None]           # (B, page)
+        if window is not None:
+            valid &= idx[None, :] > lengths[:, None] - 1 - window
+        s = torch.where(valid[:, None, None, :], s, NEG_INF)
+        v = torch.where(valid[:, :, None, None], v, 0.0)
+        m, l, acc = _online_update(
+            m, l, acc, s, lambda p: torch.einsum("bgrp,bpgd->bgrd", p, v))
+    o = acc / torch.clamp(l, min=1e-30)[..., None]
+    return o.reshape(b, hq, d).to(q.dtype)
+
+
+def paged_prefill_ref(q: torch.Tensor, kp: torch.Tensor, vp: torch.Tensor,
+                      page_table: torch.Tensor, lengths: torch.Tensor,
+                      starts: torch.Tensor, *, window: Optional[int] = None,
+                      softcap: Optional[float] = None) -> torch.Tensor:
+    """Chunked-prefill attention against paged pools. q (B, C, Hq, D) with
+    row i at absolute position ``starts + i``; lengths (B,) valid tokens
+    per slot (the chunk's K/V already written); starts (B,). Returns
+    (B, C, Hq, D) in q's dtype."""
+    b, c, hq, d = q.shape
+    page_size, hkv = kp.shape[1], kp.shape[2]
+    rep = hq // hkv
+    npages = page_table.shape[1]
+    scale = d ** -0.5
+    dev = q.device
+    qg = q.reshape(b, c, hkv, rep, d).float()
+    table = page_table.long()
+    lengths = lengths.long()
+    pos_q = starts.long()[:, None] + torch.arange(c, device=dev)   # (B, C)
+    m = torch.full((b, hkv, rep, c), NEG_INF, dtype=torch.float32, device=dev)
+    l = torch.zeros((b, hkv, rep, c), dtype=torch.float32, device=dev)
+    acc = torch.zeros((b, hkv, rep, c, d), dtype=torch.float32, device=dev)
+    cols = torch.arange(page_size, device=dev)
+    for j in range(_n_live(lengths, page_size, npages)):
+        phys = table[:, j]
+        k = kp[phys].float()                              # (B, page, Hkv, D)
+        v = vp[phys].float()
+        s = torch.einsum("bcgrd,bpgd->bgrcp", qg, k) * scale
+        if softcap is not None:
+            s = softcap * torch.tanh(s / softcap)
+        idx = j * page_size + cols
+        ok = idx[None, None, :] <= pos_q[:, :, None]      # (B, C, page)
+        if window is not None:
+            ok &= idx[None, None, :] > pos_q[:, :, None] - window
+        s = torch.where(ok[:, None, None], s, NEG_INF)    # (B, g, r, C, page)
+        valid = idx[None, :] < lengths[:, None]           # (B, page)
+        v = torch.where(valid[:, :, None, None], v, 0.0)
+        m, l, acc = _online_update(
+            m, l, acc, s, lambda p: torch.einsum("bgrcp,bpgd->bgrcd", p, v))
+    o = acc / torch.clamp(l, min=1e-30)[..., None]        # (B, g, r, C, D)
+    return o.permute(0, 3, 1, 2, 4).reshape(b, c, hq, d).to(q.dtype)
+
+
+# --------------------------------------------------------------------------
+# kernel wrappers
+
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def _check(q, kp, vp, page_table, ints):
+    """Validate what the kernels take; returns (Hkv, D, page, npages,
+    dtype code) or raises."""
+    dev = q.device
+    for name, t in (("kp", kp), ("vp", vp), ("page_table", page_table),
+                    *ints.items()):
+        if t.device != dev:
+            raise ValueError(f"{name} on {t.device}, q on {dev}")
+    if q.dtype not in _DTYPES or kp.dtype != q.dtype or vp.dtype != q.dtype:
+        raise TypeError(f"paged kernels take float32 or bfloat16 q/kp/vp of "
+                        f"one dtype, got {q.dtype}/{kp.dtype}/{vp.dtype}")
+    if kp.shape != vp.shape or kp.dim() != 4:
+        raise ValueError(f"pools must be (P, page, Hkv, D), got "
+                         f"{tuple(kp.shape)} / {tuple(vp.shape)}")
+    _, page_size, hkv, d = kp.shape
+    hq = q.shape[-2]
+    if q.shape[-1] != d or d not in (64, 128, 256):
+        raise ValueError(f"head_dim must match the pools and be 64, 128 or "
+                         f"256, got q {tuple(q.shape)} pools {tuple(kp.shape)}")
+    if hq % hkv or hq // hkv > 32:
+        raise ValueError(f"need Hq % Hkv == 0 and Hq/Hkv <= 32, got "
+                         f"{hq}/{hkv}")
+    if not 1 <= page_size <= 64:
+        raise ValueError(f"page_size must be in [1, 64], got {page_size}")
+    for name, t in (("q", q), ("kp", kp), ("vp", vp)):
+        if not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError(f"{name} must be contiguous and 16-byte aligned")
+    return hkv, d, page_size, page_table.shape[1], _DTYPES[q.dtype]
+
+
+def _i32(t: torch.Tensor) -> torch.Tensor:
+    return t.to(torch.int32).contiguous()
+
+
+def _raise_on(err: int, what: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"{what} launch failed: cudaError {err}")
+
+
+def _opts(window: Optional[int], softcap: Optional[float]):
+    if window is not None and window < 1:
+        raise ValueError(f"window must be >= 1 or None, got {window}")
+    if softcap is not None and not softcap > 0:
+        raise ValueError(f"softcap must be > 0 or None, got {softcap}")
+    return (-1 if window is None else int(window),
+            0.0 if softcap is None else float(softcap))
+
+
+def paged_attention(q: torch.Tensor, kp: torch.Tensor, vp: torch.Tensor,
+                    page_table: torch.Tensor, lengths: torch.Tensor, *,
+                    window: Optional[int] = None,
+                    softcap: Optional[float] = None) -> torch.Tensor:
+    """Decode attention, q (B, Hq, D) -> (B, Hq, D): the K3 kernel on a
+    CUDA tensor, the twin on a CPU tensor."""
+    if q.device.type == "cpu":
+        return paged_decode_ref(q, kp, vp, page_table, lengths,
+                                window=window, softcap=softcap)
+    if q.device.type != "cuda":
+        raise ValueError(f"paged_attention runs on cuda or cpu, not "
+                         f"{q.device}")
+    if q.dim() != 3:
+        raise ValueError(f"q must be (B, Hq, D), got {tuple(q.shape)}")
+    table, lens = _i32(page_table), _i32(lengths)
+    hkv, d, page_size, npages, code = _check(
+        q, kp, vp, table, {"lengths": lens})
+    b, hq, _ = q.shape
+    if table.shape[0] != b or lens.shape != (b,):
+        raise ValueError("page_table (B, npages) and lengths (B,) must match q")
+    win, cap = _opts(window, softcap)
+    out = torch.empty_like(q)
+    lib = build.load()
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = lib.paged_decode_launch(
+            q.data_ptr(), kp.data_ptr(), vp.data_ptr(), table.data_ptr(),
+            lens.data_ptr(), out.data_ptr(), b, hq, hkv, d, page_size,
+            npages, win, cap, code, stream)
+    _raise_on(err, "paged_decode_kernel")
+    LAUNCHES["paged_decode"] += 1
+    return out
+
+
+def paged_prefill(q: torch.Tensor, kp: torch.Tensor, vp: torch.Tensor,
+                  page_table: torch.Tensor, lengths: torch.Tensor,
+                  starts: torch.Tensor, *, window: Optional[int] = None,
+                  softcap: Optional[float] = None) -> torch.Tensor:
+    """Chunked-prefill attention, q (B, C, Hq, D) -> (B, C, Hq, D): the K4
+    kernel on a CUDA tensor, the twin on a CPU tensor. Any C is taken:
+    the kernel masks the ragged last query tile."""
+    if q.device.type == "cpu":
+        return paged_prefill_ref(q, kp, vp, page_table, lengths, starts,
+                                 window=window, softcap=softcap)
+    if q.device.type != "cuda":
+        raise ValueError(f"paged_prefill runs on cuda or cpu, not {q.device}")
+    if q.dim() != 4:
+        raise ValueError(f"q must be (B, C, Hq, D), got {tuple(q.shape)}")
+    table, lens, st = _i32(page_table), _i32(lengths), _i32(starts)
+    hkv, d, page_size, npages, code = _check(
+        q, kp, vp, table, {"lengths": lens, "starts": st})
+    b, c, hq, _ = q.shape
+    if table.shape[0] != b or lens.shape != (b,) or st.shape != (b,):
+        raise ValueError("page_table (B, npages), lengths (B,) and starts "
+                         "(B,) must match q")
+    win, cap = _opts(window, softcap)
+    out = torch.empty_like(q)
+    lib = build.load()
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = lib.paged_prefill_launch(
+            q.data_ptr(), kp.data_ptr(), vp.data_ptr(), table.data_ptr(),
+            lens.data_ptr(), st.data_ptr(), out.data_ptr(), b, c, hq, hkv,
+            d, page_size, npages, win, cap, code, stream)
+    _raise_on(err, "paged_prefill_kernel")
+    LAUNCHES["paged_prefill"] += 1
+    return out

@@ -1,0 +1,105 @@
+"""Batch serving entry point: what a HeteroRL sampler node runs, on the port.
+
+Builds a model with random weights from ``--seed``, the continuous engine
+a ``ServeConfig`` describes, and serves ``--rounds`` batches of seeded
+random prompts through ``ContinuousEngine.generate``:
+
+  PYTHONPATH=src python -m repro_torch.launch.serve               # qwen3-1.7b on cuda
+  PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --smoke
+
+``--smoke`` serves the reduced variant of ``--arch``. The front door
+(``--listen``), meshes and speculative decoding are later slices.
+"""
+from __future__ import annotations
+
+import argparse
+import time
+
+import numpy as np
+import torch
+
+from repro_torch.config import RLConfig, ServeConfig
+from repro_torch.configs import get_config, smoke
+from repro_torch.models import init_params
+from repro_torch.sampling import build_engine
+from repro_torch.serving.api import Request, SamplingParams
+
+
+def parse_args(argv=None) -> argparse.Namespace:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--arch", default="qwen3-1.7b")
+    ap.add_argument("--smoke", action="store_true",
+                    help="serve the reduced variant of --arch")
+    ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
+    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--prompt-len", type=int, default=64,
+                    help="longest prompt; lengths are drawn in [len/4, len]")
+    ap.add_argument("--max-new", type=int, default=16)
+    ap.add_argument("--rounds", type=int, default=2)
+    # ServeConfig fields ---------------------------------------------------
+    ap.add_argument("--slots", type=int, default=8)
+    ap.add_argument("--page-size", type=int, default=16)
+    ap.add_argument("--prefill-chunk", type=int, default=0,
+                    help="prompt tokens prefilled per engine round "
+                         "(0 = whole prompt in one chunk)")
+    ap.add_argument("--sync-every", type=int, default=8)
+    ap.add_argument("--max-total-tokens", type=int, default=0,
+                    help="per-request prompt+completion cap "
+                         "(0 = --prompt-len + --max-new)")
+    ap.add_argument("--paged-attn-impl", default=None,
+                    choices=("auto", "pallas", "ref"))
+    # sampling profile -----------------------------------------------------
+    ap.add_argument("--temperature", type=float, default=0.6)
+    ap.add_argument("--top-k", type=int, default=20)
+    ap.add_argument("--top-p", type=float, default=0.95)
+    ap.add_argument("--seed", type=int, default=0)
+    return ap.parse_args(argv)
+
+
+def main(argv=None) -> None:
+    args = parse_args(argv)
+    cfg = smoke(args.arch) if args.smoke else get_config(args.arch)
+    serve = ServeConfig(
+        num_slots=args.slots, page_size=args.page_size,
+        prefill_chunk=args.prefill_chunk, sync_every=args.sync_every,
+        max_total_tokens=args.max_total_tokens
+        or args.prompt_len + args.max_new,
+        paged_attn_impl=args.paged_attn_impl, seed=args.seed)
+    rl = RLConfig(temperature=args.temperature, top_k=args.top_k,
+                  top_p=args.top_p, max_new_tokens=args.max_new)
+    params = init_params(cfg, args.seed, device=args.device)
+    engine = build_engine(cfg, params, serve, rl=rl,
+                          vocab_limit=cfg.vocab_size)
+    sp = SamplingParams.from_rl(rl)
+    rng = np.random.default_rng(args.seed)
+    lo = max(1, args.prompt_len // 4)
+    total_tok, rid = 0, 0
+    t0 = time.perf_counter()
+    for r in range(args.rounds):
+        reqs = []
+        for _ in range(args.batch):
+            n = int(rng.integers(lo, args.prompt_len + 1))
+            reqs.append(Request(rid=rid, params=sp, prompt=rng.integers(
+                3, cfg.vocab_size, size=n).astype(np.int32)))
+            rid += 1
+        t1 = time.perf_counter()
+        results = engine.generate(reqs)
+        if args.device == "cuda":
+            torch.cuda.synchronize()
+        dt = time.perf_counter() - t1
+        n_tok = sum(res.gen_count for res in results)
+        total_tok += n_tok
+        st = engine.stats()
+        print(f"[serve] round {r}: {n_tok} tokens in {dt:.3f}s "
+              f"({n_tok / dt:.1f} tok/s) | slot-util "
+              f"{st['slot_utilization']:.2f} ({st['decode_steps']} decode "
+              f"steps, {st['prefill_chunks']} prefill chunks) | rid "
+              f"{results[0].rid}: {results[0].tokens[:8].tolist()}")
+    print(f"[serve] arch={cfg.name} device={args.device} "
+          f"impl={engine.cfg.paged_attn_impl} batch={args.batch} total "
+          f"{total_tok} tokens, "
+          f"{total_tok / (time.perf_counter() - t0):.1f} tok/s")
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,198 @@
+"""The decoder forward over a paged KV cache: chunked prefill and decode.
+
+The port of the paged-cache path of ``repro/models/model.py``: token
+embedding, then for every layer RMSNorm, q/k/v projections with rotary
+embeddings, the K/V write into the page pools, paged attention through
+``repro_torch.kernels.ops``, the output projection and a SwiGLU MLP, then
+the final norm and the (tied or separate) head in float32.
+
+Parameters are the JAX package's tree: block leaves are stacked
+``(nb, ...)`` and applied one layer at a time in a Python loop (the JAX
+package scans them). The page pools are written *in place*: a forward
+returns the same cache object it was given. The dense (non-paged) cache
+and dense attention wait for the learner slice; ``forward`` without a
+paged cache raises.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, List, Optional, Tuple, Union
+
+import torch
+
+from repro_torch.config import ATTN, LOCAL, MLP, ModelConfig
+from repro_torch.kernels.ops import paged_decode, paged_prefill
+from repro_torch.models.layers import rmsnorm, rope, softcap, swiglu
+
+# sampling.paged_cache.SCRATCH_PAGE (not imported: sampling imports this
+# module)
+SCRATCH_PAGE = 0
+
+
+def _unstack(tree: Any, n: int) -> List[Any]:
+    """Stacked (n, ...) leaves -> a list of n trees of views."""
+    if isinstance(tree, dict):
+        parts = {k: _unstack(v, n) for k, v in tree.items()}
+        return [{k: parts[k][i] for k in parts} for i in range(n)]
+    return list(torch.unbind(tree, 0))
+
+
+def _project_qkv(cfg: ModelConfig, p: Dict, x: torch.Tensor
+                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    b, s, _ = x.shape
+    q = x @ p["wq"]
+    k = x @ p["wk"]
+    v = x @ p["wv"]
+    if "bq" in p:
+        q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
+    q = q.reshape(b, s, cfg.num_heads, cfg.head_dim)
+    k = k.reshape(b, s, cfg.num_kv_heads, cfg.head_dim)
+    v = v.reshape(b, s, cfg.num_kv_heads, cfg.head_dim)
+    return q, k, v
+
+
+def _kv_write_index(positions: torch.Tensor, page_table: torch.Tensor,
+                    page_size: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Where each (slot, token) K/V row goes: flat (phys, off) over the
+    B * S rows.
+
+    The JAX package gathers an out-of-range sentinel for logical pages
+    past the table width and lets the scatter drop the write; a dead
+    decode slot sits at ``width * page_size`` for exactly that. A torch
+    index_put raises (or device-asserts) on such an index, so those rows
+    are routed to the scratch page instead: it is never handed out and
+    every reader masks it, so a dead slot changes no page a request owns.
+    No host sync; computed once per forward and shared by every layer.
+    """
+    width = page_table.shape[1]
+    pos = positions.long()
+    page = pos // page_size
+    valid = (page >= 0) & (page < width)
+    phys = torch.gather(page_table.long(), 1, page.clamp(0, width - 1))
+    phys = torch.where(valid, phys, SCRATCH_PAGE)
+    return phys.reshape(-1), (pos % page_size).reshape(-1)
+
+
+def _self_attn(cfg: ModelConfig, p: Dict, x: torch.Tensor, *, kind: str,
+               positions: torch.Tensor, kp: torch.Tensor, vp: torch.Tensor,
+               page_table: torch.Tensor, widx, decode: bool) -> torch.Tensor:
+    """Paged self-attention sub-layer (input already normed): writes this
+    chunk's K/V into the pools in place, then attends them through the
+    decode kernel (``decode_step``) or the prefill kernel (``forward``,
+    whatever the chunk length: a one-token chunk is still prefill)."""
+    b, sq = x.shape[0], x.shape[1]
+    q, k, v = _project_qkv(cfg, p, x)
+    q = rope(q, positions, cfg.rope_theta)
+    k = rope(k, positions, cfg.rope_theta)
+    phys, off = widx
+    kp[phys, off] = k.reshape((b * sq,) + k.shape[2:]).to(kp.dtype)
+    vp[phys, off] = v.reshape((b * sq,) + v.shape[2:]).to(vp.dtype)
+    mask_kind = "local" if kind == LOCAL else "causal"
+    if decode:
+        o = paged_decode(q, kp, vp, page_table, positions[:, 0] + 1,
+                         kind=mask_kind, window=cfg.sliding_window,
+                         softcap=cfg.attn_softcap, impl=cfg.paged_attn_impl)
+    else:                                                 # chunked prefill
+        o = paged_prefill(q, kp, vp, page_table, positions,
+                          kind=mask_kind, window=cfg.sliding_window,
+                          softcap=cfg.attn_softcap, impl=cfg.paged_attn_impl)
+    return o.reshape(b, sq, -1) @ p["wo"]
+
+
+def _apply_layer(cfg: ModelConfig, kind: str, ffn_kind: str, p: Dict,
+                 x: torch.Tensor, *, positions, kp, vp, page_table, widx,
+                 decode: bool) -> torch.Tensor:
+    if kind not in (ATTN, LOCAL) or ffn_kind != MLP:
+        raise NotImplementedError(
+            f"layer ({kind!r}, {ffn_kind!r}) is not ported yet")
+    h = rmsnorm(x, p["norm"], cfg.norm_eps)
+    x = x + _self_attn(cfg, p["attn"], h, kind=kind, positions=positions,
+                       kp=kp, vp=vp, page_table=page_table, widx=widx,
+                       decode=decode)
+    return x + swiglu(rmsnorm(x, p["ffn_norm"], cfg.norm_eps), p["mlp"])
+
+
+def _is_paged(cfg: ModelConfig, cache: Optional[Dict]) -> bool:
+    if not isinstance(cache, dict):
+        return False
+    for i in range(cfg.period):
+        lc = cache.get(f"layer_{i}", {}).get("self")
+        if not isinstance(lc, dict) or "kp" not in lc or "vp" not in lc:
+            return False
+    return True
+
+
+def _run_layers(cfg: ModelConfig, params: Dict, x: torch.Tensor, *,
+                positions: torch.Tensor, cache: Optional[Dict],
+                page_table: Optional[torch.Tensor],
+                decode: bool) -> torch.Tensor:
+    if not _is_paged(cfg, cache) or page_table is None:
+        raise NotImplementedError(
+            "the port's forward runs over a paged KV cache (pools from "
+            "repro_torch.sampling.paged_cache plus a page_table); the dense "
+            "cache and dense attention land with the learner slice")
+    page_size = cache["layer_0"]["self"]["kp"].shape[2]
+    widx = _kv_write_index(positions, page_table, page_size)
+    blocks = _unstack(params["blocks"], cfg.num_blocks)
+    pools = [(list(torch.unbind(cache[f"layer_{i}"]["self"]["kp"], 0)),
+              list(torch.unbind(cache[f"layer_{i}"]["self"]["vp"], 0)))
+             for i in range(cfg.period)]
+    for bi in range(cfg.num_blocks):
+        for i, kind in enumerate(cfg.block_pattern):
+            x = _apply_layer(cfg, kind, cfg.ffn_kind(i),
+                             blocks[bi][f"layer_{i}"], x,
+                             positions=positions, kp=pools[i][0][bi],
+                             vp=pools[i][1][bi], page_table=page_table,
+                             widx=widx, decode=decode)
+    return x
+
+
+def _embed(cfg: ModelConfig, params: Dict, tokens: torch.Tensor
+           ) -> torch.Tensor:
+    x = params["embed"][tokens]
+    if cfg.scale_embed:
+        x = x * torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype)
+    return x
+
+
+def _logits(cfg: ModelConfig, params: Dict, x: torch.Tensor) -> torch.Tensor:
+    x = rmsnorm(x, params["final_norm"], cfg.norm_eps)
+    head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+    logits = (x @ head).float()
+    if cfg.final_softcap is not None:
+        logits = softcap(logits, cfg.final_softcap)
+    return logits
+
+
+def forward(cfg: ModelConfig, params: Dict, tokens: torch.Tensor, *,
+            positions: Optional[torch.Tensor] = None,
+            cache: Optional[Dict] = None,
+            page_table: Optional[torch.Tensor] = None,
+            ) -> Tuple[torch.Tensor, Dict, Dict]:
+    """Chunked prefill over a paged cache. tokens (B, S) at ``positions``
+    (B, S) (default ``arange(S)``); the chunk's K/V are written into
+    ``cache`` in place. Returns (logits (B, S, V_padded) f32, cache, {})."""
+    b, s = tokens.shape
+    if positions is None:
+        positions = torch.arange(s, device=tokens.device).expand(b, s)
+    x = _embed(cfg, params, tokens)
+    x = _run_layers(cfg, params, x, positions=positions, cache=cache,
+                    page_table=page_table, decode=False)
+    return _logits(cfg, params, x), cache, {}
+
+
+def decode_step(cfg: ModelConfig, params: Dict, cache: Dict,
+                token: torch.Tensor, pos: Union[int, torch.Tensor], *,
+                page_table: torch.Tensor) -> Tuple[torch.Tensor, Dict]:
+    """One decode step over a paged cache. token (B,); pos a scalar or a
+    (B,) vector of write positions. Returns (logits (B, V_padded) f32,
+    cache)."""
+    b = token.shape[0]
+    pos = torch.as_tensor(pos, device=token.device)
+    if pos.dim() == 0:
+        positions = pos.to(torch.int64).expand(b)[:, None]
+    else:
+        positions = pos.to(torch.int64)[:, None]
+    x = _embed(cfg, params, token[:, None])
+    x = _run_layers(cfg, params, x, positions=positions, cache=cache,
+                    page_table=page_table, decode=True)
+    return _logits(cfg, params, x)[:, 0], cache

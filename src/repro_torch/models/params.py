@@ -1,0 +1,166 @@
+"""Parameter templates and materialization.
+
+The same template tree as the JAX package's ``repro/models/params.py``:
+every leaf is declared once with its shape, initializer and logical axes,
+and block leaves carry a leading stacked-block axis ``(nb, ...)``. This
+slice serves dense attention + MLP layers (ATTN / LOCAL with MLP); other
+layer kinds raise until their slice lands.
+
+``init_params`` draws random weights from a seeded ``torch.Generator`` on
+the target device. ``params_from_numpy`` carries the JAX package's params
+across as they are, so a parity test feeds both packages one set of
+weights.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Dict, Optional, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.config import ATTN, LOCAL, MLP, ModelConfig
+from repro_torch.device import DeviceLike, resolve_device
+
+
+@dataclasses.dataclass(frozen=True)
+class ParamTemplate:
+    shape: Tuple[int, ...]
+    axes: Tuple[Optional[str], ...]
+    init: str = "normal"          # normal | zeros | ones
+    scale: float = 0.02
+
+    def __post_init__(self):
+        if len(self.shape) != len(self.axes):
+            raise ValueError(f"shape {self.shape} vs axes {self.axes}")
+
+
+def _mlp_templates(cfg: ModelConfig) -> Dict[str, ParamTemplate]:
+    d, f = cfg.d_model, cfg.d_ff
+    out_scale = 0.02 / np.sqrt(2 * cfg.num_layers)
+    return {
+        "w_gate": ParamTemplate((d, f), ("embed", "ffn")),
+        "w_up": ParamTemplate((d, f), ("embed", "ffn")),
+        "w_down": ParamTemplate((f, d), ("ffn", "embed"), scale=out_scale),
+    }
+
+
+def _attn_templates(cfg: ModelConfig) -> Dict[str, ParamTemplate]:
+    d, h = cfg.d_model, cfg.head_dim
+    nq, nkv = cfg.num_heads, cfg.num_kv_heads
+    out_scale = 0.02 / np.sqrt(2 * max(cfg.num_layers, 1))
+    t = {
+        "wq": ParamTemplate((d, nq * h), ("embed", "qkv")),
+        "wk": ParamTemplate((d, nkv * h), ("embed", "kv")),
+        "wv": ParamTemplate((d, nkv * h), ("embed", "kv")),
+        "wo": ParamTemplate((nq * h, d), ("qkv", "embed"), scale=out_scale),
+    }
+    if cfg.qkv_bias:
+        t["bq"] = ParamTemplate((nq * h,), ("qkv",), init="zeros")
+        t["bk"] = ParamTemplate((nkv * h,), ("kv",), init="zeros")
+        t["bv"] = ParamTemplate((nkv * h,), ("kv",), init="zeros")
+    return t
+
+
+def _layer_templates(cfg: ModelConfig, kind: str,
+                     ffn_kind: str) -> Dict[str, Any]:
+    if kind not in (ATTN, LOCAL) or ffn_kind != MLP or cfg.is_encdec:
+        raise NotImplementedError(
+            f"{cfg.name}: layer ({kind!r}, {ffn_kind!r}) is not ported yet; "
+            "this slice serves ATTN/LOCAL layers with an MLP")
+    d = cfg.d_model
+    return {
+        "norm": ParamTemplate((d,), ("embed",), init="ones"),
+        "attn": _attn_templates(cfg),
+        "ffn_norm": ParamTemplate((d,), ("embed",), init="ones"),
+        "mlp": _mlp_templates(cfg),
+    }
+
+
+def _map(fn, tree: Any) -> Any:
+    if isinstance(tree, dict):
+        return {k: _map(fn, v) for k, v in tree.items()}
+    return fn(tree)
+
+
+def _stack(tree: Any, n: int) -> Any:
+    """Prepend a stacking dimension of size n to every template."""
+    return _map(lambda t: dataclasses.replace(t, shape=(n,) + t.shape,
+                                              axes=(None,) + t.axes), tree)
+
+
+def param_templates(cfg: ModelConfig) -> Dict[str, Any]:
+    d, v = cfg.d_model, cfg.padded_vocab
+    block = {f"layer_{i}": _layer_templates(cfg, kind, cfg.ffn_kind(i))
+             for i, kind in enumerate(cfg.block_pattern)}
+    t: Dict[str, Any] = {
+        "embed": ParamTemplate((v, d), ("vocab", "embed"), scale=1.0),
+        "blocks": _stack(block, cfg.num_blocks),
+        "final_norm": ParamTemplate((d,), ("embed",), init="ones"),
+    }
+    if not cfg.tie_embeddings:
+        t["lm_head"] = ParamTemplate((d, v), ("embed", "vocab"))
+    return t
+
+
+def _leaves(tree: Any, prefix: str = ""):
+    """(path, leaf) pairs in sorted-key order — the order jax flattens a
+    dict tree in."""
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from _leaves(tree[k], f"{prefix}{k}/")
+    else:
+        yield prefix[:-1], tree
+
+
+def init_params(cfg: ModelConfig, seed: int = 0,
+                device: DeviceLike = "cuda",
+                dtype: Optional[torch.dtype] = None) -> Dict[str, Any]:
+    """Random parameters from a seeded generator on ``device``.
+
+    Normal leaves are drawn in float32 and cast to ``dtype`` (default
+    ``cfg.dtype``), one leaf at a time so the float32 temporary is never
+    larger than the largest leaf.
+    """
+    dev = resolve_device(device)
+    dt = dtype or getattr(torch, cfg.dtype)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+
+    def mk(t: ParamTemplate) -> torch.Tensor:
+        if t.init == "zeros":
+            return torch.zeros(t.shape, dtype=dt, device=dev)
+        if t.init == "ones":
+            return torch.ones(t.shape, dtype=dt, device=dev)
+        w = torch.randn(t.shape, generator=gen, dtype=torch.float32,
+                        device=dev)
+        return w.mul_(t.scale).to(dt)
+
+    templates = param_templates(cfg)
+    made = {path: mk(t) for path, t in _leaves(templates)}
+
+    def build(tree: Any, prefix: str = "") -> Any:
+        if isinstance(tree, dict):
+            return {k: build(v, f"{prefix}{k}/") for k, v in tree.items()}
+        return made[prefix[:-1]]
+    return build(templates)
+
+
+def _to_torch(arr: Any, dev: torch.device) -> torch.Tensor:
+    arr = np.ascontiguousarray(arr)
+    if not arr.flags.writeable:       # views of jax buffers are read-only
+        arr = arr.copy()
+    if arr.dtype.name == "bfloat16":
+        # ml_dtypes' bfloat16 is unknown to torch.from_numpy: move the raw
+        # 16-bit words and reinterpret them, never upcasting
+        return torch.from_numpy(arr.view(np.uint16)).view(
+            torch.bfloat16).to(dev)
+    return torch.from_numpy(arr).to(dev)
+
+
+def params_from_numpy(tree: Any, device: DeviceLike = "cuda") -> Any:
+    """A nested dict of numpy arrays (e.g. the JAX package's params passed
+    through ``np.asarray``) as torch tensors of the same dtype and
+    layout."""
+    dev = resolve_device(device)
+    return _map(lambda a: _to_torch(a, dev), tree)

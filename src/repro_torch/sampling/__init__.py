@@ -1,0 +1,20 @@
+from repro_torch.sampling.continuous import (ContinuousEngine,
+                                             clamp_prefill_chunk)
+from repro_torch.sampling.engine import build_engine
+from repro_torch.sampling.paged_cache import (SCRATCH_PAGE, PageAllocator,
+                                              init_paged_pool,
+                                              new_block_table,
+                                              paged_cache_supported,
+                                              pages_for)
+from repro_torch.sampling.prefix_cache import PrefixCache
+from repro_torch.sampling.sample import (filter_logits, mask_vocab,
+                                         model_logp, sample_token_rows)
+from repro_torch.sampling.scheduler import (DECODE, PREFILL,
+                                            ContinuousScheduler, GenRequest)
+
+__all__ = ["ContinuousEngine", "clamp_prefill_chunk", "build_engine",
+           "SCRATCH_PAGE", "PageAllocator", "init_paged_pool",
+           "new_block_table", "paged_cache_supported", "pages_for",
+           "PrefixCache", "filter_logits", "mask_vocab", "model_logp",
+           "sample_token_rows", "DECODE", "PREFILL", "ContinuousScheduler",
+           "GenRequest"]
