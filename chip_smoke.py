@@ -7,9 +7,14 @@ Imports torch, numpy and ``repro_torch`` (from ``src/`` beside this file);
 never jax, never the JAX package. Phases, each fatal on failure:
 
 1. device: the card's name and power limit, torch/CUDA versions, and the
-   kernels built from ``src/repro_torch/kernels/csrc`` with nvcc (sm_90a);
-2. kernels: K3 (paged decode) and K4 (paged prefill) at the serving
-   slice's shapes (bf16, Hq 16, Hkv 8, D 128, page 16, 8 slots up to 2048
+   kernels built from ``src/repro_torch/kernels/csrc`` with nvcc (sm_90a,
+   one nvcc per source, in parallel);
+2. kernels: K1/K2 (fused token log-prob forward and backward) at the
+   learner's microbatch shape (T 8184 = 8 x 1023, V 152064, float32), at a
+   ragged (77, 1001) in bfloat16 with out-of-range target ids, and K1 at
+   T x V > 2^31 (T 16368, the sampler-logp recompute), K2 held element
+   by element with controls that the bound must reject; K3 (paged decode)
+   and K4 (paged prefill) at the serving slice's shapes (bf16, Hq 16, Hkv 8, D 128, page 16, 8 slots up to 2048
    tokens with a dead slot and a NaN scratch page; prefill C = 512 and a
    ragged C = 77; one window + softcap case), each held against its plain
    PyTorch twin (float32 on the same inputs) and timed beside the twin, a
@@ -23,7 +28,20 @@ never jax, never the JAX package. Phases, each fatal on failure:
    prefill chunk); then a teacher-forced prefill + 8 decode steps through
    "pallas" and "ref" on copies of one pool, logits within a stated
    tolerance; last, a torch.profiler trace of 24 decode steps (device
-   time by kernel, device busy share).
+   time by kernel, device busy share);
+4. learner: one GEPO iteration on qwen3-1.7b at full width (bf16, random
+   weights from --seed): ``generate_continuous`` makes 2 prompts x group 8
+   rows of 832 prompt + 192 new tokens (temperature 1.0), ``token_logps``
+   recomputes the sampler log-probs (App. B.1, K1 over T 16368), the batch
+   is assembled as hetero/nodes.py does, ``rl_loss_fn`` forward and
+   backward runs once through K1/K2 and once through the twin on the same
+   microbatch (loss, metrics, gradient norm and the lm_head gradient held
+   to stated tolerances), for GEPO as trained and again with an entropy
+   bonus (so K2's g_ent term is live), then 3 ``train_step``s (GEPO, grad_accum 2,
+   AdamW) with finite metrics, the launch counters showing K1 2 per step
+   + 1 for the recompute and K2 2 per step, and the rollout's K3/K4 28
+   per decode step and per prefill chunk; last, a torch.profiler trace of
+   a fourth step (device time by kernel, device busy share).
 
 Prints a ``{"kernels": [...]}`` JSON line, then as the last line
 ``{"ok": true, "device": {...}}``. Exits non-zero, printing no result,
@@ -45,21 +63,52 @@ sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
-from repro_torch.config import RLConfig, ServeConfig  # noqa: E402
+from repro_torch.config import RLConfig, ServeConfig, TrainConfig  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
+from repro_torch.kernels import fused_logprob as fl  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels import paged_attention as pa  # noqa: E402
 from repro_torch.models import decode_step, forward, init_params  # noqa: E402
-from repro_torch.sampling import build_engine, init_paged_pool  # noqa: E402
+from repro_torch.optim import global_norm, tree_leaves  # noqa: E402
+from repro_torch.sampling import (build_engine, generate_continuous,  # noqa: E402
+                                  init_paged_pool, token_logps)
 from repro_torch.serving.api import Request, SamplingParams  # noqa: E402
+from repro_torch.training import (init_state, rl_loss_fn,  # noqa: E402
+                                  train_step)
 
 HBM_BYTES_S = 3.35e12        # H100 SXM HBM3
 BF16_FLOPS_S = 989e12        # H100 SXM dense bf16 tensor-core peak
+F32_FLOPS_S = 67e12          # H100 SXM float32 outside the tensor cores
 TOL_BF16 = 2e-2              # one bf16 rounding of outputs of magnitude < 4
 TOL_F32 = 1e-5               # float32 inputs: summation order only
 TOL_LOGITS = 0.1             # bf16 model, 28 layers: a few bf16 ulps at |4-8|
 HQ, HKV, D, PAGE, SLOTS = 16, 8, 128, 16, 8
+# K1 against its twin: float32 sums over 152064 terms in another order,
+# and expf against torch.exp
+TOL_LP = 1e-4
+# K2 against its twin given the same lse and mu, element by element
+# (fl.dlogits_error_ratio): |K2 - twin| <= rtol * scale, where scale =
+# |g_lp| (onehot + p) + |g_ent| p |x - mu| sums the magnitudes of the
+# formula's terms; a few float32 ulps of it in float32, one bfloat16 ulp
+# (2^-7 of |dlogits| <= scale) more in bfloat16
+RTOL_DLOGITS = {torch.float32: 1e-5, torch.bfloat16: 2 ** -7 + 1e-5}
+CHUNK = 256                  # token rows per piece of the twin
+# learner, K1/K2 against the twin through one full-width rl_loss_fn
+# forward and backward: the logits are the same float32 tensor, so the
+# loss and metrics differ only by the log-prob sums (relative 1e-4), and
+# dlogits by a few float32 ulps; in the bf16 backward these flip the
+# rounding of a few elements by one bf16 ulp, so the gradient norm moves by
+# ~1e-6 relative and the lm_head gradient (dlogits' first consumer) by one
+# ulp of a few of its entries: 1.7e-6 and 1.6e-5 of its largest entry on
+# the H100 without the entropy term; both held to 1e-4
+TOL_LOSS_REL = 1e-4
+TOL_GNORM_REL = 1e-4
+TOL_HEAD_REL = 1e-4
+# the entropy bonus of the second full-width comparison: it makes g_ent
+# nonzero, so K2's g_ent p (x - mu) term feeds the gradient
+ENTROPY_BONUS = 0.01
+PROMPTS, GROUP, PROMPT_LEN, NEW_TOKENS = 2, 8, 832, 192
 
 
 def log(msg: str) -> None:
@@ -80,8 +129,14 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def bound(nbytes: float, flops: float) -> tuple:
-    t_b, t_f = nbytes / HBM_BYTES_S, flops / BF16_FLOPS_S
+def dev_us(e) -> float:
+    """Device time of a profiler row, under either of torch's names."""
+    return getattr(e, "self_device_time_total",
+                   getattr(e, "self_cuda_time_total", 0.0))
+
+
+def bound(nbytes: float, flops: float, peak: float = BF16_FLOPS_S) -> tuple:
+    t_b, t_f = nbytes / HBM_BYTES_S, flops / peak
     return max(t_b, t_f) * 1e3, ("bytes" if t_b >= t_f else "operations")
 
 
@@ -245,6 +300,128 @@ def kernel_phase(dev, seed):
     return out
 
 
+def logprob_case(gen, dev, t, v, dtype):
+    """Logits of the scale a model's head gives (3 x N(0, 1)), targets with
+    two dirty ids (-1 and V + 5, clamped by the wrapper), cotangents."""
+    x = torch.randn((t, v), generator=gen, device=dev).mul_(3.0).to(dtype)
+    tgt = torch.randint(0, v, (t,), generator=gen, device=dev)
+    tgt[0], tgt[-1] = -1, v + 5
+    g = torch.randn((2, t), generator=gen, device=dev)
+    return x, tgt, g[0], g[1]
+
+
+def logprob_check(x, tgt, g_lp, g_ent, label):
+    """K1 and K2 against the twin on the same inputs (K2 given the twin's
+    lse and mu, held element by element). Two controls show the bound has
+    teeth: it must reject the twin's dlogits with the entries at x < 2.6
+    zeroed (~80% of a row of 3 N(0, 1) logits, most far below any
+    absolute tolerance) and the twin's dlogits without the g_ent term.
+    Returns ((K1 err, K2 max|err|, K2 bound ratio), (lse, mu), targets)."""
+    v = x.shape[1]
+    tgt32 = fl.clamp_target_ids(tgt, v).contiguous()
+    got = fl.logprob_fwd(x, tgt32)
+    want = fl._chunked_fwd_pass(x, tgt32, CHUNK)
+    lse, mu = want[2], want[2] - want[1]
+    args = (x, tgt32, lse, mu, g_lp, g_ent)
+    rtol = RTOL_DLOGITS[x.dtype]
+    d = fl.logprob_bwd(*args)
+    d_want = fl._chunked_bwd_pass(*args, CHUNK)
+    torch.cuda.synchronize()
+    err_f = max(max_err(a, b) for a, b in zip(got, want))
+    err_b = max_err(d, d_want)
+    ratio = fl.dlogits_error_ratio(d, d_want, *args, rtol=rtol)
+    del d
+    controls = {}
+    broken = d_want.masked_fill(x < 2.6, 0)
+    controls["zeroed x<2.6"] = fl.dlogits_error_ratio(broken, d_want, *args,
+                                                      rtol=rtol)
+    broken = fl._chunked_bwd_pass(x, tgt32, lse, mu, g_lp,
+                                  torch.zeros_like(g_ent), CHUNK)
+    controls["no g_ent term"] = fl.dlogits_error_ratio(broken, d_want, *args,
+                                                       rtol=rtol)
+    del broken, d_want
+    log(f"[kernels] {label}: K1 max|err| {err_f:.3e} (tol {TOL_LP}); K2 "
+        f"max|err| {err_b:.3e}, element-wise |err| / ({rtol:.3e} scale) "
+        f"max {ratio:.3e} (tol 1); controls the bound must reject: "
+        + ", ".join(f"{k} {r:.3e}" for k, r in controls.items()))
+    finite = all(torch.isfinite(a).all() for a in got)
+    if err_f > TOL_LP or not ratio <= 1.0 or not finite:
+        raise AssertionError(f"K1/K2 disagree with their twin ({label})")
+    if not all(r > 1.0 for r in controls.values()):
+        raise AssertionError(f"the K2 bound passes a broken backward "
+                             f"({label}): {controls}")
+    return (err_f, err_b, ratio), (lse, mu), tgt32
+
+
+def logprob_phase(dev, seed):
+    """K1/K2 rows: timed at the learner's microbatch (T 8184, V 152064,
+    float32); checked there, at a ragged bf16 (77, 1001) and, K1 only, at
+    T x V > 2^31 (T 16368, the recompute's shape)."""
+    gen = torch.Generator(device=dev).manual_seed(seed + 7)
+    v = 152064
+    t = 8 * (PROMPT_LEN + NEW_TOKENS - 1)                  # 8184
+    x, tgt, g_lp, g_ent = logprob_case(gen, dev, t, v, torch.float32)
+    (ef, eb, rb), (lse, mu), tgt32 = logprob_check(x, tgt, g_lp, g_ent,
+                                                   f"({t}, {v}) f32")
+    ms_f = time_ms(lambda: fl.logprob_fwd(x, tgt32))
+    ms_b = time_ms(lambda: fl.logprob_bwd(x, tgt32, lse, mu, g_lp, g_ent))
+    plain_f = time_ms(lambda: fl._chunked_fwd_pass(x, tgt32, CHUNK),
+                      iters=5)
+    plain_b = time_ms(lambda: fl._chunked_bwd_pass(
+        x, tgt32, lse, mu, g_lp, g_ent, CHUNK), iters=5)
+    lib_f = time_ms(lambda: torch.logsumexp(x, -1))
+    lib_b = time_ms(lambda: torch.softmax(x, -1))
+    n = t * v
+    bf = bound(n * 4 + t * 4 + 3 * t * 4, 6 * n, F32_FLOPS_S)
+    bb = bound(2 * n * 4 + 5 * t * 4, 7 * n, F32_FLOPS_S)
+    del x, lse, mu
+    torch.cuda.empty_cache()
+
+    xr, tr, gr_lp, gr_ent = logprob_case(gen, dev, 77, 1001, torch.bfloat16)
+    (ef_r, eb_r, rb_r), _, _ = logprob_check(xr, tr, gr_lp, gr_ent,
+                                             "(77, 1001) bf16, dirty ids")
+
+    tb = 2 * t                                             # 16368
+    xb = torch.randn((tb, v), generator=gen, device=dev).mul_(3.0)
+    tgb = fl.clamp_target_ids(torch.randint(0, v, (tb,), generator=gen,
+                                            device=dev), v)
+    got = fl.logprob_fwd(xb, tgb)
+    want = fl._chunked_fwd_pass(xb, tgb, CHUNK)
+    torch.cuda.synchronize()
+    ef_b = max(max_err(a, b) for a, b in zip(got, want))
+    log(f"[kernels] ({tb}, {v}) f32, T x V = {tb * v} > 2^31: K1 max|err| "
+        f"{ef_b:.3e} (tol {TOL_LP})")
+    if ef_b > TOL_LP or not all(torch.isfinite(a).all() for a in got):
+        raise AssertionError("K1 disagrees with its twin past 2^31 elements")
+    del xb, got, want
+    torch.cuda.empty_cache()
+    shape = (f"T={t} V={v} float32 (+ (77, 1001) bf16 dirty ids; K1 at "
+             f"({tb}, {v}) f32, T*V > 2^31)")
+    src = "src/repro_torch/kernels/csrc/fused_logprob.cu"
+    return {
+        "logprob_fwd": dict(
+            name="logprob_fwd_kernel", route="cuda", source=src,
+            replaces="src/repro/kernels/fused_logprob.py:53 (_fwd_kernel; "
+                     "pallas_call at :98)",
+            max_abs_err=max(ef, ef_r, ef_b), tol=TOL_LP, ms=ms_f,
+            plain_ms=plain_f, bound_ms=bf[0], bound_by=bf[1],
+            library_ms=lib_f,
+            library="torch.logsumexp(x, -1): a partial yardstick (lse only)",
+            shape=shape),
+        "logprob_bwd": dict(
+            name="logprob_bwd_kernel", route="cuda", source=src,
+            replaces="src/repro/kernels/fused_logprob.py:123 (_bwd_kernel; "
+                     "pallas_call at :142)",
+            max_abs_err=max(eb, eb_r), max_abs_err_bf16=eb_r,
+            err_ratio=max(rb, rb_r),
+            tol="element-wise |err| <= rtol * scale (err_ratio <= 1), rtol "
+                "1e-5 f32, 2^-7 + 1e-5 bf16",
+            ms=ms_b, plain_ms=plain_b,
+            bound_ms=bb[0], bound_by=bb[1], library_ms=lib_b,
+            library="torch.softmax(x, -1): a partial yardstick (p only)",
+            shape=shape)}
+
+
 # --------------------------------------------------------------------------
 # phase 3: the engine at full width
 
@@ -372,9 +549,6 @@ def profile_decode(eng, prompts, sp):
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
 
-    def dev_us(e):
-        return getattr(e, "self_device_time_total",
-                       getattr(e, "self_cuda_time_total", 0.0))
     # device-side entries only (kernels, memcpy/memset): the CPU op that
     # launched a kernel reports the same time again
     rows = sorted((e for e in prof.key_averages()
@@ -445,6 +619,202 @@ def teacher_forced(cfg, params, dev, seed):
 
 
 # --------------------------------------------------------------------------
+# phase 4: one GEPO learner iteration at full width
+
+
+def learner_batch(cfg, params, dev, seed):
+    """Generation (K3/K4), the App. B.1 recompute (K1) and the batch as
+    hetero/nodes.py assembles it. Returns (batch, launches, info)."""
+    rl_gen = RLConfig(temperature=1.0, top_k=0, top_p=1.0,
+                      max_new_tokens=NEW_TOKENS)
+    rng = np.random.default_rng(seed + 2)
+    prompts = np.repeat(rng.integers(3, cfg.vocab_size, (PROMPTS, PROMPT_LEN)),
+                        GROUP, axis=0).astype(np.int32)   # group-contiguous
+    fl.reset_launch_counts()
+    pa.reset_launch_counts()
+    t0 = time.perf_counter()
+    roll = generate_continuous(cfg, rl_gen, params, prompts, seed=seed,
+                               vocab_limit=cfg.vocab_size,
+                               num_slots=PROMPTS * GROUP, prefill_chunk=512)
+    torch.cuda.synchronize()
+    t_gen = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    lp = token_logps(cfg, params, roll["tokens"])
+    torch.cuda.synchronize()
+    t_lp = time.perf_counter() - t0
+    launches = {**fl.LAUNCHES, **pa.LAUNCHES}
+    torch.cuda.empty_cache()
+    b, tp = prompts.shape
+    comp_lp = lp[:, tp - 1:]
+    mask = roll["comp_mask"]
+    drift = float(((comp_lp - roll["sampler_lp"]).abs() * mask).max())
+    zeros = torch.zeros((b, tp - 1), dtype=torch.float32, device=dev)
+    # a seeded Bernoulli(0.5) reward per row; a group drawn all-equal is
+    # drawn again, so no group's advantages are all zero
+    rewards = np.zeros(b, np.float32)
+    for g in range(PROMPTS):
+        r = rng.random(GROUP) < 0.5
+        while r.all() or not r.any():
+            r = rng.random(GROUP) < 0.5
+        rewards[g * GROUP:(g + 1) * GROUP] = r
+    rewards = torch.from_numpy(rewards)
+    batch = {"tokens": roll["tokens"], "mask": torch.cat([zeros, mask], 1),
+             "sampler_lp": torch.cat([zeros, comp_lp], 1),
+             "rewards": rewards.to(dev)}
+    n_gen = int(mask.sum())
+    if roll["tokens"].shape != (b, PROMPT_LEN + NEW_TOKENS) or \
+            not torch.isfinite(lp).all() or n_gen == 0:
+        raise AssertionError("bad rollout or recompute")
+    info = dict(gen_s=t_gen, gen_tokens=n_gen, logps_s=t_lp, drift=drift,
+                stats=roll["stats"])
+    return batch, launches, info
+
+
+def fused_vs_twin(cfg, rl, params, batch, label):
+    """One rl_loss_fn forward and backward through K1/K2 and one through
+    the twin, on the same params and first microbatch."""
+    mb = {k: v[:GROUP] for k, v in batch.items()}
+    leaves = tree_leaves(params)
+    for p in leaves:
+        p.requires_grad_(True)
+    head = next(i for i, p in enumerate(leaves) if p is params["lm_head"])
+    out = {}
+    fl.reset_launch_counts()
+    for impl in ("fused", "chunked"):
+        loss, m = rl_loss_fn(cfg, rl, params, mb, logprob_impl=impl)
+        grads = torch.autograd.grad(loss, leaves)
+        out[impl] = (loss.detach(), {k: v.detach() for k, v in m.items()},
+                     global_norm(grads), grads[head].float())
+        del grads, loss, m
+        torch.cuda.empty_cache()
+    (lf, mf, nf, hf), (lc, mc, nc, hc) = out["fused"], out["chunked"]
+    # |diff| beyond 1e-6 abs, relative to |twin|: metrics near 0
+    # (adv_mean, est_error, kl) are held by the absolute floor
+    mf["loss_value"], mc["loss_value"] = lf, lc
+    rel = {k: max(0.0, abs(float(mf[k]) - float(mc[k])) - 1e-6)
+           / max(abs(float(mc[k])), 1e-12) for k in mc}
+    gn_rel = abs(float(nf) - float(nc)) / float(nc)
+    head_rel = float((hf - hc).abs().max()) / float(hc.abs().max())
+    worst = max(rel, key=rel.get)
+    if fl.LAUNCHES != {"logprob_fwd": 1, "logprob_bwd": 1}:
+        raise AssertionError(f"fused pass launched {fl.LAUNCHES}, not K1 and "
+                             "K2 once each")
+    log(f"[learner] K1/K2 vs twin ({label}), rl_loss_fn fwd+bwd at T={GROUP} "
+        f"x {batch['tokens'].shape[1] - 1}: loss {float(lf):.6e} vs "
+        f"{float(lc):.6e}; worst metric rel diff past 1e-6 abs "
+        f"{rel[worst]:.2e} ({worst}, tol {TOL_LOSS_REL}); grad norm {float(nf):.6e} vs {float(nc):.6e} "
+        f"(rel {gn_rel:.2e}, tol {TOL_GNORM_REL}); lm_head grad max|diff| / "
+        f"max|grad| {head_rel:.2e} (tol {TOL_HEAD_REL})")
+    if rel[worst] > TOL_LOSS_REL or gn_rel > TOL_GNORM_REL or \
+            head_rel > TOL_HEAD_REL:
+        raise AssertionError(f"K1/K2 and the twin disagree at full width "
+                             f"({label})")
+
+
+def learner_phase(dev, seed, card):
+    cfg = get_config("qwen3-1.7b")
+    params = init_params(cfg, seed + 1, device=dev)
+    log(f"[learner] {cfg.name}: {cfg.num_layers} layers, d_model "
+        f"{cfg.d_model}, {cfg.param_count() / 1e9:.3f}B params bf16, random "
+        f"weights (seed {seed + 1}); attn_impl {cfg.attn_impl} chunk "
+        f"{cfg.attn_chunk}, remat {cfg.remat}")
+    batch, gen_launches, info = learner_batch(cfg, params, dev, seed)
+    b, s = batch["tokens"].shape
+    log(f"[learner] rollout: {b} rows x {s} tokens ({PROMPTS} prompts x "
+        f"group {GROUP}, {PROMPT_LEN} prompt + {NEW_TOKENS} new, temperature "
+        f"1.0), {info['gen_tokens']} generated in {info['gen_s']:.2f}s "
+        f"({info['stats']['decode_steps']} decode steps, "
+        f"{info['stats']['prefill_chunks']} prefill chunks); token_logps "
+        f"recompute {info['logps_s'] * 1e3:.1f} ms; max|recompute - engine "
+        f"logp| {info['drift']:.3e} (information only: bf16 model); rewards "
+        f"are a seeded Bernoulli draw, the weights are random")
+    rl = RLConfig(loss_type="gepo", group_size=GROUP, beta_kl=0.005)
+    tc = TrainConfig(learning_rate=1e-6, grad_accum=2)
+    fused_vs_twin(cfg, rl, params, batch, "GEPO, g_ent = 0")
+    fused_vs_twin(cfg, dataclasses.replace(rl, entropy_bonus=ENTROPY_BONUS),
+                  params, batch, f"GEPO + entropy bonus {ENTROPY_BONUS}")
+    state = init_state(cfg, tc, params)
+    fl.reset_launch_counts()
+    tokens = b * (s - 1)
+    step_ms = []
+    for i in range(3):
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = train_step(cfg, rl, tc, state, batch)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        step_ms.append(dt * 1e3)
+        vals = {k: float(v) for k, v in m.items()}
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        log(f"[learner] step {i + 1}: loss {vals['loss']:.6e} kl "
+            f"{vals['kl']:.6e} iw_mean {vals['iw_mean']:.6f} iw_var "
+            f"{vals['iw_var']:.3e} iw_max {vals['iw_max']:.6f} grad_norm "
+            f"{vals['grad_norm']:.4e} lr {vals['lr']:.3e} | "
+            f"{dt * 1e3:.1f} ms, {tokens / dt:.0f} learner tokens/s, peak "
+            f"{peak:.2f} GiB | {card}")
+        bad = [k for k, v in vals.items() if not np.isfinite(v)]
+        if bad:
+            raise AssertionError(f"step {i + 1}: non-finite metrics {bad}")
+    launches = {k: gen_launches[k] + fl.LAUNCHES[k] for k in fl.LAUNCHES}
+    launches.update({k: gen_launches[k] for k in pa.LAUNCHES})
+    d_steps = info["stats"]["decode_steps"]
+    p_chunks = info["stats"]["prefill_chunks"]
+    want = {"logprob_fwd": 2 * 3 + 1, "logprob_bwd": 2 * 3,
+            "paged_decode": cfg.num_layers * d_steps,
+            "paged_prefill": cfg.num_layers * p_chunks}
+    log(f"[learner] launches: K1 {launches['logprob_fwd']} (2 per step x 3 + "
+        f"1 recompute), K2 {launches['logprob_bwd']} (2 per step x 3); "
+        f"rollout K3 {launches['paged_decode']}, K4 "
+        f"{launches['paged_prefill']} ({cfg.num_layers} x {d_steps} decode "
+        f"steps, {cfg.num_layers} x {p_chunks} prefill chunks)")
+    if launches != want:
+        raise AssertionError(f"learner launches {launches} != {want}")
+    profile_step(cfg, rl, tc, state, batch)
+    # the kernels line reports K3/K4 from the serving path (engine phase)
+    return {k: launches[k] for k in fl.LAUNCHES}
+
+
+def profile_step(cfg, rl, tc, state, batch):
+    """torch.profiler over a fourth step: device time by kernel and the
+    device's busy share of the step's wall time."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        train_step(cfg, rl, tc, state, batch)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+
+    rows = sorted((e for e in prof.key_averages()
+                   if str(getattr(e, "device_type", "")).endswith("CUDA")),
+                  key=dev_us, reverse=True)
+    busy_ms = sum(dev_us(e) for e in rows) / 1e3
+    log(f"[profile] learner step: wall {wall_ms:.1f} ms, device busy "
+        f"{busy_ms:.1f} ms ({100 * busy_ms / wall_ms:.1f}% of wall; profiler "
+        f"on), {len(rows)} kernel names")
+    # device time by kind, first match wins: the two log-prob kernels,
+    # float32 GEMMs on the CUDA cores (the chunked attention's einsums),
+    # the remaining GEMMs (bf16 projections and head), elementwise and
+    # reduction kernels, the rest
+    kinds = (("K1/K2", ("logprob_",)), ("f32 GEMM", ("sgemm", "f32f32")),
+             ("other GEMM", ("gemm", "nvjet", "xmma", "cutlass")),
+             ("elementwise+reduce", ("elementwise", "reduce", "index",
+                                     "copy", "scan", "fill")))
+    by_kind = {}
+    for e in rows:
+        kind = next((k for k, subs in kinds
+                     if any(x in e.key for x in subs)), "other")
+        by_kind[kind] = by_kind.get(kind, 0.0) + dev_us(e) / 1e3
+    log("[profile] by kind: " + ", ".join(
+        f"{k} {v:.1f} ms ({100 * v / busy_ms:.1f}%)"
+        for k, v in sorted(by_kind.items(), key=lambda kv: -kv[1])))
+    for e in rows[:14]:
+        log(f"[profile] {dev_us(e) / 1e3:9.3f} ms  x{e.count:<6d} "
+            f"{e.key[:90]}")
+
+
+# --------------------------------------------------------------------------
 
 
 def main(argv=None) -> int:
@@ -467,12 +837,22 @@ def main(argv=None) -> int:
         f" CUDA {torch.version.cuda}, {torch.cuda.get_device_name(0)} x "
         f"{torch.cuda.device_count()}")
     built = build.build()
-    log(f"[build] {build.SOURCE.name}: {built.seconds:.1f}s nvcc (sm_90a)")
+    log(f"[build] {', '.join(s.name for s in build.sources())}: "
+        f"{built.seconds:.1f}s nvcc (sm_90a, one process per source)")
     for line in built.log.splitlines():
-        if "Used" in line or "spill" in line:
+        if "Used" in line or "spill" in line or line.startswith("=="):
             log(f"[build] {line.strip()}")
-    kernels = kernel_phase(dev, args.seed)
+    t0 = time.perf_counter()
+    kernels = logprob_phase(dev, args.seed)
+    kernels.update(kernel_phase(dev, args.seed))
+    log(f"[time] kernel phase {time.perf_counter() - t0:.1f}s")
+    t0 = time.perf_counter()
     launches = engine_phase(dev, args.seed, card)
+    log(f"[time] engine phase {time.perf_counter() - t0:.1f}s")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    launches.update(learner_phase(dev, args.seed, card))
+    log(f"[time] learner phase {time.perf_counter() - t0:.1f}s")
     for name, row in kernels.items():
         row["launches"] = launches[name]
         row["kernel_ms"], row["twin_ms"] = row["ms"], row["plain_ms"]

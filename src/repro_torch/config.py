@@ -1,11 +1,12 @@
 """Configuration dataclasses for the PyTorch port.
 
-The port's own copy of the model, sampling and serving configuration
-(``repro/config.py`` in the JAX package). ``ModelConfig`` (less the JAX
-sharding knobs) and ``RLConfig`` keep the same fields and defaults, so a
-config built here describes the same model as its JAX namesake; only the
+The port's own copy of the model, policy-optimization, training and
+serving configuration (``repro/config.py`` in the JAX package).
+``ModelConfig`` (less the JAX sharding knobs), ``RLConfig`` and
+``TrainConfig`` keep the same fields and defaults, so a config built here
+describes the same model and update as its JAX namesake; only the
 ``paged_attn_impl`` default differs (see below). ``ServeConfig`` holds
-the deployment fields this slice serves.
+the deployment fields the serving path uses.
 """
 from __future__ import annotations
 
@@ -25,6 +26,7 @@ MOE = "moe"
 NONE = "none"          # e.g. Mamba2 blocks carry no separate FFN
 
 PAGED_IMPLS = ("auto", "pallas", "ref", "gather")
+LOGPROB_IMPLS = ("fused", "pallas", "chunked", "naive")
 
 
 def _round_up(x: int, m: int) -> int:
@@ -143,8 +145,10 @@ class ModelConfig:
 
 @dataclass(frozen=True)
 class RLConfig:
-    """Policy-optimization settings (paper §3/§4 + App. B). The serving
-    slice reads only the sampling profile and ``max_new_tokens``."""
+    """Policy-optimization settings (paper §3/§4 + App. B): the loss
+    (``loss_type``, clipping, KL, advantages, ``gepo_smooth``) read by
+    ``repro_torch.training``, and the sampling profile and
+    ``max_new_tokens`` read by the engines."""
     loss_type: str = "gepo"
     group_size: int = 8
     clip_eps: float = 0.2
@@ -161,6 +165,44 @@ class RLConfig:
     recompute_sampler_logps: bool = True
     entropy_bonus: float = 0.0
     engine: str = "static"
+
+
+@dataclass(frozen=True)
+class TrainConfig:
+    """Learner settings: AdamW/Adafactor hyper-parameters, the warm-up
+    schedule, gradient clipping and accumulation, and the token log-prob
+    backend of the loss."""
+    learning_rate: float = 1e-6
+    warmup_frac: float = 0.03
+    total_steps: int = 1000
+    weight_decay: float = 0.0
+    b1: float = 0.9
+    b2: float = 0.95
+    eps: float = 1e-8
+    grad_clip: float = 1.0
+    grad_accum: int = 1
+    seed: int = 0
+    # Learner device mesh "DxM". The port runs one device; sharded
+    # learners arrive with parallel/ (ROADMAP queue 1 item 10).
+    mesh: str = "1x1"
+    # Token log-prob backend of the loss (repro_torch.kernels.ops):
+    #   "fused"   -- the K1/K2 kernels on CUDA tensors, the twin on CPU;
+    #   "pallas"  -- the kernels, raising on CPU tensors;
+    #   "chunked" -- the plain PyTorch twin on any device;
+    #   "naive"   -- the materializing log-softmax (repro_torch.core.logprob).
+    logprob_impl: str = "fused"
+
+    def __post_init__(self):
+        if self.mesh != "1x1":
+            raise NotImplementedError(
+                f"TrainConfig.mesh={self.mesh!r}: the port's learner runs on "
+                "one device; meshes land with parallel/ (ROADMAP queue 1 "
+                "item 10)")
+        if self.logprob_impl not in LOGPROB_IMPLS:
+            raise ValueError(f"unknown logprob_impl {self.logprob_impl!r}; "
+                             f"have {LOGPROB_IMPLS}")
+        if self.grad_accum < 1:
+            raise ValueError(f"grad_accum must be >= 1, got {self.grad_accum}")
 
 
 @dataclass(frozen=True)

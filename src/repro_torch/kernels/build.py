@@ -1,11 +1,13 @@
 """Build and load the port's CUDA kernels.
 
-``csrc/paged_attention.cu`` is compiled by ``nvcc`` for Hopper
-(``sm_90a``) into a shared library with a plain C interface, loaded with
+Every ``csrc/*.cu`` is compiled by ``nvcc`` for Hopper (``sm_90a``), one
+``nvcc`` process per source, all started together, and the objects are
+linked into one shared library with a plain C interface, loaded with
 ``ctypes``. The library lands in ``build/repro_torch_kernels/`` of the
-checkout, named by a hash of the source and flags, and is built at first
-use; a changed source gets a new name, so a stale library is never
-loaded. Nothing here runs at import time, and nothing is downloaded.
+checkout, named by a hash of all the sources and the flags, and is built
+at first use; a changed source gets a new name, so a stale library is
+never loaded. Nothing here runs at import time, and nothing is
+downloaded.
 
 Every C entry point returns ``cudaGetLastError()`` after its launch; the
 Python wrappers raise when that is not zero.
@@ -20,12 +22,12 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
-from typing import Optional
+from typing import List, Optional
 
-SOURCE = Path(__file__).resolve().parent / "csrc" / "paged_attention.cu"
+CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # argtypes of every C entry point
@@ -36,6 +38,10 @@ ARGTYPES = {
     # q, kp, vp, table, lengths, starts, out, B, C, Hq, Hkv, D, page,
     # npages, window, softcap, dtype, stream
     "paged_prefill_launch": [_P] * 7 + [_I] * 8 + [_F, _I, _P],
+    # logits, targets, logp, ent, lse, T, V, dtype, stream
+    "logprob_fwd_launch": [_P] * 5 + [_I] * 3 + [_P],
+    # logits, targets, lse, mu, g_lp, g_ent, dlogits, T, V, dtype, stream
+    "logprob_bwd_launch": [_P] * 7 + [_I] * 3 + [_P],
 }
 
 
@@ -55,29 +61,56 @@ def _nvcc() -> str:
                        "the CUDA kernels are built on the machine with the card")
 
 
+def sources() -> List[Path]:
+    return sorted(CSRC.glob("*.cu"))
+
+
 def lib_path() -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    h.update(SOURCE.read_bytes())
-    return BUILD_DIR / f"libpaged_attention-{h.hexdigest()[:16]}.so"
+    for src in sources():
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    return BUILD_DIR / f"librepro_torch_kernels-{h.hexdigest()[:16]}.so"
 
 
 def build() -> Built:
-    """Compile the source unless its library exists. Raises with the
-    compiler's output when nvcc fails."""
+    """Compile every source unless the library exists: one nvcc per
+    source in parallel, then one link. Raises with the compiler's output
+    when nvcc fails."""
     out = lib_path()
     if out.exists():
         return Built(out, 0.0, "")
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    tag = f"{out.stem}.{os.getpid()}"
+    nvcc = _nvcc()
     t0 = time.perf_counter()
-    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)],
+    jobs = []
+    for src in sources():
+        obj = BUILD_DIR / f"{tag}.{src.stem}.o"
+        jobs.append((src, obj, subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+    logs, failed = [], []
+    for src, _, proc in jobs:
+        text = proc.communicate()[0]
+        logs.append(f"== {src.name}\n{text}")
+        if proc.returncode != 0:
+            failed.append(f"{src.name} (exit {proc.returncode})")
+    if failed:
+        raise RuntimeError(f"nvcc failed on {', '.join(failed)}:\n"
+                           + "\n".join(logs))
+    tmp = BUILD_DIR / f"{tag}.so.tmp"
+    link = subprocess.run([nvcc, "-shared", "-o", str(tmp),
+                           *(str(obj) for _, obj, _ in jobs)],
                           stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                           text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed (exit {proc.returncode}):\n"
-                           f"{proc.stdout}")
+    for _, obj, _ in jobs:
+        obj.unlink(missing_ok=True)
+    if link.returncode != 0:
+        raise RuntimeError(f"nvcc link failed (exit {link.returncode}):\n"
+                           f"{link.stdout}")
     os.replace(tmp, out)
-    return Built(out, time.perf_counter() - t0, proc.stdout)
+    return Built(out, time.perf_counter() - t0, "\n".join(logs))
 
 
 _LIB: Optional[ctypes.CDLL] = None

@@ -1,6 +1,8 @@
-"""Public paged-attention entry points the model calls, with the impl knob.
+"""Public kernel entry points the model and the learner call, with their
+impl knobs.
 
-``impl`` is ``ModelConfig.paged_attn_impl``:
+Paged attention (``paged_decode``, ``paged_prefill``): ``impl`` is
+``ModelConfig.paged_attn_impl``:
 
 - "pallas": the hand-written Hopper kernel; raises on a CPU tensor;
 - "ref": the plain PyTorch twin, on any device;
@@ -9,14 +11,19 @@
 
 ``kind``/``window`` follow the JAX package: the sliding-window band
 applies only when ``kind == "local"``.
+
+Token log-probs (``fused_token_logprob``): ``impl`` takes the
+``TrainConfig.logprob_impl`` vocabulary or None (see the function).
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
-from repro_torch.config import PAGED_IMPLS
+from repro_torch.config import LOGPROB_IMPLS, PAGED_IMPLS
+from repro_torch.core.logprob import token_logprob_and_entropy
+from repro_torch.kernels import fused_logprob as fl
 from repro_torch.kernels import paged_attention as pa
 
 _GATHER_TODO = ("paged_attn_impl='gather' (the dense gather path that keeps "
@@ -69,3 +76,41 @@ def paged_prefill(q: torch.Tensor, kp: torch.Tensor, vp: torch.Tensor,
     fn = pa.paged_prefill_ref if path == "ref" else pa.paged_prefill
     return fn(q, kp, vp, page_table, lengths, starts, window=eff_window,
               softcap=softcap)
+
+
+def fused_token_logprob(logits: torch.Tensor, targets: torch.Tensor, *,
+                        impl: Optional[str] = None, chunk: int = 256
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Training-stack entry for memory-bounded token log-probs.
+
+    logits (..., V) [float32 or bfloat16 for the kernels; any float dtype
+    for the twin], targets (...) int -> (logp (...), entropy (...)), both
+    float32, differentiable w.r.t. ``logits`` with a streaming backward.
+
+    ``impl``:
+      - None / "fused": the K1/K2 kernels for CUDA tensors, the chunked
+        twin for CPU tensors;
+      - "pallas": the kernels; raises on a CPU tensor;
+      - "chunked": the twin ``chunked_logprob`` on any device;
+      - "naive": the materializing reference
+        (``repro_torch.core.logprob``).
+
+    Out-of-range target ids are clamped to [0, V). The kernels take any
+    (T, V), so there is no block-size search and no ragged fallback.
+    """
+    if impl not in LOGPROB_IMPLS + (None,):
+        raise ValueError(f"unknown logprob impl {impl!r}")
+    if impl == "naive":
+        return token_logprob_and_entropy(logits, targets)
+    if logits.dim() == 1:                      # single token, no batch dim
+        lp, ent = fused_token_logprob(logits[None], targets.reshape(1),
+                                      impl=impl, chunk=chunk)
+        return lp.reshape(targets.shape), ent.reshape(targets.shape)
+    if impl == "pallas" and logits.device.type != "cuda":
+        raise ValueError(f"logprob impl 'pallas' launches the CUDA kernels "
+                         f"and needs CUDA tensors, got {logits.device}")
+    if impl == "chunked" or logits.device.type == "cpu":
+        return fl.chunked_logprob(logits, targets, chunk=chunk)
+    lead, v = logits.shape[:-1], logits.shape[-1]
+    lp, ent = fl.fused_logprob(logits.reshape(-1, v), targets.reshape(-1))
+    return lp.reshape(lead), ent.reshape(lead)

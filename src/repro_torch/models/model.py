@@ -1,26 +1,37 @@
-"""The decoder forward over a paged KV cache: chunked prefill and decode.
+"""The decoder forward: dense full-sequence, and paged prefill/decode.
 
-The port of the paged-cache path of ``repro/models/model.py``: token
+The port of the attention + MLP decoder of ``repro/models/model.py``: token
 embedding, then for every layer RMSNorm, q/k/v projections with rotary
-embeddings, the K/V write into the page pools, paged attention through
-``repro_torch.kernels.ops``, the output projection and a SwiGLU MLP, then
-the final norm and the (tied or separate) head in float32.
+embeddings, attention, the output projection and a SwiGLU MLP, then the
+final norm and the (tied or separate) head in float32. Two ways through
+the attention:
+
+- dense (``forward`` with ``cache=None``): the training and
+  teacher-forced forward over positions ``arange(S)``, through
+  ``models.attention.attention`` (``cfg.attn_impl``, ``cfg.attn_chunk``).
+  With ``cfg.remat`` (and autograd recording) each block runs under
+  ``torch.utils.checkpoint``, as the JAX package wraps its scan body in
+  ``jax.checkpoint``: only block inputs are kept for the backward;
+- paged (``forward`` with page pools and a ``page_table``, and
+  ``decode_step``): the K/V write into the page pools, then paged
+  attention through ``repro_torch.kernels.ops``. The pools are written
+  *in place*: a forward returns the same cache object it was given.
 
 Parameters are the JAX package's tree: block leaves are stacked
-``(nb, ...)`` and applied one layer at a time in a Python loop (the JAX
-package scans them). The page pools are written *in place*: a forward
-returns the same cache object it was given. The dense (non-paged) cache
-and dense attention wait for the learner slice; ``forward`` without a
-paged cache raises.
+``(nb, ...)`` and applied one block at a time in a Python loop (the JAX
+package scans them). The dense KV cache of the static engine is not
+ported yet (ROADMAP queue 1 item 4).
 """
 from __future__ import annotations
 
 from typing import Any, Dict, List, Optional, Tuple, Union
 
 import torch
+import torch.utils.checkpoint
 
 from repro_torch.config import ATTN, LOCAL, MLP, ModelConfig
 from repro_torch.kernels.ops import paged_decode, paged_prefill
+from repro_torch.models.attention import attention
 from repro_torch.models.layers import rmsnorm, rope, softcap, swiglu
 
 # sampling.paged_cache.SCRATCH_PAGE (not imported: sampling imports this
@@ -73,20 +84,28 @@ def _kv_write_index(positions: torch.Tensor, page_table: torch.Tensor,
 
 
 def _self_attn(cfg: ModelConfig, p: Dict, x: torch.Tensor, *, kind: str,
-               positions: torch.Tensor, kp: torch.Tensor, vp: torch.Tensor,
-               page_table: torch.Tensor, widx, decode: bool) -> torch.Tensor:
-    """Paged self-attention sub-layer (input already normed): writes this
-    chunk's K/V into the pools in place, then attends them through the
-    decode kernel (``decode_step``) or the prefill kernel (``forward``,
-    whatever the chunk length: a one-token chunk is still prefill)."""
+               positions: torch.Tensor, paged: Optional[Tuple],
+               decode: bool) -> torch.Tensor:
+    """Self-attention sub-layer (input already normed). ``paged`` is None
+    for the dense full-sequence path, else (kp, vp, page_table, widx):
+    this chunk's K/V are written into the pools in place, then attended
+    through the decode kernel (``decode_step``) or the prefill kernel
+    (``forward``, whatever the chunk length: a one-token chunk is still
+    prefill)."""
     b, sq = x.shape[0], x.shape[1]
     q, k, v = _project_qkv(cfg, p, x)
     q = rope(q, positions, cfg.rope_theta)
     k = rope(k, positions, cfg.rope_theta)
-    phys, off = widx
+    mask_kind = "local" if kind == LOCAL else "causal"
+    if paged is None:
+        o = attention(q, k, v, pos_q=positions, pos_k=positions,
+                      kind=mask_kind, window=cfg.sliding_window,
+                      softcap=cfg.attn_softcap, impl=cfg.attn_impl,
+                      chunk=cfg.attn_chunk)
+        return o.reshape(b, sq, -1) @ p["wo"]
+    kp, vp, page_table, (phys, off) = paged
     kp[phys, off] = k.reshape((b * sq,) + k.shape[2:]).to(kp.dtype)
     vp[phys, off] = v.reshape((b * sq,) + v.shape[2:]).to(vp.dtype)
-    mask_kind = "local" if kind == LOCAL else "causal"
     if decode:
         o = paged_decode(q, kp, vp, page_table, positions[:, 0] + 1,
                          kind=mask_kind, window=cfg.sliding_window,
@@ -99,15 +118,14 @@ def _self_attn(cfg: ModelConfig, p: Dict, x: torch.Tensor, *, kind: str,
 
 
 def _apply_layer(cfg: ModelConfig, kind: str, ffn_kind: str, p: Dict,
-                 x: torch.Tensor, *, positions, kp, vp, page_table, widx,
+                 x: torch.Tensor, *, positions, paged: Optional[Tuple],
                  decode: bool) -> torch.Tensor:
     if kind not in (ATTN, LOCAL) or ffn_kind != MLP:
         raise NotImplementedError(
             f"layer ({kind!r}, {ffn_kind!r}) is not ported yet")
     h = rmsnorm(x, p["norm"], cfg.norm_eps)
     x = x + _self_attn(cfg, p["attn"], h, kind=kind, positions=positions,
-                       kp=kp, vp=vp, page_table=page_table, widx=widx,
-                       decode=decode)
+                       paged=paged, decode=decode)
     return x + swiglu(rmsnorm(x, p["ffn_norm"], cfg.norm_eps), p["mlp"])
 
 
@@ -121,15 +139,36 @@ def _is_paged(cfg: ModelConfig, cache: Optional[Dict]) -> bool:
     return True
 
 
-def _run_layers(cfg: ModelConfig, params: Dict, x: torch.Tensor, *,
-                positions: torch.Tensor, cache: Optional[Dict],
-                page_table: Optional[torch.Tensor],
-                decode: bool) -> torch.Tensor:
+def _run_dense(cfg: ModelConfig, params: Dict, x: torch.Tensor, *,
+               positions: torch.Tensor) -> torch.Tensor:
+    """Full-sequence layers, one checkpointed block at a time under
+    ``cfg.remat`` while autograd records (``jax.checkpoint(body)``)."""
+    def block(x: torch.Tensor, bp: Dict) -> torch.Tensor:
+        for i, kind in enumerate(cfg.block_pattern):
+            x = _apply_layer(cfg, kind, cfg.ffn_kind(i), bp[f"layer_{i}"], x,
+                             positions=positions, paged=None, decode=False)
+        return x
+
+    remat = cfg.remat and torch.is_grad_enabled()
+    for bp in _unstack(params["blocks"], cfg.num_blocks):
+        if remat:
+            x = torch.utils.checkpoint.checkpoint(block, x, bp,
+                                                  use_reentrant=False)
+        else:
+            x = block(x, bp)
+    return x
+
+
+def _run_paged(cfg: ModelConfig, params: Dict, x: torch.Tensor, *,
+               positions: torch.Tensor, cache: Optional[Dict],
+               page_table: Optional[torch.Tensor],
+               decode: bool) -> torch.Tensor:
     if not _is_paged(cfg, cache) or page_table is None:
         raise NotImplementedError(
-            "the port's forward runs over a paged KV cache (pools from "
+            "a forward with a cache runs over a paged KV cache (pools from "
             "repro_torch.sampling.paged_cache plus a page_table); the dense "
-            "cache and dense attention land with the learner slice")
+            "KV cache of the static engine is not ported yet (ROADMAP queue "
+            "1 item 4)")
     page_size = cache["layer_0"]["self"]["kp"].shape[2]
     widx = _kv_write_index(positions, page_table, page_size)
     blocks = _unstack(params["blocks"], cfg.num_blocks)
@@ -138,11 +177,10 @@ def _run_layers(cfg: ModelConfig, params: Dict, x: torch.Tensor, *,
              for i in range(cfg.period)]
     for bi in range(cfg.num_blocks):
         for i, kind in enumerate(cfg.block_pattern):
+            paged = (pools[i][0][bi], pools[i][1][bi], page_table, widx)
             x = _apply_layer(cfg, kind, cfg.ffn_kind(i),
                              blocks[bi][f"layer_{i}"], x,
-                             positions=positions, kp=pools[i][0][bi],
-                             vp=pools[i][1][bi], page_table=page_table,
-                             widx=widx, decode=decode)
+                             positions=positions, paged=paged, decode=decode)
     return x
 
 
@@ -167,16 +205,21 @@ def forward(cfg: ModelConfig, params: Dict, tokens: torch.Tensor, *,
             positions: Optional[torch.Tensor] = None,
             cache: Optional[Dict] = None,
             page_table: Optional[torch.Tensor] = None,
-            ) -> Tuple[torch.Tensor, Dict, Dict]:
-    """Chunked prefill over a paged cache. tokens (B, S) at ``positions``
-    (B, S) (default ``arange(S)``); the chunk's K/V are written into
-    ``cache`` in place. Returns (logits (B, S, V_padded) f32, cache, {})."""
+            ) -> Tuple[torch.Tensor, Optional[Dict], Dict]:
+    """Full-sequence forward. tokens (B, S) at ``positions`` (B, S)
+    (default ``arange(S)``). With ``cache=None`` the dense path (training,
+    teacher forcing); with page pools and ``page_table`` a chunked prefill
+    whose K/V are written into ``cache`` in place. Returns (logits
+    (B, S, V_padded) f32, cache, {})."""
     b, s = tokens.shape
     if positions is None:
         positions = torch.arange(s, device=tokens.device).expand(b, s)
     x = _embed(cfg, params, tokens)
-    x = _run_layers(cfg, params, x, positions=positions, cache=cache,
-                    page_table=page_table, decode=False)
+    if cache is None and page_table is None:
+        x = _run_dense(cfg, params, x, positions=positions)
+    else:
+        x = _run_paged(cfg, params, x, positions=positions, cache=cache,
+                       page_table=page_table, decode=False)
     return _logits(cfg, params, x), cache, {}
 
 
@@ -193,6 +236,6 @@ def decode_step(cfg: ModelConfig, params: Dict, cache: Dict,
     else:
         positions = pos.to(torch.int64)[:, None]
     x = _embed(cfg, params, token[:, None])
-    x = _run_layers(cfg, params, x, positions=positions, cache=cache,
-                    page_table=page_table, decode=True)
+    x = _run_paged(cfg, params, x, positions=positions, cache=cache,
+                   page_table=page_table, decode=True)
     return _logits(cfg, params, x)[:, 0], cache

@@ -1,6 +1,8 @@
 from repro_torch.sampling.continuous import (ContinuousEngine,
-                                             clamp_prefill_chunk)
-from repro_torch.sampling.engine import build_engine
+                                             clamp_prefill_chunk,
+                                             generate_continuous,
+                                             rollout_from_results)
+from repro_torch.sampling.engine import build_engine, token_logps
 from repro_torch.sampling.paged_cache import (SCRATCH_PAGE, PageAllocator,
                                               init_paged_pool,
                                               new_block_table,
@@ -12,7 +14,8 @@ from repro_torch.sampling.sample import (filter_logits, mask_vocab,
 from repro_torch.sampling.scheduler import (DECODE, PREFILL,
                                             ContinuousScheduler, GenRequest)
 
-__all__ = ["ContinuousEngine", "clamp_prefill_chunk", "build_engine",
+__all__ = ["ContinuousEngine", "clamp_prefill_chunk", "generate_continuous",
+           "rollout_from_results", "build_engine", "token_logps",
            "SCRATCH_PAGE", "PageAllocator", "init_paged_pool",
            "new_block_table", "paged_cache_supported", "pages_for",
            "PrefixCache", "filter_logits", "mask_vocab", "model_logp",

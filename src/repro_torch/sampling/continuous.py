@@ -8,7 +8,9 @@ The port of ``repro/sampling/continuous.py`` without speculative decoding
   deadlines, shared-prefix page reuse with copy-on-write), one prefill
   chunk per prefilling slot, then one decode chunk of ``sync_every``
   steps over every slot, and returns the round's token events;
-- ``generate()`` submits a batch and steps until it drains.
+- ``generate()`` submits a batch and steps until it drains;
+- ``generate_continuous()`` is the batch wrapper that returns the
+  engine-agnostic rollout dict (``rollout_from_results``).
 
 The engine owns the device state (page pools, per-slot logits); the
 scheduler owns the host bookkeeping (block table, allocator, prefix
@@ -18,13 +20,14 @@ request ``rid`` depends only on (seed, rid, g, logits).
 from __future__ import annotations
 
 import time
-from typing import Any, Dict, List, Optional, Sequence
+from typing import Any, Dict, List, Optional, Sequence, Union
 
 import numpy as np
 import torch
 
 from repro_torch.config import ModelConfig, RLConfig
 from repro_torch.data.tasks import EOS, PAD
+from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models.model import decode_step, forward
 from repro_torch.sampling.paged_cache import (PageAllocator, SCRATCH_PAGE,
                                               init_paged_pool,
@@ -35,7 +38,8 @@ from repro_torch.sampling.sample import (mask_vocab, model_logp,
                                          sample_token_rows)
 from repro_torch.sampling.scheduler import (DECODE, PREFILL,
                                             ContinuousScheduler, GenRequest)
-from repro_torch.serving.api import GenerationResult, Request, TokenEvent
+from repro_torch.serving.api import (GenerationResult, Request,
+                                     SamplingParams, TokenEvent)
 
 
 def _live_width(need_pages: int, cap: int) -> int:
@@ -359,3 +363,80 @@ class ContinuousEngine:
                                    "never finished")
             self.step()
         return [self._results.pop(r.rid) for r in requests]
+
+
+# --------------------------------------------------------------------------
+# batch wrapper
+
+
+def rollout_from_results(prompts: np.ndarray,
+                         results: Sequence[GenerationResult], max_new: int,
+                         device: DeviceLike = "cuda") -> Dict[str, Any]:
+    """The engine-agnostic rollout dict (tokens / completions / sampler_lp
+    / comp_mask as tensors on ``device``, and prompt_len) from
+    per-request results. Row ``i`` is ``results[i]``; expired requests
+    contribute all-PAD rows."""
+    dev = resolve_device(device)
+    prompts = np.asarray(prompts)
+    b, tp = prompts.shape
+    completions = np.full((b, max_new), PAD, np.int32)
+    sampler_lp = np.zeros((b, max_new), np.float32)
+    comp_mask = np.zeros((b, max_new), np.float32)
+    for i, res in enumerate(results):
+        n = res.gen_count
+        completions[i, :n] = res.tokens
+        sampler_lp[i, :n] = res.logps
+        comp_mask[i, :n] = 1.0
+    tokens = np.concatenate([prompts.astype(np.int32), completions], axis=1)
+    return {"tokens": torch.from_numpy(tokens).to(dev),
+            "completions": torch.from_numpy(completions).to(dev),
+            "sampler_lp": torch.from_numpy(sampler_lp).to(dev),
+            "comp_mask": torch.from_numpy(comp_mask).to(dev),
+            "prompt_len": tp}
+
+
+def generate_continuous(cfg: ModelConfig, rl: RLConfig, params: Dict[str, Any],
+                        prompts: Union[np.ndarray, torch.Tensor],
+                        seed: int = 0, *, max_new: Optional[int] = None,
+                        vocab_limit: Optional[int] = None,
+                        num_slots: Optional[int] = None,
+                        page_size: int = 16,
+                        prefill_chunk: Optional[int] = None,
+                        prompt_lens: Optional[Sequence[int]] = None,
+                        sync_every: int = 8,
+                        prefix_cache: bool = False) -> Dict[str, Any]:
+    """Continuous-batching generation over ``prompts`` (B, Tp): the
+    rollout dict of ``rollout_from_results`` on the params' device, plus
+    the engine's ``stats``.
+
+    ``seed`` keys the token draws (the JAX package takes a PRNG key: the
+    port's draws are keyed per request by (seed, rid, draw index), rid
+    being the row). ``num_slots`` decode slots (default min(B, 8)) are
+    recycled as requests finish, ``prompt_lens`` admits per-row true
+    prompt lengths, ``prefill_chunk`` bounds the prompt tokens prefilled
+    per chunk (default: the whole prompt), ``sync_every`` is the decode
+    horizon, ``prefix_cache`` turns on shared-prefix page reuse."""
+    max_new = max_new or rl.max_new_tokens
+    prompts_np = np.asarray(prompts.cpu() if isinstance(prompts, torch.Tensor)
+                            else prompts)
+    b, tp = prompts_np.shape
+    engine = ContinuousEngine(
+        cfg, params, rl=rl, max_total_tokens=tp + max_new,
+        num_slots=min(b, num_slots or 8), page_size=page_size,
+        sync_every=sync_every,
+        prefill_chunk=clamp_prefill_chunk(prefill_chunk, tp),
+        vocab_limit=vocab_limit, prefix_cache=prefix_cache, seed=seed)
+    sp = SamplingParams(temperature=rl.temperature, top_k=rl.top_k,
+                        top_p=rl.top_p, max_new_tokens=max_new)
+    requests = []
+    for r in range(b):
+        plen = int(prompt_lens[r]) if prompt_lens is not None else tp
+        if not 0 < plen <= tp:
+            raise ValueError(f"prompt_lens[{r}]={plen} outside (0, {tp}]")
+        requests.append(Request(rid=r, prompt=prompts_np[r, :plen],
+                                params=sp))
+    results = engine.generate(requests)
+    roll = rollout_from_results(prompts_np, results, max_new,
+                                device=engine.device)
+    roll["stats"] = engine.stats()
+    return roll

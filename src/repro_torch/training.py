@@ -1,0 +1,163 @@
+"""The RL train step: forward -> policy loss -> grads -> clipped optimizer
+update (the port of ``repro/training.py``), plus the SFT loss.
+
+Batch layout (targets are tokens shifted by one):
+  tokens (B, T) int | mask (B, T-1) f32 over target positions |
+  sampler_lp (B, T-1) f32 | rewards (B,) f32, group-contiguous.
+
+The token log-probs and entropies come from
+``repro_torch.kernels.ops.fused_token_logprob`` (``TrainConfig.
+logprob_impl``): on the card the K1 kernel in the forward and the K2
+kernel in the backward of every microbatch.
+
+``train_step`` updates the state **in place** (params and optimizer
+moments; see ``repro_torch.optim``), as the JAX package's jitted step
+donates it: treat the state passed in as consumed. It returns 0-dim
+tensors on the params' device and reads nothing back to the host.
+The sharded ``jit_train_step``/``jit_sft_step`` wait for ``parallel/``
+(ROADMAP queue 1 item 10).
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, NamedTuple, Optional, Tuple
+
+import torch
+
+from repro_torch.config import ModelConfig, RLConfig, TrainConfig
+from repro_torch.core import group_advantages, policy_loss
+from repro_torch.core.logprob import token_logprob_from_logits
+from repro_torch.kernels.ops import fused_token_logprob
+from repro_torch.models import forward
+from repro_torch.optim import (adafactor_init, adafactor_update, adamw_init,
+                               adamw_update, clip_by_global_norm, tree_leaves,
+                               warmup_schedule)
+
+# Metrics that aggregate across grad-accum microbatches with `max` rather
+# than a mean (the worst importance weight of the step, Fig. 4).
+MAX_METRICS = frozenset({"iw_max"})
+
+
+def _token_lp_ent(logits: torch.Tensor, targets: torch.Tensor, impl: str
+                  ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """(logp, entropy) per target token under ``TrainConfig.logprob_impl``;
+    entropy is None on the naive path."""
+    if impl == "naive":
+        return token_logprob_from_logits(logits, targets), None
+    return fused_token_logprob(logits, targets,
+                               impl=None if impl == "fused" else impl)
+
+
+class TrainState(NamedTuple):
+    params: Any
+    opt: Any
+    step: torch.Tensor           # 0-dim int32 on the params' device
+
+
+def init_state(cfg: ModelConfig, tc: TrainConfig, params: Any,
+               optimizer: str = "adamw") -> TrainState:
+    """Fresh optimizer state (float32 moments beside the params)."""
+    if optimizer not in ("adamw", "adafactor"):
+        raise ValueError(f"unknown optimizer {optimizer!r}")
+    init = adamw_init if optimizer == "adamw" else adafactor_init
+    dev = tree_leaves(params)[0].device
+    return TrainState(params=params, opt=init(params),
+                      step=torch.zeros((), dtype=torch.int32, device=dev))
+
+
+def rl_loss_fn(cfg: ModelConfig, rl: RLConfig, params: Any,
+               batch: Dict[str, torch.Tensor], logprob_impl: str = "fused"
+               ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    if "frames" in batch or "image_embeds" in batch:
+        raise NotImplementedError(
+            "modality memory (audio frames / image embeds) is not ported "
+            "yet: ROADMAP queue 1 item 9")
+    tokens = batch["tokens"]
+    logits, _, aux = forward(cfg, params, tokens[:, :-1])
+    learner_lp, learner_ent = _token_lp_ent(logits, tokens[:, 1:],
+                                            logprob_impl)
+    sampler_lp = batch["sampler_lp"]
+    if not rl.recompute_sampler_logps:
+        # trust engine-side logps verbatim (the paper shows this is unstable)
+        sampler_lp = sampler_lp.detach()
+    adv = group_advantages(
+        batch["rewards"], rl.group_size, normalize=rl.adv_normalize,
+        kind=rl.loss_type if rl.loss_type in ("bnpo", "dr_grpo") else "grpo")
+    loss, metrics = policy_loss(rl, learner_lp, sampler_lp, batch["mask"],
+                                adv, entropy=learner_ent)
+    for k, v in aux.items():
+        metrics[k] = v / max(cfg.num_blocks, 1)
+    metrics["reward_mean"] = batch["rewards"].mean()
+    return loss, metrics
+
+
+def _grads(cfg, rl, tc, params, mb) -> Tuple[list, Dict[str, torch.Tensor]]:
+    """Gradients of one loss evaluation as a list in ``tree_leaves``
+    order, and its detached metrics."""
+    leaves = tree_leaves(params)
+    for p in leaves:
+        p.requires_grad_(True)
+    loss, metrics = rl_loss_fn(cfg, rl, params, mb,
+                               logprob_impl=tc.logprob_impl)
+    grads = list(torch.autograd.grad(loss, leaves))
+    return grads, {k: v.detach() for k, v in metrics.items()}
+
+
+def train_step(cfg: ModelConfig, rl: RLConfig, tc: TrainConfig,
+               state: TrainState, batch: Dict[str, torch.Tensor], *,
+               optimizer: str = "adamw"
+               ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
+    """One (optionally micro-batched) RL update, in place on ``state``.
+
+    With ``grad_accum > 1`` the batch is cut as
+    ``x.reshape((accum, -1) + x.shape[1:])`` does, the gradients are
+    summed in float32 from zeros and divided by ``accum``, and the metrics
+    are averaged, except ``MAX_METRICS`` (max over microbatches)."""
+    params = state.params
+    if tc.grad_accum > 1:
+        acc = [torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+               for p in tree_leaves(params)]
+        msum: Dict[str, torch.Tensor] = {}
+        for i in range(tc.grad_accum):
+            mb = {k: v.reshape((tc.grad_accum, -1) + tuple(v.shape[1:]))[i]
+                  for k, v in batch.items()}
+            grads, m = _grads(cfg, rl, tc, params, mb)
+            with torch.no_grad():
+                for a, g in zip(acc, grads):
+                    a.add_(g)
+            del grads
+            for k, v in m.items():
+                if k not in msum:
+                    msum[k] = v
+                elif k in MAX_METRICS:
+                    msum[k] = torch.maximum(msum[k], v)
+                else:
+                    msum[k] = msum[k] + v
+        with torch.no_grad():
+            for a in acc:
+                a.div_(tc.grad_accum)
+        flat = acc
+        metrics = {k: (v if k in MAX_METRICS else v / tc.grad_accum)
+                   for k, v in msum.items()}
+    else:
+        flat, metrics = _grads(cfg, rl, tc, params, batch)
+    # the flat list in tree_leaves order stands for the gradient tree
+    grads, gnorm = clip_by_global_norm(flat, tc.grad_clip)
+    lr = warmup_schedule(tc, state.step)
+    update = adamw_update if optimizer == "adamw" else adafactor_update
+    new_params, new_opt = update(tc, grads, state.opt, params, lr)
+    metrics["grad_norm"] = gnorm
+    metrics["lr"] = lr
+    return TrainState(new_params, new_opt, state.step + 1), metrics
+
+
+def sft_loss_fn(cfg: ModelConfig, params: Any, tokens: torch.Tensor,
+                mask: torch.Tensor, logprob_impl: str = "fused"
+                ) -> torch.Tensor:
+    """Masked mean next-token NLL (the supervised warm start)."""
+    logits, _, _ = forward(cfg, params, tokens[:, :-1])
+    lp, _ = _token_lp_ent(logits, tokens[:, 1:], logprob_impl)
+    return (-lp * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+
+
+__all__ = ["MAX_METRICS", "TrainState", "init_state", "rl_loss_fn",
+           "train_step", "sft_loss_fn"]

@@ -4,9 +4,18 @@ Imports torch and numpy only, so it runs on a machine with the card and
 no jax:  PYTHONPATH=src python -m pytest -q tests/test_torch_kernels_cuda.py
 Without a card every test skips (the kernels have no CPU mode).
 
-Tolerances: the twin runs in float32 on the same inputs; 1e-5 abs for
-float32 inputs (summation order only), 2e-2 abs for bfloat16 (one rounding
-of the output to bf16).
+Tolerances, paged attention (K3/K4): the twin runs in float32 on the same
+inputs; 1e-5 abs for float32 inputs (summation order only), 2e-2 abs for
+bfloat16 (one rounding of the output to bf16).
+
+Tolerances, token log-probs (K1/K2), against the chunked twin on the same
+logits: logp/ent/lse 1e-4 abs (float32 sums over up to 152064 terms in
+another order, and expf against torch.exp); dlogits given the same lse and
+mu, element by element through ``fl.dlogits_error_ratio``: |K2 - twin| <=
+rtol * scale with scale = |g_lp| (onehot + p) + |g_ent| p |x - mu|, the
+sum of the magnitudes of the formula's terms; rtol 1e-5 for float32 (a
+few float32 ulps of the scale), 2^-7 + 1e-5 for bfloat16 (one bfloat16
+ulp of |dlogits| <= scale on top).
 """
 import dataclasses
 
@@ -14,13 +23,16 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.config import RLConfig, ServeConfig
+from repro_torch.config import RLConfig, ServeConfig, TrainConfig
 from repro_torch.configs import smoke
+from repro_torch.kernels import fused_logprob as fl
 from repro_torch.kernels import ops
 from repro_torch.kernels import paged_attention as pa
 from repro_torch.models import init_params
+from repro_torch.optim import tree_leaves
 from repro_torch.sampling import build_engine
 from repro_torch.serving.api import Request, SamplingParams
+from repro_torch.training import init_state, train_step
 
 pytestmark = pytest.mark.cuda
 TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
@@ -200,3 +212,159 @@ def test_dead_slot_writes_nowhere_on_card(cuda):
     for a, b in zip(before, after):              # all but scratch page 0
         assert torch.equal(a[:, 1:].view(torch.int32),
                            b[:, 1:].view(torch.int32))
+
+
+# --------------------------------------------------------------------------
+# K1 / K2: fused token log-prob forward and backward
+
+TOL_LP = 1e-4
+RTOL_DLOGITS = {torch.float32: 1e-5, torch.bfloat16: 2 ** -7 + 1e-5}
+
+
+def _logprob_case(dev, t, v, dtype, seed=0):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    x = (3.0 * torch.randn((t, v), generator=gen, device=dev)).to(dtype)
+    tgt = torch.randint(0, v, (t,), generator=gen, device=dev)
+    tgt[0], tgt[-1] = -1, v + 5                  # dirty ids, clamped
+    g = torch.randn((2, t), generator=gen, device=dev)
+    return x, tgt, g[0], g[1]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("t,v", [(64, 1001), (77, 77), (33, 152064),
+                                 (5, 4), (3, 1)])
+def test_logprob_kernels_match_twin(cuda, t, v, dtype):
+    x, tgt, g_lp, g_ent = _logprob_case(cuda, t, v, dtype, seed=t + v)
+    tgt32 = fl.clamp_target_ids(tgt, v)
+    fl.reset_launch_counts()
+    got = fl.logprob_fwd(x, tgt32)
+    want = fl._chunked_fwd_pass(x, tgt32, 16)
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, rtol=0, atol=TOL_LP)
+    lse, mu = want[2], want[2] - want[1]
+    d = fl.logprob_bwd(x, tgt32, lse, mu, g_lp, g_ent)
+    d_want = fl._chunked_bwd_pass(x, tgt32, lse, mu, g_lp, g_ent, 16)
+    torch.cuda.synchronize()
+    assert fl.LAUNCHES == {"logprob_fwd": 1, "logprob_bwd": 1}
+    assert d.dtype == dtype
+    assert fl.dlogits_error_ratio(d, d_want, x, tgt32, lse, mu, g_lp, g_ent,
+                                  rtol=RTOL_DLOGITS[dtype]) <= 1.0
+
+
+def test_logprob_fwd_past_int32_offsets(cuda):
+    """T * V > 2^31: row offsets need 64 bits. bf16 logits (4.3 GB); rows
+    near the end are compared against the twin."""
+    t, v = 14200, 152064
+    assert t * v > 2 ** 31
+    x, tgt, _, _ = _logprob_case(cuda, t, v, torch.bfloat16, seed=3)
+    tgt32 = fl.clamp_target_ids(tgt, v)
+    lp, ent, lse = fl.logprob_fwd(x, tgt32)
+    rows = torch.cat([torch.arange(0, 64), torch.arange(t - 256, t)]).to(
+        cuda)
+    want = fl._chunked_fwd_pass(x[rows], tgt32[rows], 64)
+    for a, b in zip((lp[rows], ent[rows], lse[rows]), want):
+        torch.testing.assert_close(a, b, rtol=0, atol=TOL_LP)
+    assert torch.isfinite(lse).all()
+
+
+def test_logprob_kernels_are_deterministic(cuda):
+    x, tgt, g_lp, g_ent = _logprob_case(cuda, 64, 152064, torch.float32)
+    tgt32 = fl.clamp_target_ids(tgt, x.shape[1])
+    first = fl.logprob_fwd(x, tgt32)
+    d0 = fl.logprob_bwd(x, tgt32, first[2], first[2] - first[1], g_lp, g_ent)
+    for _ in range(20):
+        again = fl.logprob_fwd(x, tgt32)
+        for a, b in zip(again, first):
+            assert torch.equal(a, b)
+        assert torch.equal(fl.logprob_bwd(x, tgt32, first[2],
+                                          first[2] - first[1], g_lp, g_ent),
+                           d0)
+
+
+def test_logprob_wrappers_refuse(cuda):
+    x, tgt, g_lp, g_ent = _logprob_case(cuda, 8, 64, torch.float32)
+    tgt32 = fl.clamp_target_ids(tgt, 64)
+    with pytest.raises(ValueError, match="CUDA"):
+        ops.fused_token_logprob(x.cpu(), tgt.cpu(), impl="pallas")
+    with pytest.raises(ValueError, match="T, V"):
+        fl.logprob_fwd(x[None], tgt32)
+    with pytest.raises(ValueError, match="contiguous"):
+        fl.logprob_fwd(x.t(), torch.zeros(64, dtype=torch.int32,
+                                          device=cuda))
+    with pytest.raises(TypeError):
+        fl.logprob_fwd(x.half(), tgt32)
+    with pytest.raises(ValueError, match="int32"):
+        fl.logprob_fwd(x, tgt)                  # int64, not clamped
+    with pytest.raises(ValueError, match="on"):
+        fl.logprob_fwd(x, tgt32.cpu())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_autograd_through_fused_matches_twin(cuda, dtype):
+    """Autograd through ``ops.fused_token_logprob`` on (2, 37, 1001)
+    logits: the values match the twin's, and the gradient is exactly K2
+    on K1's lse and mu with the cotangents autograd hands over, which in
+    turn matches the twin's backward rule within the element-wise bound,
+    for random cotangents and for the log-prob alone (a zero g_ent)."""
+    x, tgt, g_lp, g_ent = _logprob_case(cuda, 2 * 37, 1001, dtype, seed=9)
+    tgt32 = fl.clamp_target_ids(tgt, 1001)
+    _, ent_k, lse_k = fl.logprob_fwd(x, tgt32)
+    mu_k = lse_k - ent_k
+    zero = torch.zeros_like(g_ent)
+    for ge in (g_ent, zero):
+        xi = x.reshape(2, 37, 1001).clone().requires_grad_()
+        lp, ent = ops.fused_token_logprob(xi, tgt.reshape(2, 37))
+        want = ops.fused_token_logprob(xi.detach(), tgt.reshape(2, 37),
+                                       impl="chunked")
+        for a, b in zip((lp, ent), want):
+            torch.testing.assert_close(a, b, rtol=0, atol=TOL_LP)
+        if ge is zero:                  # autograd makes the zero g_ent
+            (dx,) = torch.autograd.grad((lp * g_lp.reshape(2, 37)).sum(), xi)
+        else:
+            (dx,) = torch.autograd.grad((lp, ent), xi,
+                                        (g_lp.reshape(2, 37),
+                                         ge.reshape(2, 37)))
+        args = (x, tgt32, lse_k, mu_k, g_lp, ge)
+        direct = fl.logprob_bwd(*args)
+        assert torch.equal(dx.reshape(74, 1001), direct)
+        d_twin = fl._chunked_bwd_pass(*args, 16)
+        assert fl.dlogits_error_ratio(direct, d_twin, *args,
+                                      rtol=RTOL_DLOGITS[dtype]) <= 1.0
+
+
+def test_tiny_train_step_fused_matches_chunked_on_card(cuda):
+    """One GEPO step of the smoke model on the card, logprob_impl "fused"
+    (K1/K2) against "chunked" (the twin): same metrics and params within
+    float32 summation-order tolerance; K1 launches once and K2 once per
+    microbatch."""
+    from repro_torch.config import ModelConfig
+    cfg = ModelConfig(name="tiny", family="dense", num_layers=2, d_model=48,
+                      num_heads=4, num_kv_heads=2, d_ff=96, vocab_size=300,
+                      dtype="float32", attn_impl="chunked", attn_chunk=8,
+                      remat=True, rope_theta=1e4)
+    rng = np.random.default_rng(0)
+    b, s = 8, 20
+    batch = {"tokens": torch.from_numpy(rng.integers(0, 300, (b, s))),
+             "mask": torch.ones((b, s - 1)),
+             "sampler_lp": -torch.rand((b, s - 1)),
+             "rewards": torch.from_numpy((rng.random(b) > 0.5).astype(
+                 np.float32))}
+    batch = {k: v.to(cuda) for k, v in batch.items()}
+    rl = RLConfig(loss_type="gepo", group_size=4, beta_kl=0.005)
+    out = {}
+    for impl in ("fused", "chunked"):
+        tc = TrainConfig(learning_rate=1e-3, grad_accum=2, total_steps=10,
+                         logprob_impl=impl)
+        state = init_state(cfg, tc, init_params(cfg, 0, device=cuda))
+        fl.reset_launch_counts()
+        new, m = train_step(cfg, rl, tc, state, batch)
+        torch.cuda.synchronize()
+        out[impl] = (new, m, dict(fl.LAUNCHES))
+    assert out["fused"][2] == {"logprob_fwd": 2, "logprob_bwd": 2}
+    assert out["chunked"][2] == {"logprob_fwd": 0, "logprob_bwd": 0}
+    for k, v in out["chunked"][1].items():
+        torch.testing.assert_close(out["fused"][1][k], v, rtol=1e-4,
+                                   atol=1e-5, msg=k)
+    for a, b in zip(tree_leaves(out["fused"][0].params),
+                    tree_leaves(out["chunked"][0].params)):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-5)

@@ -237,7 +237,16 @@ class TestPagedModel:
             assert torch.equal(new.view(torch.int32), old.view(torch.int32))
 
     def test_forward_without_paged_cache_raises(self):
+        """A cache that is not page pools (the static engine's dense KV
+        cache, not ported yet) raises; cache=None is the dense path."""
         _, tcfg = _configs("qwen3-1.7b")
         tp = init_params(tcfg, 0, device="cpu")
+        toks = torch.zeros((1, 4), dtype=torch.long)
+        dense = {"layer_0": {"self": {"k": torch.zeros(1), "v": torch.zeros(1)}}}
         with pytest.raises(NotImplementedError, match="paged"):
-            forward(tcfg, tp, torch.zeros((1, 4), dtype=torch.long))
+            forward(tcfg, tp, toks, cache=dense)
+        with pytest.raises(NotImplementedError, match="paged"):
+            decode_step(tcfg, tp, dense, toks[:, 0], 0,
+                        page_table=torch.zeros((1, 1), dtype=torch.int32))
+        logits, cache, _ = forward(tcfg, tp, toks)
+        assert cache is None and logits.shape == (1, 4, tcfg.padded_vocab)
