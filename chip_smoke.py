@@ -19,7 +19,12 @@ never jax, never the JAX package. Phases, each fatal on failure:
    ragged C = 77; one window + softcap case), each held against its plain
    PyTorch twin (float32 on the same inputs) and timed beside the twin, a
    library yardstick (SDPA over the gathered dense view, which the port
-   never calls) and the card's bound;
+   never calls) and the card's bound; K5 (dense flash attention) at six
+   cases: the static engine's prefill (B 16, S 832) and the recompute
+   (S 1023) of qwen3-1.7b, a Gemma2-9B local (window 4096, softcap 50) and
+   global layer (B 1, S 8192, D 256), a bidir float32 case at S 37 and a
+   bf16 case at D 64, S 160, each against its twin, with controls showing
+   that the check sees a dropped window or softcap, the first four timed;
 3. engine: qwen3-1.7b at full width (28 layers, bf16, random weights from
    --seed) served through ``ContinuousEngine`` with
    ``paged_attn_impl="pallas"``: 24 requests, 4 sharing a 256-token
@@ -29,7 +34,21 @@ never jax, never the JAX package. Phases, each fatal on failure:
    "pallas" and "ref" on copies of one pool, logits within a stated
    tolerance; last, a torch.profiler trace of 24 decode steps (device
    time by kernel, device busy share);
-4. learner: one GEPO iteration on qwen3-1.7b at full width (bf16, random
+4. static: qwen3-1.7b at full width with ``attn_impl="pallas"`` through
+   ``StaticEngine`` (the sampler node's default engine) at the learner's
+   rollout shape, 16 requests of 832 tokens, 192 new, temperature 1.0:
+   K5 launches once per layer for the prefill and nothing else; then
+   ``token_logps`` over the 16 x 1024 result through K5 and through the
+   chunked attention in turns, logps held against each other and
+   against the sampler's;
+5. gemma2: gemma2-9b at full width (42 layers, bf16, random weights):
+   ``token_logps`` at 1 x 8192 through K5 (42 launches, 21 local and 21
+   global) against the chunked attention, and a greedy static generation
+   of 2 requests of 4608 prompt tokens (past the window) + 16 new, whose
+   logps the teacher-forced forward must reproduce; then the same weights
+   in float32, K5 against the chunked attention at 1e-3 nats; the weights
+   are freed;
+6. learner: one GEPO iteration on qwen3-1.7b at full width (bf16, random
    weights from --seed): ``generate_continuous`` makes 2 prompts x group 8
    rows of 832 prompt + 192 new tokens (temperature 1.0), ``token_logps``
    recomputes the sampler log-probs (App. B.1, K1 over T 16368), the batch
@@ -66,13 +85,16 @@ import torch  # noqa: E402
 from repro_torch.config import RLConfig, ServeConfig, TrainConfig  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
+from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import fused_logprob as fl  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels import paged_attention as pa  # noqa: E402
-from repro_torch.models import decode_step, forward, init_params  # noqa: E402
+from repro_torch.models import (decode_step, forward, init_cache,  # noqa: E402
+                                init_params)
 from repro_torch.optim import global_norm, tree_leaves  # noqa: E402
 from repro_torch.sampling import (build_engine, generate_continuous,  # noqa: E402
-                                  init_paged_pool, token_logps)
+                                  init_paged_pool, rollout_from_results,
+                                  token_logps)
 from repro_torch.serving.api import Request, SamplingParams  # noqa: E402
 from repro_torch.training import (init_state, rl_loss_fn,  # noqa: E402
                                   train_step)
@@ -109,6 +131,28 @@ TOL_HEAD_REL = 1e-4
 # nonzero, so K2's g_ent p (x - mu) term feeds the gradient
 ENTROPY_BONUS = 0.01
 PROMPTS, GROUP, PROMPT_LEN, NEW_TOKENS = 2, 8, 832, 192
+# K5 against its float32 twin: the JAX package's own tolerances
+# (tests/test_kernels.py), 2e-2 for bf16 outputs, 2e-5 for float32
+TOL_FLASH = {torch.bfloat16: 2e-2, torch.float32: 2e-5}
+# Gemma2 cases draw q at 40 N(0, 1), so that scores (N(0, 1600)) reach the
+# softcap of 50: at N(0, 1) scores the cap changes the output by ~1e-4 and
+# no check could see a kernel that drops it
+Q_SCALE_CAPPED = 40.0
+# logps of one bf16 model computed two ways (K5 or the chunked attention
+# in the forward; the engine's dense-cache decode against the
+# teacher-forced forward): bf16 roundings that flip differently through
+# every layer; the continuous engine's sampler and the chunked recompute
+# differ by ~0.03 nats at the learner phase's shape
+TOL_LOGP_PATHS = 0.1
+# K5 against the chunked attention through a float32 model: only float32
+# summation order differs in each layer's attention (2e-5 at the kernel)
+TOL_LOGP_F32 = 1e-3
+# mean over the tokens of |K5 - chunked| through the bf16 Gemma2 model:
+# the max is set by a few tokens whose bf16 noise is large (0.217 nats),
+# the mean by all 8192 (0.020); a kernel that drops a mask moves every
+# token past the window
+TOL_LOGP_MEAN_BF16 = 0.05
+GEMMA_LEN, GEMMA_PROMPT, GEMMA_NEW = 8192, 4608, 16
 
 
 def log(msg: str) -> None:
@@ -201,10 +245,11 @@ def sdpa_prefill(q, kp, vp, table, positions):
     return q.transpose(1, 2).contiguous(), k, v, mask
 
 
-def library_ms(args) -> float:
-    q, k, v, mask = args
+def library_ms(q, k, v, attn_mask=None, iters=20, **kw) -> float:
+    """Time of one SDPA call, the library yardstick (the port never
+    calls it)."""
     return time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
-        q, k, v, attn_mask=mask))
+        q, k, v, attn_mask=attn_mask, **kw), iters=iters)
 
 
 def max_err(got, want, rows=slice(None)):
@@ -252,7 +297,7 @@ def kernel_phase(dev, seed):
         plain_ms=time_ms(lambda: pa.paged_decode_ref(q, kp, vp, table,
                                                      lens), iters=5),
         bound_ms=b_ms, bound_by=b_by,
-        library_ms=library_ms(sdpa_decode(q, kp, vp, table, lens)),
+        library_ms=library_ms(*sdpa_decode(q, kp, vp, table, lens)),
         shape=f"B={SLOTS} Hq={HQ} Hkv={HKV} D={D} page={PAGE} "
               f"lengths={lengths} bf16")
 
@@ -294,7 +339,7 @@ def kernel_phase(dev, seed):
         plain_ms=time_ms(lambda: ops.paged_prefill(q, kp, vp, table, pos,
                                                    impl="ref"), iters=5),
         bound_ms=b_ms, bound_by=b_by,
-        library_ms=library_ms(sdpa_prefill(q, kp, vp, table, pos)),
+        library_ms=library_ms(*sdpa_prefill(q, kp, vp, table, pos)),
         shape=f"B=1 C={c} start={start} Hq={HQ} Hkv={HKV} D={D} "
               f"page={PAGE} bf16 (+ C=77 start=300 checked)")
     return out
@@ -619,7 +664,373 @@ def teacher_forced(cfg, params, dev, seed):
 
 
 # --------------------------------------------------------------------------
-# phase 4: one GEPO learner iteration at full width
+# phase 2, K5: dense flash attention at the slice's shapes
+
+# (label, B, S, Hq, Hkv, D, causal, window, softcap, dtype, timed)
+FLASH_CASES = (
+    ("qwen3 static prefill", 16, PROMPT_LEN, 16, 8, 128, True, None, None,
+     torch.bfloat16, True),
+    ("qwen3 recompute", 16, PROMPT_LEN + NEW_TOKENS - 1, 16, 8, 128, True,
+     None, None, torch.bfloat16, True),
+    ("gemma2 local", 1, GEMMA_LEN, 16, 8, 256, True, 4096, 50.0,
+     torch.bfloat16, True),
+    ("gemma2 global", 1, GEMMA_LEN, 16, 8, 256, True, None, 50.0,
+     torch.bfloat16, True),
+    ("bidir f32", 2, 37, 16, 8, 128, False, None, None, torch.float32,
+     False),
+    ("D 64 bf16", 2, 160, 8, 2, 64, True, None, None, torch.bfloat16,
+     False),
+)
+
+
+def flash_pairs(s, causal, window):
+    """(row, column) pairs the mask keeps, summed over the rows of one
+    head: what the kernel's reach-bounded loop must compute."""
+    if not causal:
+        return s * s
+    w = s if window is None else window
+    return sum(min(r + 1, w) for r in range(s))
+
+
+def sdpa_flash(q, k, v, causal, window):
+    """Library yardstick: SDPA with GQA, causal, or with a boolean band
+    for the window (no softcap: partial where the case has one). Setup
+    (layout) not timed."""
+    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    kw = {}
+    if causal and window is not None:
+        r = torch.arange(q.shape[1], device=q.device)
+        d = r[:, None] - r[None, :]
+        kw["attn_mask"] = (d >= 0) & (d < window)
+    elif causal:
+        kw["is_causal"] = True
+    return library_ms(qt, kt, vt, iters=5, enable_gqa=True, **kw)
+
+
+def flash_phase(dev, seed):
+    """K5 against its twin at six cases (the static prefill, the
+    recompute, Gemma2's local and global layers, a bidir float32 case, a
+    bf16 case at D 64), with controls for the window and the softcap;
+    the four main-path cases timed beside the twin, SDPA and the bound."""
+    gen = torch.Generator(device=dev).manual_seed(seed + 11)
+    rows = []
+    for (label, b, s, hq, hkv, d, causal, window, cap, dtype,
+         timed) in FLASH_CASES:
+        q = torch.randn((b, s, hq, d), generator=gen, device=dev)
+        if cap is not None:
+            q = q * Q_SCALE_CAPPED
+        k, v = (torch.randn((b, s, hkv, d), generator=gen, device=dev)
+                for _ in range(2))
+        q, k, v = (t.to(dtype) for t in (q, k, v))
+        f32 = [t.float() for t in (q, k, v)]
+        kw = dict(causal=causal, window=window, softcap=cap)
+        got = fa.flash_attention(q, k, v, **kw)
+        want = fa.flash_attention_ref(*f32, **kw)
+        torch.cuda.synchronize()
+        err = max_err(got, want)
+        tol = TOL_FLASH[dtype]
+        controls = {}
+        if window is not None:
+            controls["no window"] = max_err(fa.flash_attention_ref(
+                *f32, causal=causal, softcap=cap), want)
+        if cap is not None:
+            controls["no softcap"] = max_err(fa.flash_attention_ref(
+                *f32, causal=causal, window=window), want)
+        del want
+        log(f"[kernels] K5 flash_attention {label} (B {b}, S {s}, Hq {hq}, "
+            f"Hkv {hkv}, D {d}, causal {causal}, window {window}, softcap "
+            f"{cap}, {str(dtype)[6:]}): max|err| {err:.3e} (tol {tol})"
+            + "".join(f"; twin vs twin {c} {e:.3e} (must be > {10 * tol})"
+                      for c, e in controls.items()))
+        if not err <= tol or not torch.isfinite(got.float()).all():
+            raise AssertionError(f"K5 disagrees with its twin ({label})")
+        if not all(e > 10 * tol for e in controls.values()):
+            raise AssertionError(f"K5's check cannot see a dropped mask "
+                                 f"({label}): {controls}")
+        row = dict(case=label, max_abs_err=err, tol=tol, controls=controls,
+                   shape=f"B={b} S={s} Hq={hq} Hkv={hkv} D={d} causal="
+                         f"{causal} window={window} softcap={cap} "
+                         f"{str(dtype)[6:]}")
+        if timed:
+            nbytes = q.element_size() * (2 * q.numel() + k.numel()
+                                         + v.numel())
+            flops = 4 * d * hq * b * flash_pairs(s, causal, window)
+            b_ms, b_by = bound(nbytes, flops)
+            row.update(
+                ms=time_ms(lambda: fa.flash_attention(q, k, v, **kw),
+                           iters=10),
+                plain_ms=time_ms(lambda: fa.flash_attention_ref(q, k, v,
+                                                                **kw),
+                                 iters=3, warmup=1),
+                bound_ms=b_ms, bound_by=b_by,
+                library_ms=sdpa_flash(q, k, v, causal, window))
+            log(f"[kernels] K5 {label}: {row['ms']:.4f} ms, bound "
+                f"{b_ms:.4f} ms ({b_by}), twin {row['plain_ms']:.3f} ms, "
+                f"SDPA {row['library_ms']:.4f} ms"
+                + (" (partial: no softcap)" if cap else ""))
+        rows.append(row)
+        del q, k, v, f32, got
+        torch.cuda.empty_cache()
+    head = rows[0]
+    return {"flash_attention": dict(
+        name="flash_attention_kernel", route="cuda",
+        source="src/repro_torch/kernels/csrc/flash_attention.cu",
+        replaces="src/repro/kernels/flash_attention.py:39 (_kernel; "
+                 "pallas_call at :119)",
+        max_abs_err=max(r["max_abs_err"] for r in rows
+                        if r["tol"] == TOL_FLASH[torch.bfloat16]),
+        max_abs_err_f32=max(r["max_abs_err"] for r in rows
+                            if r["tol"] == TOL_FLASH[torch.float32]),
+        tol=TOL_FLASH[torch.bfloat16], ms=head["ms"],
+        plain_ms=head["plain_ms"], bound_ms=head["bound_ms"],
+        bound_by=head["bound_by"], library_ms=head["library_ms"],
+        library="SDPA (GQA; causal, or a boolean band for the window; no "
+                "softcap)", shape=head["shape"], cases=rows)}
+
+
+# --------------------------------------------------------------------------
+# phases 4 and 5: the static engine and the recompute through K5, qwen3 and
+# gemma2 at full width
+
+
+def reset_counts():
+    for mod in (fa, fl, pa):
+        mod.reset_launch_counts()
+
+
+def counts():
+    return {**fa.LAUNCHES, **fl.LAUNCHES, **pa.LAUNCHES}
+
+
+def recompute(cfg, params, tokens, impl, want):
+    """``token_logps`` through attention ``impl``; checks the launch counts
+    the run made and returns (logps, ms, K5 launches counted)."""
+    icfg = dataclasses.replace(cfg, attn_impl=impl)
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    lp = token_logps(icfg, params, tokens)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    got = counts()
+    if got["flash_attention"] != want or got["logprob_fwd"] != 1:
+        raise AssertionError(f"recompute ({impl}) launched {got}, want K5 "
+                             f"{want} and K1 1")
+    if not torch.isfinite(lp).all():
+        raise AssertionError(f"recompute ({impl}): non-finite logps")
+    return lp, ms, got["flash_attention"]
+
+
+def profile_static_decode(cfg, params, cache, tok, steps=8):
+    """torch.profiler over ``steps`` dense-cache decode steps of the
+    static engine's batch (16 rows after the 832-token prefill): device
+    busy share and device time by kernel."""
+    from torch.profiler import ProfilerActivity, profile
+    decode_step(cfg, params, cache, tok, PROMPT_LEN)        # warm
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for t in range(steps):
+            decode_step(cfg, params, cache, tok, PROMPT_LEN + t)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    rows = sorted((e for e in prof.key_averages()
+                   if str(getattr(e, "device_type", "")).endswith("CUDA")),
+                  key=dev_us, reverse=True)
+    busy_ms = sum(dev_us(e) for e in rows) / 1e3
+    log(f"[profile] {steps} static decode steps (B {tok.shape[0]}): wall "
+        f"{wall_ms:.1f} ms, device busy {busy_ms:.1f} ms "
+        f"({100 * busy_ms / wall_ms:.1f}% of wall; profiler on), "
+        f"{sum(e.count for e in rows)} device launches")
+    for e in rows[:8]:
+        log(f"[profile] {dev_us(e) / 1e3:9.3f} ms  x{e.count:<6d} "
+            f"{e.key[:90]}")
+
+
+def static_phase(dev, seed, card):
+    """The sampler node's default engine at the learner's rollout shape:
+    16 requests of 832 tokens, 192 new, temperature 1.0, prefill through
+    K5; then the App. B.1 recompute through K5 and through the chunked
+    attention, in turns."""
+    cfg = dataclasses.replace(get_config("qwen3-1.7b"), attn_impl="pallas")
+    params = init_params(cfg, seed + 3, device=dev)
+    rl = RLConfig(temperature=1.0, top_k=0, top_p=1.0,
+                  max_new_tokens=NEW_TOKENS)
+    eng = build_engine(cfg, params, ServeConfig(engine="static", seed=seed),
+                       rl=rl, vocab_limit=cfg.vocab_size)
+    sp = SamplingParams.from_rl(rl)
+    rng = np.random.default_rng(seed + 3)
+    prompts = np.repeat(rng.integers(3, cfg.vocab_size, (PROMPTS, PROMPT_LEN)),
+                        GROUP, axis=0).astype(np.int32)
+    reqs = [Request(rid=i, prompt=p, params=sp) for i, p in enumerate(prompts)]
+    # warm-up: cuBLAS handles, allocator, first launches
+    eng.generate([Request(rid=100 + i, prompt=prompts[i, :64],
+                          params=SamplingParams.from_rl(rl, max_new=4))
+                  for i in range(2)])
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    res = eng.generate(reqs)
+    torch.cuda.synchronize()
+    t_roll = time.perf_counter() - t0
+    got = counts()
+    k5 = got["flash_attention"]
+    want = {k: 0 for k in got}
+    want["flash_attention"] = cfg.num_layers
+    if got != want:
+        raise AssertionError(f"static rollout launched {got}, want {want} "
+                             f"({cfg.num_layers} K5 for the prefill)")
+    n_tok = sum(r.gen_count for r in res)
+    for r in res:
+        if not np.isfinite(r.logps).all() or (r.logps > 1e-6).any() or \
+                (r.tokens < 0).any() or (r.tokens >= cfg.vocab_size).any():
+            raise AssertionError(f"request {r.rid}: bad tokens or logps")
+    # the prefill alone, to split the rollout's time
+    toks = torch.from_numpy(prompts.astype(np.int64)).to(dev)
+    with torch.no_grad():
+        cache = init_cache(cfg, params, toks.shape[0], PROMPT_LEN + NEW_TOKENS)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        forward(cfg, params, toks, cache=cache)
+        torch.cuda.synchronize()
+        t_pre = time.perf_counter() - t0
+        profile_static_decode(cfg, params, cache, toks[:, -1])
+    del cache
+    torch.cuda.empty_cache()
+    dec_ms = (t_roll - t_pre) * 1e3 / NEW_TOKENS
+    log(f"[static] {cfg.name} full width, attn_impl pallas: {len(res)} "
+        f"requests x {PROMPT_LEN} prompt tokens, {n_tok} generated in "
+        f"{t_roll:.2f}s ({n_tok / t_roll:.1f} tokens/s); prefill alone "
+        f"{t_pre * 1e3:.1f} ms, decode {dec_ms:.2f} ms per step (rollout "
+        f"minus prefill over {NEW_TOKENS} steps); launches {got} | {card}")
+
+    roll = rollout_from_results(prompts, res, NEW_TOKENS, device=dev)
+    tokens = roll["tokens"]
+    lps, ms = {}, {"pallas": [], "chunked": []}
+    for impl in ("pallas", "chunked", "chunked", "pallas"):
+        lp, t, n = recompute(cfg, params, tokens, impl,
+                             cfg.num_layers if impl == "pallas" else 0)
+        k5 += n
+        lps[impl] = lp
+        ms[impl].append(t)
+    d_paths = float((lps["pallas"] - lps["chunked"]).abs().max())
+    mask = roll["comp_mask"]
+    comp = lps["pallas"][:, PROMPT_LEN - 1:]
+    d_sampler = float(((comp - roll["sampler_lp"]).abs() * mask).max())
+    log(f"[static] recompute over {tokens.shape[0]} x {tokens.shape[1]}: "
+        f"through K5 {' / '.join(f'{t:.1f}' for t in ms['pallas'])} ms, "
+        f"through the chunked attention "
+        f"{' / '.join(f'{t:.1f}' for t in ms['chunked'])} ms (run order "
+        f"K5, chunked, chunked, K5; K5 {cfg.num_layers} and K1 1 launch "
+        f"per K5 run); max|K5 - chunked| {d_paths:.3e}, max|K5 recompute "
+        f"- sampler| {d_sampler:.3e} nats (tol {TOL_LOGP_PATHS}) | {card}")
+    if d_paths > TOL_LOGP_PATHS or d_sampler > TOL_LOGP_PATHS:
+        raise AssertionError("the recompute through K5 disagrees")
+    return k5
+
+
+def to_float32(tree):
+    """Every leaf of a params tree cast to float32, in place, one leaf at
+    a time (the bf16 leaf is freed as its float32 copy replaces it)."""
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            to_float32(v)
+        else:
+            tree[k] = v.float()
+
+
+def gemma2_phase(dev, seed, card):
+    """Gemma2-9B at full width (42 layers, head_dim 256, window 4096,
+    softcaps): the recompute at 1 x 8192 through K5 and through the chunked
+    attention; a greedy static generation past the window whose logps the
+    teacher-forced forward must reproduce; then the same weights in
+    float32, where K5 and the chunked attention must agree to 1e-3 nats.
+    Returns the K5 launches counted. Frees the weights."""
+    cfg = dataclasses.replace(get_config("gemma2-9b"), attn_impl="pallas")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = init_params(cfg, seed + 4, device=dev)
+    torch.cuda.synchronize()
+    log(f"[gemma2] {cfg.name}: {cfg.num_layers} layers, d_model "
+        f"{cfg.d_model}, head_dim {cfg.head_dim}, vocab {cfg.vocab_size}, "
+        f"{cfg.param_count() / 1e9:.3f}B params bf16, init "
+        f"{time.perf_counter() - t0:.1f}s")
+    rng = np.random.default_rng(seed + 4)
+    tokens = torch.from_numpy(rng.integers(3, cfg.vocab_size,
+                                           (1, GEMMA_LEN + 1))).to(dev)
+    lp_k, ms_k, k5 = recompute(cfg, params, tokens, "pallas", cfg.num_layers)
+    lp_c, ms_c, _ = recompute(cfg, params, tokens, "chunked", 0)
+    d_paths = (lp_k - lp_c).abs()
+    d_mean = float(d_paths.mean())
+    log(f"[gemma2] token_logps 1 x {GEMMA_LEN}: through K5 {ms_k:.1f} ms "
+        f"(K5 launches {k5}, one per layer: {cfg.num_layers // 2} local, "
+        f"{cfg.num_layers // 2} global), chunked {ms_c:.1f} ms; bf16 |K5 - "
+        f"chunked| max {float(d_paths.max()):.3e}, mean {d_mean:.3e} nats "
+        f"(mean held to {TOL_LOGP_MEAN_BF16}) | {card}")
+    if d_mean > TOL_LOGP_MEAN_BF16:
+        raise AssertionError("gemma2: bf16 logps through K5 disagree")
+    greedy = dict(temperature=1.0, top_k=1, top_p=1.0)
+    eng = build_engine(cfg, params, ServeConfig(engine="static", seed=seed),
+                       rl=RLConfig(**greedy), vocab_limit=cfg.vocab_size)
+    prompts = rng.integers(3, cfg.vocab_size, (2, GEMMA_PROMPT)
+                           ).astype(np.int32)
+    reset_counts()
+    t0 = time.perf_counter()
+    res = eng.generate([Request(rid=i, prompt=p, params=SamplingParams(
+        max_new_tokens=GEMMA_NEW, **greedy)) for i, p in enumerate(prompts)])
+    torch.cuda.synchronize()
+    t_gen = time.perf_counter() - t0
+    got = counts()["flash_attention"]
+    roll = rollout_from_results(prompts, res, GEMMA_NEW, device=dev)
+    lp_tf, _, n_tf = recompute(cfg, params, roll["tokens"], "pallas",
+                               cfg.num_layers)
+    k5 += got + n_tf
+    comp = lp_tf[:, GEMMA_PROMPT - 1:]
+    d_tf = float(((comp - roll["sampler_lp"]).abs()
+                  * roll["comp_mask"]).max())
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    torch.cuda.reset_peak_memory_stats()
+    log(f"[gemma2] greedy static generate 2 x {GEMMA_PROMPT} prompt (past "
+        f"the {cfg.sliding_window} window) + {GEMMA_NEW} new: {t_gen:.2f}s, "
+        f"K5 launches {got}; max|engine logp - teacher-forced logp| "
+        f"{d_tf:.3e} nats (tol {TOL_LOGP_PATHS}); bf16 peak {peak:.2f} GiB "
+        f"| {card}")
+    if got != cfg.num_layers:
+        raise AssertionError(f"gemma2 generate launched K5 {got} times")
+    if d_tf > TOL_LOGP_PATHS:
+        raise AssertionError("gemma2: engine and teacher-forced logps "
+                             "disagree")
+    del eng, roll, lp_tf
+    # the same weights (exactly) and tokens in float32, where bf16 rounding
+    # no longer hides a kernel fault: K5 in float32 against the chunked
+    # attention; each bf16 path's distance from this float32 model is
+    # printed only, as a measure of the bf16 noise
+    to_float32(params)
+    torch.cuda.empty_cache()
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    lp32_k, ms32_k, n32 = recompute(cfg32, params, tokens, "pallas",
+                                    cfg.num_layers)
+    lp32_c, ms32_c, _ = recompute(cfg32, params, tokens, "chunked", 0)
+    k5 += n32
+    d32 = float((lp32_k - lp32_c).abs().max())
+    e_k = float((lp_k - lp32_c).abs().max())
+    e_c = float((lp_c - lp32_c).abs().max())
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    log(f"[gemma2] float32 weights: token_logps through K5 {ms32_k:.1f} ms, "
+        f"chunked {ms32_c:.1f} ms; max|K5 - chunked| {d32:.3e} nats (tol "
+        f"{TOL_LOGP_F32}); distance of the bf16 paths from the float32 "
+        f"model (not held): K5 {e_k:.3e}, chunked {e_c:.3e} nats; phase "
+        f"peak {peak:.2f} GiB | {card}")
+    if d32 > TOL_LOGP_F32:
+        raise AssertionError("gemma2: float32 logps through K5 disagree")
+    del params, lp32_k, lp32_c, lp_k, lp_c
+    torch.cuda.empty_cache()
+    return k5
+
+
+# --------------------------------------------------------------------------
+# phase 6: one GEPO learner iteration at full width
 
 
 def learner_batch(cfg, params, dev, seed):
@@ -847,9 +1258,24 @@ def main(argv=None) -> int:
     kernels.update(kernel_phase(dev, args.seed))
     log(f"[time] kernel phase {time.perf_counter() - t0:.1f}s")
     t0 = time.perf_counter()
+    kernels.update(flash_phase(dev, args.seed))
+    log(f"[time] K5 phase {time.perf_counter() - t0:.1f}s")
+    t0 = time.perf_counter()
     launches = engine_phase(dev, args.seed, card)
     log(f"[time] engine phase {time.perf_counter() - t0:.1f}s")
     torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    k5_static = static_phase(dev, args.seed, card)
+    log(f"[time] static engine phase {time.perf_counter() - t0:.1f}s")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    k5_gemma = gemma2_phase(dev, args.seed, card)
+    log(f"[time] gemma2 phase {time.perf_counter() - t0:.1f}s")
+    launches["flash_attention"] = k5_static + k5_gemma
+    kernels["flash_attention"]["launches_by_phase"] = {
+        "static (qwen3-1.7b prefill + 2 recomputes)": k5_static,
+        "gemma2 (bf16 and float32 recomputes, generate, teacher-forced)":
+            k5_gemma}
     t0 = time.perf_counter()
     launches.update(learner_phase(dev, args.seed, card))
     log(f"[time] learner phase {time.perf_counter() - t0:.1f}s")

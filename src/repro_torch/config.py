@@ -89,9 +89,9 @@ class ModelConfig:
     # kernel, "ref" = its plain PyTorch twin, "auto" = kernel for CUDA
     # tensors and twin for CPU tensors. The JAX package defaults to
     # "gather" to keep its static and continuous engines bit-identical;
-    # the port has no static engine yet, so nothing needs that parity
-    # and "auto" sends the serving path through the kernels. "gather"
-    # raises until the static engine is ported.
+    # the port holds its two engines to each other within a tolerance
+    # instead, and "auto" sends the serving path through the kernels.
+    # "gather" is not ported and raises (ROADMAP queue 1 item 4).
     paged_attn_impl: str = "auto"
     remat: bool = True
     local_ring_kv: bool = False     # ring-buffer KV for LOCAL layers (JAX only)

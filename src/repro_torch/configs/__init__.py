@@ -1,15 +1,19 @@
-"""Registry of the architectures the port serves so far.
+"""Registry of the architectures the port serves so far: the paper's
+Qwen3 models and Gemma2-9B (sliding-window and global layers, softcaps,
+head_dim 256, tied head).
 
 ``get_config(name)`` returns the full-size config; ``smoke(name)`` the
 reduced same-family variant the CPU tests use. Other families join as
 their slices land (ROADMAP queue 1).
 """
 from repro_torch.config import ModelConfig, smoke_variant
+from repro_torch.configs.gemma2_9b import CONFIG as _gemma2
 from repro_torch.configs.qwen3_paper import CONFIG as _qwen3
 from repro_torch.configs.qwen3_paper import CONFIG_8B as _qwen3_8b
 
 PAPER_ARCHS = {c.name: c for c in (_qwen3, _qwen3_8b)}
-ALL = dict(PAPER_ARCHS)
+ARCHS = {c.name: c for c in (_gemma2,)}
+ALL = {**ARCHS, **PAPER_ARCHS}
 
 
 def get_config(name: str) -> ModelConfig:

@@ -42,6 +42,9 @@ ARGTYPES = {
     "logprob_fwd_launch": [_P] * 5 + [_I] * 3 + [_P],
     # logits, targets, lse, mu, g_lp, g_ent, dlogits, T, V, dtype, stream
     "logprob_bwd_launch": [_P] * 7 + [_I] * 3 + [_P],
+    # q, k, v, out, B, Sq, Sk, Hq, Hkv, D, causal, window, softcap, dtype,
+    # stream
+    "flash_attention_launch": [_P] * 4 + [_I] * 8 + [_F, _I, _P],
 }
 
 

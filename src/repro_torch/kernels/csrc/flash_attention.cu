@@ -1,0 +1,362 @@
+// Dense flash-attention forward (K5) for Hopper (sm_90a), bound to Python
+// through a plain C interface loaded with ctypes
+// (repro_torch/kernels/build.py).
+//
+// K5 flash_attention_kernel replaces the Pallas TPU kernel
+//   src/repro/kernels/flash_attention.py::_kernel (pallas_call in
+//   flash_attention, line 119).
+//
+// What it computes (the same as its TPU kernel and as the twin
+// flash_attention_ref in flash_attention.py): q (B, Sq, Hq, D) against
+// k, v (B, Sk, Hkv, D), kv head = q head / (Hq / Hkv); row i and column j
+// sit at positions i and j. Scores in float32, s = (q . k) * D^-0.5, then
+// softcap * tanh(s / softcap), then the mask: causal keeps j <= i, the
+// sliding window (causal only) keeps i - j < window, and columns past Sk
+// are dropped; masked scores are -1e30. Online softmax (m, l, acc) over
+// kv tiles; the output is acc / max(l, 1e-30) in q's dtype.
+//
+// Design (simple first):
+// - one block of 256 threads per (64-row q tile, b * Hq + h); heavy
+//   causal tiles (late rows) are scheduled first;
+// - the q tile and 64-key K and V tiles are staged in shared memory as
+//   float32 with 16-byte loads, rows padded to D + 4 floats so that the
+//   strided reads below hit distinct banks; the P tile reuses K's space
+//   once the scores are in registers (3 tiles of 64 x (D + 4) floats:
+//   52 KB at D 64, 101 KB at D 128, 195 KB at D 256, set through
+//   cudaFuncAttributeMaxDynamicSharedMemorySize);
+// - thread (ty, tx) of a 16 x 16 grid owns rows 4ty..4ty+3 and, for the
+//   scores, key columns tx + 16j (j < 4); for the output, dims
+//   4tx + 64j .. + 3 (j < D / 64). Scores, the running (m, l) of its rows
+//   and the accumulators stay in registers; row max and row sum are
+//   shuffles over the 16 threads of a row (half a warp);
+// - the kv loop is bounded by the tile's causal and window reach
+//   [lo, hi): the TPU kernel's pl.when(reachable) skip, so a window-4096
+//   row at position 8191 walks 4096 + 64 keys, not 8192. Ragged Sq and Sk
+//   are masked rows and columns (no divisibility requirement), offsets are
+//   size_t.
+// All arithmetic is float32 on the CUDA cores, including bfloat16 inputs.
+//
+// Bound on the H100 (3.35 TB/s, 989 TFLOP/s bf16 dense): bytes
+// (q, k, v read once, out written once) or 4 * D FLOPs per reachable
+// (row, column) pair per q head, whichever is larger: ~49 us at the
+// static engine's prefill (B 16, S 832, Hq 16, Hkv 8, D 128, causal,
+// bytes), ~0.42 ms for a Gemma2-9B local layer (B 1, S 8192, Hq 16, D 256,
+// window 4096, FLOPs).
+// What the simple design leaves on the table: the products run on the
+// CUDA cores in float32 instead of wgmma on bf16 (the FLOP bound above is
+// the tensor-core one, 15x the float32 rate); no cp.async/TMA
+// double-buffering, so loads and math do not overlap; each q head
+// re-reads its kv head's tiles (rep = Hq / Hkv blocks read the same
+// K/V, from L2 at best).
+
+#include <cuda_runtime.h>
+#include <cuda_bf16.h>
+#include <math.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int kThreads = 256;   // 16 x 16 threads
+constexpr int kBQ = 64;         // query rows per block
+constexpr int kBK = 64;         // key columns per tile
+constexpr int kLDP = kBK + 4;   // row stride of the P tile (floats)
+constexpr float kNegInf = -1e30f;
+
+template <typename T>
+struct Vec;
+
+template <>
+struct Vec<float> {
+  static constexpr int N = 4;
+  __device__ __forceinline__ static void load(const float* src, float* dst) {
+    const float4 v = *reinterpret_cast<const float4*>(src);
+    dst[0] = v.x; dst[1] = v.y; dst[2] = v.z; dst[3] = v.w;
+  }
+  __device__ __forceinline__ static void store4(float* dst, const float* x) {
+    *reinterpret_cast<float4*>(dst) = make_float4(x[0], x[1], x[2], x[3]);
+  }
+};
+
+template <>
+struct Vec<__nv_bfloat16> {
+  static constexpr int N = 8;
+  __device__ __forceinline__ static void load(const __nv_bfloat16* src,
+                                              float* dst) {
+    const uint4 v = *reinterpret_cast<const uint4*>(src);
+    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&v);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float2 f = __bfloat1622float2(h[i]);
+      dst[2 * i] = f.x;
+      dst[2 * i + 1] = f.y;
+    }
+  }
+  __device__ __forceinline__ static void store4(__nv_bfloat16* dst,
+                                                const float* x) {
+    __nv_bfloat162 h[2] = {__floats2bfloat162_rn(x[0], x[1]),
+                           __floats2bfloat162_rn(x[2], x[3])};
+    *reinterpret_cast<uint2*>(dst) = *reinterpret_cast<const uint2*>(h);
+  }
+};
+
+__device__ __forceinline__ float half_warp_max(float x) {
+#pragma unroll
+  for (int o = 8; o > 0; o >>= 1)
+    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
+  return x;
+}
+
+__device__ __forceinline__ float half_warp_sum(float x) {
+#pragma unroll
+  for (int o = 8; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
+  return x;
+}
+
+template <int D>
+constexpr size_t smem_bytes() {
+  return 3 * size_t(kBQ) * (D + 4) * sizeof(float);
+}
+
+// Stage `rows` rows of a (., D) head slice into a (64, D + 4) float tile;
+// row r is read at src + r * stride elements. Rows >= n are zeroed.
+template <typename T, int D>
+__device__ __forceinline__ void stage(float* dst, const T* __restrict__ src,
+                                      size_t stride, int n) {
+  constexpr int VN = Vec<T>::N;
+  constexpr int DV = D / VN;
+  for (int i = threadIdx.x; i < kBQ * DV; i += kThreads) {
+    const int r = i / DV, c = (i % DV) * VN;
+    float t[VN];
+    if (r < n) {
+      Vec<T>::load(src + r * stride + c, t);
+    } else {
+#pragma unroll
+      for (int e = 0; e < VN; ++e) t[e] = 0.f;
+    }
+#pragma unroll
+    for (int e = 0; e < VN; e += 4)
+      *reinterpret_cast<float4*>(dst + r * (D + 4) + c + e) =
+          make_float4(t[e], t[e + 1], t[e + 2], t[e + 3]);
+  }
+}
+
+template <typename T, int D>
+__global__ void __launch_bounds__(kThreads)
+flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                       const T* __restrict__ v, T* __restrict__ out, int Sq,
+                       int Sk, int Hq, int Hkv, int causal, int window,
+                       float softcap, float scale) {
+  constexpr int LD = D + 4;
+  constexpr int NJ = D / 64;            // output float4 groups per thread
+  extern __shared__ float smem[];
+  float* Qs = smem;                     // kBQ x LD
+  float* Ks = Qs + kBQ * LD;            // kBK x LD; then P, kBQ x kLDP
+  float* Vs = Ks + kBK * LD;            // kBK x LD
+  float* Ps = Ks;
+
+  const int tile = gridDim.x - 1 - blockIdx.x;   // heavy tiles first
+  const int bh = blockIdx.y;
+  const int b = bh / Hq, h = bh % Hq;
+  const int kvh = h / (Hq / Hkv);
+  const int q0 = tile * kBQ;
+  const int nq = min(kBQ, Sq - q0);
+  const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
+
+  // kv reach of the tile: [lo, hi)
+  int hi = Sk, lo = 0;
+  if (causal) {
+    hi = min(Sk, q0 + nq);
+    if (window > 0) lo = max(0, q0 - window + 1);
+  }
+
+  const size_t q_stride = size_t(Hq) * D, kv_stride = size_t(Hkv) * D;
+  const T* qb = q + (size_t(b) * Sq + q0) * q_stride + size_t(h) * D;
+  stage<T, D>(Qs, qb, q_stride, nq);
+
+  float m[4], l[4], acc[4][NJ][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    m[i] = kNegInf;
+    l[i] = 0.f;
+#pragma unroll
+    for (int j = 0; j < NJ; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
+  }
+
+  const T* kb = k + size_t(b) * Sk * kv_stride + size_t(kvh) * D;
+  const T* vb = v + size_t(b) * Sk * kv_stride + size_t(kvh) * D;
+  for (int k0 = (lo / kBK) * kBK; k0 < hi; k0 += kBK) {
+    const int nk = min(kBK, Sk - k0);
+    __syncthreads();               // previous P and V consumed
+    stage<T, D>(Ks, kb + size_t(k0) * kv_stride, kv_stride, nk);
+    stage<T, D>(Vs, vb + size_t(k0) * kv_stride, kv_stride, nk);
+    __syncthreads();
+
+    // scores: rows 4ty + i, columns tx + 16j
+    float s[4][4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
+#pragma unroll 2
+    for (int d = 0; d < D; d += 4) {
+      float4 qv[4], kv[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        qv[i] = *reinterpret_cast<const float4*>(Qs + (4 * ty + i) * LD + d);
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        kv[j] = *reinterpret_cast<const float4*>(Ks + (tx + 16 * j) * LD + d);
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          float a = s[i][j];
+          a = fmaf(qv[i].x, kv[j].x, a);
+          a = fmaf(qv[i].y, kv[j].y, a);
+          a = fmaf(qv[i].z, kv[j].z, a);
+          a = fmaf(qv[i].w, kv[j].w, a);
+          s[i][j] = a;
+        }
+    }
+
+    // scale, softcap, mask; online softmax per row
+    float p[4][4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int row = q0 + 4 * ty + i;
+      float mx = kNegInf;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int col = k0 + tx + 16 * j;
+        float x = s[i][j] * scale;
+        if (softcap > 0.f) x = softcap * tanhf(x / softcap);
+        bool ok = col < Sk;
+        if (causal) {
+          ok = ok && col <= row;
+          if (window > 0) ok = ok && row - col < window;
+        }
+        x = ok ? x : kNegInf;
+        s[i][j] = x;
+        mx = fmaxf(mx, x);
+      }
+      mx = half_warp_max(mx);
+      const float m_new = fmaxf(m[i], mx);
+      const float alpha = expf(m[i] - m_new);
+      float sum = 0.f;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        p[i][j] = expf(s[i][j] - m_new);
+        sum += p[i][j];
+      }
+      sum = half_warp_sum(sum);
+      l[i] = l[i] * alpha + sum;
+      m[i] = m_new;
+#pragma unroll
+      for (int j = 0; j < NJ; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[i][j][e] *= alpha;
+    }
+
+    __syncthreads();               // every thread done reading Ks
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) Ps[(4 * ty + i) * kLDP + tx + 16 * j] =
+          p[i][j];
+    __syncthreads();
+
+    // acc += P . V over the tile's live columns (V rows past Sk are 0)
+    const int ncols = (nk + 3) & ~3;
+    for (int c = 0; c < ncols; c += 4) {
+      float4 pv[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        pv[i] = *reinterpret_cast<const float4*>(Ps + (4 * ty + i) * kLDP + c);
+#pragma unroll
+      for (int cc = 0; cc < 4; ++cc) {
+#pragma unroll
+        for (int j = 0; j < NJ; ++j) {
+          const float4 vv = *reinterpret_cast<const float4*>(
+              Vs + (c + cc) * LD + 4 * tx + 64 * j);
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            const float pc = cc == 0 ? pv[i].x : cc == 1 ? pv[i].y
+                             : cc == 2 ? pv[i].z : pv[i].w;
+            acc[i][j][0] = fmaf(pc, vv.x, acc[i][j][0]);
+            acc[i][j][1] = fmaf(pc, vv.y, acc[i][j][1]);
+            acc[i][j][2] = fmaf(pc, vv.z, acc[i][j][2]);
+            acc[i][j][3] = fmaf(pc, vv.w, acc[i][j][3]);
+          }
+        }
+      }
+    }
+  }
+
+  T* ob = out + (size_t(b) * Sq + q0) * q_stride + size_t(h) * D;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int r = 4 * ty + i;
+    if (r >= nq) continue;
+    const float inv = 1.f / fmaxf(l[i], 1e-30f);
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) {
+      float o[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) o[e] = acc[i][j][e] * inv;
+      Vec<T>::store4(ob + r * q_stride + 4 * tx + 64 * j, o);
+    }
+  }
+}
+
+template <typename T, int D>
+int launch(const void* q, const void* k, const void* v, void* out, int B,
+           int Sq, int Sk, int Hq, int Hkv, int causal, int window,
+           float softcap, cudaStream_t stream) {
+  const size_t smem = smem_bytes<D>();
+  auto kern = flash_attention_kernel<T, D>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
+  if (err != cudaSuccess) return int(err);
+  if (B == 0 || Sq == 0) return int(cudaGetLastError());
+  kern<<<dim3((Sq + kBQ - 1) / kBQ, B * Hq), kThreads, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<T*>(out), Sq, Sk, Hq, Hkv,
+      causal, window, softcap, 1.0f / sqrtf(float(D)));
+  return int(cudaGetLastError());
+}
+
+}  // namespace
+
+#define DISPATCH_D(T)                                                     \
+  switch (D) {                                                            \
+    case 64: return launch<T, 64>(q, k, v, out, B, Sq, Sk, Hq, Hkv,       \
+                                  causal, window, softcap, s);            \
+    case 128: return launch<T, 128>(q, k, v, out, B, Sq, Sk, Hq, Hkv,     \
+                                    causal, window, softcap, s);          \
+    case 256: return launch<T, 256>(q, k, v, out, B, Sq, Sk, Hq, Hkv,     \
+                                    causal, window, softcap, s);          \
+    default: return int(cudaErrorInvalidValue);                          \
+  }
+
+// dtype: 0 = float32, 1 = bfloat16. causal: 0 or 1. window <= 0: no
+// sliding window (read only when causal). softcap <= 0: no softcap.
+// Returns cudaGetLastError() after the launch.
+extern "C" int flash_attention_launch(const void* q, const void* k,
+                                      const void* v, void* out, int B,
+                                      int Sq, int Sk, int Hq, int Hkv, int D,
+                                      int causal, int window, float softcap,
+                                      int dtype, void* stream) {
+  if (Hkv <= 0 || Hq % Hkv != 0 || B < 0 || Sq < 0 || Sk < 0 ||
+      size_t(B) * Hq > 65535)
+    return int(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0) {
+    DISPATCH_D(float)
+  }
+  if (dtype == 1) {
+    DISPATCH_D(__nv_bfloat16)
+  }
+  return int(cudaErrorInvalidValue);
+}

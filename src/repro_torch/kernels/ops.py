@@ -12,6 +12,10 @@ Paged attention (``paged_decode``, ``paged_prefill``): ``impl`` is
 ``kind``/``window`` follow the JAX package: the sliding-window band
 applies only when ``kind == "local"``.
 
+Dense flash attention (``flash_attention``, ``attn_impl="pallas"``): the
+K5 kernel for CUDA tensors, its twin for CPU tensors, as the JAX package
+runs its Pallas kernel in interpret mode off the TPU. Forward only.
+
 Token log-probs (``fused_token_logprob``): ``impl`` takes the
 ``TrainConfig.logprob_impl`` vocabulary or None (see the function).
 """
@@ -23,13 +27,14 @@ import torch
 
 from repro_torch.config import LOGPROB_IMPLS, PAGED_IMPLS
 from repro_torch.core.logprob import token_logprob_and_entropy
+from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import fused_logprob as fl
 from repro_torch.kernels import paged_attention as pa
 
 _GATHER_TODO = ("paged_attn_impl='gather' (the dense gather path that keeps "
-                "the static engine bit-identical) is not ported yet: it "
-                "lands with the static engine, ROADMAP queue 1 'Static "
-                "engine and the bit-exact threefry'")
+                "the JAX package's static and continuous engines "
+                "bit-identical) is not ported yet: ROADMAP queue 1 item 4 "
+                "'Static engine and the bit-exact threefry'")
 
 
 def _resolve(impl: Optional[str], q: torch.Tensor, kind: str) -> str:
@@ -43,6 +48,21 @@ def _resolve(impl: Optional[str], q: torch.Tensor, kind: str) -> str:
         raise ValueError(f"paged_attn_impl='pallas' launches the CUDA kernel "
                          f"and needs CUDA tensors, got {q.device}")
     return "ref" if impl == "ref" else "kernel"
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, window: Optional[int] = None,
+                    softcap: Optional[float] = None) -> torch.Tensor:
+    """Full-sequence attention in the contiguous layout (row i, column j at
+    positions i, j). q (B, Sq, Hq, D); k, v (B, Sk, Hkv, D) -> (B, Sq, Hq,
+    D). On a CUDA tensor the K5 kernel (or an exception), on a CPU tensor
+    its twin; either raises in a backward. ``window`` applies only when
+    ``causal``."""
+    if q.device.type == "cpu":
+        return fa.forward_only(fa.flash_attention_ref, q, k, v,
+                               causal=causal, window=window, softcap=softcap)
+    return fa.flash_attention(q, k, v, causal=causal, window=window,
+                              softcap=softcap)
 
 
 def paged_decode(q: torch.Tensor, kp: torch.Tensor, vp: torch.Tensor,

@@ -1,11 +1,18 @@
 """Batch serving entry point: what a HeteroRL sampler node runs, on the port.
 
-Builds a model with random weights from ``--seed``, the continuous engine
-a ``ServeConfig`` describes, and serves ``--rounds`` batches of seeded
-random prompts through ``ContinuousEngine.generate``:
+Builds a model with random weights from ``--seed``, the engine a
+``ServeConfig`` describes (``--engine continuous``, the default here, or
+``static``), and serves ``--rounds`` batches of seeded random prompts
+through its ``generate``:
 
   PYTHONPATH=src python -m repro_torch.launch.serve               # qwen3-1.7b on cuda
   PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --smoke
+  PYTHONPATH=src python -m repro_torch.launch.serve --engine static --attn-impl pallas
+
+The static engine takes a rectangular batch, so its prompts all have
+``--prompt-len`` tokens; the continuous engine's are drawn in
+[len/4, len]. ``--attn-impl pallas`` runs the static engine's prefill
+through the flash kernel K5.
 
 ``--smoke`` serves the reduced variant of ``--arch``. The front door
 (``--listen``), meshes and speculative decoding are later slices.
@@ -13,6 +20,7 @@ random prompts through ``ContinuousEngine.generate``:
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import time
 
 import numpy as np
@@ -36,7 +44,13 @@ def parse_args(argv=None) -> argparse.Namespace:
                     help="longest prompt; lengths are drawn in [len/4, len]")
     ap.add_argument("--max-new", type=int, default=16)
     ap.add_argument("--rounds", type=int, default=2)
+    ap.add_argument("--attn-impl", default=None,
+                    choices=("naive", "chunked", "pallas"),
+                    help="full-sequence attention (ModelConfig.attn_impl; "
+                         "default: the config's)")
     # ServeConfig fields ---------------------------------------------------
+    ap.add_argument("--engine", choices=("static", "continuous"),
+                    default="continuous")
     ap.add_argument("--slots", type=int, default=8)
     ap.add_argument("--page-size", type=int, default=16)
     ap.add_argument("--prefill-chunk", type=int, default=0,
@@ -59,8 +73,10 @@ def parse_args(argv=None) -> argparse.Namespace:
 def main(argv=None) -> None:
     args = parse_args(argv)
     cfg = smoke(args.arch) if args.smoke else get_config(args.arch)
+    if args.attn_impl:
+        cfg = dataclasses.replace(cfg, attn_impl=args.attn_impl)
     serve = ServeConfig(
-        num_slots=args.slots, page_size=args.page_size,
+        engine=args.engine, num_slots=args.slots, page_size=args.page_size,
         prefill_chunk=args.prefill_chunk, sync_every=args.sync_every,
         max_total_tokens=args.max_total_tokens
         or args.prompt_len + args.max_new,
@@ -72,7 +88,8 @@ def main(argv=None) -> None:
                           vocab_limit=cfg.vocab_size)
     sp = SamplingParams.from_rl(rl)
     rng = np.random.default_rng(args.seed)
-    lo = max(1, args.prompt_len // 4)
+    lo = args.prompt_len if args.engine == "static" else \
+        max(1, args.prompt_len // 4)
     total_tok, rid = 0, 0
     t0 = time.perf_counter()
     for r in range(args.rounds):
@@ -89,14 +106,19 @@ def main(argv=None) -> None:
         dt = time.perf_counter() - t1
         n_tok = sum(res.gen_count for res in results)
         total_tok += n_tok
-        st = engine.stats()
+        if args.engine == "continuous":
+            st = engine.stats()
+            detail = (f"slot-util {st['slot_utilization']:.2f} "
+                      f"({st['decode_steps']} decode steps, "
+                      f"{st['prefill_chunks']} prefill chunks)")
+        else:
+            detail = f"static batch of {len(reqs)}"
         print(f"[serve] round {r}: {n_tok} tokens in {dt:.3f}s "
-              f"({n_tok / dt:.1f} tok/s) | slot-util "
-              f"{st['slot_utilization']:.2f} ({st['decode_steps']} decode "
-              f"steps, {st['prefill_chunks']} prefill chunks) | rid "
+              f"({n_tok / dt:.1f} tok/s) | {detail} | rid "
               f"{results[0].rid}: {results[0].tokens[:8].tolist()}")
     print(f"[serve] arch={cfg.name} device={args.device} "
-          f"impl={engine.cfg.paged_attn_impl} batch={args.batch} total "
+          f"impl={engine.cfg.paged_attn_impl} engine={args.engine} "
+          f"attn={cfg.attn_impl} batch={args.batch} total "
           f"{total_tok} tokens, "
           f"{total_tok / (time.perf_counter() - t0):.1f} tok/s")
 

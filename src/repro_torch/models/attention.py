@@ -1,31 +1,31 @@
-"""Dense attention for the full-sequence forward: naive and chunked.
+"""Attention for the full-sequence forward (naive, chunked, the K5 flash
+kernel) and for one decode step against a dense KV cache.
 
-The port of the training/prefill paths of ``repro/models/attention.py``.
-GQA is handled with grouped einsums (no repeated K/V); causal,
-sliding-window and bidirectional masks; Gemma-2 attention-logit softcap.
-Scores are float32, masked scores are ``NEG_INF`` (a finite -1e30, not
--inf), and padded keys carry the ``PAD_POS`` sentinel position.
+The port of ``repro/models/attention.py``. GQA is handled with grouped
+einsums (no repeated K/V); causal, sliding-window and bidirectional
+masks; Gemma-2 attention-logit softcap. Scores are float32, masked scores
+are ``NEG_INF`` (a finite -1e30, not -inf), and padded keys carry the
+``PAD_POS`` sentinel position.
 
 ``chunked_attention`` is flash-style in both directions: a
 ``torch.autograd.Function`` whose forward scans kv blocks with running
 (m, l, acc) and saves only (o, lse), and whose backward recomputes the
 scores block by block. It is plain PyTorch, as the JAX package computes it
-outside any Pallas kernel; the dense flash kernel (K5, ``attn_impl=
-"pallas"``) is not ported yet.
+outside any Pallas kernel. ``attention(impl="pallas")`` sends contiguous
+positions to the dense flash kernel K5 (``kernels.ops.flash_attention``:
+the CUDA kernel on the card, its twin on the CPU; forward only).
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Union
 
 import torch
+
+from repro_torch.kernels.ops import flash_attention
 
 NEG_INF = -1e30
 PAD_POS = 2 ** 30          # sentinel position marking padded keys
 ATTN_IMPLS = ("naive", "chunked", "pallas")
-
-_PALLAS_TODO = ("attn_impl='pallas' (the dense flash kernel K5, "
-                "repro/kernels/flash_attention.py) is not ported yet: "
-                "ROADMAP queue 1 item 8 'Dense flash path'; use 'chunked'")
 
 
 def _mask(pos_q: torch.Tensor, pos_k: torch.Tensor, kind: str,
@@ -197,15 +197,65 @@ def chunked_attention(q, k, v, *, pos_q, pos_k, kind="causal", window=4096,
                         min(q_chunk, q.shape[1]), min(kv_chunk, k.shape[1]))
 
 
+def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
+                     v_cache: torch.Tensor, *,
+                     pos: Union[int, torch.Tensor], kind: str = "causal",
+                     window: int = 4096, softcap: Optional[float] = None,
+                     length: Optional[int] = None) -> torch.Tensor:
+    """Single-token attention against a (B, Smax, Hkv, D) cache.
+
+    q (B, 1, Hq, D); ``pos`` the current position, a scalar or a (B,)
+    vector. Entries > pos are masked (and those <= pos - window for
+    ``kind == "local"``). ``length`` (an int) is an optional upper bound on
+    ``pos + 1``: the cache is sliced to it, so the masked tail is never
+    read."""
+    b, _, hq, d = q.shape
+    if length is not None and length < k_cache.shape[1]:
+        k_cache, v_cache = k_cache[:, :length], v_cache[:, :length]
+    smax, g = k_cache.shape[1], k_cache.shape[2]
+    s = _scores(q.reshape(b, 1, g, hq // g, d), k_cache,
+                softcap)[:, :, :, 0]                      # (B,G,R,Smax)
+    idx = torch.arange(smax, device=q.device)
+    # an int position stays a host scalar: no copy to the device per layer
+    posv = pos if isinstance(pos, int) else pos.reshape(-1, 1)   # (1|B, 1)
+    valid = idx[None, :] <= posv
+    if kind == "local":
+        valid &= idx[None, :] > posv - window
+    p = torch.softmax(torch.where(valid[:, None, None], s, NEG_INF), dim=-1)
+    o = torch.einsum("bgrk,bkgd->bgrd", p, v_cache.float())
+    return o.reshape(b, 1, hq, d).to(q.dtype)
+
+
+def standard_positions(pos: torch.Tensor) -> bool:
+    """Whether every row of ``pos`` (..., S) is ``arange(S)``: the layout
+    whose masks K5 derives from offsets. One host sync on the card."""
+    return bool((pos == torch.arange(pos.shape[-1],
+                                     device=pos.device)).all())
+
+
 def attention(q, k, v, *, pos_q, pos_k, kind="causal", window=4096,
-              softcap=None, impl="chunked", chunk=512):
-    """Full-sequence attention dispatch: naive | chunked (| pallas, not
-    ported: raises). As in the JAX package, a sequence no longer than
-    ``chunk`` takes the naive path."""
+              softcap=None, impl="chunked", chunk=512,
+              contiguous: Optional[bool] = None):
+    """Full-sequence attention dispatch: naive | chunked | pallas.
+
+    As in the JAX package, ``impl="pallas"`` sends the kinds causal, local
+    and bidir to the flash kernel K5 when the positions are the contiguous
+    ``arange`` layout its offset-derived masks assume, and otherwise takes
+    the paths below; ``window`` reaches the kernel only for "local".
+    ``contiguous`` is that fact when the caller knows it (the model's
+    forward, which built the positions); None checks ``pos_q`` and
+    ``pos_k``. A sequence no longer than ``chunk`` takes the naive path,
+    a longer one the chunked path."""
     if impl not in ATTN_IMPLS:
         raise ValueError(f"unknown attn_impl {impl!r}; have {ATTN_IMPLS}")
-    if impl == "pallas":
-        raise NotImplementedError(_PALLAS_TODO)
+    if impl == "pallas" and kind in ("causal", "local", "bidir"):
+        if contiguous is None:
+            contiguous = (standard_positions(pos_q)
+                          and standard_positions(pos_k))
+        if contiguous:
+            return flash_attention(
+                q, k, v, causal=kind != "bidir",
+                window=window if kind == "local" else None, softcap=softcap)
     if impl == "naive" or q.shape[1] <= chunk:
         return naive_attention(q, k, v, pos_q=pos_q, pos_k=pos_k, kind=kind,
                                window=window, softcap=softcap)

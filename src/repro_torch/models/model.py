@@ -1,4 +1,5 @@
-"""The decoder forward: dense full-sequence, and paged prefill/decode.
+"""The decoder forward: dense full-sequence (with or without a dense KV
+cache), and paged prefill/decode.
 
 The port of the attention + MLP decoder of ``repro/models/model.py``: token
 embedding, then for every layer RMSNorm, q/k/v projections with rotary
@@ -8,10 +9,16 @@ the attention:
 
 - dense (``forward`` with ``cache=None``): the training and
   teacher-forced forward over positions ``arange(S)``, through
-  ``models.attention.attention`` (``cfg.attn_impl``, ``cfg.attn_chunk``).
-  With ``cfg.remat`` (and autograd recording) each block runs under
-  ``torch.utils.checkpoint``, as the JAX package wraps its scan body in
-  ``jax.checkpoint``: only block inputs are kept for the backward;
+  ``models.attention.attention`` (``cfg.attn_impl``, ``cfg.attn_chunk``;
+  "pallas" is the flash kernel K5). With ``cfg.remat`` (and autograd
+  recording) each block runs under ``torch.utils.checkpoint``, as the JAX
+  package wraps its scan body in ``jax.checkpoint``: only block inputs are
+  kept for the backward;
+- dense KV cache (``init_cache``; the static engine): ``forward`` with
+  the cache runs the dense path and writes the prompt's K/V at
+  ``[0, S)``; ``decode_step`` writes one token's K/V at ``pos`` and
+  attends through ``models.attention.decode_attention``. Written in
+  place, like the pools below;
 - paged (``forward`` with page pools and a ``page_table``, and
   ``decode_step``): the K/V write into the page pools, then paged
   attention through ``repro_torch.kernels.ops``. The pools are written
@@ -19,8 +26,8 @@ the attention:
 
 Parameters are the JAX package's tree: block leaves are stacked
 ``(nb, ...)`` and applied one block at a time in a Python loop (the JAX
-package scans them). The dense KV cache of the static engine is not
-ported yet (ROADMAP queue 1 item 4).
+package scans them). The ring-buffered cache of local layers
+(``cfg.local_ring_kv``) is not ported (ROADMAP queue 1 item 4).
 """
 from __future__ import annotations
 
@@ -31,7 +38,8 @@ import torch.utils.checkpoint
 
 from repro_torch.config import ATTN, LOCAL, MLP, ModelConfig
 from repro_torch.kernels.ops import paged_decode, paged_prefill
-from repro_torch.models.attention import attention
+from repro_torch.models.attention import (attention, decode_attention,
+                                          standard_positions)
 from repro_torch.models.layers import rmsnorm, rope, softcap, swiglu
 
 # sampling.paged_cache.SCRATCH_PAGE (not imported: sampling imports this
@@ -85,23 +93,42 @@ def _kv_write_index(positions: torch.Tensor, page_table: torch.Tensor,
 
 def _self_attn(cfg: ModelConfig, p: Dict, x: torch.Tensor, *, kind: str,
                positions: torch.Tensor, paged: Optional[Tuple],
-               decode: bool) -> torch.Tensor:
-    """Self-attention sub-layer (input already normed). ``paged`` is None
-    for the dense full-sequence path, else (kp, vp, page_table, widx):
-    this chunk's K/V are written into the pools in place, then attended
-    through the decode kernel (``decode_step``) or the prefill kernel
-    (``forward``, whatever the chunk length: a one-token chunk is still
-    prefill)."""
+               decode: bool, dense: Optional[Tuple] = None,
+               contiguous: Optional[bool] = None) -> torch.Tensor:
+    """Self-attention sub-layer (input already normed).
+
+    ``paged`` is None for the dense paths, else (kp, vp, page_table,
+    widx): this chunk's K/V are written into the pools in place, then
+    attended through the decode kernel (``decode_step``) or the prefill
+    kernel (``forward``, whatever the chunk length: a one-token chunk is
+    still prefill). ``dense`` is None without a cache, else (k_cache,
+    v_cache, pos) of this layer: a prefill (``pos`` None) writes K/V at
+    [0, S) and attends as without a cache; a decode step writes at ``pos``
+    and attends the cache. ``contiguous`` says whether ``positions`` is
+    ``arange(S)`` (``attention``'s argument)."""
     b, sq = x.shape[0], x.shape[1]
     q, k, v = _project_qkv(cfg, p, x)
     q = rope(q, positions, cfg.rope_theta)
     k = rope(k, positions, cfg.rope_theta)
     mask_kind = "local" if kind == LOCAL else "causal"
     if paged is None:
+        if dense is not None and decode:
+            kc, vc, pos = dense
+            kc[:, pos] = k[:, 0].to(kc.dtype)
+            vc[:, pos] = v[:, 0].to(vc.dtype)
+            o = decode_attention(
+                q, kc, vc, pos=pos, kind=mask_kind,
+                window=cfg.sliding_window, softcap=cfg.attn_softcap,
+                length=pos + 1 if isinstance(pos, int) else None)
+            return o.reshape(b, sq, -1) @ p["wo"]
+        if dense is not None:                             # prefill fills it
+            kc, vc, _ = dense
+            kc[:, :sq] = k.to(kc.dtype)
+            vc[:, :sq] = v.to(vc.dtype)
         o = attention(q, k, v, pos_q=positions, pos_k=positions,
                       kind=mask_kind, window=cfg.sliding_window,
                       softcap=cfg.attn_softcap, impl=cfg.attn_impl,
-                      chunk=cfg.attn_chunk)
+                      chunk=cfg.attn_chunk, contiguous=contiguous)
         return o.reshape(b, sq, -1) @ p["wo"]
     kp, vp, page_table, (phys, off) = paged
     kp[phys, off] = k.reshape((b * sq,) + k.shape[2:]).to(kp.dtype)
@@ -119,43 +146,70 @@ def _self_attn(cfg: ModelConfig, p: Dict, x: torch.Tensor, *, kind: str,
 
 def _apply_layer(cfg: ModelConfig, kind: str, ffn_kind: str, p: Dict,
                  x: torch.Tensor, *, positions, paged: Optional[Tuple],
-                 decode: bool) -> torch.Tensor:
+                 decode: bool, dense: Optional[Tuple] = None,
+                 contiguous: Optional[bool] = None) -> torch.Tensor:
     if kind not in (ATTN, LOCAL) or ffn_kind != MLP:
         raise NotImplementedError(
             f"layer ({kind!r}, {ffn_kind!r}) is not ported yet")
     h = rmsnorm(x, p["norm"], cfg.norm_eps)
     x = x + _self_attn(cfg, p["attn"], h, kind=kind, positions=positions,
-                       paged=paged, decode=decode)
+                       paged=paged, decode=decode, dense=dense,
+                       contiguous=contiguous)
     return x + swiglu(rmsnorm(x, p["ffn_norm"], cfg.norm_eps), p["mlp"])
 
 
-def _is_paged(cfg: ModelConfig, cache: Optional[Dict]) -> bool:
+def _has_leaves(cfg: ModelConfig, cache: Optional[Dict], names) -> bool:
     if not isinstance(cache, dict):
         return False
     for i in range(cfg.period):
         lc = cache.get(f"layer_{i}", {}).get("self")
-        if not isinstance(lc, dict) or "kp" not in lc or "vp" not in lc:
+        if not isinstance(lc, dict) or any(n not in lc for n in names):
             return False
     return True
 
 
+def _is_paged(cfg: ModelConfig, cache: Optional[Dict]) -> bool:
+    return _has_leaves(cfg, cache, ("kp", "vp"))
+
+
+_CACHE_KINDS = ("a cache is the page pools of "
+                "repro_torch.sampling.paged_cache (with a page_table) or the "
+                "dense KV cache of init_cache (without one)")
+
+
 def _run_dense(cfg: ModelConfig, params: Dict, x: torch.Tensor, *,
-               positions: torch.Tensor) -> torch.Tensor:
-    """Full-sequence layers, one checkpointed block at a time under
-    ``cfg.remat`` while autograd records (``jax.checkpoint(body)``)."""
-    def block(x: torch.Tensor, bp: Dict) -> torch.Tensor:
+               positions: torch.Tensor, contiguous: Optional[bool],
+               cache: Optional[Dict] = None,
+               pos: Union[None, int, torch.Tensor] = None) -> torch.Tensor:
+    """Full-sequence layers (``pos`` None) or one decode step at ``pos``
+    over a dense ``cache``. Without a cache, one checkpointed block at a
+    time under ``cfg.remat`` while autograd records
+    (``jax.checkpoint(body)``)."""
+    if cache is not None and not _has_leaves(cfg, cache, ("k", "v")):
+        raise ValueError(_CACHE_KINDS)
+    if cache is not None and cfg.local_ring_kv and LOCAL in cfg.block_pattern:
+        raise NotImplementedError(_RING_TODO)
+    decode = pos is not None
+
+    def block(x: torch.Tensor, bp: Dict, bc) -> torch.Tensor:
         for i, kind in enumerate(cfg.block_pattern):
             x = _apply_layer(cfg, kind, cfg.ffn_kind(i), bp[f"layer_{i}"], x,
-                             positions=positions, paged=None, decode=False)
+                             positions=positions, paged=None, decode=decode,
+                             dense=None if bc is None else bc[i] + (pos,),
+                             contiguous=contiguous)
         return x
 
-    remat = cfg.remat and torch.is_grad_enabled()
-    for bp in _unstack(params["blocks"], cfg.num_blocks):
+    remat = cfg.remat and torch.is_grad_enabled() and cache is None
+    kv = None if cache is None else [
+        (cache[f"layer_{i}"]["self"]["k"], cache[f"layer_{i}"]["self"]["v"])
+        for i in range(cfg.period)]
+    for bi, bp in enumerate(_unstack(params["blocks"], cfg.num_blocks)):
+        bc = None if kv is None else [(k[bi], v[bi]) for k, v in kv]
         if remat:
-            x = torch.utils.checkpoint.checkpoint(block, x, bp,
+            x = torch.utils.checkpoint.checkpoint(block, x, bp, bc,
                                                   use_reentrant=False)
         else:
-            x = block(x, bp)
+            x = block(x, bp, bc)
     return x
 
 
@@ -164,11 +218,7 @@ def _run_paged(cfg: ModelConfig, params: Dict, x: torch.Tensor, *,
                page_table: Optional[torch.Tensor],
                decode: bool) -> torch.Tensor:
     if not _is_paged(cfg, cache) or page_table is None:
-        raise NotImplementedError(
-            "a forward with a cache runs over a paged KV cache (pools from "
-            "repro_torch.sampling.paged_cache plus a page_table); the dense "
-            "KV cache of the static engine is not ported yet (ROADMAP queue "
-            "1 item 4)")
+        raise ValueError(_CACHE_KINDS)
     page_size = cache["layer_0"]["self"]["kp"].shape[2]
     widx = _kv_write_index(positions, page_table, page_size)
     blocks = _unstack(params["blocks"], cfg.num_blocks)
@@ -196,8 +246,14 @@ def _logits(cfg: ModelConfig, params: Dict, x: torch.Tensor) -> torch.Tensor:
     x = rmsnorm(x, params["final_norm"], cfg.norm_eps)
     head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
     logits = (x @ head).float()
-    if cfg.final_softcap is not None:
+    if cfg.final_softcap is not None and torch.is_grad_enabled():
         logits = softcap(logits, cfg.final_softcap)
+    elif cfg.final_softcap is not None:
+        # the same ops in place on the fresh (B, S, V) float32 logits: no
+        # three more of them alive at once (a Gemma2-9B forward at 8192
+        # tokens holds 8.4 GB of logits)
+        cap = cfg.final_softcap
+        logits = logits.div_(cap).tanh_().mul_(cap)
     return logits
 
 
@@ -207,16 +263,22 @@ def forward(cfg: ModelConfig, params: Dict, tokens: torch.Tensor, *,
             page_table: Optional[torch.Tensor] = None,
             ) -> Tuple[torch.Tensor, Optional[Dict], Dict]:
     """Full-sequence forward. tokens (B, S) at ``positions`` (B, S)
-    (default ``arange(S)``). With ``cache=None`` the dense path (training,
-    teacher forcing); with page pools and ``page_table`` a chunked prefill
-    whose K/V are written into ``cache`` in place. Returns (logits
-    (B, S, V_padded) f32, cache, {})."""
+    (default ``arange(S)``). Without ``page_table`` the dense path
+    (training, teacher forcing), which with a dense ``cache`` from
+    ``init_cache`` also writes the K/V of positions [0, S) into it (the
+    static engine's prefill); with page pools and ``page_table`` a chunked
+    prefill whose K/V are written into the pools. Caches are written in
+    place. Returns (logits (B, S, V_padded) f32, cache, {})."""
     b, s = tokens.shape
+    contiguous = positions is None
     if positions is None:
         positions = torch.arange(s, device=tokens.device).expand(b, s)
+    elif cfg.attn_impl == "pallas" and page_table is None:
+        contiguous = standard_positions(positions)   # once, not per layer
     x = _embed(cfg, params, tokens)
-    if cache is None and page_table is None:
-        x = _run_dense(cfg, params, x, positions=positions)
+    if page_table is None and not _is_paged(cfg, cache):
+        x = _run_dense(cfg, params, x, positions=positions,
+                       contiguous=contiguous, cache=cache)
     else:
         x = _run_paged(cfg, params, x, positions=positions, cache=cache,
                        page_table=page_table, decode=False)
@@ -225,17 +287,58 @@ def forward(cfg: ModelConfig, params: Dict, tokens: torch.Tensor, *,
 
 def decode_step(cfg: ModelConfig, params: Dict, cache: Dict,
                 token: torch.Tensor, pos: Union[int, torch.Tensor], *,
-                page_table: torch.Tensor) -> Tuple[torch.Tensor, Dict]:
-    """One decode step over a paged cache. token (B,); pos a scalar or a
-    (B,) vector of write positions. Returns (logits (B, V_padded) f32,
-    cache)."""
+                page_table: Optional[torch.Tensor] = None
+                ) -> Tuple[torch.Tensor, Dict]:
+    """One decode step. token (B,). Over a paged cache (with
+    ``page_table``) ``pos`` is a scalar or a (B,) vector of write
+    positions; over a dense cache it is one position shared by the batch
+    (an int or a 0-d tensor), as the dense layout has one write column.
+    Returns (logits (B, V_padded) f32, cache)."""
     b = token.shape[0]
+    x = _embed(cfg, params, token[:, None])
+    if page_table is None and not _is_paged(cfg, cache):
+        if isinstance(pos, int):
+            positions = torch.full((b, 1), pos, dtype=torch.int64,
+                                   device=token.device)
+        elif pos.dim() == 0:
+            positions = pos.to(torch.int64).expand(b)[:, None]
+        else:
+            raise ValueError(f"a dense cache decodes at one position shared "
+                             f"by the batch, got pos of shape "
+                             f"{tuple(pos.shape)}")
+        x = _run_dense(cfg, params, x, positions=positions, contiguous=None,
+                       cache=cache, pos=pos)
+        return _logits(cfg, params, x)[:, 0], cache
     pos = torch.as_tensor(pos, device=token.device)
     if pos.dim() == 0:
         positions = pos.to(torch.int64).expand(b)[:, None]
     else:
         positions = pos.to(torch.int64)[:, None]
-    x = _embed(cfg, params, token[:, None])
     x = _run_paged(cfg, params, x, positions=positions, cache=cache,
                    page_table=page_table, decode=True)
     return _logits(cfg, params, x)[:, 0], cache
+
+
+_RING_TODO = ("cfg.local_ring_kv: the ring-buffered KV cache of local "
+              "layers (ring_decode_attention, fill_ring) is not ported yet: "
+              "ROADMAP queue 1 item 4")
+
+
+def init_cache(cfg: ModelConfig, params: Dict, batch: int,
+               max_len: int) -> Dict:
+    """The dense decode cache, zeros on the params' device in the JAX
+    layout: ``cache["layer_i"]["self"]["k" | "v"]`` stacked on the block
+    axis, (nb, batch, max_len, Hkv, D), in ``cfg.dtype``."""
+    if cfg.local_ring_kv and LOCAL in cfg.block_pattern:
+        raise NotImplementedError(_RING_TODO)
+    dt = getattr(torch, cfg.dtype)
+    dev = params["embed"].device
+    shape = (cfg.num_blocks, batch, max_len, cfg.num_kv_heads, cfg.head_dim)
+    cache: Dict[str, Any] = {}
+    for i, kind in enumerate(cfg.block_pattern):
+        if kind not in (ATTN, LOCAL):
+            raise NotImplementedError(
+                f"layer kind {kind!r} is not ported yet")
+        cache[f"layer_{i}"] = {"self": {
+            n: torch.zeros(shape, dtype=dt, device=dev) for n in ("k", "v")}}
+    return cache

@@ -2,7 +2,8 @@ from repro_torch.sampling.continuous import (ContinuousEngine,
                                              clamp_prefill_chunk,
                                              generate_continuous,
                                              rollout_from_results)
-from repro_torch.sampling.engine import build_engine, token_logps
+from repro_torch.sampling.engine import (StaticEngine, build_engine,
+                                         generate, token_logps)
 from repro_torch.sampling.paged_cache import (SCRATCH_PAGE, PageAllocator,
                                               init_paged_pool,
                                               new_block_table,
@@ -15,7 +16,8 @@ from repro_torch.sampling.scheduler import (DECODE, PREFILL,
                                             ContinuousScheduler, GenRequest)
 
 __all__ = ["ContinuousEngine", "clamp_prefill_chunk", "generate_continuous",
-           "rollout_from_results", "build_engine", "token_logps",
+           "rollout_from_results", "StaticEngine", "build_engine",
+           "generate", "token_logps",
            "SCRATCH_PAGE", "PageAllocator", "init_paged_pool",
            "new_block_table", "paged_cache_supported", "pages_for",
            "PrefixCache", "filter_logits", "mask_vocab", "model_logp",

@@ -1,39 +1,174 @@
-"""Engine construction from a ``ServeConfig``, and the teacher-forced
-log-prob recompute.
+"""Generation engines (the sampler node's workhorse), engine construction
+from a ``ServeConfig``, and the teacher-forced log-prob recompute.
 
-The port so far has one engine, the continuous-batching engine over the
-paged KV cache. The static engine of ``repro/sampling/engine.py`` is a
-later slice, so a static ``ServeConfig`` raises here. ``token_logps`` is
-the App. B.1 untrusted-sampler recompute of that module.
+The port of ``repro/sampling/engine.py``. Two engines share one
+request-level contract (``repro_torch.serving.api``):
+
+- **static** (:class:`StaticEngine`): one prefill of the whole batch over a
+  dense KV cache (through the flash kernel K5 under ``attn_impl=
+  "pallas"``), then a decode loop to the batch's largest token budget.
+  Every sequence runs every step, even after EOS (finished rows decode
+  PAD). The JAX package scans the loop in one executable; here it is a
+  Python loop of eager steps with no host sync until the batch ends.
+- **continuous** (:class:`repro_torch.sampling.continuous.ContinuousEngine`):
+  a slot pool over a paged KV cache.
+
+Draw ``t`` of request ``rid`` is the port's hashed Gumbel-max
+(``sample.sample_token_rows`` with ``gens = t``), keyed per request and
+never per batch row, so a request draws the same tokens whichever engine
+serves it. It does not reproduce the JAX package's threefry bits
+(ROADMAP queue 1 item 4): stochastic draws match the JAX package in
+distribution, a greedy profile (top_k=1) token for token.
+
+``generate(cfg, rl, params, prompts, ...)`` is the legacy batch entry
+point, a thin shim over the engines. ``token_logps`` is the App. B.1
+untrusted-sampler recompute.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Optional
+import time
+from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
 
+import numpy as np
 import torch
 
 from repro_torch.config import ModelConfig, RLConfig, ServeConfig
+from repro_torch.data.tasks import EOS, PAD
 from repro_torch.kernels.ops import fused_token_logprob
-from repro_torch.models.model import forward
-from repro_torch.sampling.continuous import ContinuousEngine
+from repro_torch.models.model import decode_step, forward, init_cache
+from repro_torch.sampling.continuous import (ContinuousEngine,
+                                             generate_continuous)
 from repro_torch.sampling.paged_cache import paged_cache_supported
+from repro_torch.sampling.sample import (mask_vocab, model_logp,
+                                         sample_token_rows)
+from repro_torch.serving.api import GenerationResult, Request
+
+# --------------------------------------------------------------------------
+# static engine: one prefill, then a decode loop to max_new
+
+
+@torch.no_grad()
+def _generate_static(cfg: ModelConfig, rl: RLConfig, params: Dict[str, Any],
+                     prompts: torch.Tensor, seed: int, max_new: int,
+                     vocab_limit: int, rids: Optional[torch.Tensor] = None
+                     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """prompts (B, Tp) on the params' device -> (completions (B, max_new),
+    sampler_lp (B, max_new) float32, comp_mask (B, max_new) float32).
+    ``rids`` (default the batch rows) key the draws."""
+    b, tp = prompts.shape
+    cache = init_cache(cfg, params, b, tp + max_new)
+    logits, cache, _ = forward(cfg, params, prompts, cache=cache)
+    last = logits[:, -1]
+    del logits
+    if rids is None:
+        rids = torch.arange(b, device=prompts.device)
+    done = torch.zeros((b,), dtype=torch.bool, device=prompts.device)
+    toks, lps, valid = [], [], []
+    for t in range(max_new):
+        lg = mask_vocab(last, vocab_limit)
+        tok = sample_token_rows(seed, rids, torch.full_like(rids, t), lg,
+                                temperature=rl.temperature, top_k=rl.top_k,
+                                top_p=rl.top_p)
+        tok = torch.where(done, PAD, tok)
+        valid.append(~done)
+        lps.append(torch.where(done, 0.0, model_logp(last, tok)))
+        toks.append(tok)
+        if t + 1 < max_new:        # the last step's logits are never read
+            last, cache = decode_step(cfg, params, cache, tok, tp + t)
+        done = done | (tok == EOS)
+    return (torch.stack(toks, 1), torch.stack(lps, 1),
+            torch.stack(valid, 1).float())
+
+
+class StaticEngine:
+    """Request-level wrapper over the static path.
+
+    The batch is rectangular, so it must share one prompt length (use the
+    continuous engine for ragged or streaming workloads);
+    ``max_new_tokens`` may vary per request: the loop runs to the batch
+    max and each request is trimmed on the host, which is exact because
+    draw ``t`` of request ``rid`` never depends on the loop's length.
+    Runs on the device its params live on.
+    """
+
+    def __init__(self, cfg: ModelConfig, params: Dict[str, Any], *,
+                 rl: RLConfig, vocab_limit: Optional[int] = None,
+                 seed: int = 0) -> None:
+        self.cfg, self.rl, self.params = cfg, rl, params
+        self.device = params["embed"].device
+        self.vocab_limit = vocab_limit or cfg.padded_vocab
+        self.seed = seed
+
+    @property
+    def profile(self) -> tuple:
+        return (self.rl.temperature, self.rl.top_k, self.rl.top_p)
+
+    def update_params(self, params: Any) -> None:
+        self.params = params
+
+    def generate(self, requests: Sequence[Request],
+                 seed: Optional[int] = None) -> List[GenerationResult]:
+        if seed is not None:
+            self.seed = seed
+        for req in requests:
+            if req.params.profile != self.profile:
+                raise ValueError(
+                    f"request {req.rid}: sampling profile "
+                    f"{req.params.profile} != engine profile {self.profile}")
+        plens = {r.prompt_len for r in requests}
+        if len(plens) > 1:
+            raise ValueError(
+                "static engine scans a rectangular batch: got prompt "
+                f"lengths {sorted(plens)} — pad, or use the continuous "
+                "engine for ragged prompts")
+        t0 = time.perf_counter()
+        prompts = torch.from_numpy(np.stack(
+            [np.asarray(r.prompt, np.int64) for r in requests])).to(
+                self.device)
+        rids = torch.tensor([r.rid for r in requests], device=self.device)
+        max_new = max(r.params.max_new_tokens for r in requests)
+        completions, sampler_lp, comp_mask = _generate_static(
+            self.cfg, self.rl, self.params, prompts, self.seed, max_new,
+            self.vocab_limit, rids)
+        # the one host sync: the batch ends here by design
+        comp_np = completions.cpu().numpy()
+        lp_np = sampler_lp.cpu().numpy()
+        mask_np = comp_mask.cpu().numpy()
+        elapsed = time.perf_counter() - t0
+        out: List[GenerationResult] = []
+        for i, req in enumerate(requests):
+            budget = req.params.max_new_tokens
+            n = int(mask_np[i, :budget].sum())
+            toks = comp_np[i, :n]
+            reason = "eos" if n and toks[-1] == EOS else "length"
+            out.append(GenerationResult(
+                rid=req.rid, tokens=toks.astype(np.int32),
+                logps=lp_np[i, :n].astype(np.float32),
+                finish_reason=reason, prompt_len=req.prompt_len,
+                ttft_s=elapsed, latency_s=elapsed))
+        return out
+
+
+# --------------------------------------------------------------------------
+# factory
 
 
 def build_engine(cfg: ModelConfig, params: Dict[str, Any],
                  serve: ServeConfig, *, rl: Optional[RLConfig] = None,
                  vocab_limit: Optional[int] = None,
-                 seed: Optional[int] = None) -> ContinuousEngine:
-    """The continuous engine a ``ServeConfig`` describes, on the device
-    ``params`` live on. ``rl`` carries the sampling profile every request
-    must match; ``seed`` (default ``serve.seed``) keys the token draws."""
+                 seed: Optional[int] = None
+                 ) -> Union[StaticEngine, ContinuousEngine]:
+    """The engine a ``ServeConfig`` describes, on the device ``params``
+    live on. ``rl`` carries the sampling profile every request must
+    match; ``seed`` (default ``serve.seed``) keys the token draws."""
     rl = rl or RLConfig(engine=serve.engine)
-    if serve.engine != "continuous":
-        raise NotImplementedError(
-            "the static engine is not ported yet: ROADMAP queue 1 'Static "
-            "engine and the bit-exact threefry'")
+    seed = serve.seed if seed is None else seed
     if serve.paged_attn_impl:
         cfg = dataclasses.replace(cfg, paged_attn_impl=serve.paged_attn_impl)
+    if serve.engine == "static":
+        return StaticEngine(cfg, params, rl=rl, vocab_limit=vocab_limit,
+                            seed=seed)
     if not paged_cache_supported(cfg):
         raise ValueError(f"{cfg.name}: the continuous engine serves "
                          "attention-only decoders")
@@ -45,8 +180,52 @@ def build_engine(cfg: ModelConfig, params: Dict[str, Any],
         num_pages=serve.resolved_num_pages, vocab_limit=vocab_limit,
         prefix_cache=serve.prefix_cache,
         prefix_cache_entries=serve.prefix_cache_entries,
-        spec_k=serve.spec_k,
-        seed=serve.seed if seed is None else seed)
+        spec_k=serve.spec_k, seed=seed)
+
+
+# --------------------------------------------------------------------------
+# legacy batch entry point
+
+
+def generate(cfg: ModelConfig, rl: RLConfig, params: Dict[str, Any],
+             prompts: Union[np.ndarray, torch.Tensor], seed: int = 0, *,
+             max_new: Optional[int] = None,
+             vocab_limit: Optional[int] = None,
+             engine: Optional[str] = None,
+             **continuous_kwargs) -> Dict[str, Any]:
+    """Batched generation over ``prompts`` (B, Tp). Returns the rollout
+    dict, tensors on the params' device: tokens (B, Tp + max_new),
+    completions (B, max_new), sampler_lp (B, max_new) engine-side logps,
+    comp_mask (B, max_new), and prompt_len.
+
+    The pre-request-API surface, kept as a thin shim for the training
+    loop; new code builds an engine once and feeds it ``Request``s.
+    ``engine`` (default ``rl.engine``) picks the static path or the
+    continuous slot pool (which takes ``continuous_kwargs``). ``seed``
+    keys the draws (the JAX package takes a PRNG key); row ``i`` is
+    request ``i``."""
+    engine = engine or rl.engine
+    if engine not in ("static", "continuous"):
+        raise ValueError(f"unknown engine {engine!r}")
+    if engine == "static" and continuous_kwargs:
+        # don't silently ignore num_slots=... etc. on the static path
+        raise TypeError("static engine takes no continuous-engine kwargs: "
+                        f"{sorted(continuous_kwargs)}")
+    max_new = max_new or rl.max_new_tokens
+    vocab_limit = vocab_limit or cfg.padded_vocab
+    if engine == "continuous":
+        return generate_continuous(cfg, rl, params, prompts, seed,
+                                   max_new=max_new, vocab_limit=vocab_limit,
+                                   **continuous_kwargs)
+    dev = params["embed"].device
+    prompts = torch.as_tensor(prompts).to(dev, torch.int64)
+    completions, sampler_lp, comp_mask = _generate_static(
+        cfg, rl, params, prompts, seed, max_new, vocab_limit)
+    return {"tokens": torch.cat([prompts.to(torch.int32),
+                                 completions.to(torch.int32)], 1),
+            "completions": completions.to(torch.int32),
+            "sampler_lp": sampler_lp, "comp_mask": comp_mask,
+            "prompt_len": prompts.shape[1]}
 
 
 @torch.no_grad()
@@ -55,10 +234,11 @@ def token_logps(cfg: ModelConfig, params: Dict[str, Any],
                 logprob_impl: Optional[str] = None) -> torch.Tensor:
     """Teacher-forced log p(tokens[t] | tokens[<t]) -> (B, T-1) float32.
 
-    The App. B.1 untrusted-sampler recompute: one dense forward, then the
-    same streaming log-prob path as the learner's loss (the K1 kernel on
-    the card) instead of a (B*T, V) log-softmax. ``logprob_impl`` takes
-    the ``TrainConfig.logprob_impl`` vocabulary; None or "fused"
+    The App. B.1 untrusted-sampler recompute: one dense forward (through
+    K5 under ``cfg.attn_impl == "pallas"``), then the same streaming
+    log-prob path as the learner's loss (the K1 kernel on the card)
+    instead of a (B*T, V) log-softmax. ``logprob_impl`` takes the
+    ``TrainConfig.logprob_impl`` vocabulary; None or "fused"
     auto-dispatches."""
     logits, _, _ = forward(cfg, params, tokens[:, :-1])
     impl = None if logprob_impl == "fused" else logprob_impl

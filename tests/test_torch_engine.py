@@ -29,7 +29,7 @@ from repro.serving.api import SamplingParams as JSamplingParams
 from repro_torch import configs as tconfigs
 from repro_torch.config import RLConfig, ServeConfig
 from repro_torch.models import init_params, params_from_numpy
-from repro_torch.sampling import build_engine, filter_logits
+from repro_torch.sampling import StaticEngine, build_engine, filter_logits
 from repro_torch.sampling.sample import gumbel_noise, sample_token_rows
 from repro_torch.serving.api import Request, SamplingParams
 
@@ -149,8 +149,8 @@ def test_engine_contracts():
     tp = init_params(tcfg, 0, device="cpu")
     with pytest.raises(NotImplementedError, match="speculative"):
         build_engine(tcfg, tp, ServeConfig(spec_k=2))
-    with pytest.raises(NotImplementedError, match="static"):
-        build_engine(tcfg, tp, ServeConfig(engine="static"))
+    assert isinstance(build_engine(tcfg, tp, ServeConfig(engine="static")),
+                      StaticEngine)
     eng = build_engine(tcfg, tp, ServeConfig(**_serve()),
                        rl=RLConfig(**GREEDY))
     with pytest.raises(ValueError, match="profile"):

@@ -16,6 +16,11 @@ rtol * scale with scale = |g_lp| (onehot + p) + |g_ent| p |x - mu|, the
 sum of the magnitudes of the formula's terms; rtol 1e-5 for float32 (a
 few float32 ulps of the scale), 2^-7 + 1e-5 for bfloat16 (one bfloat16
 ulp of |dlogits| <= scale on top).
+
+Tolerances, dense flash attention (K5), against its float32 twin on the
+same inputs: the JAX package's own (``tests/test_kernels.py``), 2e-5 abs
+for float32 (summation order only), 2e-2 abs for bfloat16 (one rounding
+of the output to bf16).
 """
 import dataclasses
 
@@ -25,12 +30,13 @@ import torch
 
 from repro_torch.config import RLConfig, ServeConfig, TrainConfig
 from repro_torch.configs import smoke
+from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import fused_logprob as fl
 from repro_torch.kernels import ops
 from repro_torch.kernels import paged_attention as pa
 from repro_torch.models import init_params
 from repro_torch.optim import tree_leaves
-from repro_torch.sampling import build_engine
+from repro_torch.sampling import StaticEngine, build_engine
 from repro_torch.serving.api import Request, SamplingParams
 from repro_torch.training import init_state, train_step
 
@@ -368,3 +374,102 @@ def test_tiny_train_step_fused_matches_chunked_on_card(cuda):
     for a, b in zip(tree_leaves(out["fused"][0].params),
                     tree_leaves(out["chunked"][0].params)):
         torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-5)
+
+
+# --------------------------------------------------------------------------
+# K5: dense flash attention forward
+
+TOL_FLASH = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+
+
+def _flash_inputs(dev, dtype, *, b=2, s=160, hkv=2, rep=2, d=128, seed=0):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    return [torch.randn((b, s, h, d), generator=gen, device=dev).to(dtype)
+            for h in (hkv * rep, hkv, hkv)]
+
+
+def _flash_check(q, k, v, **kw):
+    fa.reset_launch_counts()
+    got = fa.flash_attention(q, k, v, **kw)
+    want = fa.flash_attention_ref(q.float(), k.float(), v.float(), **kw)
+    torch.cuda.synchronize()
+    assert fa.LAUNCHES["flash_attention"] == 1
+    assert got.dtype == q.dtype and got.shape == q.shape
+    torch.testing.assert_close(got.float(), want, rtol=0,
+                               atol=TOL_FLASH[q.dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [64, 128, 256])
+@pytest.mark.parametrize("rep", [1, 2])
+def test_flash_kernel_matches_twin(cuda, dtype, d, rep):
+    q, k, v = _flash_inputs(cuda, dtype, rep=rep, d=d, seed=d + rep)
+    _flash_check(q, k, v, causal=True)
+
+
+@pytest.mark.parametrize("s", [37, 160, 1023])
+@pytest.mark.parametrize("mask", ["causal", "window", "softcap", "bidir"])
+def test_flash_kernel_masks_and_ragged_lengths(cuda, s, mask):
+    """Every mask at ragged lengths (partial last q and kv tiles); the
+    window (50) cuts tiles of 64 keys mid-tile."""
+    kw = {"causal": dict(causal=True),
+          "window": dict(causal=True, window=50),
+          "softcap": dict(causal=True, softcap=30.0),
+          "bidir": dict(causal=False)}[mask]
+    q, k, v = _flash_inputs(cuda, torch.float32, s=s, seed=s)
+    _flash_check(q, k, v, **kw)
+
+
+def test_flash_kernel_is_deterministic(cuda):
+    q, k, v = _flash_inputs(cuda, torch.bfloat16, b=1, s=1023, hkv=2,
+                            rep=2, d=256)
+    kw = dict(causal=True, window=300, softcap=50.0)
+    first = fa.flash_attention(q, k, v, **kw)
+    for _ in range(50):
+        again = fa.flash_attention(q, k, v, **kw)
+        assert torch.equal(again.view(torch.int16), first.view(torch.int16))
+
+
+def test_flash_wrapper_rejects_what_the_kernel_does_not_take(cuda):
+    q, k, v = _flash_inputs(cuda, torch.float32, d=128)
+    fa.reset_launch_counts()
+    with pytest.raises(TypeError):
+        fa.flash_attention(q.half(), k, v)
+    with pytest.raises(ValueError, match="head_dim"):
+        fa.flash_attention(*(t[..., :96].contiguous() for t in (q, k, v)))
+    with pytest.raises(ValueError, match="on"):
+        fa.flash_attention(q, k.cpu(), v)
+    with pytest.raises(ValueError, match="CUDA"):
+        fa.flash_attention(q.cpu(), k.cpu(), v.cpu())
+    with pytest.raises(ValueError, match="Hq % Hkv"):
+        fa.flash_attention(q[:, :, :3].contiguous(), k, v)
+    assert fa.LAUNCHES["flash_attention"] == 0
+    qg = q.clone().requires_grad_()
+    out = ops.flash_attention(qg, k, v)      # the kernel, recorded
+    assert fa.LAUNCHES["flash_attention"] == 1
+    with pytest.raises(RuntimeError, match="forward-only"):
+        out.sum().backward()
+
+
+@pytest.mark.parametrize("arch", ["qwen3-1.7b", "gemma2-9b"])
+def test_static_engine_pallas_matches_chunked_on_card(cuda, arch):
+    """The smoke model (float32) through the static engine with its
+    prefill on K5 and on the plain chunked attention: same greedy tokens,
+    logps within 1e-4; K5 launches once per layer for the prefill."""
+    greedy = dict(temperature=1.0, top_k=1, top_p=1.0)
+    prompts = np.random.default_rng(0).integers(
+        3, smoke(arch).vocab_size, (3, 100)).astype(np.int32)
+    out = {}
+    for impl in ("pallas", "chunked"):
+        cfg = smoke(arch, attn_impl=impl)
+        params = init_params(cfg, 0, device=cuda)
+        fa.reset_launch_counts()
+        res = StaticEngine(cfg, params, rl=RLConfig(**greedy)).generate(
+            [Request(rid=i, prompt=p, params=SamplingParams(
+                max_new_tokens=12, **greedy)) for i, p in enumerate(prompts)])
+        assert fa.LAUNCHES["flash_attention"] == \
+            (cfg.num_layers if impl == "pallas" else 0)
+        out[impl] = res
+    for a, b in zip(out["pallas"], out["chunked"]):
+        np.testing.assert_array_equal(a.tokens, b.tokens)
+        np.testing.assert_allclose(a.logps, b.logps, atol=1e-4, rtol=0)

@@ -28,7 +28,8 @@ from repro.models.params import param_templates as jtemplates
 from repro.sampling.paged_cache import init_paged_pool as jinit_pool
 from repro_torch import configs as tconfigs
 from repro_torch.config import ModelConfig as TModelConfig
-from repro_torch.models import decode_step, forward, init_params
+from repro_torch.models import (decode_step, forward, init_cache,
+                                init_params)
 from repro_torch.models import layers as tlayers
 from repro_torch.models import param_templates, params_from_numpy
 from repro_torch.models import model as model_mod
@@ -237,16 +238,17 @@ class TestPagedModel:
             assert torch.equal(new.view(torch.int32), old.view(torch.int32))
 
     def test_forward_without_paged_cache_raises(self):
-        """A cache that is not page pools (the static engine's dense KV
-        cache, not ported yet) raises; cache=None is the dense path."""
+        """A cache that is neither page pools with a page_table nor the
+        dense cache of ``init_cache`` without one raises; cache=None is
+        the dense path."""
         _, tcfg = _configs("qwen3-1.7b")
         tp = init_params(tcfg, 0, device="cpu")
         toks = torch.zeros((1, 4), dtype=torch.long)
-        dense = {"layer_0": {"self": {"k": torch.zeros(1), "v": torch.zeros(1)}}}
-        with pytest.raises(NotImplementedError, match="paged"):
-            forward(tcfg, tp, toks, cache=dense)
-        with pytest.raises(NotImplementedError, match="paged"):
-            decode_step(tcfg, tp, dense, toks[:, 0], 0,
+        bad = {"layer_0": {"self": {"x": torch.zeros(1)}}}
+        with pytest.raises(ValueError, match="paged"):
+            forward(tcfg, tp, toks, cache=bad)
+        with pytest.raises(ValueError, match="paged"):
+            decode_step(tcfg, tp, init_cache(tcfg, tp, 1, 8), toks[:, 0], 0,
                         page_table=torch.zeros((1, 1), dtype=torch.int32))
         logits, cache, _ = forward(tcfg, tp, toks)
         assert cache is None and logits.shape == (1, 4, tcfg.padded_vocab)
