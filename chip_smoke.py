@@ -25,6 +25,12 @@ never jax, never the JAX package. Phases, each fatal on failure:
    global layer (B 1, S 8192, D 256), a bidir float32 case at S 37 and a
    bf16 case at D 64, S 160, each against its twin, with controls showing
    that the check sees a dropped window or softcap, the first four timed;
+   K6 (the Mamba2 SSD chunk scan) at mamba2-1.3b's recompute shape (B 16,
+   S 1024, H 64, P 64, N 128, chunk 256) and at B 1, S 8192 in bf16, and
+   a float32 case with two B/C groups, each against its twin element by
+   element, with a control (the twin without the state carried across
+   chunks) that the check must reject, the two mamba2 cases timed (no
+   PyTorch call computes an SSD scan, so K6 has no library yardstick);
 3. engine: qwen3-1.7b at full width (28 layers, bf16, random weights from
    --seed) served through ``ContinuousEngine`` with
    ``paged_attn_impl="pallas"``: 24 requests, 4 sharing a 256-token
@@ -48,7 +54,19 @@ never jax, never the JAX package. Phases, each fatal on failure:
    logps the teacher-forced forward must reproduce; then the same weights
    in float32, K5 against the chunked attention at 1e-3 nats; the weights
    are freed;
-6. learner: one GEPO iteration on qwen3-1.7b at full width (bf16, random
+6. mamba2: mamba2-1.3b at full width (48 Mamba2 layers, bf16, random
+   weights) through ``StaticEngine`` at the learner's rollout shape (16 x
+   832 + 192 new, temperature 1.0; no kernel on that path: the prefill
+   fills a cache through the chunked SSD, decode is the recurrence), a
+   profile of its decode steps, then ``token_logps`` over the 16 x 1024
+   result through K6 (``ssd_impl="pallas"``, 48 launches) and through the
+   chunked SSD in turns, held against each other and against the
+   sampler's logps, a profile of one K6 recompute, K6 against the
+   model's chunked SSD on the inputs the recompute hands K6 in its first
+   and last layer (with a control, K6 launched chunk by chunk from a zero
+   state, that the check must reject), and again with the same weights in
+   float32 at 5e-3 nats; the weights are freed;
+7. learner: one GEPO iteration on qwen3-1.7b at full width (bf16, random
    weights from --seed): ``generate_continuous`` makes 2 prompts x group 8
    rows of 832 prompt + 192 new tokens (temperature 1.0), ``token_logps``
    recomputes the sampler log-probs (App. B.1, K1 over T 16368), the batch
@@ -89,8 +107,9 @@ from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import fused_logprob as fl  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels import paged_attention as pa  # noqa: E402
+from repro_torch.kernels import ssd_scan as ss  # noqa: E402
 from repro_torch.models import (decode_step, forward, init_cache,  # noqa: E402
-                                init_params)
+                                init_params, ssm)
 from repro_torch.optim import global_norm, tree_leaves  # noqa: E402
 from repro_torch.sampling import (build_engine, generate_continuous,  # noqa: E402
                                   init_paged_pool, rollout_from_results,
@@ -153,6 +172,29 @@ TOL_LOGP_F32 = 1e-3
 # token past the window
 TOL_LOGP_MEAN_BF16 = 0.05
 GEMMA_LEN, GEMMA_PROMPT, GEMMA_NEW = 8192, 4608, 16
+# mean over the tokens of |K6 recompute - chunked recompute| and of |K6
+# recompute - sampler| through the bf16 mamba2-1.3b model. With random
+# weights the tied, scale-1 embeddings put a token's own logit ~1500 nats
+# above the rest, where a bf16 logit moves in steps of 8: two bf16 paths
+# whose residual streams differ by a few ulps round apart on a share of
+# the tokens. Half a step is a garbage check, not a check of K6: it
+# catches non-finite or misrouted logits, which move every token by tens
+# of nats. The float32 pair (TOL_SSD_F32) and the layer check
+# (SSD_LAYERS) are the checks that see an SSD fault
+TOL_SSD_MEAN_BF16 = 4.0
+# max |K6 - chunked| through the float32 mamba2-1.3b model: only float32
+# summation order differs, but a token's own logit is ~1500 with random
+# weights, where a float32 ulp is 1.2e-4; the two orders gave 1.221e-3
+# (ten ulps) on the H100. 5e-3 is 40 ulps. With random weights the SSD is
+# a small part of each layer (the D skip term dominates), so a K6 that
+# drops the carried state moves these logps by only 3.5e-2 (max): that
+# control must exceed TOL_SSD_F32, so the check is shown to reject it; the
+# check with a wide margin is the layer check below
+TOL_SSD_F32 = 5e-3
+# layers whose SSD inputs, as the model hands them to K6 in a recompute,
+# are replayed through K6 and the model's chunked SSD (ssd_scan's
+# element-wise bound, as in the kernel phase), with the no-carry control
+SSD_LAYERS = (0, 47)
 
 
 def log(msg: str) -> None:
@@ -789,17 +831,133 @@ def flash_phase(dev, seed):
 
 
 # --------------------------------------------------------------------------
+# phase 2, K6: the Mamba2 SSD chunk scan at mamba2-1.3b's layer shapes
+
+# (label, B, S, H, P, G, N, chunk, dtype, timed)
+SSD_CASES = (
+    ("mamba2 recompute", 16, PROMPT_LEN + NEW_TOKENS, 64, 64, 1, 128, 256,
+     torch.bfloat16, True),
+    ("mamba2 long", 1, GEMMA_LEN, 64, 64, 1, 128, 256, torch.bfloat16, True),
+    ("f32 G 2", 2, 512, 8, 64, 2, 64, 128, torch.float32, False),
+)
+
+
+def ssd_inputs(gen, dev, b, s, h, p, g, n, dtype):
+    """x, b, c ~ N(0, 1) in ``dtype``; dt in [0.01, 0.1] and a in [-0.1,
+    -0.01] in float32 (dt and a as mamba_block hands them to K6): slow
+    decay, so the state carried across chunks is a large part of y."""
+    x = torch.randn((b, s, h, p), generator=gen, device=dev).to(dtype)
+    dt = 0.01 + 0.09 * torch.rand((b, s, h), generator=gen, device=dev)
+    a = -(0.01 + 0.09 * torch.rand((h,), generator=gen, device=dev))
+    bm, cm = (torch.randn((b, s, g, n), generator=gen, device=dev).to(dtype)
+              for _ in range(2))
+    return x, dt, a, bm, cm
+
+
+def ssd_twin(args, chunk):
+    x, dt, a, bm, cm = args
+    return ss.ssd_scan_ref(x.float(), dt, a, bm.float(), cm.float(),
+                           chunk=chunk)
+
+
+def ssd_flops(b, s, h, p, g, n, lc):
+    """2 pairs N per (batch, group, chunk), pairs = the L (L + 1) / 2 (t,
+    s) pairs of the causal mask: the scores C_t B_s, which the heads of a
+    B/C group share (only the decay exp(cum_t - cum_s) is per head); and
+    2 (pairs P + 2 L N P) per (batch, head, chunk): the masked scores'
+    product with u, the carried state's term and the state update."""
+    pairs = lc * (lc + 1) // 2
+    return (2 * pairs * n * b * g
+            + 2 * (pairs * p + 2 * lc * n * p) * b * h) * (s // lc)
+
+
+def ssd_phase(dev, seed):
+    """K6 against its twin at mamba2-1.3b's recompute shape (B 16, S 1024)
+    and at B 1, S 8192 in bf16, and at a float32 case with two B/C groups;
+    a control (the twin chunk by chunk, i.e. without the carried state)
+    that the check must reject; the two mamba2 cases timed beside the
+    twin and the bound."""
+    gen = torch.Generator(device=dev).manual_seed(seed + 12)
+    rows = []
+    for label, b, s, h, p, g, n, chunk, dtype, timed in SSD_CASES:
+        args = ssd_inputs(gen, dev, b, s, h, p, g, n, dtype)
+        got = ss.ssd_scan(*args, chunk=chunk)
+        want = ssd_twin(args, chunk)
+        torch.cuda.synchronize()
+        ratio = ss.error_ratio(got, want)
+        err = max_err(got, want)
+        cut = torch.cat([ssd_twin([t[:, c0:c0 + chunk] if t.dim() > 1 else t
+                                   for t in args], chunk)
+                         for c0 in range(0, s, chunk)], 1)
+        control = ss.error_ratio(cut.to(dtype), want)
+        del cut
+        splits = ss.p_splits(b * h, p, torch.cuda.get_device_properties(
+            dev).multi_processor_count)
+        log(f"[kernels] K6 ssd_scan {label} (B {b}, S {s}, H {h}, P {p}, G "
+            f"{g}, N {n}, chunk {chunk}, {str(dtype)[6:]}, {splits} P "
+            f"slice(s) per head): max|err| {err:.3e} (max|y| "
+            f"{float(want.abs().max()):.3e}), error ratio {ratio:.3e} (must "
+            f"be <= 1: |err| <= {ss.RTOL[dtype]:.3g} |y| + {ss.ATOL_REL} "
+            f"max|y|); twin without the carried state {control:.3e} (must "
+            f"be > 100)")
+        if not ratio <= 1.0:
+            raise AssertionError(f"K6 disagrees with its twin ({label})")
+        if not control > 100.0:
+            raise AssertionError(f"K6's check cannot see a dropped "
+                                 f"inter-chunk term ({label})")
+        row = dict(case=label, max_abs_err=err, error_ratio=ratio,
+                   control_ratio=control, p_slices=splits,
+                   shape=f"B={b} S={s} H={h} P={p} G={g} N={n} chunk={chunk} "
+                         f"{str(dtype)[6:]}")
+        if timed:
+            es = args[0].element_size()
+            nbytes = (2 * args[0].numel() * es + args[1].numel() * 4
+                      + args[2].numel() * 4 + 2 * args[3].numel() * es)
+            b_ms, b_by = bound(nbytes, ssd_flops(b, s, h, p, g, n,
+                                                 min(chunk, s)))
+            row.update(
+                ms=time_ms(lambda: ss.ssd_scan(*args, chunk=chunk),
+                           iters=10),
+                plain_ms=time_ms(lambda: ssd_twin(args, chunk), iters=3,
+                                 warmup=1),
+                bound_ms=b_ms, bound_by=b_by, library_ms=None)
+            log(f"[kernels] K6 {label}: {row['ms']:.4f} ms, bound "
+                f"{b_ms:.4f} ms ({b_by}), twin {row['plain_ms']:.3f} ms, "
+                f"library: none (no single PyTorch call computes an SSD "
+                f"scan)")
+        rows.append(row)
+        del args, got, want
+        torch.cuda.empty_cache()
+    head = rows[0]
+    return {"ssd_scan": dict(
+        name="ssd_scan_kernel", route="cuda",
+        source="src/repro_torch/kernels/csrc/ssd_scan.cu",
+        replaces="src/repro/kernels/ssd_scan.py:21 (_kernel; pallas_call "
+                 "at :87)",
+        max_abs_err=max(r["max_abs_err"] for r in rows
+                        if "bfloat16" in r["shape"]),
+        max_abs_err_f32=max(r["max_abs_err"] for r in rows
+                            if "float32" in r["shape"]),
+        error_ratio=max(r["error_ratio"] for r in rows),
+        tol="error ratio <= 1 (ssd_scan.error_ratio)", ms=head["ms"],
+        plain_ms=head["plain_ms"], bound_ms=head["bound_ms"],
+        bound_by=head["bound_by"], library_ms=None,
+        library="none: no single PyTorch call computes an SSD scan",
+        shape=head["shape"], cases=rows)}
+
+
+# --------------------------------------------------------------------------
 # phases 4 and 5: the static engine and the recompute through K5, qwen3 and
 # gemma2 at full width
 
 
 def reset_counts():
-    for mod in (fa, fl, pa):
+    for mod in (fa, fl, pa, ss):
         mod.reset_launch_counts()
 
 
 def counts():
-    return {**fa.LAUNCHES, **fl.LAUNCHES, **pa.LAUNCHES}
+    return {**fa.LAUNCHES, **fl.LAUNCHES, **pa.LAUNCHES, **ss.LAUNCHES}
 
 
 def recompute(cfg, params, tokens, impl, want):
@@ -1030,7 +1188,254 @@ def gemma2_phase(dev, seed, card):
 
 
 # --------------------------------------------------------------------------
-# phase 6: one GEPO learner iteration at full width
+# phase 6: mamba2-1.3b through the static engine and the recompute via K6
+
+
+def ssd_recompute(cfg, params, tokens, impl):
+    """``token_logps`` through SSD route ``impl``; checks the launch counts
+    of the run and returns (logps, ms, K6 launches counted)."""
+    icfg = dataclasses.replace(cfg, ssd_impl=impl)
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    lp = token_logps(icfg, params, tokens)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    got = counts()
+    want = {k: 0 for k in got}
+    want.update(logprob_fwd=1,
+                ssd_scan=cfg.num_layers if impl == "pallas" else 0)
+    if got != want:
+        raise AssertionError(f"mamba2 recompute ({impl}) launched {got}, "
+                             f"want {want}")
+    if not torch.isfinite(lp).all():
+        raise AssertionError(f"mamba2 recompute ({impl}): non-finite logps")
+    return lp, ms, got["ssd_scan"]
+
+
+def no_carry_recompute(cfg, params, tokens):
+    """``token_logps`` through K6 launched chunk by chunk, each chunk from
+    a zero state: what a K6 that dropped the inter-chunk term would give
+    (the control of the float32 check). Not a main-path run."""
+    real = ss.ssd_scan
+
+    def cut(x, dt, a, b, c, *, chunk=128):
+        lc = min(chunk, x.shape[1])
+        return torch.cat([real(x[:, i:i + lc], dt[:, i:i + lc], a,
+                               b[:, i:i + lc], c[:, i:i + lc], chunk=lc)
+                          for i in range(0, x.shape[1], lc)], 1)
+
+    ss.ssd_scan = cut
+    try:
+        return token_logps(dataclasses.replace(cfg, ssd_impl="pallas"),
+                           params, tokens)
+    finally:
+        ss.ssd_scan = real
+
+
+def ssd_layer_check(cfg, params, tokens):
+    """K6 against the model's chunked SSD on the inputs the model hands K6
+    in layers SSD_LAYERS of one recompute (x, dt, a, b, c after the
+    padding to whole chunks), held by ``ssd_scan.error_ratio`` (K6's
+    bf16 y against the chunked float32 y); the same inputs through K6
+    chunk by chunk from a zero state (a K6 without the carried state)
+    must miss by 100x. Not a main-path run."""
+    real = ss.ssd_scan
+    seen = []
+
+    def record(*args, chunk=128):
+        seen.append([t.clone() for t in args]
+                    if len(seen) in SSD_LAYERS else None)
+        return real(*args, chunk=chunk)
+
+    ss.ssd_scan = record
+    try:
+        token_logps(dataclasses.replace(cfg, ssd_impl="pallas"), params,
+                    tokens)
+    finally:
+        ss.ssd_scan = real
+    chunk = cfg.ssm_chunk
+    for layer in SSD_LAYERS:
+        args, seen[layer] = seen[layer], None
+        x, dt = args[0], args[1]
+        got = ss.ssd_scan(*args, chunk=chunk)
+        with torch.no_grad():
+            want, _ = ssm.ssd_chunked(
+                *args, chunk=chunk,
+                head_slice=ssm._head_slice(cfg, x.shape[0], x.shape[1]))
+        cut = torch.cat([ss.ssd_scan(*(t[:, i:i + chunk] if t.dim() > 1
+                                       else t for t in args), chunk=chunk)
+                         for i in range(0, x.shape[1], chunk)], 1)
+        ratio, control = ss.error_ratio(got, want), ss.error_ratio(cut, want)
+        log(f"[mamba2] layer {layer} SSD as the recompute calls K6 (x "
+            f"{tuple(x.shape)} {str(x.dtype)[6:]}, dt in "
+            f"[{float(dt.min()):.2e}, {float(dt.max()):.2e}]): K6 vs the "
+            f"chunked SSD max|err| {max_err(got, want):.3e} (max|y| "
+            f"{float(want.abs().max()):.3e}), error ratio {ratio:.3e} (must "
+            f"be <= 1); K6 without the carried state {control:.3e} (must be "
+            f"> 100)")
+        if not ratio <= 1.0:
+            raise AssertionError(f"mamba2 layer {layer}: K6 disagrees with "
+                                 f"the chunked SSD")
+        if not control > 100.0:
+            raise AssertionError(f"mamba2 layer {layer}: the check cannot "
+                                 f"see a K6 that drops the carried state")
+        del args, x, dt, got, want, cut
+
+
+def profile_recompute(cfg, params, tokens):
+    """torch.profiler over one recompute through K6: device busy share
+    and device time by kernel."""
+    from torch.profiler import ProfilerActivity, profile
+    icfg = dataclasses.replace(cfg, ssd_impl="pallas")
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        token_logps(icfg, params, tokens)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    rows = sorted((e for e in prof.key_averages()
+                   if str(getattr(e, "device_type", "")).endswith("CUDA")),
+                  key=dev_us, reverse=True)
+    busy_ms = sum(dev_us(e) for e in rows) / 1e3
+    log(f"[profile] mamba2 recompute through K6 ({tokens.shape[0]} x "
+        f"{tokens.shape[1]}): wall {wall_ms:.1f} ms, device busy "
+        f"{busy_ms:.1f} ms ({100 * busy_ms / wall_ms:.1f}% of wall; "
+        f"profiler on), {sum(e.count for e in rows)} device launches")
+    for e in rows[:10]:
+        log(f"[profile] {dev_us(e) / 1e3:9.3f} ms  x{e.count:<6d} "
+            f"{e.key[:90]}")
+
+
+def mamba2_phase(dev, seed, card):
+    """Mamba2-1.3B at full width (48 layers, d_model 2048, 64 SSM heads of
+    64, state 128, bf16, random weights): the static engine at the
+    learner's rollout shape (16 x 832 prompt + 192 new, temperature 1.0),
+    then the App. B.1 recompute over its 16 x 1024 tokens through K6 and
+    through the chunked SSD in turns, held against each other and against
+    the sampler's logps, a profile of one K6 recompute and the layer check
+    (``ssd_layer_check``); then the same weights in float32, where the two
+    routes must agree to TOL_SSD_F32. Returns the K6 launches counted.
+    Frees the weights."""
+    cfg = get_config("mamba2-1.3b")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = init_params(cfg, seed + 5, device=dev)
+    torch.cuda.synchronize()
+    log(f"[mamba2] {cfg.name}: {cfg.num_layers} Mamba2 layers, d_model "
+        f"{cfg.d_model}, {cfg.ssm_heads} SSM heads of {cfg.ssm_headdim}, "
+        f"state {cfg.ssm_state}, chunk {cfg.ssm_chunk}, vocab "
+        f"{cfg.vocab_size}, {cfg.param_count() / 1e9:.3f}B params bf16, "
+        f"init {time.perf_counter() - t0:.1f}s")
+    rl = RLConfig(temperature=1.0, top_k=0, top_p=1.0,
+                  max_new_tokens=NEW_TOKENS)
+    eng = build_engine(cfg, params, ServeConfig(engine="static", seed=seed),
+                       rl=rl, vocab_limit=cfg.vocab_size)
+    sp = SamplingParams.from_rl(rl)
+    rng = np.random.default_rng(seed + 5)
+    prompts = np.repeat(rng.integers(3, cfg.vocab_size, (PROMPTS, PROMPT_LEN)),
+                        GROUP, axis=0).astype(np.int32)
+    reqs = [Request(rid=i, prompt=p, params=sp) for i, p in enumerate(prompts)]
+    eng.generate([Request(rid=100 + i, prompt=prompts[i, :64],
+                          params=SamplingParams.from_rl(rl, max_new=4))
+                  for i in range(2)])                    # warm-up
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    res = eng.generate(reqs)
+    torch.cuda.synchronize()
+    t_roll = time.perf_counter() - t0
+    got = counts()
+    if any(got.values()):
+        raise AssertionError(f"mamba2 rollout launched {got}: its prefill "
+                             "fills a cache (chunked SSD) and decode is the "
+                             "recurrence, so no kernel")
+    n_tok = sum(r.gen_count for r in res)
+    for r in res:
+        if not np.isfinite(r.logps).all() or (r.logps > 1e-6).any() or \
+                (r.tokens < 0).any() or (r.tokens >= cfg.vocab_size).any():
+            raise AssertionError(f"request {r.rid}: bad tokens or logps")
+    toks = torch.from_numpy(prompts.astype(np.int64)).to(dev)
+    with torch.no_grad():
+        cache = init_cache(cfg, params, toks.shape[0], PROMPT_LEN + NEW_TOKENS)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        forward(cfg, params, toks, cache=cache)
+        torch.cuda.synchronize()
+        t_pre = time.perf_counter() - t0
+        profile_static_decode(cfg, params, cache, toks[:, -1])
+    del cache
+    torch.cuda.empty_cache()
+    dec_ms = (t_roll - t_pre) * 1e3 / NEW_TOKENS
+    log(f"[mamba2] static engine: {len(res)} requests x {PROMPT_LEN} prompt "
+        f"tokens, {n_tok} generated in {t_roll:.2f}s ({n_tok / t_roll:.1f} "
+        f"tokens/s); prefill alone {t_pre * 1e3:.1f} ms, decode "
+        f"{dec_ms:.2f} ms per step (rollout minus prefill over {NEW_TOKENS} "
+        f"steps) | {card}")
+
+    roll = rollout_from_results(prompts, res, NEW_TOKENS, device=dev)
+    tokens = roll["tokens"]
+    del eng, res
+    lps, ms, k6 = {}, {"pallas": [], "chunked": []}, 0
+    for impl in ("pallas", "chunked", "chunked", "pallas"):
+        lp, t, n = ssd_recompute(cfg, params, tokens, impl)
+        k6 += n
+        lps[impl] = lp
+        ms[impl].append(t)
+    d_paths = (lps["pallas"] - lps["chunked"]).abs()
+    mask = roll["comp_mask"]
+    comp = lps["pallas"][:, PROMPT_LEN - 1:]
+    d_sampler = (comp - roll["sampler_lp"]).abs() * mask
+    mean_s = float(d_sampler.sum() / mask.sum())
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    log(f"[mamba2] recompute over {tokens.shape[0]} x {tokens.shape[1]}: "
+        f"through K6 {' / '.join(f'{t:.1f}' for t in ms['pallas'])} ms, "
+        f"through the chunked SSD "
+        f"{' / '.join(f'{t:.1f}' for t in ms['chunked'])} ms (run order K6, "
+        f"chunked, chunked, K6; K6 {cfg.num_layers} and K1 1 launch per K6 "
+        f"run); bf16 |K6 - chunked| mean {float(d_paths.mean()):.3e} (held "
+        f"to {TOL_SSD_MEAN_BF16}), max {float(d_paths.max()):.3e}; |K6 "
+        f"recompute - sampler| mean {mean_s:.3e} (held to "
+        f"{TOL_SSD_MEAN_BF16}), max {float(d_sampler.max()):.3e} nats; "
+        f"bf16 peak {peak:.2f} GiB | {card}")
+    if float(d_paths.mean()) > TOL_SSD_MEAN_BF16 or \
+            mean_s > TOL_SSD_MEAN_BF16:
+        raise AssertionError("mamba2: bf16 logps through K6 disagree")
+    profile_recompute(cfg, params, tokens)
+    ssd_layer_check(cfg, params, tokens)
+    # the same weights (exactly) and tokens in float32: K6 against the
+    # chunked SSD with bf16 rounding out of the way
+    to_float32(params)
+    torch.cuda.empty_cache()
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    lp32_k, ms32_k, n32 = ssd_recompute(cfg32, params, tokens, "pallas")
+    lp32_c, ms32_c, _ = ssd_recompute(cfg32, params, tokens, "chunked")
+    k6 += n32
+    d32 = (lp32_k - lp32_c).abs()
+    ctrl = (no_carry_recompute(cfg32, params, tokens) - lp32_c).abs()
+    e_k = float((lps["pallas"] - lp32_c).abs().mean())
+    e_c = float((lps["chunked"] - lp32_c).abs().mean())
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    log(f"[mamba2] float32 weights: token_logps through K6 {ms32_k:.1f} ms, "
+        f"chunked {ms32_c:.1f} ms; |K6 - chunked| max {float(d32.max()):.3e} "
+        f"(tol {TOL_SSD_F32}), mean {float(d32.mean()):.3e} nats; control, "
+        f"K6 without the carried state: max (must be > {TOL_SSD_F32}) "
+        f"{float(ctrl.max()):.3e}, mean {float(ctrl.mean()):.3e} nats; mean "
+        f"distance of the bf16 paths from the float32 model (not held): K6 "
+        f"{e_k:.3e}, chunked {e_c:.3e} nats; phase peak {peak:.2f} GiB | "
+        f"{card}")
+    if float(d32.max()) > TOL_SSD_F32:
+        raise AssertionError("mamba2: float32 logps through K6 disagree")
+    if not float(ctrl.max()) > TOL_SSD_F32:
+        raise AssertionError("mamba2: the float32 check cannot see a K6 "
+                             "that drops the carried state")
+    del params, lp32_k, lp32_c, lps
+    torch.cuda.empty_cache()
+    return k6
+
+
+# --------------------------------------------------------------------------
+# phase 7: one GEPO learner iteration at full width
 
 
 def learner_batch(cfg, params, dev, seed):
@@ -1261,6 +1666,9 @@ def main(argv=None) -> int:
     kernels.update(flash_phase(dev, args.seed))
     log(f"[time] K5 phase {time.perf_counter() - t0:.1f}s")
     t0 = time.perf_counter()
+    kernels.update(ssd_phase(dev, args.seed))
+    log(f"[time] K6 phase {time.perf_counter() - t0:.1f}s")
+    t0 = time.perf_counter()
     launches = engine_phase(dev, args.seed, card)
     log(f"[time] engine phase {time.perf_counter() - t0:.1f}s")
     torch.cuda.empty_cache()
@@ -1272,6 +1680,10 @@ def main(argv=None) -> int:
     k5_gemma = gemma2_phase(dev, args.seed, card)
     log(f"[time] gemma2 phase {time.perf_counter() - t0:.1f}s")
     launches["flash_attention"] = k5_static + k5_gemma
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    launches["ssd_scan"] = mamba2_phase(dev, args.seed, card)
+    log(f"[time] mamba2 phase {time.perf_counter() - t0:.1f}s")
     kernels["flash_attention"]["launches_by_phase"] = {
         "static (qwen3-1.7b prefill + 2 recomputes)": k5_static,
         "gemma2 (bf16 and float32 recomputes, generate, teacher-forced)":

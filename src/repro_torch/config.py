@@ -26,6 +26,7 @@ MOE = "moe"
 NONE = "none"          # e.g. Mamba2 blocks carry no separate FFN
 
 PAGED_IMPLS = ("auto", "pallas", "ref", "gather")
+SSD_IMPLS = ("chunked", "pallas")
 LOGPROB_IMPLS = ("fused", "pallas", "chunked", "naive")
 
 
@@ -95,6 +96,16 @@ class ModelConfig:
     paged_attn_impl: str = "auto"
     remat: bool = True
     local_ring_kv: bool = False     # ring-buffer KV for LOCAL layers (JAX only)
+    # SSD backend of the Mamba2 blocks (a knob of the port only; the JAX
+    # package always runs its chunked SSD). "chunked" = the plain
+    # PyTorch chunked SSD, the JAX package's own path. "pallas" = the
+    # SSD chunk-scan kernel K6 (kernels/ops.py::ssd_scan) wherever a
+    # forward has no cache and no autograd recording (the App. B.1
+    # recompute); a forward that fills a cache keeps the chunked path,
+    # which also returns the final state, and a forward under autograd
+    # raises (K6 has no backward). It changes the route, not the function
+    # (K6 writes y in x's dtype: one bf16 rounding more in a bf16 model).
+    ssd_impl: str = "chunked"
 
     # ---------------------------------------------------------------------
     def __post_init__(self):
@@ -107,6 +118,9 @@ class ModelConfig:
         if self.paged_attn_impl not in PAGED_IMPLS:
             raise ValueError(f"unknown paged_attn_impl "
                              f"{self.paged_attn_impl!r}; have {PAGED_IMPLS}")
+        if self.ssd_impl not in SSD_IMPLS:
+            raise ValueError(f"unknown ssd_impl {self.ssd_impl!r}; have "
+                             f"{SSD_IMPLS}")
 
     # derived -------------------------------------------------------------
     @property
@@ -123,6 +137,14 @@ class ModelConfig:
         """Vocab rounded up to a multiple of 256 (151936 -> 152064)."""
         return _round_up(self.vocab_size, 256)
 
+    @property
+    def d_inner(self) -> int:
+        return self.ssm_expand * self.d_model
+
+    @property
+    def ssm_heads(self) -> int:
+        return self.d_inner // self.ssm_headdim if self.ssm_state else 0
+
     def ffn_kind(self, layer_in_block: int) -> str:
         return self.ffn_pattern[layer_in_block % len(self.ffn_pattern)]
 
@@ -131,16 +153,28 @@ class ModelConfig:
         return self.encoder_layers > 0
 
     def param_count(self) -> int:
-        """Parameter count of the dense attention + MLP layouts this port
-        serves (embedding, untied head, attention, MLP, norms)."""
+        """Parameter count of the layouts this port serves: embedding,
+        untied head, per layer its mixer (attention or Mamba2) and FFN
+        (MLP or none) and two norms, as the JAX package counts them, plus
+        the final norm, which the JAX count leaves out."""
         d, h = self.d_model, self.head_dim
         n_q, n_kv = self.num_heads, self.num_kv_heads
         total = self.padded_vocab * d
         if not self.tie_embeddings:
             total += self.padded_vocab * d
-        per_layer = (d * (n_q * h) + 2 * d * (n_kv * h) + (n_q * h) * d
-                     + 3 * d * self.d_ff + 2 * d)
-        return total + self.num_layers * per_layer + d
+        for li in range(self.num_layers):
+            kind = self.block_pattern[li % self.period]
+            if kind in (ATTN, LOCAL):
+                total += d * (n_q * h) + 2 * d * (n_kv * h) + (n_q * h) * d
+            elif kind == MAMBA:
+                di, n, g = self.d_inner, self.ssm_state, self.ssm_ngroups
+                total += d * (2 * di + 2 * g * n + self.ssm_heads)  # in_proj
+                total += di * d                                      # out_proj
+                total += self.ssm_conv * (di + 2 * g * n)            # conv
+            if self.ffn_kind(li % self.period) == MLP:
+                total += 3 * d * self.d_ff
+            total += 2 * d                                            # norms
+        return total + d
 
 
 @dataclass(frozen=True)

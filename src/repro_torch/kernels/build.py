@@ -45,6 +45,8 @@ ARGTYPES = {
     # q, k, v, out, B, Sq, Sk, Hq, Hkv, D, causal, window, softcap, dtype,
     # stream
     "flash_attention_launch": [_P] * 4 + [_I] * 8 + [_F, _I, _P],
+    # x, dt, a, b, c, y, B, S, H, G, P, N, L, nsplit, dtype, stream
+    "ssd_scan_launch": [_P] * 6 + [_I] * 9 + [_P],
 }
 
 

@@ -16,6 +16,9 @@ Dense flash attention (``flash_attention``, ``attn_impl="pallas"``): the
 K5 kernel for CUDA tensors, its twin for CPU tensors, as the JAX package
 runs its Pallas kernel in interpret mode off the TPU. Forward only.
 
+Mamba2 SSD chunk scan (``ssd_scan``, ``ssd_impl="pallas"``): the K6
+kernel for CUDA tensors, its twin for CPU tensors. Forward only.
+
 Token log-probs (``fused_token_logprob``): ``impl`` takes the
 ``TrainConfig.logprob_impl`` vocabulary or None (see the function).
 """
@@ -30,6 +33,7 @@ from repro_torch.core.logprob import token_logprob_and_entropy
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import fused_logprob as fl
 from repro_torch.kernels import paged_attention as pa
+from repro_torch.kernels import ssd_scan as ss
 
 _GATHER_TODO = ("paged_attn_impl='gather' (the dense gather path that keeps "
                 "the JAX package's static and continuous engines "
@@ -63,6 +67,25 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                                causal=causal, window=window, softcap=softcap)
     return fa.flash_attention(q, k, v, causal=causal, window=window,
                               softcap=softcap)
+
+
+def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a_log_neg: torch.Tensor,
+             b: torch.Tensor, c: torch.Tensor, *,
+             chunk: int = 128) -> torch.Tensor:
+    """The SSD chunk scan with a zero initial state, y only, in the JAX
+    package's layouts: x (B, S, H, P), dt (B, S, H), a_log_neg (H,), b, c
+    (B, S, G, N) -> y (B, S, H, P) in x's dtype; S % min(chunk, S) == 0.
+    On a CUDA tensor the K6 kernel (or an exception), on a CPU tensor its
+    twin. Raises when autograd records the call: K6 has no backward (nor
+    has the Pallas kernel)."""
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (x, dt, a_log_neg, b, c)):
+        raise RuntimeError(
+            "ssd_scan (K6, ssd_impl='pallas') is forward-only, as in the JAX "
+            "package: train with ssd_impl='chunked'")
+    if x.device.type == "cpu":
+        return ss.ssd_scan_ref(x, dt, a_log_neg, b, c, chunk=chunk)
+    return ss.ssd_scan(x, dt, a_log_neg, b, c, chunk=chunk)
 
 
 def paged_decode(q: torch.Tensor, kp: torch.Tensor, vp: torch.Tensor,

@@ -8,11 +8,16 @@ through its ``generate``:
   PYTHONPATH=src python -m repro_torch.launch.serve               # qwen3-1.7b on cuda
   PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --smoke
   PYTHONPATH=src python -m repro_torch.launch.serve --engine static --attn-impl pallas
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-1.3b
 
 The static engine takes a rectangular batch, so its prompts all have
 ``--prompt-len`` tokens; the continuous engine's are drawn in
 [len/4, len]. ``--attn-impl pallas`` runs the static engine's prefill
-through the flash kernel K5.
+through the flash kernel K5. An architecture the paged cache cannot serve
+(``mamba2-1.3b``) is served static under ``--engine continuous``, with a
+warning. Its prefill fills a cache, so it runs the chunked SSD, and its
+decode runs the recurrence: the SSD kernel K6 serves only the cache-free
+recompute (``ModelConfig.ssd_impl``).
 
 ``--smoke`` serves the reduced variant of ``--arch``. The front door
 (``--listen``), meshes and speculative decoding are later slices.
@@ -29,7 +34,7 @@ import torch
 from repro_torch.config import RLConfig, ServeConfig
 from repro_torch.configs import get_config, smoke
 from repro_torch.models import init_params
-from repro_torch.sampling import build_engine
+from repro_torch.sampling import StaticEngine, build_engine
 from repro_torch.serving.api import Request, SamplingParams
 
 
@@ -86,10 +91,10 @@ def main(argv=None) -> None:
     params = init_params(cfg, args.seed, device=args.device)
     engine = build_engine(cfg, params, serve, rl=rl,
                           vocab_limit=cfg.vocab_size)
+    static = isinstance(engine, StaticEngine)
     sp = SamplingParams.from_rl(rl)
     rng = np.random.default_rng(args.seed)
-    lo = args.prompt_len if args.engine == "static" else \
-        max(1, args.prompt_len // 4)
+    lo = args.prompt_len if static else max(1, args.prompt_len // 4)
     total_tok, rid = 0, 0
     t0 = time.perf_counter()
     for r in range(args.rounds):
@@ -106,7 +111,7 @@ def main(argv=None) -> None:
         dt = time.perf_counter() - t1
         n_tok = sum(res.gen_count for res in results)
         total_tok += n_tok
-        if args.engine == "continuous":
+        if not static:
             st = engine.stats()
             detail = (f"slot-util {st['slot_utilization']:.2f} "
                       f"({st['decode_steps']} decode steps, "
@@ -117,7 +122,8 @@ def main(argv=None) -> None:
               f"({n_tok / dt:.1f} tok/s) | {detail} | rid "
               f"{results[0].rid}: {results[0].tokens[:8].tolist()}")
     print(f"[serve] arch={cfg.name} device={args.device} "
-          f"impl={engine.cfg.paged_attn_impl} engine={args.engine} "
+          f"impl={engine.cfg.paged_attn_impl} "
+          f"engine={'static' if static else 'continuous'} "
           f"attn={cfg.attn_impl} batch={args.batch} total "
           f"{total_tok} tokens, "
           f"{total_tok / (time.perf_counter() - t0):.1f} tok/s")

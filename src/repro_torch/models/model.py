@@ -1,11 +1,13 @@
-"""The decoder forward: dense full-sequence (with or without a dense KV
+"""The decoder forward: dense full-sequence (with or without a dense
 cache), and paged prefill/decode.
 
-The port of the attention + MLP decoder of ``repro/models/model.py``: token
-embedding, then for every layer RMSNorm, q/k/v projections with rotary
-embeddings, attention, the output projection and a SwiGLU MLP, then the
-final norm and the (tied or separate) head in float32. Two ways through
-the attention:
+The port of the decoder of ``repro/models/model.py`` for attention and
+Mamba2 layers: token embedding, then for every layer RMSNorm and its
+mixer, either attention (q/k/v projections with rotary embeddings,
+attention, the output projection) or a Mamba2 block
+(``models.ssm.mamba_block``), then a SwiGLU MLP or no FFN
+(``ffn_pattern`` NONE), then the final norm and the (tied or separate)
+head in float32. Three ways through the attention:
 
 - dense (``forward`` with ``cache=None``): the training and
   teacher-forced forward over positions ``arange(S)``, through
@@ -18,7 +20,9 @@ the attention:
   the cache runs the dense path and writes the prompt's K/V at
   ``[0, S)``; ``decode_step`` writes one token's K/V at ``pos`` and
   attends through ``models.attention.decode_attention``. Written in
-  place, like the pools below;
+  place, like the pools below. A Mamba2 layer's part of the cache is its
+  conv window and float32 SSM state (``ssm_c``), which a prefill and each
+  decode step overwrite in place;
 - paged (``forward`` with page pools and a ``page_table``, and
   ``decode_step``): the K/V write into the page pools, then paged
   attention through ``repro_torch.kernels.ops``. The pools are written
@@ -36,11 +40,12 @@ from typing import Any, Dict, List, Optional, Tuple, Union
 import torch
 import torch.utils.checkpoint
 
-from repro_torch.config import ATTN, LOCAL, MLP, ModelConfig
+from repro_torch.config import ATTN, LOCAL, MAMBA, MLP, NONE, ModelConfig
 from repro_torch.kernels.ops import paged_decode, paged_prefill
 from repro_torch.models.attention import (attention, decode_attention,
                                           standard_positions)
 from repro_torch.models.layers import rmsnorm, rope, softcap, swiglu
+from repro_torch.models.ssm import mamba_block
 
 # sampling.paged_cache.SCRATCH_PAGE (not imported: sampling imports this
 # module)
@@ -146,30 +151,50 @@ def _self_attn(cfg: ModelConfig, p: Dict, x: torch.Tensor, *, kind: str,
 
 def _apply_layer(cfg: ModelConfig, kind: str, ffn_kind: str, p: Dict,
                  x: torch.Tensor, *, positions, paged: Optional[Tuple],
-                 decode: bool, dense: Optional[Tuple] = None,
+                 decode: bool, dense: Union[None, Tuple, Dict] = None,
                  contiguous: Optional[bool] = None) -> torch.Tensor:
-    if kind not in (ATTN, LOCAL) or ffn_kind != MLP:
+    """One layer. ``dense`` is this layer's part of a dense cache: (k, v,
+    pos) of an attention layer, the ``{"conv", "ssm"}`` of a Mamba2
+    layer."""
+    if kind not in (ATTN, LOCAL, MAMBA) or ffn_kind not in (MLP, NONE):
         raise NotImplementedError(
             f"layer ({kind!r}, {ffn_kind!r}) is not ported yet")
     h = rmsnorm(x, p["norm"], cfg.norm_eps)
-    x = x + _self_attn(cfg, p["attn"], h, kind=kind, positions=positions,
-                       paged=paged, decode=decode, dense=dense,
-                       contiguous=contiguous)
-    return x + swiglu(rmsnorm(x, p["ffn_norm"], cfg.norm_eps), p["mlp"])
+    if kind == MAMBA:
+        x = x + mamba_block(cfg, p["mamba"], h, cache=dense, decode=decode)
+    else:
+        x = x + _self_attn(cfg, p["attn"], h, kind=kind, positions=positions,
+                           paged=paged, decode=decode, dense=dense,
+                           contiguous=contiguous)
+    if ffn_kind == MLP:
+        x = x + swiglu(rmsnorm(x, p["ffn_norm"], cfg.norm_eps), p["mlp"])
+    return x
 
 
-def _has_leaves(cfg: ModelConfig, cache: Optional[Dict], names) -> bool:
+# cache layouts: layer kind -> (key of its cache dict, leaves it holds)
+_DENSE = {ATTN: ("self", ("k", "v")), LOCAL: ("self", ("k", "v")),
+          MAMBA: ("ssm_c", ("conv", "ssm"))}
+_PAGED = {ATTN: ("self", ("kp", "vp")), LOCAL: ("self", ("kp", "vp"))}
+
+
+def _has_leaves(cfg: ModelConfig, cache: Optional[Dict],
+                layout: Dict[str, Tuple[str, Tuple[str, ...]]]) -> bool:
+    """True when every layer of the pattern has its leaves of ``layout``
+    in ``cache`` (a layer kind the layout lacks never does)."""
     if not isinstance(cache, dict):
         return False
-    for i in range(cfg.period):
-        lc = cache.get(f"layer_{i}", {}).get("self")
+    for i, kind in enumerate(cfg.block_pattern):
+        if kind not in layout:
+            return False
+        key, names = layout[kind]
+        lc = cache.get(f"layer_{i}", {}).get(key)
         if not isinstance(lc, dict) or any(n not in lc for n in names):
             return False
     return True
 
 
 def _is_paged(cfg: ModelConfig, cache: Optional[Dict]) -> bool:
-    return _has_leaves(cfg, cache, ("kp", "vp"))
+    return _has_leaves(cfg, cache, _PAGED)
 
 
 _CACHE_KINDS = ("a cache is the page pools of "
@@ -185,7 +210,7 @@ def _run_dense(cfg: ModelConfig, params: Dict, x: torch.Tensor, *,
     over a dense ``cache``. Without a cache, one checkpointed block at a
     time under ``cfg.remat`` while autograd records
     (``jax.checkpoint(body)``)."""
-    if cache is not None and not _has_leaves(cfg, cache, ("k", "v")):
+    if cache is not None and not _has_leaves(cfg, cache, _DENSE):
         raise ValueError(_CACHE_KINDS)
     if cache is not None and cfg.local_ring_kv and LOCAL in cfg.block_pattern:
         raise NotImplementedError(_RING_TODO)
@@ -195,16 +220,24 @@ def _run_dense(cfg: ModelConfig, params: Dict, x: torch.Tensor, *,
         for i, kind in enumerate(cfg.block_pattern):
             x = _apply_layer(cfg, kind, cfg.ffn_kind(i), bp[f"layer_{i}"], x,
                              positions=positions, paged=None, decode=decode,
-                             dense=None if bc is None else bc[i] + (pos,),
+                             dense=None if bc is None else bc[i],
                              contiguous=contiguous)
         return x
 
+    def layer_views(bi: int, i: int, kind: str):
+        """Block ``bi`` of layer slot ``i``'s stacked cache, as
+        ``_apply_layer`` takes it: (k, v, pos) views or the Mamba2 dict."""
+        key, names = _DENSE[kind]
+        lc = cache[f"layer_{i}"][key]
+        if kind == MAMBA:
+            return {n: lc[n][bi] for n in names}
+        return tuple(lc[n][bi] for n in names) + (pos,)
+
     remat = cfg.remat and torch.is_grad_enabled() and cache is None
-    kv = None if cache is None else [
-        (cache[f"layer_{i}"]["self"]["k"], cache[f"layer_{i}"]["self"]["v"])
-        for i in range(cfg.period)]
     for bi, bp in enumerate(_unstack(params["blocks"], cfg.num_blocks)):
-        bc = None if kv is None else [(k[bi], v[bi]) for k, v in kv]
+        bc = None if cache is None else [
+            layer_views(bi, i, kind)
+            for i, kind in enumerate(cfg.block_pattern)]
         if remat:
             x = torch.utils.checkpoint.checkpoint(block, x, bp, bc,
                                                   use_reentrant=False)
@@ -327,15 +360,28 @@ _RING_TODO = ("cfg.local_ring_kv: the ring-buffered KV cache of local "
 def init_cache(cfg: ModelConfig, params: Dict, batch: int,
                max_len: int) -> Dict:
     """The dense decode cache, zeros on the params' device in the JAX
-    layout: ``cache["layer_i"]["self"]["k" | "v"]`` stacked on the block
-    axis, (nb, batch, max_len, Hkv, D), in ``cfg.dtype``."""
+    layout, stacked on the block axis: ``cache["layer_i"]["self"]["k" |
+    "v"]`` (nb, batch, max_len, Hkv, D) in ``cfg.dtype`` for an attention
+    layer; ``cache["layer_i"]["ssm_c"]`` for a Mamba2 layer, ``"conv"``
+    (nb, batch, K - 1, conv channels) in ``cfg.dtype`` and ``"ssm"`` (nb,
+    batch, H, P, N) in float32."""
     if cfg.local_ring_kv and LOCAL in cfg.block_pattern:
         raise NotImplementedError(_RING_TODO)
     dt = getattr(torch, cfg.dtype)
     dev = params["embed"].device
     shape = (cfg.num_blocks, batch, max_len, cfg.num_kv_heads, cfg.head_dim)
     cache: Dict[str, Any] = {}
+    nb = cfg.num_blocks
     for i, kind in enumerate(cfg.block_pattern):
+        if kind == MAMBA:
+            conv_ch = cfg.d_inner + 2 * cfg.ssm_ngroups * cfg.ssm_state
+            cache[f"layer_{i}"] = {"ssm_c": {
+                "conv": torch.zeros((nb, batch, cfg.ssm_conv - 1, conv_ch),
+                                    dtype=dt, device=dev),
+                "ssm": torch.zeros((nb, batch, cfg.ssm_heads,
+                                    cfg.ssm_headdim, cfg.ssm_state),
+                                   dtype=torch.float32, device=dev)}}
+            continue
         if kind not in (ATTN, LOCAL):
             raise NotImplementedError(
                 f"layer kind {kind!r} is not ported yet")

@@ -2,14 +2,16 @@
 
 The same template tree as the JAX package's ``repro/models/params.py``:
 every leaf is declared once with its shape, initializer and logical axes,
-and block leaves carry a leading stacked-block axis ``(nb, ...)``. This
-slice serves dense attention + MLP layers (ATTN / LOCAL with MLP); other
-layer kinds raise until their slice lands.
+and block leaves carry a leading stacked-block axis ``(nb, ...)``. The
+port serves attention layers (ATTN / LOCAL) with an MLP and Mamba2 layers
+(MAMBA) without an FFN; other layer kinds raise until their slice lands.
 
 ``init_params`` draws random weights from a seeded ``torch.Generator`` on
-the target device. ``params_from_numpy`` carries the JAX package's params
-across as they are, so a parity test feeds both packages one set of
-weights.
+the target device, with the JAX package's initializers (normal, zeros,
+ones, and the Mamba2 ``ssm_a`` / ``ssm_dt`` draws). ``params_from_numpy``
+carries the JAX package's params across as they are (Mamba2's ``A_log``,
+``D`` and ``dt_bias`` in ``cfg.dtype`` too), so a parity test feeds both
+packages one set of weights.
 """
 from __future__ import annotations
 
@@ -19,7 +21,7 @@ from typing import Any, Dict, Optional, Tuple
 import numpy as np
 import torch
 
-from repro_torch.config import ATTN, LOCAL, MLP, ModelConfig
+from repro_torch.config import ATTN, LOCAL, MAMBA, MLP, NONE, ModelConfig
 from repro_torch.device import DeviceLike, resolve_device
 
 
@@ -27,7 +29,7 @@ from repro_torch.device import DeviceLike, resolve_device
 class ParamTemplate:
     shape: Tuple[int, ...]
     axes: Tuple[Optional[str], ...]
-    init: str = "normal"          # normal | zeros | ones
+    init: str = "normal"          # normal | zeros | ones | ssm_a | ssm_dt
     scale: float = 0.02
 
     def __post_init__(self):
@@ -62,19 +64,43 @@ def _attn_templates(cfg: ModelConfig) -> Dict[str, ParamTemplate]:
     return t
 
 
+def _mamba_templates(cfg: ModelConfig) -> Dict[str, ParamTemplate]:
+    d = cfg.d_model
+    di, n, g, h = cfg.d_inner, cfg.ssm_state, cfg.ssm_ngroups, cfg.ssm_heads
+    conv_ch = di + 2 * g * n
+    fan_out = 2 * di + 2 * g * n + h      # [z, x, B, C, dt]
+    out_scale = 0.02 / np.sqrt(2 * cfg.num_layers)
+    return {
+        "in_proj": ParamTemplate((d, fan_out), ("embed", "ssm_in")),
+        "conv_w": ParamTemplate((cfg.ssm_conv, conv_ch), (None, "dinner")),
+        "conv_b": ParamTemplate((conv_ch,), ("dinner",), init="zeros"),
+        "A_log": ParamTemplate((h,), ("heads",), init="ssm_a"),
+        "D": ParamTemplate((h,), ("heads",), init="ones"),
+        "dt_bias": ParamTemplate((h,), ("heads",), init="ssm_dt"),
+        "gate_norm": ParamTemplate((di,), ("dinner",), init="ones"),
+        "out_proj": ParamTemplate((di, d), ("dinner", "embed"),
+                                  scale=out_scale),
+    }
+
+
 def _layer_templates(cfg: ModelConfig, kind: str,
                      ffn_kind: str) -> Dict[str, Any]:
-    if kind not in (ATTN, LOCAL) or ffn_kind != MLP or cfg.is_encdec:
+    if (kind not in (ATTN, LOCAL, MAMBA) or ffn_kind not in (MLP, NONE)
+            or cfg.is_encdec):
         raise NotImplementedError(
             f"{cfg.name}: layer ({kind!r}, {ffn_kind!r}) is not ported yet; "
-            "this slice serves ATTN/LOCAL layers with an MLP")
+            "the port serves ATTN/LOCAL and MAMBA layers with an MLP or no "
+            "FFN")
     d = cfg.d_model
-    return {
-        "norm": ParamTemplate((d,), ("embed",), init="ones"),
-        "attn": _attn_templates(cfg),
-        "ffn_norm": ParamTemplate((d,), ("embed",), init="ones"),
-        "mlp": _mlp_templates(cfg),
-    }
+    t: Dict[str, Any] = {"norm": ParamTemplate((d,), ("embed",), init="ones")}
+    if kind == MAMBA:
+        t["mamba"] = _mamba_templates(cfg)
+    else:
+        t["attn"] = _attn_templates(cfg)
+    if ffn_kind == MLP:
+        t["ffn_norm"] = ParamTemplate((d,), ("embed",), init="ones")
+        t["mlp"] = _mlp_templates(cfg)
+    return t
 
 
 def _map(fn, tree: Any) -> Any:
@@ -132,6 +158,12 @@ def init_params(cfg: ModelConfig, seed: int = 0,
             return torch.zeros(t.shape, dtype=dt, device=dev)
         if t.init == "ones":
             return torch.ones(t.shape, dtype=dt, device=dev)
+        if t.init == "ssm_a":          # A in [1, 16), stored as log
+            u = torch.empty(t.shape, dtype=torch.float32, device=dev)
+            return u.uniform_(1.0, 16.0, generator=gen).log_().to(dt)
+        if t.init == "ssm_dt":         # dt bias = softplus^-1(U[1e-3, 1e-1])
+            u = torch.empty(t.shape, dtype=torch.float32, device=dev)
+            return u.uniform_(1e-3, 1e-1, generator=gen).expm1_().log_().to(dt)
         w = torch.randn(t.shape, generator=gen, dtype=torch.float32,
                         device=dev)
         return w.mul_(t.scale).to(dt)

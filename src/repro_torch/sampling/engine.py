@@ -5,8 +5,9 @@ The port of ``repro/sampling/engine.py``. Two engines share one
 request-level contract (``repro_torch.serving.api``):
 
 - **static** (:class:`StaticEngine`): one prefill of the whole batch over a
-  dense KV cache (through the flash kernel K5 under ``attn_impl=
-  "pallas"``), then a decode loop to the batch's largest token budget.
+  dense cache (through the flash kernel K5 under ``attn_impl=
+  "pallas"``; Mamba2 layers keep a conv window and an SSM state), then a
+  decode loop to the batch's largest token budget.
   Every sequence runs every step, even after EOS (finished rows decode
   PAD). The JAX package scans the loop in one executable; here it is a
   Python loop of eager steps with no host sync until the batch ends.
@@ -28,6 +29,7 @@ from __future__ import annotations
 
 import dataclasses
 import time
+import warnings
 from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
@@ -161,26 +163,30 @@ def build_engine(cfg: ModelConfig, params: Dict[str, Any],
                  ) -> Union[StaticEngine, ContinuousEngine]:
     """The engine a ``ServeConfig`` describes, on the device ``params``
     live on. ``rl`` carries the sampling profile every request must
-    match; ``seed`` (default ``serve.seed``) keys the token draws."""
+    match; ``seed`` (default ``serve.seed``) keys the token draws. Falls
+    back to the static engine, with a warning, for architectures the paged
+    cache cannot serve (Mamba2 layers, for one), as the JAX package
+    does."""
     rl = rl or RLConfig(engine=serve.engine)
     seed = serve.seed if seed is None else seed
     if serve.paged_attn_impl:
         cfg = dataclasses.replace(cfg, paged_attn_impl=serve.paged_attn_impl)
-    if serve.engine == "static":
-        return StaticEngine(cfg, params, rl=rl, vocab_limit=vocab_limit,
-                            seed=seed)
-    if not paged_cache_supported(cfg):
-        raise ValueError(f"{cfg.name}: the continuous engine serves "
-                         "attention-only decoders")
-    return ContinuousEngine(
-        cfg, params, rl=rl, max_total_tokens=serve.max_total_tokens,
-        num_slots=serve.num_slots, page_size=serve.page_size,
-        sync_every=serve.sync_every,
-        prefill_chunk=serve.prefill_chunk or None,
-        num_pages=serve.resolved_num_pages, vocab_limit=vocab_limit,
-        prefix_cache=serve.prefix_cache,
-        prefix_cache_entries=serve.prefix_cache_entries,
-        spec_k=serve.spec_k, seed=seed)
+    if serve.engine == "continuous":
+        if paged_cache_supported(cfg):
+            return ContinuousEngine(
+                cfg, params, rl=rl, max_total_tokens=serve.max_total_tokens,
+                num_slots=serve.num_slots, page_size=serve.page_size,
+                sync_every=serve.sync_every,
+                prefill_chunk=serve.prefill_chunk or None,
+                num_pages=serve.resolved_num_pages, vocab_limit=vocab_limit,
+                prefix_cache=serve.prefix_cache,
+                prefix_cache_entries=serve.prefix_cache_entries,
+                spec_k=serve.spec_k, seed=seed)
+        warnings.warn(f"{cfg.name}: continuous engine unsupported for this "
+                      "architecture/memory setup; serving static",
+                      stacklevel=2)
+    return StaticEngine(cfg, params, rl=rl, vocab_limit=vocab_limit,
+                        seed=seed)
 
 
 # --------------------------------------------------------------------------
@@ -201,9 +207,11 @@ def generate(cfg: ModelConfig, rl: RLConfig, params: Dict[str, Any],
     The pre-request-API surface, kept as a thin shim for the training
     loop; new code builds an engine once and feeds it ``Request``s.
     ``engine`` (default ``rl.engine``) picks the static path or the
-    continuous slot pool (which takes ``continuous_kwargs``). ``seed``
-    keys the draws (the JAX package takes a PRNG key); row ``i`` is
-    request ``i``."""
+    continuous slot pool (which takes ``continuous_kwargs``);
+    architectures the paged cache cannot serve fall back to the static
+    path with a warning that names the ignored ``continuous_kwargs``, as
+    in the JAX package. ``seed`` keys the draws (the JAX package takes a
+    PRNG key); row ``i`` is request ``i``."""
     engine = engine or rl.engine
     if engine not in ("static", "continuous"):
         raise ValueError(f"unknown engine {engine!r}")
@@ -214,9 +222,16 @@ def generate(cfg: ModelConfig, rl: RLConfig, params: Dict[str, Any],
     max_new = max_new or rl.max_new_tokens
     vocab_limit = vocab_limit or cfg.padded_vocab
     if engine == "continuous":
-        return generate_continuous(cfg, rl, params, prompts, seed,
-                                   max_new=max_new, vocab_limit=vocab_limit,
-                                   **continuous_kwargs)
+        if paged_cache_supported(cfg):
+            return generate_continuous(cfg, rl, params, prompts, seed,
+                                       max_new=max_new,
+                                       vocab_limit=vocab_limit,
+                                       **continuous_kwargs)
+        dropped = (f"; ignoring {sorted(continuous_kwargs)}"
+                   if continuous_kwargs else "")
+        warnings.warn(f"{cfg.name}: continuous engine unsupported for this "
+                      f"architecture/memory setup; falling back to "
+                      f"static{dropped}", stacklevel=2)
     dev = params["embed"].device
     prompts = torch.as_tensor(prompts).to(dev, torch.int64)
     completions, sampler_lp, comp_mask = _generate_static(
@@ -235,7 +250,8 @@ def token_logps(cfg: ModelConfig, params: Dict[str, Any],
     """Teacher-forced log p(tokens[t] | tokens[<t]) -> (B, T-1) float32.
 
     The App. B.1 untrusted-sampler recompute: one dense forward (through
-    K5 under ``cfg.attn_impl == "pallas"``), then the same streaming
+    K5 under ``cfg.attn_impl == "pallas"``, through K6 under
+    ``cfg.ssd_impl == "pallas"``), then the same streaming
     log-prob path as the learner's loss (the K1 kernel on the card)
     instead of a (B*T, V) log-softmax. ``logprob_impl`` takes the
     ``TrainConfig.logprob_impl`` vocabulary; None or "fused"

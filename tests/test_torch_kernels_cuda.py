@@ -21,6 +21,13 @@ Tolerances, dense flash attention (K5), against its float32 twin on the
 same inputs: the JAX package's own (``tests/test_kernels.py``), 2e-5 abs
 for float32 (summation order only), 2e-2 abs for bfloat16 (one rounding
 of the output to bf16).
+
+Tolerances, SSD chunk scan (K6), against its float32 twin on the same
+inputs, element by element through ``ss.error_ratio``: |K6 - twin| <=
+rtol |twin| + 1e-5 max|twin|, rtol 1e-5 for float32 (sums and the chunk's
+cumsum in another order), 2^-8 + 1e-5 for bfloat16 (one rounding of y to
+bf16 on top). Inputs decay slowly (a * dt in [-0.01, -1e-4]), so the state
+carried across chunks is a large part of y.
 """
 import dataclasses
 
@@ -34,9 +41,10 @@ from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import fused_logprob as fl
 from repro_torch.kernels import ops
 from repro_torch.kernels import paged_attention as pa
+from repro_torch.kernels import ssd_scan as ss
 from repro_torch.models import init_params
 from repro_torch.optim import tree_leaves
-from repro_torch.sampling import StaticEngine, build_engine
+from repro_torch.sampling import StaticEngine, build_engine, token_logps
 from repro_torch.serving.api import Request, SamplingParams
 from repro_torch.training import init_state, train_step
 
@@ -473,3 +481,121 @@ def test_static_engine_pallas_matches_chunked_on_card(cuda, arch):
     for a, b in zip(out["pallas"], out["chunked"]):
         np.testing.assert_array_equal(a.tokens, b.tokens)
         np.testing.assert_allclose(a.logps, b.logps, atol=1e-4, rtol=0)
+
+
+# --------------------------------------------------------------------------
+# K6: the Mamba2 SSD chunk scan
+
+
+def _ssd_inputs(dev, dtype, b, s, h, p, g, n, seed=0):
+    """x, b, c ~ N(0, 1) in ``dtype``; dt in [0.01, 0.1] and a in [-0.1,
+    -0.01] in float32: slow decay, so the carried state matters."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn((b, s, h, p), generator=gen, device=dev).to(dtype)
+    dt = 0.01 + 0.09 * torch.rand((b, s, h), generator=gen, device=dev)
+    a = -(0.01 + 0.09 * torch.rand((h,), generator=gen, device=dev))
+    bm, cm = (torch.randn((b, s, g, n), generator=gen, device=dev).to(dtype)
+              for _ in range(2))
+    return x, dt, a, bm, cm
+
+
+def _ssd_twin(x, dt, a, bm, cm, chunk):
+    return ss.ssd_scan_ref(x.float(), dt, a, bm.float(), cm.float(),
+                           chunk=chunk)
+
+
+# (B, S, H, P, G, N, chunk): one chunk (S = chunk), many chunks with two
+# groups, chunks shorter than a 64-row tile, a ragged tile (80 rows), P 128
+# (split across blocks), P and N 16
+SSD_CASES = [(2, 256, 4, 64, 1, 128, 256), (2, 512, 4, 64, 2, 128, 128),
+             (1, 96, 4, 32, 2, 32, 32), (2, 160, 8, 16, 1, 16, 80),
+             (1, 384, 2, 128, 1, 64, 192)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", SSD_CASES)
+def test_ssd_kernel_matches_twin(cuda, dtype, case):
+    b, s, h, p, g, n, chunk = case
+    args = _ssd_inputs(cuda, dtype, b, s, h, p, g, n, seed=s + p)
+    ss.reset_launch_counts()
+    got = ss.ssd_scan(*args, chunk=chunk)
+    want = _ssd_twin(*args, chunk)
+    torch.cuda.synchronize()
+    assert ss.LAUNCHES["ssd_scan"] == 1
+    assert got.dtype == dtype and got.shape == args[0].shape
+    assert ss.error_ratio(got, want) <= 1.0
+
+
+def test_ssd_kernel_sees_a_dropped_inter_chunk_term(cuda):
+    """The twin run chunk by chunk (each from a zero state) is what a
+    kernel that drops the carried state would return: the check must
+    reject it by far."""
+    args = _ssd_inputs(cuda, torch.float32, 2, 512, 4, 64, 1, 128)
+    got = ss.ssd_scan(*args, chunk=128)
+    want = _ssd_twin(*args, 128)
+    cut = torch.cat([_ssd_twin(*(t[:, c0:c0 + 128] if t.dim() > 1 else t
+                                 for t in args), 128)
+                     for c0 in range(0, 512, 128)], 1)
+    assert ss.error_ratio(got, want) <= 1.0
+    assert ss.error_ratio(cut, want) > 100.0
+
+
+def test_ssd_kernel_p_splits_are_bit_identical(cuda):
+    """64 heads: a batch of 16 runs one block per head (1024 blocks), its
+    first row alone four blocks per head, each on 16 of the 64 P rows;
+    both give the same bits for that row."""
+    args = _ssd_inputs(cuda, torch.bfloat16, 16, 512, 64, 64, 1, 128)
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    assert ss.p_splits(16 * 64, 64, sms) == 1
+    assert ss.p_splits(64, 64, sms) == 4
+    whole = ss.ssd_scan(*args, chunk=128)
+    first = ss.ssd_scan(*(t[:1] if t.dim() > 1 else t for t in args),
+                        chunk=128)
+    assert torch.equal(first.view(torch.int16), whole[:1].view(torch.int16))
+
+
+def test_ssd_kernel_is_deterministic_at_the_long_shape(cuda):
+    """mamba2-1.3b's layer at B 1, S 8192 (64 heads, P split across
+    blocks): 20 repeats bit for bit."""
+    args = _ssd_inputs(cuda, torch.bfloat16, 1, 8192, 64, 64, 1, 128)
+    first = ss.ssd_scan(*args, chunk=256)
+    for _ in range(20):
+        again = ss.ssd_scan(*args, chunk=256)
+        assert torch.equal(again.view(torch.int16), first.view(torch.int16))
+
+
+def test_ssd_wrapper_rejects_what_the_kernel_does_not_take(cuda):
+    x, dt, a, bm, cm = _ssd_inputs(cuda, torch.float32, 1, 64, 4, 32, 2, 32)
+    ss.reset_launch_counts()
+    with pytest.raises(TypeError):
+        ss.ssd_scan(x.half(), dt, a, bm.half(), cm.half())
+    with pytest.raises(ValueError, match="S %"):
+        ss.ssd_scan(x, dt, a, bm, cm, chunk=48)
+    with pytest.raises(ValueError, match="P and N"):
+        ss.ssd_scan(x[..., :24].contiguous(), dt, a, bm, cm)
+    with pytest.raises(ValueError, match="H % G"):
+        ss.ssd_scan(x[:, :, :3].contiguous(), dt[:, :, :3].contiguous(),
+                    a[:3], bm, cm)
+    with pytest.raises(ValueError, match="CUDA"):
+        ss.ssd_scan(*(t.cpu() for t in (x, dt, a, bm, cm)))
+    assert ss.LAUNCHES["ssd_scan"] == 0
+    with pytest.raises(RuntimeError, match="forward-only"):
+        ops.ssd_scan(x.clone().requires_grad_(), dt, a, bm, cm)
+
+
+def test_mamba2_recompute_pallas_matches_chunked_on_card(cuda):
+    """The mamba2-1.3b smoke model (float32): ``token_logps`` through K6
+    and through the chunked SSD within 1e-4 nats; K6 launches once per
+    layer."""
+    toks = torch.from_numpy(np.random.default_rng(0).integers(
+        3, 512, (3, 101))).to(cuda)
+    out = {}
+    for impl in ("pallas", "chunked"):
+        cfg = smoke("mamba2-1.3b", ssd_impl=impl)
+        params = init_params(cfg, 0, device=cuda)
+        ss.reset_launch_counts()
+        out[impl] = token_logps(cfg, params, toks)
+        assert ss.LAUNCHES["ssd_scan"] == \
+            (cfg.num_layers if impl == "pallas" else 0)
+    torch.testing.assert_close(out["pallas"], out["chunked"], rtol=0,
+                               atol=1e-4)

@@ -1,0 +1,152 @@
+"""The twin of the SSD chunk-scan kernel K6 against the JAX package's
+Pallas kernel (interpret mode), and the port's dispatch around it.
+
+Inputs are made with numpy from a seed and handed to both packages.
+Tolerances: the JAX package's own for its sweep (rtol = atol = 2e-4,
+``tests/test_kernels.py``: float32 sums in another order, and another
+cumsum); bfloat16 inputs give bfloat16 outputs computed in float32 by
+both, which may round one bf16 ulp apart (rtol = atol = 2^-7).
+"""
+import re
+from pathlib import Path
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels import ops as jops
+from repro_torch.kernels import build
+from repro_torch.kernels import ops
+from repro_torch.kernels import ssd_scan as ss
+
+TOL = 2e-4
+TOL_BF16 = 2 ** -7
+
+
+def _inputs(shape, seed=0, slow=False):
+    """x, dt, a, b, c in float32 numpy. ``slow``: dt in [0.01, 0.1] and a
+    in [-0.1, -0.01], so a * dt is near 0 and the state carried across
+    chunks stays a large part of y."""
+    b, s, h, p, g, n = shape
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((b, s, h, p)).astype(np.float32)
+    if slow:
+        dt = rng.uniform(0.01, 0.1, (b, s, h)).astype(np.float32)
+        a = -rng.uniform(0.01, 0.1, h).astype(np.float32)
+    else:
+        dt = np.log1p(np.exp(rng.standard_normal((b, s, h)))).astype(
+            np.float32)
+        a = -np.exp(rng.standard_normal(h)).astype(np.float32)
+    bb = rng.standard_normal((b, s, g, n)).astype(np.float32)
+    cc = rng.standard_normal((b, s, g, n)).astype(np.float32)
+    return x, dt, a, bb, cc
+
+
+def _jax(arrs, chunk, dtype=jnp.float32):
+    x, dt, a, bb, cc = arrs
+    y = jops.ssd_scan(jnp.asarray(x, dtype), jnp.asarray(dt, dtype),
+                      jnp.asarray(a), jnp.asarray(bb, dtype),
+                      jnp.asarray(cc, dtype), chunk=chunk, interpret=True)
+    return np.asarray(y.astype(jnp.float32))
+
+
+def _twin(arrs, chunk, dtype=torch.float32):
+    x, dt, a, bb, cc = (torch.from_numpy(t) for t in arrs)
+    return ss.ssd_scan_ref(x.to(dtype), dt.to(dtype), a, bb.to(dtype),
+                           cc.to(dtype), chunk=chunk)
+
+
+@pytest.mark.parametrize("shape", [
+    (1, 64, 2, 16, 1, 8), (2, 128, 4, 32, 2, 16), (1, 256, 8, 64, 1, 32),
+])
+def test_twin_matches_pallas_kernel_sweep(shape):
+    arrs = _inputs(shape, seed=shape[1])
+    np.testing.assert_allclose(_twin(arrs, 32).numpy(), _jax(arrs, 32),
+                               rtol=TOL, atol=TOL)
+
+
+def test_twin_matches_pallas_kernel_bf16():
+    arrs = _inputs((1, 64, 2, 16, 1, 8), seed=1)
+    got = _twin(arrs, 32, torch.bfloat16)
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_allclose(got.float().numpy(),
+                               _jax(arrs, 32, jnp.bfloat16),
+                               rtol=TOL_BF16, atol=TOL_BF16)
+
+
+def test_multi_chunk_slow_decay_and_a_dropped_carry_control():
+    """Eight chunks with slow decay: the twin agrees with the Pallas
+    kernel, and the twin run chunk by chunk from a zero state (what a
+    kernel that drops the inter-chunk term returns) misses by > 100x the
+    tolerance."""
+    arrs = _inputs((2, 256, 4, 32, 2, 16), seed=2, slow=True)
+    want = _jax(arrs, 32)
+    np.testing.assert_allclose(_twin(arrs, 32).numpy(), want, rtol=TOL,
+                               atol=TOL)
+    cut = np.concatenate([
+        _twin([t[:, c0:c0 + 32] if t.ndim > 1 else t for t in arrs],
+              32).numpy() for c0 in range(0, 256, 32)], 1)
+    ratio = np.abs(cut - want) / (TOL + TOL * np.abs(want))
+    assert ratio.max() > 100
+
+
+def test_error_ratio_accepts_float64_and_rejects_the_control():
+    """``error_ratio``, the card's K6 check: a float64 evaluation of the
+    twin passes against the float32 twin; the no-carry control, a bf16
+    rounding of the control and a NaN do not."""
+    arrs = _inputs((1, 256, 4, 32, 1, 32), seed=3, slow=True)
+    want = _twin(arrs, 64)
+    x, dt, a, bb, cc = (torch.from_numpy(t).double() for t in arrs)
+    f64 = ss.ssd_scan_ref(x, dt, a, bb, cc, chunk=64).float()
+    assert ss.error_ratio(f64, want) <= 1.0
+    assert ss.error_ratio(want.bfloat16(), want) <= 1.0
+    cut = torch.cat([_twin([t[:, c0:c0 + 64] if t.ndim > 1 else t
+                            for t in arrs], 64) for c0 in range(0, 256, 64)],
+                    1)
+    assert ss.error_ratio(cut, want) > 100
+    assert ss.error_ratio(cut.bfloat16(), want) > 100
+    bad = want.clone()
+    bad[0, 5, 1, 3] = float("nan")
+    assert ss.error_ratio(bad, want) == float("inf")
+
+
+def test_ops_dispatch_on_cpu():
+    arrs = _inputs((1, 64, 4, 16, 2, 16), seed=4)
+    t = [torch.from_numpy(a) for a in arrs]
+    ss.reset_launch_counts()
+    torch.testing.assert_close(ops.ssd_scan(*t, chunk=16),
+                               ss.ssd_scan_ref(*t, chunk=16), rtol=0, atol=0)
+    assert ss.LAUNCHES["ssd_scan"] == 0
+    with pytest.raises(ValueError, match="CUDA"):
+        ss.ssd_scan(*t, chunk=16)
+    with pytest.raises(RuntimeError, match="forward-only"):
+        ops.ssd_scan(t[0].clone().requires_grad_(), *t[1:], chunk=16)
+    with torch.no_grad():
+        ops.ssd_scan(t[0].clone().requires_grad_(), *t[1:], chunk=16)
+    with pytest.raises(ValueError, match="S %"):
+        ops.ssd_scan(*t, chunk=48)
+
+
+@pytest.mark.parametrize("blocks,p,splits", [
+    (1024, 64, 1), (64, 64, 4), (512, 64, 1), (132, 64, 2), (16, 128, 8),
+    (4096, 128, 2), (8, 16, 1)])
+def test_p_splits(blocks, p, splits):
+    """At most 64 state rows a block, split down to 16 while B * H blocks
+    leave an H100's 132 SMs less than two each."""
+    assert ss.p_splits(blocks, p, 132) == splits
+
+
+def test_argtypes_match_the_c_entry_points():
+    """Every C entry point takes as many arguments as its ctypes argtypes
+    declare (a short table makes ctypes refuse the call; a long one would
+    pass junk)."""
+    found = {}
+    for src in build.sources():
+        for m in re.finditer(r'extern "C" int (\w+)\(([^)]*)\)',
+                             src.read_text()):
+            found[m.group(1)] = len(m.group(2).split(","))
+    assert set(found) == set(build.ARGTYPES)
+    for name, n in found.items():
+        assert len(build.ARGTYPES[name]) == n, name
+    assert (Path(build.CSRC) / "ssd_scan.cu").exists()

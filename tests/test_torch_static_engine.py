@@ -91,7 +91,8 @@ def test_gemma2_is_registered_with_a_tied_head(model):
     full = tconfigs.get_config(tcfg.name[:-len("-smoke")])
     ref = jconfigs.get_config(full.name)
     for f in dataclasses.fields(full):
-        if f.name != "paged_attn_impl":        # the port's own default
+        # the port's own default and its own knob
+        if f.name not in ("paged_attn_impl", "ssd_impl"):
             assert getattr(full, f.name) == getattr(ref, f.name), f.name
 
 
