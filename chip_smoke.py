@@ -8,7 +8,9 @@ never jax, never the JAX package. Phases, each fatal on failure:
 
 1. device: the card's name and power limit, torch/CUDA versions, and the
    kernels built from ``src/repro_torch/kernels/csrc`` with nvcc (sm_90a,
-   one nvcc per source, in parallel);
+   one nvcc per source, in parallel); the bf16 bodies of K5 and K4 (the
+   tensor-core tile core ``attention_tc.cuh``) must hold HMMA instructions
+   in their SASS (``cuobjdump``) and spill nothing (``ptxas -v``);
 2. kernels: K1/K2 (fused token log-prob forward and backward) at the
    learner's microbatch shape (T 8184 = 8 x 1023, V 152064, float32), at a
    ragged (77, 1001) in bfloat16 with out-of-range target ids, and K1 at
@@ -19,12 +21,14 @@ never jax, never the JAX package. Phases, each fatal on failure:
    ragged C = 77; one window + softcap case), each held against its plain
    PyTorch twin (float32 on the same inputs) and timed beside the twin, a
    library yardstick (SDPA over the gathered dense view, which the port
-   never calls) and the card's bound; K5 (dense flash attention) at six
-   cases: the static engine's prefill (B 16, S 832) and the recompute
-   (S 1023) of qwen3-1.7b, a Gemma2-9B local (window 4096, softcap 50) and
-   global layer (B 1, S 8192, D 256), a bidir float32 case at S 37 and a
-   bf16 case at D 64, S 160, each against its twin, with controls showing
-   that the check sees a dropped window or softcap, the first four timed;
+   never calls) and the card's bound, K4 at C = 512 also in float32 (its
+   CUDA-core body); K5 (dense flash attention) at six cases: the static
+   engine's prefill (B 16, S 832) and the recompute (S 1023) of
+   qwen3-1.7b, a Gemma2-9B local (window 4096, softcap 50) and global
+   layer (B 1, S 8192, D 256), a bidir float32 case at S 37 and a bf16
+   case at D 64, S 160, each against its twin, with controls showing that
+   the check sees a dropped window or softcap, the first four timed, the
+   first also in float32 (the CUDA-core body, held at 2e-5);
    K6 (the Mamba2 SSD chunk scan) at mamba2-1.3b's recompute shape (B 16,
    S 1024, H 64, P 64, N 128, chunk 256) and at B 1, S 8192 in bf16, and
    a float32 case with two B/C groups, each against its twin element by
@@ -364,16 +368,24 @@ def kernel_phase(dev, seed):
             raise AssertionError(f"K4 (C={c}) disagrees with its twin")
         rows[c] = (q, kp, vp, table, pos, errs)
     q, kp, vp, table, pos, errs = rows[512]
+    f32 = [t.float() for t in (q, kp, vp)]
     c, start = 512, 1024
-    kv_bytes = -(-(start + c) // PAGE) * PAGE * HKV * D * 2 * 2
-    nbytes = kv_bytes + 2 * q.numel() * 2 + table.numel() * 4
+    kv_elems = -(-(start + c) // PAGE) * PAGE * HKV * D * 2
     flops = sum(4 * HQ * D * (start + i + 1) for i in range(c))
-    b_ms, b_by = bound(nbytes, flops)
+    b_ms, b_by = bound(kv_elems * 2 + 2 * q.numel() * 2 + table.numel() * 4,
+                       flops)
+    b32_ms, b32_by = bound(kv_elems * 4 + 2 * q.numel() * 4
+                           + table.numel() * 4, flops, F32_FLOPS_S)
     out["paged_prefill"] = dict(
-        name="paged_prefill_kernel", route="cuda",
+        name="paged_prefill_tc_kernel", name_f32="paged_prefill_kernel",
+        route="cuda",
         source="src/repro_torch/kernels/csrc/paged_attention.cu",
+        sources=["src/repro_torch/kernels/csrc/paged_attention.cu",
+                 "src/repro_torch/kernels/csrc/attention_tc.cuh"],
         replaces="src/repro/kernels/paged_attention.py:245 "
-                 "(_prefill_kernel; pallas_call at :376)",
+                 "(_prefill_kernel; pallas_call at :376): bf16 on the "
+                 "tensor cores (attention_tc.cuh), float32 on the CUDA "
+                 "cores",
         max_abs_err=max(errs[0], rows[77][5][0]),
         max_abs_err_f32=max(errs[1], rows[77][5][1]), tol=TOL_BF16,
         ms=time_ms(lambda: ops.paged_prefill(q, kp, vp, table, pos,
@@ -382,8 +394,16 @@ def kernel_phase(dev, seed):
                                                    impl="ref"), iters=5),
         bound_ms=b_ms, bound_by=b_by,
         library_ms=library_ms(*sdpa_prefill(q, kp, vp, table, pos)),
+        ms_f32=time_ms(lambda: ops.paged_prefill(*f32, table, pos,
+                                                 impl="pallas")),
+        bound_ms_f32=b32_ms, bound_by_f32=b32_by,
         shape=f"B=1 C={c} start={start} Hq={HQ} Hkv={HKV} D={D} "
-              f"page={PAGE} bf16 (+ C=77 start=300 checked)")
+              f"page={PAGE} bf16 (+ C=77 start=300 checked; ms_f32: the "
+              f"float32 route at C=512)")
+    log(f"[kernels] K4 C=512: bf16 {out['paged_prefill']['ms']:.4f} ms "
+        f"(bound {b_ms:.5f} ms, {b_by}), float32 "
+        f"{out['paged_prefill']['ms_f32']:.4f} ms (bound {b32_ms:.5f} ms, "
+        f"{b32_by}), SDPA {out['paged_prefill']['library_ms']:.4f} ms")
     return out
 
 
@@ -749,6 +769,25 @@ def sdpa_flash(q, k, v, causal, window):
     return library_ms(qt, kt, vt, iters=5, enable_gqa=True, **kw)
 
 
+def flash_f32_row(q, k, v, kw, flops):
+    """K5's float32 route (the CUDA-core body) on float32 copies of a
+    case's inputs: held to TOL_FLASH[float32] against the twin and timed
+    beside its float32 bound."""
+    f32 = [t.float() for t in (q, k, v)]
+    err = max_err(fa.flash_attention(*f32, **kw),
+                  fa.flash_attention_ref(*f32, **kw))
+    if not err <= TOL_FLASH[torch.float32]:
+        raise AssertionError(f"K5's float32 route disagrees with its twin: "
+                             f"{err:.3e}")
+    b_ms, b_by = bound(4 * (2 * q.numel() + k.numel() + v.numel()), flops,
+                       F32_FLOPS_S)
+    ms = time_ms(lambda: fa.flash_attention(*f32, **kw), iters=10)
+    log(f"[kernels] K5 float32 route: {ms:.4f} ms, bound {b_ms:.4f} ms "
+        f"({b_by}), max|err| {err:.3e} (tol {TOL_FLASH[torch.float32]})")
+    return dict(ms_f32=ms, bound_ms_f32=b_ms, bound_by_f32=b_by,
+                max_abs_err_f32_timed=err)
+
+
 def flash_phase(dev, seed):
     """K5 against its twin at six cases (the static prefill, the
     recompute, Gemma2's local and global layers, a bidir float32 case, a
@@ -810,15 +849,21 @@ def flash_phase(dev, seed):
                 f"{b_ms:.4f} ms ({b_by}), twin {row['plain_ms']:.3f} ms, "
                 f"SDPA {row['library_ms']:.4f} ms"
                 + (" (partial: no softcap)" if cap else ""))
+            if not rows:             # the first case: the float32 route too
+                row.update(flash_f32_row(q, k, v, kw, flops))
         rows.append(row)
         del q, k, v, f32, got
         torch.cuda.empty_cache()
     head = rows[0]
     return {"flash_attention": dict(
-        name="flash_attention_kernel", route="cuda",
+        name="flash_attention_tc_kernel", name_f32="flash_attention_kernel",
+        route="cuda",
         source="src/repro_torch/kernels/csrc/flash_attention.cu",
+        sources=["src/repro_torch/kernels/csrc/flash_attention.cu",
+                 "src/repro_torch/kernels/csrc/attention_tc.cuh"],
         replaces="src/repro/kernels/flash_attention.py:39 (_kernel; "
-                 "pallas_call at :119)",
+                 "pallas_call at :119): bf16 on the tensor cores "
+                 "(attention_tc.cuh), float32 on the CUDA cores",
         max_abs_err=max(r["max_abs_err"] for r in rows
                         if r["tol"] == TOL_FLASH[torch.bfloat16]),
         max_abs_err_f32=max(r["max_abs_err"] for r in rows
@@ -826,6 +871,8 @@ def flash_phase(dev, seed):
         tol=TOL_FLASH[torch.bfloat16], ms=head["ms"],
         plain_ms=head["plain_ms"], bound_ms=head["bound_ms"],
         bound_by=head["bound_by"], library_ms=head["library_ms"],
+        ms_f32=head["ms_f32"], bound_ms_f32=head["bound_ms_f32"],
+        bound_by_f32=head["bound_by_f32"],
         library="SDPA (GQA; causal, or a boolean band for the window; no "
                 "softcap)", shape=head["shape"], cases=rows)}
 
@@ -949,6 +996,31 @@ def ssd_phase(dev, seed):
 # --------------------------------------------------------------------------
 # phases 4 and 5: the static engine and the recompute through K5, qwen3 and
 # gemma2 at full width
+
+
+# the bf16 bodies of K5 and K4: tensor-core products, no spills
+TC_KERNELS = ("flash_attention_tc_kernel", "paged_prefill_tc_kernel")
+
+
+def tensor_core_check(built) -> None:
+    """Every instantiation of the bf16 K5/K4 bodies has HMMA (or HGMMA)
+    instructions in its SASS and 0 spill bytes in the ptxas report."""
+    sass = build.sass_functions(built.path)
+    report = build.ptxas_report(built.log)
+    for kern in TC_KERNELS:
+        names = [n for n in sass if kern in n]
+        if len(names) != 3:
+            raise AssertionError(f"{kern}: {len(names)} instantiations")
+        for n in names:
+            r = report.get(n, {})
+            mma = sass[n].count("HMMA") + sass[n].count("HGMMA")
+            log(f"[build] {kern} {n[n.index(kern) + len(kern):][:8]}: "
+                f"{mma} HMMA/HGMMA, {r.get('registers')} registers, spills "
+                f"{r.get('spill_stores')}/{r.get('spill_loads')} bytes")
+            if not mma or r.get("spill_stores") != 0 \
+                    or r.get("spill_loads") != 0:
+                raise AssertionError(f"{n}: no tensor-core product or a "
+                                     f"spill")
 
 
 def reset_counts():
@@ -1655,9 +1727,7 @@ def main(argv=None) -> int:
     built = build.build()
     log(f"[build] {', '.join(s.name for s in build.sources())}: "
         f"{built.seconds:.1f}s nvcc (sm_90a, one process per source)")
-    for line in built.log.splitlines():
-        if "Used" in line or "spill" in line or line.startswith("=="):
-            log(f"[build] {line.strip()}")
+    tensor_core_check(built)
     t0 = time.perf_counter()
     kernels = logprob_phase(dev, args.seed)
     kernels.update(kernel_phase(dev, args.seed))

@@ -4,9 +4,12 @@ Every ``csrc/*.cu`` is compiled by ``nvcc`` for Hopper (``sm_90a``), one
 ``nvcc`` process per source, all started together, and the objects are
 linked into one shared library with a plain C interface, loaded with
 ``ctypes``. The library lands in ``build/repro_torch_kernels/`` of the
-checkout, named by a hash of all the sources and the flags, and is built
-at first use; a changed source gets a new name, so a stale library is
-never loaded. Nothing here runs at import time, and nothing is
+checkout, named by a hash of all the sources (headers ``csrc/*.cuh``
+included) and the flags, and is built at first use; a changed source gets
+a new name, so a stale library is never loaded. The compiler's output
+(the ``ptxas -v`` report of registers, shared memory and spills per
+function) is kept beside the library, so ``Built.log`` holds it for a
+cached library too. Nothing here runs at import time, and nothing is
 downloaded.
 
 Every C entry point returns ``cudaGetLastError()`` after its launch; the
@@ -18,11 +21,12 @@ import ctypes
 import dataclasses
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
 from pathlib import Path
-from typing import List, Optional
+from typing import Dict, List, Optional
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
@@ -72,7 +76,7 @@ def sources() -> List[Path]:
 
 def lib_path() -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sources():
+    for src in sources() + sorted(CSRC.glob("*.cuh")):
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return BUILD_DIR / f"librepro_torch_kernels-{h.hexdigest()[:16]}.so"
@@ -83,8 +87,10 @@ def build() -> Built:
     source in parallel, then one link. Raises with the compiler's output
     when nvcc fails."""
     out = lib_path()
+    log_path = out.with_suffix(".log")
     if out.exists():
-        return Built(out, 0.0, "")
+        return Built(out, 0.0,
+                     log_path.read_text() if log_path.exists() else "")
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tag = f"{out.stem}.{os.getpid()}"
     nvcc = _nvcc()
@@ -114,8 +120,46 @@ def build() -> Built:
     if link.returncode != 0:
         raise RuntimeError(f"nvcc link failed (exit {link.returncode}):\n"
                            f"{link.stdout}")
+    built = Built(out, time.perf_counter() - t0, "\n".join(logs))
+    log_path.write_text(built.log)
     os.replace(tmp, out)
-    return Built(out, time.perf_counter() - t0, "\n".join(logs))
+    return built
+
+
+def ptxas_report(log: str) -> Dict[str, Dict[str, int]]:
+    """Per compiled function of a ``ptxas -v`` log (mangled name):
+    ``registers``, ``spill_stores`` and ``spill_loads`` (bytes)."""
+    out: Dict[str, Dict[str, int]] = {}
+    name = None
+    for line in log.splitlines():
+        m = re.search(r"(?:Compiling entry function '|Function properties "
+                      r"for )([^'\s]+)", line)
+        if m:
+            name = m.group(1)
+            out.setdefault(name, {})
+        elif name is None:
+            continue
+        elif m := re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                            r"loads", line):
+            out[name].update(spill_stores=int(m.group(1)),
+                             spill_loads=int(m.group(2)))
+        elif m := re.search(r"Used (\d+) registers", line):
+            out[name]["registers"] = int(m.group(1))
+    return out
+
+
+def sass_functions(path: Path) -> Dict[str, str]:
+    """The SASS of every kernel in the library, by mangled name, from
+    ``cuobjdump -sass`` of the toolkit that builds it."""
+    tool = Path(_nvcc()).with_name("cuobjdump")
+    text = subprocess.run([str(tool), "-sass", str(path)], check=True,
+                          stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                          text=True).stdout
+    out: Dict[str, str] = {}
+    for part in text.split("Function : ")[1:]:
+        name, _, body = part.partition("\n")
+        out[name.strip()] = body
+    return out
 
 
 _LIB: Optional[ctypes.CDLL] = None

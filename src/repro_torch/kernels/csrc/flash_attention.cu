@@ -2,9 +2,15 @@
 // through a plain C interface loaded with ctypes
 // (repro_torch/kernels/build.py).
 //
-// K5 flash_attention_kernel replaces the Pallas TPU kernel
+// K5 replaces the Pallas TPU kernel
 //   src/repro/kernels/flash_attention.py::_kernel (pallas_call in
-//   flash_attention, line 119).
+//   flash_attention, line 119), with one body per input dtype, chosen in
+//   flash_attention_launch:
+// - bfloat16: flash_attention_tc_kernel, the tensor-core tile core of
+//   attention_tc.cuh (bf16 mma.sync, cp.async double-buffering, GQA-packed
+//   tiles of 128 or 64 rows);
+// - float32: flash_attention_kernel, float32 on the CUDA cores, the body
+//   behind the tight float32 checks (2e-5 against the twin).
 //
 // What it computes (the same as its TPU kernel and as the twin
 // flash_attention_ref in flash_attention.py): q (B, Sq, Hq, D) against
@@ -13,46 +19,51 @@
 // softcap * tanh(s / softcap), then the mask: causal keeps j <= i, the
 // sliding window (causal only) keeps i - j < window, and columns past Sk
 // are dropped; masked scores are -1e30. Online softmax (m, l, acc) over
-// kv tiles; the output is acc / max(l, 1e-30) in q's dtype.
+// kv tiles; the output is acc / max(l, 1e-30) in q's dtype. The bf16 body
+// rounds p to bf16 for the P.V product (attention_tc.cuh states its
+// numerics).
 //
-// Design (simple first):
-// - one block of 256 threads per (64-row q tile, b * Hq + h); heavy
-//   causal tiles (late rows) are scheduled first;
-// - the q tile and 64-key K and V tiles are staged in shared memory as
-//   float32 with 16-byte loads, rows padded to D + 4 floats so that the
-//   strided reads below hit distinct banks; the P tile reuses K's space
-//   once the scores are in registers (3 tiles of 64 x (D + 4) floats:
-//   52 KB at D 64, 101 KB at D 128, 195 KB at D 256, set through
-//   cudaFuncAttributeMaxDynamicSharedMemorySize);
-// - thread (ty, tx) of a 16 x 16 grid owns rows 4ty..4ty+3 and, for the
-//   scores, key columns tx + 16j (j < 4); for the output, dims
-//   4tx + 64j .. + 3 (j < D / 64). Scores, the running (m, l) of its rows
-//   and the accumulators stay in registers; row max and row sum are
-//   shuffles over the 16 threads of a row (half a warp);
-// - the kv loop is bounded by the tile's causal and window reach
-//   [lo, hi): the TPU kernel's pl.when(reachable) skip, so a window-4096
-//   row at position 8191 walks 4096 + 64 keys, not 8192. Ragged Sq and Sk
-//   are masked rows and columns (no divisibility requirement), offsets are
-//   size_t.
-// All arithmetic is float32 on the CUDA cores, including bfloat16 inputs.
+// bf16 design: one block of 128 threads (4 warps) per (tile of M / rep
+// tokens, b * Hkv + kv head), M = 128 rows at D <= 128 (each warp two
+// blocks of 16 rows, so that every K/V fragment read from shared memory
+// feeds two products) and 64 at D 256 (a warp's 16 x 256 float32
+// accumulator alone takes 128 registers). Row r of the tile is token
+// r / rep, head r % rep of the kv head, so the rep q heads of a kv head
+// share every K/V tile read (at rep > M, groups of M heads take one block
+// each). Heavy causal tiles (late rows) are scheduled first, and the kv
+// loop is bounded by the tile's causal and window reach [lo, hi): the TPU
+// kernel's pl.when(reachable) skip. K/V tiles of 64 keys at D 64, 32 at D
+// 128 and 256 (registers); shared memory 55 KB at D 64, 70 KB at D 128,
+// 101 KB at D 256, two blocks per SM (246-254 registers a thread).
 //
-// Bound on the H100 (3.35 TB/s, 989 TFLOP/s bf16 dense): bytes
-// (q, k, v read once, out written once) or 4 * D FLOPs per reachable
-// (row, column) pair per q head, whichever is larger: ~49 us at the
-// static engine's prefill (B 16, S 832, Hq 16, Hkv 8, D 128, causal,
-// bytes), ~0.42 ms for a Gemma2-9B local layer (B 1, S 8192, Hq 16, D 256,
-// window 4096, FLOPs).
-// What the simple design leaves on the table: the products run on the
-// CUDA cores in float32 instead of wgmma on bf16 (the FLOP bound above is
-// the tensor-core one, 15x the float32 rate); no cp.async/TMA
-// double-buffering, so loads and math do not overlap; each q head
-// re-reads its kv head's tiles (rep = Hq / Hkv blocks read the same
-// K/V, from L2 at best).
+// float32 design (simple first): one block of 256 threads per (64-row q
+// tile, b * Hq + h); heavy tiles first; the q tile and 64-key K and V tiles
+// staged in shared memory as float32 with 16-byte loads, rows padded to
+// D + 4 floats; the P tile reuses K's space once the scores are in
+// registers (52 KB at D 64, 101 KB at D 128, 195 KB at D 256); thread
+// (ty, tx) of a 16 x 16 grid owns rows 4ty..4ty+3 and, for the scores, key
+// columns tx + 16j (j < 4), for the output dims 4tx + 64j .. + 3; row max
+// and row sum are shuffles over the 16 threads of a row; the same reach
+// bound. Ragged Sq and Sk are masked rows and columns in both bodies (no
+// divisibility requirement); offsets are size_t.
+//
+// Bound on the H100 (3.35 TB/s, 989 TFLOP/s bf16 dense): bytes (q, k, v
+// read once, out written once) or 4 * D FLOPs per reachable (row, column)
+// pair per q head, whichever is larger: ~49 us at the static engine's
+// prefill (B 16, S 832, Hq 16, Hkv 8, D 128, causal, bytes), ~0.42 ms for
+// a Gemma2-9B local layer (B 1, S 8192, Hq 16, D 256, window 4096,
+// FLOPs). What the bf16 body leaves: mma.sync reaches only part of the
+// card's bf16 rate (wgmma on 64-row warpgroup tiles, TMA loads and a
+// producer warp with consumer warpgroups are the rest), the softmax and
+// tanhf run between the two products in one instruction stream, and
+// diagonal tiles compute their masked half.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "attention_tc.cuh"
 
 namespace {
 
@@ -74,28 +85,6 @@ struct Vec<float> {
   }
   __device__ __forceinline__ static void store4(float* dst, const float* x) {
     *reinterpret_cast<float4*>(dst) = make_float4(x[0], x[1], x[2], x[3]);
-  }
-};
-
-template <>
-struct Vec<__nv_bfloat16> {
-  static constexpr int N = 8;
-  __device__ __forceinline__ static void load(const __nv_bfloat16* src,
-                                              float* dst) {
-    const uint4 v = *reinterpret_cast<const uint4*>(src);
-    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&v);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float2 f = __bfloat1622float2(h[i]);
-      dst[2 * i] = f.x;
-      dst[2 * i + 1] = f.y;
-    }
-  }
-  __device__ __forceinline__ static void store4(__nv_bfloat16* dst,
-                                                const float* x) {
-    __nv_bfloat162 h[2] = {__floats2bfloat162_rn(x[0], x[1]),
-                           __floats2bfloat162_rn(x[2], x[3])};
-    *reinterpret_cast<uint2*>(dst) = *reinterpret_cast<const uint2*>(h);
   }
 };
 
@@ -310,33 +299,105 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-template <typename T, int D>
-int launch(const void* q, const void* k, const void* v, void* out, int B,
-           int Sq, int Sk, int Hq, int Hkv, int causal, int window,
-           float softcap, cudaStream_t stream) {
+// bf16 body: 4 warps of 2 x 16 rows (128 rows) at D <= 128, of 16 rows
+// (64) at D 256, where a warp's 16 x 256 float32 accumulator alone takes
+// 128 registers
+template <int D>
+struct TcRows {
+  static constexpr int MB = D <= 128 ? 2 : 1;   // 16-row blocks per warp
+  static constexpr int M = 64 * MB;             // rows per block
+};
+
+template <int D>
+__global__ void __launch_bounds__(128)
+flash_attention_tc_kernel(const attn_tc::bf16* __restrict__ q,
+                          const attn_tc::bf16* __restrict__ k,
+                          const attn_tc::bf16* __restrict__ v,
+                          attn_tc::bf16* __restrict__ out, int Sq, int Sk,
+                          int Hq, int Hkv, int causal, int window,
+                          float softcap, float scale) {
+  const int rep = Hq / Hkv;
+  constexpr int M = TcRows<D>::M;
+  const int hr = min(rep, M), ng = (rep + hr - 1) / hr, tq = M / hr;
+  const int tile = gridDim.x - 1 - blockIdx.x;   // heavy tiles first
+  const int y = blockIdx.y;
+  const int hg = y % ng, kvh = (y / ng) % Hkv, b = y / (ng * Hkv);
+  const int tok0 = tile * tq;
+  attn_tc::TileArgs a;
+  const size_t head0 = size_t(kvh) * rep + size_t(hg) * hr;
+  const size_t qoff = (size_t(b) * Sq + tok0) * Hq * D + head0 * D;
+  a.q = q + qoff;
+  a.out = out + qoff;
+  a.tok_stride = size_t(Hq) * D;
+  a.hr = hr;
+  a.nh = min(hr, rep - hg * hr);
+  a.ntok = min(tq, Sq - tok0);
+  a.pos0 = tok0;
+  a.nkeys = Sk;
+  a.lo = 0;
+  a.hi = Sk;
+  if (causal) {
+    a.hi = min(Sk, tok0 + a.ntok);
+    if (window > 0) a.lo = max(0, tok0 - window + 1);
+  }
+  a.causal = causal;
+  a.window = causal ? window : 0;
+  a.softcap = softcap;
+  a.scale = scale;
+  const attn_tc::DenseKeys keys{
+      size_t(b) * Sk * Hkv * D + size_t(kvh) * D, size_t(Hkv) * D};
+  attn_tc::attend_tc<D, 4, TcRows<D>::MB>(a, k, v, keys);
+}
+
+template <int D>
+int launch_f32(const void* q, const void* k, const void* v, void* out, int B,
+               int Sq, int Sk, int Hq, int Hkv, int causal, int window,
+               float softcap, cudaStream_t stream) {
   const size_t smem = smem_bytes<D>();
-  auto kern = flash_attention_kernel<T, D>;
+  auto kern = flash_attention_kernel<float, D>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
   if (err != cudaSuccess) return int(err);
   if (B == 0 || Sq == 0) return int(cudaGetLastError());
   kern<<<dim3((Sq + kBQ - 1) / kBQ, B * Hq), kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(out), Sq, Sk, Hq, Hkv,
-      causal, window, softcap, 1.0f / sqrtf(float(D)));
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(out), Sq, Sk, Hq,
+      Hkv, causal, window, softcap, 1.0f / sqrtf(float(D)));
+  return int(cudaGetLastError());
+}
+
+template <int D>
+int launch_bf16(const void* q, const void* k, const void* v, void* out,
+                int B, int Sq, int Sk, int Hq, int Hkv, int causal,
+                int window, float softcap, cudaStream_t stream) {
+  constexpr size_t smem = attn_tc::smem_bytes<D, 4, TcRows<D>::MB>();
+  auto kern = flash_attention_tc_kernel<D>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
+  if (err != cudaSuccess) return int(err);
+  if (B == 0 || Sq == 0) return int(cudaGetLastError());
+  const int rep = Hq / Hkv;
+  constexpr int M = TcRows<D>::M;
+  const int hr = rep < M ? rep : M;
+  const int tq = M / hr, ng = (rep + hr - 1) / hr;
+  kern<<<dim3((Sq + tq - 1) / tq, B * Hkv * ng), 128, smem, stream>>>(
+      static_cast<const attn_tc::bf16*>(q),
+      static_cast<const attn_tc::bf16*>(k),
+      static_cast<const attn_tc::bf16*>(v), static_cast<attn_tc::bf16*>(out),
+      Sq, Sk, Hq, Hkv, causal, window, softcap, 1.0f / sqrtf(float(D)));
   return int(cudaGetLastError());
 }
 
 }  // namespace
 
-#define DISPATCH_D(T)                                                     \
+#define DISPATCH_D(FN)                                                    \
   switch (D) {                                                            \
-    case 64: return launch<T, 64>(q, k, v, out, B, Sq, Sk, Hq, Hkv,       \
-                                  causal, window, softcap, s);            \
-    case 128: return launch<T, 128>(q, k, v, out, B, Sq, Sk, Hq, Hkv,     \
-                                    causal, window, softcap, s);          \
-    case 256: return launch<T, 256>(q, k, v, out, B, Sq, Sk, Hq, Hkv,     \
-                                    causal, window, softcap, s);          \
+    case 64: return FN<64>(q, k, v, out, B, Sq, Sk, Hq, Hkv, causal,      \
+                           window, softcap, s);                           \
+    case 128: return FN<128>(q, k, v, out, B, Sq, Sk, Hq, Hkv, causal,    \
+                             window, softcap, s);                         \
+    case 256: return FN<256>(q, k, v, out, B, Sq, Sk, Hq, Hkv, causal,    \
+                             window, softcap, s);                         \
     default: return int(cudaErrorInvalidValue);                          \
   }
 
@@ -353,10 +414,10 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
     return int(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) {
-    DISPATCH_D(float)
+    DISPATCH_D(launch_f32)
   }
   if (dtype == 1) {
-    DISPATCH_D(__nv_bfloat16)
+    DISPATCH_D(launch_bf16)
   }
   return int(cudaErrorInvalidValue);
 }

@@ -19,7 +19,19 @@
 // unwritten page tails (the scratch page included) never reaches an
 // output. The output is acc / max(l, 1e-30) in the q dtype.
 //
-// Design (simple first):
+// K4 has one body per input dtype, chosen in paged_prefill_launch:
+// - bfloat16: paged_prefill_tc_kernel, the tensor-core tile core of
+//   attention_tc.cuh (bf16 mma.sync, cp.async double-buffering; each key
+//   row's page looked up per column, so any page size 1-64 works; rows at
+//   or past the slot's length zero-filled by the copy). One block of 64
+//   threads (2 warps, 32 rows = 32 / rep tokens x rep heads) per (tile,
+//   slot, kv head): a chunk of C 512 at rep 2 is 32 tiles x 8 kv heads =
+//   256 blocks, more than one wave on 132 SMs;
+// - float32: paged_prefill_kernel over attend_tile below, the body behind
+//   the tight float32 checks (1e-5 against the twin).
+// K3 runs attend_tile for both dtypes.
+//
+// attend_tile design (simple first):
 // - one thread block of 128 threads per (slot, kv_head) for decode and per
 //   (slot, q-tile of bq = 32/rep tokens, kv_head) for prefill; a block
 //   reads its own table row, length and start (no scalar prefetch here);
@@ -34,7 +46,7 @@
 //   rows, so a chunk of any length C runs (no C % bq requirement);
 // - scores are one thread per (row, column), the softmax one warp per row,
 //   P.V one thread per (row, d) with the accumulators in registers. All
-//   arithmetic is float32 on the CUDA cores: no tensor cores yet.
+//   arithmetic is float32 on the CUDA cores.
 //
 // Bound on the H100 (3.35 TB/s, 989 TFLOP/s bf16 dense):
 // - K3 is memory-bound. Per layer it must read the live KV,
@@ -42,16 +54,18 @@
 //   layer at Qwen3-1.7B: Hkv 8, D 128, bf16), at ~1 FLOP per byte.
 // - K4 is bound by FLOPs or bytes, whichever is larger: 4 * Hq * D FLOPs
 //   per (query, attended key) pair against the pages of starts + C.
-// What the simple design leaves on the table: K3 launches B*Hkv blocks, 64
-// at 8 slots on 132 SMs, and walks a long context serially inside one
-// block (split-K across blocks is the fix); there is no cp.async/TMA
-// double-buffering, so loads and math do not overlap; products run on the
-// CUDA cores in float32 instead of wgmma on bf16.
+// What the designs leave on the table: K3 launches B*Hkv blocks, 64 at 8
+// slots on 132 SMs, and walks a long context serially inside one block
+// (split-K across blocks is the fix), on the CUDA cores in float32 with
+// no cp.async double-buffering. K4's bf16 body walks up to starts + C
+// keys serially in each block (1536 at start 1024, C 512).
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "attention_tc.cuh"
 
 namespace {
 
@@ -304,6 +318,42 @@ paged_prefill_kernel(const T* __restrict__ q, const T* __restrict__ kp,
                     first, last, kvh, Hkv, page_size, window, softcap, scale);
 }
 
+template <int D>
+__global__ void __launch_bounds__(64)
+paged_prefill_tc_kernel(const attn_tc::bf16* __restrict__ q,
+                        const attn_tc::bf16* __restrict__ kp,
+                        const attn_tc::bf16* __restrict__ vp,
+                        const int* __restrict__ table,
+                        const int* __restrict__ lengths,
+                        const int* __restrict__ starts,
+                        attn_tc::bf16* __restrict__ out, int C, int Hq,
+                        int Hkv, int page_size, int npages, int window,
+                        float softcap, float scale) {
+  const int rep = Hq / Hkv, tq = 32 / rep;
+  const int tile = gridDim.x - 1 - blockIdx.x;   // heavy tiles first
+  const int b = blockIdx.y / Hkv, kvh = blockIdx.y % Hkv;
+  const int tok0 = tile * tq;
+  attn_tc::TileArgs a;
+  const size_t qoff = ((size_t(b) * C + tok0) * Hq + size_t(kvh) * rep) * D;
+  a.q = q + qoff;
+  a.out = out + qoff;
+  a.tok_stride = size_t(Hq) * D;
+  a.hr = rep;
+  a.nh = rep;
+  a.ntok = min(tq, C - tok0);
+  a.pos0 = starts[b] + tok0;
+  a.nkeys = min(lengths[b], npages * page_size);
+  a.hi = min(a.nkeys, a.pos0 + a.ntok);
+  a.lo = window > 0 ? max(0, a.pos0 - window + 1) : 0;
+  a.causal = 1;
+  a.window = window;
+  a.softcap = softcap;
+  a.scale = scale;
+  const attn_tc::PagedKeys keys{table + size_t(b) * npages, page_size,
+                                size_t(kvh) * D, size_t(Hkv) * D};
+  attn_tc::attend_tc<D, 2, 1>(a, kp, vp, keys);
+}
+
 bool shape_ok(int Hq, int Hkv, int D, int page_size) {
   return Hkv > 0 && Hq % Hkv == 0 && Hq / Hkv <= kMaxRows &&
          (D == 64 || D == 128 || D == 256) && page_size >= 1 &&
@@ -348,6 +398,30 @@ int launch_prefill(const void* q, const void* kp, const void* vp,
       static_cast<const int*>(lengths), static_cast<const int*>(starts),
       static_cast<T*>(out), C, Hq, Hkv, page_size, npages, window, softcap,
       1.0f / sqrtf(float(D)));
+  return int(cudaGetLastError());
+}
+
+// bfloat16 only (T is the pools' element type, for DISPATCH_D)
+template <typename T, int D>
+int launch_prefill_tc(const void* q, const void* kp, const void* vp,
+                      const void* table, const void* lengths,
+                      const void* starts, void* out, int B, int C, int Hq,
+                      int Hkv, int page_size, int npages, int window,
+                      float softcap, cudaStream_t stream) {
+  constexpr size_t smem = attn_tc::smem_bytes<D, 2, 1>();
+  auto kern = paged_prefill_tc_kernel<D>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
+  if (err != cudaSuccess) return int(err);
+  if (B == 0 || C == 0) return int(cudaGetLastError());
+  const int tq = 32 / (Hq / Hkv);
+  kern<<<dim3((C + tq - 1) / tq, B * Hkv), 64, smem, stream>>>(
+      static_cast<const attn_tc::bf16*>(q),
+      static_cast<const attn_tc::bf16*>(kp),
+      static_cast<const attn_tc::bf16*>(vp), static_cast<const int*>(table),
+      static_cast<const int*>(lengths), static_cast<const int*>(starts),
+      static_cast<attn_tc::bf16*>(out), C, Hq, Hkv, page_size, npages,
+      window, softcap, 1.0f / sqrtf(float(D)));
   return int(cudaGetLastError());
 }
 
@@ -396,7 +470,7 @@ extern "C" int paged_prefill_launch(const void* q, const void* kp,
                B, C, Hq, Hkv, page_size, npages, window, softcap, s)
   }
   if (dtype == 1) {
-    DISPATCH_D(__nv_bfloat16, launch_prefill, q, kp, vp, table, lengths,
+    DISPATCH_D(__nv_bfloat16, launch_prefill_tc, q, kp, vp, table, lengths,
                starts, out, B, C, Hq, Hkv, page_size, npages, window,
                softcap, s)
   }

@@ -11,7 +11,10 @@ only when ``causal`` is true, keeps i - j < window.
   the hand-written Hopper kernel of ``csrc/flash_attention.cu`` (K5,
   replacing the Pallas kernel ``_kernel`` of
   ``repro/kernels/flash_attention.py``) or raises; it raises on a CPU
-  tensor. ``kernels.ops.flash_attention`` is the entry point that takes
+  tensor. bfloat16 inputs run on the tensor cores (the tile core of
+  ``csrc/attention_tc.cuh``, which also rounds the softmax weights to
+  bfloat16 for the P.V product), float32 inputs on the CUDA cores in
+  float32. ``kernels.ops.flash_attention`` is the entry point that takes
   the twin for CPU tensors.
 - ``flash_attention_ref`` is the plain PyTorch twin: the function of the
   JAX package's oracle (``repro/kernels/ref.py::flash_attention_ref``), a

@@ -10,7 +10,10 @@ sits at absolute position ``starts[slot] + i``.
   CUDA tensor they launch the hand-written Hopper kernels of
   ``csrc/paged_attention.cu`` (K3 and K4, replacing the Pallas kernels
   ``_kernel`` and ``_prefill_kernel`` of ``repro/kernels/paged_attention.py``)
-  or raise. On a CPU tensor they call the twin.
+  or raise. On a CPU tensor they call the twin. K4 runs bfloat16 pools on
+  the tensor cores (the tile core of ``csrc/attention_tc.cuh``, shared
+  with K5) and float32 pools on the CUDA cores; K3 runs both on the CUDA
+  cores.
 - ``paged_decode_ref`` / ``paged_prefill_ref`` are the plain PyTorch twins:
   the same page-loop online softmax as the JAX package's twins, bounded by
   the batch-max live page count, in float32 whatever the input dtype.

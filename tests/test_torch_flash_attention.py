@@ -7,6 +7,12 @@ the sweep of ``tests/test_kernels.py``. Tolerances are the JAX package's
 own: 2e-5 for float32 (summation order only), 2e-2 for bfloat16 (one
 rounding of the output). The CUDA kernel itself runs only on a card:
 ``tests/test_torch_kernels_cuda.py`` holds it against this twin.
+
+The bf16 route of K5 and K4 (the tensor-core core,
+``csrc/attention_tc.cuh``) computes one function more than the twin: it
+rounds the softmax weights p to bf16 before the P.V product. Its formula
+is written out here and held against the JAX package's oracle
+(``repro.kernels.ref.flash_attention_ref``) at the same 2e-2.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -14,7 +20,9 @@ import pytest
 import torch
 
 from repro.kernels import ops as jops
+from repro.kernels import ref as jref
 from repro.models import attention as jattn
+from repro_torch.kernels import build
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import ops as tops
 from repro_torch.models import attention as tattn
@@ -152,3 +160,98 @@ def test_kernel_wrapper_refuses_cpu_tensors():
     assert fa.LAUNCHES["flash_attention"] == 0
     tops.flash_attention(*t)                   # the twin: not a launch
     assert fa.LAUNCHES["flash_attention"] == 0
+
+
+def _tc_formula(q, k, v, *, causal, window=None, softcap=None, block=64,
+                round_p=True):
+    """The bf16 tensor-core route's function on bf16 q (B, S, Hq, D), k, v
+    (B, S, Hkv, D): scores are bf16 products summed in float32, scaled by
+    D^-0.5, softcapped, masked to -1e30 by select; an online softmax over
+    tiles of ``block`` keys whose weights p are rounded to bf16
+    (``round_p``) before the P.V product and before the row sum; the
+    output acc / max(l, 1e-30) rounded to bf16."""
+    b, s, hq, d = q.shape
+    hkv = k.shape[2]
+    qf = q.float().reshape(b, s, hkv, hq // hkv, d)
+    kf, vf = k.float(), v.float()
+    rows = torch.arange(s)[:, None]
+    m = torch.full((b, hkv, hq // hkv, s), fa.NEG_INF)
+    l = torch.zeros_like(m)
+    acc = torch.zeros((b, hkv, hq // hkv, s, d))
+    for k0 in range(0, s, block):
+        kt, vt = kf[:, k0:k0 + block], vf[:, k0:k0 + block]
+        sc = torch.einsum("bqgrd,bkgd->bgrqk", qf, kt) * d ** -0.5
+        if softcap is not None:
+            sc = softcap * torch.tanh(sc / softcap)
+        if causal:
+            diff = rows - (k0 + torch.arange(kt.shape[1]))[None]
+            keep = diff >= 0
+            if window is not None:
+                keep &= diff < window
+            sc = torch.where(keep, sc, fa.NEG_INF)
+        m_new = torch.maximum(m, sc.amax(-1))
+        alpha = torch.exp(m - m_new)
+        p = torch.exp(sc - m_new[..., None])
+        if round_p:
+            p = p.to(torch.bfloat16).float()
+        l = l * alpha + p.sum(-1)
+        acc = acc * alpha[..., None] + torch.einsum("bgrqk,bkgd->bgrqd", p,
+                                                    vt)
+        m = m_new
+    o = acc / torch.clamp(l, min=1e-30)[..., None]
+    return o.permute(0, 3, 1, 2, 4).reshape(b, s, hq, d).to(torch.bfloat16)
+
+
+# the masks of chip_smoke.py's K5 cases at a small size: the qwen3 layers
+# (causal), a sliding window, and Gemma2's global (softcap 50) and local
+# (window + softcap) layers with q drawn at 40 N(0, 1), so that the scores
+# reach the cap
+TC_MASKS = {"causal": (dict(causal=True), 1.0),
+            "window": (dict(causal=True, window=50), 1.0),
+            "softcap": (dict(causal=True, softcap=50.0), 40.0),
+            "window+softcap": (dict(causal=True, window=50, softcap=50.0),
+                               40.0)}
+
+
+@pytest.mark.parametrize("d", [64, 256])
+@pytest.mark.parametrize("mask", list(TC_MASKS))
+def test_bf16_route_formula_matches_jax_oracle(mask, d):
+    """The bf16 route's numerical contract: with p rounded to bf16 before
+    P.V, the output stays within the bf16 bar (2e-2) of the JAX package's
+    oracle on the same bf16 inputs, for every mask of the main path and
+    ragged key tiles (S 160 = 64 + 64 + 32). The rounding is live: the
+    formula without it differs."""
+    kw, q_scale = TC_MASKS[mask]
+    rng = np.random.default_rng(d)
+    arrs = [rng.standard_normal((2, 160, h, d)).astype(np.float32)
+            for h in (4, 2, 2)]
+    arrs[0] *= q_scale
+    t = [torch.from_numpy(a).to(torch.bfloat16) for a in arrs]
+    j = [jnp.asarray(a, jnp.bfloat16) for a in arrs]
+    want = np.asarray(jref.flash_attention_ref(*j, **kw), np.float32)
+    got = _tc_formula(*t, **kw)
+    np.testing.assert_allclose(got.float().numpy(), want, rtol=0, atol=2e-2)
+    assert not torch.equal(got, _tc_formula(*t, round_p=False, **kw))
+
+
+PTXAS_LOG = """== flash_attention.cu
+ptxas info    : Compiling entry function '_Z4kernILi128EEvPf' for 'sm_90a'
+ptxas info    : Function properties for _Z4kernILi128EEvPf
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 199 registers, used 1 barriers, 416 bytes cmem[0]
+ptxas info    : Compiling entry function '_Z4kernILi256EEvPf' for 'sm_90a'
+ptxas info    : Function properties for _Z4kernILi256EEvPf
+    24 bytes stack frame, 12 bytes spill stores, 16 bytes spill loads
+ptxas info    : Used 255 registers, used 1 barriers, 416 bytes cmem[0]
+"""
+
+
+def test_ptxas_report_reads_registers_and_spills():
+    """The build's ptxas -v log, as the card test of the tensor-core
+    bodies reads it: registers and spill bytes per kernel."""
+    rep = build.ptxas_report(PTXAS_LOG)
+    assert rep == {
+        "_Z4kernILi128EEvPf": dict(registers=199, spill_stores=0,
+                                   spill_loads=0),
+        "_Z4kernILi256EEvPf": dict(registers=255, spill_stores=12,
+                                   spill_loads=16)}

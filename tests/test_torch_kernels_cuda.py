@@ -20,7 +20,9 @@ ulp of |dlogits| <= scale on top).
 Tolerances, dense flash attention (K5), against its float32 twin on the
 same inputs: the JAX package's own (``tests/test_kernels.py``), 2e-5 abs
 for float32 (summation order only), 2e-2 abs for bfloat16 (one rounding
-of the output to bf16).
+of the output to bf16; the tensor-core route also rounds p to bf16 before
+P.V, ~2^-9 relative per weight, within the same bar). K4's bf16 route is
+the same tensor-core core and is held to the same 2e-2.
 
 Tolerances, SSD chunk scan (K6), against its float32 twin on the same
 inputs, element by element through ``ss.error_ratio``: |K6 - twin| <=
@@ -37,6 +39,7 @@ import torch
 
 from repro_torch.config import RLConfig, ServeConfig, TrainConfig
 from repro_torch.configs import smoke
+from repro_torch.kernels import build
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import fused_logprob as fl
 from repro_torch.kernels import ops
@@ -143,6 +146,45 @@ def test_prefill_kernel_matches_twin(cuda, dtype, c, d, page, rep, window,
     torch.cuda.synchronize()
     assert pa.LAUNCHES["paged_prefill"] == 1
     torch.testing.assert_close(got.float(), want, rtol=0, atol=TOL[dtype])
+
+
+def _poison_tails(kp, vp, table, lengths, page):
+    """NaN in every pool row past a slot's length on its last live page
+    (the pages past it in the table are the NaN scratch page already)."""
+    for slot, n in enumerate(lengths):
+        if n % page:
+            phys = table[slot, (n - 1) // page]
+            kp[phys, n % page:] = vp[phys, n % page:] = np.nan
+
+
+@pytest.mark.parametrize("page", [8, 64])
+@pytest.mark.parametrize("rep", [2, 8])
+@pytest.mark.parametrize("window,cap", [(None, None), (20, 50.0)])
+def test_prefill_kernel_bf16_page_sizes_and_nan_tail(cuda, page, rep,
+                                                     window, cap):
+    """K4's bf16 route (the tensor-core core) at page sizes 8 and 64 (a
+    64-key tile spans 8 pages or one), with NaN in the pool rows past each
+    slot's length: the copy zero-fills those rows, so the outputs are
+    finite and match the twin, which masks them by select."""
+    q, kp, vp, table, positions = prefill_inputs(page=page, rep=rep, d=128,
+                                                 c=77, seed=page + rep)
+    lengths = positions[:, -1] + 1
+    _poison_tails(kp, vp, table, lengths, page)
+    assert any(n % page for n in lengths)        # some slot has a NaN tail
+    q, kp, vp, table, positions = _dev((q, kp, vp, table, positions), cuda,
+                                       torch.bfloat16)
+    kind = "local" if window else "causal"
+    pa.reset_launch_counts()
+    got = ops.paged_prefill(q, kp, vp, table, positions, kind=kind,
+                            window=window, softcap=cap, impl="pallas")
+    want = ops.paged_prefill(q.float(), kp.float(), vp.float(), table,
+                             positions, kind=kind, window=window,
+                             softcap=cap, impl="ref")
+    torch.cuda.synchronize()
+    assert pa.LAUNCHES["paged_prefill"] == 1
+    assert torch.isfinite(got.float()).all() and got.float().abs().max() > 0
+    torch.testing.assert_close(got.float(), want, rtol=0,
+                               atol=TOL[torch.bfloat16])
 
 
 def test_kernels_are_deterministic(cuda):
@@ -415,17 +457,57 @@ def test_flash_kernel_matches_twin(cuda, dtype, d, rep):
     _flash_check(q, k, v, causal=True)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("s", [37, 160, 1023])
 @pytest.mark.parametrize("mask", ["causal", "window", "softcap", "bidir"])
-def test_flash_kernel_masks_and_ragged_lengths(cuda, s, mask):
-    """Every mask at ragged lengths (partial last q and kv tiles); the
-    window (50) cuts tiles of 64 keys mid-tile."""
+def test_flash_kernel_masks_and_ragged_lengths(cuda, s, mask, dtype):
+    """Every mask at ragged lengths (partial last q and kv tiles), through
+    both bodies (float32 on the CUDA cores, bfloat16 on the tensor cores);
+    the window (50) cuts tiles of 64 keys mid-tile."""
     kw = {"causal": dict(causal=True),
           "window": dict(causal=True, window=50),
           "softcap": dict(causal=True, softcap=30.0),
           "bidir": dict(causal=False)}[mask]
-    q, k, v = _flash_inputs(cuda, torch.float32, s=s, seed=s)
+    q, k, v = _flash_inputs(cuda, dtype, s=s, seed=s)
     _flash_check(q, k, v, **kw)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hq,hkv,d", [(6, 2, 64), (16, 2, 128),
+                                      (80, 1, 256)])
+def test_flash_kernel_gqa_packing(cuda, dtype, hq, hkv, d):
+    """GQA group sizes that do not fill the bf16 route's packed rows evenly
+    (rep 3: 42 tokens x 3 heads of 128 rows), fill them with 16 tokens (rep
+    8), or exceed them (rep 80 at D 256: blocks of 64 and 16 heads of 64
+    rows per kv head); sliding window and softcap on, ragged S."""
+    gen = torch.Generator(device=cuda).manual_seed(hq)
+    q, k, v = (torch.randn((2, 131, h, d), generator=gen, device=cuda)
+               .to(dtype) for h in (hq, hkv, hkv))
+    _flash_check(q, k, v, causal=True, window=70, softcap=30.0)
+
+
+# the bf16 bodies of K5 and K4, and the float32 bodies that must stay on
+# the CUDA cores, by the names of their kernels in the library
+TC_KERNELS = ("flash_attention_tc_kernel", "paged_prefill_tc_kernel")
+F32_KERNELS = ("flash_attention_kernel", "paged_prefill_kernel")
+
+
+def test_bf16_attention_kernels_use_tensor_cores(cuda):
+    """Every bf16 instantiation of K5 and K4 (D 64, 128, 256) has HMMA (or
+    HGMMA) instructions in its SASS and spills nothing (the ptxas -v report
+    of the build); their float32 bodies have none."""
+    built = build.build()
+    sass = build.sass_functions(built.path)
+    report = build.ptxas_report(built.log)
+    for kern in TC_KERNELS + F32_KERNELS:
+        names = [n for n in sass if kern in n]
+        assert len(names) == 3, (kern, names)
+        for n in names:
+            mma = "HMMA" in sass[n] or "HGMMA" in sass[n]
+            assert mma == (kern in TC_KERNELS), n
+            if kern in TC_KERNELS:
+                assert report[n]["spill_stores"] == 0, (n, report[n])
+                assert report[n]["spill_loads"] == 0, (n, report[n])
 
 
 def test_flash_kernel_is_deterministic(cuda):
