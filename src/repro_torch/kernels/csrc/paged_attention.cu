@@ -15,9 +15,43 @@
 // through a block table, online softmax (m, l, acc) over the pages, GQA
 // (the rep = Hq/Hkv query heads of one kv head share every page read),
 // scores in float32 scaled by D^-0.5, then softcap, then the causal and
-// sliding-window band; masked V is zeroed by a select so NaN or garbage in
-// unwritten page tails (the scratch page included) never reaches an
-// output. The output is acc / max(l, 1e-30) in the q dtype.
+// sliding-window band; masked V is zeroed by a select (or zero-filled by
+// the copy) so NaN or garbage in unwritten page tails (the scratch page
+// included) never reaches an output. The output is acc / max(l, 1e-30) in
+// the q dtype.
+//
+// K3, paged_decode_kernel (one body for float32 and bfloat16 pools):
+// - split-K: each live slot's reach [first, length) (first = length -
+//   window under a sliding window, else 0) is cut into kSplits = 8 equal
+//   key ranges, one block each; the 8 blocks of one (slot, kv head) form a
+//   thread-block cluster (grid (8, Hkv, B), __cluster_dims__(8, 1, 1)). At
+//   8 slots and Hkv 8 that is 512 blocks of 8 warps on 132 SMs (64 for
+//   one slot);
+// - inside a block each warp walks its own contiguous run of chunks of KT
+//   keys (2 KB of K and 2 KB of V per chunk: KT = 8 at D 128 in bf16), 64
+//   workers per (slot, kv head). A warp keeps a private ring of 3 chunk
+//   stages in shared memory, filled by cp.async (16 B, .cg; each key row's
+//   page looked up as table_row[col / page_size], so page sizes 1-64 work;
+//   rows at or past length zero-filled by the copy, src-size 0), so two
+//   chunks are in flight while one is consumed; lane i looks key i of a
+//   chunk up a chunk ahead and the copy's pieces take the offsets by
+//   shuffle; only __syncwarp, no block barrier, inside the key loop;
+// - a warp holds the q rows of up to RG heads (RG 2 for rep <= 2, else 8;
+//   larger rep runs in row groups) and their float32 accumulators in
+//   registers, lanes across D; a score is a float32 dot of bf16 (or
+//   float32) pairs, summed across lanes by shuffles (the RG x KS scores
+//   of a step at once: reduce-scatter, then all-gather); masked keys get
+//   s = -1e30 and p = 0, so a worker with no live key ends with m = -1e30,
+//   l = 0, acc = 0;
+// - the combine, in two levels and a fixed order (never arrival order),
+//   so the bits repeat: every warp leaves (m, l, acc) in shared memory;
+//   each block combines its warps in warp order, M = max m_i,
+//   L = sum l_i exp(m_i - M), A = sum acc_i exp(m_i - M); cluster.sync();
+//   then block q reads the 8 block partials through distributed shared
+//   memory, in split order, for its D / 8 output columns and writes
+//   A / max(L, 1e-30). One launch per call, no workspace;
+// - a dead slot (length = width * page + 1, past its table) reads no page
+//   and writes zeros.
 //
 // K4 has one body per input dtype, chosen in paged_prefill_launch:
 // - bfloat16: paged_prefill_tc_kernel, the tensor-core tile core of
@@ -28,15 +62,13 @@
 //   slot, kv head): a chunk of C 512 at rep 2 is 32 tiles x 8 kv heads =
 //   256 blocks, more than one wave on 132 SMs;
 // - float32: paged_prefill_kernel over attend_tile below, the body behind
-//   the tight float32 checks (1e-5 against the twin).
-// K3 runs attend_tile for both dtypes.
+//   the tight float32 checks (1e-5 against the twin). attend_tile has no
+//   other caller.
 //
 // attend_tile design (simple first):
-// - one thread block of 128 threads per (slot, kv_head) for decode and per
-//   (slot, q-tile of bq = 32/rep tokens, kv_head) for prefill; a block
-//   reads its own table row, length and start (no scalar prefetch here);
-// - a dead decode slot (len = width*page + 1, past its table) returns
-//   zeros at once; every other page loop is bounded by ceil(len/page)
+// - one thread block of 128 threads per (slot, q-tile of bq = 32/rep
+//   tokens, kv_head); a block reads its own table row, length and start
+//   (no scalar prefetch here); the page loop is bounded by ceil(len/page)
 //   (<= npages) and by the tile's causal and window reach [first, last],
 //   so no block reads its table row out of bounds and unreachable pages
 //   cost nothing;
@@ -50,20 +82,23 @@
 //
 // Bound on the H100 (3.35 TB/s, 989 TFLOP/s bf16 dense):
 // - K3 is memory-bound. Per layer it must read the live KV,
-//   2 * sum_slots ceil(len/16)*16 * Hkv * D * 2 bytes (4 KiB per token per
-//   layer at Qwen3-1.7B: Hkv 8, D 128, bf16), at ~1 FLOP per byte.
+//   2 * sum_slots len * Hkv * D * 2 bytes (4 KiB per token per layer at
+//   Qwen3-1.7B: Hkv 8, D 128, bf16), at ~1 FLOP per byte: what it needs is
+//   bytes in flight on every SM, which split-K and the copy rings give;
 // - K4 is bound by FLOPs or bytes, whichever is larger: 4 * Hq * D FLOPs
 //   per (query, attended key) pair against the pages of starts + C.
-// What the designs leave on the table: K3 launches B*Hkv blocks, 64 at 8
-// slots on 132 SMs, and walks a long context serially inside one block
-// (split-K across blocks is the fix), on the CUDA cores in float32 with
-// no cp.async double-buffering. K4's bf16 body walks up to starts + C
-// keys serially in each block (1536 at start 1024, C 512).
+// What the designs leave on the table: K3's scores still reduce across
+// lanes by shuffles (2 per (key, head)); a short slot still takes 8
+// blocks. K4's
+// bf16 body walks up to starts + C keys serially in each block (1536 at
+// start 1024, C 512).
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <cooperative_groups.h>
 
 #include "attention_tc.cuh"
 
@@ -257,35 +292,349 @@ __device__ __noinline__ void attend_tile(
   }
 }
 
-template <typename T, int D>
-__global__ void __launch_bounds__(kThreads)
+// ---------------------------------------------------------------------------
+// K3: split-K decode, one cluster of kSplits blocks per (slot, kv head)
+
+namespace cg = cooperative_groups;
+
+constexpr int kSplits = 8;         // blocks (one cluster) per (slot, kv head)
+constexpr int kDecWarps = 8;       // workers per block
+constexpr int kDecStages = 3;      // chunk stages in each warp's ring
+constexpr int kChunkBytes = 2048;  // bytes of K (and of V) in one chunk
+
+// KT keys of D elements of T per chunk; a lane holds E = D / 32 elements of
+// every row; a softmax step takes KS keys at a time, so that the scores of
+// a step (RG x KS) stay at 16 registers
+template <typename T, int D, int RG>
+struct DecodeShape {
+  static constexpr int RB = D * int(sizeof(T));  // bytes of a key row
+  static constexpr int KT = kChunkBytes / RB;
+  static constexpr int E = D / 32;
+  static constexpr int KS = KT < 16 / RG ? KT : 16 / RG;
+  static constexpr int PIECES = kChunkBytes / 16;  // 16 B copies of K
+  static_assert(KT >= 1 && KT % KS == 0, "chunk of whole softmax steps");
+  static_assert(PIECES % 32 == 0, "whole copies per lane");
+  // the partials (acc, m, l of RG rows) reuse the warp's ring
+  static_assert(RG * (D + 2) * 4 <= kDecStages * 2 * kChunkBytes,
+                "partials fit the ring");
+};
+
+// each warp's ring, then the block's partial (acc, m, l of RG rows)
+template <int D, int RG>
+constexpr size_t decode_smem_bytes() {
+  return size_t(kDecWarps) * kDecStages * 2 * kChunkBytes +
+         (size_t(RG) * (D + 2) * 4 + 15) / 16 * 16;
+}
+
+// E consecutive elements at p (16 B aligned for E * sizeof(T) >= 16) as
+// float32
+template <int E>
+__device__ __forceinline__ void load_row(const float* p, float (&o)[E]) {
+  if constexpr (E % 4 == 0) {
+#pragma unroll
+    for (int i = 0; i < E; i += 4) {
+      const float4 v = *reinterpret_cast<const float4*>(p + i);
+      o[i] = v.x; o[i + 1] = v.y; o[i + 2] = v.z; o[i + 3] = v.w;
+    }
+  } else {
+#pragma unroll
+    for (int i = 0; i < E; i += 2) {
+      const float2 v = *reinterpret_cast<const float2*>(p + i);
+      o[i] = v.x; o[i + 1] = v.y;
+    }
+  }
+}
+
+template <int E>
+__device__ __forceinline__ void load_row(const __nv_bfloat16* p,
+                                         float (&o)[E]) {
+  static_assert(E % 2 == 0, "bf16 pairs");
+  uint32_t w[E / 2];
+  if constexpr (E % 8 == 0) {
+#pragma unroll
+    for (int i = 0; i < E / 2; i += 4)
+      *reinterpret_cast<uint4*>(w + i) =
+          *reinterpret_cast<const uint4*>(p + 2 * i);
+  } else if constexpr (E == 4) {
+    *reinterpret_cast<uint2*>(w) = *reinterpret_cast<const uint2*>(p);
+  } else {
+    w[0] = *reinterpret_cast<const uint32_t*>(p);
+  }
+#pragma unroll
+  for (int i = 0; i < E / 2; ++i) {
+    const float2 f =
+        __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(w + i));
+    o[2 * i] = f.x;
+    o[2 * i + 1] = f.y;
+  }
+}
+
+// every lane's v[i] becomes the sum of v[i] over the warp, in a fixed
+// order: a reduce-scatter (NV - 1 shuffles: at each offset a lane keeps
+// half of its values and adds its partner's copy of that half), a
+// butterfly on the one value left, then an all-gather (NV shuffles), in
+// place of NV butterflies of 5 shuffles each
+template <int NV>
+__device__ __forceinline__ void warp_sum_all(float (&v)[NV]) {
+  constexpr int LOG = NV == 1 ? 0 : NV == 2 ? 1 : NV == 4 ? 2
+                      : NV == 8 ? 3 : 4;
+  static_assert((1 << LOG) == NV, "NV in 1, 2, 4, 8, 16");
+  const int lane = threadIdx.x % 32;
+#pragma unroll
+  for (int step = 0; step < LOG; ++step) {
+    const int o = 16 >> step, half = NV >> (step + 1);
+    const bool upper = lane & o;
+#pragma unroll
+    for (int i = 0; i < half; ++i) {
+      const float send = upper ? v[i] : v[i + half];
+      const float keep = upper ? v[i + half] : v[i];
+      v[i] = keep + __shfl_xor_sync(0xffffffffu, send, o);
+    }
+  }
+  // v[0]: value lane >> (5 - LOG), summed over the lanes that share the
+  // low 5 - LOG bits of this one; add the others
+#pragma unroll
+  for (int o = 16 >> LOG; o > 0; o >>= 1)
+    v[0] += __shfl_xor_sync(0xffffffffu, v[0], o);
+  const float mine = v[0];
+#pragma unroll
+  for (int i = 0; i < NV; ++i)
+    v[i] = __shfl_sync(0xffffffffu, mine, i << (5 - LOG));
+}
+
+template <typename T, int D, int RG>
+__global__ void __cluster_dims__(kSplits, 1, 1)
+__launch_bounds__(kDecWarps * 32, RG == 2 ? 2 : 1)
 paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ kp,
                     const T* __restrict__ vp, const int* __restrict__ table,
                     const int* __restrict__ lengths, T* __restrict__ out,
                     int Hq, int Hkv, int page_size, int npages, int window,
                     float softcap, float scale) {
-  const int b = blockIdx.x, kvh = blockIdx.y;
+  using Sh = DecodeShape<T, D, RG>;
+  constexpr int KT = Sh::KT, E = Sh::E, KS = Sh::KS, RB = Sh::RB;
+  constexpr int NT = kDecWarps * 32;
+  constexpr int NW = kSplits * kDecWarps;         // workers per cluster
+  constexpr int DS = D / kSplits;                 // output columns a block
+  constexpr int RING = kDecStages * 2 * kChunkBytes;
+  extern __shared__ __align__(16) unsigned char dec_smem[];
+  cg::cluster_group cluster = cg::this_cluster();
+
+  const int rank = int(cluster.block_rank());      // split: blockIdx.x
+  const int kvh = blockIdx.y, b = blockIdx.z;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int rep = Hq / Hkv;
   const int length = lengths[b];
   const size_t qoff = (size_t(b) * Hq + size_t(kvh) * rep) * D;
   // A dead slot (finished or inactive) sits at length = width * page + 1,
   // past its table: its output is discarded, so it walks no page and
-  // writes zeros (the twin's row for it is junk of the scratch page).
+  // writes zeros (the twin's row for it is junk of the scratch page). The
+  // whole cluster returns here, before any cluster barrier.
   if (length > npages * page_size) {
-    for (int i = threadIdx.x; i < rep * D; i += kThreads)
+    for (int i = rank * NT + tid; i < rep * D; i += kSplits * NT)
       out[qoff + i] = Vec<T>::store(0.f);
     return;
   }
-  const int live = (length + page_size - 1) / page_size;
-  int first = 0, v_lo = 0;
-  if (window >= 0) {
-    v_lo = length - window;      // band: col > length - 1 - window
-    first = v_lo > 0 ? v_lo / page_size : 0;
+  const int first = window >= 0 ? max(length - window, 0) : 0;
+  const int nchunks = (max(length - first, 0) + KT - 1) / KT;
+  const int u = rank * kDecWarps + warp;           // worker, split-major
+  const int c_lo = u * nchunks / NW, c_hi = (u + 1) * nchunks / NW;
+  const int* table_row = table + size_t(b) * npages;
+  const size_t row_stride = size_t(Hkv) * D;
+  unsigned char* ring = dec_smem + warp * RING;
+  float* part = reinterpret_cast<float*>(ring);    // after the key loop
+  float* bpart = reinterpret_cast<float*>(dec_smem + kDecWarps * RING);
+
+  // the pool offset (elements) of key `lane` of chunk c, its page looked
+  // up in the table, or -1 at or past the slot's length (KT <= 32)
+  auto key_row = [&](int c) -> long long {
+    const int col = first + c * KT + lane;
+    if (lane >= KT || c >= c_hi || col >= length) return -1;
+    return static_cast<long long>(
+        (size_t(table_row[col / page_size]) * page_size + col % page_size) *
+            row_stride +
+        size_t(kvh) * D);
+  };
+  // stage a chunk in ring slot st, K then V, from the key offsets `rows`
+  // (key_row of the chunk): each 16-byte piece takes its key's offset from
+  // the lane that holds it; keys at or past length are zero-filled
+  auto fetch = [&](int st, long long rows) {
+    unsigned char* dst = ring + st * 2 * kChunkBytes;
+#pragma unroll
+    for (int i = 0; i < Sh::PIECES / 32; ++i) {
+      const int j = lane + 32 * i;
+      const int key = j / (RB / 16), off = j % (RB / 16);
+      const long long at = __shfl_sync(0xffffffffu, rows, key);
+      const bool ok = at >= 0;
+      const size_t e = ok ? size_t(at) + off * (16 / sizeof(T)) : 0;
+      const uint32_t d = attn_tc::smem_u32(dst + key * RB + off * 16);
+      attn_tc::cp_async16(d, kp + e, ok);
+      attn_tc::cp_async16(d + kChunkBytes, vp + e, ok);
+    }
+    attn_tc::cp_async_commit();
+  };
+
+  for (int r0 = 0; r0 < rep; r0 += RG) {
+    const int nr = min(RG, rep - r0);
+    float qr[RG][E], acc[RG][E], m[RG], l[RG];
+#pragma unroll
+    for (int r = 0; r < RG; ++r) {
+#pragma unroll
+      for (int e = 0; e < E; ++e) qr[r][e] = acc[r][e] = 0.f;
+      if (r < nr) load_row<E>(q + qoff + size_t(r0 + r) * D + lane * E,
+                              qr[r]);
+      m[r] = kNegInf;
+      l[r] = 0.f;
+    }
+#pragma unroll
+    for (int i = 0; i < kDecStages - 1; ++i) {
+      if (c_lo + i < c_hi) fetch(i, key_row(c_lo + i));
+      else attn_tc::cp_async_commit();
+    }
+    // the offsets of the chunk staged next are loaded a chunk ahead, so the
+    // table lookups are not on the copy's path
+    long long rows_next = key_row(c_lo + kDecStages - 1);
+    for (int c = c_lo; c < c_hi; ++c) {
+      const int i = c - c_lo;
+      __syncwarp();        // every lane is done with the slot refilled next
+      if (c + kDecStages - 1 < c_hi)
+        fetch((i + kDecStages - 1) % kDecStages, rows_next);
+      else
+        attn_tc::cp_async_commit();
+      rows_next = key_row(c + kDecStages);
+      attn_tc::cp_async_wait<kDecStages - 1>();
+      __syncwarp();        // chunk c's copies, from every lane, visible
+      const T* Ks = reinterpret_cast<const T*>(
+          ring + (i % kDecStages) * 2 * kChunkBytes);
+      const T* Vs = Ks + KT * D;
+      const int col0 = first + c * KT;
+#pragma unroll
+      for (int k0 = 0; k0 < KT; k0 += KS) {
+        float s[RG][KS];
+#pragma unroll
+        for (int kk = 0; kk < KS; ++kk) {
+          float kv[E];
+          load_row<E>(Ks + (k0 + kk) * D + lane * E, kv);
+#pragma unroll
+          for (int r = 0; r < RG; ++r) {
+            float d = 0.f;
+            if (r < nr) {
+#pragma unroll
+              for (int e = 0; e < E; ++e) d = fmaf(qr[r][e], kv[e], d);
+            }
+            s[r][kk] = d;
+          }
+        }
+        warp_sum_all<RG * KS>(reinterpret_cast<float(&)[RG * KS]>(s));
+#pragma unroll
+        for (int r = 0; r < RG; ++r) {
+          if (r >= nr) continue;
+#pragma unroll
+          for (int kk = 0; kk < KS; ++kk) {
+            float v = s[r][kk] * scale;
+            if (softcap > 0.f) v = softcap * tanhf(v / softcap);
+            s[r][kk] = col0 + k0 + kk < length ? v : kNegInf;
+          }
+          float mc = kNegInf;
+#pragma unroll
+          for (int kk = 0; kk < KS; ++kk) mc = fmaxf(mc, s[r][kk]);
+          const float m_new = fmaxf(m[r], mc);
+          const float alpha =
+              attn_tc::exp2_approx((m[r] - m_new) * attn_tc::kLog2e);
+          float sum = 0.f;
+#pragma unroll
+          for (int kk = 0; kk < KS; ++kk) {
+            const float p = col0 + k0 + kk < length
+                                ? attn_tc::exp2_approx((s[r][kk] - m_new) *
+                                                       attn_tc::kLog2e)
+                                : 0.f;
+            s[r][kk] = p;
+            sum += p;
+          }
+          l[r] = l[r] * alpha + sum;
+          m[r] = m_new;
+#pragma unroll
+          for (int e = 0; e < E; ++e) acc[r][e] *= alpha;
+        }
+#pragma unroll
+        for (int kk = 0; kk < KS; ++kk) {
+          float vv[E];
+          load_row<E>(Vs + (k0 + kk) * D + lane * E, vv);
+#pragma unroll
+          for (int r = 0; r < RG; ++r) {
+            if (r >= nr) continue;
+#pragma unroll
+            for (int e = 0; e < E; ++e)
+              acc[r][e] = fmaf(s[r][kk], vv[e], acc[r][e]);
+          }
+        }
+      }
+    }
+    attn_tc::cp_async_wait<0>();   // only empty groups can be pending
+    __syncwarp();
+#pragma unroll
+    for (int r = 0; r < RG; ++r) {
+#pragma unroll
+      for (int e = 0; e < E; ++e) part[r * D + lane * E + e] = acc[r][e];
+      if (lane == 0) {
+        part[RG * D + r] = m[r];
+        part[RG * D + RG + r] = l[r];
+      }
+    }
+    __syncthreads();               // every warp's partial written
+    // the block's partial: its warps combined in warp order
+    for (int i = tid; i < nr * D; i += NT) {
+      const int r = i / D, d = i % D;
+      float mw[kDecWarps], mx = kNegInf;
+#pragma unroll
+      for (int w = 0; w < kDecWarps; ++w) {
+        mw[w] = reinterpret_cast<const float*>(dec_smem + w * RING)[RG * D +
+                                                                   r];
+        mx = fmaxf(mx, mw[w]);
+      }
+      float lsum = 0.f, o = 0.f;
+#pragma unroll
+      for (int w = 0; w < kDecWarps; ++w) {
+        const float* pw = reinterpret_cast<const float*>(dec_smem + w * RING);
+        const float wt =
+            attn_tc::exp2_approx((mw[w] - mx) * attn_tc::kLog2e);
+        lsum = fmaf(pw[RG * D + RG + r], wt, lsum);
+        o = fmaf(pw[r * D + d], wt, o);
+      }
+      bpart[r * D + d] = o;
+      if (d == 0) {
+        bpart[RG * D + r] = mx;
+        bpart[RG * D + RG + r] = lsum;
+      }
+    }
+    cluster.sync();                // every block's partial written
+    // the outputs: block `rank` takes columns [rank DS, rank DS + DS) of
+    // every row and combines the cluster's blocks in rank order, reading
+    // their partials through distributed shared memory
+    for (int i = tid; i < nr * DS; i += NT) {
+      const int r = i / DS, d = rank * DS + i % DS;
+      float mb[kSplits], lb[kSplits], ab[kSplits], mx = kNegInf;
+#pragma unroll
+      for (int q = 0; q < kSplits; ++q) {
+        const float* pb = cluster.map_shared_rank(bpart, q);
+        mb[q] = pb[RG * D + r];
+        lb[q] = pb[RG * D + RG + r];
+        ab[q] = pb[r * D + d];
+      }
+#pragma unroll
+      for (int q = 0; q < kSplits; ++q) mx = fmaxf(mx, mb[q]);
+      float lsum = 0.f, o = 0.f;
+#pragma unroll
+      for (int q = 0; q < kSplits; ++q) {
+        const float wt =
+            attn_tc::exp2_approx((mb[q] - mx) * attn_tc::kLog2e);
+        lsum = fmaf(lb[q], wt, lsum);
+        o = fmaf(ab[q], wt, o);
+      }
+      out[qoff + size_t(r0 + r) * D + d] =
+          Vec<T>::store(o / fmaxf(lsum, 1e-30f));
+    }
+    cluster.sync();                // partials read before they are reused
   }
-  attend_tile<T, D>(q + qoff, kp, vp, table + size_t(b) * npages,
-                    out + qoff, rep, rep, Hq * D, length - 1, length, v_lo,
-                    first, live - 1, kvh, Hkv, page_size, window, softcap,
-                    scale);
 }
 
 template <typename T, int D>
@@ -360,23 +709,39 @@ bool shape_ok(int Hq, int Hkv, int D, int page_size) {
          page_size <= kTileK;
 }
 
-template <typename T, int D>
-int launch_decode(const void* q, const void* kp, const void* vp,
-                  const void* table, const void* lengths, void* out, int B,
-                  int Hq, int Hkv, int page_size, int npages, int window,
-                  float softcap, cudaStream_t stream) {
-  const size_t smem = smem_floats<D>() * sizeof(float);
-  auto kern = paged_decode_kernel<T, D>;
+template <typename T, int D, int RG>
+int launch_decode_rg(const void* q, const void* kp, const void* vp,
+                     const void* table, const void* lengths, void* out,
+                     int B, int Hq, int Hkv, int page_size, int npages,
+                     int window, float softcap, cudaStream_t stream) {
+  constexpr size_t smem = decode_smem_bytes<D, RG>();
+  auto kern = paged_decode_kernel<T, D, RG>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
   if (err != cudaSuccess) return int(err);
   if (B == 0) return int(cudaGetLastError());
-  kern<<<dim3(B, Hkv), kThreads, smem, stream>>>(
+  kern<<<dim3(kSplits, Hkv, B), kDecWarps * 32, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(kp),
       static_cast<const T*>(vp), static_cast<const int*>(table),
       static_cast<const int*>(lengths), static_cast<T*>(out), Hq, Hkv,
       page_size, npages, window, softcap, 1.0f / sqrtf(float(D)));
   return int(cudaGetLastError());
+}
+
+// rows of query heads a warp holds: 2 when rep <= 2 (Qwen3, Gemma2), else
+// 8 (larger rep in groups of 8)
+template <typename T, int D>
+int launch_decode(const void* q, const void* kp, const void* vp,
+                  const void* table, const void* lengths, void* out, int B,
+                  int Hq, int Hkv, int page_size, int npages, int window,
+                  float softcap, cudaStream_t stream) {
+  if (Hq / Hkv <= 2)
+    return launch_decode_rg<T, D, 2>(q, kp, vp, table, lengths, out, B, Hq,
+                                     Hkv, page_size, npages, window,
+                                     softcap, stream);
+  return launch_decode_rg<T, D, 8>(q, kp, vp, table, lengths, out, B, Hq,
+                                   Hkv, page_size, npages, window, softcap,
+                                   stream);
 }
 
 template <typename T, int D>

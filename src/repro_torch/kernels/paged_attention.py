@@ -12,8 +12,11 @@ sits at absolute position ``starts[slot] + i``.
   ``_kernel`` and ``_prefill_kernel`` of ``repro/kernels/paged_attention.py``)
   or raise. On a CPU tensor they call the twin. K4 runs bfloat16 pools on
   the tensor cores (the tile core of ``csrc/attention_tc.cuh``, shared
-  with K5) and float32 pools on the CUDA cores; K3 runs both on the CUDA
-  cores.
+  with K5) and float32 pools on the CUDA cores. K3 is split-K: each
+  (slot, kv head) is one cluster of ``DECODE_SPLITS`` blocks of
+  ``DECODE_WARPS`` warps; each warp takes a contiguous run of the slot's
+  key chunks and the cluster combines the 32 partials in worker order,
+  in one launch, for both dtypes.
 - ``paged_decode_ref`` / ``paged_prefill_ref`` are the plain PyTorch twins:
   the same page-loop online softmax as the JAX package's twins, bounded by
   the batch-max live page count, in float32 whatever the input dtype.
@@ -36,6 +39,13 @@ import torch
 from repro_torch.kernels import build
 
 NEG_INF = -1e30
+
+# K3's work split (csrc/paged_attention.cu): blocks (one thread-block
+# cluster) per (slot, kv head), warps per block, and the bytes of K (and
+# of V) in one chunk of keys a warp stages at a time
+DECODE_SPLITS = 8
+DECODE_WARPS = 8
+DECODE_CHUNK_BYTES = 2048
 
 # launches of each CUDA kernel since the last reset_launch_counts()
 LAUNCHES: Dict[str, int] = {"paged_decode": 0, "paged_prefill": 0}

@@ -14,14 +14,19 @@ head) the chunks run in order carrying a float32 state (P, N):
   hand-written Hopper kernel of ``csrc/ssd_scan.cu`` (K6, replacing the
   Pallas kernel ``_kernel`` of ``repro/kernels/ssd_scan.py``) or raises;
   it raises on a CPU tensor. ``kernels.ops.ssd_scan`` is the entry point
-  that takes the twin for CPU tensors.
+  that takes the twin for CPU tensors. bfloat16 inputs run the four
+  products of a chunk on the tensor cores (bf16 ``mma.sync``, float32
+  accumulation), each float32 operand (the decayed scores, the carried
+  state, x scaled for the state update) entering as a bf16 hi + lo pair;
+  float32 inputs run float32 on the CUDA cores.
 - ``ssd_scan_ref`` is the plain PyTorch twin: the TPU kernel's formula,
   one chunk at a time (masked quadratic form, the carried state's term,
   the state update), batched over (batch, head). It is not the model's
   ``ssd_chunked``, so that a fault of the formula shows against the JAX
   package's recurrence.
 
-Both compute in float32 and return y in x's dtype. The JAX package has no
+Both keep the cumsum, decays and state in float32 and return y in x's
+dtype. The JAX package has no
 backward for the kernel; ``kernels.ops.ssd_scan`` raises when autograd
 records a call.
 
@@ -114,10 +119,12 @@ def error_ratio(got: torch.Tensor, want: torch.Tensor) -> float:
 
 def p_splits(blocks: int, p: int, sms: int) -> int:
     """Slices of the P state rows per (batch, head): at most ROWS_MAX rows
-    a block, halved (down to 16) while the B * H blocks would not give
-    each of ``sms`` SMs two. The slices compute the same values."""
+    a block, halved (down to 16) while twice the blocks still fit one
+    wave of ``sms`` blocks. Both K6 bodies run one block per SM, so a grid
+    past ``sms`` blocks takes a second wave, and every slice recomputes
+    the scores C B^T. The slices compute the same values."""
     n = 1
-    while p // n > ROWS_MAX or (blocks * n < 2 * sms and p // (2 * n) >= 16):
+    while p // n > ROWS_MAX or (2 * blocks * n <= sms and p // (2 * n) >= 16):
         n *= 2
     return n
 

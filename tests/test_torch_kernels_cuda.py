@@ -69,12 +69,25 @@ def _pools(rng, pool, page, hkv, d):
     return kp, vp
 
 
-def decode_inputs(*, page, rep, d, hkv=2, npages=6, seed=0):
-    """Lengths 0, 1, page, ragged, full and a dead slot (width*page + 1);
-    unused table entries point at the NaN scratch page."""
+# K3 slot sets: "ragged" lengths 0, 1, page, ragged, full and a dead slot;
+# "long", one slot of 8192 keys (every split busy) beside a length-1 slot
+# and a 2048-key slot (under window 9 only 2 of its 32 workers hold a key);
+# "dead", every slot dead
+DECODE_SETS = ("ragged", "long", "dead")
+
+
+def decode_inputs(*, page, rep, d, hkv=2, npages=6, seed=0, lengths="ragged"):
+    """The slots of ``lengths`` (a DECODE_SETS name) with a dead slot last
+    (width*page + 1); unused table entries point at the NaN scratch
+    page."""
     rng = np.random.default_rng(seed)
-    lengths = np.array([0, 1, page, page + 3, 3 * page - 1, npages * page,
-                        npages * page + 1], np.int32)
+    if lengths == "long":
+        npages = 8192 // page
+    full = npages * page
+    lengths = np.array({
+        "ragged": [0, 1, page, page + 3, 3 * page - 1, full, full + 1],
+        "long": [full, 1, 2048, full + 1],
+        "dead": [full + 1] * 3}[lengths], np.int32)
     b = lengths.shape[0]
     kp, vp = _pools(rng, 1 + b * npages, page, hkv, d)
     table = np.zeros((b, npages), np.int32)
@@ -112,20 +125,24 @@ def _dev(arrs, dev, dtype):
 @pytest.mark.parametrize("d,page,rep", [(64, 8, 1), (128, 16, 2),
                                         (256, 16, 4), (128, 64, 8)])
 @pytest.mark.parametrize("window,cap", [(None, None), (9, 30.0)])
-def test_decode_kernel_matches_twin(cuda, dtype, d, page, rep, window, cap):
-    q, kp, vp, table, lengths = _dev(
-        decode_inputs(page=page, rep=rep, d=d, seed=d + page), cuda, dtype)
+@pytest.mark.parametrize("lengths", DECODE_SETS)
+def test_decode_kernel_matches_twin(cuda, dtype, d, page, rep, window, cap,
+                                    lengths):
+    q, kp, vp, table, lens = _dev(
+        decode_inputs(page=page, rep=rep, d=d, seed=d + page,
+                      lengths=lengths), cuda, dtype)
     pa.reset_launch_counts()
-    got = pa.paged_attention(q, kp, vp, table, lengths, window=window,
+    got = pa.paged_attention(q, kp, vp, table, lens, window=window,
                              softcap=cap)
     want = pa.paged_decode_ref(q.float(), kp.float(), vp.float(), table,
-                               lengths, window=window, softcap=cap)
+                               lens, window=window, softcap=cap)
     torch.cuda.synchronize()
     assert pa.LAUNCHES["paged_decode"] == 1
-    live = slice(0, q.shape[0] - 1)          # the twin's dead row is junk
+    live = lens <= table.shape[1] * page     # the twin's dead rows are junk
+    assert not live[-1]
     torch.testing.assert_close(got[live].float(), want[live], rtol=0,
                                atol=TOL[dtype])
-    assert not got[-1].any()                 # the kernel's dead row: zeros
+    assert not got[~live].any()              # the kernel's dead rows: zeros
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -190,12 +207,14 @@ def test_prefill_kernel_bf16_page_sizes_and_nan_tail(cuda, page, rep,
 def test_kernels_are_deterministic(cuda):
     """Repeated launches on the same inputs give bit-identical outputs: a
     shared-memory race would usually show as run-to-run differences."""
-    q, kp, vp, table, lengths = _dev(
-        decode_inputs(page=16, rep=2, d=128), cuda, torch.bfloat16)
-    first = pa.paged_attention(q, kp, vp, table, lengths)
-    for _ in range(50):
-        assert torch.equal(pa.paged_attention(q, kp, vp, table, lengths)
-                           .view(torch.int16), first.view(torch.int16))
+    for lengths in ("ragged", "long"):       # "long": all 8 splits busy
+        q, kp, vp, table, lens = _dev(
+            decode_inputs(page=16, rep=2, d=128, lengths=lengths), cuda,
+            torch.bfloat16)
+        first = pa.paged_attention(q, kp, vp, table, lens)
+        for _ in range(50):
+            assert torch.equal(pa.paged_attention(q, kp, vp, table, lens)
+                               .view(torch.int16), first.view(torch.int16))
     q, kp, vp, table, positions = _dev(
         prefill_inputs(page=16, rep=2, d=128, c=77), cuda, torch.bfloat16)
     first = ops.paged_prefill(q, kp, vp, table, positions, impl="pallas")
@@ -486,28 +505,46 @@ def test_flash_kernel_gqa_packing(cuda, dtype, hq, hkv, d):
     _flash_check(q, k, v, causal=True, window=70, softcap=30.0)
 
 
-# the bf16 bodies of K5 and K4, and the float32 bodies that must stay on
-# the CUDA cores, by the names of their kernels in the library
-TC_KERNELS = ("flash_attention_tc_kernel", "paged_prefill_tc_kernel")
-F32_KERNELS = ("flash_attention_kernel", "paged_prefill_kernel")
+# the bf16 bodies on the tensor cores and the float32 bodies that must
+# stay on the CUDA cores, by the names of their kernels in the library,
+# with their instantiations: D 64, 128, 256 for K5 and K4; P slice 16, 32,
+# 64 x N 16, 32, 64, 128 for K6
+TC_KERNELS = {"flash_attention_tc_kernel": 3, "paged_prefill_tc_kernel": 3}
+F32_KERNELS = {"flash_attention_kernel": 3, "paged_prefill_kernel": 3}
+SSD_TC_KERNELS = {"ssd_scan_tc_kernel": 12}
+SSD_F32_KERNELS = {"ssd_scan_kernel": 12}
 
 
-def test_bf16_attention_kernels_use_tensor_cores(cuda):
-    """Every bf16 instantiation of K5 and K4 (D 64, 128, 256) has HMMA (or
-    HGMMA) instructions in its SASS and spills nothing (the ptxas -v report
-    of the build); their float32 bodies have none."""
+def _check_tensor_cores(tc, f32):
+    """Every instantiation of the ``tc`` kernels has HMMA (or HGMMA)
+    instructions in its SASS and spills nothing (the ptxas -v report of
+    the build); the ``f32`` kernels have none; each name has its count of
+    instantiations."""
     built = build.build()
     sass = build.sass_functions(built.path)
     report = build.ptxas_report(built.log)
-    for kern in TC_KERNELS + F32_KERNELS:
+    for kern, count in {**tc, **f32}.items():
         names = [n for n in sass if kern in n]
-        assert len(names) == 3, (kern, names)
+        assert len(names) == count, (kern, names)
         for n in names:
             mma = "HMMA" in sass[n] or "HGMMA" in sass[n]
-            assert mma == (kern in TC_KERNELS), n
-            if kern in TC_KERNELS:
+            assert mma == (kern in tc), n
+            if kern in tc:
                 assert report[n]["spill_stores"] == 0, (n, report[n])
                 assert report[n]["spill_loads"] == 0, (n, report[n])
+
+
+def test_bf16_attention_kernels_use_tensor_cores(cuda):
+    """Every bf16 instantiation of K5 and K4 (D 64, 128, 256) runs its
+    products on the tensor cores without spilling; their float32 bodies
+    do not use them."""
+    _check_tensor_cores(TC_KERNELS, F32_KERNELS)
+
+
+def test_bf16_ssd_kernel_uses_tensor_cores(cuda):
+    """Every bf16 instantiation of K6 runs its products on the tensor
+    cores without spilling; its float32 body does not use them."""
+    _check_tensor_cores(SSD_TC_KERNELS, SSD_F32_KERNELS)
 
 
 def test_flash_kernel_is_deterministic(cuda):
@@ -624,16 +661,24 @@ def test_ssd_kernel_sees_a_dropped_inter_chunk_term(cuda):
 
 def test_ssd_kernel_p_splits_are_bit_identical(cuda):
     """64 heads: a batch of 16 runs one block per head (1024 blocks), its
-    first row alone four blocks per head, each on 16 of the 64 P rows;
-    both give the same bits for that row."""
+    first row alone two blocks per head, each on 32 of the 64 P rows, and
+    its first row's first 16 heads four blocks per head, each on 16 rows;
+    all give the same bits for those rows."""
     args = _ssd_inputs(cuda, torch.bfloat16, 16, 512, 64, 64, 1, 128)
     sms = torch.cuda.get_device_properties(cuda).multi_processor_count
     assert ss.p_splits(16 * 64, 64, sms) == 1
-    assert ss.p_splits(64, 64, sms) == 4
+    assert ss.p_splits(64, 64, sms) == 2
+    assert ss.p_splits(16, 64, sms) == 4
     whole = ss.ssd_scan(*args, chunk=128)
     first = ss.ssd_scan(*(t[:1] if t.dim() > 1 else t for t in args),
                         chunk=128)
     assert torch.equal(first.view(torch.int16), whole[:1].view(torch.int16))
+    x, dt, a, bm, cm = (t[:1] if t.dim() > 1 else t for t in args)
+    heads = ss.ssd_scan(x[:, :, :16].contiguous(),
+                        dt[:, :, :16].contiguous(), a[:16], bm, cm,
+                        chunk=128)
+    assert torch.equal(heads.view(torch.int16),
+                       whole[:1, :, :16].view(torch.int16))
 
 
 def test_ssd_kernel_is_deterministic_at_the_long_shape(cuda):

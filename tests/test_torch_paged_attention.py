@@ -7,6 +7,9 @@ bfloat16 (the JAX twin rounds p to bf16 before P.V, the port's twin keeps
 float32). The CUDA kernels themselves run only on a card:
 ``tests/test_torch_kernels_cuda.py`` holds them against these twins.
 """
+import re
+from pathlib import Path
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -14,6 +17,7 @@ import torch
 
 from repro.kernels import ops as jops
 from repro.kernels import paged_attention as jpa
+from repro_torch.kernels import build
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import paged_attention as tpa
 
@@ -203,3 +207,138 @@ class TestDispatch:
                                   window=3, impl="ref")
         torch.testing.assert_close(causal, plain, rtol=0, atol=0)
         assert not torch.equal(local, plain)
+
+
+def splitk_decode(q, kp, vp, table, lengths, *, window=None, softcap=None):
+    """K3's split-K arithmetic in plain torch (float32): each slot's reach
+    [first, length) is cut into chunks of the kernel's chunk keys, the
+    chunks into DECODE_SPLITS x DECODE_WARPS contiguous runs (one per
+    worker, split-major); each worker keeps (m, l, acc) with masked keys
+    at p = 0 (so an empty worker ends with m = -1e30, l = 0); a split
+    combines its warps in warp order, then the splits are combined in
+    split order. A dead slot gives zeros."""
+    b, hq, d = q.shape
+    page, hkv = kp.shape[1], kp.shape[2]
+    rep = hq // hkv
+    npages = table.shape[1]
+    kt = tpa.DECODE_CHUNK_BYTES // (d * q.element_size())
+    workers = tpa.DECODE_SPLITS * tpa.DECODE_WARPS
+    out = torch.zeros((b, hq, d), dtype=torch.float32)
+    for slot in range(b):
+        n = int(lengths[slot])
+        if n > npages * page:
+            continue                                   # dead: zeros
+        first = max(n - window, 0) if window is not None else 0
+        nch = -(-max(n - first, 0) // kt)
+        cols = torch.arange(first, n)
+        phys = table[slot].long()[cols // page]
+        k = kp[phys, cols % page].float()              # (keys, Hkv, D)
+        v = vp[phys, cols % page].float()
+        for g in range(hkv):
+            qg = q[slot, g * rep:(g + 1) * rep].float()  # (rep, D)
+            s = qg @ k[:, g].T * d ** -0.5               # (rep, keys)
+            if softcap is not None:
+                s = softcap * torch.tanh(s / softcap)
+            parts = []
+            for u in range(workers):
+                lo = u * nch // workers * kt         # keys past first
+                hi = min((u + 1) * nch // workers * kt, n - first)
+                if hi <= lo:
+                    parts.append((torch.full((rep,), tpa.NEG_INF),
+                                  torch.zeros(rep), torch.zeros(rep, d)))
+                    continue
+                su = s[:, lo:hi]
+                m = su.amax(-1)
+                p = torch.exp(su - m[:, None])
+                parts.append((m, p.sum(-1), p @ v[lo:hi, g]))
+            nw = tpa.DECODE_WARPS                      # warps, then splits
+            splits = [_combine(parts[i:i + nw])
+                      for i in range(0, workers, nw)]
+            _, lsum, acc = _combine(splits)
+            out[slot, g * rep:(g + 1) * rep] = acc / torch.clamp(
+                lsum, min=1e-30)[:, None]
+    return out
+
+
+def _combine(parts):
+    """(m, l, acc) partials combined in list order: M = max m,
+    L = sum l exp(m - M), A = sum acc exp(m - M)."""
+    mx = torch.stack([m for m, _, _ in parts]).amax(0)
+    lsum, acc = torch.zeros_like(mx), torch.zeros_like(parts[0][2])
+    for m, l, a in parts:
+        w = torch.exp(m - mx)
+        lsum = lsum + l * w
+        acc = acc + a * w[:, None]
+    return mx, lsum, acc
+
+
+def splitk_case(lengths, *, page=16, rep=2, hkv=2, d=64, seed=0):
+    """Slots of the given lengths (a dead one at width * page + 1) on a
+    table wide enough for the longest live slot; NaN in scratch page 0 and
+    in every pool row past a slot's length on its last page."""
+    rng = np.random.default_rng(seed)
+    live = [n for n in lengths if n >= 0]
+    width = -(-max(live) // page)
+    lengths = np.array([width * page + 1 if n < 0 else n for n in lengths],
+                       np.int32)
+    b = len(lengths)
+    pool = 1 + b * width
+    q = rng.standard_normal((b, hkv * rep, d), dtype=np.float32)
+    kp = rng.standard_normal((pool, page, hkv, d), dtype=np.float32)
+    vp = rng.standard_normal((pool, page, hkv, d), dtype=np.float32)
+    kp[0] = vp[0] = np.nan
+    perm = rng.permutation(np.arange(1, pool))
+    table = np.zeros((b, width), np.int32)
+    for s, n in enumerate(lengths):
+        if n > width * page:
+            continue
+        nl = -(-int(n) // page)
+        table[s, :nl] = perm[s * width:s * width + nl]
+        if n % page:
+            kp[table[s, nl - 1], n % page:] = np.nan
+            vp[table[s, nl - 1], n % page:] = np.nan
+    return q, kp, vp, table, lengths
+
+
+class TestSplitKDecode:
+    """K3's split-K arithmetic (partials per worker, combined in worker
+    order) against the JAX package's paged decode, float32 at 1e-5."""
+
+    @pytest.mark.parametrize("lengths,window,cap", [
+        ([600, 1, 37, -1], None, None),     # a length-1 slot, a dead slot
+        ([600, 1, 37, -1], 9, None),        # whole splits outside the band
+        ([600, 200, 0, -1], 40, 30.0),      # softcap; a length-0 slot
+        ([1, -1, -1], None, 50.0),          # one busy worker
+    ])
+    def test_matches_jax_twin(self, lengths, window, cap):
+        q, kp, vp, table, lens = splitk_case(lengths, seed=len(lengths))
+        args = [_both(x, "float32") for x in (q, kp, vp, table, lens)]
+        want = _f32(jpa.paged_decode_ref(*[a[0] for a in args],
+                                         window=window, softcap=cap))
+        got = splitk_decode(*[a[1] for a in args], window=window,
+                            softcap=cap).numpy()
+        dead = lens > table.shape[1] * kp.shape[1]
+        assert np.isfinite(got).all()
+        assert not got[dead].any()
+        np.testing.assert_allclose(got[~dead], want[~dead], atol=1e-5,
+                                   rtol=0)
+
+    def test_matches_pallas_interpret(self):
+        q, kp, vp, table, lens = splitk_case([300, 1, 129, -1], page=8,
+                                             seed=11)
+        args = [_both(x, "float32") for x in (q, kp, vp, table, lens)]
+        want = _f32(jpa.paged_attention(*[a[0] for a in args], window=70,
+                                        softcap=20.0, interpret=True))
+        got = splitk_decode(*[a[1] for a in args], window=70,
+                            softcap=20.0).numpy()
+        np.testing.assert_allclose(got[:3], want[:3], atol=1e-5, rtol=0)
+
+    def test_constants_match_the_kernel_source(self):
+        """The split-K constants the emulation reads are the ones the CUDA
+        kernel is compiled with."""
+        src = (Path(build.CSRC) / "paged_attention.cu").read_text()
+        for name, value in (("kSplits", tpa.DECODE_SPLITS),
+                            ("kDecWarps", tpa.DECODE_WARPS),
+                            ("kChunkBytes", tpa.DECODE_CHUNK_BYTES)):
+            m = re.search(rf"constexpr int {name} = (\d+);", src)
+            assert m and int(m.group(1)) == value, name
