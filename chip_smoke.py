@@ -88,6 +88,23 @@ never jax, never the JAX package. Phases, each fatal on failure:
    + 1 for the recompute and K2 2 per step, and the rollout's K3/K4 28
    per decode step and per prefill chunk; last, a torch.profiler trace of
    a fourth step (device time by kernel, device busy share).
+8. hetero: the HeteroRL loop on qwen3-1.7b at full width (bf16, random
+   weights from --seed, the chunked attention with remat) through its
+   entry points: ``sft_warmstart`` (2 steps of 8 x 840 tokens through
+   K1/K2), then ``HeteroRuntime.run(4)`` with 2 sampler nodes serving
+   ``ArithmeticTask`` prompts (832 wide, groups of 8, 2 prompts a batch,
+   192 new tokens, temperature 1.0) through ``ContinuousEngine`` (K3/K4)
+   and recomputing their log-probs through K1, a learner stepping GEPO
+   (grad_accum 2) through K1/K2 and publishing every step through the
+   chunked transport; staleness in (0, 64], finite metrics, the launch
+   counts the run implies (K3/K4 28 per decode step and prefill chunk, K1
+   1 per sampler batch + 2 per learner step, K2 2 per learner step), each
+   sampler's sync to the newest version equal to the learner's weights
+   and a fresh subscriber's bit-exact; then ``run_online(2)`` through the
+   static engine within tests/test_system.py's thresholds (staleness 0,
+   kl < 0.3, |iw_mean - 1| < 0.5). It prints the host seconds of every
+   publish, sync, sampler batch and learner step, one publish's D2H, hash
+   and store times apart, the peak device memory and the host's peak RSS.
 
 Prints a ``{"kernels": [...]}`` JSON line, then as the last line
 ``{"ok": true, "device": {...}}``. Exits non-zero, printing no result,
@@ -97,7 +114,9 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import gc
 import json
+import resource
 import statistics
 import subprocess
 import sys
@@ -109,8 +128,17 @@ sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
-from repro_torch.config import RLConfig, ServeConfig, TrainConfig  # noqa: E402
+from repro_torch.checkpoint import PolicyStore  # noqa: E402
+from repro_torch.checkpoint.store import flatten_with_paths  # noqa: E402
+from repro_torch.config import (HeteroConfig, RLConfig,  # noqa: E402
+                                ServeConfig, TrainConfig)
 from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.data import ArithmeticTask, Tokenizer  # noqa: E402
+from repro_torch.hetero import (HeteroRuntime, SamplerNode,  # noqa: E402
+                                run_online)
+from repro_torch.hetero import nodes as nodes_mod  # noqa: E402
+from repro_torch.hetero.nodes import copy_tree  # noqa: E402
+from repro_torch.launch.train import sft_warmstart  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import fused_logprob as fl  # noqa: E402
@@ -129,6 +157,8 @@ from repro_torch.sampling import (build_engine, generate_continuous,  # noqa: E4
 from repro_torch.serving.api import Request, SamplingParams  # noqa: E402
 from repro_torch.training import (init_state, rl_loss_fn,  # noqa: E402
                                   train_step)
+from repro_torch.transport import ChunkSubscriber, content_hash  # noqa: E402
+from repro_torch.transport.chunks import chunk_host_leaf  # noqa: E402
 
 HBM_BYTES_S = 3.35e12        # H100 SXM HBM3
 BF16_FLOPS_S = 989e12        # H100 SXM dense bf16 tensor-core peak
@@ -166,6 +196,10 @@ TOL_HEAD_REL = 1e-4
 # nonzero, so K2's g_ent p (x - mu) term feeds the gradient
 ENTROPY_BONUS = 0.01
 PROMPTS, GROUP, PROMPT_LEN, NEW_TOKENS = 2, 8, 832, 192
+# the hetero phase: learner steps of HeteroRuntime.run and run_online, SFT
+# warm-start steps, prompts per sampler batch (x GROUP rows)
+HETERO_STEPS, HETERO_ONLINE_STEPS, HETERO_SFT_STEPS = 4, 2, 2
+HETERO_PROMPTS = 2
 # K5 against its float32 twin: the JAX package's own tolerances
 # (tests/test_kernels.py), 2e-2 for bf16 outputs, 2e-5 for float32
 TOL_FLASH = {torch.bfloat16: 2e-2, torch.float32: 2e-5}
@@ -1829,6 +1863,305 @@ def profile_step(cfg, rl, tc, state, batch):
 
 
 # --------------------------------------------------------------------------
+# phase 8: the HeteroRL loop at full width
+
+
+class HostTimer:
+    """Host-clock seconds and peak device memory of every call of the
+    functions it wraps, each call fenced by device synchronises. It keeps
+    no reference to a call's arguments or result (they hold weights),
+    only an int result (the bytes a sync moved)."""
+
+    def __init__(self):
+        self.calls = []           # (name, seconds, peak GiB, int result)
+
+    def wrap(self, name, fn):
+        def timed(*args, **kw):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            out = fn(*args, **kw)
+            torch.cuda.synchronize()
+            self.calls.append((name, time.perf_counter() - t0,
+                               torch.cuda.max_memory_allocated() / 2 ** 30,
+                               out if isinstance(out, int) else None))
+            return out
+        return timed
+
+    def seconds(self, name):
+        return [dt for n, dt, _, _ in self.calls if n == name]
+
+    def peak(self, name=None):
+        return max((p for n, _, p, _ in self.calls
+                    if name is None or n == name), default=0.0)
+
+
+def timed_loop(timer):
+    """Wrap the loop's publish, sync, sampler batch and learner step in
+    ``timer``; returns the undo."""
+    saved = [(nodes_mod, "publish_params"), (nodes_mod, "train_step"),
+             (SamplerNode, "sync"), (SamplerNode, "generate_batch")]
+    saved = [(obj, name, getattr(obj, name)) for obj, name in saved]
+    for obj, name, fn in saved:
+        setattr(obj, name, timer.wrap(name, fn))
+
+    def undo():
+        for obj, name, fn in saved:
+            setattr(obj, name, fn)
+    return undo
+
+
+def publish_breakdown(params):
+    """The work of one publish, timed piece by piece on ``params``:
+    ``chunk_host_leaf`` on every leaf (device-to-host copy into bytes,
+    then blake2b), the hash alone again on the same bytes, and the
+    store's chunk puts. Returns (d2h_s, hash_s, store_s, bytes), d2h_s
+    being the chunking time less the hashing time."""
+    leaves = [t for _, t in flatten_with_paths(params)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    chunks = [c for t in leaves for c in chunk_host_leaf(t)]
+    t1 = time.perf_counter()
+    for ref, data in chunks:
+        if content_hash(data) != ref.hash:
+            raise AssertionError(f"chunk hash of {ref.shape} differs")
+    t2 = time.perf_counter()
+    store = PolicyStore()
+    for ref, data in chunks:
+        store.put_chunk(ref.hash, data)
+    t3 = time.perf_counter()
+    return ((t1 - t0) - (t2 - t1), t2 - t1, t3 - t2,
+            sum(ref.nbytes for ref, _ in chunks))
+
+
+def check_timed(timer, want):
+    """Every wrapped function was timed as often as the run implies (a
+    renamed function would leave its list empty)."""
+    got = {name: len(timer.seconds(name)) for name in want}
+    if got != want:
+        raise AssertionError(f"timed calls (got, want): {got}, {want}")
+
+
+def rss_gib():
+    return resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2 ** 20
+
+
+def hetero_phase(dev, seed, card):
+    """SFT warm start, HeteroRuntime.run and run_online on qwen3-1.7b at
+    full width; returns the K1-K4 launches of the three runs."""
+    cfg = get_config("qwen3-1.7b")
+    tok = Tokenizer()
+    task = ArithmeticTask(max_operand=99, ops="+-", prompt_width=PROMPT_LEN,
+                          seed=seed)
+    rl = RLConfig(loss_type="gepo", group_size=GROUP,
+                  max_new_tokens=NEW_TOKENS, temperature=1.0, top_k=0,
+                  top_p=1.0, beta_kl=0.005, engine="continuous")
+    tc = TrainConfig(grad_accum=2, logprob_impl="fused")
+    log(f"[hetero] {cfg.name}: {cfg.num_layers} layers bf16, random weights "
+        f"(seed {seed + 3}); attn_impl {cfg.attn_impl}, remat {cfg.remat}; "
+        f"ArithmeticTask(max_operand 99, ops '+-', prompt_width "
+        f"{PROMPT_LEN}); GEPO, group {GROUP} x {HETERO_PROMPTS} prompts, "
+        f"{NEW_TOKENS} new tokens, temperature 1.0, grad_accum 2")
+    torch.cuda.reset_peak_memory_stats()
+    params = init_params(cfg, seed + 3, device=dev)
+    total = {k: 0 for k in ("logprob_fwd", "logprob_bwd", "paged_decode",
+                            "paged_prefill")}
+
+    def take(label, want):
+        got = counts()
+        bad = {k: (got[k], v) for k, v in want.items() if got[k] != v}
+        if bad:
+            raise AssertionError(f"{label} launches (got, want): {bad}")
+        for k in total:
+            total[k] += got[k]
+
+    # 1. SFT warm start through K1/K2
+    tc_sft = TrainConfig(total_steps=HETERO_SFT_STEPS, logprob_impl="fused")
+    state = init_state(cfg, tc_sft, params)
+    del params
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, sft_loss = sft_warmstart(cfg, tc_sft, task, tok, state,
+                                    steps=HETERO_SFT_STEPS, batch=8)
+    torch.cuda.synchronize()
+    t_sft = time.perf_counter() - t0
+    take("SFT", {"logprob_fwd": HETERO_SFT_STEPS,
+                 "logprob_bwd": HETERO_SFT_STEPS, "paged_decode": 0,
+                 "paged_prefill": 0, "flash_attention": 0, "ssd_scan": 0})
+    log(f"[hetero] sft_warmstart: {HETERO_SFT_STEPS} steps of 8 x "
+        f"{PROMPT_LEN + 8} tokens in {t_sft:.2f}s, last loss {sft_loss:.6e}; "
+        f"K1 {HETERO_SFT_STEPS}, K2 {HETERO_SFT_STEPS} | {card}")
+    if not np.isfinite(sft_loss):
+        raise AssertionError(f"SFT loss {sft_loss} is not finite")
+    # the warm start stays on the host, shared by both runs; each learner
+    # node clones it onto the card
+    warm = copy_tree(state, torch.device("cpu"))
+    del state
+    torch.cuda.empty_cache()
+
+    # 2. HeteroRuntime: two samplers serving through ContinuousEngine
+    timer = HostTimer()
+    undo = timed_loop(timer)
+    try:
+        hcfg = HeteroConfig(num_samplers=2, max_delay_steps=64,
+                            delay_median_s=600.0, seed=seed)
+        rt = HeteroRuntime(cfg, rl, tc, hcfg, task, tok, warm,
+                           prompts_per_batch=HETERO_PROMPTS, device=dev)
+        reset_counts()
+        t0 = time.perf_counter()
+        hist = rt.run(HETERO_STEPS)
+        torch.cuda.synchronize()
+        t_run = time.perf_counter() - t0
+    finally:
+        undo()
+    batches = sum(s.batches_generated for s in rt.samplers)
+    d_steps = sum(s.engine_stats["decode_steps"] for s in rt.samplers)
+    p_chunks = sum(s.engine_stats["prefill_chunks"] for s in rt.samplers)
+    take("hetero", {"logprob_fwd": batches + 2 * HETERO_STEPS,
+                    "logprob_bwd": 2 * HETERO_STEPS,
+                    "paged_decode": cfg.num_layers * d_steps,
+                    "paged_prefill": cfg.num_layers * p_chunks,
+                    "flash_attention": 0, "ssd_scan": 0})
+    peak_dev = torch.cuda.max_memory_allocated() / 2 ** 30
+    stale = hist.get("staleness")
+    for i in range(len(stale)):
+        log(f"[hetero] learner step {i + 1}: staleness {stale[i]:.0f} loss "
+            f"{hist.get('loss')[i]:.6e} kl {hist.get('kl')[i]:.6e} iw_mean "
+            f"{hist.get('iw_mean')[i]:.6f} iw_max {hist.get('iw_max')[i]:.6f}"
+            f" iw_var {hist.get('iw_var')[i]:.3e} reward_mean "
+            f"{hist.get('reward_mean')[i]:.4f}")
+    for row in rt.sync_telemetry():
+        log(f"[hetero] sampler {row['sampler']:.0f}: syncs {row['syncs']:.0f}"
+            f", bytes on the wire {row['bytes_on_wire']:.0f}, dedup ratio "
+            f"{row['dedup_ratio']:.3f}, chunks fetched "
+            f"{row['chunks_fetched']:.0f}")
+    # publishes: version 0 at the learner's build, then one per step
+    check_timed(timer, {"publish_params": HETERO_STEPS + 1,
+                        "generate_batch": batches,
+                        "train_step": HETERO_STEPS})
+    pubs = timer.seconds("publish_params")
+    syncs = [dt for n, dt, _, out in timer.calls if n == "sync" and out > 0]
+    peak_dev = max(peak_dev, timer.peak())
+    gens = timer.seconds("generate_batch")
+    steps = timer.seconds("train_step")
+    st = rt.learner.publish_stats
+    log(f"[hetero] HeteroRuntime.run({HETERO_STEPS}): {t_run:.2f}s wall, "
+        f"simulated {rt.sim.now:.3f}s; {batches} sampler batches, "
+        f"{rt.learner.discarded} discarded; K1 {batches} + 2 x "
+        f"{HETERO_STEPS}, K2 2 x {HETERO_STEPS}, K3 {cfg.num_layers} x "
+        f"{d_steps} decode steps, K4 {cfg.num_layers} x {p_chunks} prefill "
+        f"chunks; peak device memory {peak_dev:.2f} GiB, host peak RSS "
+        f"{rss_gib():.2f} GiB | {card}")
+    log(f"[hetero] host seconds: publish (D2H + hash + store, "
+        f"{st.payload_bytes} bytes) " + ", ".join(f"{x:.3f}" for x in pubs)
+        + "; sync in the run (fetch + assemble + copy to the card) "
+        + (", ".join(f"{x:.3f}" for x in syncs) or "none")
+        + "; sampler batch (generate + score + recompute) "
+        + ", ".join(f"{x:.3f}" for x in gens) + "; learner train_step "
+        + ", ".join(f"{x:.3f}" for x in steps) + "; peak device GiB: "
+        f"sampler batch {timer.peak('generate_batch'):.2f}, learner step "
+        f"{timer.peak('train_step'):.2f} | {card}")
+    d2h, hsh, put, nbytes = publish_breakdown(rt.learner.state.params)
+    log(f"[hetero] one publish's work apart, {nbytes} bytes: D2H into "
+        f"bytes {d2h:.3f}s ({nbytes / d2h / 1e9:.2f} GB/s), blake2b "
+        f"{hsh:.3f}s ({nbytes / hsh / 1e9:.2f} GB/s), store puts "
+        f"{put:.3f}s | {card}")
+    bad = [k for k in hist.keys() if not np.isfinite(hist.get(k)).all()]
+    if rt.learner.step != HETERO_STEPS or bad:
+        raise AssertionError(f"hetero run: {rt.learner.step} steps, "
+                             f"non-finite {bad}")
+    if not 0 < stale.max() <= hcfg.max_delay_steps:
+        raise AssertionError(f"staleness {stale} not in (0, 64]")
+    # each sampler syncs to the newest version through its own node path
+    # (fetch, assemble, copy into its params on the card): its weights are
+    # then the learner's, bit for bit
+    lparams = tree_leaves(rt.learner.state.params)
+    for smp in rt.samplers:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        moved = smp.sync()
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        same = all(torch.equal(a, b) for a, b in zip(
+            tree_leaves(smp.params), lparams))
+        # the engine serves the synced tensors, and its prefix cache (KV
+        # of the old weights) is empty
+        eng = smp._gen_engine
+        cached = len(eng.prefix_cache)
+        log(f"[hetero] sampler {smp.sid} syncs to version {smp.version} "
+            f"after the run: {moved} bytes on the wire in {dt:.3f}s (fetch "
+            f"+ assemble + copy to the card), dedup ratio "
+            f"{smp.link_stats()['dedup_ratio']:.3f}; weights equal to the "
+            f"learner's: {same}; prefix-cache entries left {cached} | "
+            f"{card}")
+        if smp.version != HETERO_STEPS or not same or \
+                eng.params is not smp.params or cached:
+            raise AssertionError(f"sampler {smp.sid} sync is not exact")
+    # a fresh subscriber synced to the newest version holds the
+    # learner's params bit for bit
+    v, host, _ = ChunkSubscriber(rt.store).sync(rt.learner.state.params)
+    exact = all(torch.equal(h, p.detach().cpu())
+                for h, p in zip(tree_leaves(host), lparams))
+    log(f"[hetero] publish/sync round trip of version {v}: "
+        f"{'bit-exact' if exact else 'DIFFERS'}")
+    if v != HETERO_STEPS or not exact:
+        raise AssertionError("publish/sync round trip is not bit-exact")
+    del rt, smp, eng, host, hist, lparams
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 3. run_online with the static engine: the synchronous control
+    timer = HostTimer()
+    undo = timed_loop(timer)
+    try:
+        reset_counts()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        hist, _, learner = run_online(
+            cfg, dataclasses.replace(rl, engine="static"), tc, task, tok,
+            warm, num_steps=HETERO_ONLINE_STEPS,
+            prompts_per_batch=HETERO_PROMPTS, seed=seed, device=dev)
+        torch.cuda.synchronize()
+        t_online = time.perf_counter() - t0
+    finally:
+        undo()
+    check_timed(timer, {"publish_params": HETERO_ONLINE_STEPS + 1,
+                        "generate_batch": HETERO_ONLINE_STEPS,
+                        "train_step": HETERO_ONLINE_STEPS})
+    take("online", {"logprob_fwd": 3 * HETERO_ONLINE_STEPS,
+                    "logprob_bwd": 2 * HETERO_ONLINE_STEPS,
+                    "paged_decode": 0, "paged_prefill": 0,
+                    "flash_attention": 0, "ssd_scan": 0})
+    kl, iw = hist.get("kl"), hist.get("iw_mean")
+    log(f"[hetero] run_online({HETERO_ONLINE_STEPS}), static engine: "
+        f"{t_online:.2f}s wall; staleness {hist.get('staleness').tolist()}, "
+        f"kl {kl.tolist()} (< 0.3), iw_mean {iw.tolist()} (|.-1| < 0.5), "
+        f"iw_var {hist.get('iw_var').tolist()}; host seconds: publish "
+        + ", ".join(f"{x:.3f}" for x in timer.seconds("publish_params"))
+        + "; sampler batch " + ", ".join(
+            f"{x:.3f}" for x in timer.seconds("generate_batch"))
+        + "; learner train_step " + ", ".join(
+            f"{x:.3f}" for x in timer.seconds("train_step"))
+        + f"; peak device GiB: sampler batch "
+        f"{timer.peak('generate_batch'):.2f}, learner step "
+        f"{timer.peak('train_step'):.2f}, run "
+        f"{max(timer.peak(), torch.cuda.max_memory_allocated() / 2 ** 30):.2f}"
+        f"; host peak RSS {rss_gib():.2f} GiB | {card}")
+    bad = [k for k in hist.keys() if not np.isfinite(hist.get(k)).all()]
+    if learner.step != HETERO_ONLINE_STEPS or bad or \
+            hist.get("staleness").max() != 0 or kl.max() >= 0.3 or \
+            np.abs(iw - 1.0).max() >= 0.5:
+        raise AssertionError("online run outside tests/test_system.py's "
+                             "thresholds")
+    del learner, warm
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[hetero] launches: {total}")
+    return total
+
+
+# --------------------------------------------------------------------------
 
 
 def main(argv=None) -> int:
@@ -1887,6 +2220,11 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     launches.update(learner_phase(dev, args.seed, card))
     log(f"[time] learner phase {time.perf_counter() - t0:.1f}s")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    for name, n in hetero_phase(dev, args.seed, card).items():
+        launches[name] += n
+    log(f"[time] hetero phase {time.perf_counter() - t0:.1f}s")
     for name, row in kernels.items():
         row["launches"] = launches[name]
         row["kernel_ms"], row["twin_ms"] = row["ms"], row["plain_ms"]

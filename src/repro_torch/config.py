@@ -5,8 +5,10 @@ serving configuration (``repro/config.py`` in the JAX package).
 ``ModelConfig`` (less the JAX sharding knobs), ``RLConfig`` and
 ``TrainConfig`` keep the same fields and defaults, so a config built here
 describes the same model and update as its JAX namesake; only the
-``paged_attn_impl`` default differs (see below). ``ServeConfig`` holds
-the deployment fields the serving path uses.
+``paged_attn_impl`` default differs (see below). ``HeteroConfig`` keeps
+the JAX package's fields and defaults too; a sampler mesh other than 1x1
+and speculative drafts raise. ``ServeConfig`` holds the deployment
+fields the serving path uses.
 """
 from __future__ import annotations
 
@@ -237,6 +239,46 @@ class TrainConfig:
                              f"have {LOGPROB_IMPLS}")
         if self.grad_accum < 1:
             raise ValueError(f"grad_accum must be >= 1, got {self.grad_accum}")
+
+
+@dataclass(frozen=True)
+class HeteroConfig:
+    """HeteroRL runtime settings (paper §4.1 + App. E), the JAX package's
+    fields and defaults."""
+    num_samplers: int = 4
+    max_delay_steps: int = 64        # staleness window in learner steps
+    delay_distribution: str = "lognormal"   # lognormal | weibull | exponential
+    delay_min_s: float = 60.0
+    delay_max_s: float = 1800.0
+    delay_median_s: float = 60.0
+    sync_interval_steps: int = 1     # learner checkpoint publish period
+    window_s: float = 1800.0         # rollout eligibility window
+    seed: int = 0
+    # Simulated WAN bandwidth of the model-sync link (Mbit/s). inf keeps
+    # the payload-blind delay model; a finite value adds
+    # payload_bytes/bandwidth serialization time to the sampled
+    # propagation delay (hetero.latency.sync_delay_s).
+    bandwidth_mbps: float = float("inf")
+    # Sampler-node mesh "DxM"; the port's samplers run on one device.
+    sampler_mesh: str = "1x1"
+    # Sampler-side paged-attention backend (ModelConfig.paged_attn_impl
+    # vocabulary; None keeps the arch's).
+    paged_attn_impl: Optional[str] = None
+    # Sampler-side speculative decoding draft cap; 0 = off.
+    spec_k: int = 0
+
+    def __post_init__(self):
+        if self.sampler_mesh != "1x1":
+            raise NotImplementedError(
+                f"HeteroConfig.sampler_mesh={self.sampler_mesh!r}: the "
+                "port's sampler nodes run on one device; meshes land with "
+                "parallel/ (ROADMAP queue 1 item 10)")
+        if self.spec_k < 0:
+            raise ValueError(f"spec_k must be >= 0, got {self.spec_k}")
+        if self.spec_k > 0:
+            raise NotImplementedError(
+                "HeteroConfig.spec_k > 0: speculative decoding is not "
+                "ported yet (ROADMAP queue 1 item 3)")
 
 
 @dataclass(frozen=True)

@@ -148,7 +148,12 @@ class ContinuousEngine:
                 or any(r is not None for r in self.sched.slots))
 
     def update_params(self, params: Any) -> None:
+        """Serve ``params`` from now on. The prefix cache is keyed on
+        tokens only and its pages hold KV of the old weights, so it is
+        emptied."""
         self.params = params
+        if self.prefix_cache is not None:
+            self.prefix_cache.clear()
 
     def stats(self) -> Dict[str, float]:
         out: Dict[str, float] = dict(self.sched.stats)

@@ -1,5 +1,6 @@
 """The RL train step: forward -> policy loss -> grads -> clipped optimizer
-update (the port of ``repro/training.py``), plus the SFT loss.
+update (the port of ``repro/training.py``), plus the SFT loss and the SFT
+warm-start step.
 
 Batch layout (targets are tokens shifted by one):
   tokens (B, T) int | mask (B, T-1) f32 over target positions |
@@ -10,7 +11,7 @@ The token log-probs and entropies come from
 logprob_impl``): on the card the K1 kernel in the forward and the K2
 kernel in the backward of every microbatch.
 
-``train_step`` updates the state **in place** (params and optimizer
+``train_step`` and ``sft_step`` update the state **in place** (params and optimizer
 moments; see ``repro_torch.optim``), as the JAX package's jitted step
 donates it: treat the state passed in as consumed. It returns 0-dim
 tensors on the params' device and reads nothing back to the host.
@@ -159,5 +160,26 @@ def sft_loss_fn(cfg: ModelConfig, params: Any, tokens: torch.Tensor,
     return (-lp * mask).sum() / torch.clamp(mask.sum(), min=1.0)
 
 
+def sft_step(cfg: ModelConfig, tc: TrainConfig, state: TrainState,
+             tokens: torch.Tensor, mask: torch.Tensor
+             ) -> Tuple[TrainState, torch.Tensor]:
+    """One supervised warm-start update, in place on ``state`` (the JAX
+    package's SFT step, ``repro/parallel/step.py``): value and gradient
+    of ``sft_loss_fn``, global-norm clipping, the warm-up schedule, AdamW.
+    Returns ``(state, loss)``, the loss a 0-dim tensor on the params'
+    device."""
+    leaves = tree_leaves(state.params)
+    for p in leaves:
+        p.requires_grad_(True)
+    loss = sft_loss_fn(cfg, state.params, tokens, mask,
+                       logprob_impl=tc.logprob_impl)
+    grads = list(torch.autograd.grad(loss, leaves))
+    grads, _ = clip_by_global_norm(grads, tc.grad_clip)
+    lr = warmup_schedule(tc, state.step)
+    new_params, new_opt = adamw_update(tc, grads, state.opt, state.params,
+                                       lr)
+    return TrainState(new_params, new_opt, state.step + 1), loss.detach()
+
+
 __all__ = ["MAX_METRICS", "TrainState", "init_state", "rl_loss_fn",
-           "train_step", "sft_loss_fn"]
+           "train_step", "sft_loss_fn", "sft_step"]

@@ -726,3 +726,47 @@ def test_mamba2_recompute_pallas_matches_chunked_on_card(cuda):
             (cfg.num_layers if impl == "pallas" else 0)
     torch.testing.assert_close(out["pallas"], out["chunked"], rtol=0,
                                atol=1e-4)
+
+
+# --------------------------------------------------------------------------
+# the HeteroRL loop on the card
+
+
+def test_hetero_loop_on_card_smoke(cuda):
+    """The loop on the bf16 smoke model: the samplers serve through K3/K4
+    and recompute through K1, the learner steps through K1/K2; no sampler
+    tensor aliases a learner tensor, and a fresh subscriber's sync of the
+    newest version is bit-identical to the learner's params."""
+    from repro_torch.config import HeteroConfig
+    from repro_torch.data import ArithmeticTask, Tokenizer
+    from repro_torch.hetero import HeteroRuntime
+    from repro_torch.transport import ChunkSubscriber
+    cfg = smoke("qwen3-1.7b", dtype="bfloat16")
+    rl = RLConfig(loss_type="gepo", group_size=4, max_new_tokens=6,
+                  temperature=1.0, top_k=0, top_p=1.0, engine="continuous")
+    tc = TrainConfig(learning_rate=1e-3, total_steps=10)
+    state = init_state(cfg, tc, init_params(cfg, 0, device=cuda))
+    task = ArithmeticTask(max_operand=20, ops="+", prompt_width=6, seed=0)
+    rt = HeteroRuntime(cfg, rl, tc, HeteroConfig(num_samplers=2, seed=0),
+                       task, Tokenizer(), state, prompts_per_batch=2,
+                       device=cuda)
+    for mod in (fl, pa):
+        mod.reset_launch_counts()
+    hist = rt.run(3)
+    torch.cuda.synchronize()
+    batches = sum(s.batches_generated for s in rt.samplers)
+    assert fl.LAUNCHES == {"logprob_fwd": batches + 3, "logprob_bwd": 3}
+    assert pa.LAUNCHES["paged_decode"] > 0 and \
+        pa.LAUNCHES["paged_prefill"] > 0
+    assert np.isfinite(hist.get("loss")).all()
+    learner = {t.untyped_storage().data_ptr()
+               for t in tree_leaves(rt.learner.state)}
+    for s in rt.samplers:
+        assert s.params["embed"].device.type == "cuda"
+        assert not learner & {t.untyped_storage().data_ptr()
+                              for t in tree_leaves(s.params)}
+    v, host, _ = ChunkSubscriber(rt.store).sync(rt.learner.state.params)
+    assert v == 3
+    for h, p in zip(tree_leaves(host), tree_leaves(rt.learner.state.params)):
+        assert h.dtype == p.dtype == torch.bfloat16
+        assert torch.equal(h, p.detach().cpu())
