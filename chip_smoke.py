@@ -20,8 +20,10 @@ never jax, never the JAX package. Phases, each fatal on failure:
    and K4 (paged prefill) at the serving slice's shapes (bf16, Hq 16, Hkv 8, D 128, page 16, 8 slots up to 2048
    tokens with a dead slot and a NaN scratch page, and K3 on one slot of
    8192 keys, also timed by its device time in a profiler trace, since
-   its host call outlasts it; prefill C = 512 and a ragged C = 77; one
-   window + softcap case), each held against its plain
+   its host call outlasts it; prefill C = 512, a ragged C = 77, and the
+   spec engine's verify windows, 8 slots of C = 2, 3, 5 rows after
+   300-1000 keys with NaN past each window; one window + softcap case
+   each), each held against its plain
    PyTorch twin (float32 on the same inputs) and timed beside the twin, a
    library yardstick (SDPA over the gathered dense view, which the port
    never calls) and the card's bound, K4 at C = 512 also in float32 (its
@@ -96,7 +98,10 @@ never jax, never the JAX package. Phases, each fatal on failure:
    192 new tokens, temperature 1.0) through ``ContinuousEngine`` (K3/K4)
    and recomputing their log-probs through K1, a learner stepping GEPO
    (grad_accum 2) through K1/K2 and publishing every step through the
-   chunked transport; staleness in (0, 64], finite metrics, the launch
+   chunked transport, at the paper's 60 s median sync delay, so samplers
+   sync inside the run: each in-run sync gives the published version's
+   params bit for bit, and every batch a node makes after a sync carries
+   that version's stamp; staleness in (0, 64], finite metrics, the launch
    counts the run implies (K3/K4 28 per decode step and prefill chunk, K1
    1 per sampler batch + 2 per learner step, K2 2 per learner step), each
    sampler's sync to the newest version equal to the learner's weights
@@ -105,6 +110,38 @@ never jax, never the JAX package. Phases, each fatal on failure:
    kl < 0.3, |iw_mean - 1| < 0.5). It prints the host seconds of every
    publish, sync, sampler batch and learner step, one publish's D2H, hash
    and store times apart, the peak device memory and the host's peak RSS.
+9. spec: speculative decoding through ``ContinuousEngine`` on qwen3-1.7b
+   at full width (bf16, random weights from --seed, K3/K4 ``"pallas"``, 8
+   slots, page 16, prefill chunk 512): (a) 16 greedy requests whose
+   prompts repeat a short token pattern, 128 new, and (b) the engine
+   phase's 24 requests, 64 new, temperature 0.6 / top-k 20 / top-p 0.95,
+   each with spec_k 0 and spec_k 4 (the n-gram drafter). Every request
+   finishes and the page pool balances, with the prefix cache's pages
+   and after it is emptied; the folded K4 rescore equals the forward's
+   attention exactly on every verify round; the launches are what the run
+   implies (K4 28 per verify round + 1 per rescore + 28 per prefill
+   chunk, K3 28 per fallback decode step); (a) accepts drafts; every
+   emitted logp equals the teacher-forced forward's within
+   TOL_LOGP_PATHS; greedy spec tokens equal the non-spec tokens up to the
+   first position where the non-spec sequence's top-2 logit gap is under
+   TOL_GAP ((b) samples through top-k and top-p, whose cut-offs a bf16
+   path moves, so (b) is held by the logp contract alone); then (a) again
+   with the weights in float32 (TOL_LOGP_F32, its own TOL_GAP), greedy
+   and sampled at temperature 1 with no top-k or top-p, where the rule
+   takes the top-2 gap of logits + the draw's Gumbel noise and so holds
+   the verify round's draw keys. The folded K4 launch of the rescore (one
+   launch over 28 layers' pools, page ids up to 28 x 1537) at the verify
+   shape is held against each layer's twin in bf16 and float32 and
+   against 28 per-layer launches bit for bit, and timed against them. It
+   prints decode tokens/s, ms per decode step and the accept rate of
+   every run;
+10. threads: ``ThreadedHeteroRuntime.run(4)`` on the hetero phase's model,
+   task and warm start, 2 sampler threads at spec_k 4 and the learner on
+   one card, the clock scaled so that 60 simulated seconds are one of
+   phase 8's learner steps: 4 steps, staleness <= 64, finite metrics, at
+   least one sampler sync inside the run, every sampler thread ended
+   within THREAD_JOIN_S, and the exact launch counts of all three
+   threads; it prints the peak device memory.
 
 Prints a ``{"kernels": [...]}`` JSON line, then as the last line
 ``{"ok": true, "device": {...}}``. Exits non-zero, printing no result,
@@ -135,7 +172,7 @@ from repro_torch.config import (HeteroConfig, RLConfig,  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.data import ArithmeticTask, Tokenizer  # noqa: E402
 from repro_torch.hetero import (HeteroRuntime, SamplerNode,  # noqa: E402
-                                run_online)
+                                ThreadedHeteroRuntime, run_online)
 from repro_torch.hetero import nodes as nodes_mod  # noqa: E402
 from repro_torch.hetero.nodes import copy_tree  # noqa: E402
 from repro_torch.launch.train import sft_warmstart  # noqa: E402
@@ -152,8 +189,10 @@ from repro_torch.models import model as model_mod  # noqa: E402
 from repro_torch.models.layers import rmsnorm  # noqa: E402
 from repro_torch.optim import global_norm, tree_leaves  # noqa: E402
 from repro_torch.sampling import (build_engine, generate_continuous,  # noqa: E402
-                                  init_paged_pool, rollout_from_results,
+                                  init_paged_pool, mask_vocab,
+                                  rollout_from_results, stacked_pools,
                                   token_logps)
+from repro_torch.sampling.sample import gumbel_noise  # noqa: E402
 from repro_torch.serving.api import Request, SamplingParams  # noqa: E402
 from repro_torch.training import (init_state, rl_loss_fn,  # noqa: E402
                                   train_step)
@@ -200,6 +239,9 @@ PROMPTS, GROUP, PROMPT_LEN, NEW_TOKENS = 2, 8, 832, 192
 # warm-start steps, prompts per sampler batch (x GROUP rows)
 HETERO_STEPS, HETERO_ONLINE_STEPS, HETERO_SFT_STEPS = 4, 2, 2
 HETERO_PROMPTS = 2
+# the threaded phase waits this long for each sampler thread after the run
+# (a sampler batch in flight takes 2-6 s alone, longer beside a learner)
+THREAD_JOIN_S = 120.0
 # K5 against its float32 twin: the JAX package's own tolerances
 # (tests/test_kernels.py), 2e-2 for bf16 outputs, 2e-5 for float32
 TOL_FLASH = {torch.bfloat16: 2e-2, torch.float32: 2e-5}
@@ -324,6 +366,33 @@ def prefill_case(gen, dev, c, start):
     q = torch.randn((1, c, HQ, D), generator=gen, device=dev)
     positions = (start + torch.arange(c, device=dev))[None]
     return q.bfloat16(), kp.bfloat16(), vp.bfloat16(), table, positions
+
+
+def verify_case(gen, dev, c):
+    """K4 at a verify round's shape: SLOTS slots, each a window of ``c``
+    rows after 300 ... 1000 keys (slot s at 300 + 100 s), the table's
+    pages past each window the NaN scratch page and NaN in the rows past
+    the window on its last page."""
+    starts = 300 + 100 * torch.arange(SLOTS)
+    width = -(-(int(starts[-1]) + c) // PAGE)
+    pool = 1 + SLOTS * width
+    kp = torch.randn((pool, PAGE, HKV, D), generator=gen, device=dev)
+    vp = torch.randn((pool, PAGE, HKV, D), generator=gen, device=dev)
+    kp[0] = vp[0] = float("nan")
+    table = torch.zeros((SLOTS, width), dtype=torch.int32)
+    perm = torch.randperm(pool - 1, generator=torch.Generator().manual_seed(
+        1)) + 1
+    for s in range(SLOTS):
+        n = int(starts[s]) + c
+        live = -(-n // PAGE)
+        table[s, :live] = perm[s * width:s * width + live]
+        if n % PAGE:
+            last = int(table[s, live - 1])
+            kp[last, n % PAGE:] = vp[last, n % PAGE:] = float("nan")
+    q = torch.randn((SLOTS, c, HQ, D), generator=gen, device=dev)
+    positions = (starts[:, None] + torch.arange(c)).to(dev)
+    return (q.bfloat16(), kp.bfloat16(), vp.bfloat16(), table.to(dev),
+            positions)
 
 
 def sdpa_decode(q, kp, vp, table, lengths):
@@ -481,6 +550,27 @@ def kernel_phase(dev, seed):
         if errs[0] > TOL_BF16 or errs[2] > TOL_BF16 or errs[1] > TOL_F32:
             raise AssertionError(f"K4 (C={c}) disagrees with its twin")
         rows[c] = (q, kp, vp, table, pos, errs)
+    # the spec engine's verify windows (2 ... spec_k + 1 rows a slot)
+    verify = [0.0, 0.0, 0.0]
+    for c in (2, 3, 5):
+        q, kp, vp, table, pos = verify_case(gen, dev, c)
+        f32 = [t.float() for t in (q, kp, vp)]
+        got = ops.paged_prefill(q, kp, vp, table, pos, impl="pallas")
+        want = ops.paged_prefill(*f32, table, pos, impl="ref")
+        got32 = ops.paged_prefill(*f32, table, pos, impl="pallas")
+        gw = ops.paged_prefill(q, kp, vp, table, pos, kind="local",
+                               window=256, softcap=50.0, impl="pallas")
+        ww = ops.paged_prefill(*f32, table, pos, kind="local", window=256,
+                               softcap=50.0, impl="ref")
+        torch.cuda.synchronize()
+        errs = (max_err(got, want), max_err(got32, want), max_err(gw, ww))
+        log(f"[kernels] K4 verify window B={SLOTS} C={c} after 300-1000 keys "
+            f"(NaN past each window): max|err| bf16 {errs[0]:.3e}, f32 "
+            f"{errs[1]:.3e}, window+softcap {errs[2]:.3e}")
+        if not (errs[0] <= TOL_BF16 and errs[2] <= TOL_BF16
+                and errs[1] <= TOL_F32):
+            raise AssertionError(f"K4 (verify C={c}) disagrees with its twin")
+        verify = [max(a, b) for a, b in zip(verify, errs)]
     q, kp, vp, table, pos, errs = rows[512]
     f32 = [t.float() for t in (q, kp, vp)]
     c, start = 512, 1024
@@ -500,8 +590,10 @@ def kernel_phase(dev, seed):
                  "(_prefill_kernel; pallas_call at :376): bf16 on the "
                  "tensor cores (attention_tc.cuh), float32 on the CUDA "
                  "cores",
-        max_abs_err=max(errs[0], rows[77][5][0]),
-        max_abs_err_f32=max(errs[1], rows[77][5][1]), tol=TOL_BF16,
+        max_abs_err=max(errs[0], rows[77][5][0], verify[0]),
+        max_abs_err_f32=max(errs[1], rows[77][5][1], verify[1]),
+        max_abs_err_verify=verify[0], max_abs_err_verify_f32=verify[1],
+        tol=TOL_BF16,
         ms=time_ms(lambda: ops.paged_prefill(q, kp, vp, table, pos,
                                              impl="pallas")),
         plain_ms=time_ms(lambda: ops.paged_prefill(q, kp, vp, table, pos,
@@ -512,8 +604,9 @@ def kernel_phase(dev, seed):
                                                  impl="pallas")),
         bound_ms_f32=b32_ms, bound_by_f32=b32_by,
         shape=f"B=1 C={c} start={start} Hq={HQ} Hkv={HKV} D={D} "
-              f"page={PAGE} bf16 (+ C=77 start=300 checked; ms_f32: the "
-              f"float32 route at C=512)")
+              f"page={PAGE} bf16 (+ C=77 start=300 and the verify "
+              f"windows B={SLOTS} C=2,3,5 after 300-1000 keys checked; "
+              f"ms_f32: the float32 route at C=512)")
     log(f"[kernels] K4 C=512: bf16 {out['paged_prefill']['ms']:.4f} ms "
         f"(bound {b_ms:.5f} ms, {b_by}), float32 "
         f"{out['paged_prefill']['ms_f32']:.4f} ms (bound {b32_ms:.5f} ms, "
@@ -647,22 +740,9 @@ def logprob_phase(dev, seed):
 # phase 3: the engine at full width
 
 
-def engine_phase(dev, seed, card):
-    cfg = dataclasses.replace(get_config("qwen3-1.7b"),
-                              paged_attn_impl="pallas")
-    t0 = time.perf_counter()
-    params = init_params(cfg, seed, device=dev)
-    torch.cuda.synchronize()
-    log(f"[engine] {cfg.name}: {cfg.num_layers} layers, d_model "
-        f"{cfg.d_model}, vocab {cfg.vocab_size} (padded "
-        f"{cfg.padded_vocab}), {cfg.param_count() / 1e9:.3f}B params bf16, "
-        f"init {time.perf_counter() - t0:.1f}s")
-    serve = ServeConfig(num_slots=SLOTS, page_size=PAGE, prefill_chunk=512,
-                        sync_every=8, max_total_tokens=2048,
-                        paged_attn_impl="pallas", seed=seed)
-    rl = RLConfig()                          # temperature 0.6, top-k 20, top-p 0.95
-    eng = build_engine(cfg, params, serve, rl=rl, vocab_limit=cfg.vocab_size)
-    sp = SamplingParams.from_rl(rl, max_new=64)
+def engine_prompts(cfg, seed):
+    """The serve cell's 24 prompts of 64-1536 tokens, 4 sharing a
+    256-token prefix."""
     rng = np.random.default_rng(seed)
     prefix = rng.integers(3, cfg.vocab_size, 256)
     lens = rng.integers(64, 1537, 24)
@@ -679,6 +759,26 @@ def engine_phase(dev, seed, card):
             prompts.append(prefix.copy())
         else:
             prompts.append(rng.integers(3, cfg.vocab_size, int(n)))
+    return [p.astype(np.int32) for p in prompts]
+
+
+def engine_phase(dev, seed, card):
+    cfg = dataclasses.replace(get_config("qwen3-1.7b"),
+                              paged_attn_impl="pallas")
+    t0 = time.perf_counter()
+    params = init_params(cfg, seed, device=dev)
+    torch.cuda.synchronize()
+    log(f"[engine] {cfg.name}: {cfg.num_layers} layers, d_model "
+        f"{cfg.d_model}, vocab {cfg.vocab_size} (padded "
+        f"{cfg.padded_vocab}), {cfg.param_count() / 1e9:.3f}B params bf16, "
+        f"init {time.perf_counter() - t0:.1f}s")
+    serve = ServeConfig(num_slots=SLOTS, page_size=PAGE, prefill_chunk=512,
+                        sync_every=8, max_total_tokens=2048,
+                        paged_attn_impl="pallas", seed=seed)
+    rl = RLConfig()                          # temperature 0.6, top-k 20, top-p 0.95
+    eng = build_engine(cfg, params, serve, rl=rl, vocab_limit=cfg.vocab_size)
+    sp = SamplingParams.from_rl(rl, max_new=64)
+    prompts = engine_prompts(cfg, seed)
 
     # warm-up: cuBLAS handles, allocator, first launches
     eng.generate([Request(rid=1000 + i, prompt=prompts[i][:64], params=sp)
@@ -1946,9 +2046,60 @@ def rss_gib():
     return resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2 ** 20
 
 
+def stamp_loop(store, stamps):
+    """Wrap ``SamplerNode.sync`` and ``generate_batch`` so that ``stamps``
+    gets, in call order, ("sync", sid, version) after every sync that
+    moved a version and ("batch", sid, version stamp) after every batch.
+    A sync's params are held against a fresh assembly of the version it
+    synced to, bit for bit, on the spot. Returns the undo."""
+    sync, gen = SamplerNode.sync, SamplerNode.generate_batch
+
+    def synced(node, *a, **kw):
+        moved = sync(node, *a, **kw)
+        if moved > 0:
+            _, host, _ = ChunkSubscriber(store).sync(node.params,
+                                                     version=node.version)
+            same = all(torch.equal(h, p.detach().cpu()) for h, p in zip(
+                tree_leaves(host), tree_leaves(node.params)))
+            stamps.append(("sync", node.sid, node.version, same))
+        return moved
+
+    def generated(node, *a, **kw):
+        batch = gen(node, *a, **kw)
+        stamps.append(("batch", node.sid, batch.version, True))
+        return batch
+
+    SamplerNode.sync, SamplerNode.generate_batch = synced, generated
+
+    def undo():
+        SamplerNode.sync, SamplerNode.generate_batch = sync, gen
+    return undo
+
+
+def check_stamps(stamps):
+    """Every in-run sync gave the published version's params bit for bit,
+    and every batch a node made after a sync carries the version of its
+    last sync. Returns (syncs, batches after a sync)."""
+    last, syncs, after = {}, 0, 0
+    for kind, sid, version, same in stamps:
+        if kind == "sync":
+            if not same:
+                raise AssertionError(f"sampler {sid}: params after its sync "
+                                     f"to version {version} differ from it")
+            last[sid] = version
+            syncs += 1
+        elif sid in last:
+            if version != last[sid]:
+                raise AssertionError(f"sampler {sid}: batch stamped "
+                                     f"{version} after a sync to {last[sid]}")
+            after += 1
+    return syncs, after
+
+
 def hetero_phase(dev, seed, card):
     """SFT warm start, HeteroRuntime.run and run_online on qwen3-1.7b at
-    full width; returns the K1-K4 launches of the three runs."""
+    full width; returns the K1-K4 launches of the three runs, the warm
+    start (on the host) and the median learner step seconds."""
     cfg = get_config("qwen3-1.7b")
     tok = Tokenizer()
     task = ArithmeticTask(max_operand=99, ops="+-", prompt_width=PROMPT_LEN,
@@ -2000,21 +2151,35 @@ def hetero_phase(dev, seed, card):
     del state
     torch.cuda.empty_cache()
 
-    # 2. HeteroRuntime: two samplers serving through ContinuousEngine
+    # 2. HeteroRuntime: two samplers serving through ContinuousEngine, at
+    # the paper's 60 s median sync delay: a sampler syncs inside the run
     timer = HostTimer()
     undo = timed_loop(timer)
+    stamps = []
     try:
         hcfg = HeteroConfig(num_samplers=2, max_delay_steps=64,
-                            delay_median_s=600.0, seed=seed)
+                            delay_median_s=60.0, seed=seed)
         rt = HeteroRuntime(cfg, rl, tc, hcfg, task, tok, warm,
                            prompts_per_batch=HETERO_PROMPTS, device=dev)
+        undo_stamps = stamp_loop(rt.store, stamps)
         reset_counts()
         t0 = time.perf_counter()
-        hist = rt.run(HETERO_STEPS)
+        try:
+            hist = rt.run(HETERO_STEPS)
+        finally:
+            undo_stamps()
         torch.cuda.synchronize()
         t_run = time.perf_counter() - t0
     finally:
         undo()
+    in_run_syncs, after_sync = check_stamps(stamps)
+    log(f"[hetero] in-run syncs (sampler, version): "
+        f"{[(sid, v) for k, sid, v, _ in stamps if k == 'sync']}, each "
+        f"bit-exact against its version; batch stamps in order "
+        f"{[(sid, v) for k, sid, v, _ in stamps if k == 'batch']}; "
+        f"{after_sync} batches made after a sync carry its version")
+    if in_run_syncs == 0:
+        raise AssertionError("no sampler synced inside the run")
     batches = sum(s.batches_generated for s in rt.samplers)
     d_steps = sum(s.engine_stats["decode_steps"] for s in rt.samplers)
     p_chunks = sum(s.engine_stats["prefill_chunks"] for s in rt.samplers)
@@ -2154,11 +2319,440 @@ def hetero_phase(dev, seed, card):
             np.abs(iw - 1.0).max() >= 0.5:
         raise AssertionError("online run outside tests/test_system.py's "
                              "thresholds")
-    del learner, warm
+    del learner
     gc.collect()
     torch.cuda.empty_cache()
     log(f"[hetero] launches: {total}")
-    return total
+    return total, warm, statistics.median(steps)
+
+
+# --------------------------------------------------------------------------
+# phase 9: speculative decoding on the continuous engine at full width
+
+
+def templated_prompts(vocab, seed):
+    """Workload (a): 16 prompts of 96-384 tokens, each a short random
+    pattern (3-8 tokens of ids 3..vocab-1) repeated."""
+    rng = np.random.default_rng(seed + 9)
+    out = []
+    for _ in range(16):
+        pat = rng.integers(3, vocab, int(rng.integers(3, 9)))
+        n = int(rng.integers(96, 385))
+        out.append(np.tile(pat, -(-n // len(pat)))[:n].astype(np.int32))
+    return out
+
+
+def spec_run(cfg, params, prompts, rl, max_new, vocab, spec_k, seed):
+    """Serve ``prompts`` through a fresh ``ContinuousEngine`` (8 slots,
+    page 16, prefill chunk 512, draws from ids below ``vocab``) at
+    ``spec_k``; hold the pool, the launch counts and (spec on) the
+    rescore. Returns (results, stats delta, launches, decode tokens/s,
+    decode ms per step)."""
+    serve = ServeConfig(num_slots=SLOTS, page_size=PAGE, prefill_chunk=512,
+                        sync_every=8, max_total_tokens=2048,
+                        paged_attn_impl="pallas", spec_k=spec_k, seed=seed)
+    eng = build_engine(cfg, params, serve, rl=rl, vocab_limit=vocab)
+    sp = SamplingParams.from_rl(rl, max_new=max_new)
+    # warm-up: cuBLAS handles, allocator, first launches; then a cold cache
+    eng.generate([Request(rid=1000 + i, prompt=prompts[i][:64], params=sp)
+                  for i in range(2)])
+    eng.prefix_cache.clear()
+    torch.cuda.synchronize()
+    st0 = eng.stats()
+    reset_counts()
+    t_start = time.perf_counter()
+    for i, p in enumerate(prompts):
+        eng.submit(Request(rid=i, prompt=p, params=sp, arrival_s=t_start))
+    results, dec_s, dec_tok, dec_steps = {}, 0.0, 0, 0
+    while len(results) < len(prompts):
+        before = eng.stats()
+        t1 = time.perf_counter()
+        events = eng.step()
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t1
+        after = eng.stats()
+        for ev in events:
+            if ev.finished:
+                results[ev.rid] = eng.pop_result(ev.rid)
+        if after["prefill_chunks"] == before["prefill_chunks"]:
+            dec_s += dt
+            dec_tok += sum(1 for ev in events if not ev.finished)
+            dec_steps += after["decode_steps"] - before["decode_steps"]
+        if not eng.has_work() and len(results) < len(prompts):
+            raise AssertionError("engine drained with requests unfinished")
+    launches = {k: counts()[k] for k in ("paged_decode", "paged_prefill")}
+    st = {k: v - st0[k] for k, v in eng.stats().items()
+          if isinstance(v, int) and k in st0}
+    st["accept_rate"] = (st["accepted_tokens_total"]
+                         / max(st["drafted_tokens_total"], 1))
+    st["spec_rescore_max_diff"] = eng.stats()["spec_rescore_max_diff"]
+    lyr = cfg.num_layers
+    want = {"paged_decode": lyr * (eng.sync_every * st["spec_fallback_chunks"]
+                                   if spec_k else st["decode_steps"]),
+            "paged_prefill": lyr * st["prefill_chunks"]
+            + (lyr + 1) * st["spec_rounds"]}
+    if launches != want:
+        raise AssertionError(f"spec_k={spec_k}: launches {launches} != "
+                             f"{want} implied by {st}")
+    res = [results[i] for i in range(len(prompts))]
+    for r in res:
+        if r.finish_reason not in ("eos", "length") or r.gen_count < 1 \
+                or not np.isfinite(r.logps).all() or (r.logps > 1e-6).any() \
+                or (r.tokens < 0).any() or (r.tokens >= vocab).any():
+            raise AssertionError(f"spec_k={spec_k} request {r.rid}: "
+                                 f"{r.finish_reason}, bad tokens or logps: "
+                                 f"{r.tokens.tolist()} {r.logps.tolist()}")
+    held = len({pg for ent in eng.prefix_cache._entries.values()
+                for pg in ent.pages})
+    if eng.free_pages + held != eng.num_pages - 1:
+        raise AssertionError("page pool does not balance with the cache")
+    eng.prefix_cache.clear()
+    if eng.free_pages != eng.num_pages - 1 or eng.sched.allocator.in_use:
+        raise AssertionError("page pool does not balance after the cache")
+    if spec_k and st["spec_rescore_max_diff"] != 0.0:
+        raise AssertionError(f"folded K4 rescore differs from the forward "
+                             f"by {st['spec_rescore_max_diff']}")
+    return res, st, launches, dec_tok / dec_s, dec_s * 1e3 / dec_steps
+
+
+def teacher_forced_logps(cfg, params, prompt, tokens, vocab, draw=None):
+    """The teacher-forced forward of prompt + tokens: the target model's
+    logp of each token (log-softmax over the padded vocab, as the engine
+    scores draws) and the top-2 gap over the served ids (below ``vocab``)
+    at each completion position: of the logits, or with ``draw`` = (seed,
+    rid) of the logits plus draw g's Gumbel noise at position g (the
+    engine's sampling at temperature 1 with no top-k or top-p)."""
+    seq = np.concatenate([prompt, tokens]).astype(np.int64)
+    x = torch.from_numpy(seq[None]).cuda()
+    logits, _, _ = forward(cfg, params, x)
+    lg = logits[0, len(prompt) - 1:len(seq) - 1].float()
+    del logits
+    tgt = torch.from_numpy(np.asarray(tokens, np.int64)).cuda()
+    lp = torch.log_softmax(lg, -1).gather(-1, tgt[:, None])[:, 0]
+    score = mask_vocab(lg, vocab)
+    if draw is not None:
+        rids = torch.full((len(tokens),), draw[1], device=lg.device)
+        score = score + gumbel_noise(draw[0], rids, torch.arange(
+            len(tokens), device=lg.device), lg.shape[-1])
+    top2 = score.topk(2, dim=-1).values
+    return lp.cpu().numpy(), (top2[:, 0] - top2[:, 1]).cpu().numpy()
+
+
+def spec_contracts(cfg, params, prompts, vocab, runs, tol_lp, tol_gap,
+                   label, seed=None):
+    """The GEPO logp contract on every run of ``runs`` ({spec_k: results})
+    and the spec/non-spec token rule: a spec run emits the non-spec run's
+    tokens up to the first position where the non-spec run's top-2 gap is
+    under ``tol_gap``: of the logits (greedy), or with ``seed`` of the
+    logits plus the draw's Gumbel noise (temperature 1, no filter). Returns
+    (max |logp - teacher|, identical to the end, identical up to the first
+    near-tie)."""
+    worst, gaps = 0.0, {}
+    for k, res in runs.items():
+        for p, r in zip(prompts, res):
+            lp, gap = teacher_forced_logps(
+                cfg, params, p, r.tokens, vocab,
+                None if seed is None else (seed, r.rid))
+            worst = max(worst, float(np.abs(lp - r.logps).max()))
+            if k == 0:
+                gaps[r.rid] = gap
+    if worst > tol_lp:
+        raise AssertionError(f"{label}: emitted logps differ from the "
+                             f"teacher-forced forward by {worst} > {tol_lp}")
+    same_end = same_tie = 0
+    for a, b in zip(runs[0], runs[SPEC_K]):
+        near = np.flatnonzero(gaps[a.rid] < tol_gap)
+        upto = int(near[0]) if near.size else a.gen_count
+        n = min(upto, a.gen_count, b.gen_count)
+        if not np.array_equal(a.tokens[:n], b.tokens[:n]) or (
+                n < upto and a.gen_count != b.gen_count):
+            raise AssertionError(
+                f"{label} request {a.rid}: spec tokens differ before the "
+                f"first near-tie (position {upto}, gap < {tol_gap})")
+        same_tie += 1
+        same_end += int(np.array_equal(a.tokens, b.tokens))
+    return worst, same_end, same_tie
+
+
+def folded_vs_twin(cfg, q, kp, vp, table, positions):
+    """The rescore's folded K4 launch (``paged_prefill_layers``: one launch
+    over every layer's pool, page ids up to L x P) against each layer's
+    twin on float32 inputs, in bf16 (TOL_BF16) and on float32 copies
+    (TOL_F32), and against the per-layer launches bit for bit. Returns the
+    max errors (bf16, float32)."""
+    errs = []
+    for dt, tol in ((torch.bfloat16, TOL_BF16), (torch.float32, TOL_F32)):
+        qd, kd, vd = (t.to(dt) for t in (q, kp, vp))
+        got = ops.paged_prefill_layers(qd, kd, vd, table, positions,
+                                       impl="pallas")
+        err = 0.0
+        for li in range(cfg.num_layers):
+            want = ops.paged_prefill(qd[li].float(), kd[li].float(),
+                                     vd[li].float(), table, positions,
+                                     impl="ref")
+            one = ops.paged_prefill(qd[li], kd[li], vd[li], table, positions,
+                                    impl="pallas")
+            if not torch.equal(got[li], one):
+                raise AssertionError(f"folded K4 ({dt}) layer {li} differs "
+                                     f"from its per-layer launch")
+            err = max(err, max_err(got[li], want))
+        if not err <= tol:
+            raise AssertionError(f"folded K4 ({dt}) disagrees with its twin: "
+                                 f"{err:.3e} > {tol}")
+        errs.append(err)
+        del qd, kd, vd, got
+    return errs
+
+
+SPEC_K = 4
+# logps of one bf16 model two ways (the engine's K3/K4 windows against the
+# teacher-forced chunked forward): TOL_LOGP_PATHS; float32: TOL_LOGP_F32
+# A greedy token flips between two bf16 paths only where a top-2 gap is
+# within both paths' logit noise: each path's logits sit within
+# TOL_LOGITS (0.1) of the teacher-forced ones, so the gap the teacher
+# sees moves by up to 2 x 0.1 and the two engines' gaps by 4 x 0.1 apart.
+# Float32: summation order only, ~1e-5 relative on logits of |.| < 10
+TOL_GAP = {torch.bfloat16: 0.5, torch.float32: 1e-3}
+
+
+def spec_phase(dev, seed, card):
+    """Workloads (a) greedy templated and (b) the serve cell's mix, each
+    with spec_k 0 and 4, through ContinuousEngine at full width; then (a)
+    again in float32, greedy and sampled. Returns the K3/K4 launches of the
+    runs and the folded rescore launch's max errors against its twin
+    (bf16, float32)."""
+    cfg = dataclasses.replace(get_config("qwen3-1.7b"),
+                              paged_attn_impl="pallas")
+    params = init_params(cfg, seed, device=dev)
+    greedy = RLConfig(temperature=1.0, top_k=1, top_p=1.0)
+    # (a) draws from the ids a HeteroRL sampler serves (the arithmetic
+    # task's tokenizer, as the hetero cell): greedy decoding over 152k ids
+    # with random weights walks a random map that does not close a loop
+    # within 128 tokens, over 18 it does, and the drafter finds it
+    task_vocab = Tokenizer().vocab_size
+    work = {"a": (templated_prompts(task_vocab, seed), greedy, 128,
+                  task_vocab),
+            "b": (engine_prompts(cfg, seed), RLConfig(), 64, cfg.vocab_size)}
+    total = {"paged_decode": 0, "paged_prefill": 0}
+    log(f"[spec] {cfg.name} bf16, {SLOTS} slots, page {PAGE}, prefill chunk "
+        f"512, n-gram drafter (3..1), spec_k {SPEC_K}; (a) 16 templated "
+        f"prompts of 96-384 tokens, 128 new, greedy over the task "
+        f"tokenizer's {task_vocab} ids; (b) the serve cell's "
+        f"24 prompts, 64 new, temperature 0.6 / top-k 20 / top-p 0.95")
+    runs = {}
+    for name, (prompts, rl, new, vocab) in work.items():
+        for k in (0, SPEC_K):
+            res, st, launches, tok_s, ms = spec_run(cfg, params, prompts, rl,
+                                                    new, vocab, k, seed)
+            for key in total:
+                total[key] += launches[key]
+            runs[(name, k)] = res
+            log(f"[spec] ({name}) spec_k {k}: decode {tok_s:.1f} tokens/s, "
+                f"{ms:.2f} ms per decode step (pure-decode rounds), "
+                f"{sum(r.gen_count for r in res)} tokens; accept rate "
+                f"{st['accept_rate']:.4f} ({st['accepted_tokens_total']}/"
+                f"{st['drafted_tokens_total']} drafts, "
+                f"{st['spec_rounds']} verify rounds, "
+                f"{st['spec_fallback_chunks']} fallback chunks, "
+                f"{st['prefill_chunks']} prefill chunks); launches "
+                f"{launches}; rescore max diff "
+                f"{st['spec_rescore_max_diff']} | {card}")
+            if name == "a" and k and (st["accepted_tokens_total"] == 0
+                                      or st["spec_rounds"] == 0):
+                raise AssertionError("(a) accepted no draft")
+    for name, (prompts, _, _, vocab) in work.items():
+        worst, same_end, same_tie = spec_contracts(
+            cfg, params, prompts, vocab,
+            {k: runs[(name, k)] for k in (0, SPEC_K)},
+            # (b): a top-k or top-p cut-off that the bf16 paths move apart
+            # changes the draw with no near-tie of the gap; the float32
+            # sampled run below holds the draw keys
+            TOL_LOGP_PATHS, TOL_GAP[torch.bfloat16] if name == "a"
+            else float("inf"), f"({name}) bf16")
+        log(f"[spec] ({name}) bf16: max |emitted logp - teacher-forced| "
+            f"{worst:.4f} (<= {TOL_LOGP_PATHS}); "
+            + (f"{same_tie}/{len(prompts)} requests' spec tokens equal the "
+               f"non-spec tokens up to the first top-2 gap < "
+               f"{TOL_GAP[torch.bfloat16]}, " if name == "a" else "")
+            + f"{same_end}/{len(prompts)} identical to the end")
+
+    # the folded rescore launch against 28 per-layer launches at the
+    # verify shape (8 slots, window 5, ~1000 keys a slot), on a pool of
+    # the engine's size
+    g = torch.Generator(device=dev).manual_seed(seed)
+    pool = init_paged_pool(cfg, 1537, PAGE, device=dev)
+    kp, vp = stacked_pools(cfg, pool)
+    for leaf in (kp, vp):
+        for li in range(cfg.num_layers):
+            leaf[li].copy_(torch.randn(leaf.shape[1:], generator=g,
+                                       device=dev))
+    w = SPEC_K + 1
+    q = torch.randn((cfg.num_layers, SLOTS, w, HQ, D), generator=g,
+                    device=dev).to(torch.bfloat16)
+    table = (1 + torch.randperm(1536, generator=g, device=dev)[
+        :SLOTS * 64]).reshape(SLOTS, 64).int()
+    positions = torch.arange(SLOTS, device=dev)[:, None] * 100 + 300 \
+        + torch.arange(w, device=dev)
+    folded_errs = folded_vs_twin(cfg, q, kp, vp, table, positions)
+    folded = time_ms(lambda: ops.paged_prefill_layers(
+        q, kp, vp, table, positions, impl="pallas"))
+    per_layer = time_ms(lambda: [ops.paged_prefill(
+        q[li], kp[li], vp[li], table, positions, impl="pallas")
+        for li in range(cfg.num_layers)])
+    log(f"[spec] rescore at the verify shape (B {SLOTS}, C {w}, 300-1004 "
+        f"keys, page ids up to {cfg.num_layers} x 1537): one folded K4 "
+        f"launch over {cfg.num_layers} layers {folded:.4f} ms, "
+        f"{cfg.num_layers} per-layer launches {per_layer:.4f} ms; folded "
+        f"against each layer's twin max|err| bf16 {folded_errs[0]:.3e} "
+        f"(tol {TOL_BF16}), f32 {folded_errs[1]:.3e} (tol {TOL_F32}), equal "
+        f"to the per-layer launches bit for bit | {card}")
+    del pool, kp, vp, q
+    torch.cuda.empty_cache()
+
+    # (a) again with the weights in float32
+    to_float32(params)
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    prompts, rl, new, vocab = work["a"]
+    runs32 = {}
+    for k in (0, SPEC_K):
+        res, st, launches, tok_s, ms = spec_run(cfg32, params, prompts, rl,
+                                                new, vocab, k, seed)
+        for key in total:
+            total[key] += launches[key]
+        runs32[k] = res
+        log(f"[spec] (a) float32 spec_k {k}: decode {tok_s:.1f} tokens/s, "
+            f"{ms:.2f} ms per decode step; accept rate "
+            f"{st['accept_rate']:.4f} ({st['accepted_tokens_total']}/"
+            f"{st['drafted_tokens_total']}), {st['spec_rounds']} verify "
+            f"rounds, rescore max diff {st['spec_rescore_max_diff']} | {card}")
+    worst, same_end, same_tie = spec_contracts(
+        cfg32, params, prompts, vocab, runs32, TOL_LOGP_F32,
+        TOL_GAP[torch.float32], "(a) float32")
+    log(f"[spec] (a) float32: max |emitted logp - teacher-forced| "
+        f"{worst:.2e} (<= {TOL_LOGP_F32}); {same_tie}/{len(prompts)} equal "
+        f"up to the first top-2 gap < {TOL_GAP[torch.float32]}, "
+        f"{same_end}/{len(prompts)} identical to the end")
+    # (a) float32 once more, sampled at temperature 1 with no top-k or
+    # top-p: the only near-ties are then those of logits + the draw's Gumbel
+    # noise, so the token rule holds that a verify round draws with the
+    # non-spec chunk's keys (seed, rid, g)
+    sampled = RLConfig(temperature=1.0, top_k=0, top_p=1.0)
+    runs_s = {}
+    for k in (0, SPEC_K):
+        res, st, launches, tok_s, ms = spec_run(cfg32, params, prompts,
+                                                sampled, 64, vocab, k, seed)
+        for key in total:
+            total[key] += launches[key]
+        runs_s[k] = res
+        log(f"[spec] (a) float32 sampled spec_k {k}: decode {tok_s:.1f} "
+            f"tokens/s; accept rate {st['accept_rate']:.4f} "
+            f"({st['accepted_tokens_total']}/{st['drafted_tokens_total']}), "
+            f"{st['spec_rounds']} verify rounds, {st['spec_fallback_chunks']} "
+            f"fallback chunks | {card}")
+        if k and st["spec_rounds"] == 0:
+            raise AssertionError("(a) float32 sampled: no verify round")
+    worst, same_end, same_tie = spec_contracts(
+        cfg32, params, prompts, vocab, runs_s, TOL_LOGP_F32,
+        TOL_GAP[torch.float32], "(a) float32 sampled", seed=seed)
+    log(f"[spec] (a) float32 sampled: max |emitted logp - teacher-forced| "
+        f"{worst:.2e} (<= {TOL_LOGP_F32}); {same_tie}/{len(prompts)} equal "
+        f"up to the first top-2 gap of logits + Gumbel noise < "
+        f"{TOL_GAP[torch.float32]}, {same_end}/{len(prompts)} identical to "
+        f"the end")
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[spec] launches: {total}")
+    return total, folded_errs
+
+
+# --------------------------------------------------------------------------
+# phase 10: the threaded HeteroRL runtime with spec samplers
+
+
+def threads_phase(dev, seed, card, warm, step_s):
+    """ThreadedHeteroRuntime.run(4) on the hetero phase's model, task and
+    warm start: 2 sampler threads at spec_k 4 and the learner, on one
+    card. Returns the K1-K4 launches of the run."""
+    cfg = get_config("qwen3-1.7b")
+    tok = Tokenizer()
+    task = ArithmeticTask(max_operand=99, ops="+-", prompt_width=PROMPT_LEN,
+                          seed=seed)
+    rl = RLConfig(loss_type="gepo", group_size=GROUP,
+                  max_new_tokens=NEW_TOKENS, temperature=1.0, top_k=0,
+                  top_p=1.0, beta_kl=0.005, engine="continuous")
+    tc = TrainConfig(grad_accum=2, logprob_impl="fused")
+    hcfg = HeteroConfig(num_samplers=2, max_delay_steps=64,
+                        delay_median_s=60.0, seed=seed, spec_k=SPEC_K)
+    # one learner step of wall time per 60 simulated seconds: the paper's
+    # median sync delay is then about one learner step
+    time_scale = step_s / 60.0
+    torch.cuda.reset_peak_memory_stats()
+    rt = ThreadedHeteroRuntime(cfg, rl, tc, hcfg, task, tok, warm,
+                               prompts_per_batch=HETERO_PROMPTS,
+                               time_scale=time_scale, device=dev)
+    reset_counts()
+    t0 = time.perf_counter()
+    try:
+        hist = rt.run(HETERO_STEPS)
+    finally:
+        # run() joins each thread for 10 s, less than a batch in flight may
+        # take: wait for every one before reading counts or freeing memory
+        for t in rt.threads:
+            t.join(THREAD_JOIN_S)
+        alive = [t.name for t in rt.threads if t.is_alive()]
+        if alive:
+            raise AssertionError(f"sampler threads {alive} still running "
+                                 f"{THREAD_JOIN_S}s after the run")
+    torch.cuda.synchronize()
+    t_run = time.perf_counter() - t0
+    launches = counts()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    batches = sum(s.batches_generated for s in rt.samplers)
+    est = [s.engine_stats for s in rt.samplers]
+    lyr = cfg.num_layers
+    want = {"logprob_fwd": batches + 2 * HETERO_STEPS,
+            "logprob_bwd": 2 * HETERO_STEPS,
+            "paged_decode": lyr * 8 * sum(e["spec_fallback_chunks"]
+                                          for e in est),
+            "paged_prefill": sum(lyr * e["prefill_chunks"]
+                                 + (lyr + 1) * e["spec_rounds"]
+                                 for e in est),
+            "flash_attention": 0, "ssd_scan": 0}
+    if launches != want:
+        raise AssertionError(f"threaded run launches {launches} != {want}")
+    stale = hist.get("staleness")
+    syncs = sum(s.syncs for s in rt.samplers)
+    bad = [k for k in hist.keys() if not np.isfinite(hist.get(k)).all()]
+    log(f"[threads] ThreadedHeteroRuntime.run({HETERO_STEPS}), 2 samplers "
+        f"at spec_k {SPEC_K}, time_scale {time_scale:.5f} (learner step "
+        f"{step_s:.3f} s per 60 simulated s): {t_run:.2f}s wall; "
+        f"{batches} sampler batches, {rt.learner.discarded} discarded, "
+        f"{syncs} syncs in the run (versions "
+        f"{[s.version for s in rt.samplers]}), {rt.skipped_syncs} skipped; "
+        f"staleness {stale.tolist()}; loss {hist.get('loss').tolist()}; "
+        f"peak device memory {peak:.2f} GiB, host peak RSS "
+        f"{rss_gib():.2f} GiB | {card}")
+    for s, e in zip(rt.samplers, est):
+        log(f"[threads] sampler {s.sid}: {s.batches_generated} batches, "
+            f"{s.tokens_per_s:.1f} tokens/s steady, accept rate "
+            f"{e['accept_rate']:.4f} ({e['accepted_tokens_total']}/"
+            f"{e['drafted_tokens_total']}), {e['spec_rounds']} verify "
+            f"rounds, {e['spec_fallback_chunks']} fallback chunks, rescore "
+            f"max diff {e['spec_rescore_max_diff']}")
+    log(f"[threads] launches {launches} (K1 {batches} + 2 x {HETERO_STEPS}, "
+        f"K2 2 x {HETERO_STEPS}, K3 28 x 8 per fallback chunk, K4 29 per "
+        f"verify round + 28 per prefill chunk)")
+    if rt.learner.step != HETERO_STEPS or bad or \
+            stale.max() > hcfg.max_delay_steps or syncs == 0 or \
+            any(e["spec_rescore_max_diff"] != 0.0 for e in est):
+        raise AssertionError(f"threaded run: {rt.learner.step} steps, "
+                             f"non-finite {bad}, staleness {stale}, "
+                             f"{syncs} syncs")
+    del rt, hist
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
 
 
 # --------------------------------------------------------------------------
@@ -2222,9 +2816,24 @@ def main(argv=None) -> int:
     log(f"[time] learner phase {time.perf_counter() - t0:.1f}s")
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    for name, n in hetero_phase(dev, args.seed, card).items():
+    hetero, warm, step_s = hetero_phase(dev, args.seed, card)
+    for name, n in hetero.items():
         launches[name] += n
     log(f"[time] hetero phase {time.perf_counter() - t0:.1f}s")
+    t0 = time.perf_counter()
+    spec_launches, folded_errs = spec_phase(dev, args.seed, card)
+    for name, n in spec_launches.items():
+        launches[name] += n
+    k4 = kernels["paged_prefill"]
+    k4["max_abs_err_folded"], k4["max_abs_err_folded_f32"] = folded_errs
+    k4["max_abs_err"] = max(k4["max_abs_err"], folded_errs[0])
+    k4["max_abs_err_f32"] = max(k4["max_abs_err_f32"], folded_errs[1])
+    log(f"[time] spec phase {time.perf_counter() - t0:.1f}s")
+    t0 = time.perf_counter()
+    for name, n in threads_phase(dev, args.seed, card, warm, step_s).items():
+        launches[name] += n
+    del warm
+    log(f"[time] threads phase {time.perf_counter() - t0:.1f}s")
     for name, row in kernels.items():
         row["launches"] = launches[name]
         row["kernel_ms"], row["twin_ms"] = row["ms"], row["plain_ms"]

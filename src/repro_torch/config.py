@@ -275,18 +275,14 @@ class HeteroConfig:
                 "parallel/ (ROADMAP queue 1 item 10)")
         if self.spec_k < 0:
             raise ValueError(f"spec_k must be >= 0, got {self.spec_k}")
-        if self.spec_k > 0:
-            raise NotImplementedError(
-                "HeteroConfig.spec_k > 0: speculative decoding is not "
-                "ported yet (ROADMAP queue 1 item 3)")
 
 
 @dataclass(frozen=True)
 class ServeConfig:
     """Deployment settings for a generation engine: engine kind, KV
-    capacity, decode horizon (the fields of the JAX package's
-    ``ServeConfig`` that this slice serves; mesh, front-door and
-    speculative-drafting fields join with their slices)."""
+    capacity, decode horizon, speculative drafting (the fields of the JAX
+    package's ``ServeConfig`` that the port serves; mesh and front-door
+    fields join with their slices)."""
     engine: str = "continuous"       # static | continuous
     num_slots: int = 8
     page_size: int = 16
@@ -297,7 +293,15 @@ class ServeConfig:
     prefix_cache: bool = True
     prefix_cache_entries: int = 64
     paged_attn_impl: Optional[str] = None   # ModelConfig override (None=keep)
-    spec_k: int = 0                  # speculative drafts (not ported: > 0 raises)
+    # speculative decoding (continuous engine only): drafts per verify
+    # round (0 = off). Acceptance replays the engine's own draws, so the
+    # emitted tokens are the non-speculative engine's.
+    spec_k: int = 0
+    spec_ngram_max: int = 3          # prompt-lookup suffix n-gram (longest)
+    spec_ngram_min: int = 1          # ... shortest suffix tried
+    # replay each verify round's attention through one folded K4 launch
+    # and keep max |folded - in-forward| (stats()["spec_rescore_max_diff"])
+    spec_rescore: bool = True
     seed: int = 0
 
     def __post_init__(self):
@@ -312,6 +316,11 @@ class ServeConfig:
             raise ValueError("prefill_chunk / num_pages must be >= 0")
         if self.spec_k < 0:
             raise ValueError("spec_k must be >= 0 (0 = speculation off)")
+        if self.spec_k > 0 and self.engine != "continuous":
+            raise ValueError("speculative decoding (spec_k > 0) needs the "
+                             "continuous engine")
+        if not 1 <= self.spec_ngram_min <= self.spec_ngram_max:
+            raise ValueError("need 1 <= spec_ngram_min <= spec_ngram_max")
 
     @property
     def pages_per_slot(self) -> int:

@@ -97,6 +97,8 @@ class SamplerNode:
             cfg = dataclasses.replace(cfg,
                                       paged_attn_impl=hcfg.paged_attn_impl)
         self.cfg, self.rl = cfg, rl
+        # sampler-side speculative decoding (continuous engine only)
+        self.spec_k = hcfg.spec_k
         self.pipeline, self.task, self.tok = pipeline, task, tok
         self.device = resolve_device(device)
         # the node's own copy: never an alias of the learner's tensors,
@@ -153,9 +155,8 @@ class SamplerNode:
         self._g_version = m.gauge(
             "sampler_policy_version", "policy version this node holds",
             sampler=sid)
-        # the speculative-decode families of the JAX package's node; they
-        # stay unset until speculative decoding is ported (ROADMAP queue
-        # 1 item 3)
+        # speculative decoding: the engine's cumulative accept rate and
+        # the drafts it proposed (set when spec_k > 0)
         self._g_accept = m.gauge(
             "sampler_accept_rate",
             "speculative-decode draft acceptance rate of this node",
@@ -163,6 +164,8 @@ class SamplerNode:
         self._m_drafted = m.counter(
             "sampler_drafted_tokens_total",
             "draft tokens proposed by this node's engine", sampler=sid)
+        self._drafted_seen = 0   # engine stats are cumulative; the counter
+        #                          takes the increments
 
     @property
     def tokens_per_s(self) -> float:
@@ -191,7 +194,7 @@ class SamplerNode:
                 serve = ServeConfig(
                     engine=self.rl.engine,
                     max_total_tokens=tp + self.rl.max_new_tokens,
-                    num_slots=min(b, 8))
+                    num_slots=min(b, 8), spec_k=self.spec_k)
                 self._gen_engine = build_engine(
                     self.cfg, self.params, serve, rl=self.rl,
                     vocab_limit=self.tok.vocab_size)
@@ -228,6 +231,11 @@ class SamplerNode:
                 self.gen_seconds += dt
             if isinstance(engine, ContinuousEngine):
                 self.engine_stats = dict(engine.stats())
+            if self.spec_k > 0 and self.engine_stats:
+                self._g_accept.set(self.engine_stats["accept_rate"])
+                drafted = int(self.engine_stats["drafted_tokens_total"])
+                self._m_drafted.inc(drafted - self._drafted_seen)
+                self._drafted_seen = drafted
         rewards = score_rollouts(self.task, self.tok, req.problems,
                                  roll["completions"].cpu().numpy(),
                                  req.group_size)
@@ -260,9 +268,18 @@ class SamplerNode:
         latest = self.store.latest_version()
         if latest < 0 or latest <= self.version:
             return 0
-        with obs.trace.span("weight_sync", track=self._track,
-                            sampler=self.sid):
-            v, host_tree, stats = self.subscriber.sync(self.params)
+        for attempt in range(3):
+            try:
+                with obs.trace.span("weight_sync", track=self._track,
+                                    sampler=self.sid):
+                    v, host_tree, stats = self.subscriber.sync(self.params)
+                break
+            except KeyError:
+                # threaded runtime: a publisher on another thread pruned
+                # the fetched manifest's chunks between fetch and
+                # assembly; retry against the newest version, three times
+                if attempt == 2:
+                    raise
         self.load_params(host_tree, v)
         with self._lock:
             self.syncs += 1

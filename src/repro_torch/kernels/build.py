@@ -24,6 +24,7 @@ import os
 import re
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 from typing import Dict, List, Optional
@@ -163,15 +164,30 @@ def sass_functions(path: Path) -> Dict[str, str]:
 
 
 _LIB: Optional[ctypes.CDLL] = None
+# threads share one library (the threaded HeteroRL runtime's nodes launch
+# from their own threads): the first load builds it once, and launch
+# counts are read-modify-writes that a thread switch must not split
+_LOAD_LOCK = threading.Lock()
+_COUNT_LOCK = threading.Lock()
 
 
 def load() -> ctypes.CDLL:
-    """The loaded kernel library, built first if needed."""
+    """The loaded kernel library, built first if needed; one build when
+    several threads ask at once."""
     global _LIB
     if _LIB is None:
-        lib = ctypes.CDLL(str(build().path))
-        for fn, argtypes in ARGTYPES.items():
-            getattr(lib, fn).argtypes = argtypes
-            getattr(lib, fn).restype = ctypes.c_int
-        _LIB = lib
+        with _LOAD_LOCK:
+            if _LIB is None:
+                lib = ctypes.CDLL(str(build().path))
+                for fn, argtypes in ARGTYPES.items():
+                    getattr(lib, fn).argtypes = argtypes
+                    getattr(lib, fn).restype = ctypes.c_int
+                _LIB = lib
     return _LIB
+
+
+def count_launch(counts: Dict[str, int], name: str) -> None:
+    """``counts[name] += 1`` under a lock: a kernel wrapper's launch
+    count, exact when threads launch together."""
+    with _COUNT_LOCK:
+        counts[name] += 1

@@ -149,7 +149,7 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if err != 0:
         raise RuntimeError(f"flash_attention_kernel launch failed: "
                            f"cudaError {err}")
-    LAUNCHES["flash_attention"] += 1
+    build.count_launch(LAUNCHES, "flash_attention")
     return out
 
 

@@ -205,7 +205,7 @@ def logprob_fwd(logits: torch.Tensor, targets: torch.Tensor
             logits.data_ptr(), targets.data_ptr(), logp.data_ptr(),
             ent.data_ptr(), lse.data_ptr(), t, v, code, stream)
     _raise_on(err, "logprob_fwd_kernel")
-    LAUNCHES["logprob_fwd"] += 1
+    build.count_launch(LAUNCHES, "logprob_fwd")
     return logp, ent, lse
 
 
@@ -227,7 +227,7 @@ def logprob_bwd(logits: torch.Tensor, targets: torch.Tensor,
             mu.data_ptr(), g_lp.data_ptr(), g_ent.data_ptr(),
             dlogits.data_ptr(), t, v, code, stream)
     _raise_on(err, "logprob_bwd_kernel")
-    LAUNCHES["logprob_bwd"] += 1
+    build.count_launch(LAUNCHES, "logprob_bwd")
     return dlogits
 
 

@@ -10,7 +10,10 @@ Paged attention (``paged_decode``, ``paged_prefill``): ``impl`` is
 - "gather": the dense gather path of the JAX package; not ported yet.
 
 ``kind``/``window`` follow the JAX package: the sliding-window band
-applies only when ``kind == "local"``.
+applies only when ``kind == "local"``. ``paged_decode_layers`` and
+``paged_prefill_layers`` fold a leading layer axis into the slot axis, so
+one K3 or K4 launch serves every layer's pools (the speculative verify
+round's rescore).
 
 Dense flash attention (``flash_attention``, ``attn_impl="pallas"``): the
 K5 kernel for CUDA tensors, its twin for CPU tensors, as the JAX package
@@ -119,6 +122,63 @@ def paged_prefill(q: torch.Tensor, kp: torch.Tensor, vp: torch.Tensor,
     fn = pa.paged_prefill_ref if path == "ref" else pa.paged_prefill
     return fn(q, kp, vp, page_table, lengths, starts, window=eff_window,
               softcap=softcap)
+
+
+def _fold_layers(q: torch.Tensor, kp: torch.Tensor, vp: torch.Tensor,
+                 page_table: torch.Tensor):
+    """Fold a leading layer axis into the slot axis, so ONE kernel launch
+    serves every layer's pools.
+
+    q (L, B, ...), kp/vp (L, P, page, Hkv, D), page_table (B, W) -> q
+    (L·B, ...), pools (L·P, ...) and table (L·B, W), layer l's rows
+    offset by l·P so they index the l-th pool slab. The pools and q are
+    reshaped, which is a view of a contiguous tensor: only the table is
+    new. Slots never mix in K3/K4, so the folded launch gives the bits of
+    L per-layer launches."""
+    lyr, pool_pages, b = q.shape[0], kp.shape[1], q.shape[1]
+    kpf = kp.reshape((lyr * pool_pages,) + kp.shape[2:])
+    vpf = vp.reshape((lyr * pool_pages,) + vp.shape[2:])
+    offs = torch.arange(lyr, dtype=torch.int32,
+                        device=page_table.device) * pool_pages
+    tablef = (page_table.to(torch.int32)[None] + offs[:, None, None]
+              ).reshape(lyr * b, -1)
+    return q.reshape((lyr * b,) + q.shape[2:]), kpf, vpf, tablef
+
+
+def paged_decode_layers(q: torch.Tensor, kp: torch.Tensor, vp: torch.Tensor,
+                        page_table: torch.Tensor, lengths: torch.Tensor, *,
+                        kind: str = "causal", window: Optional[int] = None,
+                        softcap: Optional[float] = None,
+                        impl: Optional[str] = None) -> torch.Tensor:
+    """``paged_decode`` over all layers' pools in ONE launch of K3.
+
+    q (L, B, 1, Hq, D) per-layer queries; kp/vp (L, P, page, Hkv, D)
+    stacked pools (the block-stacked leaves of ``init_paged_pool``);
+    page_table (B, W) and lengths (B,) shared by every layer. Returns
+    (L, B, 1, Hq, D), bit-exact against L separate ``paged_decode``
+    calls. A forward cannot use it (layer l's query needs layer l-1's
+    output); it serves callers that hold every layer's queries."""
+    lyr, b = q.shape[0], q.shape[1]
+    qf, kpf, vpf, tablef = _fold_layers(q, kp, vp, page_table)
+    o = paged_decode(qf, kpf, vpf, tablef, lengths.repeat(lyr), kind=kind,
+                     window=window, softcap=softcap, impl=impl)
+    return o.reshape((lyr, b) + o.shape[1:])
+
+
+def paged_prefill_layers(q: torch.Tensor, kp: torch.Tensor, vp: torch.Tensor,
+                         page_table: torch.Tensor, positions: torch.Tensor, *,
+                         kind: str = "causal", window: Optional[int] = None,
+                         softcap: Optional[float] = None,
+                         impl: Optional[str] = None) -> torch.Tensor:
+    """``paged_prefill`` over all layers' pools in ONE launch of K4: q
+    (L, B, C, Hq, D), kp/vp (L, P, page, Hkv, D), positions (B, C) shared
+    across layers. Returns (L, B, C, Hq, D), bit-exact against L separate
+    calls: the same folding as ``paged_decode_layers``."""
+    lyr, b = q.shape[0], q.shape[1]
+    qf, kpf, vpf, tablef = _fold_layers(q, kp, vp, page_table)
+    o = paged_prefill(qf, kpf, vpf, tablef, positions.repeat(lyr, 1),
+                      kind=kind, window=window, softcap=softcap, impl=impl)
+    return o.reshape((lyr, b) + o.shape[1:])
 
 
 def fused_token_logprob(logits: torch.Tensor, targets: torch.Tensor, *,

@@ -243,7 +243,7 @@ def paged_attention(q: torch.Tensor, kp: torch.Tensor, vp: torch.Tensor,
             lens.data_ptr(), out.data_ptr(), b, hq, hkv, d, page_size,
             npages, win, cap, code, stream)
     _raise_on(err, "paged_decode_kernel")
-    LAUNCHES["paged_decode"] += 1
+    build.count_launch(LAUNCHES, "paged_decode")
     return out
 
 
@@ -278,5 +278,5 @@ def paged_prefill(q: torch.Tensor, kp: torch.Tensor, vp: torch.Tensor,
             lens.data_ptr(), st.data_ptr(), out.data_ptr(), b, c, hq, hkv,
             d, page_size, npages, win, cap, code, stream)
     _raise_on(err, "paged_prefill_kernel")
-    LAUNCHES["paged_prefill"] += 1
+    build.count_launch(LAUNCHES, "paged_prefill")
     return out

@@ -189,5 +189,5 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a_log_neg: torch.Tensor,
             _DTYPES[x.dtype], stream)
     if err != 0:
         raise RuntimeError(f"ssd_scan_kernel launch failed: cudaError {err}")
-    LAUNCHES["ssd_scan"] += 1
+    build.count_launch(LAUNCHES, "ssd_scan")
     return y

@@ -9,6 +9,7 @@ through its ``generate``:
   PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --smoke
   PYTHONPATH=src python -m repro_torch.launch.serve --engine static --attn-impl pallas
   PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-1.3b
+  PYTHONPATH=src python -m repro_torch.launch.serve --spec-k 4
 
 The static engine takes a rectangular batch, so its prompts all have
 ``--prompt-len`` tokens; the continuous engine's are drawn in
@@ -19,8 +20,14 @@ warning. Its prefill fills a cache, so it runs the chunked SSD, and its
 decode runs the recurrence: the SSD kernel K6 serves only the cache-free
 recompute (``ModelConfig.ssd_impl``).
 
+``--spec-k K`` turns on speculative decoding in the continuous engine:
+an n-gram drafter proposes up to K tokens a round, one forward verifies
+them (``--spec-ngram``: the longest suffix n-gram matched;
+``--no-spec-rescore`` skips the folded-layers rescore), and the summary
+prints the engine's accept rate.
+
 ``--smoke`` serves the reduced variant of ``--arch``. The front door
-(``--listen``), meshes and speculative decoding are later slices.
+(``--listen``) and meshes are later slices.
 """
 from __future__ import annotations
 
@@ -67,6 +74,15 @@ def parse_args(argv=None) -> argparse.Namespace:
                          "(0 = --prompt-len + --max-new)")
     ap.add_argument("--paged-attn-impl", default=None,
                     choices=("auto", "pallas", "ref"))
+    ap.add_argument("--spec-k", type=int, default=0,
+                    help="speculative decoding: drafts per verify round "
+                         "(0 = off; continuous engine only)")
+    ap.add_argument("--spec-ngram", type=int, default=3,
+                    help="longest suffix n-gram the prompt-lookup "
+                         "drafter matches")
+    ap.add_argument("--no-spec-rescore", action="store_true",
+                    help="skip the folded-layers rescore of each verify "
+                         "round (one K4 launch a round)")
     # sampling profile -----------------------------------------------------
     ap.add_argument("--temperature", type=float, default=0.6)
     ap.add_argument("--top-k", type=int, default=20)
@@ -85,7 +101,9 @@ def main(argv=None) -> None:
         prefill_chunk=args.prefill_chunk, sync_every=args.sync_every,
         max_total_tokens=args.max_total_tokens
         or args.prompt_len + args.max_new,
-        paged_attn_impl=args.paged_attn_impl, seed=args.seed)
+        paged_attn_impl=args.paged_attn_impl, spec_k=args.spec_k,
+        spec_ngram_max=args.spec_ngram,
+        spec_rescore=not args.no_spec_rescore, seed=args.seed)
     rl = RLConfig(temperature=args.temperature, top_k=args.top_k,
                   top_p=args.top_p, max_new_tokens=args.max_new)
     params = init_params(cfg, args.seed, device=args.device)
@@ -121,12 +139,20 @@ def main(argv=None) -> None:
         print(f"[serve] round {r}: {n_tok} tokens in {dt:.3f}s "
               f"({n_tok / dt:.1f} tok/s) | {detail} | rid "
               f"{results[0].rid}: {results[0].tokens[:8].tolist()}")
+    spec = ""
+    if not static and engine.spec_k > 0:
+        st = engine.stats()
+        spec = (f" spec_k={engine.spec_k} accept_rate "
+                f"{st['accept_rate']:.3f} ({st['accepted_tokens_total']}/"
+                f"{st['drafted_tokens_total']} drafts, {st['spec_rounds']} "
+                f"verify rounds, {st['spec_fallback_chunks']} fallback "
+                f"chunks)")
     print(f"[serve] arch={cfg.name} device={args.device} "
           f"impl={engine.cfg.paged_attn_impl} "
           f"engine={'static' if static else 'continuous'} "
           f"attn={cfg.attn_impl} batch={args.batch} total "
           f"{total_tok} tokens, "
-          f"{total_tok / (time.perf_counter() - t0):.1f} tok/s")
+          f"{total_tok / (time.perf_counter() - t0):.1f} tok/s{spec}")
 
 
 if __name__ == "__main__":

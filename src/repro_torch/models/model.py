@@ -99,7 +99,8 @@ def _kv_write_index(positions: torch.Tensor, page_table: torch.Tensor,
 def _self_attn(cfg: ModelConfig, p: Dict, x: torch.Tensor, *, kind: str,
                positions: torch.Tensor, paged: Optional[Tuple],
                decode: bool, dense: Optional[Tuple] = None,
-               contiguous: Optional[bool] = None) -> torch.Tensor:
+               contiguous: Optional[bool] = None,
+               tape: Optional[List] = None) -> torch.Tensor:
     """Self-attention sub-layer (input already normed).
 
     ``paged`` is None for the dense paths, else (kp, vp, page_table,
@@ -110,7 +111,9 @@ def _self_attn(cfg: ModelConfig, p: Dict, x: torch.Tensor, *, kind: str,
     v_cache, pos) of this layer: a prefill (``pos`` None) writes K/V at
     [0, S) and attends as without a cache; a decode step writes at ``pos``
     and attends the cache. ``contiguous`` says whether ``positions`` is
-    ``arange(S)`` (``attention``'s argument)."""
+    ``arange(S)`` (``attention``'s argument). ``tape`` (paged prefill
+    only) gets this layer's post-rope queries and attention outputs, both
+    (B, S, Hq, D), appended as a pair."""
     b, sq = x.shape[0], x.shape[1]
     q, k, v = _project_qkv(cfg, p, x)
     q = rope(q, positions, cfg.rope_theta)
@@ -146,13 +149,16 @@ def _self_attn(cfg: ModelConfig, p: Dict, x: torch.Tensor, *, kind: str,
         o = paged_prefill(q, kp, vp, page_table, positions,
                           kind=mask_kind, window=cfg.sliding_window,
                           softcap=cfg.attn_softcap, impl=cfg.paged_attn_impl)
+        if tape is not None:
+            tape.append((q, o))
     return o.reshape(b, sq, -1) @ p["wo"]
 
 
 def _apply_layer(cfg: ModelConfig, kind: str, ffn_kind: str, p: Dict,
                  x: torch.Tensor, *, positions, paged: Optional[Tuple],
                  decode: bool, dense: Union[None, Tuple, Dict] = None,
-                 contiguous: Optional[bool] = None) -> torch.Tensor:
+                 contiguous: Optional[bool] = None,
+                 tape: Optional[List] = None) -> torch.Tensor:
     """One layer. ``dense`` is this layer's part of a dense cache: (k, v,
     pos) of an attention layer, the ``{"conv", "ssm"}`` of a Mamba2
     layer."""
@@ -165,7 +171,7 @@ def _apply_layer(cfg: ModelConfig, kind: str, ffn_kind: str, p: Dict,
     else:
         x = x + _self_attn(cfg, p["attn"], h, kind=kind, positions=positions,
                            paged=paged, decode=decode, dense=dense,
-                           contiguous=contiguous)
+                           contiguous=contiguous, tape=tape)
     if ffn_kind == MLP:
         x = x + swiglu(rmsnorm(x, p["ffn_norm"], cfg.norm_eps), p["mlp"])
     return x
@@ -249,7 +255,11 @@ def _run_dense(cfg: ModelConfig, params: Dict, x: torch.Tensor, *,
 def _run_paged(cfg: ModelConfig, params: Dict, x: torch.Tensor, *,
                positions: torch.Tensor, cache: Optional[Dict],
                page_table: Optional[torch.Tensor],
-               decode: bool) -> torch.Tensor:
+               decode: bool, tape: Optional[List] = None) -> torch.Tensor:
+    """The layers over page pools. With ``tape`` (prefill only) every
+    layer appends its (q, o) pair, block-major: layer ``bi * period + i``
+    is pattern slot ``i`` of block ``bi``, the order the block-stacked
+    pools fold in (``sampling.spec.stacked_pools``)."""
     if not _is_paged(cfg, cache) or page_table is None:
         raise ValueError(_CACHE_KINDS)
     page_size = cache["layer_0"]["self"]["kp"].shape[2]
@@ -263,7 +273,8 @@ def _run_paged(cfg: ModelConfig, params: Dict, x: torch.Tensor, *,
             paged = (pools[i][0][bi], pools[i][1][bi], page_table, widx)
             x = _apply_layer(cfg, kind, cfg.ffn_kind(i),
                              blocks[bi][f"layer_{i}"], x,
-                             positions=positions, paged=paged, decode=decode)
+                             positions=positions, paged=paged, decode=decode,
+                             tape=tape)
     return x
 
 
@@ -294,6 +305,7 @@ def forward(cfg: ModelConfig, params: Dict, tokens: torch.Tensor, *,
             positions: Optional[torch.Tensor] = None,
             cache: Optional[Dict] = None,
             page_table: Optional[torch.Tensor] = None,
+            record_queries: bool = False,
             ) -> Tuple[torch.Tensor, Optional[Dict], Dict]:
     """Full-sequence forward. tokens (B, S) at ``positions`` (B, S)
     (default ``arange(S)``). Without ``page_table`` the dense path
@@ -301,7 +313,13 @@ def forward(cfg: ModelConfig, params: Dict, tokens: torch.Tensor, *,
     ``init_cache`` also writes the K/V of positions [0, S) into it (the
     static engine's prefill); with page pools and ``page_table`` a chunked
     prefill whose K/V are written into the pools. Caches are written in
-    place. Returns (logits (B, S, V_padded) f32, cache, {})."""
+    place. Returns (logits (B, S, V_padded) f32, cache, aux).
+
+    ``record_queries`` (paged prefill only) puts ``q_tape`` and ``o_tape``
+    in ``aux``: every layer's post-rope queries and attention outputs,
+    (L, B, S, Hq, D) block-major, so a speculative verifier can replay all
+    layers' attention through one ``paged_prefill_layers`` launch.
+    Otherwise ``aux`` is empty."""
     b, s = tokens.shape
     contiguous = positions is None
     if positions is None:
@@ -309,13 +327,22 @@ def forward(cfg: ModelConfig, params: Dict, tokens: torch.Tensor, *,
     elif cfg.attn_impl == "pallas" and page_table is None:
         contiguous = standard_positions(positions)   # once, not per layer
     x = _embed(cfg, params, tokens)
+    aux: Dict[str, torch.Tensor] = {}
     if page_table is None and not _is_paged(cfg, cache):
+        if record_queries:
+            raise ValueError(
+                f"record_queries needs every layer on the paged attention "
+                f"path; layer kind {cfg.block_pattern[0]!r} is not")
         x = _run_dense(cfg, params, x, positions=positions,
                        contiguous=contiguous, cache=cache)
     else:
+        tape: Optional[List] = [] if record_queries else None
         x = _run_paged(cfg, params, x, positions=positions, cache=cache,
-                       page_table=page_table, decode=False)
-    return _logits(cfg, params, x), cache, {}
+                       page_table=page_table, decode=False, tape=tape)
+        if tape is not None:
+            aux["q_tape"] = torch.stack([q for q, _ in tape])
+            aux["o_tape"] = torch.stack([o for _, o in tape])
+    return _logits(cfg, params, x), cache, aux
 
 
 def decode_step(cfg: ModelConfig, params: Dict, cache: Dict,

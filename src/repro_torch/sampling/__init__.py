@@ -14,6 +14,9 @@ from repro_torch.sampling.sample import (filter_logits, mask_vocab,
                                          model_logp, sample_token_rows)
 from repro_torch.sampling.scheduler import (DECODE, PREFILL,
                                             ContinuousScheduler, GenRequest)
+from repro_torch.sampling.spec import (DraftProposer, NGramDrafter,
+                                       accept_drafts, fused_rescore_diff,
+                                       stacked_pools, verify_width_buckets)
 
 __all__ = ["ContinuousEngine", "clamp_prefill_chunk", "generate_continuous",
            "rollout_from_results", "StaticEngine", "build_engine",
@@ -22,4 +25,5 @@ __all__ = ["ContinuousEngine", "clamp_prefill_chunk", "generate_continuous",
            "new_block_table", "paged_cache_supported", "pages_for",
            "PrefixCache", "filter_logits", "mask_vocab", "model_logp",
            "sample_token_rows", "DECODE", "PREFILL", "ContinuousScheduler",
-           "GenRequest"]
+           "GenRequest", "DraftProposer", "NGramDrafter", "accept_drafts",
+           "fused_rescore_diff", "stacked_pools", "verify_width_buckets"]

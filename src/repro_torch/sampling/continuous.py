@@ -1,13 +1,13 @@
 """Continuous-batching engine: persistent slot pool over a paged KV cache.
 
-The port of ``repro/sampling/continuous.py`` without speculative decoding
-(a later slice):
+The port of ``repro/sampling/continuous.py``:
 
 - ``submit()`` queues a :class:`repro_torch.serving.api.Request`;
 - ``step()`` runs one scheduler round: admission (priority classes,
   deadlines, shared-prefix page reuse with copy-on-write), one prefill
   chunk per prefilling slot, then one decode chunk of ``sync_every``
-  steps over every slot, and returns the round's token events;
+  steps over every slot (or, with ``spec_k > 0``, one speculative round),
+  and returns the round's token events;
 - ``generate()`` submits a batch and steps until it drains;
 - ``generate_continuous()`` is the batch wrapper that returns the
   engine-agnostic rollout dict (``rollout_from_results``).
@@ -16,6 +16,19 @@ The engine owns the device state (page pools, per-slot logits); the
 scheduler owns the host bookkeeping (block table, allocator, prefix
 cache). Token draws are keyed per request, never per slot: draw ``g`` of
 request ``rid`` depends only on (seed, rid, g, logits).
+
+Speculative decoding (``spec_k > 0``, ``sampling/spec.py``) keeps the
+JAX package's *pending-token* convention: the last committed token's K/V
+is not yet written, so right after prefill the last prompt token is
+pending (draw index -1) and draw 0 comes from row 0 of the first verify
+window. Each round drafts on the host (n-gram lookup over the slot's own
+history), scores every slot's window ``[pending, drafts...]`` in one
+prefill-shaped forward through K4, accepts the longest prefix whose
+drafts equal the replayed draws, and rewinds the rest by position only:
+the pool is append-only, no page is copied. Rounds where no slot drafted
+run a sequential chunk in the same convention (``_spec_decode_chunk``,
+through K3). The non-speculative path keeps the last logits per slot
+instead; an engine runs one convention for all its requests.
 """
 from __future__ import annotations
 
@@ -25,6 +38,7 @@ from typing import Any, Dict, List, Optional, Sequence, Union
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.config import ModelConfig, RLConfig
 from repro_torch.data.tasks import EOS, PAD
 from repro_torch.device import DeviceLike, resolve_device
@@ -38,15 +52,26 @@ from repro_torch.sampling.sample import (mask_vocab, model_logp,
                                          sample_token_rows)
 from repro_torch.sampling.scheduler import (DECODE, PREFILL,
                                             ContinuousScheduler, GenRequest)
+from repro_torch.sampling.spec import (DraftProposer, NGramDrafter,
+                                       accept_drafts, fused_rescore_diff)
 from repro_torch.serving.api import (GenerationResult, Request,
                                      SamplingParams, TokenEvent)
 
+# acceptance-EMA drafting gate: below _SPEC_EMA_MIN the drafter has nothing
+# to offer this request (an incompressible stream) and more drafts only
+# widen the verify window; a backed-off request drafts again every
+# _SPEC_PROBE_EVERY rounds in case the stream turns templated
+_SPEC_EMA_MIN = 0.25
+_SPEC_EMA_DECAY = 0.5
+_SPEC_PROBE_EVERY = 4
+
 
 def _live_width(need_pages: int, cap: int) -> int:
-    """Block-table width handed to a chunk: the live-page high-water mark
-    rounded up to a power of two, capped at ``pages_per_slot``. Every page
-    dropped is masked in attention anyway, so narrowing changes no
-    output; it bounds how far the kernels' page loops can reach."""
+    """Width handed to a chunk (block-table pages, or verify-window
+    columns): ``need_pages`` rounded up to a power of two, capped at
+    ``cap``. Every page dropped is masked in attention anyway, so
+    narrowing changes no output; it bounds how far the kernels' page
+    loops can reach."""
     w = 1
     while w < need_pages:
         w *= 2
@@ -77,6 +102,11 @@ class ContinuousEngine:
     ``max_new_tokens`` is per request) and one page-pool capacity. It runs
     on the device its params live on. Capacity knobs come from
     ``ServeConfig`` through ``repro_torch.sampling.build_engine``.
+    ``spec_k`` drafts per verify round (0 = off), drafted by ``drafter``
+    (default an :class:`NGramDrafter` of ``spec_ngram_min`` to
+    ``spec_ngram_max``); ``spec_rescore`` replays each round's attention
+    through one folded K4 launch and keeps the max difference
+    (``stats()["spec_rescore_max_diff"]``).
     """
 
     def __init__(self, cfg: ModelConfig, params: Dict[str, Any], *,
@@ -90,6 +120,10 @@ class ContinuousEngine:
                  prefix_cache: bool = True,
                  prefix_cache_entries: int = 64,
                  spec_k: int = 0,
+                 drafter: Optional[DraftProposer] = None,
+                 spec_ngram_max: int = 3,
+                 spec_ngram_min: int = 1,
+                 spec_rescore: bool = True,
                  seed: int = 0) -> None:
         if not paged_cache_supported(cfg):
             raise ValueError(f"{cfg.name}: continuous engine needs an "
@@ -97,10 +131,6 @@ class ContinuousEngine:
                              "ring-KV / modality memory)")
         if spec_k < 0:
             raise ValueError(f"spec_k must be >= 0, got {spec_k}")
-        if spec_k > 0:
-            raise NotImplementedError(
-                "speculative decoding (spec_k > 0) is not ported yet: "
-                "ROADMAP queue 1 'Speculative decoding'")
         self.cfg, self.rl, self.params = cfg, rl, params
         self.device = params["embed"].device
         self.vocab_limit = vocab_limit or cfg.padded_vocab
@@ -125,6 +155,12 @@ class ContinuousEngine:
         self.pool = init_paged_pool(cfg, self.num_pages, page_size,
                                     device=self.device)
         self.seed = seed
+        self.spec_k = spec_k
+        self.spec_rescore = spec_rescore
+        self.drafter: Optional[DraftProposer] = drafter
+        if spec_k > 0 and drafter is None:
+            self.drafter = NGramDrafter(max_ngram=spec_ngram_max,
+                                        min_ngram=spec_ngram_min)
         self._last = torch.zeros((num_slots, cfg.padded_vocab),
                                  dtype=torch.float32, device=self.device)
         self._pos = np.zeros((num_slots,), np.int64)
@@ -133,6 +169,48 @@ class ContinuousEngine:
         self._max_new = np.ones((num_slots,), np.int64)
         self._rids = np.zeros((num_slots,), np.int64)
         self._results: Dict[int, GenerationResult] = {}
+        self._rescore_max_diff = 0.0
+        # per-request acceptance EMA ([ema, rounds since the last draft]):
+        # gates drafting off on incompressible streams, with a re-probe
+        self._spec_ema: Dict[int, List[float]] = {}
+        # observability (repro_torch.obs): handles bound once; each use is
+        # one enabled-check while the registry is off
+        m = obs.metrics
+        self._tr = obs.trace
+        self._m_prefill_chunks = m.counter(
+            "engine_prefill_chunks_total", "prefill chunks executed")
+        self._m_prefill_tokens = m.counter(
+            "engine_prefill_tokens_total", "prompt tokens prefilled")
+        self._m_decode_steps = m.counter(
+            "engine_decode_steps_total", "decode steps executed")
+        self._m_cow = m.counter(
+            "engine_cow_copies_total", "shared-prefix copy-on-write copies")
+        self._g_free_pages = m.gauge(
+            "engine_free_pages", "KV pages on the free list")
+        self._g_queue = m.gauge(
+            "engine_queue_depth", "requests queued behind admission")
+        self._g_slot_util = m.gauge(
+            "engine_slot_utilization", "decode-slot occupancy (instant)")
+        self._g_prefix_hits = m.gauge(
+            "engine_prefix_cache_hits", "shared-prefix cache hits")
+        self._g_prefix_reused = m.gauge(
+            "engine_prefix_tokens_reused",
+            "prompt tokens served from cached prefix pages")
+        self._m_spec_rounds = m.counter(
+            "engine_spec_rounds_total", "speculative verification rounds")
+        self._m_spec_drafted = m.counter(
+            "engine_spec_drafted_total", "draft tokens proposed")
+        self._m_spec_accepted = m.counter(
+            "engine_spec_accepted_total", "draft tokens accepted")
+        self._g_accept_rate = m.gauge(
+            "engine_spec_accept_rate",
+            "accepted / drafted tokens (cumulative)")
+        self._g_draft_hit = m.gauge(
+            "engine_spec_draft_hit_rate",
+            "slot-rounds where the drafter proposed anything (cumulative)")
+        self._g_rescore_diff = m.gauge(
+            "engine_spec_rescore_max_diff",
+            "max |fused-layers rescore - in-forward attention| last round")
 
     # ------------------------------------------------------------------
     @property
@@ -159,6 +237,11 @@ class ContinuousEngine:
         out: Dict[str, float] = dict(self.sched.stats)
         out["slot_utilization"] = self.sched.slot_utilization()
         out["free_pages"] = self.free_pages
+        out["accept_rate"] = (out["accepted_tokens_total"]
+                              / max(out["drafted_tokens_total"], 1))
+        out["draft_hit_rate"] = (out["draft_hits"]
+                                 / max(out["spec_slot_rounds"], 1))
+        out["spec_rescore_max_diff"] = self._rescore_max_diff
         if self.prefix_cache is not None:
             for k, v in self.prefix_cache.stats.items():
                 out[f"prefix_cache_{k}"] = v
@@ -198,6 +281,21 @@ class ContinuousEngine:
 
     def pop_result(self, rid: int) -> Optional[GenerationResult]:
         return self._results.pop(rid, None)
+
+    def _publish_gauges(self) -> None:
+        """Page-pool / queue / prefix-cache gauges, once per ``step``."""
+        if not obs.metrics.enabled:
+            return
+        sched = self.sched
+        self._g_free_pages.set(self.free_pages)
+        self._g_queue.set(sched.queue_depth)
+        self._g_slot_util.set(
+            sum(1 for r in sched.slots if r is not None)
+            / max(self.num_slots, 1))
+        if self.prefix_cache is not None:
+            st = self.prefix_cache.stats
+            self._g_prefix_hits.set(st.get("hits", 0))
+            self._g_prefix_reused.set(st.get("tokens_reused", 0))
 
     # ------------------------------------------------------------------
     def _tensor(self, arr: np.ndarray) -> torch.Tensor:
@@ -251,10 +349,143 @@ class ContinuousEngine:
         self._last = last
         return torch.stack(toks), torch.stack(lps)
 
+    def _spec_decode_chunk(self, bt: np.ndarray, pending: np.ndarray,
+                           pos0: np.ndarray, gen_base: np.ndarray):
+        """The decode chunk in the pending-token convention: the spec
+        engine's fallback for rounds where no slot drafted. Each step
+        writes the carried token's K/V and draws the next from its logits,
+        so no last-logits state is needed and the chunk's last draw stays
+        pending. Draw ``i`` is draw ``gen_base + 1 + i``, the counter the
+        verify round replays, so tokens are the same whichever path emits
+        them. Returns (toks, lps) as (sync_every, num_slots)."""
+        rl = self.rl
+        page_table = self._tensor(bt)
+        tok = self._tensor(pending)
+        pos0_t = self._tensor(pos0)
+        gen_base_t = self._tensor(gen_base)
+        max_new = self._tensor(self._max_new)
+        rids = self._tensor(self._rids)
+        done = ~self._tensor(self._active)
+        oob_pos = bt.shape[1] * self.page_size
+        toks, lps = [], []
+        for i in range(self.sync_every):
+            gi = gen_base_t + 1 + i
+            dead = done | (gi >= max_new)
+            step_pos = torch.where(dead, oob_pos, pos0_t + i)
+            logits, _ = decode_step(self.cfg, self.params, self.pool, tok,
+                                    step_pos, page_table=page_table)
+            nt = sample_token_rows(self.seed, rids, gi,
+                                   mask_vocab(logits, self.vocab_limit),
+                                   temperature=rl.temperature,
+                                   top_k=rl.top_k, top_p=rl.top_p)
+            lp = torch.where(dead, 0.0, model_logp(logits, nt))
+            tok = torch.where(dead, PAD, nt)
+            done = done | (tok == EOS)
+            toks.append(tok)
+            lps.append(lp)
+        return torch.stack(toks), torch.stack(lps)
+
+    def _verify_chunk(self, bt: np.ndarray, packed: np.ndarray):
+        """One speculative round over every slot: score each slot's window
+        ``[pending, d_1..d_k, pad]`` in ONE prefill-shaped forward (K4;
+        positions ``pos0 + [0, W)``), then accept the longest draft prefix
+        matching the replayed draws (``spec.accept_drafts``).
+
+        ``packed`` (B, W+6) holds what changes per round, in one transfer:
+        ``[window(W), draft_len, gen_base, pos0, active, rid, max_new]``.
+        Every window column writes its K/V at its position; rejected and
+        padded columns land on the slot's own reserved-but-unread slots
+        (or the scratch page) and are overwritten before any query can
+        attend them: the append-only rollback. Inactive slots run at
+        ``[0, W)`` against the scratch page. With ``spec_rescore`` the
+        forward records every layer's queries and attention outputs, and
+        ``spec.fused_rescore_diff`` replays them through one folded K4
+        launch.
+
+        Returns (iout (B, W+2) = [toks(W), n_emit, n_acc], fout (B, W+1)
+        = [lps(W), rescore diff]) on the device."""
+        rl = self.rl
+        w = packed.shape[1] - 6
+        t = self._tensor(packed)
+        window = t[:, :w]
+        draft_len, gen_base, pos0 = t[:, w], t[:, w + 1], t[:, w + 2]
+        active, rids, max_new = t[:, w + 3].bool(), t[:, w + 4], t[:, w + 5]
+        page_table = self._tensor(bt)
+        positions = pos0[:, None] + torch.arange(w, device=self.device)
+        logits, _, aux = forward(self.cfg, self.params, window,
+                                 positions=positions, cache=self.pool,
+                                 page_table=page_table,
+                                 record_queries=self.spec_rescore)
+        toks, lps, n_emit, n_acc = accept_drafts(
+            logits, window, draft_len, active, self.seed, rids, gen_base,
+            max_new, temperature=rl.temperature, top_k=rl.top_k,
+            top_p=rl.top_p, vocab_limit=self.vocab_limit)
+        diff = torch.zeros((), dtype=torch.float32, device=self.device)
+        if self.spec_rescore:
+            diff = fused_rescore_diff(self.cfg, self.pool, aux["q_tape"],
+                                      aux["o_tape"], page_table, positions)
+        iout = torch.cat([toks, n_emit[:, None], n_acc[:, None]], dim=1)
+        fout = torch.cat([lps, diff.expand(lps.shape[0], 1)], dim=1)
+        return iout, fout
+
+    # ------------------------------------------------------------------
+    def _append(self, r: GenRequest, toks, lps, now: float,
+                events: List[TokenEvent]) -> int:
+        """Commit draws to ``r`` in order, up to its token budget and
+        through an EOS; returns how many were committed."""
+        n = 0
+        for t, lp in zip(toks, lps):
+            if r.gen_count >= r.max_new:
+                break
+            t = int(t)
+            r.tokens.append(t)
+            r.logps.append(float(lp))
+            n += 1
+            if r.gen_count == 1:
+                r.t_first_token = now
+            events.append(TokenEvent(rid=r.rid, token=t, logp=r.logps[-1],
+                                     index=r.gen_count - 1))
+            if t == EOS:
+                break
+        return n
+
+    def _settle(self, r: GenRequest, now: float,
+                events: List[TokenEvent]) -> None:
+        """After a chunk or round: record ``r``'s position and draw count,
+        and finish it at an EOS or its budget."""
+        s = r.slot
+        self._pos[s] = r.next_pos
+        self._gen[s] = r.gen_count
+        reason = ""
+        if r.tokens and r.tokens[-1] == EOS:
+            reason = "eos"
+        elif r.gen_count >= r.max_new:
+            reason = "length"
+        if reason:
+            self._active[s] = False
+            self._spec_ema.pop(r.rid, None)
+            self.sched.finish(r, reason, now)
+            self._finish_result(r)
+            events.append(TokenEvent(rid=r.rid, token=-1, logp=0.0,
+                                     index=r.gen_count, finished=True,
+                                     finish_reason=reason))
+
+    def _chunk_table(self, top_pos: int) -> np.ndarray:
+        """The block table for a chunk that writes up to ``top_pos``
+        (exclusive), narrowed to the live high-water mark; non-decoding
+        slots attend (and write) the scratch page, never position 0 of
+        pages a prefilling request has already filled."""
+        width = _live_width(pages_for(top_pos, self.page_size),
+                            self.pages_per_slot)
+        bt = self.sched.block_table[:, :width].copy()
+        bt[~self._active] = SCRATCH_PAGE
+        return bt
+
     @torch.no_grad()
     def step(self, now_s: Optional[float] = None) -> List[TokenEvent]:
         """One scheduler round: admit -> one prefill chunk per prefilling
-        slot -> one decode chunk. Returns this round's token events."""
+        slot -> one decode chunk (or speculative round). Returns this
+        round's token events."""
         now = time.perf_counter() if now_s is None else now_s
         events: List[TokenEvent] = []
         sched = self.sched
@@ -267,6 +498,7 @@ class ContinuousEngine:
             if r.cow_src >= 0:
                 _copy_page(self.pool, r.cow_src, r.cow_dst)
                 sched.stats["cow_copies"] += 1
+                self._m_cow.inc()
         if not newly and sched.queue_depth > 0 \
                 and all(r is None for r in sched.slots):
             raise RuntimeError(
@@ -284,15 +516,21 @@ class ContinuousEngine:
             chunk = pref.prompt[c0:c0 + cw]
             width = _live_width(pages_for(c0 + cw, self.page_size),
                                 self.pages_per_slot)
-            logits_c = self._prefill_chunk(
-                sched.block_table[pref.slot:pref.slot + 1, :width], chunk,
-                c0)
+            with self._tr.span("prefill", track="engine", rid=pref.rid,
+                               slot=pref.slot, start=c0, chunk=cw,
+                               width=width):
+                logits_c = self._prefill_chunk(
+                    sched.block_table[pref.slot:pref.slot + 1, :width],
+                    chunk, c0)
             sched.stats["prefill_chunks"] += 1
             pref.prefill_pos = min(pref.prompt_len, c0 + cw)
             sched.stats["prefill_tokens"] += pref.prefill_pos - c0
+            self._m_prefill_chunks.inc()
+            self._m_prefill_tokens.inc(pref.prefill_pos - c0)
             if pref.prefill_pos >= pref.prompt_len:  # prompt fully cached
                 s = pref.slot
-                self._last[s] = logits_c[pref.prompt_len - 1 - c0]
+                if self.spec_k == 0:     # the spec path keeps it pending
+                    self._last[s] = logits_c[pref.prompt_len - 1 - c0]
                 pref.state = DECODE
                 self._active[s], self._pos[s] = True, pref.prompt_len
                 self._gen[s], self._max_new[s] = 0, pref.max_new
@@ -305,50 +543,143 @@ class ContinuousEngine:
 
         dec = sched.decoding()
         if not dec:
+            self._publish_gauges()
             return events
-        # non-decoding slots attend the scratch page; their writes are
-        # dropped (dead). The table is narrowed to the live high-water
-        # mark over this chunk.
-        width = _live_width(
-            pages_for(int(self._pos[self._active].max()) + self.sync_every,
-                      self.page_size),
-            self.pages_per_slot)
-        bt = sched.block_table[:, :width].copy()
-        bt[~self._active] = SCRATCH_PAGE
-        toks, lps = self._decode_chunk(bt)
+        if self.spec_k > 0:
+            self._spec_round(dec, now, events)
+            self._publish_gauges()
+            return events
+        bt = self._chunk_table(int(self._pos[self._active].max())
+                               + self.sync_every)
+        with self._tr.span("decode", track="engine", slots=len(dec),
+                           chunk=self.sync_every, width=bt.shape[1]):
+            toks, lps = self._decode_chunk(bt)
         sched.stats["decode_steps"] += self.sync_every
+        self._m_decode_steps.inc(self.sync_every)
         # the one host sync per chunk: the scheduler needs the tokens
         tok_np, lp_np = toks.cpu().numpy(), lps.cpu().numpy()
         for r in dec:
-            for i in range(self.sync_every):
-                if r.gen_count >= r.max_new:
-                    break
-                t = int(tok_np[i, r.slot])
-                r.tokens.append(t)
-                r.logps.append(float(lp_np[i, r.slot]))
-                sched.stats["decode_slot_steps"] += 1
-                if r.gen_count == 1:
-                    r.t_first_token = now
-                events.append(TokenEvent(rid=r.rid, token=t,
-                                         logp=r.logps[-1],
-                                         index=r.gen_count - 1))
-                if t == EOS:
-                    break
-            self._pos[r.slot] = r.next_pos
-            self._gen[r.slot] = r.gen_count
-            reason = ""
-            if r.tokens and r.tokens[-1] == EOS:
-                reason = "eos"
-            elif r.gen_count >= r.max_new:
-                reason = "length"
-            if reason:
-                self._active[r.slot] = False
-                sched.finish(r, reason, now)
-                self._finish_result(r)
-                events.append(TokenEvent(rid=r.rid, token=-1, logp=0.0,
-                                         index=r.gen_count, finished=True,
-                                         finish_reason=reason))
+            sched.stats["decode_slot_steps"] += self._append(
+                r, tok_np[:, r.slot], lp_np[:, r.slot], now, events)
+            self._settle(r, now, events)
+        self._publish_gauges()
         return events
+
+    def _spec_round(self, dec: List[GenRequest], now: float,
+                    events: List[TokenEvent]) -> None:
+        """One speculative round in place of the decode chunk: draft on the
+        host, verify every slot's window in one forward, commit the
+        accepted prefix and the replayed draw, rewind the rest by
+        position. Drafting is gated per request by an acceptance EMA, and
+        a round where no slot drafts runs ``_spec_decode_chunk``: the
+        honest 1x floor instead of one token per forward."""
+        sched = self.sched
+        per_slot: Dict[int, tuple] = {}
+        max_k = 0
+        for r in dec:
+            pending = r.tokens[-1] if r.tokens else int(r.prompt[-1])
+            ke = min(self.spec_k, r.max_new - r.gen_count - 1) \
+                if r.spec_ok else 0
+            st = self._spec_ema.setdefault(r.rid, [1.0, 0])
+            if ke > 0 and st[0] < _SPEC_EMA_MIN:
+                st[1] += 1
+                if st[1] < _SPEC_PROBE_EVERY:
+                    ke = 0                      # backed off; wait to probe
+                else:
+                    st[1] = 0                   # probe round: draft again
+            d = np.zeros((0,), np.int32)
+            if ke > 0:
+                hist = np.concatenate(
+                    [r.prompt, np.asarray(r.tokens, np.int32)])
+                d = np.asarray(self.drafter.propose(hist, ke),
+                               np.int32)[:ke]
+            per_slot[r.slot] = (pending, d)
+            max_k = max(max_k, len(d))
+        if max_k == 0:
+            self._spec_fallback(dec, now, events, per_slot)
+            return
+        # pow2 window widths (floor 2: the prefill-shaped recording path),
+        # the JAX package's, so its K4 launches have the reference's shapes
+        w = max(2, _live_width(1 + max_k, self.spec_k + 1))
+        packed = np.zeros((self.num_slots, w + 6), np.int64)
+        packed[:, :w] = PAD
+        for r in dec:
+            s = r.slot
+            pending, d = per_slot[s]
+            packed[s, 0] = pending
+            packed[s, 1:1 + len(d)] = d
+            packed[s, w:] = (len(d), r.gen_count - 1,
+                             r.prompt_len + r.gen_count - 1, 1, r.rid,
+                             r.max_new)
+        bt = self._chunk_table(int(packed[:, w + 2].max()) + w)
+        with self._tr.span("verify", track="engine", slots=len(dec),
+                           window=w, width=bt.shape[1]):
+            iout, fout = self._verify_chunk(bt, packed)
+        sched.stats["decode_steps"] += 1
+        sched.stats["spec_rounds"] += 1
+        self._m_decode_steps.inc(1)
+        # the round's host syncs: the scheduler needs its tokens
+        io, fo = iout.cpu().numpy(), fout.cpu().numpy()
+        tok_np, ne, na = io[:, :w], io[:, w], io[:, w + 1]
+        if self.spec_rescore:
+            self._rescore_max_diff = max(self._rescore_max_diff,
+                                         float(fo[0, w]))
+        drafted = accepted = hits = 0
+        for r in dec:
+            s = r.slot
+            dl = len(per_slot[s][1])
+            drafted += dl
+            accepted += int(na[s])
+            hits += int(dl > 0)
+            if dl > 0:
+                st = self._spec_ema[r.rid]
+                st[0] = (_SPEC_EMA_DECAY * st[0]
+                         + (1.0 - _SPEC_EMA_DECAY) * int(na[s]) / dl)
+            sched.stats["spec_slot_rounds"] += 1
+            sched.stats["decode_slot_steps"] += 1
+            n = int(ne[s])
+            self._append(r, tok_np[s, :n], fo[s, :n], now, events)
+            self._settle(r, now, events)
+        sched.stats["drafted_tokens_total"] += drafted
+        sched.stats["accepted_tokens_total"] += accepted
+        sched.stats["draft_hits"] += hits
+        if obs.metrics.enabled:
+            st = sched.stats
+            self._m_spec_rounds.inc()
+            self._m_spec_drafted.inc(drafted)
+            self._m_spec_accepted.inc(accepted)
+            self._g_accept_rate.set(st["accepted_tokens_total"]
+                                    / max(st["drafted_tokens_total"], 1))
+            self._g_draft_hit.set(st["draft_hits"]
+                                  / max(st["spec_slot_rounds"], 1))
+            self._g_rescore_diff.set(self._rescore_max_diff)
+
+    def _spec_fallback(self, dec: List[GenRequest], now: float,
+                       events: List[TokenEvent],
+                       per_slot: Dict[int, tuple]) -> None:
+        """A no-draft round: ``_spec_decode_chunk`` over every slot."""
+        sched = self.sched
+        ns = self.num_slots
+        pending = np.zeros((ns,), np.int64)
+        pos0 = np.zeros((ns,), np.int64)
+        gen_base = np.full((ns,), -1, np.int64)
+        for r in dec:
+            s = r.slot
+            pending[s] = per_slot[s][0]
+            pos0[s] = r.prompt_len + r.gen_count - 1
+            gen_base[s] = r.gen_count - 1
+        bt = self._chunk_table(int(pos0.max()) + self.sync_every)
+        with self._tr.span("decode", track="engine", slots=len(dec),
+                           chunk=self.sync_every, width=bt.shape[1]):
+            toks, lps = self._spec_decode_chunk(bt, pending, pos0, gen_base)
+        sched.stats["decode_steps"] += self.sync_every
+        sched.stats["spec_fallback_chunks"] += 1
+        self._m_decode_steps.inc(self.sync_every)
+        tok_np, lp_np = toks.cpu().numpy(), lps.cpu().numpy()
+        for r in dec:
+            sched.stats["decode_slot_steps"] += self._append(
+                r, tok_np[:, r.slot], lp_np[:, r.slot], now, events)
+            self._settle(r, now, events)
 
     # ------------------------------------------------------------------
     def generate(self, requests: Sequence[Request],

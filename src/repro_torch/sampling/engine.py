@@ -181,7 +181,9 @@ def build_engine(cfg: ModelConfig, params: Dict[str, Any],
                 num_pages=serve.resolved_num_pages, vocab_limit=vocab_limit,
                 prefix_cache=serve.prefix_cache,
                 prefix_cache_entries=serve.prefix_cache_entries,
-                spec_k=serve.spec_k, seed=seed)
+                spec_k=serve.spec_k, spec_ngram_max=serve.spec_ngram_max,
+                spec_ngram_min=serve.spec_ngram_min,
+                spec_rescore=serve.spec_rescore, seed=seed)
         warnings.warn(f"{cfg.name}: continuous engine unsupported for this "
                       "architecture/memory setup; serving static",
                       stacklevel=2)

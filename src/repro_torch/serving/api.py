@@ -44,8 +44,8 @@ class SamplingParams:
     top_k: int = 20
     top_p: float = 0.95
     max_new_tokens: int = 32
-    # opt this request in to speculative decode once an engine runs it
-    # (not ported yet); not part of ``profile``: speculation never changes
+    # opt this request in to speculative decode (an engine with spec_k >
+    # 0); not part of ``profile``: speculation never changes
     # the distribution a request samples from
     spec: bool = True
 

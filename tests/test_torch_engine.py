@@ -29,8 +29,10 @@ from repro.serving.api import SamplingParams as JSamplingParams
 from repro_torch import configs as tconfigs
 from repro_torch.config import RLConfig, ServeConfig
 from repro_torch.models import init_params, params_from_numpy
-from repro_torch.sampling import StaticEngine, build_engine, filter_logits
-from repro_torch.sampling.sample import gumbel_noise, sample_token_rows
+from repro_torch.sampling import (ContinuousEngine, StaticEngine,
+                                  build_engine, filter_logits)
+from repro_torch.sampling.sample import (gumbel_noise, mask_vocab,
+                                         open_unit, sample_token_rows)
 from repro_torch.serving.api import Request, SamplingParams
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -127,6 +129,25 @@ def test_draws_keyed_per_request_not_per_slot():
     assert not torch.equal(noise[0], noise[1])
 
 
+def test_noise_is_finite_at_every_hash_value():
+    """The uniforms behind the Gumbel noise stay inside (0, 1) at the
+    hash's extremes: a noise of +inf would win a draw through the top-k
+    and vocab masks."""
+    bits = torch.tensor([0, 1, 0x1FF, 0xFFFFFE00, 0xFFFFFF00, 0xFFFFFFFF],
+                        dtype=torch.int64)
+    u = open_unit(bits)
+    assert bool(((u > 0) & (u < 1)).all())
+    assert bool(torch.isfinite(-torch.log(-torch.log(u))).all())
+    # greedy over a masked vocab of 2^18 ids, where ~1.6% of rows held an
+    # infinite noise before: every draw is the row's argmax
+    rng = np.random.default_rng(4)
+    lg = torch.from_numpy(rng.standard_normal((64, 1 << 18)).astype(
+        np.float32))
+    tok = sample_token_rows(0, torch.arange(64), torch.zeros(64, dtype=
+                            torch.long), mask_vocab(lg, 18), top_k=1)
+    assert torch.equal(tok, lg[:, :18].argmax(-1))
+
+
 def test_draws_follow_the_filtered_distribution():
     rng = np.random.default_rng(3)
     v, n = 40, 20000
@@ -147,8 +168,10 @@ def test_draws_follow_the_filtered_distribution():
 def test_engine_contracts():
     tcfg = tconfigs.smoke("qwen3-1.7b")
     tp = init_params(tcfg, 0, device="cpu")
-    with pytest.raises(NotImplementedError, match="speculative"):
-        build_engine(tcfg, tp, ServeConfig(spec_k=2))
+    spec = build_engine(tcfg, tp, ServeConfig(spec_k=2))
+    assert isinstance(spec, ContinuousEngine) and spec.spec_k == 2
+    with pytest.raises(ValueError, match="continuous"):
+        ServeConfig(engine="static", spec_k=4)
     assert isinstance(build_engine(tcfg, tp, ServeConfig(engine="static")),
                       StaticEngine)
     eng = build_engine(tcfg, tp, ServeConfig(**_serve()),

@@ -770,3 +770,150 @@ def test_hetero_loop_on_card_smoke(cuda):
     for h, p in zip(tree_leaves(host), tree_leaves(rt.learner.state.params)):
         assert h.dtype == p.dtype == torch.bfloat16
         assert torch.equal(h, p.detach().cpu())
+
+
+# --------------------------------------------------------------------------
+# speculative decoding: K4 at the verify windows, the layer-folded K3/K4
+# launches, and the kernel library shared by threads
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("c", [2, 3, 5])
+def test_prefill_kernel_at_verify_widths(cuda, dtype, c):
+    """K4 over the spec engine's verify windows (2 ... spec_k + 1 rows a
+    slot) at qwen3's head shape, against the twin."""
+    q, kp, vp, table, positions = _dev(
+        prefill_inputs(page=16, rep=2, d=128, c=c, hkv=8, seed=c),
+        cuda, dtype)
+    pa.reset_launch_counts()
+    got = ops.paged_prefill(q, kp, vp, table, positions, impl="pallas")
+    want = ops.paged_prefill(q.float(), kp.float(), vp.float(), table,
+                             positions, impl="ref")
+    torch.cuda.synchronize()
+    assert pa.LAUNCHES["paged_prefill"] == 1
+    torch.testing.assert_close(got.float(), want, rtol=0, atol=TOL[dtype])
+
+
+def _qwen3_layer_pools(dev, dtype, lyr=28, pages=1025, seed=0):
+    """qwen3-1.7b's pools as the engine holds them (28 layers, 1025 pages
+    of 16 tokens, Hkv 8, D 128) and 8 slots' tables over them."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    shape = (lyr, pages, 16, 8, 128)
+    kp = torch.randn(shape, generator=g, device=dev).to(dtype)
+    vp = torch.randn(shape, generator=g, device=dev).to(dtype)
+    lengths = torch.tensor([1, 17, 300, 511, 512, 1000, 2000, 2047],
+                           device=dev)
+    table = torch.randperm(pages - 1, generator=g, device=dev)[:8 * 128]
+    return kp, vp, (table + 1).reshape(8, 128).int(), lengths
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_layer_folded_launches_are_bit_identical(cuda, dtype):
+    """paged_decode_layers / paged_prefill_layers: ONE launch over all 28
+    layers' pools (page indices up to 28 x 1025) gives the bits of 28
+    per-layer launches."""
+    kp, vp, table, lengths = _qwen3_layer_pools(cuda, dtype)
+    lyr = kp.shape[0]
+    g = torch.Generator(device=cuda).manual_seed(1)
+    q = torch.randn((lyr, 8, 1, 16, 128), generator=g,
+                    device=cuda).to(dtype)
+    pa.reset_launch_counts()
+    folded = ops.paged_decode_layers(q, kp, vp, table, lengths,
+                                     impl="pallas")
+    torch.cuda.synchronize()
+    assert pa.LAUNCHES["paged_decode"] == 1
+    for li in range(lyr):
+        one = ops.paged_decode(q[li], kp[li], vp[li], table, lengths,
+                               impl="pallas")
+        assert torch.equal(folded[li], one), li
+    c = 5
+    qp = torch.randn((lyr, 8, c, 16, 128), generator=g,
+                     device=cuda).to(dtype)
+    positions = (lengths - c).clamp(min=0)[:, None] + torch.arange(
+        c, device=cuda)
+    pa.reset_launch_counts()
+    folded = ops.paged_prefill_layers(qp, kp, vp, table, positions,
+                                      impl="pallas")
+    torch.cuda.synchronize()
+    assert pa.LAUNCHES["paged_prefill"] == 1
+    for li in range(lyr):
+        one = ops.paged_prefill(qp[li], kp[li], vp[li], table, positions,
+                                impl="pallas")
+        assert torch.equal(folded[li], one), li
+
+
+def test_threads_share_a_cold_library(cuda, monkeypatch):
+    """Two threads whose first launches come together: the library is
+    built (or found) once, and every launch is counted."""
+    import threading
+    builds, real = [], build.build
+
+    def counted():
+        builds.append(1)
+        return real()
+
+    monkeypatch.setattr(build, "build", counted)
+    monkeypatch.setattr(build, "_LIB", None)
+    q, kp, vp, table, lengths = _dev(
+        decode_inputs(page=16, rep=2, d=128, seed=3), cuda, torch.bfloat16)
+    qp, kpp, vpp, tp, pos = _dev(
+        prefill_inputs(page=16, rep=2, d=128, c=5, seed=4), cuda,
+        torch.bfloat16)
+    n, barrier, errors = 200, threading.Barrier(2), []
+
+    def work(fn):
+        try:
+            barrier.wait()
+            for _ in range(n):
+                fn()
+        except BaseException as e:       # surfaced below
+            errors.append(e)
+
+    pa.reset_launch_counts()
+    threads = [threading.Thread(target=work, args=(lambda: ops.paged_decode(
+        q[:, None], kp, vp, table, lengths, impl="pallas"),)),
+        threading.Thread(target=work, args=(lambda: ops.paged_prefill(
+            qp, kpp, vpp, tp, pos, impl="pallas"),))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=120)
+    torch.cuda.synchronize()
+    assert not errors and not any(t.is_alive() for t in threads)
+    assert len(builds) == 1
+    assert pa.LAUNCHES == {"paged_decode": n, "paged_prefill": n}
+
+
+def test_spec_engine_on_card(cuda):
+    """The spec engine on the float32 smoke model: every verify round's
+    folded rescore equals the forward's attention exactly, and the launch
+    counts are what the rounds imply (K4 L per verify round + 1 per
+    rescore + L per prefill chunk; K3 L per fallback decode step)."""
+    cfg = smoke("qwen3-1.7b")
+    params = init_params(cfg, 0, device=cuda)
+    rl = RLConfig(max_new_tokens=24, engine="continuous", temperature=1.0,
+                  top_k=1, top_p=1.0)
+    eng = build_engine(cfg, params, ServeConfig(
+        num_slots=4, page_size=16, prefill_chunk=32, sync_every=4,
+        max_total_tokens=96, spec_k=4, paged_attn_impl="pallas"), rl=rl,
+        vocab_limit=cfg.vocab_size)
+    rng = np.random.default_rng(0)
+    prompts = [np.tile(rng.integers(3, 40, size=int(rng.integers(2, 6))),
+                       12)[:int(rng.integers(20, 60))].astype(np.int32)
+               for _ in range(6)]
+    pa.reset_launch_counts()
+    res = eng.generate([Request(rid=i, prompt=p,
+                                params=SamplingParams.from_rl(rl))
+                        for i, p in enumerate(prompts)])
+    torch.cuda.synchronize()
+    st = eng.stats()
+    lyr = cfg.num_layers
+    assert st["spec_rounds"] > 0 and st["accepted_tokens_total"] > 0
+    assert st["spec_rescore_max_diff"] == 0.0
+    assert pa.LAUNCHES == {
+        "paged_prefill": (lyr + 1) * st["spec_rounds"]
+        + lyr * st["prefill_chunks"],
+        "paged_decode": lyr * eng.sync_every * st["spec_fallback_chunks"]}
+    assert all(r.finish_reason in ("eos", "length") for r in res)
+    eng.prefix_cache.clear()
+    assert eng.free_pages == eng.num_pages - 1
