@@ -41,14 +41,19 @@ never jax, never the JAX package. Phases, each fatal on failure:
    element, with a control (the twin without the state carried across
    chunks) that the check must reject, the two mamba2 cases timed (no
    PyTorch call computes an SSD scan, so K6 has no library yardstick);
+   draws: the threefry token draw (``sampling/prng.py``, plain torch) at
+   8 and 40 rows of the padded vocab 152064 on the card against the CPU
+   (keys, bits and uniforms bit for bit, Gumbel noise within NOISE_ULPS,
+   tokens equal on every row), one 8-row draw timed and its launches
+   counted;
 3. engine: qwen3-1.7b at full width (28 layers, bf16, random weights from
    --seed) served through ``ContinuousEngine`` with
    ``paged_attn_impl="pallas"``: 24 requests, 4 sharing a 256-token
    prefix; every request finishes, the page pool balances, and the launch
    counters show both kernels on the path (28 per decode step and per
-   prefill chunk); then a teacher-forced prefill + 8 decode steps through
-   "pallas" and "ref" on copies of one pool, logits within a stated
-   tolerance; last, a torch.profiler trace of 24 decode steps (device
+   prefill chunk), and the draw's share of a decode step; then a
+   teacher-forced prefill + 8 decode steps through "pallas" and "ref" on
+   copies of one pool, logits within a stated tolerance; last, a torch.profiler trace of 24 decode steps (device
    time by kernel, device busy share);
 4. static: qwen3-1.7b at full width with ``attn_impl="pallas"`` through
    ``StaticEngine`` (the sampler node's default engine) at the learner's
@@ -61,7 +66,11 @@ never jax, never the JAX package. Phases, each fatal on failure:
    ``token_logps`` at 1 x 8192 through K5 (42 launches, 21 local and 21
    global) against the chunked attention, and a greedy static generation
    of 2 requests of 4608 prompt tokens (past the window) + 16 new, whose
-   logps the teacher-forced forward must reproduce; then the same weights
+   logps the teacher-forced forward must reproduce, and again with
+   ``local_ring_kv`` (the local layers' cache a ring of the window's 4096
+   rows, which ``fill_ring`` wraps), held to the non-ring run (tokens up
+   to the first top-2 gap under TOL_GAP, logps within TOL_LOGP_PATHS)
+   with the cache bytes and the peak memory printed; then the same weights
    in float32, K5 against the chunked attention at 1e-3 nats; the weights
    are freed;
 6. mamba2: mamba2-1.3b at full width (48 Mamba2 layers, bf16, random
@@ -128,8 +137,9 @@ never jax, never the JAX package. Phases, each fatal on failure:
    path moves, so (b) is held by the logp contract alone); then (a) again
    with the weights in float32 (TOL_LOGP_F32, its own TOL_GAP), greedy
    and sampled at temperature 1 with no top-k or top-p, where the rule
-   takes the top-2 gap of logits + the draw's Gumbel noise and so holds
-   the verify round's draw keys. The folded K4 launch of the rescore (one
+   takes the top-2 gap of logits + the draw's threefry Gumbel noise (key
+   ``fold_in(fold_in(key, rid), g)``) and so holds the verify round's
+   draw keys. The folded K4 launch of the rescore (one
    launch over 28 layers' pools, page ids up to 28 x 1537) at the verify
    shape is held against each layer's twin in bf16 and float32 and
    against 28 per-layer launches bit for bit, and timed against them. It
@@ -141,7 +151,24 @@ never jax, never the JAX package. Phases, each fatal on failure:
    phase 8's learner steps: 4 steps, staleness <= 64, finite metrics, at
    least one sampler sync inside the run, every sampler thread ended
    within THREAD_JOIN_S, and the exact launch counts of all three
-   threads; it prints the peak device memory.
+   threads; it prints the peak device memory;
+11. door: ``repro_torch.serving.server.FrontDoor`` on 127.0.0.1 (port 0)
+   over the serve cell's engine (qwen3-1.7b, bf16, K3/K4 ``"pallas"``, 8
+   slots, page 16, prefill chunk 512): the serve cell's 24 prompts, 64
+   new, temperature 0.6 / top-k 20 / top-p 0.95, sent at once as 12 POST
+   /generate, 8 NDJSON streams and 4 requests on one websocket, plus an
+   infeasible request (400) and one with a 1e-6 s deadline (408); a
+   scrape of /healthz and /metrics while they decode; every request
+   answered, each stream's events equal to its result, /metrics (JSON
+   and Prometheus text) counting 24 completions and the two rejects, the
+   pool balanced, the launches 28 per decode step and prefill chunk; the
+   tokens equal ``engine.generate``'s on a fresh engine with the same key
+   and the door's rids at every position both runs computed from the same
+   bits (the first position whose token or logp differs, and all before
+   it) and up to the first draw whose margin (filtered logits + noise,
+   with the filters' cut-offs) is under TOL_GAP, every logp within
+   TOL_LOGP_PATHS of the teacher-forced forward; it prints TTFT
+   p50/p99 and tokens/s through the door against ``engine.generate``.
 
 Prints a ``{"kernels": [...]}`` JSON line, then as the last line
 ``{"ok": true, "device": {...}}``. Exits non-zero, printing no result,
@@ -150,11 +177,13 @@ without a CUDA device or without the rest of the repository.
 from __future__ import annotations
 
 import argparse
+import asyncio
 import dataclasses
 import gc
 import json
 import resource
 import statistics
+import struct
 import subprocess
 import sys
 import time
@@ -184,6 +213,7 @@ from repro_torch.kernels import paged_attention as pa  # noqa: E402
 from repro_torch.kernels import ssd_scan as ss  # noqa: E402
 from repro_torch.models import (decode_step, forward, init_cache,  # noqa: E402
                                 init_params, ssm)
+from repro_torch import obs  # noqa: E402
 from repro_torch import training as training_mod  # noqa: E402
 from repro_torch.models import model as model_mod  # noqa: E402
 from repro_torch.models.layers import rmsnorm  # noqa: E402
@@ -192,8 +222,11 @@ from repro_torch.sampling import (build_engine, generate_continuous,  # noqa: E4
                                   init_paged_pool, mask_vocab,
                                   rollout_from_results, stacked_pools,
                                   token_logps)
-from repro_torch.sampling.sample import gumbel_noise  # noqa: E402
+from repro_torch.sampling import prng  # noqa: E402
+from repro_torch.sampling.sample import (filter_logits,  # noqa: E402
+                                         sample_token_rows)
 from repro_torch.serving.api import Request, SamplingParams  # noqa: E402
+from repro_torch.serving.telemetry import percentile  # noqa: E402
 from repro_torch.training import (init_state, rl_loss_fn,  # noqa: E402
                                   train_step)
 from repro_torch.transport import ChunkSubscriber, content_hash  # noqa: E402
@@ -614,6 +647,106 @@ def kernel_phase(dev, seed):
     return out
 
 
+# phase 2, draws: the threefry sampler (plain torch, no kernel) on the
+# card against the CPU. Bits and uniforms are integer work and one exact
+# float subtraction: equal bit for bit. The Gumbel noise -log(-log(u))
+# takes two float32 logs, each within 1 ulp of the exact value on either
+# device, so two devices' logs may sit 2 ulps apart: the inner one moves
+# g by up to 2 ulps of 1 (d(-log x) = dx / x), the outer one by 2 ulps of
+# |g|. Held to NOISE_ULPS = 4 ulps of max(|g|, 1), the sum
+# (tests/test_torch_prng.py holds the CPU to jax's at the same bar)
+NOISE_ULPS = 4
+DRAW_ROWS = (8, 40)          # the decode slots; the verify width (8 x 5)
+SERVE_PROFILE = dict(temperature=0.6, top_k=20, top_p=0.95)
+
+
+def device_launches(fn) -> int:
+    """Kernels (and memcpy/memset) one ``fn()`` puts on the card, from a
+    torch.profiler trace."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(e.count for e in prof.key_averages()
+               if str(getattr(e, "device_type", "")).endswith("CUDA"))
+
+
+def draw_keys(seed, rows, dev):
+    """Keys of draw ``g`` of request ``rid`` (``fold_in(fold_in(PRNGKey(
+    seed), rid), g)``) for ``rows`` rows of distinct (rid, g), on ``dev``."""
+    rids = torch.arange(rows, device=dev) * 7 + 3
+    gens = torch.arange(rows, device=dev) % 5
+    return prng.fold_in(prng.fold_in(prng.PRNGKey(seed, dev), rids), gens)
+
+
+def draw_phase(dev, seed, card):
+    """The engines' token draw at the serve cell's vocab (152064 padded)
+    for 8 and 40 rows on the card against the CPU: keys, bits and uniforms
+    bit for bit, the noise within NOISE_ULPS, the tokens of
+    ``sample_token_rows`` (serve profile, and temperature 1 unfiltered)
+    equal on every row. Times one 8-row draw (``fold_in`` + the Gumbel
+    argmax, and the whole ``sample_token_rows`` with its filters) and
+    counts its launches. Returns those numbers."""
+    v = get_config("qwen3-1.7b").padded_vocab
+    gen = torch.Generator(device="cpu").manual_seed(seed)
+    cpu = torch.device("cpu")
+    worst = 0.0
+    for rows in DRAW_ROWS:
+        kd, kc = draw_keys(seed, rows, dev), draw_keys(seed, rows, cpu)
+        if not torch.equal(kd.cpu(), kc):
+            raise AssertionError(f"draw keys ({rows} rows) differ on the "
+                                 "card")
+        if not torch.equal(prng.random_bits(kd, (v,)).cpu(),
+                           prng.random_bits(kc, (v,))):
+            raise AssertionError(f"threefry bits ({rows} x {v}) differ")
+        ud = prng.uniform(kd, (v,), minval=prng.TINY_F32).cpu()
+        uc = prng.uniform(kc, (v,), minval=prng.TINY_F32)
+        if not torch.equal(ud.view(torch.int32), uc.view(torch.int32)):
+            raise AssertionError(f"uniforms ({rows} x {v}) differ")
+        gd, gc_ = prng.gumbel(kd, (v,)).cpu(), prng.gumbel(kc, (v,))
+        mag = gc_.abs().clamp_min(1.0)
+        ulp = torch.nextafter(mag, torch.full_like(mag, float("inf"))) - mag
+        err = float(((gd - gc_).abs() / ulp).max())
+        worst = max(worst, err)
+        if not err <= NOISE_ULPS:
+            raise AssertionError(f"Gumbel noise ({rows} rows) {err} ulps "
+                                 f"from the CPU's > {NOISE_ULPS}")
+        lg = torch.randn((rows, v), generator=gen).mul_(4.0)
+        for prof in (SERVE_PROFILE, dict(temperature=1.0, top_k=0,
+                                         top_p=1.0)):
+            td = sample_token_rows(kd, lg.to(dev), **prof).cpu()
+            tc = sample_token_rows(kc, lg, **prof)
+            if not torch.equal(td, tc):
+                raise AssertionError(f"tokens ({rows} rows, {prof}) differ "
+                                     f"on the card: {td.tolist()} vs "
+                                     f"{tc.tolist()}")
+    keys = draw_keys(seed, DRAW_ROWS[0], dev)
+    lg = torch.randn((DRAW_ROWS[0], v), generator=gen).mul_(4.0).to(dev)
+    gens = torch.arange(DRAW_ROWS[0], device=dev)
+
+    def draw():
+        return prng.categorical(prng.fold_in(keys, gens), lg)
+
+    def sample():
+        return sample_token_rows(prng.fold_in(keys, gens), lg,
+                                 **SERVE_PROFILE)
+
+    out = {"draw_ms": time_ms(draw), "draw_launches": device_launches(draw),
+           "sample_ms": time_ms(sample),
+           "sample_launches": device_launches(sample)}
+    log(f"[draws] threefry on the card = the CPU's at {DRAW_ROWS} rows x "
+        f"{v}: keys, bits and uniforms bit for bit, Gumbel noise within "
+        f"{worst:.2f} ulps of max(|g|, 1) (<= {NOISE_ULPS}), tokens equal on "
+        f"every row (serve profile and temperature 1); one {DRAW_ROWS[0]}-row"
+        f" draw (fold_in + Gumbel argmax) {out['draw_ms']:.4f} ms, "
+        f"{out['draw_launches']} launches; with the serve profile's filters "
+        f"(sample_token_rows) {out['sample_ms']:.4f} ms, "
+        f"{out['sample_launches']} launches | {card}")
+    return out
+
+
 def logprob_case(gen, dev, t, v, dtype):
     """Logits of the scale a model's head gives (3 x N(0, 1)), targets with
     two dirty ids (-1 and V + 5, clamped by the wrapper), cotangents."""
@@ -762,7 +895,7 @@ def engine_prompts(cfg, seed):
     return [p.astype(np.int32) for p in prompts]
 
 
-def engine_phase(dev, seed, card):
+def engine_phase(dev, seed, card, draws):
     cfg = dataclasses.replace(get_config("qwen3-1.7b"),
                               paged_attn_impl="pallas")
     t0 = time.perf_counter()
@@ -776,7 +909,8 @@ def engine_phase(dev, seed, card):
                         sync_every=8, max_total_tokens=2048,
                         paged_attn_impl="pallas", seed=seed)
     rl = RLConfig()                          # temperature 0.6, top-k 20, top-p 0.95
-    eng = build_engine(cfg, params, serve, rl=rl, vocab_limit=cfg.vocab_size)
+    eng = build_engine(cfg, params, serve, rl=rl, vocab_limit=cfg.vocab_size,
+                       key=prng.PRNGKey(seed))
     sp = SamplingParams.from_rl(rl, max_new=64)
     prompts = engine_prompts(cfg, seed)
 
@@ -842,6 +976,12 @@ def engine_phase(dev, seed, card):
         f"{n_tok / wall:.1f} tokens/s, TTFT median {ttft:.1f} ms "
         f"(queueing included), decode {dec_ms:.2f} ms/step (median of "
         f"{len(decode_round_ms)} pure-decode rounds) | {card}")
+    log(f"[engine] the token draw's share of a decode step (phase 2's "
+        f"8-row timings, this call): fold_in + Gumbel argmax "
+        f"{draws['draw_ms']:.4f} ms = "
+        f"{100 * draws['draw_ms'] / dec_ms:.2f}%, sample_token_rows "
+        f"{draws['sample_ms']:.4f} ms = "
+        f"{100 * draws['sample_ms'] / dec_ms:.2f}% of {dec_ms:.2f} ms")
     log(f"[engine] {d_steps} decode steps, {p_chunks} prefill chunks, "
         f"launches {launches} (= {cfg.num_layers} per step/chunk), prefix "
         f"hit tokens {hits}, CoW copies {cow}, slot util "
@@ -1307,7 +1447,8 @@ def static_phase(dev, seed, card):
     rl = RLConfig(temperature=1.0, top_k=0, top_p=1.0,
                   max_new_tokens=NEW_TOKENS)
     eng = build_engine(cfg, params, ServeConfig(engine="static", seed=seed),
-                       rl=rl, vocab_limit=cfg.vocab_size)
+                       rl=rl, vocab_limit=cfg.vocab_size,
+                       key=prng.PRNGKey(seed))
     sp = SamplingParams.from_rl(rl)
     rng = np.random.default_rng(seed + 3)
     prompts = np.repeat(rng.integers(3, cfg.vocab_size, (PROMPTS, PROMPT_LEN)),
@@ -1389,11 +1530,83 @@ def to_float32(tree):
             tree[k] = v.float()
 
 
+def local_cache_bytes(cfg, batch, max_len):
+    """Bytes of the local layers' dense K/V cache (``init_cache``'s
+    shapes, without allocating it)."""
+    rows = max_len
+    if cfg.local_ring_kv:
+        rows = min(max_len, cfg.sliding_window)
+    n_local = sum(k == "local" for k in cfg.block_pattern) * cfg.num_blocks
+    return (2 * n_local * batch * rows * cfg.num_kv_heads * cfg.head_dim
+            * torch.finfo(getattr(torch, cfg.dtype)).bits // 8)
+
+
+def ring_run(cfg, params, reqs, res, card):
+    """The greedy requests of the gemma2 phase again with the local
+    layers' cache as a ring of the window's rows (``local_ring_kv``; the
+    prompts are past the window, so ``fill_ring`` wraps), held to the
+    non-ring results ``res``: tokens equal up to the first teacher-forced
+    top-2 gap under TOL_GAP, every logp of that prefix within
+    TOL_LOGP_PATHS. Returns the K5 launches (the ring prefill and the
+    teacher-forced forwards)."""
+    rcfg = dataclasses.replace(cfg, local_ring_kv=True)
+    greedy = dict(temperature=1.0, top_k=1, top_p=1.0)
+    eng = build_engine(rcfg, params, ServeConfig(engine="static"),
+                       rl=RLConfig(**greedy), vocab_limit=cfg.vocab_size)
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    rres = eng.generate(reqs)
+    torch.cuda.synchronize()
+    t_ring = time.perf_counter() - t0
+    peak_ring = torch.cuda.max_memory_allocated() / 2 ** 30
+    got = counts()["flash_attention"]
+    if got != cfg.num_layers:
+        raise AssertionError(f"gemma2 ring generate launched K5 {got} times")
+    reset_counts()
+    worst, same_tie, same_end = 0.0, 0, 0
+    for req, a, b in zip(reqs, res, rres):
+        _, gap = teacher_forced_logps(cfg, params, req.prompt, a.tokens,
+                                      cfg.vocab_size)
+        near = np.flatnonzero(gap < TOL_GAP[torch.bfloat16])
+        upto = int(near[0]) if near.size else a.gen_count
+        n = min(upto, a.gen_count, b.gen_count)
+        if not np.array_equal(a.tokens[:n], b.tokens[:n]) or (
+                n < upto and a.gen_count != b.gen_count):
+            raise AssertionError(f"gemma2 ring request {a.rid}: tokens "
+                                 f"differ before the first near-tie "
+                                 f"(position {upto})")
+        m = min(a.gen_count, b.gen_count)
+        diff = np.flatnonzero(a.tokens[:m] != b.tokens[:m])
+        eq = int(diff[0]) if diff.size else m
+        worst = max(worst, float(np.abs(a.logps[:eq] - b.logps[:eq]).max()))
+        same_tie += 1
+        same_end += int(np.array_equal(a.tokens, b.tokens))
+    n_tf = counts()["flash_attention"]
+    b_ring = local_cache_bytes(rcfg, len(reqs), GEMMA_PROMPT + GEMMA_NEW)
+    b_full = local_cache_bytes(cfg, len(reqs), GEMMA_PROMPT + GEMMA_NEW)
+    log(f"[gemma2] ring KV (local_ring_kv): greedy 2 x {GEMMA_PROMPT} + "
+        f"{GEMMA_NEW} in {t_ring:.2f}s, K5 launches {got}; local layers' "
+        f"cache {b_ring / 2 ** 30:.3f} GiB ({cfg.sliding_window} rows) "
+        f"against {b_full / 2 ** 30:.3f} GiB ({GEMMA_PROMPT + GEMMA_NEW} "
+        f"rows); generate peak {peak_ring:.2f} GiB; {same_tie}/{len(reqs)} "
+        f"equal to the non-ring tokens up to the first top-2 gap < "
+        f"{TOL_GAP[torch.bfloat16]}, {same_end}/{len(reqs)} to the end; "
+        f"max |ring logp - non-ring logp| {worst:.3e} (tol {TOL_LOGP_PATHS})"
+        f" | {card}")
+    if worst > TOL_LOGP_PATHS:
+        raise AssertionError("gemma2 ring logps disagree with the non-ring "
+                             "run's")
+    del eng
+    return got + n_tf
+
+
 def gemma2_phase(dev, seed, card):
     """Gemma2-9B at full width (42 layers, head_dim 256, window 4096,
     softcaps): the recompute at 1 x 8192 through K5 and through the chunked
     attention; a greedy static generation past the window whose logps the
-    teacher-forced forward must reproduce; then the same weights in
+    teacher-forced forward must reproduce, and again with the local
+    layers' cache as a ring (``ring_run``); then the same weights in
     float32, where K5 and the chunked attention must agree to 1e-3 nats.
     Returns the K5 launches counted. Frees the weights."""
     cfg = dataclasses.replace(get_config("gemma2-9b"), attn_impl="pallas")
@@ -1421,15 +1634,20 @@ def gemma2_phase(dev, seed, card):
         raise AssertionError("gemma2: bf16 logps through K5 disagree")
     greedy = dict(temperature=1.0, top_k=1, top_p=1.0)
     eng = build_engine(cfg, params, ServeConfig(engine="static", seed=seed),
-                       rl=RLConfig(**greedy), vocab_limit=cfg.vocab_size)
+                       rl=RLConfig(**greedy), vocab_limit=cfg.vocab_size,
+                       key=prng.PRNGKey(seed))
     prompts = rng.integers(3, cfg.vocab_size, (2, GEMMA_PROMPT)
                            ).astype(np.int32)
+    reqs = [Request(rid=i, prompt=p, params=SamplingParams(
+        max_new_tokens=GEMMA_NEW, **greedy)) for i, p in enumerate(prompts)]
+    peak_pre = torch.cuda.max_memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
     reset_counts()
     t0 = time.perf_counter()
-    res = eng.generate([Request(rid=i, prompt=p, params=SamplingParams(
-        max_new_tokens=GEMMA_NEW, **greedy)) for i, p in enumerate(prompts)])
+    res = eng.generate(reqs)
     torch.cuda.synchronize()
     t_gen = time.perf_counter() - t0
+    peak_gen = torch.cuda.max_memory_allocated() / 2 ** 30
     got = counts()["flash_attention"]
     roll = rollout_from_results(prompts, res, GEMMA_NEW, device=dev)
     lp_tf, _, n_tf = recompute(cfg, params, roll["tokens"], "pallas",
@@ -1438,19 +1656,20 @@ def gemma2_phase(dev, seed, card):
     comp = lp_tf[:, GEMMA_PROMPT - 1:]
     d_tf = float(((comp - roll["sampler_lp"]).abs()
                   * roll["comp_mask"]).max())
-    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    peak = max(peak_pre, torch.cuda.max_memory_allocated()) / 2 ** 30
     torch.cuda.reset_peak_memory_stats()
     log(f"[gemma2] greedy static generate 2 x {GEMMA_PROMPT} prompt (past "
         f"the {cfg.sliding_window} window) + {GEMMA_NEW} new: {t_gen:.2f}s, "
         f"K5 launches {got}; max|engine logp - teacher-forced logp| "
         f"{d_tf:.3e} nats (tol {TOL_LOGP_PATHS}); bf16 peak {peak:.2f} GiB "
-        f"| {card}")
+        f"(the generate alone {peak_gen:.2f}) | {card}")
     if got != cfg.num_layers:
         raise AssertionError(f"gemma2 generate launched K5 {got} times")
     if d_tf > TOL_LOGP_PATHS:
         raise AssertionError("gemma2: engine and teacher-forced logps "
                              "disagree")
     del eng, roll, lp_tf
+    k5 += ring_run(cfg, params, reqs, res, card)
     # the same weights (exactly) and tokens in float32, where bf16 rounding
     # no longer hides a kernel fault: K5 in float32 against the chunked
     # attention; each bf16 path's distance from this float32 model is
@@ -1621,7 +1840,8 @@ def mamba2_phase(dev, seed, card):
     rl = RLConfig(temperature=1.0, top_k=0, top_p=1.0,
                   max_new_tokens=NEW_TOKENS)
     eng = build_engine(cfg, params, ServeConfig(engine="static", seed=seed),
-                       rl=rl, vocab_limit=cfg.vocab_size)
+                       rl=rl, vocab_limit=cfg.vocab_size,
+                       key=prng.PRNGKey(seed))
     sp = SamplingParams.from_rl(rl)
     rng = np.random.default_rng(seed + 5)
     prompts = np.repeat(rng.integers(3, cfg.vocab_size, (PROMPTS, PROMPT_LEN)),
@@ -1740,7 +1960,8 @@ def learner_batch(cfg, params, dev, seed):
     fl.reset_launch_counts()
     pa.reset_launch_counts()
     t0 = time.perf_counter()
-    roll = generate_continuous(cfg, rl_gen, params, prompts, seed=seed,
+    roll = generate_continuous(cfg, rl_gen, params, prompts,
+                               key=prng.PRNGKey(seed),
                                vocab_limit=cfg.vocab_size,
                                num_slots=PROMPTS * GROUP, prefill_chunk=512)
     torch.cuda.synchronize()
@@ -2351,7 +2572,8 @@ def spec_run(cfg, params, prompts, rl, max_new, vocab, spec_k, seed):
     serve = ServeConfig(num_slots=SLOTS, page_size=PAGE, prefill_chunk=512,
                         sync_every=8, max_total_tokens=2048,
                         paged_attn_impl="pallas", spec_k=spec_k, seed=seed)
-    eng = build_engine(cfg, params, serve, rl=rl, vocab_limit=vocab)
+    eng = build_engine(cfg, params, serve, rl=rl, vocab_limit=vocab,
+                       key=prng.PRNGKey(seed))
     sp = SamplingParams.from_rl(rl, max_new=max_new)
     # warm-up: cuBLAS handles, allocator, first launches; then a cold cache
     eng.generate([Request(rid=1000 + i, prompt=prompts[i][:64], params=sp)
@@ -2415,13 +2637,49 @@ def spec_run(cfg, params, prompts, rl, max_new, vocab, spec_k, seed):
     return res, st, launches, dec_tok / dec_s, dec_s * 1e3 / dec_steps
 
 
-def teacher_forced_logps(cfg, params, prompt, tokens, vocab, draw=None):
+def draw_margin(lg, noise, rl, margin):
+    """How far each row's draw (lg (T, V) vocab-masked logits, noise the
+    draw's Gumbel noise) is from changing under the profile ``rl``: the
+    winner's score (filtered logits + noise) over the best contender's,
+    where a contender is a token the filter keeps or one a perturbation of
+    the logits could let in (a scaled logit within ``margin`` of the
+    filter's cut-off, or a sorted exclusive cumulative probability within
+    P_MARGIN of top_p). 0 where the winner itself sits that close to the
+    cut-off. With no top-k or top-p every token contends, and this is the
+    top-2 gap of logits + noise."""
+    t = rl.temperature
+    scaled = lg / max(t, 1e-6) if t != 1.0 else lg
+    filt = filter_logits(lg, temperature=t, top_k=rl.top_k, top_p=rl.top_p)
+    kept = filt > -1e29
+    cut = torch.where(kept, filt, float("inf")).amin(-1, keepdim=True)
+    cont = kept | (scaled >= cut - margin)
+    near = (scaled < cut + margin)
+    if rl.top_p < 1.0:
+        srt, idx = torch.sort(scaled, dim=-1, descending=True)
+        probs = torch.softmax(srt, dim=-1)
+        excl = torch.cumsum(probs, dim=-1) - probs
+        cont |= torch.zeros_like(kept).scatter(
+            -1, idx, excl < rl.top_p + P_MARGIN)
+        near |= torch.zeros_like(kept).scatter(
+            -1, idx, excl > rl.top_p - P_MARGIN)
+    win = torch.argmax(filt + noise, dim=-1, keepdim=True)
+    best = (filt + noise).gather(-1, win)[:, 0]
+    rest = torch.where(cont, scaled + noise, float("-inf")).scatter(
+        -1, win, float("-inf")).amax(-1)
+    out = best - rest
+    return torch.where(near.gather(-1, win)[:, 0] & (rl.top_k != 1),
+                       torch.zeros_like(out), out)
+
+
+def teacher_forced_logps(cfg, params, prompt, tokens, vocab, draw=None,
+                         rl=None, margin=0.0):
     """The teacher-forced forward of prompt + tokens: the target model's
     logp of each token (log-softmax over the padded vocab, as the engine
-    scores draws) and the top-2 gap over the served ids (below ``vocab``)
-    at each completion position: of the logits, or with ``draw`` = (seed,
-    rid) of the logits plus draw g's Gumbel noise at position g (the
-    engine's sampling at temperature 1 with no top-k or top-p)."""
+    scores draws) and, at each completion position over the served ids
+    (below ``vocab``), the top-2 gap of the logits; or, with ``draw`` the
+    request's threefry key (``fold_in(engine key, rid)``), the margin of
+    draw g (key ``fold_in(draw, g)``) under the profile ``rl`` (default
+    temperature 1, no top-k or top-p), ``draw_margin``."""
     seq = np.concatenate([prompt, tokens]).astype(np.int64)
     x = torch.from_numpy(seq[None]).cuda()
     logits, _, _ = forward(cfg, params, x)
@@ -2430,29 +2688,33 @@ def teacher_forced_logps(cfg, params, prompt, tokens, vocab, draw=None):
     tgt = torch.from_numpy(np.asarray(tokens, np.int64)).cuda()
     lp = torch.log_softmax(lg, -1).gather(-1, tgt[:, None])[:, 0]
     score = mask_vocab(lg, vocab)
-    if draw is not None:
-        rids = torch.full((len(tokens),), draw[1], device=lg.device)
-        score = score + gumbel_noise(draw[0], rids, torch.arange(
-            len(tokens), device=lg.device), lg.shape[-1])
-    top2 = score.topk(2, dim=-1).values
-    return lp.cpu().numpy(), (top2[:, 0] - top2[:, 1]).cpu().numpy()
+    if draw is None:
+        top2 = score.topk(2, dim=-1).values
+        gap = top2[:, 0] - top2[:, 1]
+    else:
+        keys = prng.fold_in(draw.to(lg.device),
+                            torch.arange(len(tokens), device=lg.device))
+        gap = draw_margin(score, prng.gumbel(keys, lg.shape[-1:]),
+                          rl or RLConfig(temperature=1.0, top_k=0,
+                                         top_p=1.0), margin)
+    return lp.cpu().numpy(), gap.cpu().numpy()
 
 
 def spec_contracts(cfg, params, prompts, vocab, runs, tol_lp, tol_gap,
-                   label, seed=None):
+                   label, key=None):
     """The GEPO logp contract on every run of ``runs`` ({spec_k: results})
     and the spec/non-spec token rule: a spec run emits the non-spec run's
     tokens up to the first position where the non-spec run's top-2 gap is
-    under ``tol_gap``: of the logits (greedy), or with ``seed`` of the
-    logits plus the draw's Gumbel noise (temperature 1, no filter). Returns
-    (max |logp - teacher|, identical to the end, identical up to the first
-    near-tie)."""
+    under ``tol_gap``: of the logits (greedy), or, with the engine's
+    ``key``, of the logits plus the draw's Gumbel noise (temperature 1, no
+    filter). Returns (max |logp - teacher|, identical to the end,
+    identical up to the first near-tie)."""
     worst, gaps = 0.0, {}
     for k, res in runs.items():
         for p, r in zip(prompts, res):
             lp, gap = teacher_forced_logps(
                 cfg, params, p, r.tokens, vocab,
-                None if seed is None else (seed, r.rid))
+                None if key is None else prng.fold_in(key, r.rid))
             worst = max(worst, float(np.abs(lp - r.logps).max()))
             if k == 0:
                 gaps[r.rid] = gap
@@ -2513,6 +2775,15 @@ SPEC_K = 4
 # sees moves by up to 2 x 0.1 and the two engines' gaps by 4 x 0.1 apart.
 # Float32: summation order only, ~1e-5 relative on logits of |.| < 10
 TOL_GAP = {torch.bfloat16: 0.5, torch.float32: 1e-3}
+# a sampled draw through top-k / top-p (draw_margin): a token whose scaled
+# logit is within CUT_MARGIN of the filter's cut-off, or whose sorted
+# exclusive cumulative probability is within P_MARGIN of top_p, is one a
+# path that moves the logits by a few bf16 roundings could let in or out.
+# The door and engine.generate run the same kernels on the same card; their
+# logits differ only where prefix-cache hits changed a prompt's prefill
+# chunks, by far less than TOL_LOGITS
+CUT_MARGIN = 0.05
+P_MARGIN = 0.005
 
 
 def spec_phase(dev, seed, card):
@@ -2635,7 +2906,7 @@ def spec_phase(dev, seed, card):
     # (a) float32 once more, sampled at temperature 1 with no top-k or
     # top-p: the only near-ties are then those of logits + the draw's Gumbel
     # noise, so the token rule holds that a verify round draws with the
-    # non-spec chunk's keys (seed, rid, g)
+    # non-spec chunk's keys fold_in(fold_in(key, rid), g)
     sampled = RLConfig(temperature=1.0, top_k=0, top_p=1.0)
     runs_s = {}
     for k in (0, SPEC_K):
@@ -2653,7 +2924,8 @@ def spec_phase(dev, seed, card):
             raise AssertionError("(a) float32 sampled: no verify round")
     worst, same_end, same_tie = spec_contracts(
         cfg32, params, prompts, vocab, runs_s, TOL_LOGP_F32,
-        TOL_GAP[torch.float32], "(a) float32 sampled", seed=seed)
+        TOL_GAP[torch.float32], "(a) float32 sampled",
+        key=prng.PRNGKey(seed))
     log(f"[spec] (a) float32 sampled: max |emitted logp - teacher-forced| "
         f"{worst:.2e} (<= {TOL_LOGP_F32}); {same_tie}/{len(prompts)} equal "
         f"up to the first top-2 gap of logits + Gumbel noise < "
@@ -2756,6 +3028,337 @@ def threads_phase(dev, seed, card, warm, step_s):
 
 
 # --------------------------------------------------------------------------
+# phase 11: the serving front door over the serve cell's engine
+
+# clients sent at once: plain POST /generate, NDJSON streams, requests on
+# one websocket (the serve cell's 24 prompts, in this order)
+DOOR_HTTP, DOOR_NDJSON, DOOR_WS = 12, 8, 4
+DOOR_NEW = 64
+
+
+async def door_http(port, method, path, payload=None, accept=""):
+    """One HTTP request to the door -> (status, body): JSON, the list of
+    NDJSON lines of a chunked stream, or text."""
+    reader, writer = await asyncio.open_connection("127.0.0.1", port)
+    body = json.dumps(payload).encode() if payload is not None else b""
+    extra = f"Accept: {accept}\r\n" if accept else ""
+    writer.write((f"{method} {path} HTTP/1.1\r\nHost: t\r\n{extra}"
+                  f"Content-Length: {len(body)}\r\n\r\n").encode() + body)
+    await writer.drain()
+    status = int((await reader.readline()).split()[1])
+    hdrs = {}
+    while True:
+        line = await reader.readline()
+        if line in (b"\r\n", b""):
+            break
+        k, _, v = line.decode("latin1").partition(":")
+        hdrs[k.strip().lower()] = v.strip()
+    if hdrs.get("transfer-encoding") == "chunked":
+        out = []
+        while True:
+            n = int((await reader.readline()).strip(), 16)
+            if n == 0:
+                break
+            out.append(json.loads(await reader.readexactly(n)))
+            await reader.readexactly(2)
+    else:
+        data = await reader.readexactly(int(hdrs.get("content-length", 0)))
+        out = (data.decode() if "text/plain" in hdrs.get("content-type", "")
+               else json.loads(data))
+    writer.close()
+    return status, out
+
+
+def ws_frame(payload: bytes, opcode: int = 0x1) -> bytes:
+    """A client->server websocket frame (FIN, masked)."""
+    mask = b"\x5a\xa5\x3c\xc3"
+    n = len(payload)
+    if n < 126:
+        head = bytes([0x80 | opcode, 0x80 | n])
+    elif n < 1 << 16:
+        head = bytes([0x80 | opcode, 0x80 | 126]) + struct.pack(">H", n)
+    else:
+        head = bytes([0x80 | opcode, 0x80 | 127]) + struct.pack(">Q", n)
+    return head + mask + bytes(b ^ mask[i % 4] for i, b in enumerate(payload))
+
+
+async def door_ws(port, payloads):
+    """Send every payload on one websocket at once; returns ({id: token
+    events}, {id: result})."""
+    reader, writer = await asyncio.open_connection("127.0.0.1", port)
+    writer.write(b"GET /ws HTTP/1.1\r\nHost: t\r\nUpgrade: websocket\r\n"
+                 b"Connection: Upgrade\r\n"
+                 b"Sec-WebSocket-Key: dGVzdGtleTEyMzQ1Njc4\r\n\r\n")
+    await writer.drain()
+    if b"101" not in await reader.readline():
+        raise AssertionError("websocket upgrade refused")
+    while (await reader.readline()) not in (b"\r\n", b""):
+        pass
+    for p in payloads:
+        writer.write(ws_frame(json.dumps(p).encode()))
+    await writer.drain()
+    events = {p["id"]: [] for p in payloads}
+    done = {}
+    while len(done) < len(payloads):
+        hdr = await reader.readexactly(2)
+        n = hdr[1] & 0x7F
+        if n == 126:
+            n = struct.unpack(">H", await reader.readexactly(2))[0]
+        elif n == 127:
+            n = struct.unpack(">Q", await reader.readexactly(8))[0]
+        msg = json.loads(await reader.readexactly(n))
+        if "error" in msg:
+            raise AssertionError(f"websocket request rejected: {msg}")
+        if "finish_reason" in msg:
+            done[msg["id"]] = msg
+        else:
+            events[msg["id"]].append(msg)
+    writer.write(ws_frame(b"", opcode=0x8))
+    await writer.drain()
+    writer.close()
+    return events, done
+
+
+async def door_clients(door, prompts):
+    """Every client at once, a scrape while they are in flight, then the
+    final /healthz and /metrics (JSON and Prometheus text). Returns
+    (results by id, stream events by id, rejects, scrapes, wall s)."""
+    await door.start()
+    port = door.port
+
+    def payload(i, **kw):
+        return {"id": i, "tokens": prompts[i].tolist(),
+                "max_new_tokens": DOOR_NEW, **kw}
+
+    n_http = DOOR_HTTP + DOOR_NDJSON
+    t0 = time.perf_counter()
+    calls = [door_http(port, "POST", "/generate", payload(i))
+             for i in range(DOOR_HTTP)]
+    calls += [door_http(port, "POST", "/generate", payload(i, stream=True))
+              for i in range(DOOR_HTTP, n_http)]
+    calls.append(door_ws(port, [payload(i) for i in range(
+        n_http, n_http + DOOR_WS)]))
+    calls.append(door_http(port, "POST", "/generate", {
+        "id": "infeasible",
+        "tokens": [5] * (door.serve.max_total_tokens - DOOR_NEW + 1),
+        "max_new_tokens": DOOR_NEW}))
+    calls.append(door_http(port, "POST", "/generate", payload(
+        0, id="expired", deadline_s=1e-6)))
+    everything = asyncio.ensure_future(asyncio.gather(*calls))
+    while not door.engine.has_work():
+        await asyncio.sleep(0.005)
+    # a scrape while requests decode: the loop thread answers from host
+    # state while the executor thread runs the step
+    t_s = time.perf_counter()
+    st_h, health = await door_http(port, "GET", "/healthz")
+    st_m, mid = await door_http(port, "GET", "/metrics")
+    scrape_ms = (time.perf_counter() - t_s) * 1e3
+    out = await everything
+    wall = time.perf_counter() - t0
+    final = {"healthz": await door_http(port, "GET", "/healthz"),
+             "json": await door_http(port, "GET", "/metrics"),
+             "prom": await door_http(port, "GET",
+                                     "/metrics?format=prometheus",
+                                     accept="text/plain")}
+    await door.close()
+    results, streams = {}, {}
+    for i, (status, body) in enumerate(out[:n_http]):
+        if status != 200:
+            raise AssertionError(f"door request {i}: status {status} {body}")
+        if i >= DOOR_HTTP:
+            streams[i], body = body[:-1], body[-1]
+        results[i] = body
+    ws_events, ws_done = out[n_http]
+    for i, res in ws_done.items():
+        results[i], streams[i] = res, ws_events[i]
+    rejects = {"infeasible": out[n_http + 1], "expired": out[n_http + 2]}
+    scrapes = {"mid": (st_h, health, st_m, mid, scrape_ms), **final}
+    return results, streams, rejects, scrapes, wall
+
+
+def door_phase(dev, seed, card):
+    """Phase 11: a ``FrontDoor`` on 127.0.0.1 (port 0) over the serve
+    cell's engine; 24 clients at once and two that admission rejects;
+    results held against ``engine.generate`` on a fresh engine with the
+    same key and the rids the door assigned, and against the
+    teacher-forced forward. Returns the K3/K4 launches of the door's
+    run."""
+    from repro_torch.serving.server import FrontDoor
+    cfg = dataclasses.replace(get_config("qwen3-1.7b"),
+                              paged_attn_impl="pallas")
+    params = init_params(cfg, seed, device=dev)
+    serve = ServeConfig(num_slots=SLOTS, page_size=PAGE, prefill_chunk=512,
+                        sync_every=8, max_total_tokens=2048,
+                        paged_attn_impl="pallas", port=0, seed=seed)
+    rl = RLConfig()                          # temperature 0.6, top-k 20, top-p 0.95
+    key = prng.PRNGKey(seed)
+    sp = SamplingParams.from_rl(rl, max_new=DOOR_NEW)
+    prompts = engine_prompts(cfg, seed)
+    door = FrontDoor(cfg, params, serve, rl=rl, vocab_limit=cfg.vocab_size,
+                     key=key)
+    eng = door.engine
+    assigned = {}
+    build_request = door.build_request
+
+    def build_and_record(payload, now_s):
+        req = build_request(payload, now_s)
+        assigned[payload["id"]] = req.rid
+        return req
+
+    door.build_request = build_and_record
+
+    def warm(engine):
+        """cuBLAS handles, allocator, first launches; then a cold cache."""
+        engine.generate([Request(rid=10 ** 6 + i, prompt=prompts[i][:64],
+                                 params=sp) for i in range(2)])
+        engine.prefix_cache.clear()
+        torch.cuda.synchronize()
+
+    warm(eng)
+    st0 = eng.stats()
+    obs.configure(True, clear=True)
+    reset_counts()
+    try:
+        results, streams, rejects, scrapes, wall = asyncio.run(
+            door_clients(door, prompts))
+        torch.cuda.synchronize()
+        launches = {k: counts()[k] for k in ("paged_decode",
+                                             "paged_prefill")}
+    finally:
+        obs.configure(False, clear=True)
+    st = eng.stats()
+    d_steps = st["decode_steps"] - st0["decode_steps"]
+    p_chunks = st["prefill_chunks"] - st0["prefill_chunks"]
+    lyr = cfg.num_layers
+    if launches != {"paged_decode": lyr * d_steps,
+                    "paged_prefill": lyr * p_chunks}:
+        raise AssertionError(f"door launches {launches} != {lyr} x "
+                             f"({d_steps} decode steps, {p_chunks} prefill "
+                             "chunks)")
+    eng.prefix_cache.clear()
+    if eng.free_pages != eng.num_pages - 1 or eng.sched.allocator.in_use:
+        raise AssertionError("door: page pool does not balance")
+    # admission's two rejects
+    (s_inf, b_inf), (s_exp, b_exp) = rejects["infeasible"], rejects["expired"]
+    if (s_inf, b_inf.get("error"), s_exp, b_exp.get("error")) != \
+            (400, "infeasible", 408, "expired"):
+        raise AssertionError(f"door rejects: {rejects}")
+    # the scrape in flight and the final ones
+    st_h, health, st_m, mid, scrape_ms = scrapes["mid"]
+    if (st_h, st_m) != (200, 200) or not health.get("ok") \
+            or mid["slo"]["completed"] >= len(prompts):
+        raise AssertionError(f"door: scrape in flight {st_h} {st_m}, "
+                             f"{mid['slo']['completed']} completed")
+    (fh, health), (fm, m) = scrapes["healthz"], scrapes["json"]
+    fp, prom = scrapes["prom"]
+    if (fh, fm, fp) != (200, 200, 200) or not health.get("ok"):
+        raise AssertionError("door: final /healthz or /metrics failed")
+    if m["slo"]["completed"] != len(prompts) or m["rejected"] != {
+            "infeasible": 1, "expired": 1, "queue_full": 0,
+            "overloaded": 0}:
+        raise AssertionError(f"door /metrics: {m['slo']} {m['rejected']}")
+    if "serve_ttft_seconds_bucket" not in prom or \
+            "engine_free_pages" not in prom:
+        raise AssertionError("door: Prometheus text lacks the serve and "
+                             "engine series")
+    # every admitted request: 64 tokens or a finish reason; each stream's
+    # events are its result
+    for i in range(len(prompts)):
+        r = results[i]
+        if len(r["tokens"]) != DOOR_NEW and r["finish_reason"] != "eos":
+            raise AssertionError(f"door request {i}: {len(r['tokens'])} "
+                                 f"tokens, {r['finish_reason']}")
+        if i in streams and [e["token"] for e in streams[i]] != r["tokens"]:
+            raise AssertionError(f"door request {i}: stream events differ "
+                                 "from its result")
+    snap = m["slo"]
+    n_tok = sum(len(r["tokens"]) for r in results.values())
+
+    # the same requests through engine.generate on a fresh engine with the
+    # same key and the door's rids
+    fresh = build_engine(cfg, params, serve, rl=rl,
+                         vocab_limit=cfg.vocab_size, key=key)
+    warm(fresh)
+    order = sorted(range(len(prompts)), key=lambda i: assigned[i])
+    t1 = time.perf_counter()
+    ref = fresh.generate([Request(rid=assigned[i], prompt=prompts[i],
+                                  params=sp, arrival_s=t1) for i in order])
+    torch.cuda.synchronize()
+    wall_ref = time.perf_counter() - t1
+    ref = dict(zip(order, ref))
+    n_ref = sum(r.gen_count for r in ref.values())
+    del fresh
+    worst, same_tie, same_end, bitwise, cut = 0.0, 0, 0, 0, []
+    for i in range(len(prompts)):
+        a, b = ref[i], results[i]
+        toks = np.asarray(b["tokens"], np.int64)
+        lps = np.asarray(b["logps"], np.float32)
+        lp, gap = teacher_forced_logps(
+            cfg, params, prompts[i], a.tokens, cfg.vocab_size,
+            draw=prng.fold_in(key, assigned[i]), rl=rl, margin=CUT_MARGIN)
+        near = np.flatnonzero(gap < TOL_GAP[torch.bfloat16])
+        upto = int(near[0]) if near.size else a.gen_count
+        # positions the two runs computed from the same bits: up to the
+        # first one whose token or logp differs. Its context (the prompt's
+        # prefill, the same chunks when the prefix-cache hits are equal;
+        # then every earlier position, bit-equal) gives it the same
+        # logits, so its draw, keyed by the same rid, is the same token
+        both = min(a.gen_count, len(toks))
+        diff = np.flatnonzero((a.tokens[:both] != toks[:both])
+                              | (a.logps[:both] != lps[:both]))
+        first = int(diff[0]) if diff.size else both
+        if first > 0 or a.prefix_hit_tokens == b["prefix_hit_tokens"]:
+            upto = max(upto, first + 1)
+        n = min(upto, a.gen_count, len(toks))
+        if not np.array_equal(a.tokens[:n], toks[:n]) or (
+                n < upto and a.gen_count != len(toks)):
+            raise AssertionError(
+                f"door request {i} (rid {assigned[i]}): tokens differ from "
+                f"engine.generate at a position both computed from the "
+                f"same bits or before the first near-tie (position {upto})")
+        same_tie += 1
+        same = np.array_equal(a.tokens, toks)
+        same_end += int(same)
+        bitwise += int(same and np.array_equal(a.logps, lps))
+        cut.append(n)
+        if not same:
+            lp, _ = teacher_forced_logps(cfg, params, prompts[i], toks,
+                                         cfg.vocab_size)
+        worst = max(worst, float(np.abs(lp - np.asarray(b["logps"])).max()))
+    if worst > TOL_LOGP_PATHS:
+        raise AssertionError(f"door logps differ from the teacher-forced "
+                             f"forward by {worst} > {TOL_LOGP_PATHS}")
+    ttft_ref = [r.ttft_s for r in ref.values()]
+    log(f"[door] FrontDoor on 127.0.0.1 (a free port) over {cfg.name} bf16 "
+        f"(K3/K4 pallas, {SLOTS} slots, page {PAGE}, prefill chunk 512): "
+        f"{DOOR_HTTP} POST /generate + {DOOR_NDJSON} NDJSON streams + "
+        f"{DOOR_WS} requests on one websocket at once, the serve cell's "
+        f"prompts, {DOOR_NEW} new, temperature 0.6 / top-k 20 / top-p 0.95;"
+        f" rejects: infeasible -> {s_inf}, deadline 1e-6 s -> {s_exp}")
+    log(f"[door] through the door: {n_tok} tokens in {wall:.3f}s = "
+        f"{n_tok / wall:.1f} tokens/s, TTFT p50 "
+        f"{snap['ttft_p50_s'] * 1e3:.1f} ms, p99 "
+        f"{snap['ttft_p99_s'] * 1e3:.1f} ms (the door's telemetry); "
+        f"engine.generate on a fresh engine: {n_ref} tokens in "
+        f"{wall_ref:.3f}s = {n_ref / wall_ref:.1f} tokens/s, TTFT p50 "
+        f"{percentile(ttft_ref, 50) * 1e3:.1f} ms, p99 "
+        f"{percentile(ttft_ref, 99) * 1e3:.1f} ms; door / engine "
+        f"{(n_tok / wall) / (n_ref / wall_ref):.3f} | {card}")
+    log(f"[door] {same_tie}/{len(prompts)} requests equal engine.generate "
+        f"through every position both computed from the same bits and up "
+        f"to the first draw margin < {TOL_GAP[torch.bfloat16]} after it "
+        f"(positions compared {sum(cut)} of {n_tok}), {same_end}/"
+        f"{len(prompts)} to the end ({bitwise} with bit-equal logps); max "
+        f"|door logp - "
+        f"teacher-forced| {worst:.4f} (<= {TOL_LOGP_PATHS}); scrape in "
+        f"flight {scrape_ms:.1f} ms with {mid['slo']['completed']} of "
+        f"{len(prompts)} done; /metrics slo completed {snap['completed']}, "
+        f"rejected {m['rejected']}; {d_steps} decode steps, {p_chunks} "
+        f"prefill chunks, launches {launches}; pool balanced")
+    del door, eng, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
 
 
 def main(argv=None) -> int:
@@ -2786,13 +3389,16 @@ def main(argv=None) -> int:
     kernels.update(kernel_phase(dev, args.seed))
     log(f"[time] kernel phase {time.perf_counter() - t0:.1f}s")
     t0 = time.perf_counter()
+    draws = draw_phase(dev, args.seed, card)
+    log(f"[time] draw phase {time.perf_counter() - t0:.1f}s")
+    t0 = time.perf_counter()
     kernels.update(flash_phase(dev, args.seed))
     log(f"[time] K5 phase {time.perf_counter() - t0:.1f}s")
     t0 = time.perf_counter()
     kernels.update(ssd_phase(dev, args.seed))
     log(f"[time] K6 phase {time.perf_counter() - t0:.1f}s")
     t0 = time.perf_counter()
-    launches = engine_phase(dev, args.seed, card)
+    launches = engine_phase(dev, args.seed, card, draws)
     log(f"[time] engine phase {time.perf_counter() - t0:.1f}s")
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
@@ -2834,6 +3440,10 @@ def main(argv=None) -> int:
         launches[name] += n
     del warm
     log(f"[time] threads phase {time.perf_counter() - t0:.1f}s")
+    t0 = time.perf_counter()
+    for name, n in door_phase(dev, args.seed, card).items():
+        launches[name] += n
+    log(f"[time] door phase {time.perf_counter() - t0:.1f}s")
     for name, row in kernels.items():
         row["launches"] = launches[name]
         row["kernel_ms"], row["twin_ms"] = row["ms"], row["plain_ms"]

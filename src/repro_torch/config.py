@@ -94,10 +94,13 @@ class ModelConfig:
     # "gather" to keep its static and continuous engines bit-identical;
     # the port holds its two engines to each other within a tolerance
     # instead, and "auto" sends the serving path through the kernels.
-    # "gather" is not ported and raises (ROADMAP queue 1 item 4).
+    # "gather" materialises each slot's logical KV view and runs the
+    # dense attention over it (plain PyTorch, any device).
     paged_attn_impl: str = "auto"
     remat: bool = True
-    local_ring_kv: bool = False     # ring-buffer KV for LOCAL layers (JAX only)
+    # ring-buffer the dense KV cache of LOCAL layers (window rows, not
+    # the whole prompt + budget); the paged engine refuses it
+    local_ring_kv: bool = False
     # SSD backend of the Mamba2 blocks (a knob of the port only; the JAX
     # package always runs its chunked SSD). "chunked" = the plain
     # PyTorch chunked SSD, the JAX package's own path. "pallas" = the
@@ -279,10 +282,12 @@ class HeteroConfig:
 
 @dataclass(frozen=True)
 class ServeConfig:
-    """Deployment settings for a generation engine: engine kind, KV
-    capacity, decode horizon, speculative drafting (the fields of the JAX
-    package's ``ServeConfig`` that the port serves; mesh and front-door
-    fields join with their slices)."""
+    """Deployment settings for a generation engine and its serving front
+    door: engine kind, KV capacity, decode horizon, speculative drafting,
+    admission limits (the JAX package's ``ServeConfig`` without ``mesh``,
+    which joins with parallel/). The same object configures batch serving
+    (``launch/serve.py``), the asyncio front door
+    (``repro_torch.serving.server``) and HeteroRL sampler nodes."""
     engine: str = "continuous"       # static | continuous
     num_slots: int = 8
     page_size: int = 16
@@ -302,6 +307,16 @@ class ServeConfig:
     # replay each verify round's attention through one folded K4 launch
     # and keep max |folded - in-forward| (stats()["spec_rescore_max_diff"])
     spec_rescore: bool = True
+    # front door -----------------------------------------------------------
+    host: str = "127.0.0.1"
+    port: int = 8100
+    max_queue: int = 256             # admission: queued-request cap
+    # admission: shed load once the KV pages promised to queued requests
+    # exceed this many turns of the page pool (1.0 = the queue may never
+    # hold more demand than the pool serves in one full drain)
+    queue_overcommit: float = 4.0
+    default_priority: int = 1        # priority class for unlabelled requests
+    default_deadline_s: float = 0.0  # TTFT SLO applied when none given (0=off)
     seed: int = 0
 
     def __post_init__(self):
@@ -314,6 +329,11 @@ class ServeConfig:
                              "and a completion token at least")
         if self.prefill_chunk < 0 or self.num_pages < 0:
             raise ValueError("prefill_chunk / num_pages must be >= 0")
+        if self.max_queue < 1:
+            raise ValueError("max_queue must be >= 1")
+        if self.queue_overcommit < 1.0:
+            raise ValueError("queue_overcommit < 1 would reject requests "
+                             "an idle pool could serve")
         if self.spec_k < 0:
             raise ValueError("spec_k must be >= 0 (0 = speculation off)")
         if self.spec_k > 0 and self.engine != "continuous":

@@ -40,6 +40,7 @@ from repro_torch.hetero.latency import sync_delay_s
 from repro_torch.optim import tree_leaves
 from repro_torch.sampling import (ContinuousEngine, build_engine,
                                   rollout_from_results, token_logps)
+from repro_torch.sampling.prng import PRNGKey, split
 from repro_torch.serving.api import Request, SamplingParams
 from repro_torch.training import TrainState, train_step
 from repro_torch.transport import (ChunkSubscriber, SimulatedLink,
@@ -119,8 +120,9 @@ class SamplerNode:
         # TrainConfig.logprob_impl so A/B runs switch both halves
         self.logprob_impl = logprob_impl
         self.version = 0
-        self.seed = seed
         self.rng = np.random.default_rng(seed)
+        # the draw key: split once per batch, as the reference does
+        self.key = PRNGKey(seed)
         # the repo's RA005 analysis holds every SamplerNode to the
         # reference's threading contract (its threaded runtime hands nodes
         # to threading.Thread): each mutation of the node's state is taken
@@ -178,13 +180,6 @@ class SamplerNode:
             return self.warmup_tokens / self.warmup_seconds
         return 0.0
 
-    def batch_seed(self, n: int) -> int:
-        """The token-draw seed of this node's batch ``n``: draws are keyed
-        by (seed, row, draw index), so each batch needs its own seed, a
-        pure function of the node's seed and the batch count."""
-        return int(np.random.SeedSequence([self.seed, n]).generate_state(
-            1)[0])
-
     def _engine_for(self, tp: int, b: int):
         """The node's engine, built on first use (the paged pool's budget
         needs the prompt width). Rebuilt only if the rollout shape
@@ -206,16 +201,17 @@ class SamplerNode:
         prompts_np = np.asarray(req.prompts)
         b, tp = prompts_np.shape
         engine = self._engine_for(tp, b)
-        seed = self.batch_seed(self.batches_generated)
+        with self._lock:
+            self.key, k = split(self.key)
         t0 = time.perf_counter()
-        # rid = batch row, a fresh seed per batch
+        # rid = batch row, a fresh key per batch
         sp = SamplingParams.from_rl(self.rl)
         with obs.trace.span("sampler_generate", track=self._track,
                             sampler=self.sid, version=self.version,
                             batch=b):
             results = engine.generate(
                 [Request(rid=r, prompt=prompts_np[r], params=sp)
-                 for r in range(b)], seed=seed)
+                 for r in range(b)], key=k)
         roll = rollout_from_results(prompts_np, results,
                                     self.rl.max_new_tokens,
                                     device=self.device)

@@ -7,7 +7,10 @@ Paged attention (``paged_decode``, ``paged_prefill``): ``impl`` is
 - "pallas": the hand-written Hopper kernel; raises on a CPU tensor;
 - "ref": the plain PyTorch twin, on any device;
 - "auto" / None: the kernel for CUDA tensors, the twin for CPU tensors;
-- "gather": the dense gather path of the JAX package; not ported yet.
+- "gather": the JAX package's dense gather path: the slot's logical
+  (B, npages * page, Hkv, D) view is materialised from the pools and the
+  dense ``decode_attention`` / ``attention`` of ``models.attention`` run
+  over it. Plain PyTorch on any device, no kernel; chosen only by name.
 
 ``kind``/``window`` follow the JAX package: the sliding-window band
 applies only when ``kind == "local"``. ``paged_decode_layers`` and
@@ -38,19 +41,13 @@ from repro_torch.kernels import fused_logprob as fl
 from repro_torch.kernels import paged_attention as pa
 from repro_torch.kernels import ssd_scan as ss
 
-_GATHER_TODO = ("paged_attn_impl='gather' (the dense gather path that keeps "
-                "the JAX package's static and continuous engines "
-                "bit-identical) is not ported yet: ROADMAP queue 1 item 4 "
-                "'Static engine and the bit-exact threefry'")
-
-
 def _resolve(impl: Optional[str], q: torch.Tensor, kind: str) -> str:
     if impl not in PAGED_IMPLS + (None,):
         raise ValueError(f"unknown paged-attention impl {impl!r}")
     if kind not in ("causal", "local"):
         raise ValueError(f"paged attention is causal-only, got kind={kind!r}")
     if impl == "gather":
-        raise NotImplementedError(_GATHER_TODO)
+        return "gather"
     if impl == "pallas" and q.device.type != "cuda":
         raise ValueError(f"paged_attn_impl='pallas' launches the CUDA kernel "
                          f"and needs CUDA tensors, got {q.device}")
@@ -91,6 +88,17 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a_log_neg: torch.Tensor,
     return ss.ssd_scan(x, dt, a_log_neg, b, c, chunk=chunk)
 
 
+def _gather_view(kp: torch.Tensor, vp: torch.Tensor,
+                 page_table: torch.Tensor
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Each slot's logical (B, npages * page, Hkv, D) K/V view, gathered
+    from the pools through its block-table row."""
+    b, npages = page_table.shape
+    shape = (b, npages * kp.shape[1], kp.shape[2], kp.shape[3])
+    idx = page_table.long()
+    return kp[idx].reshape(shape), vp[idx].reshape(shape)
+
+
 def paged_decode(q: torch.Tensor, kp: torch.Tensor, vp: torch.Tensor,
                  page_table: torch.Tensor, lengths: torch.Tensor, *,
                  kind: str = "causal", window: Optional[int] = None,
@@ -100,6 +108,11 @@ def paged_decode(q: torch.Tensor, kp: torch.Tensor, vp: torch.Tensor,
     (num_pages, page_size, Hkv, D); page_table (B, npages); lengths (B,)
     valid tokens per slot. Returns (B, 1, Hq, D)."""
     path = _resolve(impl, q, kind)
+    if path == "gather":
+        from repro_torch.models.attention import decode_attention
+        kc, vc = _gather_view(kp, vp, page_table)
+        return decode_attention(q, kc, vc, pos=lengths - 1, kind=kind,
+                                window=window, softcap=softcap)
     eff_window = window if kind == "local" else None
     fn = pa.paged_decode_ref if path == "ref" else pa.paged_attention
     o = fn(q[:, 0].contiguous(), kp, vp, page_table, lengths,
@@ -111,11 +124,24 @@ def paged_prefill(q: torch.Tensor, kp: torch.Tensor, vp: torch.Tensor,
                   page_table: torch.Tensor, positions: torch.Tensor, *,
                   kind: str = "causal", window: Optional[int] = None,
                   softcap: Optional[float] = None,
-                  impl: Optional[str] = None) -> torch.Tensor:
+                  impl: Optional[str] = None, attn_impl: str = "chunked",
+                  chunk: int = 512) -> torch.Tensor:
     """Chunked-prefill attention against paged pools. q (B, C, Hq, D);
     positions (B, C) absolute query positions, ``starts + arange(C)`` per
-    slot. Returns (B, C, Hq, D)."""
+    slot. Returns (B, C, Hq, D). ``attn_impl`` and ``chunk`` feed the
+    dense attention of the "gather" path, where "pallas" drops to
+    "chunked": K5 assumes query positions ``arange(C)``, and a chunk runs
+    at an offset."""
     path = _resolve(impl, q, kind)
+    if path == "gather":
+        from repro_torch.models.attention import attention
+        kc, vc = _gather_view(kp, vp, page_table)
+        pos_k = torch.arange(kc.shape[1], device=q.device).expand(
+            q.shape[0], -1)
+        return attention(q, kc, vc, pos_q=positions, pos_k=pos_k,
+                         kind=kind, window=window, softcap=softcap,
+                         impl="chunked" if attn_impl == "pallas"
+                         else attn_impl, chunk=chunk)
     eff_window = window if kind == "local" else None
     starts = positions[:, 0].to(torch.int32)
     lengths = (positions[:, -1] + 1).to(torch.int32)

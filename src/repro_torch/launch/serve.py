@@ -1,9 +1,10 @@
-"""Batch serving entry point: what a HeteroRL sampler node runs, on the port.
+"""Serving entry point: what a HeteroRL sampler node runs, on the port.
 
 Builds a model with random weights from ``--seed``, the engine a
 ``ServeConfig`` describes (``--engine continuous``, the default here, or
 ``static``), and serves ``--rounds`` batches of seeded random prompts
-through its ``generate``:
+through its ``generate`` (a key split from ``PRNGKey(--seed)`` per
+round):
 
   PYTHONPATH=src python -m repro_torch.launch.serve               # qwen3-1.7b on cuda
   PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --smoke
@@ -26,12 +27,24 @@ them (``--spec-ngram``: the longest suffix n-gram matched;
 ``--no-spec-rescore`` skips the folded-layers rescore), and the summary
 prints the engine's accept rate.
 
-``--smoke`` serves the reduced variant of ``--arch``. The front door
-(``--listen``) and meshes are later slices.
+``--listen`` runs the asyncio front door instead
+(``repro_torch.serving.server``: ``POST /generate``, ``GET /ws``,
+``/healthz``, ``/metrics``) over the continuous engine, with admission
+control (``--max-queue``, ``--deadline-s``) and the ``ArithmeticTask``
+tokenizer, so ``{"text": ...}`` requests work; it prints the port it
+listens on (``--port 0`` takes a free one) and runs until interrupted:
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --listen --port 8100
+  PYTHONPATH=src python -m repro_torch.launch.serve --listen --device cpu --smoke
+  curl -s localhost:8100/generate -d '{"text": "12+7=", "max_new_tokens": 4}'
+
+``--smoke`` serves the reduced variant of ``--arch``. Meshes are a later
+slice.
 """
 from __future__ import annotations
 
 import argparse
+import asyncio
 import dataclasses
 import time
 
@@ -40,8 +53,10 @@ import torch
 
 from repro_torch.config import RLConfig, ServeConfig
 from repro_torch.configs import get_config, smoke
+from repro_torch.data import Tokenizer
 from repro_torch.models import init_params
 from repro_torch.sampling import StaticEngine, build_engine
+from repro_torch.sampling.prng import PRNGKey, split
 from repro_torch.serving.api import Request, SamplingParams
 
 
@@ -72,8 +87,12 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--max-total-tokens", type=int, default=0,
                     help="per-request prompt+completion cap "
                          "(0 = --prompt-len + --max-new)")
+    ap.add_argument("--num-pages", type=int, default=0,
+                    help="KV page-pool override (0 = full budget per slot)")
+    ap.add_argument("--no-prefix-cache", action="store_true",
+                    help="disable shared-prefix KV page reuse")
     ap.add_argument("--paged-attn-impl", default=None,
-                    choices=("auto", "pallas", "ref"))
+                    choices=("auto", "pallas", "ref", "gather"))
     ap.add_argument("--spec-k", type=int, default=0,
                     help="speculative decoding: drafts per verify round "
                          "(0 = off; continuous engine only)")
@@ -88,6 +107,16 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--top-k", type=int, default=20)
     ap.add_argument("--top-p", type=float, default=0.95)
     ap.add_argument("--seed", type=int, default=0)
+    # front door -----------------------------------------------------------
+    ap.add_argument("--listen", action="store_true",
+                    help="run the HTTP/websocket front door instead of "
+                         "batch rounds")
+    ap.add_argument("--host", default="127.0.0.1")
+    ap.add_argument("--port", type=int, default=8100)
+    ap.add_argument("--max-queue", type=int, default=256)
+    ap.add_argument("--deadline-s", type=float, default=0.0,
+                    help="default TTFT deadline applied to front-door "
+                         "requests (0 = none)")
     return ap.parse_args(argv)
 
 
@@ -100,15 +129,30 @@ def main(argv=None) -> None:
         engine=args.engine, num_slots=args.slots, page_size=args.page_size,
         prefill_chunk=args.prefill_chunk, sync_every=args.sync_every,
         max_total_tokens=args.max_total_tokens
-        or args.prompt_len + args.max_new,
+        or args.prompt_len + args.max_new, num_pages=args.num_pages,
+        prefix_cache=not args.no_prefix_cache,
         paged_attn_impl=args.paged_attn_impl, spec_k=args.spec_k,
         spec_ngram_max=args.spec_ngram,
-        spec_rescore=not args.no_spec_rescore, seed=args.seed)
+        spec_rescore=not args.no_spec_rescore, host=args.host,
+        port=args.port, max_queue=args.max_queue,
+        default_deadline_s=args.deadline_s, seed=args.seed)
     rl = RLConfig(temperature=args.temperature, top_k=args.top_k,
-                  top_p=args.top_p, max_new_tokens=args.max_new)
+                  top_p=args.top_p, max_new_tokens=args.max_new,
+                  engine=serve.engine)
     params = init_params(cfg, args.seed, device=args.device)
+    key = PRNGKey(serve.seed)
+    if args.listen:
+        from repro_torch.serving.server import serve_forever
+        tok = Tokenizer()
+        try:
+            asyncio.run(serve_forever(cfg, params, serve, rl=rl,
+                                      tokenizer=tok,
+                                      vocab_limit=tok.vocab_size, key=key))
+        except KeyboardInterrupt:
+            pass
+        return
     engine = build_engine(cfg, params, serve, rl=rl,
-                          vocab_limit=cfg.vocab_size)
+                          vocab_limit=cfg.vocab_size, key=key)
     static = isinstance(engine, StaticEngine)
     sp = SamplingParams.from_rl(rl)
     rng = np.random.default_rng(args.seed)
@@ -122,8 +166,9 @@ def main(argv=None) -> None:
             reqs.append(Request(rid=rid, params=sp, prompt=rng.integers(
                 3, cfg.vocab_size, size=n).astype(np.int32)))
             rid += 1
+        key, k = split(key)
         t1 = time.perf_counter()
-        results = engine.generate(reqs)
+        results = engine.generate(reqs, key=k)
         if args.device == "cuda":
             torch.cuda.synchronize()
         dt = time.perf_counter() - t1

@@ -34,6 +34,7 @@ from repro_torch.hetero import HeteroRuntime, run_online
 from repro_torch.models import init_params
 from repro_torch.optim import tree_leaves
 from repro_torch.sampling import generate
+from repro_torch.sampling.prng import PRNGKey
 from repro_torch.training import init_state, sft_step
 
 
@@ -43,9 +44,10 @@ def make_eval_fn(cfg, rl, task, tok, n_prompts=32, seed=1234):
                                prompt_width=task.prompt_width, seed=seed)
     probs = eval_task.sample_batch(n_prompts)
     prompts = np.repeat(encode_prompts(tok, probs), 2, axis=0)
+    key = PRNGKey(seed)
 
     def eval_fn(params) -> float:
-        roll = generate(cfg, rl, params, prompts, seed,
+        roll = generate(cfg, rl, params, prompts, key,
                         vocab_limit=tok.vocab_size)
         rewards = score_rollouts(eval_task, tok, probs,
                                  roll["completions"].cpu().numpy(), 2)

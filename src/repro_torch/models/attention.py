@@ -1,5 +1,7 @@
 """Attention for the full-sequence forward (naive, chunked, the K5 flash
-kernel) and for one decode step against a dense KV cache.
+kernel) and for one decode step against a dense KV cache, or against the
+ring-buffered cache of a local layer (``ring_decode_attention``,
+``fill_ring``).
 
 The port of ``repro/models/attention.py``. GQA is handled with grouped
 einsums (no repeated K/V); causal, sliding-window and bidirectional
@@ -224,6 +226,44 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     p = torch.softmax(torch.where(valid[:, None, None], s, NEG_INF), dim=-1)
     o = torch.einsum("bgrk,bkgd->bgrd", p, v_cache.float())
     return o.reshape(b, 1, hq, d).to(q.dtype)
+
+
+def ring_decode_attention(q: torch.Tensor, k_ring: torch.Tensor,
+                          v_ring: torch.Tensor, *,
+                          pos: Union[int, torch.Tensor],
+                          softcap: Optional[float] = None) -> torch.Tensor:
+    """Single-token attention against a ring-buffered local-window cache.
+
+    k_ring/v_ring (B, W, Hkv, D): slot ``s`` holds the key of position
+    ``pos - ((pos - s) mod W)``, the one position congruent to ``s`` in
+    (pos - W, pos]; slots whose position is negative are not written yet
+    and are masked. ``pos`` is shared by the batch (an int or a 0-d
+    tensor). With W the sliding window the ring holds exactly the local
+    band, so no other mask applies."""
+    b, _, hq, d = q.shape
+    w, g = k_ring.shape[1], k_ring.shape[2]
+    s = _scores(q.reshape(b, 1, g, hq // g, d), k_ring,
+                softcap)[:, :, :, 0]                      # (B,G,R,W)
+    slot = torch.arange(w, device=q.device)
+    p = pos - torch.remainder(pos - slot, w)              # slot position
+    prob = torch.softmax(torch.where((p >= 0)[None, None, None], s,
+                                     NEG_INF), dim=-1)
+    o = torch.einsum("bgrk,bkgd->bgrd", prob, v_ring.float())
+    return o.reshape(b, 1, hq, d).to(q.dtype)
+
+
+def fill_ring(k: torch.Tensor, window: int) -> torch.Tensor:
+    """The last ``window`` rows of k (B, S, H, D) in ring order (slot s =
+    the position p with p = s mod window). For S < window the tail slots
+    are zeros, which ``ring_decode_attention`` masks by position."""
+    b, s_len = k.shape[0], k.shape[1]
+    if s_len < window:
+        pad = torch.zeros((b, window - s_len) + k.shape[2:], dtype=k.dtype,
+                          device=k.device)
+        return torch.cat([k, pad], dim=1)
+    idx = torch.remainder(torch.arange(window, device=k.device)
+                          - s_len % window, window)
+    return k[:, s_len - window:][:, idx]
 
 
 def standard_positions(pos: torch.Tensor) -> bool:

@@ -30,8 +30,11 @@ head in float32. Three ways through the attention:
 
 Parameters are the JAX package's tree: block leaves are stacked
 ``(nb, ...)`` and applied one block at a time in a Python loop (the JAX
-package scans them). The ring-buffered cache of local layers
-(``cfg.local_ring_kv``) is not ported (ROADMAP queue 1 item 4).
+package scans them). With ``cfg.local_ring_kv`` the dense cache of a
+local layer is a ring of ``min(max_len, sliding_window)`` rows: a prefill
+stores the prompt's last W keys in ring order (``fill_ring``), a decode
+step writes at ``pos mod W`` and attends the ring
+(``ring_decode_attention``); the prefill's attention itself is unchanged.
 """
 from __future__ import annotations
 
@@ -43,6 +46,7 @@ import torch.utils.checkpoint
 from repro_torch.config import ATTN, LOCAL, MAMBA, MLP, NONE, ModelConfig
 from repro_torch.kernels.ops import paged_decode, paged_prefill
 from repro_torch.models.attention import (attention, decode_attention,
+                                          fill_ring, ring_decode_attention,
                                           standard_positions)
 from repro_torch.models.layers import rmsnorm, rope, softcap, swiglu
 from repro_torch.models.ssm import mamba_block
@@ -120,16 +124,26 @@ def _self_attn(cfg: ModelConfig, p: Dict, x: torch.Tensor, *, kind: str,
     k = rope(k, positions, cfg.rope_theta)
     mask_kind = "local" if kind == LOCAL else "causal"
     if paged is None:
+        ring = cfg.local_ring_kv and kind == LOCAL
         if dense is not None and decode:
             kc, vc, pos = dense
-            kc[:, pos] = k[:, 0].to(kc.dtype)
-            vc[:, pos] = v[:, 0].to(vc.dtype)
+            w_pos = pos % kc.shape[1] if ring else pos
+            kc[:, w_pos] = k[:, 0].to(kc.dtype)
+            vc[:, w_pos] = v[:, 0].to(vc.dtype)
+            if ring:
+                o = ring_decode_attention(q, kc, vc, pos=pos,
+                                          softcap=cfg.attn_softcap)
+                return o.reshape(b, sq, -1) @ p["wo"]
             o = decode_attention(
                 q, kc, vc, pos=pos, kind=mask_kind,
                 window=cfg.sliding_window, softcap=cfg.attn_softcap,
                 length=pos + 1 if isinstance(pos, int) else None)
             return o.reshape(b, sq, -1) @ p["wo"]
-        if dense is not None:                             # prefill fills it
+        if dense is not None and ring:                    # prefill fills it
+            kc, vc, _ = dense
+            kc.copy_(fill_ring(k, kc.shape[1]))
+            vc.copy_(fill_ring(v, vc.shape[1]))
+        elif dense is not None:
             kc, vc, _ = dense
             kc[:, :sq] = k.to(kc.dtype)
             vc[:, :sq] = v.to(vc.dtype)
@@ -148,7 +162,8 @@ def _self_attn(cfg: ModelConfig, p: Dict, x: torch.Tensor, *, kind: str,
     else:                                                 # chunked prefill
         o = paged_prefill(q, kp, vp, page_table, positions,
                           kind=mask_kind, window=cfg.sliding_window,
-                          softcap=cfg.attn_softcap, impl=cfg.paged_attn_impl)
+                          softcap=cfg.attn_softcap, impl=cfg.paged_attn_impl,
+                          attn_impl=cfg.attn_impl, chunk=cfg.attn_chunk)
         if tape is not None:
             tape.append((q, o))
     return o.reshape(b, sq, -1) @ p["wo"]
@@ -218,8 +233,6 @@ def _run_dense(cfg: ModelConfig, params: Dict, x: torch.Tensor, *,
     (``jax.checkpoint(body)``)."""
     if cache is not None and not _has_leaves(cfg, cache, _DENSE):
         raise ValueError(_CACHE_KINDS)
-    if cache is not None and cfg.local_ring_kv and LOCAL in cfg.block_pattern:
-        raise NotImplementedError(_RING_TODO)
     decode = pos is not None
 
     def block(x: torch.Tensor, bp: Dict, bc) -> torch.Tensor:
@@ -379,11 +392,6 @@ def decode_step(cfg: ModelConfig, params: Dict, cache: Dict,
     return _logits(cfg, params, x)[:, 0], cache
 
 
-_RING_TODO = ("cfg.local_ring_kv: the ring-buffered KV cache of local "
-              "layers (ring_decode_attention, fill_ring) is not ported yet: "
-              "ROADMAP queue 1 item 4")
-
-
 def init_cache(cfg: ModelConfig, params: Dict, batch: int,
                max_len: int) -> Dict:
     """The dense decode cache, zeros on the params' device in the JAX
@@ -391,12 +399,10 @@ def init_cache(cfg: ModelConfig, params: Dict, batch: int,
     "v"]`` (nb, batch, max_len, Hkv, D) in ``cfg.dtype`` for an attention
     layer; ``cache["layer_i"]["ssm_c"]`` for a Mamba2 layer, ``"conv"``
     (nb, batch, K - 1, conv channels) in ``cfg.dtype`` and ``"ssm"`` (nb,
-    batch, H, P, N) in float32."""
-    if cfg.local_ring_kv and LOCAL in cfg.block_pattern:
-        raise NotImplementedError(_RING_TODO)
+    batch, H, P, N) in float32. With ``cfg.local_ring_kv`` a local
+    layer's k/v hold ``min(max_len, sliding_window)`` rows, a ring."""
     dt = getattr(torch, cfg.dtype)
     dev = params["embed"].device
-    shape = (cfg.num_blocks, batch, max_len, cfg.num_kv_heads, cfg.head_dim)
     cache: Dict[str, Any] = {}
     nb = cfg.num_blocks
     for i, kind in enumerate(cfg.block_pattern):
@@ -412,6 +418,10 @@ def init_cache(cfg: ModelConfig, params: Dict, batch: int,
         if kind not in (ATTN, LOCAL):
             raise NotImplementedError(
                 f"layer kind {kind!r} is not ported yet")
+        rows = max_len
+        if cfg.local_ring_kv and kind == LOCAL:
+            rows = min(max_len, cfg.sliding_window)
+        shape = (nb, batch, rows, cfg.num_kv_heads, cfg.head_dim)
         cache[f"layer_{i}"] = {"self": {
             n: torch.zeros(shape, dtype=dt, device=dev) for n in ("k", "v")}}
     return cache

@@ -15,7 +15,9 @@ The port of ``repro/sampling/continuous.py``:
 The engine owns the device state (page pools, per-slot logits); the
 scheduler owns the host bookkeeping (block table, allocator, prefix
 cache). Token draws are keyed per request, never per slot: draw ``g`` of
-request ``rid`` depends only on (seed, rid, g, logits).
+request ``rid`` uses the threefry key ``fold_in(fold_in(key, rid), g)``,
+as in the JAX package, so its tokens are the JAX engine's given the same
+key and logits.
 
 Speculative decoding (``spec_k > 0``, ``sampling/spec.py``) keeps the
 JAX package's *pending-token* convention: the last committed token's K/V
@@ -48,6 +50,7 @@ from repro_torch.sampling.paged_cache import (PageAllocator, SCRATCH_PAGE,
                                               paged_cache_supported,
                                               pages_for)
 from repro_torch.sampling.prefix_cache import PrefixCache
+from repro_torch.sampling.prng import PRNGKey, as_key, fold_in
 from repro_torch.sampling.sample import (mask_vocab, model_logp,
                                          sample_token_rows)
 from repro_torch.sampling.scheduler import (DECODE, PREFILL,
@@ -106,7 +109,9 @@ class ContinuousEngine:
     (default an :class:`NGramDrafter` of ``spec_ngram_min`` to
     ``spec_ngram_max``); ``spec_rescore`` replays each round's attention
     through one folded K4 launch and keeps the max difference
-    (``stats()["spec_rescore_max_diff"]``).
+    (``stats()["spec_rescore_max_diff"]``). ``key`` (default
+    ``PRNGKey(0)``) keys the draws: request ``rid`` draws with
+    ``fold_in(key, rid)``.
     """
 
     def __init__(self, cfg: ModelConfig, params: Dict[str, Any], *,
@@ -124,7 +129,7 @@ class ContinuousEngine:
                  spec_ngram_max: int = 3,
                  spec_ngram_min: int = 1,
                  spec_rescore: bool = True,
-                 seed: int = 0) -> None:
+                 key: Optional[torch.Tensor] = None) -> None:
         if not paged_cache_supported(cfg):
             raise ValueError(f"{cfg.name}: continuous engine needs an "
                              "attention-only decode cache (no enc-dec / "
@@ -154,7 +159,7 @@ class ContinuousEngine:
                                          prefix_cache=self.prefix_cache)
         self.pool = init_paged_pool(cfg, self.num_pages, page_size,
                                     device=self.device)
-        self.seed = seed
+        self.key = PRNGKey(0) if key is None else as_key(key)
         self.spec_k = spec_k
         self.spec_rescore = spec_rescore
         self.drafter: Optional[DraftProposer] = drafter
@@ -167,7 +172,8 @@ class ContinuousEngine:
         self._active = np.zeros((num_slots,), bool)
         self._gen = np.zeros((num_slots,), np.int64)
         self._max_new = np.ones((num_slots,), np.int64)
-        self._rids = np.zeros((num_slots,), np.int64)
+        # each slot's request key, fold_in(key, rid): two uint32 words
+        self._req_keys = np.zeros((num_slots, 2), np.int64)
         self._results: Dict[int, GenerationResult] = {}
         self._rescore_max_diff = 0.0
         # per-request acceptance EMA ([ema, rounds since the last draft]):
@@ -327,7 +333,7 @@ class ContinuousEngine:
         pos = self._tensor(self._pos)
         gen0 = self._tensor(self._gen)
         max_new = self._tensor(self._max_new)
-        rids = self._tensor(self._rids)
+        req_keys = self._tensor(self._req_keys)
         done = ~self._tensor(self._active)
         oob_pos = bt.shape[1] * self.page_size
         last = self._last
@@ -335,7 +341,7 @@ class ContinuousEngine:
         for i in range(self.sync_every):
             dead = done | ((gen0 + i) >= max_new)
             lg = mask_vocab(last, self.vocab_limit)
-            tok = sample_token_rows(self.seed, rids, gen0 + i, lg,
+            tok = sample_token_rows(fold_in(req_keys, gen0 + i), lg,
                                     temperature=rl.temperature,
                                     top_k=rl.top_k, top_p=rl.top_p)
             lp = torch.where(dead, 0.0, model_logp(last, tok))
@@ -364,7 +370,7 @@ class ContinuousEngine:
         pos0_t = self._tensor(pos0)
         gen_base_t = self._tensor(gen_base)
         max_new = self._tensor(self._max_new)
-        rids = self._tensor(self._rids)
+        req_keys = self._tensor(self._req_keys)
         done = ~self._tensor(self._active)
         oob_pos = bt.shape[1] * self.page_size
         toks, lps = [], []
@@ -374,7 +380,7 @@ class ContinuousEngine:
             step_pos = torch.where(dead, oob_pos, pos0_t + i)
             logits, _ = decode_step(self.cfg, self.params, self.pool, tok,
                                     step_pos, page_table=page_table)
-            nt = sample_token_rows(self.seed, rids, gi,
+            nt = sample_token_rows(fold_in(req_keys, gi),
                                    mask_vocab(logits, self.vocab_limit),
                                    temperature=rl.temperature,
                                    top_k=rl.top_k, top_p=rl.top_p)
@@ -391,8 +397,9 @@ class ContinuousEngine:
         positions ``pos0 + [0, W)``), then accept the longest draft prefix
         matching the replayed draws (``spec.accept_drafts``).
 
-        ``packed`` (B, W+6) holds what changes per round, in one transfer:
-        ``[window(W), draft_len, gen_base, pos0, active, rid, max_new]``.
+        ``packed`` (B, W+7) holds what changes per round, in one transfer:
+        ``[window(W), draft_len, gen_base, pos0, active, key(2),
+        max_new]``, ``key`` the slot's request key.
         Every window column writes its K/V at its position; rejected and
         padded columns land on the slot's own reserved-but-unread slots
         (or the scratch page) and are overwritten before any query can
@@ -405,11 +412,12 @@ class ContinuousEngine:
         Returns (iout (B, W+2) = [toks(W), n_emit, n_acc], fout (B, W+1)
         = [lps(W), rescore diff]) on the device."""
         rl = self.rl
-        w = packed.shape[1] - 6
+        w = packed.shape[1] - 7
         t = self._tensor(packed)
         window = t[:, :w]
         draft_len, gen_base, pos0 = t[:, w], t[:, w + 1], t[:, w + 2]
-        active, rids, max_new = t[:, w + 3].bool(), t[:, w + 4], t[:, w + 5]
+        active, req_keys = t[:, w + 3].bool(), t[:, w + 4:w + 6]
+        max_new = t[:, w + 6]
         page_table = self._tensor(bt)
         positions = pos0[:, None] + torch.arange(w, device=self.device)
         logits, _, aux = forward(self.cfg, self.params, window,
@@ -417,7 +425,7 @@ class ContinuousEngine:
                                  page_table=page_table,
                                  record_queries=self.spec_rescore)
         toks, lps, n_emit, n_acc = accept_drafts(
-            logits, window, draft_len, active, self.seed, rids, gen_base,
+            logits, window, draft_len, active, req_keys, gen_base,
             max_new, temperature=rl.temperature, top_k=rl.top_k,
             top_p=rl.top_p, vocab_limit=self.vocab_limit)
         diff = torch.zeros((), dtype=torch.float32, device=self.device)
@@ -534,7 +542,7 @@ class ContinuousEngine:
                 pref.state = DECODE
                 self._active[s], self._pos[s] = True, pref.prompt_len
                 self._gen[s], self._max_new[s] = 0, pref.max_new
-                self._rids[s] = pref.rid
+                self._req_keys[s] = fold_in(self.key, pref.rid).numpy()
                 if self.prefix_cache is not None:
                     self.prefix_cache.insert(
                         pref.prompt,
@@ -601,16 +609,17 @@ class ContinuousEngine:
         # pow2 window widths (floor 2: the prefill-shaped recording path),
         # the JAX package's, so its K4 launches have the reference's shapes
         w = max(2, _live_width(1 + max_k, self.spec_k + 1))
-        packed = np.zeros((self.num_slots, w + 6), np.int64)
+        packed = np.zeros((self.num_slots, w + 7), np.int64)
         packed[:, :w] = PAD
         for r in dec:
             s = r.slot
             pending, d = per_slot[s]
             packed[s, 0] = pending
             packed[s, 1:1 + len(d)] = d
-            packed[s, w:] = (len(d), r.gen_count - 1,
-                             r.prompt_len + r.gen_count - 1, 1, r.rid,
-                             r.max_new)
+            packed[s, w:w + 4] = (len(d), r.gen_count - 1,
+                                  r.prompt_len + r.gen_count - 1, 1)
+            packed[s, w + 4:w + 6] = self._req_keys[s]
+            packed[s, w + 6] = r.max_new
         bt = self._chunk_table(int(packed[:, w + 2].max()) + w)
         with self._tr.span("verify", track="engine", slots=len(dec),
                            window=w, width=bt.shape[1]):
@@ -683,11 +692,12 @@ class ContinuousEngine:
 
     # ------------------------------------------------------------------
     def generate(self, requests: Sequence[Request],
-                 seed: Optional[int] = None) -> List[GenerationResult]:
+                 key: Optional[torch.Tensor] = None
+                 ) -> List[GenerationResult]:
         """Submit ``requests``, step until they all finish, return results
-        in request order."""
-        if seed is not None:
-            self.seed = seed
+        in request order. ``key`` replaces the engine's key first."""
+        if key is not None:
+            self.key = as_key(key)
         pending = set()
         for req in requests:
             self.submit(req)
@@ -733,7 +743,8 @@ def rollout_from_results(prompts: np.ndarray,
 
 def generate_continuous(cfg: ModelConfig, rl: RLConfig, params: Dict[str, Any],
                         prompts: Union[np.ndarray, torch.Tensor],
-                        seed: int = 0, *, max_new: Optional[int] = None,
+                        key: Optional[torch.Tensor] = None, *,
+                        max_new: Optional[int] = None,
                         vocab_limit: Optional[int] = None,
                         num_slots: Optional[int] = None,
                         page_size: int = 16,
@@ -745,13 +756,13 @@ def generate_continuous(cfg: ModelConfig, rl: RLConfig, params: Dict[str, Any],
     rollout dict of ``rollout_from_results`` on the params' device, plus
     the engine's ``stats``.
 
-    ``seed`` keys the token draws (the JAX package takes a PRNG key: the
-    port's draws are keyed per request by (seed, rid, draw index), rid
-    being the row). ``num_slots`` decode slots (default min(B, 8)) are
-    recycled as requests finish, ``prompt_lens`` admits per-row true
-    prompt lengths, ``prefill_chunk`` bounds the prompt tokens prefilled
-    per chunk (default: the whole prompt), ``sync_every`` is the decode
-    horizon, ``prefix_cache`` turns on shared-prefix page reuse."""
+    ``key`` (default ``PRNGKey(0)``) keys the token draws, per request
+    with rid the row, as in the JAX package. ``num_slots`` decode slots
+    (default min(B, 8)) are recycled as requests finish, ``prompt_lens``
+    admits per-row true prompt lengths, ``prefill_chunk`` bounds the
+    prompt tokens prefilled per chunk (default: the whole prompt),
+    ``sync_every`` is the decode horizon, ``prefix_cache`` turns on
+    shared-prefix page reuse."""
     max_new = max_new or rl.max_new_tokens
     prompts_np = np.asarray(prompts.cpu() if isinstance(prompts, torch.Tensor)
                             else prompts)
@@ -761,7 +772,7 @@ def generate_continuous(cfg: ModelConfig, rl: RLConfig, params: Dict[str, Any],
         num_slots=min(b, num_slots or 8), page_size=page_size,
         sync_every=sync_every,
         prefill_chunk=clamp_prefill_chunk(prefill_chunk, tp),
-        vocab_limit=vocab_limit, prefix_cache=prefix_cache, seed=seed)
+        vocab_limit=vocab_limit, prefix_cache=prefix_cache, key=key)
     sp = SamplingParams(temperature=rl.temperature, top_k=rl.top_k,
                         top_p=rl.top_p, max_new_tokens=max_new)
     requests = []

@@ -14,12 +14,11 @@ request-level contract (``repro_torch.serving.api``):
 - **continuous** (:class:`repro_torch.sampling.continuous.ContinuousEngine`):
   a slot pool over a paged KV cache.
 
-Draw ``t`` of request ``rid`` is the port's hashed Gumbel-max
-(``sample.sample_token_rows`` with ``gens = t``), keyed per request and
-never per batch row, so a request draws the same tokens whichever engine
-serves it. It does not reproduce the JAX package's threefry bits
-(ROADMAP queue 1 item 4): stochastic draws match the JAX package in
-distribution, a greedy profile (top_k=1) token for token.
+Draw ``t`` of request ``rid`` uses the threefry key
+``fold_in(fold_in(key, rid), t)`` (``sampling.prng``), as in the JAX
+package: keyed per request and never per batch row, so a request draws
+the same tokens whichever engine serves it, and the JAX package's tokens
+given the same key, rid and logits.
 
 ``generate(cfg, rl, params, prompts, ...)`` is the legacy batch entry
 point, a thin shim over the engines. ``token_logps`` is the App. B.1
@@ -42,6 +41,7 @@ from repro_torch.models.model import decode_step, forward, init_cache
 from repro_torch.sampling.continuous import (ContinuousEngine,
                                              generate_continuous)
 from repro_torch.sampling.paged_cache import paged_cache_supported
+from repro_torch.sampling.prng import PRNGKey, as_key, fold_in
 from repro_torch.sampling.sample import (mask_vocab, model_logp,
                                          sample_token_rows)
 from repro_torch.serving.api import GenerationResult, Request
@@ -52,12 +52,13 @@ from repro_torch.serving.api import GenerationResult, Request
 
 @torch.no_grad()
 def _generate_static(cfg: ModelConfig, rl: RLConfig, params: Dict[str, Any],
-                     prompts: torch.Tensor, seed: int, max_new: int,
+                     prompts: torch.Tensor, key: torch.Tensor, max_new: int,
                      vocab_limit: int, rids: Optional[torch.Tensor] = None
                      ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """prompts (B, Tp) on the params' device -> (completions (B, max_new),
     sampler_lp (B, max_new) float32, comp_mask (B, max_new) float32).
-    ``rids`` (default the batch rows) key the draws."""
+    Draw ``t`` of row ``r`` uses ``fold_in(fold_in(key, rids[r]), t)``;
+    ``rids`` default to the batch rows."""
     b, tp = prompts.shape
     cache = init_cache(cfg, params, b, tp + max_new)
     logits, cache, _ = forward(cfg, params, prompts, cache=cache)
@@ -65,11 +66,12 @@ def _generate_static(cfg: ModelConfig, rl: RLConfig, params: Dict[str, Any],
     del logits
     if rids is None:
         rids = torch.arange(b, device=prompts.device)
+    row_keys = fold_in(as_key(key, prompts.device), rids)
     done = torch.zeros((b,), dtype=torch.bool, device=prompts.device)
     toks, lps, valid = [], [], []
     for t in range(max_new):
         lg = mask_vocab(last, vocab_limit)
-        tok = sample_token_rows(seed, rids, torch.full_like(rids, t), lg,
+        tok = sample_token_rows(fold_in(row_keys, t), lg,
                                 temperature=rl.temperature, top_k=rl.top_k,
                                 top_p=rl.top_p)
         tok = torch.where(done, PAD, tok)
@@ -91,16 +93,17 @@ class StaticEngine:
     ``max_new_tokens`` may vary per request: the loop runs to the batch
     max and each request is trimmed on the host, which is exact because
     draw ``t`` of request ``rid`` never depends on the loop's length.
-    Runs on the device its params live on.
+    Runs on the device its params live on; ``key`` (default
+    ``PRNGKey(0)``) keys the draws.
     """
 
     def __init__(self, cfg: ModelConfig, params: Dict[str, Any], *,
                  rl: RLConfig, vocab_limit: Optional[int] = None,
-                 seed: int = 0) -> None:
+                 key: Optional[torch.Tensor] = None) -> None:
         self.cfg, self.rl, self.params = cfg, rl, params
         self.device = params["embed"].device
         self.vocab_limit = vocab_limit or cfg.padded_vocab
-        self.seed = seed
+        self.key = PRNGKey(0) if key is None else as_key(key)
 
     @property
     def profile(self) -> tuple:
@@ -110,9 +113,10 @@ class StaticEngine:
         self.params = params
 
     def generate(self, requests: Sequence[Request],
-                 seed: Optional[int] = None) -> List[GenerationResult]:
-        if seed is not None:
-            self.seed = seed
+                 key: Optional[torch.Tensor] = None
+                 ) -> List[GenerationResult]:
+        if key is not None:
+            self.key = as_key(key)
         for req in requests:
             if req.params.profile != self.profile:
                 raise ValueError(
@@ -131,7 +135,7 @@ class StaticEngine:
         rids = torch.tensor([r.rid for r in requests], device=self.device)
         max_new = max(r.params.max_new_tokens for r in requests)
         completions, sampler_lp, comp_mask = _generate_static(
-            self.cfg, self.rl, self.params, prompts, self.seed, max_new,
+            self.cfg, self.rl, self.params, prompts, self.key, max_new,
             self.vocab_limit, rids)
         # the one host sync: the batch ends here by design
         comp_np = completions.cpu().numpy()
@@ -159,16 +163,16 @@ class StaticEngine:
 def build_engine(cfg: ModelConfig, params: Dict[str, Any],
                  serve: ServeConfig, *, rl: Optional[RLConfig] = None,
                  vocab_limit: Optional[int] = None,
-                 seed: Optional[int] = None
+                 key: Optional[torch.Tensor] = None
                  ) -> Union[StaticEngine, ContinuousEngine]:
     """The engine a ``ServeConfig`` describes, on the device ``params``
     live on. ``rl`` carries the sampling profile every request must
-    match; ``seed`` (default ``serve.seed``) keys the token draws. Falls
+    match; ``key`` (default the engine's ``PRNGKey(0)``) keys the token
+    draws. Falls
     back to the static engine, with a warning, for architectures the paged
     cache cannot serve (Mamba2 layers, for one), as the JAX package
     does."""
     rl = rl or RLConfig(engine=serve.engine)
-    seed = serve.seed if seed is None else seed
     if serve.paged_attn_impl:
         cfg = dataclasses.replace(cfg, paged_attn_impl=serve.paged_attn_impl)
     if serve.engine == "continuous":
@@ -183,12 +187,12 @@ def build_engine(cfg: ModelConfig, params: Dict[str, Any],
                 prefix_cache_entries=serve.prefix_cache_entries,
                 spec_k=serve.spec_k, spec_ngram_max=serve.spec_ngram_max,
                 spec_ngram_min=serve.spec_ngram_min,
-                spec_rescore=serve.spec_rescore, seed=seed)
+                spec_rescore=serve.spec_rescore, key=key)
         warnings.warn(f"{cfg.name}: continuous engine unsupported for this "
                       "architecture/memory setup; serving static",
                       stacklevel=2)
     return StaticEngine(cfg, params, rl=rl, vocab_limit=vocab_limit,
-                        seed=seed)
+                        key=key)
 
 
 # --------------------------------------------------------------------------
@@ -196,7 +200,8 @@ def build_engine(cfg: ModelConfig, params: Dict[str, Any],
 
 
 def generate(cfg: ModelConfig, rl: RLConfig, params: Dict[str, Any],
-             prompts: Union[np.ndarray, torch.Tensor], seed: int = 0, *,
+             prompts: Union[np.ndarray, torch.Tensor],
+             key: Optional[torch.Tensor] = None, *,
              max_new: Optional[int] = None,
              vocab_limit: Optional[int] = None,
              engine: Optional[str] = None,
@@ -212,8 +217,9 @@ def generate(cfg: ModelConfig, rl: RLConfig, params: Dict[str, Any],
     continuous slot pool (which takes ``continuous_kwargs``);
     architectures the paged cache cannot serve fall back to the static
     path with a warning that names the ignored ``continuous_kwargs``, as
-    in the JAX package. ``seed`` keys the draws (the JAX package takes a
-    PRNG key); row ``i`` is request ``i``."""
+    in the JAX package. ``key`` (default ``PRNGKey(0)``) keys the draws;
+    row ``i`` is request ``i``."""
+    key = PRNGKey(0) if key is None else key
     engine = engine or rl.engine
     if engine not in ("static", "continuous"):
         raise ValueError(f"unknown engine {engine!r}")
@@ -225,7 +231,7 @@ def generate(cfg: ModelConfig, rl: RLConfig, params: Dict[str, Any],
     vocab_limit = vocab_limit or cfg.padded_vocab
     if engine == "continuous":
         if paged_cache_supported(cfg):
-            return generate_continuous(cfg, rl, params, prompts, seed,
+            return generate_continuous(cfg, rl, params, prompts, key,
                                        max_new=max_new,
                                        vocab_limit=vocab_limit,
                                        **continuous_kwargs)
@@ -237,7 +243,7 @@ def generate(cfg: ModelConfig, rl: RLConfig, params: Dict[str, Any],
     dev = params["embed"].device
     prompts = torch.as_tensor(prompts).to(dev, torch.int64)
     completions, sampler_lp, comp_mask = _generate_static(
-        cfg, rl, params, prompts, seed, max_new, vocab_limit)
+        cfg, rl, params, prompts, key, max_new, vocab_limit)
     return {"tokens": torch.cat([prompts.to(torch.int32),
                                  completions.to(torch.int32)], 1),
             "completions": completions.to(torch.int32),

@@ -19,8 +19,9 @@ the speculative pipeline that need no model:
 
 Acceptance rule (exact replay)
 ------------------------------
-Draw ``g`` of request ``rid`` is ``sample_token_rows(seed, rid, g,
-filtered logits)``, a pure function of (seed, rid, g, logits). The verify
+Draw ``g`` of a request is ``sample_token_rows(fold_in(req_key, g),
+filtered logits)``, a pure function of (request key, g, logits), as in
+the JAX package (``req_key = fold_in(engine key, rid)``). The verify
 round scores the window ``[pending, d_1..d_k]`` in one prefill-shaped
 forward, so row ``i-1`` holds the target logits after ``d_1..d_{i-1}``;
 replaying the engine's draw at every row gives the token the sequential
@@ -41,6 +42,7 @@ import torch
 from repro_torch.config import LOCAL, ModelConfig
 from repro_torch.data.tasks import EOS, PAD
 from repro_torch.kernels.ops import paged_prefill_layers
+from repro_torch.sampling.prng import fold_in
 from repro_torch.sampling.sample import (mask_vocab, model_logp,
                                          sample_token_rows)
 
@@ -107,8 +109,8 @@ class NGramDrafter:
 
 
 def accept_drafts(logits: torch.Tensor, window_tokens: torch.Tensor,
-                  draft_len: torch.Tensor, active: torch.Tensor, seed: int,
-                  rids: torch.Tensor, gen_base: torch.Tensor,
+                  draft_len: torch.Tensor, active: torch.Tensor,
+                  req_keys: torch.Tensor, gen_base: torch.Tensor,
                   max_new: torch.Tensor, *, temperature: float, top_k: int,
                   top_p: float, vocab_limit: int
                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
@@ -119,7 +121,8 @@ def accept_drafts(logits: torch.Tensor, window_tokens: torch.Tensor,
     ``[pending, d_1..d_{draft_len}, pad...]``; row ``i-1`` is the target
     distribution of emission ``i``. ``gen_base`` (B,) is the pending
     token's draw index (-1 right after prefill, when the pending token is
-    the last prompt token); ``rids`` (B,) key the draws with ``seed``.
+    the last prompt token); ``req_keys`` (B, 2) are the requests'
+    threefry keys, draw ``g`` using ``fold_in(req_keys[b], g)``.
     Returns ``(toks, lps, n_emit, n_acc)``: emitted tokens and logps
     packed into (B, W) (column j = emission j+1, PAD / 0 past
     ``n_emit``), the emitted count, and how many emissions were accepted
@@ -132,8 +135,8 @@ def accept_drafts(logits: torch.Tensor, window_tokens: torch.Tensor,
     gidx = (gen_base[:, None] + 1 + ar[None, :]).reshape(-1)
     # the draw the sequential engine makes at each row: the same
     # per-request counter stream, the same filtered distribution
-    that = sample_token_rows(seed, rids.repeat_interleave(w), gidx,
-                             mask_vocab(flat, vocab_limit),
+    keys = fold_in(req_keys.repeat_interleave(w, dim=0), gidx)
+    that = sample_token_rows(keys, mask_vocab(flat, vocab_limit),
                              temperature=temperature, top_k=top_k,
                              top_p=top_p)
     lp_hat = model_logp(flat, that).reshape(b, w)

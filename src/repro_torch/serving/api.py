@@ -8,21 +8,22 @@ The port of ``repro/serving/api.py``, with the same validation:
 - :class:`Request` — *what* to generate (prompt tokens) plus its SLO
   envelope (priority class, absolute deadline, arrival time);
 - :class:`GenerationResult` — the per-request outcome (tokens, engine
-  log-probs as App. B.1 metadata, finish reason, latency telemetry).
+  log-probs as App. B.1 metadata, finish reason, latency telemetry);
+- :class:`Engine` — the protocol both engines implement.
 
 Engine *capacity* knobs (slots, page size, decode horizon, pool size)
 live in ``repro_torch.config.ServeConfig``, not here: sampling parameters
 describe a request, serve config describes a deployment.
 
 ``TokenEvent`` is the streaming unit the continuous engine emits per
-scheduler sync — the asyncio front door (not ported yet) fans
-these out to HTTP/websocket subscribers.
+scheduler sync — the asyncio front door (``repro_torch.serving.server``)
+fans these out to HTTP/websocket subscribers.
 """
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Optional
+from typing import Any, List, Optional, Protocol, Sequence, runtime_checkable
 
 import numpy as np
 
@@ -82,8 +83,8 @@ class SamplingParams:
 @dataclasses.dataclass
 class Request:
     """One generation request. ``rid`` is the identity *and* the RNG
-    stream: draw ``t`` depends only on (seed, rid, t, logits), so the
-    same (seed, rid) yields the same completion in any slot.
+    stream: token draws use ``fold_in(fold_in(key, rid), t)``, so the
+    same (key, rid) yields the same completion on any engine, any slot.
     ``deadline_s`` is an absolute clock value (same clock as
     ``arrival_s``): a request still queued past it is expired, never
     one that is already decoding."""
@@ -140,3 +141,20 @@ class GenerationResult:
     @property
     def gen_count(self) -> int:
         return int(self.tokens.shape[0])
+
+
+@runtime_checkable
+class Engine(Protocol):
+    """What every generation engine offers the serving layer. Static and
+    continuous engines both implement it; the continuous engine
+    additionally offers the incremental ``submit()``/``step()`` surface
+    the asyncio front door streams from."""
+
+    def generate(self, requests: Sequence[Request],
+                 key: Optional[Any] = None) -> List[GenerationResult]:
+        """Run ``requests`` to completion, results in request order."""
+        ...
+
+    def update_params(self, params: Any) -> None:
+        """Swap in new model parameters (sampler weight sync)."""
+        ...

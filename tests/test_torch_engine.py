@@ -1,11 +1,13 @@
 """The port's continuous engine and sampling against the JAX package.
 
-Greedy profile (temperature 1, top_k 1, top_p 1) is independent of either
-package's noise source, so the same requests through both engines give
-identical tokens; logps (full-model log-softmax, float32) agree to 1e-4.
-Stochastic draws use different noise sources by design (ROADMAP queue 1),
-so they are held to their contract: per-request determinism whatever the
-slot, support inside the filtered set, and the filtered distribution.
+Under a greedy profile (temperature 1, top_k 1, top_p 1) the same
+requests through both engines give identical tokens; logps (full-model
+log-softmax, float32) agree to 1e-4. Draws are the JAX package's threefry
+draws (``sampling.prng``; ``tests/test_torch_prng.py`` and
+``tests/test_torch_stochastic.py`` hold the stochastic tokens to the
+reference's); here they are also held to their contract: per-request
+determinism whatever the slot, finite noise at the uniform's extremes,
+support inside the filtered set, and the filtered distribution.
 """
 import os
 import subprocess
@@ -31,8 +33,8 @@ from repro_torch.config import RLConfig, ServeConfig
 from repro_torch.models import init_params, params_from_numpy
 from repro_torch.sampling import (ContinuousEngine, StaticEngine,
                                   build_engine, filter_logits)
-from repro_torch.sampling.sample import (gumbel_noise, mask_vocab,
-                                         open_unit, sample_token_rows)
+from repro_torch.sampling import prng
+from repro_torch.sampling.sample import mask_vocab, sample_token_rows
 from repro_torch.serving.api import Request, SamplingParams
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -112,6 +114,12 @@ def test_filter_logits_matches_jax_with_ties():
     assert int(kept.sum()) == 6
 
 
+def _row_keys(seed, rids, gens):
+    """Draw ``gens[r]`` of request ``rids[r]`` under ``PRNGKey(seed)``,
+    the engines' keying."""
+    return prng.fold_in(prng.fold_in(prng.PRNGKey(seed), rids), gens)
+
+
 def test_draws_keyed_per_request_not_per_slot():
     rng = np.random.default_rng(2)
     lg = torch.from_numpy(rng.standard_normal((5, 300)).astype(np.float32))
@@ -119,33 +127,46 @@ def test_draws_keyed_per_request_not_per_slot():
     gens = torch.tensor([0, 4, 2, 9, 1])
     perm = torch.tensor([3, 0, 4, 1, 2])
     kw = dict(temperature=0.6, top_k=20, top_p=0.95)
-    a = sample_token_rows(9, rids, gens, lg, **kw)
-    b = sample_token_rows(9, rids[perm], gens[perm], lg[perm], **kw)
+    a = sample_token_rows(_row_keys(9, rids, gens), lg, **kw)
+    b = sample_token_rows(_row_keys(9, rids[perm], gens[perm]), lg[perm],
+                          **kw)
     assert torch.equal(a[perm], b)
-    c = sample_token_rows(9, rids, gens, lg, **kw)
+    c = sample_token_rows(_row_keys(9, rids, gens), lg, **kw)
     assert torch.equal(a, c)
-    noise = gumbel_noise(9, rids, gens, 300)
-    assert not torch.equal(noise, gumbel_noise(10, rids, gens, 300))
+    noise = prng.gumbel(_row_keys(9, rids, gens), (300,))
+    assert not torch.equal(noise, prng.gumbel(_row_keys(10, rids, gens),
+                                              (300,)))
     assert not torch.equal(noise[0], noise[1])
+    # a slot's noise is its own row: the batch around it changes nothing
+    assert torch.equal(noise[perm], prng.gumbel(
+        _row_keys(9, rids[perm], gens[perm]), (300,)))
 
 
 def test_noise_is_finite_at_every_hash_value():
-    """The uniforms behind the Gumbel noise stay inside (0, 1) at the
-    hash's extremes: a noise of +inf would win a draw through the top-k
-    and vocab masks."""
-    bits = torch.tensor([0, 1, 0x1FF, 0xFFFFFE00, 0xFFFFFF00, 0xFFFFFFFF],
+    """The uniforms behind the Gumbel noise stay inside [tiny, 1) at the
+    extremes of the random bits (0 and 0xFFFFFFFF): a noise of +inf
+    would win a draw through the top-k and vocab masks."""
+    bits = torch.tensor([0, 1, 0x1FF, 0x200, 0xFFFFFE00, 0xFFFFFFFF],
                         dtype=torch.int64)
-    u = open_unit(bits)
+    orig = prng.random_bits
+    try:
+        prng.random_bits = lambda key, shape: bits
+        u = prng.uniform(prng.PRNGKey(0), (6,), minval=prng.TINY_F32)
+        g = prng.gumbel(prng.PRNGKey(0), (6,))
+    finally:
+        prng.random_bits = orig
+    assert float(u[0]) == prng.TINY_F32 and float(u[-1]) == 1 - 2 ** -23
     assert bool(((u > 0) & (u < 1)).all())
-    assert bool(torch.isfinite(-torch.log(-torch.log(u))).all())
-    # greedy over a masked vocab of 2^18 ids, where ~1.6% of rows held an
-    # infinite noise before: every draw is the row's argmax
+    assert bool(torch.isfinite(g).all())
+    # greedy over a masked vocab of 2^18 ids: every draw is the row's
+    # argmax (an infinite noise would pick a masked id)
     rng = np.random.default_rng(4)
     lg = torch.from_numpy(rng.standard_normal((64, 1 << 18)).astype(
         np.float32))
-    tok = sample_token_rows(0, torch.arange(64), torch.zeros(64, dtype=
-                            torch.long), mask_vocab(lg, 18), top_k=1)
+    keys = _row_keys(0, torch.arange(64), torch.zeros(64, dtype=torch.long))
+    tok = sample_token_rows(keys, mask_vocab(lg, 18), top_k=1)
     assert torch.equal(tok, lg[:, :18].argmax(-1))
+    assert bool(torch.isfinite(prng.gumbel(keys, (1 << 18,))).all())
 
 
 def test_draws_follow_the_filtered_distribution():
@@ -154,8 +175,9 @@ def test_draws_follow_the_filtered_distribution():
     logits = torch.from_numpy(rng.standard_normal(v).astype(np.float32))
     kw = dict(temperature=0.7, top_k=8, top_p=0.9)
     rows = logits.expand(n, v)
-    tok = sample_token_rows(4, torch.arange(n), torch.zeros(n,
-                                  dtype=torch.long), rows, **kw)
+    tok = sample_token_rows(_row_keys(4, torch.arange(n),
+                                      torch.zeros(n, dtype=torch.long)),
+                            rows, **kw)
     filt = filter_logits(logits[None], **kw)[0]
     allowed = filt > -1e29
     assert bool(allowed[tok].all())               # only the filtered set

@@ -917,3 +917,103 @@ def test_spec_engine_on_card(cuda):
     assert all(r.finish_reason in ("eos", "length") for r in res)
     eng.prefix_cache.clear()
     assert eng.free_pages == eng.num_pages - 1
+
+
+# --------------------------------------------------------------------------
+# threefry draws, the "gather" path, ring decode (plain torch on the card)
+
+
+def test_threefry_bits_on_card_equal_the_cpu(cuda):
+    """Keys, bits and uniforms are integer work plus one exact float
+    subtraction: bit for bit the CPU's. The Gumbel noise takes two float32
+    logs, each within 1 ulp of exact on either device: within 4 ulps of
+    max(|g|, 1) (2 for each log; tests/test_torch_prng.py holds the CPU to
+    jax's at that bar); the tokens are equal."""
+    from repro_torch.sampling import prng
+    from repro_torch.sampling.sample import sample_token_rows
+    v = 152064
+    for rows in (8, 40):
+        keys = {}
+        for dev in (cuda, torch.device("cpu")):
+            rids = torch.arange(rows, device=dev) * 7 + 3
+            keys[dev.type] = prng.fold_in(prng.fold_in(
+                prng.PRNGKey(5, dev), rids), rids % 5)
+        kd, kc = keys["cuda"], keys["cpu"]
+        assert torch.equal(kd.cpu(), kc)
+        assert torch.equal(prng.random_bits(kd, (v,)).cpu(),
+                           prng.random_bits(kc, (v,)))
+        ud = prng.uniform(kd, (v,), minval=prng.TINY_F32).cpu()
+        uc = prng.uniform(kc, (v,), minval=prng.TINY_F32)
+        assert torch.equal(ud.view(torch.int32), uc.view(torch.int32))
+        gd, gc = prng.gumbel(kd, (v,)).cpu(), prng.gumbel(kc, (v,))
+        mag = gc.abs().clamp_min(1.0)
+        ulp = torch.nextafter(mag, torch.full_like(mag, float("inf"))) - mag
+        assert float(((gd - gc).abs() / ulp).max()) <= 4
+        lg = torch.randn((rows, v), generator=torch.Generator().manual_seed(
+            rows)) * 4
+        for kw in (dict(temperature=0.6, top_k=20, top_p=0.95), {}):
+            assert torch.equal(
+                sample_token_rows(kd, lg.to(cuda), **kw).cpu(),
+                sample_token_rows(kc, lg, **kw))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_gather_matches_twin_at_kernel_shapes(cuda, dtype):
+    """"gather" (the dense view, plain torch) against the twin at the K3
+    and K4 case shapes (live slots; a finite scratch page, which the dense
+    view reads), and no kernel launch."""
+    q, kp, vp, table, lens = decode_inputs(page=16, rep=2, d=128, seed=3)
+    kp[0], vp[0] = kp[1], vp[1]
+    q, kp, vp, table, lens = _dev((q, kp, vp, table, lens), cuda, dtype)
+    pa.reset_launch_counts()
+    for kind, window, cap in (("causal", None, None), ("local", 9, 30.0)):
+        got = ops.paged_decode(q[:, None], kp, vp, table, lens, kind=kind,
+                               window=window, softcap=cap, impl="gather")
+        want = ops.paged_decode(q[:, None].float(), kp.float(), vp.float(),
+                                table, lens, kind=kind, window=window,
+                                softcap=cap, impl="ref")
+        live = (lens <= table.shape[1] * 16) & (lens > 0)
+        torch.testing.assert_close(got[live].float(), want[live], rtol=0,
+                                   atol=TOL[dtype])
+    q, kp, vp, table, positions = prefill_inputs(page=16, rep=2, d=128,
+                                                 c=77, seed=4)
+    kp[0], vp[0] = kp[1], vp[1]
+    q, kp, vp, table, positions = _dev((q, kp, vp, table, positions), cuda,
+                                       dtype)
+    for kind, window, cap in (("causal", None, None), ("local", 20, 50.0)):
+        got = ops.paged_prefill(q, kp, vp, table, positions, kind=kind,
+                                window=window, softcap=cap, impl="gather")
+        want = ops.paged_prefill(q.float(), kp.float(), vp.float(), table,
+                                 positions, kind=kind, window=window,
+                                 softcap=cap, impl="ref")
+        torch.testing.assert_close(got.float(), want, rtol=0,
+                                   atol=TOL[dtype])
+    torch.cuda.synchronize()
+    assert pa.LAUNCHES == {"paged_decode": 0, "paged_prefill": 0}
+
+
+def test_ring_decode_step_on_card(cuda):
+    """A ring-KV decode step (gemma2's smoke model, float32, prompt past
+    the window) on the card equals the full-cache step's logits within
+    1e-4, and the ring cache holds window rows."""
+    from repro_torch.models import decode_step, forward, init_cache
+    base = smoke("gemma2-9b")
+    params = init_params(base, 0, device=cuda)
+    toks = torch.from_numpy(np.random.default_rng(1).integers(
+        3, base.vocab_size, (2, 80))).to(cuda)
+    out = {}
+    for ring in (False, True):
+        cfg = dataclasses.replace(base, local_ring_kv=ring)
+        cache = init_cache(cfg, params, 2, 84)
+        forward(cfg, params, toks, cache=cache)
+        steps = []
+        tok = toks[:, -1]
+        for t in range(4):
+            lg, _ = decode_step(cfg, params, cache, tok, 80 + t)
+            steps.append(lg)
+            tok = lg.argmax(-1)
+        out[ring] = torch.stack(steps)
+        rows = {cache[f"layer_{i}"]["self"]["k"].shape[2]
+                for i, k in enumerate(cfg.block_pattern) if k == "local"}
+        assert rows == {cfg.sliding_window if ring else 84}
+    torch.testing.assert_close(out[True], out[False], rtol=0, atol=1e-4)

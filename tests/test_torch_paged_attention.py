@@ -188,10 +188,40 @@ class TestDispatch:
         assert tpa.LAUNCHES == {"paged_decode": 0, "paged_prefill": 0}
 
     def test_gather_and_unknown_impls_raise(self):
+        """"gather" (the JAX package's dense gather path) runs and matches
+        the reference's "gather" within 1e-5 (float32; a finite scratch
+        page, since the dense view reads it); unknown impls and non-causal
+        kinds raise."""
         q, kp, vp, table, lengths = decode_case()
+        kp[0], vp[0] = kp[1], vp[1]
         t = [torch.from_numpy(x) for x in (q, kp, vp, table, lengths)]
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tops.paged_decode(t[0][:, None], *t[1:], impl="gather")
+        tpa.reset_launch_counts()
+        for kind, window, cap in (("causal", None, None),
+                                  ("local", 5, 30.0)):
+            want = jops.paged_decode(
+                jnp.asarray(q)[:, None], *map(jnp.asarray, (kp, vp, table,
+                                                           lengths)),
+                kind=kind, window=window, softcap=cap, impl="gather")
+            got = tops.paged_decode(t[0][:, None], *t[1:], kind=kind,
+                                    window=window, softcap=cap,
+                                    impl="gather")
+            np.testing.assert_allclose(_f32(got), _f32(want), atol=1e-5,
+                                       rtol=0)
+        qp, kpp, vpp, tbl, pos = prefill_case(seed=4)
+        kpp[0], vpp[0] = kpp[1], vpp[1]
+        for kind, window, cap in (("causal", None, None),
+                                  ("local", 4, 25.0)):
+            want = jops.paged_prefill(*map(jnp.asarray, (qp, kpp, vpp, tbl,
+                                                         pos)),
+                                      kind=kind, window=window, softcap=cap,
+                                      impl="gather")
+            got = tops.paged_prefill(*map(torch.from_numpy, (qp, kpp, vpp,
+                                                              tbl, pos)),
+                                     kind=kind, window=window, softcap=cap,
+                                     impl="gather")
+            np.testing.assert_allclose(_f32(got), _f32(want), atol=1e-5,
+                                       rtol=0)
+        assert tpa.LAUNCHES == {"paged_decode": 0, "paged_prefill": 0}
         with pytest.raises(ValueError, match="unknown"):
             tops.paged_decode(t[0][:, None], *t[1:], impl="flash")
         with pytest.raises(ValueError, match="causal-only"):

@@ -44,6 +44,7 @@ from repro_torch.kernels import ops as tops
 from repro_torch.models import forward, params_from_numpy
 from repro_torch.sampling import build_engine, init_paged_pool
 from repro_torch.sampling import spec as tspec
+from repro_torch.sampling.prng import as_key
 from repro_torch.serving.api import Request, SamplingParams
 
 SHAPES = {
@@ -169,9 +170,9 @@ def test_accept_drafts_matches_jax(seed):
         jnp.asarray(max_new), vocab_limit=logits.shape[-1], **GREEDY)
     t = [torch.from_numpy(x) for x in (logits, window, dl, active,
                                         gen_base, max_new)]
-    got = tspec.accept_drafts(t[0], t[1], t[2], t[3], 0, torch.arange(b),
-                              t[4], t[5], vocab_limit=logits.shape[-1],
-                              **GREEDY)
+    got = tspec.accept_drafts(t[0], t[1], t[2], t[3],
+                              as_key(np.asarray(keys)), t[4], t[5],
+                              vocab_limit=logits.shape[-1], **GREEDY)
     for name, g, w_ in zip(("toks", "lps", "n_emit", "n_acc"), got, want):
         if name == "lps":
             np.testing.assert_allclose(g.numpy(), np.asarray(w_), atol=1e-6,

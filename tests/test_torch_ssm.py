@@ -46,6 +46,7 @@ from repro_torch.models import (decode_step, forward, init_cache,
 from repro_torch.models import ssm
 from repro_torch.sampling import StaticEngine, build_engine, generate
 from repro_torch.sampling import token_logps
+from repro_torch.sampling.prng import PRNGKey
 from repro_torch.serving.api import Request, SamplingParams
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -360,13 +361,13 @@ def test_continuous_engine_falls_back_to_static(model):
         eng = build_engine(tcfg, tp, ServeConfig(engine="continuous"), rl=rl)
     assert isinstance(eng, StaticEngine)
     prompts = _prompts(tcfg.vocab_size, 2, seed=4)
-    want = generate(tcfg, rl, tp, prompts, seed=3)
+    want = generate(tcfg, rl, tp, prompts, key=PRNGKey(3))
     with pytest.warns(UserWarning, match=r"ignoring \['num_slots'\]"):
-        got = generate(tcfg, rl, tp, prompts, seed=3, engine="continuous",
-                       num_slots=2)
+        got = generate(tcfg, rl, tp, prompts, key=PRNGKey(3),
+                       engine="continuous", num_slots=2)
     assert torch.equal(got["tokens"], want["tokens"])
     res = eng.generate([Request(rid=i, prompt=p, params=SamplingParams.from_rl(
-        rl)) for i, p in enumerate(prompts)], seed=3)
+        rl)) for i, p in enumerate(prompts)], key=PRNGKey(3))
     for i, r in enumerate(res):
         np.testing.assert_array_equal(
             want["completions"][i, :r.gen_count].numpy(), r.tokens)

@@ -11,9 +11,9 @@ The JAX forward with ``attn_impl="pallas"`` runs under ``jax.jit``: called
 eagerly it raises (``_standard_positions`` misses the scan's tracer under
 jax 0.9.0; ROADMAP queue 3). Tolerances: logits and engine logps 1e-4,
 recomputed logps 1e-5 (float32 throughout; the twin and the Pallas kernel
-sum in another order). Against the JAX engine the profile is greedy
-(top_k 1), because the port's draws are a hashed Gumbel-max and not
-threefry; against the port's own continuous engine, temperature 1.0.
+sum in another order). Against the JAX engine the profile here is greedy
+(top_k 1; ``tests/test_torch_stochastic.py`` holds sampled tokens to the
+reference's); against the port's own continuous engine, temperature 1.0.
 """
 import dataclasses
 import functools
@@ -45,6 +45,7 @@ from repro_torch.models import (decode_step, forward, init_cache,
                                 params_from_numpy)
 from repro_torch.sampling import (StaticEngine, build_engine, generate,
                                   token_logps)
+from repro_torch.sampling.prng import PRNGKey
 from repro_torch.serving.api import Request, SamplingParams
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -195,10 +196,10 @@ def test_legacy_generate_shim():
     tp = init_params(tcfg, 0, device="cpu")
     rl = RLConfig(temperature=1.0, top_k=0, top_p=1.0, max_new_tokens=6)
     prompts = _prompts(tcfg.vocab_size, 3, n=20, seed=4)
-    roll = generate(tcfg, rl, tp, prompts, seed=9)
+    roll = generate(tcfg, rl, tp, prompts, key=PRNGKey(9))
     assert roll["tokens"].shape == (3, 26) and roll["prompt_len"] == 20
     assert torch.equal(roll["tokens"][:, :20], torch.from_numpy(prompts))
-    res = StaticEngine(tcfg, tp, rl=rl, seed=9).generate(
+    res = StaticEngine(tcfg, tp, rl=rl, key=PRNGKey(9)).generate(
         [Request(rid=i, prompt=p, params=SamplingParams.from_rl(rl))
          for i, p in enumerate(prompts)])
     for i, r in enumerate(res):
@@ -208,7 +209,8 @@ def test_legacy_generate_shim():
         np.testing.assert_allclose(roll["sampler_lp"][i, :n].numpy(),
                                    r.logps, rtol=0, atol=1e-6)
         assert float(roll["comp_mask"][i].sum()) == n
-    cont = generate(tcfg, rl, tp, prompts, seed=9, engine="continuous",
+    cont = generate(tcfg, rl, tp, prompts, key=PRNGKey(9),
+                    engine="continuous",
                     num_slots=2)
     assert torch.equal(cont["tokens"], roll["tokens"])
     with pytest.raises(TypeError, match="continuous-engine kwargs"):
@@ -230,10 +232,15 @@ def test_static_engine_rejects_ragged_and_mismatched():
         eng.generate([Request(rid=0, prompt=np.arange(3, 9), params=sp),
                       Request(rid=1, prompt=np.arange(3, 9),
                               params=SamplingParams(max_new_tokens=4))])
+    # a ring config's local layers cache min(max_len, window) rows
     ring = dataclasses.replace(tconfigs.smoke("gemma2-9b"),
                                local_ring_kv=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        init_cache(ring, init_params(ring, 0, device="cpu"), 1, 8)
+    rp = init_params(ring, 0, device="cpu")
+    for max_len, rows in ((8, 8), (200, ring.sliding_window)):
+        rc = init_cache(ring, rp, 1, max_len)
+        for i, kind in enumerate(ring.block_pattern):
+            want = rows if kind == "local" else max_len
+            assert rc[f"layer_{i}"]["self"]["k"].shape[2] == want
     with pytest.raises(ValueError, match="one position"):
         decode_step(tcfg, tp, init_cache(tcfg, tp, 2, 8),
                     torch.tensor([1, 2]), torch.tensor([3, 4]))

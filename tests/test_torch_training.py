@@ -48,6 +48,7 @@ from repro_torch.models import attention as tattn
 from repro_torch.models import forward, params_from_numpy
 from repro_torch.sampling import (generate_continuous, rollout_from_results,
                                   token_logps)
+from repro_torch.sampling.prng import PRNGKey
 from repro_torch.serving.api import GenerationResult
 
 LOSS_TYPES = ("grpo", "dr_grpo", "bnpo", "gspo", "gepo", "tis", "cispo",
@@ -498,8 +499,8 @@ def test_generate_continuous_greedy_matches_jax():
     kw = dict(num_slots=2, page_size=4, prefill_chunk=4, sync_every=3)
     want = jgenerate(jcfg, JRLConfig(**greedy), jp, jnp.asarray(prompts),
                      jax.random.PRNGKey(0), prompt_lens=[7, 5, 7, 3], **kw)
-    got = generate_continuous(tcfg, RLConfig(**greedy), tp, prompts, seed=0,
-                              prompt_lens=[7, 5, 7, 3], **kw)
+    got = generate_continuous(tcfg, RLConfig(**greedy), tp, prompts,
+                              key=PRNGKey(0), prompt_lens=[7, 5, 7, 3], **kw)
     np.testing.assert_array_equal(got["tokens"].numpy(),
                                   np.asarray(want["tokens"]))
     np.testing.assert_array_equal(got["comp_mask"].numpy(),
