@@ -106,19 +106,17 @@ async def _ws_read_frame(reader: asyncio.StreamReader
 
 class FrontDoor:
     """The serving front door: engine pump + HTTP/websocket endpoints.
-    Serves on the device ``params`` live on (or ``engine``'s); ``key``
-    keys the engine's draws (default ``PRNGKey(0)``)."""
+    Serves on the device ``params`` live on; ``key`` keys the engine's
+    draws (default ``PRNGKey(0)``)."""
 
     def __init__(self, cfg: ModelConfig, params, serve: ServeConfig, *,
                  rl: Optional[RLConfig] = None, tokenizer=None,
-                 vocab_limit: Optional[int] = None, key=None,
-                 engine: Optional[ContinuousEngine] = None) -> None:
+                 vocab_limit: Optional[int] = None, key=None) -> None:
         self.serve = serve
         self.rl = rl or RLConfig(engine="continuous")
         self.tokenizer = tokenizer
-        self.engine = engine if engine is not None else build_engine(
-            cfg, params, serve, rl=self.rl, vocab_limit=vocab_limit,
-            key=key)
+        self.engine = build_engine(cfg, params, serve, rl=self.rl,
+                                   vocab_limit=vocab_limit, key=key)
         if not isinstance(self.engine, ContinuousEngine):
             raise ValueError("the front door streams from the continuous "
                              f"engine; ServeConfig.engine={serve.engine!r} "
