@@ -169,6 +169,31 @@ never jax, never the JAX package. Phases, each fatal on failure:
    equal), every logp within
    TOL_LOGP_PATHS of the teacher-forced forward; it prints TTFT
    p50/p99 and tokens/s through the door against ``engine.generate``.
+12. families: the decoder-only families left on one card, one model at a
+   time (bf16, random weights from --seed, full width; depth cuts in
+   DENSE_DEPTH, SCOUT_LAYERS, MAVERICK_LAYERS). First K3/K4 at each
+   family's GQA group (rep 2, 7, 1 at Hkv 40, 5), K5 at rep 5 and K1/K2
+   at the learners' vocabularies (202240, 50432), each against its twin
+   and timed beside it, the bound and the library call. (a) internlm2-1.8b
+   (24/24 layers), qwen2-7b (28/28) and qwen1.5-32b (32/64) through
+   ``ContinuousEngine`` (K3/K4, 8 slots, page 16, prefill chunk 512): 8
+   requests of 64-1024 tokens, 32 new, the serve profile; the launches the
+   run implies; logps against the teacher-forced forward and through one
+   ``token_logps`` recompute (K1), the mean within TOL_LOGP_MEAN_BF16, and
+   again with float32 weights (qwen1.5-32b at 16 layers) every token
+   within TOL_LOGP_F32. (b) llama4-scout (float32 at 2 layers; bf16 at
+   8/48) and llama4-maverick (one period of 2, 128 experts) serving the
+   serve cell's 24 requests, 64 new, through K3/K4 and through the twins
+   with the same key: float32 tokens equal and logps within TOL_LOGP_F32,
+   bf16 the mean |dlogp| before each request's first differing token
+   within TOL_LOGP_MEAN_BF16; ``moe_drop_frac`` by forward kind and the
+   gap between the sampler's logps and the App. B.1 recompute printed.
+   (c) GEPO on scout at 1 layer (B 8 x S 512) and (d) on mamba2-1.3b
+   (48 layers, B 8 x S 1024, the chunked SSD's autograd), ``grad_accum``
+   2, AdamW: K1/K2 against the twin through one ``rl_loss_fn`` forward and
+   backward (the learner phase's bars, the lm_head gradient in float32
+   within 1e-4), then 3 ``train_step``s with finite metrics (``moe_*``
+   present on scout) and the launches they imply; step ms and peak GiB.
 
 Prints a ``{"kernels": [...]}`` JSON line, then as the last line
 ``{"ok": true, "device": {...}}``. Exits non-zero, printing no result,
@@ -196,8 +221,8 @@ import torch  # noqa: E402
 
 from repro_torch.checkpoint import PolicyStore  # noqa: E402
 from repro_torch.checkpoint.store import flatten_with_paths  # noqa: E402
-from repro_torch.config import (HeteroConfig, RLConfig,  # noqa: E402
-                                ServeConfig, TrainConfig)
+from repro_torch.config import (MOE, HeteroConfig,  # noqa: E402
+                                RLConfig, ServeConfig, TrainConfig)
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.data import ArithmeticTask, Tokenizer  # noqa: E402
 from repro_torch.hetero import (HeteroRuntime, SamplerNode,  # noqa: E402
@@ -377,11 +402,11 @@ def bound(nbytes: float, flops: float, peak: float = BF16_FLOPS_S) -> tuple:
 # phase 2: the kernels at the slice's shapes
 
 
-def decode_case(gen, dev, lengths, width):
+def decode_case(gen, dev, lengths, width, hq=HQ, hkv=HKV):
     b = len(lengths)
     pool = 1 + b * width
-    kp = torch.randn((pool, PAGE, HKV, D), generator=gen, device=dev)
-    vp = torch.randn((pool, PAGE, HKV, D), generator=gen, device=dev)
+    kp = torch.randn((pool, PAGE, hkv, D), generator=gen, device=dev)
+    vp = torch.randn((pool, PAGE, hkv, D), generator=gen, device=dev)
     kp[0] = vp[0] = float("nan")             # scratch page: garbage
     table = torch.zeros((b, width), dtype=torch.int32)
     perm = torch.randperm(pool - 1, generator=torch.Generator().manual_seed(
@@ -390,20 +415,20 @@ def decode_case(gen, dev, lengths, width):
         live = min(-(-n // PAGE), width)
         if n <= width * PAGE:                # the dead slot keeps scratch
             table[s, :live] = perm[s * width:s * width + live]
-    q = torch.randn((b, HQ, D), generator=gen, device=dev)
+    q = torch.randn((b, hq, D), generator=gen, device=dev)
     lens = torch.tensor(lengths, dtype=torch.int32)
     return (q.bfloat16(), kp.bfloat16(), vp.bfloat16(), table.to(dev),
             lens.to(dev))
 
 
-def prefill_case(gen, dev, c, start):
+def prefill_case(gen, dev, c, start, hq=HQ, hkv=HKV):
     width = -(-(start + c) // PAGE)
     pool = 1 + width + 4
-    kp = torch.randn((pool, PAGE, HKV, D), generator=gen, device=dev)
-    vp = torch.randn((pool, PAGE, HKV, D), generator=gen, device=dev)
+    kp = torch.randn((pool, PAGE, hkv, D), generator=gen, device=dev)
+    vp = torch.randn((pool, PAGE, hkv, D), generator=gen, device=dev)
     kp[0] = vp[0] = float("nan")
     table = torch.arange(1, width + 1, dtype=torch.int32, device=dev)[None]
-    q = torch.randn((1, c, HQ, D), generator=gen, device=dev)
+    q = torch.randn((1, c, hq, D), generator=gen, device=dev)
     positions = (start + torch.arange(c, device=dev))[None]
     return q.bfloat16(), kp.bfloat16(), vp.bfloat16(), table, positions
 
@@ -439,11 +464,12 @@ def sdpa_decode(q, kp, vp, table, lengths):
     """Library yardstick setup: the dense per-slot view and its mask; the
     timed call is only the SDPA itself."""
     b, width = table.shape
+    hq, hkv = q.shape[1], kp.shape[2]
     idx = table.long()
-    k = kp[idx].reshape(b, width * PAGE, HKV, D).transpose(1, 2)
-    v = vp[idx].reshape(b, width * PAGE, HKV, D).transpose(1, 2)
-    k = k.repeat_interleave(HQ // HKV, dim=1).contiguous()
-    v = v.repeat_interleave(HQ // HKV, dim=1).contiguous()
+    k = kp[idx].reshape(b, width * PAGE, hkv, D).transpose(1, 2)
+    v = vp[idx].reshape(b, width * PAGE, hkv, D).transpose(1, 2)
+    k = k.repeat_interleave(hq // hkv, dim=1).contiguous()
+    v = v.repeat_interleave(hq // hkv, dim=1).contiguous()
     cols = torch.arange(width * PAGE, device=q.device)
     mask = (cols[None] < lengths.long()[:, None])[:, None, None]
     return q[:, :, None], k, v, mask
@@ -451,11 +477,12 @@ def sdpa_decode(q, kp, vp, table, lengths):
 
 def sdpa_prefill(q, kp, vp, table, positions):
     width = table.shape[1]
+    hq, hkv = q.shape[2], kp.shape[2]
     idx = table.long()
-    k = kp[idx].reshape(1, width * PAGE, HKV, D).transpose(1, 2)
-    v = vp[idx].reshape(1, width * PAGE, HKV, D).transpose(1, 2)
-    k = k.repeat_interleave(HQ // HKV, dim=1).contiguous()
-    v = v.repeat_interleave(HQ // HKV, dim=1).contiguous()
+    k = kp[idx].reshape(1, width * PAGE, hkv, D).transpose(1, 2)
+    v = vp[idx].reshape(1, width * PAGE, hkv, D).transpose(1, 2)
+    k = k.repeat_interleave(hq // hkv, dim=1).contiguous()
+    v = v.repeat_interleave(hq // hkv, dim=1).contiguous()
     cols = torch.arange(width * PAGE, device=q.device)
     mask = (cols[None, :] <= positions[0][:, None])[None, None]
     return q.transpose(1, 2).contiguous(), k, v, mask
@@ -474,14 +501,14 @@ def max_err(got, want, rows=slice(None)):
     return float((got[rows].float() - want[rows].float()).abs().max())
 
 
-def decode_bound(q, table, lengths, width):
+def decode_bound(q, table, lengths, width, hkv=HKV):
     """K3's bound: the live slots' K/V (the dead slot's block walks no
     page), q read and the output written once, the table and lengths."""
     keys = [n for n in lengths if n <= width * PAGE]
-    kv_bytes = sum(-(-k // PAGE) * PAGE for k in keys) * HKV * D * 2 * 2
+    kv_bytes = sum(-(-k // PAGE) * PAGE for k in keys) * hkv * D * 2 * 2
     nbytes = kv_bytes + 2 * q.numel() * 2 + table.numel() * 4 + 4 * len(
         lengths)
-    return bound(nbytes, sum(4 * HQ * D * k for k in keys))
+    return bound(nbytes, sum(4 * q.shape[1] * D * k for k in keys))
 
 
 def decode_long(gen, dev):
@@ -2094,7 +2121,8 @@ def fused_vs_twin(cfg, rl, params, batch, label):
     leaves = tree_leaves(params)
     for p in leaves:
         p.requires_grad_(True)
-    head = next(i for i, p in enumerate(leaves) if p is params["lm_head"])
+    head_leaf = params.get("lm_head", params["embed"])      # tied: embed
+    head = next(i for i, p in enumerate(leaves) if p is head_leaf)
     out = {}
     fl.reset_launch_counts()
     for impl in ("fused", "chunked"):
@@ -2623,17 +2651,21 @@ def templated_prompts(vocab, seed):
 def spec_run(cfg, params, prompts, rl, max_new, vocab, spec_k, seed):
     """Serve ``prompts`` through a fresh ``ContinuousEngine`` (8 slots,
     page 16, prefill chunk 512, draws from ids below ``vocab``) at
-    ``spec_k``; hold the pool, the launch counts and (spec on) the
-    rescore. Returns (results, stats delta, launches, decode tokens/s,
-    decode ms per step)."""
+    ``spec_k``; hold the pool, the launch counts (none through the twins,
+    ``paged_attn_impl="ref"``) and (spec on) the rescore. Returns
+    (results, stats delta, launches, decode tokens/s, decode ms per
+    step)."""
     serve = ServeConfig(num_slots=SLOTS, page_size=PAGE, prefill_chunk=512,
                         sync_every=8, max_total_tokens=2048,
-                        paged_attn_impl="pallas", spec_k=spec_k, seed=seed)
+                        paged_attn_impl=cfg.paged_attn_impl, spec_k=spec_k,
+                        seed=seed)
     eng = build_engine(cfg, params, serve, rl=rl, vocab_limit=vocab,
                        key=prng.PRNGKey(seed))
     sp = SamplingParams.from_rl(rl, max_new=max_new)
-    # warm-up: cuBLAS handles, allocator, first launches; then a cold cache
-    eng.generate([Request(rid=1000 + i, prompt=prompts[i][:64], params=sp)
+    # warm-up: cuBLAS handles, allocator, first launches (one prefill chunk
+    # and one decode chunk each); then a cold cache
+    eng.generate([Request(rid=1000 + i, prompt=prompts[i][:64],
+                          params=SamplingParams.from_rl(rl, max_new=8))
                   for i in range(2)])
     eng.prefix_cache.clear()
     torch.cuda.synchronize()
@@ -2665,7 +2697,7 @@ def spec_run(cfg, params, prompts, rl, max_new, vocab, spec_k, seed):
     st["accept_rate"] = (st["accepted_tokens_total"]
                          / max(st["drafted_tokens_total"], 1))
     st["spec_rescore_max_diff"] = eng.stats()["spec_rescore_max_diff"]
-    lyr = cfg.num_layers
+    lyr = cfg.num_layers if cfg.paged_attn_impl == "pallas" else 0
     want = {"paged_decode": lyr * (eng.sync_every * st["spec_fallback_chunks"]
                                    if spec_k else st["decode_steps"]),
             "paged_prefill": lyr * st["prefill_chunks"]
@@ -3364,6 +3396,536 @@ def door_phase(dev, seed, card):
     return launches
 
 
+# --------------------------------------------------------------------------
+# phase 12: the decoder-only families left on one card
+
+# depth cuts, width never cut: qwen1.5-32b serves 32 of its 64 layers
+# (70.4 GB of weights and 1.31 MB of KV a token at full depth do not fit
+# beside the pool), llama4-scout 8 of 48 (216 GB at full depth),
+# llama4-maverick one period of 2 (MoE + MLP, 128 experts), the scout
+# float32 pair 2 layers, the scout learner 1 layer
+DENSE_DEPTH = {"internlm2-1.8b": 24, "qwen2-7b": 28, "qwen1.5-32b": 32}
+# the dense float32 pairs: qwen1.5-32b at 16 layers (39.9 GB in float32)
+DENSE_F32_DEPTH = {"internlm2-1.8b": 24, "qwen2-7b": 28, "qwen1.5-32b": 16}
+# A dense config's engine (K3/K4) against its teacher-forced forward. bf16:
+# the paged path and the dense chunked path round apart through every
+# layer, and at qwen1.5-32b's width the max over 256 tokens reaches 0.156
+# nats, the same on the engine through the twins (H100 80GB HBM3, 700 W),
+# so the bf16 bar is the mean over the tokens, TOL_LOGP_MEAN_BF16 (the Gemma2
+# phase's), with the max printed against TOL_LOGP_PATHS; the float32 pair
+# is held token by token to TOL_LOGP_F32, which a kernel fault breaks
+SCOUT, MAVERICK = "llama4-scout-17b-a16e", "llama4-maverick-400b-a17b"
+SCOUT_LAYERS, SCOUT_F32_LAYERS, MAVERICK_LAYERS = 8, 2, 2
+SCOUT_LEARN_LAYERS = 1
+DENSE_NEW, MOE_NEW = 32, 64
+LEARN_ROWS, SCOUT_LEARN_S, MAMBA_LEARN_S = 8, 512, 1024
+LEARN_GROUP = 4                      # a microbatch (grad_accum 2) = 1 group
+# learner batches: completion targets at the end of each row, the
+# sampler's logps the App. B.1 recompute's plus seeded noise of this scale
+# (a stale sampler), so the importance weights are not all 1
+LEARN_NEW, SAMPLER_NOISE = 128, 0.05
+# K1/K2 rows at the learners' microbatches (grad_accum 2 of 8 rows) and
+# padded vocabularies
+FAMILY_LOGPROB = (("llama4", 4 * (SCOUT_LEARN_S - 1), 202240),
+                  ("mamba2-1.3b", 4 * (MAMBA_LEARN_S - 1), 50432))
+# an MoE engine through K3/K4 against the same engine through the twins,
+# same key. float32 (2 layers): routing and sampling cut-offs move only by
+# float32 summation order (~1e-6 on probabilities), so every token is
+# equal and the logps within TOL_LOGP_F32. bf16: a router whose top-2
+# probabilities are within bf16 noise of each other routes a token to
+# another expert on the two paths, which moves its logps far more than
+# the attention's rounding does (no teacher-forced forward can stand in
+# either: its capacity differs); the bar is the mean over each request's
+# positions before its first differing token, TOL_LOGP_MEAN_BF16, with
+# the max and the share above TOL_LOGP_PATHS printed. A kernel fault at
+# rep 5 moves every token: the kernel rows at the family shapes hold K3/K4
+# against their twins element by element
+
+
+class DropLog:
+    """``moe_drop_frac`` of every MoE layer call while active (spec_run's
+    two warm-up requests, 64 + 8 tokens, included), by forward kind (a decode
+    step feeds all slots, B > 1; a prefill chunk one request, B = 1), kept
+    on the card and read after the run."""
+
+    def __init__(self):
+        self.fracs = {"decode": [], "prefill": []}
+
+    def __enter__(self):
+        real = self._real = model_mod.moe_ffn
+
+        def observed(cfg, p, x):
+            y, aux = real(cfg, p, x)
+            kind = "prefill" if x.shape[0] == 1 else "decode"
+            self.fracs[kind].append(aux["moe_drop_frac"].detach())
+            return y, aux
+        model_mod.moe_ffn = observed
+        return self
+
+    def __exit__(self, *exc):
+        model_mod.moe_ffn = self._real
+
+    def summary(self):
+        out = {}
+        for kind, fr in self.fracs.items():
+            v = torch.stack(fr).float().cpu().numpy() if fr else np.zeros(1)
+            out[kind] = (len(fr), float(v.mean()), float(v.max()))
+        return out
+
+
+def family_prompts(vocab, seed):
+    """8 prompts of 64-1024 tokens (both ends present)."""
+    rng = np.random.default_rng(seed + 12)
+    lens = [64, 1024] + [int(n) for n in rng.integers(64, 1025, 6)]
+    return [rng.integers(3, vocab, n).astype(np.int32) for n in lens]
+
+
+def load_family(name, seed, dev, dtype=None, **over):
+    """Random weights (seed) for ``name`` at full width, depth cut by
+    ``over``; returns (cfg, params)."""
+    cfg = dataclasses.replace(get_config(name), paged_attn_impl="pallas",
+                              **over)
+    if dtype is not None:
+        cfg = dataclasses.replace(cfg, dtype=str(dtype)[6:])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params = init_params(cfg, seed, device=dev)
+    torch.cuda.synchronize()
+    n = cfg.param_count()
+    gb = n * torch.finfo(getattr(torch, cfg.dtype)).bits / 8e9
+    log(f"[families] {cfg.name}: {cfg.num_layers}/"
+        f"{get_config(name).num_layers} layers, d_model {cfg.d_model}, Hq "
+        f"{cfg.num_heads} Hkv {cfg.num_kv_heads} (rep "
+        f"{cfg.num_heads // max(cfg.num_kv_heads, 1)}), vocab "
+        f"{cfg.vocab_size} (padded {cfg.padded_vocab}), {n / 1e9:.3f}B "
+        f"params {cfg.dtype} ({gb:.1f} GB), init "
+        f"{time.perf_counter() - t0:.1f}s")
+    return cfg, params
+
+
+def free():
+    """Return the card memory of what the caller just deleted."""
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def padded_rows(prompts, results, dev):
+    """prompt + completion of each request, right-padded with 0 (PAD) to
+    the longest: (B, L) on ``dev``."""
+    rows = [np.concatenate([p, r.tokens]) for p, r in zip(prompts, results)]
+    out = np.zeros((len(rows), max(len(r) for r in rows)), np.int64)
+    for i, r in enumerate(rows):
+        out[i, :len(r)] = r
+    return torch.from_numpy(out).to(dev)
+
+
+def recompute_gap(cfg, params, prompts, results, dev, rows=SLOTS):
+    """The App. B.1 recompute (``token_logps``, K1) of every request's
+    completion, ``rows`` requests a call right-padded: |recompute -
+    sampler| over the generated tokens -> (max, mean, K1 launches)."""
+    gaps = []
+    fl.reset_launch_counts()
+    for i in range(0, len(prompts), rows):
+        ps, rs = prompts[i:i + rows], results[i:i + rows]
+        lp = token_logps(cfg, params, padded_rows(ps, rs, dev)).cpu().numpy()
+        for j, (p, r) in enumerate(zip(ps, rs)):
+            got = lp[j, len(p) - 1:len(p) - 1 + r.gen_count]
+            gaps.append(np.abs(got - r.logps))
+        del lp
+    g = np.concatenate(gaps)
+    if not np.isfinite(g).all():
+        raise AssertionError(f"{cfg.name}: non-finite recompute")
+    return float(g.max()), float(g.mean()), fl.LAUNCHES["logprob_fwd"]
+
+
+def dense_family(dev, seed, card, name, dtype=torch.bfloat16):
+    """One dense config through ContinuousEngine (K3/K4) at ``dtype``:
+    its logps against the teacher-forced forward (bf16: the mean within
+    TOL_LOGP_MEAN_BF16; float32: every token within TOL_LOGP_F32),
+    launches as the run implies, then one token_logps recompute (K1) of
+    the 8 requests held to the same bar. Returns the launches."""
+    f32 = dtype == torch.float32
+    depth = (DENSE_F32_DEPTH if f32 else DENSE_DEPTH)[name]
+    cfg, params = load_family(name, seed, dev, dtype=dtype, num_layers=depth)
+    prompts = family_prompts(cfg.vocab_size, seed)
+    torch.cuda.reset_peak_memory_stats()
+    res, st, launches, tok_s, ms = spec_run(
+        cfg, params, prompts, RLConfig(**SERVE_PROFILE), DENSE_NEW,
+        cfg.vocab_size, 0, seed)
+    diffs = []
+    for p, r in zip(prompts, res):
+        lp, _ = teacher_forced_logps(cfg, params, p, r.tokens, cfg.vocab_size)
+        diffs.append(np.abs(lp - r.logps))
+    d = np.concatenate(diffs)
+    rmax, rmean, k1 = recompute_gap(cfg, params, prompts, res, dev)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    if f32:
+        bar, got, rgot = f"max <= {TOL_LOGP_F32}", float(d.max()), rmax
+        ok = got <= TOL_LOGP_F32 and rmax <= TOL_LOGP_F32
+    else:
+        bar, got, rgot = f"mean <= {TOL_LOGP_MEAN_BF16}", float(d.mean()), \
+            rmean
+        ok = got <= TOL_LOGP_MEAN_BF16 and rmean <= TOL_LOGP_MEAN_BF16
+    log(f"[families] {cfg.name} {cfg.dtype} serve: {len(prompts)} requests "
+        f"of {min(map(len, prompts))}-{max(map(len, prompts))} tokens, "
+        f"{DENSE_NEW} new, temperature 0.6 / top-k 20 / top-p 0.95: "
+        f"{ms:.2f} ms per decode step, {tok_s:.1f} decode tokens/s, "
+        f"{st['decode_steps']} decode steps, {st['prefill_chunks']} prefill "
+        f"chunks; launches {launches}; |engine logp - teacher-forced| over "
+        f"{d.size} tokens: max {float(d.max()):.4f}, mean "
+        f"{float(d.mean()):.2e}, {float((d > TOL_LOGP_PATHS).mean()):.4f} "
+        f"above {TOL_LOGP_PATHS} ({bar}: {got:.3e}); recompute (K1 x {k1}) "
+        f"|recompute - engine| max {rmax:.4f}, mean {rmean:.2e} ({bar}: "
+        f"{rgot:.3e}); peak {peak:.2f} GiB | {card}")
+    if not ok or k1 != 1:
+        raise AssertionError(f"{cfg.name} {cfg.dtype}: engine or recompute "
+                             f"logps off the teacher-forced forward")
+    del params
+    free()
+    return {**launches, "logprob_fwd": k1}
+
+
+def moe_pair(cfg, params, prompts, seed, label):
+    """The serve traffic through the engine on K3/K4 and on the twins,
+    same key; returns ({impl: results}, launches of the K3/K4 run, stats,
+    decode ms per step, drop fractions of the K3/K4 run)."""
+    rl = RLConfig(**SERVE_PROFILE)
+    out = {}
+    for impl in ("pallas", "ref"):
+        icfg = dataclasses.replace(cfg, paged_attn_impl=impl)
+        with DropLog() as drops:
+            res, st, launches, tok_s, ms = spec_run(
+                icfg, params, prompts, rl, MOE_NEW, cfg.vocab_size, 0, seed)
+        out[impl] = res
+        if impl == "pallas":
+            info = (launches, st, ms, tok_s, drops.summary())
+        log(f"[families] {label} ({impl}): {ms:.2f} ms per decode step, "
+            f"{tok_s:.1f} decode tokens/s, {st['decode_steps']} decode "
+            f"steps, {st['prefill_chunks']} prefill chunks, "
+            f"{sum(r.gen_count for r in res)} tokens")
+    return (out,) + info
+
+
+def moe_diff(a_res, b_res):
+    """Per request, the positions before the first differing token:
+    (requests equal to the end, |dlogp| over those positions, first
+    difference per request)."""
+    same, diffs, first = 0, [], []
+    for a, b in zip(a_res, b_res):
+        n = min(a.gen_count, b.gen_count)
+        neq = np.flatnonzero(a.tokens[:n] != b.tokens[:n])
+        upto = int(neq[0]) if neq.size else n
+        same += int(np.array_equal(a.tokens, b.tokens))
+        diffs.append(np.abs(a.logps[:upto] - b.logps[:upto]))
+        first.append(upto)
+    return same, np.concatenate(diffs), first
+
+
+def drops_line(drops):
+    return ", ".join(f"{k} {n} layer calls mean {m:.4f} max {x:.4f}"
+                     for k, (n, m, x) in drops.items())
+
+
+def moe_serve(dev, seed, card):
+    """Scout's float32 pair at 2 layers, scout bf16 at 8 layers, maverick
+    bf16 at one period, each on K3/K4 against the twins with the same key;
+    drops per forward kind and the sampler-vs-recompute gap."""
+    launches = {"paged_decode": 0, "paged_prefill": 0, "logprob_fwd": 0}
+
+    def add(d):
+        for k in d:
+            launches[k] += d[k]
+
+    cfg, params = load_family(SCOUT, seed, dev, dtype=torch.float32,
+                              num_layers=SCOUT_F32_LAYERS)
+    prompts = engine_prompts(cfg, seed)
+    runs, lc, st, ms, tok_s, drops = moe_pair(cfg, params, prompts, seed,
+                                              "scout float32")
+    add(lc)
+    worst = max(float(np.abs(a.logps - b.logps).max())
+                for a, b in zip(runs["pallas"], runs["ref"]))
+    equal = all(np.array_equal(a.tokens, b.tokens)
+                for a, b in zip(runs["pallas"], runs["ref"]))
+    log(f"[families] scout float32 pair ({SCOUT_F32_LAYERS} layers, "
+        f"{len(prompts)} requests, {MOE_NEW} new): tokens equal {equal}, "
+        f"max |K3/K4 logp - twin logp| {worst:.2e} (<= {TOL_LOGP_F32}); "
+        f"drops: {drops_line(drops)} | {card}")
+    if not equal or worst > TOL_LOGP_F32:
+        raise AssertionError("scout float32: the engine on K3/K4 and on "
+                             "the twins disagree")
+    del params, runs
+    free()
+
+    for name, layers in ((SCOUT, SCOUT_LAYERS), (MAVERICK, MAVERICK_LAYERS)):
+        cfg, params = load_family(name, seed, dev, num_layers=layers)
+        torch.cuda.reset_peak_memory_stats()
+        runs, lc, st, ms, tok_s, drops = moe_pair(cfg, params, prompts,
+                                                  seed, f"{cfg.name} bf16")
+        add(lc)
+        same, diffs, first = moe_diff(runs["pallas"], runs["ref"])
+        rmax, rmean, k1 = recompute_gap(cfg, params, prompts,
+                                        runs["pallas"], dev)
+        add({"logprob_fwd": k1})
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        mean = float(diffs.mean()) if diffs.size else 0.0
+        log(f"[families] {cfg.name} bf16 ({layers} layers, E "
+            f"{cfg.num_experts}, top-{cfg.experts_per_token} + shared): "
+            f"{ms:.2f} ms per decode step, {tok_s:.1f} decode tokens/s; "
+            f"K3/K4 against the twins: {same}/{len(prompts)} requests equal "
+            f"to the end, first differing token at {first}; over the "
+            f"{diffs.size} positions before it mean |dlogp| {mean:.2e} "
+            f"(<= {TOL_LOGP_MEAN_BF16}), max {float(diffs.max()):.4f}, "
+            f"{float((diffs > TOL_LOGP_PATHS).mean()):.4f} of them above "
+            f"{TOL_LOGP_PATHS}; moe_drop_frac: {drops_line(drops)}; "
+            f"sampler vs App. B.1 recompute (K1 x {k1}, 8 requests a call, "
+            f"right-padded): max |gap| {rmax:.4f}, mean {rmean:.4f}; launches "
+            f"{lc}; peak {peak:.2f} GiB | {card}")
+        if not mean <= TOL_LOGP_MEAN_BF16:
+            raise AssertionError(f"{cfg.name} bf16: the engine on K3/K4 and "
+                                 f"on the twins disagree")
+        del params, runs
+        free()
+    return launches
+
+
+def learner_rows(cfg, params, dev, seed, s):
+    """LEARN_ROWS rows of ``s`` random tokens, the last LEARN_NEW targets
+    the completion, the sampler's logps the recompute's (K1) plus
+    SAMPLER_NOISE, a Bernoulli(0.5) reward per row (groups of LEARN_GROUP,
+    none all equal)."""
+    rng = np.random.default_rng(seed + 13)
+    tokens = torch.from_numpy(rng.integers(3, cfg.vocab_size,
+                                           (LEARN_ROWS, s))).to(dev)
+    mask = torch.zeros((LEARN_ROWS, s - 1), device=dev)
+    mask[:, -LEARN_NEW:] = 1.0
+    lp = token_logps(cfg, params, tokens)
+    noise = torch.from_numpy(rng.normal(0.0, SAMPLER_NOISE, lp.shape)).to(
+        dev, torch.float32)
+    r = np.zeros(LEARN_ROWS, bool)
+    for g in range(0, LEARN_ROWS, LEARN_GROUP):
+        while r[g:g + LEARN_GROUP].all() or not r[g:g + LEARN_GROUP].any():
+            r[g:g + LEARN_GROUP] = rng.random(LEARN_GROUP) < 0.5
+    return {"tokens": tokens, "mask": mask,
+            "sampler_lp": ((lp + noise) * mask).float(),
+            "rewards": torch.from_numpy(r.astype(np.float32)).to(dev)}
+
+
+def learner_family(dev, seed, card, name, s, **over):
+    """GEPO on ``name`` at full width: K1/K2 against the twin through one
+    rl_loss_fn forward and backward (the learner phase's bars), then 3
+    train_steps (grad_accum 2, AdamW) with finite metrics; step ms and
+    peak memory printed. Returns the K1/K2 launches."""
+    cfg, params = load_family(name, seed, dev, **over)
+    fl.reset_launch_counts()
+    batch = learner_rows(cfg, params, dev, seed, s)
+    rl = RLConfig(loss_type="gepo", group_size=LEARN_GROUP, beta_kl=0.005)
+    tc = TrainConfig(learning_rate=1e-6, grad_accum=2)
+    launches = dict(fl.LAUNCHES)
+    fused_vs_twin(cfg, rl, params, batch, f"{cfg.name}, B {LEARN_ROWS} x S "
+                  f"{s}, V {cfg.padded_vocab}")
+    for k in launches:
+        launches[k] += fl.LAUNCHES[k]
+    free()
+    state = init_state(cfg, tc, params)
+    fl.reset_launch_counts()
+    tokens = LEARN_ROWS * (s - 1)
+    for i in range(3):
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = train_step(cfg, rl, tc, state, batch)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        vals = {k: float(v) for k, v in m.items()}
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        moe = "".join(f" {k} {v:.4e}" for k, v in vals.items()
+                      if k.startswith("moe_"))
+        log(f"[families] {cfg.name} learner step {i + 1}: loss "
+            f"{vals['loss']:.6e} kl {vals['kl']:.3e} iw_mean "
+            f"{vals['iw_mean']:.6f} iw_max {vals['iw_max']:.6f} grad_norm "
+            f"{vals['grad_norm']:.4e}{moe} | {dt * 1e3:.1f} ms, "
+            f"{tokens / dt:.0f} learner tokens/s, peak {peak:.2f} GiB | "
+            f"{card}")
+        bad = [k for k, v in vals.items() if not np.isfinite(v)]
+        if bad:
+            raise AssertionError(f"{cfg.name} step {i + 1}: non-finite "
+                                 f"metrics {bad}")
+        if MOE in cfg.ffn_pattern and not {
+                "moe_load_balance", "moe_z_loss", "moe_drop_frac"} <= set(m):
+            raise AssertionError(f"{cfg.name}: moe_* metrics missing")
+    for k in launches:
+        launches[k] += fl.LAUNCHES[k]
+    # 1 recompute + 1 fused pass + 2 microbatches x 3 steps
+    want = {"logprob_fwd": 1 + 1 + 6, "logprob_bwd": 1 + 6}
+    log(f"[families] {cfg.name} learner launches: {launches} (want {want})")
+    if launches != want:
+        raise AssertionError(f"{cfg.name} learner launches {launches} != "
+                             f"{want}")
+    del state, params, batch
+    free()
+    return launches
+
+
+def family_kernel_rows(dev, seed):
+    """K3/K4 at each family's GQA group (8 slots up to 2048 keys; one
+    512-token chunk after 1024), K5 at rep 5, K1/K2 at the two learners'
+    microbatches and padded vocabularies: each against its twin, timed
+    beside the twin, the bound and the library call."""
+    gen = torch.Generator(device=dev).manual_seed(seed + 12)
+    rows = {"paged_decode": [], "paged_prefill": [], "flash_attention": [],
+            "logprob_fwd": [], "logprob_bwd": []}
+    width = 2048 // PAGE
+    lengths = [2048, 1537, 1024, 700, 333, 64, 1, width * PAGE + 1]
+    live = slice(0, SLOTS - 1)
+    for label, hkv, rep in (("internlm2-1.8b", 8, 2), ("qwen2-7b", 4, 7),
+                            ("qwen1.5-32b", 40, 1), ("llama4", 8, 5)):
+        hq = hkv * rep
+        q, kp, vp, table, lens = decode_case(gen, dev, lengths, width, hq,
+                                             hkv)
+        err = max_err(pa.paged_attention(q, kp, vp, table, lens),
+                      pa.paged_decode_ref(q.float(), kp.float(), vp.float(),
+                                          table, lens), live)
+        b_ms, b_by = decode_bound(q, table, lengths, width, hkv)
+        row = dict(family=label, max_abs_err=err, bound_ms=b_ms,
+                   bound_by=b_by,
+                   ms=time_ms(lambda: pa.paged_attention(q, kp, vp, table,
+                                                         lens)),
+                   plain_ms=time_ms(lambda: pa.paged_decode_ref(
+                       q, kp, vp, table, lens), iters=5),
+                   library_ms=library_ms(*sdpa_decode(q, kp, vp, table,
+                                                      lens)),
+                   shape=f"B={SLOTS} Hq={hq} Hkv={hkv} D={D} page={PAGE} "
+                         f"lengths={lengths} bf16")
+        rows["paged_decode"].append(row)
+        log(f"[families] K3 {label} (Hq {hq}, Hkv {hkv}): max|err| "
+            f"{err:.3e}, {row['ms']:.4f} ms, bound {b_ms:.5f} ms ({b_by}), "
+            f"twin {row['plain_ms']:.3f} ms, SDPA {row['library_ms']:.4f} ms")
+        if not err <= TOL_BF16:
+            raise AssertionError(f"K3 at {label}'s GQA disagrees with its "
+                                 f"twin")
+        c, start = 512, 1024
+        q, kp, vp, table, pos = prefill_case(gen, dev, c, start, hq, hkv)
+        err = max_err(ops.paged_prefill(q, kp, vp, table, pos, impl="pallas"),
+                      ops.paged_prefill(q.float(), kp.float(), vp.float(),
+                                        table, pos, impl="ref"))
+        kv_elems = -(-(start + c) // PAGE) * PAGE * hkv * D * 2
+        b_ms, b_by = bound(kv_elems * 2 + 2 * q.numel() * 2
+                           + table.numel() * 4,
+                           sum(4 * hq * D * (start + i + 1)
+                               for i in range(c)))
+        row = dict(family=label, max_abs_err=err, bound_ms=b_ms,
+                   bound_by=b_by,
+                   ms=time_ms(lambda: ops.paged_prefill(q, kp, vp, table, pos,
+                                                        impl="pallas")),
+                   plain_ms=time_ms(lambda: ops.paged_prefill(
+                       q, kp, vp, table, pos, impl="ref"), iters=5),
+                   library_ms=library_ms(*sdpa_prefill(q, kp, vp, table,
+                                                       pos)),
+                   shape=f"B=1 C={c} start={start} Hq={hq} Hkv={hkv} D={D} "
+                         f"page={PAGE} bf16")
+        rows["paged_prefill"].append(row)
+        log(f"[families] K4 {label} (Hq {hq}, Hkv {hkv}, C {c} after "
+            f"{start}): max|err| {err:.3e}, {row['ms']:.4f} ms, bound "
+            f"{b_ms:.5f} ms ({b_by}), twin {row['plain_ms']:.3f} ms, SDPA "
+            f"{row['library_ms']:.4f} ms")
+        if not err <= TOL_BF16:
+            raise AssertionError(f"K4 at {label}'s GQA disagrees with its "
+                                 f"twin")
+        del q, kp, vp, table
+    # K5 at llama4's rep 5: the scout learner's microbatch
+    b, s, hq, hkv = 4, SCOUT_LEARN_S - 1, 40, 8
+    q = torch.randn((b, s, hq, D), generator=gen, device=dev).bfloat16()
+    k, v = (torch.randn((b, s, hkv, D), generator=gen, device=dev).bfloat16()
+            for _ in range(2))
+    err = max_err(fa.flash_attention(q, k, v, causal=True),
+                  fa.flash_attention_ref(q.float(), k.float(), v.float(),
+                                         causal=True))
+    b_ms, b_by = bound(2 * (2 * q.numel() + k.numel() + v.numel()),
+                       4 * D * hq * b * flash_pairs(s, True, None))
+    row = dict(family="llama4", max_abs_err=err, bound_ms=b_ms,
+               bound_by=b_by,
+               ms=time_ms(lambda: fa.flash_attention(q, k, v, causal=True),
+                          iters=10),
+               plain_ms=time_ms(lambda: fa.flash_attention_ref(
+                   q, k, v, causal=True), iters=3, warmup=1),
+               library_ms=sdpa_flash(q, k, v, True, None),
+               shape=f"B={b} S={s} Hq={hq} Hkv={hkv} D={D} causal bf16")
+    rows["flash_attention"].append(row)
+    log(f"[families] K5 llama4 (rep 5, B {b}, S {s}): max|err| {err:.3e} "
+        f"(tol {TOL_FLASH[torch.bfloat16]}), {row['ms']:.4f} ms, bound "
+        f"{b_ms:.4f} ms ({b_by}), twin {row['plain_ms']:.3f} ms, SDPA "
+        f"{row['library_ms']:.4f} ms")
+    if not err <= TOL_FLASH[torch.bfloat16]:
+        raise AssertionError("K5 at rep 5 disagrees with its twin")
+    del q, k, v
+    for label, t, v in FAMILY_LOGPROB:
+        x, tgt, g_lp, g_ent = logprob_case(gen, dev, t, v, torch.float32)
+        (ef, eb, rb), (lse, mu), tgt32 = logprob_check(
+            x, tgt, g_lp, g_ent, f"({t}, {v}) f32, {label} learner")
+        n = t * v
+        for key, fn, plain, lib, nb, fo in (
+                ("logprob_fwd", lambda: fl.logprob_fwd(x, tgt32),
+                 lambda: fl._chunked_fwd_pass(x, tgt32, CHUNK),
+                 lambda: torch.logsumexp(x, -1), n * 4 + 4 * t * 4, 6 * n),
+                ("logprob_bwd",
+                 lambda: fl.logprob_bwd(x, tgt32, lse, mu, g_lp, g_ent),
+                 lambda: fl._chunked_bwd_pass(x, tgt32, lse, mu, g_lp,
+                                              g_ent, CHUNK),
+                 lambda: torch.softmax(x, -1), 2 * n * 4 + 5 * t * 4,
+                 7 * n)):
+            b_ms, b_by = bound(nb, fo, F32_FLOPS_S)
+            row = dict(family=label, max_abs_err=ef if key == "logprob_fwd"
+                       else eb, bound_ms=b_ms, bound_by=b_by,
+                       ms=time_ms(fn), plain_ms=time_ms(plain, iters=5),
+                       library_ms=time_ms(lib), shape=f"T={t} V={v} float32")
+            if key == "logprob_bwd":
+                row["err_ratio"] = rb
+            rows[key].append(row)
+            log(f"[families] {'K1' if key == 'logprob_fwd' else 'K2'} "
+                f"{label} (T {t}, V {v}): {row['ms']:.4f} ms, bound "
+                f"{b_ms:.4f} ms ({b_by}), twin {row['plain_ms']:.3f} ms, "
+                f"{'logsumexp' if key == 'logprob_fwd' else 'softmax'} "
+                f"{row['library_ms']:.4f} ms")
+        del x, lse, mu
+        torch.cuda.empty_cache()
+    return rows
+
+
+def families_phase(dev, seed, card):
+    """Phase 12. Returns (launches by kernel, kernel rows at the family
+    shapes)."""
+    t0 = time.perf_counter()
+    rows = family_kernel_rows(dev, seed)
+    log(f"[time] families: kernel rows {time.perf_counter() - t0:.1f}s")
+    launches = {k: 0 for k in ("paged_decode", "paged_prefill",
+                               "logprob_fwd", "logprob_bwd")}
+
+    def add(d):
+        for k, n in d.items():
+            launches[k] += n
+    for name in DENSE_DEPTH:
+        t0 = time.perf_counter()
+        for dtype in (torch.bfloat16, torch.float32):
+            add(dense_family(dev, seed, card, name, dtype))
+        log(f"[time] families: {name} {time.perf_counter() - t0:.1f}s")
+    t0 = time.perf_counter()
+    add(moe_serve(dev, seed, card))
+    log(f"[time] families: MoE serve {time.perf_counter() - t0:.1f}s")
+    t0 = time.perf_counter()
+    add(learner_family(dev, seed, card, SCOUT, SCOUT_LEARN_S,
+                       num_layers=SCOUT_LEARN_LAYERS))
+    log(f"[time] families: scout learner {time.perf_counter() - t0:.1f}s")
+    t0 = time.perf_counter()
+    # mamba2's random tied embedding puts a token's own logit ~1500 nats up
+    # (TOL_SSD_MEAN_BF16), where a bf16 logit moves in steps of 8: once a
+    # step moves any weight, kl reads ~1e2 with random weights; the check
+    # is finite metrics, as for every learner here
+    add(learner_family(dev, seed, card, "mamba2-1.3b", MAMBA_LEARN_S))
+    log(f"[time] families: mamba2 learner {time.perf_counter() - t0:.1f}s")
+    log(f"[families] launches: {launches}")
+    return launches, rows
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description="PyTorch port smoke on one GPU")
     ap.add_argument("--seed", type=int, default=0)
@@ -3447,6 +4009,13 @@ def main(argv=None) -> int:
     for name, n in door_phase(dev, args.seed, card).items():
         launches[name] += n
     log(f"[time] door phase {time.perf_counter() - t0:.1f}s")
+    t0 = time.perf_counter()
+    fam_launches, fam_rows = families_phase(dev, args.seed, card)
+    for name, n in fam_launches.items():
+        launches[name] += n
+    for name, rows in fam_rows.items():
+        kernels[name]["families"] = rows
+    log(f"[time] families phase {time.perf_counter() - t0:.1f}s")
     for name, row in kernels.items():
         row["launches"] = launches[name]
         row["kernel_ms"], row["twin_ms"] = row["ms"], row["plain_ms"]

@@ -64,6 +64,11 @@ class ModelConfig:
     experts_per_token: int = 0
     shared_expert: bool = False
     capacity_factor: float = 1.25
+    # shard_map expert-parallel MoE ("train" | "serve"; None = the
+    # single-device dispatch of models/moe.py). Expert parallelism is a
+    # mesh's, so setting it raises until parallel/ lands (ROADMAP queue 1
+    # item 10)
+    moe_ep: Optional[str] = None
 
     # SSM (Mamba2 / SSD) options -----------------------------------------
     ssm_state: int = 0
@@ -126,6 +131,11 @@ class ModelConfig:
         if self.ssd_impl not in SSD_IMPLS:
             raise ValueError(f"unknown ssd_impl {self.ssd_impl!r}; have "
                              f"{SSD_IMPLS}")
+        if self.moe_ep is not None:
+            raise NotImplementedError(
+                f"{self.name}: moe_ep={self.moe_ep!r}: expert-parallel MoE "
+                "is shard_map over a mesh and lands with parallel/ (ROADMAP "
+                "queue 1 item 10)")
 
     # derived -------------------------------------------------------------
     @property
@@ -160,8 +170,9 @@ class ModelConfig:
     def param_count(self) -> int:
         """Parameter count of the layouts this port serves: embedding,
         untied head, per layer its mixer (attention or Mamba2) and FFN
-        (MLP or none) and two norms, as the JAX package counts them, plus
-        the final norm, which the JAX count leaves out."""
+        (MLP, MoE with its router and shared expert, or none) and two
+        norms, as the JAX package counts them, plus the final norm and the
+        QKV biases, which the JAX count leaves out."""
         d, h = self.d_model, self.head_dim
         n_q, n_kv = self.num_heads, self.num_kv_heads
         total = self.padded_vocab * d
@@ -171,13 +182,21 @@ class ModelConfig:
             kind = self.block_pattern[li % self.period]
             if kind in (ATTN, LOCAL):
                 total += d * (n_q * h) + 2 * d * (n_kv * h) + (n_q * h) * d
+                if self.qkv_bias:
+                    total += (n_q + 2 * n_kv) * h
             elif kind == MAMBA:
                 di, n, g = self.d_inner, self.ssm_state, self.ssm_ngroups
                 total += d * (2 * di + 2 * g * n + self.ssm_heads)  # in_proj
                 total += di * d                                      # out_proj
                 total += self.ssm_conv * (di + 2 * g * n)            # conv
-            if self.ffn_kind(li % self.period) == MLP:
+            fk = self.ffn_kind(li % self.period)
+            if fk == MLP:
                 total += 3 * d * self.d_ff
+            elif fk == MOE:
+                total += 3 * d * self.d_ff * self.num_experts
+                total += d * self.num_experts                        # router
+                if self.shared_expert:
+                    total += 3 * d * self.d_ff
             total += 2 * d                                            # norms
         return total + d
 

@@ -5,9 +5,13 @@ The port of the decoder of ``repro/models/model.py`` for attention and
 Mamba2 layers: token embedding, then for every layer RMSNorm and its
 mixer, either attention (q/k/v projections with rotary embeddings,
 attention, the output projection) or a Mamba2 block
-(``models.ssm.mamba_block``), then a SwiGLU MLP or no FFN
-(``ffn_pattern`` NONE), then the final norm and the (tied or separate)
-head in float32. Three ways through the attention:
+(``models.ssm.mamba_block``), then a SwiGLU MLP, a MoE FFN
+(``models.moe.moe_ffn``) or no FFN (``ffn_pattern`` NONE), then the final
+norm and the (tied or separate) head in float32. A config with MoE layers
+sums each layer's router metrics (``moe_load_balance``, ``moe_z_loss``,
+``moe_drop_frac``) into the ``aux`` that ``forward`` returns, from float32
+zeros in layer order, as the JAX package's scan carries them. Three ways
+through the attention:
 
 - dense (``forward`` with ``cache=None``): the training and
   teacher-forced forward over positions ``arange(S)``, through
@@ -43,12 +47,13 @@ from typing import Any, Dict, List, Optional, Tuple, Union
 import torch
 import torch.utils.checkpoint
 
-from repro_torch.config import ATTN, LOCAL, MAMBA, MLP, NONE, ModelConfig
+from repro_torch.config import ATTN, LOCAL, MAMBA, MLP, MOE, NONE, ModelConfig
 from repro_torch.kernels.ops import paged_decode, paged_prefill
 from repro_torch.models.attention import (attention, decode_attention,
                                           fill_ring, ring_decode_attention,
                                           standard_positions)
 from repro_torch.models.layers import rmsnorm, rope, softcap, swiglu
+from repro_torch.models.moe import moe_ffn
 from repro_torch.models.ssm import mamba_block
 
 # sampling.paged_cache.SCRATCH_PAGE (not imported: sampling imports this
@@ -159,6 +164,14 @@ def _self_attn(cfg: ModelConfig, p: Dict, x: torch.Tensor, *, kind: str,
         o = paged_decode(q, kp, vp, page_table, positions[:, 0] + 1,
                          kind=mask_kind, window=cfg.sliding_window,
                          softcap=cfg.attn_softcap, impl=cfg.paged_attn_impl)
+        if MOE in cfg.ffn_pattern:
+            # a dead slot (decoding PAD past its table) gets what the
+            # backend leaves there: zeros from K3, its stale pages from the
+            # twin and "gather". Its row shares the MoE's capacity with the
+            # live slots, so it is zeroed here: live tokens never depend on
+            # the backend's dead rows (ROADMAP queue 3)
+            dead = positions[:, 0] >= page_table.shape[1] * kp.shape[1]
+            o = o.masked_fill(dead[:, None, None, None], 0)
     else:                                                 # chunked prefill
         o = paged_prefill(q, kp, vp, page_table, positions,
                           kind=mask_kind, window=cfg.sliding_window,
@@ -169,15 +182,26 @@ def _self_attn(cfg: ModelConfig, p: Dict, x: torch.Tensor, *, kind: str,
     return o.reshape(b, sq, -1) @ p["wo"]
 
 
+def _aux_init(cfg: ModelConfig, device: torch.device
+              ) -> Dict[str, torch.Tensor]:
+    if MOE in cfg.ffn_pattern:
+        return {k: torch.zeros((), dtype=torch.float32, device=device)
+                for k in ("moe_load_balance", "moe_z_loss", "moe_drop_frac")}
+    return {}
+
+
 def _apply_layer(cfg: ModelConfig, kind: str, ffn_kind: str, p: Dict,
                  x: torch.Tensor, *, positions, paged: Optional[Tuple],
                  decode: bool, dense: Union[None, Tuple, Dict] = None,
                  contiguous: Optional[bool] = None,
-                 tape: Optional[List] = None) -> torch.Tensor:
+                 tape: Optional[List] = None,
+                 aux: Optional[Dict[str, torch.Tensor]] = None
+                 ) -> torch.Tensor:
     """One layer. ``dense`` is this layer's part of a dense cache: (k, v,
     pos) of an attention layer, the ``{"conv", "ssm"}`` of a Mamba2
-    layer."""
-    if kind not in (ATTN, LOCAL, MAMBA) or ffn_kind not in (MLP, NONE):
+    layer. A MoE layer adds its router metrics to ``aux`` (from
+    ``_aux_init``) in place."""
+    if kind not in (ATTN, LOCAL, MAMBA) or ffn_kind not in (MLP, MOE, NONE):
         raise NotImplementedError(
             f"layer ({kind!r}, {ffn_kind!r}) is not ported yet")
     h = rmsnorm(x, p["norm"], cfg.norm_eps)
@@ -189,6 +213,11 @@ def _apply_layer(cfg: ModelConfig, kind: str, ffn_kind: str, p: Dict,
                            contiguous=contiguous, tape=tape)
     if ffn_kind == MLP:
         x = x + swiglu(rmsnorm(x, p["ffn_norm"], cfg.norm_eps), p["mlp"])
+    elif ffn_kind == MOE:
+        y, a = moe_ffn(cfg, p["moe"], rmsnorm(x, p["ffn_norm"], cfg.norm_eps))
+        for k, v in a.items():
+            aux[k] = aux[k] + v
+        x = x + y
     return x
 
 
@@ -226,22 +255,27 @@ _CACHE_KINDS = ("a cache is the page pools of "
 def _run_dense(cfg: ModelConfig, params: Dict, x: torch.Tensor, *,
                positions: torch.Tensor, contiguous: Optional[bool],
                cache: Optional[Dict] = None,
-               pos: Union[None, int, torch.Tensor] = None) -> torch.Tensor:
+               pos: Union[None, int, torch.Tensor] = None
+               ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Full-sequence layers (``pos`` None) or one decode step at ``pos``
-    over a dense ``cache``. Without a cache, one checkpointed block at a
-    time under ``cfg.remat`` while autograd records
-    (``jax.checkpoint(body)``)."""
+    over a dense ``cache``; returns (x, aux). Without a cache, one
+    checkpointed block at a time under ``cfg.remat`` while autograd
+    records (``jax.checkpoint(body)``); the block takes the running aux
+    sums and returns them, so its recomputation in the backward adds
+    nothing twice."""
     if cache is not None and not _has_leaves(cfg, cache, _DENSE):
         raise ValueError(_CACHE_KINDS)
     decode = pos is not None
 
-    def block(x: torch.Tensor, bp: Dict, bc) -> torch.Tensor:
+    def block(x: torch.Tensor, bp: Dict, bc, aux: Dict[str, torch.Tensor]
+              ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        aux = dict(aux)
         for i, kind in enumerate(cfg.block_pattern):
             x = _apply_layer(cfg, kind, cfg.ffn_kind(i), bp[f"layer_{i}"], x,
                              positions=positions, paged=None, decode=decode,
                              dense=None if bc is None else bc[i],
-                             contiguous=contiguous)
-        return x
+                             contiguous=contiguous, aux=aux)
+        return x, aux
 
     def layer_views(bi: int, i: int, kind: str):
         """Block ``bi`` of layer slot ``i``'s stacked cache, as
@@ -253,26 +287,28 @@ def _run_dense(cfg: ModelConfig, params: Dict, x: torch.Tensor, *,
         return tuple(lc[n][bi] for n in names) + (pos,)
 
     remat = cfg.remat and torch.is_grad_enabled() and cache is None
+    aux = _aux_init(cfg, x.device)
     for bi, bp in enumerate(_unstack(params["blocks"], cfg.num_blocks)):
         bc = None if cache is None else [
             layer_views(bi, i, kind)
             for i, kind in enumerate(cfg.block_pattern)]
         if remat:
-            x = torch.utils.checkpoint.checkpoint(block, x, bp, bc,
-                                                  use_reentrant=False)
+            x, aux = torch.utils.checkpoint.checkpoint(
+                block, x, bp, bc, aux, use_reentrant=False)
         else:
-            x = block(x, bp, bc)
-    return x
+            x, aux = block(x, bp, bc, aux)
+    return x, aux
 
 
 def _run_paged(cfg: ModelConfig, params: Dict, x: torch.Tensor, *,
                positions: torch.Tensor, cache: Optional[Dict],
                page_table: Optional[torch.Tensor],
-               decode: bool, tape: Optional[List] = None) -> torch.Tensor:
-    """The layers over page pools. With ``tape`` (prefill only) every
-    layer appends its (q, o) pair, block-major: layer ``bi * period + i``
-    is pattern slot ``i`` of block ``bi``, the order the block-stacked
-    pools fold in (``sampling.spec.stacked_pools``)."""
+               decode: bool, tape: Optional[List] = None
+               ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """The layers over page pools; returns (x, aux). With ``tape``
+    (prefill only) every layer appends its (q, o) pair, block-major: layer
+    ``bi * period + i`` is pattern slot ``i`` of block ``bi``, the order
+    the block-stacked pools fold in (``sampling.spec.stacked_pools``)."""
     if not _is_paged(cfg, cache) or page_table is None:
         raise ValueError(_CACHE_KINDS)
     page_size = cache["layer_0"]["self"]["kp"].shape[2]
@@ -281,14 +317,15 @@ def _run_paged(cfg: ModelConfig, params: Dict, x: torch.Tensor, *,
     pools = [(list(torch.unbind(cache[f"layer_{i}"]["self"]["kp"], 0)),
               list(torch.unbind(cache[f"layer_{i}"]["self"]["vp"], 0)))
              for i in range(cfg.period)]
+    aux = _aux_init(cfg, x.device)
     for bi in range(cfg.num_blocks):
         for i, kind in enumerate(cfg.block_pattern):
             paged = (pools[i][0][bi], pools[i][1][bi], page_table, widx)
             x = _apply_layer(cfg, kind, cfg.ffn_kind(i),
                              blocks[bi][f"layer_{i}"], x,
                              positions=positions, paged=paged, decode=decode,
-                             tape=tape)
-    return x
+                             tape=tape, aux=aux)
+    return x, aux
 
 
 def _embed(cfg: ModelConfig, params: Dict, tokens: torch.Tensor
@@ -331,8 +368,10 @@ def forward(cfg: ModelConfig, params: Dict, tokens: torch.Tensor, *,
     ``record_queries`` (paged prefill only) puts ``q_tape`` and ``o_tape``
     in ``aux``: every layer's post-rope queries and attention outputs,
     (L, B, S, Hq, D) block-major, so a speculative verifier can replay all
-    layers' attention through one ``paged_prefill_layers`` launch.
-    Otherwise ``aux`` is empty."""
+    layers' attention through one ``paged_prefill_layers`` launch. A
+    config with MoE layers puts the sums over layers of their router
+    metrics in ``aux`` (``moe_load_balance``, ``moe_z_loss``,
+    ``moe_drop_frac``); otherwise ``aux`` holds no more."""
     b, s = tokens.shape
     contiguous = positions is None
     if positions is None:
@@ -340,18 +379,17 @@ def forward(cfg: ModelConfig, params: Dict, tokens: torch.Tensor, *,
     elif cfg.attn_impl == "pallas" and page_table is None:
         contiguous = standard_positions(positions)   # once, not per layer
     x = _embed(cfg, params, tokens)
-    aux: Dict[str, torch.Tensor] = {}
     if page_table is None and not _is_paged(cfg, cache):
         if record_queries:
             raise ValueError(
                 f"record_queries needs every layer on the paged attention "
                 f"path; layer kind {cfg.block_pattern[0]!r} is not")
-        x = _run_dense(cfg, params, x, positions=positions,
-                       contiguous=contiguous, cache=cache)
+        x, aux = _run_dense(cfg, params, x, positions=positions,
+                            contiguous=contiguous, cache=cache)
     else:
         tape: Optional[List] = [] if record_queries else None
-        x = _run_paged(cfg, params, x, positions=positions, cache=cache,
-                       page_table=page_table, decode=False, tape=tape)
+        x, aux = _run_paged(cfg, params, x, positions=positions, cache=cache,
+                            page_table=page_table, decode=False, tape=tape)
         if tape is not None:
             aux["q_tape"] = torch.stack([q for q, _ in tape])
             aux["o_tape"] = torch.stack([o for _, o in tape])
@@ -379,16 +417,16 @@ def decode_step(cfg: ModelConfig, params: Dict, cache: Dict,
             raise ValueError(f"a dense cache decodes at one position shared "
                              f"by the batch, got pos of shape "
                              f"{tuple(pos.shape)}")
-        x = _run_dense(cfg, params, x, positions=positions, contiguous=None,
-                       cache=cache, pos=pos)
+        x, _ = _run_dense(cfg, params, x, positions=positions,
+                          contiguous=None, cache=cache, pos=pos)
         return _logits(cfg, params, x)[:, 0], cache
     pos = torch.as_tensor(pos, device=token.device)
     if pos.dim() == 0:
         positions = pos.to(torch.int64).expand(b)[:, None]
     else:
         positions = pos.to(torch.int64)[:, None]
-    x = _run_paged(cfg, params, x, positions=positions, cache=cache,
-                   page_table=page_table, decode=True)
+    x, _ = _run_paged(cfg, params, x, positions=positions, cache=cache,
+                      page_table=page_table, decode=True)
     return _logits(cfg, params, x)[:, 0], cache
 
 

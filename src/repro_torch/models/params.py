@@ -3,8 +3,9 @@
 The same template tree as the JAX package's ``repro/models/params.py``:
 every leaf is declared once with its shape, initializer and logical axes,
 and block leaves carry a leading stacked-block axis ``(nb, ...)``. The
-port serves attention layers (ATTN / LOCAL) with an MLP and Mamba2 layers
-(MAMBA) without an FFN; other layer kinds raise until their slice lands.
+port serves attention layers (ATTN / LOCAL) with an MLP or a MoE FFN and
+Mamba2 layers (MAMBA) without an FFN; other layer kinds raise until their
+slice lands.
 
 ``init_params`` draws random weights from a seeded ``torch.Generator`` on
 the target device, with the JAX package's initializers (normal, zeros,
@@ -21,7 +22,7 @@ from typing import Any, Dict, Optional, Tuple
 import numpy as np
 import torch
 
-from repro_torch.config import ATTN, LOCAL, MAMBA, MLP, NONE, ModelConfig
+from repro_torch.config import ATTN, LOCAL, MAMBA, MLP, MOE, NONE, ModelConfig
 from repro_torch.device import DeviceLike, resolve_device
 
 
@@ -45,6 +46,21 @@ def _mlp_templates(cfg: ModelConfig) -> Dict[str, ParamTemplate]:
         "w_up": ParamTemplate((d, f), ("embed", "ffn")),
         "w_down": ParamTemplate((f, d), ("ffn", "embed"), scale=out_scale),
     }
+
+
+def _moe_templates(cfg: ModelConfig) -> Dict[str, Any]:
+    d, f, e = cfg.d_model, cfg.d_ff, cfg.num_experts
+    out_scale = 0.02 / np.sqrt(2 * cfg.num_layers)
+    t: Dict[str, Any] = {
+        "router": ParamTemplate((d, e), ("embed", None)),
+        "w_gate": ParamTemplate((e, d, f), ("experts", "embed", "expert_ffn")),
+        "w_up": ParamTemplate((e, d, f), ("experts", "embed", "expert_ffn")),
+        "w_down": ParamTemplate((e, f, d), ("experts", "expert_ffn", "embed"),
+                                scale=out_scale),
+    }
+    if cfg.shared_expert:
+        t["shared"] = _mlp_templates(cfg)
+    return t
 
 
 def _attn_templates(cfg: ModelConfig) -> Dict[str, ParamTemplate]:
@@ -85,12 +101,12 @@ def _mamba_templates(cfg: ModelConfig) -> Dict[str, ParamTemplate]:
 
 def _layer_templates(cfg: ModelConfig, kind: str,
                      ffn_kind: str) -> Dict[str, Any]:
-    if (kind not in (ATTN, LOCAL, MAMBA) or ffn_kind not in (MLP, NONE)
+    if (kind not in (ATTN, LOCAL, MAMBA) or ffn_kind not in (MLP, MOE, NONE)
             or cfg.is_encdec):
         raise NotImplementedError(
             f"{cfg.name}: layer ({kind!r}, {ffn_kind!r}) is not ported yet; "
-            "the port serves ATTN/LOCAL and MAMBA layers with an MLP or no "
-            "FFN")
+            "the port serves ATTN/LOCAL and MAMBA layers with an MLP, a MoE "
+            "or no FFN")
     d = cfg.d_model
     t: Dict[str, Any] = {"norm": ParamTemplate((d,), ("embed",), init="ones")}
     if kind == MAMBA:
@@ -100,6 +116,9 @@ def _layer_templates(cfg: ModelConfig, kind: str,
     if ffn_kind == MLP:
         t["ffn_norm"] = ParamTemplate((d,), ("embed",), init="ones")
         t["mlp"] = _mlp_templates(cfg)
+    elif ffn_kind == MOE:
+        t["ffn_norm"] = ParamTemplate((d,), ("embed",), init="ones")
+        t["moe"] = _moe_templates(cfg)
     return t
 
 

@@ -66,3 +66,20 @@ def test_no_fallback_from_cuda_to_twin():
     around a launch anywhere in the kernels package."""
     for path in (PKG / "kernels").rglob("*.py"):
         assert not re.search(r"^\s*try\s*:", path.read_text(), re.M), path
+
+
+def test_serve_cli_runs_the_moe_family_on_cpu():
+    """The serve launcher takes the new ``--arch`` names; ``--smoke``
+    serves the reduced Llama-4 Scout (top-1 over 4 experts and a shared
+    expert) through the continuous engine on the CPU."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.serve", "--device", "cpu",
+         "--smoke", "--arch", "llama4-scout-17b-a16e", "--batch", "3",
+         "--slots", "2", "--prompt-len", "12", "--max-new", "4",
+         "--page-size", "4", "--prefill-chunk", "8", "--rounds", "1"],
+        cwd=ROOT, env=env, capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert "arch=llama4-scout-17b-a16e-smoke device=cpu" in out.stdout
+    assert "engine=continuous" in out.stdout
+    assert "total 12 tokens" in out.stdout, out.stdout

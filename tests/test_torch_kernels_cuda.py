@@ -1017,3 +1017,191 @@ def test_ring_decode_step_on_card(cuda):
                 for i, k in enumerate(cfg.block_pattern) if k == "local"}
         assert rows == {cfg.sliding_window if ring else 84}
     torch.testing.assert_close(out[True], out[False], rtol=0, atol=1e-4)
+
+
+# --------------------------------------------------------------------------
+# the GQA groups and vocabularies of the dense and MoE families (head_dim
+# 128, page 16): llama4-scout rep 5 (Hkv 8), qwen2-7b rep 7 (Hkv 4),
+# qwen1.5-32b rep 1 at Hkv 40. At rep 5 and 7 K3 runs its 8-row path with
+# idle rows and K4 packs 6 and 4 tokens per block of 32 rows (30 and 28
+# live); Hkv 40 gives K3 a grid of (8, 40, B)
+
+FAMILY_GQA = [(8, 5), (4, 7), (40, 1)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hkv,rep", FAMILY_GQA)
+@pytest.mark.parametrize("window,cap", [(None, None), (9, 30.0)])
+@pytest.mark.parametrize("lengths", ("ragged", "long"))
+def test_decode_kernel_at_family_gqa(cuda, dtype, hkv, rep, window, cap,
+                                     lengths):
+    q, kp, vp, table, lens = _dev(
+        decode_inputs(page=16, rep=rep, d=128, hkv=hkv, seed=hkv + rep,
+                      lengths=lengths), cuda, dtype)
+    pa.reset_launch_counts()
+    got = pa.paged_attention(q, kp, vp, table, lens, window=window,
+                             softcap=cap)
+    want = pa.paged_decode_ref(q.float(), kp.float(), vp.float(), table,
+                               lens, window=window, softcap=cap)
+    torch.cuda.synchronize()
+    assert pa.LAUNCHES["paged_decode"] == 1
+    live = lens <= table.shape[1] * 16
+    torch.testing.assert_close(got[live].float(), want[live], rtol=0,
+                               atol=TOL[dtype])
+    assert not got[~live].any()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hkv,rep", FAMILY_GQA)
+@pytest.mark.parametrize("c", [1, 77, 512])
+@pytest.mark.parametrize("window,cap", [(None, None), (20, 50.0)])
+def test_prefill_kernel_at_family_gqa(cuda, dtype, hkv, rep, c, window,
+                                      cap):
+    q, kp, vp, table, positions = prefill_inputs(
+        page=16, rep=rep, d=128, c=c, hkv=hkv, npages=64, seed=c + rep)
+    lengths = positions[:, -1] + 1
+    _poison_tails(kp, vp, table, lengths, 16)
+    q, kp, vp, table, positions = _dev((q, kp, vp, table, positions), cuda,
+                                       dtype)
+    kind = "local" if window else "causal"
+    pa.reset_launch_counts()
+    got = ops.paged_prefill(q, kp, vp, table, positions, kind=kind,
+                            window=window, softcap=cap, impl="pallas")
+    want = ops.paged_prefill(q.float(), kp.float(), vp.float(), table,
+                             positions, kind=kind, window=window,
+                             softcap=cap, impl="ref")
+    torch.cuda.synchronize()
+    assert pa.LAUNCHES["paged_prefill"] == 1
+    assert torch.isfinite(got.float()).all()
+    torch.testing.assert_close(got.float(), want, rtol=0, atol=TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hkv,rep", [(8, 5), (4, 7)])
+@pytest.mark.parametrize("s", [160, 1023])
+def test_flash_kernel_at_family_gqa(cuda, dtype, hkv, rep, s):
+    """K5's ``hr`` / ``ng`` split at rep 5 and 7, D 128, ragged S."""
+    q, k, v = _flash_inputs(cuda, dtype, b=1, s=s, hkv=hkv, rep=rep, d=128,
+                            seed=s + rep)
+    _flash_check(q, k, v, causal=True)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("v", [202240, 50432])
+def test_logprob_kernels_at_family_vocabularies(cuda, v, dtype):
+    """K1/K2 at the padded vocabularies of llama4 (202048 -> 202240) and
+    mamba2-1.3b (50280 -> 50432)."""
+    x, tgt, g_lp, g_ent = _logprob_case(cuda, 33, v, dtype, seed=v)
+    tgt32 = fl.clamp_target_ids(tgt, v)
+    fl.reset_launch_counts()
+    got = fl.logprob_fwd(x, tgt32)
+    want = fl._chunked_fwd_pass(x, tgt32, 16)
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, rtol=0, atol=TOL_LP)
+    lse, mu = want[2], want[2] - want[1]
+    d = fl.logprob_bwd(x, tgt32, lse, mu, g_lp, g_ent)
+    d_want = fl._chunked_bwd_pass(x, tgt32, lse, mu, g_lp, g_ent, 16)
+    torch.cuda.synchronize()
+    assert fl.LAUNCHES == {"logprob_fwd": 1, "logprob_bwd": 1}
+    assert fl.dlogits_error_ratio(d, d_want, x, tgt32, lse, mu, g_lp, g_ent,
+                                  rtol=RTOL_DLOGITS[dtype]) <= 1.0
+
+
+# --------------------------------------------------------------------------
+# the MoE FFN on the card (plain torch: the JAX package has no MoE kernel)
+
+
+@pytest.mark.parametrize("t,k", [(8, 1), (512, 1), (512, 2)])
+def test_moe_ffn_on_card_matches_cpu(cuda, t, k):
+    """``moe_ffn`` in float32 (matmuls in full float32, TF32 off) on the
+    card and on the CPU from the same inputs: the same expert ids, the
+    same stable order and ranks, the same drops (t 8: a decode step of 8
+    slots at the minimum capacity 4; t 512: a prefill chunk), y within
+    1e-5 of the CPU's, and no read back to the host on the card."""
+    from repro_torch.config import ModelConfig
+    from repro_torch.models import moe
+    cfg = ModelConfig(name="moe-card", family="moe", num_layers=2,
+                      d_model=256, num_heads=4, num_kv_heads=2, d_ff=512,
+                      vocab_size=512, block_pattern=("attn",),
+                      ffn_pattern=("moe",), num_experts=16,
+                      experts_per_token=k, shared_expert=True,
+                      dtype="float32")
+    rng = np.random.default_rng(t + k)
+    # inputs off-centre, so some experts overflow; at t 8 expert 3 takes
+    # all 8 tokens (4 dropped)
+    x = (rng.standard_normal((1, t, 256)) + 0.5).astype(np.float32)
+    router = rng.standard_normal((256, 16)) * 0.3
+    router[:, 3] += 0.3 * (t == 8)
+    w = {"router": router,
+         "w_gate": rng.standard_normal((16, 256, 512)) * 0.05,
+         "w_up": rng.standard_normal((16, 256, 512)) * 0.05,
+         "w_down": rng.standard_normal((16, 512, 256)) * 0.05,
+         "shared": {n: rng.standard_normal(s) * 0.05 for n, s in (
+             ("w_gate", (256, 512)), ("w_up", (256, 512)),
+             ("w_down", (512, 256)))}}
+
+    def on(dev):
+        def conv(a):
+            if isinstance(a, dict):
+                return {n: conv(b) for n, b in a.items()}
+            return torch.from_numpy(a.astype(np.float32)).to(dev)
+        return conv(w), torch.from_numpy(x).to(dev)
+
+    assert not torch.backends.cuda.matmul.allow_tf32
+    out = {}
+    for dev in ("cpu", cuda):
+        p, xt = on(dev)
+        if dev != "cpu":
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            _, _, _, ids = moe.route(cfg, p["router"], xt[0])
+            routing = moe.dispatch(cfg, ids)
+            y, aux = moe.moe_ffn(cfg, p, xt)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        out[str(dev)] = (ids.cpu(), [r.cpu() if torch.is_tensor(r) else r
+                                     for r in routing], y.cpu(),
+                         {n: float(a) for n, a in aux.items()})
+    (ic, rc, yc, ac), (ig, rg, yg, ag) = out["cpu"], out[str(cuda)]
+    assert torch.equal(ic, ig)
+    for a, b in zip(rc, rg):                 # cap, order, ids, rank, keep..
+        assert (a == b) if isinstance(a, int) else torch.equal(a, b)
+    assert not rc[4].all()                   # some entry is dropped
+    torch.testing.assert_close(yg, yc, rtol=0, atol=1e-5)
+    for n in ac:
+        assert abs(ag[n] - ac[n]) <= 1e-5 * max(1.0, abs(ac[n])), n
+
+
+def test_moe_engine_pallas_matches_ref_greedy_on_card(cuda):
+    """The llama4-scout smoke model (float32, top-1 over 4 experts and a
+    shared expert) served through K3/K4 and through the twins on the card:
+    float32 routing does not flip between the two, so the greedy tokens
+    are the same and the logps within 1e-4; launches = layers x steps."""
+    cfg = smoke("llama4-scout-17b-a16e")
+    params = init_params(cfg, 0, device=cuda)
+    greedy = dict(temperature=1.0, top_k=1, top_p=1.0)
+    rng = np.random.default_rng(1)
+    prompts = [rng.integers(3, cfg.vocab_size, n).astype(np.int32)
+               for n in (5, 19, 33, 12, 40)]
+    out = {}
+    for impl in ("pallas", "ref"):
+        serve = ServeConfig(num_slots=3, page_size=16, prefill_chunk=16,
+                            sync_every=4, max_total_tokens=64,
+                            paged_attn_impl=impl)
+        eng = build_engine(cfg, params, serve, rl=RLConfig(**greedy),
+                           vocab_limit=cfg.vocab_size)
+        pa.reset_launch_counts()
+        out[impl] = eng.generate([Request(
+            rid=i, prompt=p, params=SamplingParams(max_new_tokens=12,
+                                                   **greedy))
+            for i, p in enumerate(prompts)])
+        st = eng.stats()
+        want = ({"paged_decode": cfg.num_layers * st["decode_steps"],
+                 "paged_prefill": cfg.num_layers * st["prefill_chunks"]}
+                if impl == "pallas" else
+                {"paged_decode": 0, "paged_prefill": 0})
+        assert pa.LAUNCHES == want
+    for a, b in zip(out["pallas"], out["ref"]):
+        np.testing.assert_array_equal(a.tokens, b.tokens)
+        np.testing.assert_allclose(a.logps, b.logps, atol=1e-4, rtol=0)
