@@ -194,6 +194,36 @@ never jax, never the JAX package. Phases, each fatal on failure:
    backward (the learner phase's bars, the lm_head gradient in float32
    within 1e-4), then 3 ``train_step``s with finite metrics (``moe_*``
    present on scout) and the launches they imply; step ms and peak GiB.
+13. memory: the modality-memory families, one model at a time (bf16,
+   random weights from --seed, full width; depth cuts in VLM_F32_LAYERS
+   and VLM_LEARN_LAYERS). (a) K5 non-causal at Sq != Sk, the shapes the
+   cross-attention and the encoder give it (the VLM's rep 4, D 128 at Sq
+   1 and 832 against 1601 memory rows; Whisper's rep 1, D 64 bidir at S
+   1500 and at Sq 1 and 192 against 1500), bf16 and float32, each against
+   its twin, with a control (the twin over Sk - 1 keys) the check must
+   reject, timed beside the twin, SDPA and the bound; K1/K2 at the
+   learners' vocabularies (128256, 51968). (b) llama-3.2-vision-11b at
+   40/40 layers through ``build_engine(engine="static", memory=)`` under
+   ``attn_impl="pallas"`` with launch/serve.py's 0.02 N(0, 1) stub memory
+   (8, 1601, 4096): 8 requests of 64-832 tokens left-padded to 832, 64
+   new, the serve profile; K5 launches held to what the run implies (every
+   self- and cross-attention in the prefill, every cross-attention in each
+   decode step); the App. B.1 recompute (``token_logps(memory=)``) through
+   K5 and K1 against the chunked attention and against the sampler, the
+   means within TOL_LOGP_MEAN_BF16; then a float32 pair at one period (5
+   layers, an N(0, 1) memory): greedy engine logps and the K5 recompute
+   within TOL_LOGP_F32 of the chunked recompute, and a control (the
+   memory zeroed) that misses that bar. (c) whisper-small whole:
+   ``encode`` over (8, 1500, 768) N(0, 1) frames through K5 (bidir)
+   against the chunked attention, then the static engine and the
+   recompute as in (b), in bf16 and as a float32 pair. (d) GEPO learners,
+   ``grad_accum`` 2, 3 steps, ``attn_impl="chunked"``, K1/K2 against the
+   twin (the learner phase's bars): Whisper whole with ``frames`` in the
+   batch and the VLM at 5 layers with ``image_embeds`` (B 8 x S 512); step
+   ms and peak GiB. (e) jamba's full-width pieces: K6 at its SSM layer (B
+   1 x S 4096, 256 heads, P 64, N 128) against its twin, and one MoE
+   layer (E 16 top-2, d 8192, f 24576) on the card against the CPU on the
+   same inputs, drops equal.
 
 Prints a ``{"kernels": [...]}`` JSON line, then as the last line
 ``{"ok": true, "device": {...}}``. Exits non-zero, printing no result,
@@ -221,10 +251,11 @@ import torch  # noqa: E402
 
 from repro_torch.checkpoint import PolicyStore  # noqa: E402
 from repro_torch.checkpoint.store import flatten_with_paths  # noqa: E402
-from repro_torch.config import (MOE, HeteroConfig,  # noqa: E402
+from repro_torch.config import (CROSS, MOE, HeteroConfig,  # noqa: E402
                                 RLConfig, ServeConfig, TrainConfig)
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.data import ArithmeticTask, Tokenizer  # noqa: E402
+from repro_torch.data.tasks import PAD  # noqa: E402
 from repro_torch.hetero import (HeteroRuntime, SamplerNode,  # noqa: E402
                                 ThreadedHeteroRuntime, run_online)
 from repro_torch.hetero import nodes as nodes_mod  # noqa: E402
@@ -236,8 +267,9 @@ from repro_torch.kernels import fused_logprob as fl  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels import paged_attention as pa  # noqa: E402
 from repro_torch.kernels import ssd_scan as ss  # noqa: E402
-from repro_torch.models import (decode_step, forward, init_cache,  # noqa: E402
-                                init_params, ssm)
+from repro_torch.models import (decode_step, encode,  # noqa: E402
+                                forward, init_cache, init_params, ssm)
+from repro_torch.models.moe import moe_ffn  # noqa: E402
 from repro_torch import obs  # noqa: E402
 from repro_torch import training as training_mod  # noqa: E402
 from repro_torch.models import model as model_mod  # noqa: E402
@@ -1356,6 +1388,61 @@ def ssd_flops(b, s, h, p, g, n, lc):
             + 2 * (pairs * p + 2 * lc * n * p) * b * h) * (s // lc)
 
 
+def ssd_row(gen, dev, label, b, s, h, p, g, n, chunk, dtype, timed):
+    """K6 against its twin on ``ssd_inputs`` of one shape, element by
+    element, with the control (the twin chunk by chunk, without the
+    carried state) that the check must reject; timed beside the twin and
+    the bound when ``timed``. Returns the row."""
+    args = ssd_inputs(gen, dev, b, s, h, p, g, n, dtype)
+    got = ss.ssd_scan(*args, chunk=chunk)
+    want = ssd_twin(args, chunk)
+    torch.cuda.synchronize()
+    ratio = ss.error_ratio(got, want)
+    err = max_err(got, want)
+    cut = torch.cat([ssd_twin([t[:, c0:c0 + chunk] if t.dim() > 1 else t
+                               for t in args], chunk)
+                     for c0 in range(0, s, chunk)], 1)
+    control = ss.error_ratio(cut.to(dtype), want)
+    del cut
+    splits = ss.p_splits(b * h, p, torch.cuda.get_device_properties(
+        dev).multi_processor_count)
+    log(f"[kernels] K6 ssd_scan {label} (B {b}, S {s}, H {h}, P {p}, G "
+        f"{g}, N {n}, chunk {chunk}, {str(dtype)[6:]}, {splits} P "
+        f"slice(s) per head): max|err| {err:.3e} (max|y| "
+        f"{float(want.abs().max()):.3e}), error ratio {ratio:.3e} (must "
+        f"be <= 1: |err| <= {ss.RTOL[dtype]:.3g} |y| + {ss.ATOL_REL} "
+        f"max|y|); twin without the carried state {control:.3e} (must "
+        f"be > 100)")
+    if not ratio <= 1.0:
+        raise AssertionError(f"K6 disagrees with its twin ({label})")
+    if not control > 100.0:
+        raise AssertionError(f"K6's check cannot see a dropped "
+                             f"inter-chunk term ({label})")
+    row = dict(case=label, max_abs_err=err, error_ratio=ratio,
+               control_ratio=control, p_slices=splits,
+               shape=f"B={b} S={s} H={h} P={p} G={g} N={n} chunk={chunk} "
+                     f"{str(dtype)[6:]}")
+    if timed:
+        es = args[0].element_size()
+        nbytes = (2 * args[0].numel() * es + args[1].numel() * 4
+                  + args[2].numel() * 4 + 2 * args[3].numel() * es)
+        b_ms, b_by = bound(nbytes, ssd_flops(b, s, h, p, g, n,
+                                             min(chunk, s)))
+        row.update(
+            ms=time_ms(lambda: ss.ssd_scan(*args, chunk=chunk),
+                       iters=10),
+            plain_ms=time_ms(lambda: ssd_twin(args, chunk), iters=3,
+                             warmup=1),
+            bound_ms=b_ms, bound_by=b_by, library_ms=None)
+        log(f"[kernels] K6 {label}: {row['ms']:.4f} ms, bound "
+            f"{b_ms:.4f} ms ({b_by}), twin {row['plain_ms']:.3f} ms, "
+            f"library: none (no single PyTorch call computes an SSD "
+            f"scan)")
+    del args, got, want
+    torch.cuda.empty_cache()
+    return row
+
+
 def ssd_phase(dev, seed):
     """K6 against its twin at mamba2-1.3b's recompute shape (B 16, S 1024)
     and at B 1, S 8192 in bf16, and at a float32 case with two B/C groups;
@@ -1363,56 +1450,7 @@ def ssd_phase(dev, seed):
     that the check must reject; the two mamba2 cases timed beside the
     twin and the bound."""
     gen = torch.Generator(device=dev).manual_seed(seed + 12)
-    rows = []
-    for label, b, s, h, p, g, n, chunk, dtype, timed in SSD_CASES:
-        args = ssd_inputs(gen, dev, b, s, h, p, g, n, dtype)
-        got = ss.ssd_scan(*args, chunk=chunk)
-        want = ssd_twin(args, chunk)
-        torch.cuda.synchronize()
-        ratio = ss.error_ratio(got, want)
-        err = max_err(got, want)
-        cut = torch.cat([ssd_twin([t[:, c0:c0 + chunk] if t.dim() > 1 else t
-                                   for t in args], chunk)
-                         for c0 in range(0, s, chunk)], 1)
-        control = ss.error_ratio(cut.to(dtype), want)
-        del cut
-        splits = ss.p_splits(b * h, p, torch.cuda.get_device_properties(
-            dev).multi_processor_count)
-        log(f"[kernels] K6 ssd_scan {label} (B {b}, S {s}, H {h}, P {p}, G "
-            f"{g}, N {n}, chunk {chunk}, {str(dtype)[6:]}, {splits} P "
-            f"slice(s) per head): max|err| {err:.3e} (max|y| "
-            f"{float(want.abs().max()):.3e}), error ratio {ratio:.3e} (must "
-            f"be <= 1: |err| <= {ss.RTOL[dtype]:.3g} |y| + {ss.ATOL_REL} "
-            f"max|y|); twin without the carried state {control:.3e} (must "
-            f"be > 100)")
-        if not ratio <= 1.0:
-            raise AssertionError(f"K6 disagrees with its twin ({label})")
-        if not control > 100.0:
-            raise AssertionError(f"K6's check cannot see a dropped "
-                                 f"inter-chunk term ({label})")
-        row = dict(case=label, max_abs_err=err, error_ratio=ratio,
-                   control_ratio=control, p_slices=splits,
-                   shape=f"B={b} S={s} H={h} P={p} G={g} N={n} chunk={chunk} "
-                         f"{str(dtype)[6:]}")
-        if timed:
-            es = args[0].element_size()
-            nbytes = (2 * args[0].numel() * es + args[1].numel() * 4
-                      + args[2].numel() * 4 + 2 * args[3].numel() * es)
-            b_ms, b_by = bound(nbytes, ssd_flops(b, s, h, p, g, n,
-                                                 min(chunk, s)))
-            row.update(
-                ms=time_ms(lambda: ss.ssd_scan(*args, chunk=chunk),
-                           iters=10),
-                plain_ms=time_ms(lambda: ssd_twin(args, chunk), iters=3,
-                                 warmup=1),
-                bound_ms=b_ms, bound_by=b_by, library_ms=None)
-            log(f"[kernels] K6 {label}: {row['ms']:.4f} ms, bound "
-                f"{b_ms:.4f} ms ({b_by}), twin {row['plain_ms']:.3f} ms, "
-                f"library: none (no single PyTorch call computes an SSD "
-                f"scan)")
-        rows.append(row)
-        del args, got, want
-        torch.cuda.empty_cache()
+    rows = [ssd_row(gen, dev, *case) for case in SSD_CASES]
     head = rows[0]
     return {"ssd_scan": dict(
         name="ssd_scan_tc_kernel", name_f32="ssd_scan_kernel", route="cuda",
@@ -1475,14 +1513,15 @@ def counts():
     return {**fa.LAUNCHES, **fl.LAUNCHES, **pa.LAUNCHES, **ss.LAUNCHES}
 
 
-def recompute(cfg, params, tokens, impl, want):
-    """``token_logps`` through attention ``impl``; checks the launch counts
-    the run made and returns (logps, ms, K5 launches counted)."""
+def recompute(cfg, params, tokens, impl, want, memory=None):
+    """``token_logps`` through attention ``impl`` (cross-attending
+    ``memory``, if given); checks the launch counts the run made and
+    returns (logps, ms, K5 launches counted)."""
     icfg = dataclasses.replace(cfg, attn_impl=impl)
     reset_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    lp = token_logps(icfg, params, tokens)
+    lp = token_logps(icfg, params, tokens, memory=memory)
     torch.cuda.synchronize()
     ms = (time.perf_counter() - t0) * 1e3
     got = counts()
@@ -3688,17 +3727,26 @@ def moe_serve(dev, seed, card):
     return launches
 
 
-def learner_rows(cfg, params, dev, seed, s):
+def learner_rows(cfg, params, dev, seed, s, stub=None):
     """LEARN_ROWS rows of ``s`` random tokens, the last LEARN_NEW targets
     the completion, the sampler's logps the recompute's (K1) plus
     SAMPLER_NOISE, a Bernoulli(0.5) reward per row (groups of LEARN_GROUP,
-    none all equal)."""
+    none all equal). ``stub`` ("frames" or "image_embeds") adds a modality
+    stub per row, made as ``stub_input`` makes it, which rides in the
+    batch (the recompute cross-attends to it, through ``encode`` for
+    frames)."""
     rng = np.random.default_rng(seed + 13)
     tokens = torch.from_numpy(rng.integers(3, cfg.vocab_size,
                                            (LEARN_ROWS, s))).to(dev)
     mask = torch.zeros((LEARN_ROWS, s - 1), device=dev)
     mask[:, -LEARN_NEW:] = 1.0
-    lp = token_logps(cfg, params, tokens)
+    extra, memory = {}, None
+    if stub is not None:
+        extra[stub] = stub_input(cfg, LEARN_ROWS, seed, dev)
+        with torch.no_grad():
+            memory = (encode(cfg, params, extra[stub]) if stub == "frames"
+                      else extra[stub])
+    lp = token_logps(cfg, params, tokens, memory=memory)
     noise = torch.from_numpy(rng.normal(0.0, SAMPLER_NOISE, lp.shape)).to(
         dev, torch.float32)
     r = np.zeros(LEARN_ROWS, bool)
@@ -3707,17 +3755,19 @@ def learner_rows(cfg, params, dev, seed, s):
             r[g:g + LEARN_GROUP] = rng.random(LEARN_GROUP) < 0.5
     return {"tokens": tokens, "mask": mask,
             "sampler_lp": ((lp + noise) * mask).float(),
-            "rewards": torch.from_numpy(r.astype(np.float32)).to(dev)}
+            "rewards": torch.from_numpy(r.astype(np.float32)).to(dev),
+            **extra}
 
 
-def learner_family(dev, seed, card, name, s, **over):
+def learner_family(dev, seed, card, name, s, stub=None, **over):
     """GEPO on ``name`` at full width: K1/K2 against the twin through one
     rl_loss_fn forward and backward (the learner phase's bars), then 3
     train_steps (grad_accum 2, AdamW) with finite metrics; step ms and
-    peak memory printed. Returns the K1/K2 launches."""
+    peak memory printed. ``stub`` puts a modality stub in the batch
+    (``learner_rows``). Returns the K1/K2 launches."""
     cfg, params = load_family(name, seed, dev, **over)
     fl.reset_launch_counts()
-    batch = learner_rows(cfg, params, dev, seed, s)
+    batch = learner_rows(cfg, params, dev, seed, s, stub)
     rl = RLConfig(loss_type="gepo", group_size=LEARN_GROUP, beta_kl=0.005)
     tc = TrainConfig(learning_rate=1e-6, grad_accum=2)
     launches = dict(fl.LAUNCHES)
@@ -3764,6 +3814,44 @@ def learner_family(dev, seed, card, name, s, **over):
     del state, params, batch
     free()
     return launches
+
+
+def logprob_rows(gen, dev, cases, tag):
+    """K1/K2 at each (label, T, V) of ``cases`` in float32: against the
+    twin (``logprob_check``), timed beside the twin, the bound and the
+    library call. Returns {"logprob_fwd": rows, "logprob_bwd": rows}."""
+    rows = {"logprob_fwd": [], "logprob_bwd": []}
+    for label, t, v in cases:
+        x, tgt, g_lp, g_ent = logprob_case(gen, dev, t, v, torch.float32)
+        (ef, eb, rb), (lse, mu), tgt32 = logprob_check(
+            x, tgt, g_lp, g_ent, f"({t}, {v}) f32, {label} learner")
+        n = t * v
+        for key, fn, plain, lib, nb, fo in (
+                ("logprob_fwd", lambda: fl.logprob_fwd(x, tgt32),
+                 lambda: fl._chunked_fwd_pass(x, tgt32, CHUNK),
+                 lambda: torch.logsumexp(x, -1), n * 4 + 4 * t * 4, 6 * n),
+                ("logprob_bwd",
+                 lambda: fl.logprob_bwd(x, tgt32, lse, mu, g_lp, g_ent),
+                 lambda: fl._chunked_bwd_pass(x, tgt32, lse, mu, g_lp,
+                                              g_ent, CHUNK),
+                 lambda: torch.softmax(x, -1), 2 * n * 4 + 5 * t * 4,
+                 7 * n)):
+            b_ms, b_by = bound(nb, fo, F32_FLOPS_S)
+            row = dict(family=label, max_abs_err=ef if key == "logprob_fwd"
+                       else eb, bound_ms=b_ms, bound_by=b_by,
+                       ms=time_ms(fn), plain_ms=time_ms(plain, iters=5),
+                       library_ms=time_ms(lib), shape=f"T={t} V={v} float32")
+            if key == "logprob_bwd":
+                row["err_ratio"] = rb
+            rows[key].append(row)
+            log(f"[{tag}] {'K1' if key == 'logprob_fwd' else 'K2'} "
+                f"{label} (T {t}, V {v}): {row['ms']:.4f} ms, bound "
+                f"{b_ms:.4f} ms ({b_by}), twin {row['plain_ms']:.3f} ms, "
+                f"{'logsumexp' if key == 'logprob_fwd' else 'softmax'} "
+                f"{row['library_ms']:.4f} ms")
+        del x, lse, mu
+        torch.cuda.empty_cache()
+    return rows
 
 
 def family_kernel_rows(dev, seed):
@@ -3858,36 +3946,9 @@ def family_kernel_rows(dev, seed):
     if not err <= TOL_FLASH[torch.bfloat16]:
         raise AssertionError("K5 at rep 5 disagrees with its twin")
     del q, k, v
-    for label, t, v in FAMILY_LOGPROB:
-        x, tgt, g_lp, g_ent = logprob_case(gen, dev, t, v, torch.float32)
-        (ef, eb, rb), (lse, mu), tgt32 = logprob_check(
-            x, tgt, g_lp, g_ent, f"({t}, {v}) f32, {label} learner")
-        n = t * v
-        for key, fn, plain, lib, nb, fo in (
-                ("logprob_fwd", lambda: fl.logprob_fwd(x, tgt32),
-                 lambda: fl._chunked_fwd_pass(x, tgt32, CHUNK),
-                 lambda: torch.logsumexp(x, -1), n * 4 + 4 * t * 4, 6 * n),
-                ("logprob_bwd",
-                 lambda: fl.logprob_bwd(x, tgt32, lse, mu, g_lp, g_ent),
-                 lambda: fl._chunked_bwd_pass(x, tgt32, lse, mu, g_lp,
-                                              g_ent, CHUNK),
-                 lambda: torch.softmax(x, -1), 2 * n * 4 + 5 * t * 4,
-                 7 * n)):
-            b_ms, b_by = bound(nb, fo, F32_FLOPS_S)
-            row = dict(family=label, max_abs_err=ef if key == "logprob_fwd"
-                       else eb, bound_ms=b_ms, bound_by=b_by,
-                       ms=time_ms(fn), plain_ms=time_ms(plain, iters=5),
-                       library_ms=time_ms(lib), shape=f"T={t} V={v} float32")
-            if key == "logprob_bwd":
-                row["err_ratio"] = rb
-            rows[key].append(row)
-            log(f"[families] {'K1' if key == 'logprob_fwd' else 'K2'} "
-                f"{label} (T {t}, V {v}): {row['ms']:.4f} ms, bound "
-                f"{b_ms:.4f} ms ({b_by}), twin {row['plain_ms']:.3f} ms, "
-                f"{'logsumexp' if key == 'logprob_fwd' else 'softmax'} "
-                f"{row['library_ms']:.4f} ms")
-        del x, lse, mu
-        torch.cuda.empty_cache()
+    for key, got in logprob_rows(gen, dev, FAMILY_LOGPROB, "families"
+                                 ).items():
+        rows[key] += got
     return rows
 
 
@@ -3923,6 +3984,458 @@ def families_phase(dev, seed, card):
     add(learner_family(dev, seed, card, "mamba2-1.3b", MAMBA_LEARN_S))
     log(f"[time] families: mamba2 learner {time.perf_counter() - t0:.1f}s")
     log(f"[families] launches: {launches}")
+    return launches, rows
+
+
+# --------------------------------------------------------------------------
+# phase 13: the modality-memory families and jamba's full-width pieces
+
+VLM, WHISPER, JAMBA = ("llama-3.2-vision-11b", "whisper-small",
+                       "jamba-1.5-large-398b")
+# the serve traffic: MEM_ROWS requests of 64-832 tokens left-padded with
+# PAD to 832 (the static engine's batch is rectangular; the sampler nodes
+# left-pad their prompts the same way), MEM_NEW new, the serve profile;
+# the memory has one row per request
+MEM_ROWS, MEM_MIN_PROMPT, MEM_PROMPT, MEM_NEW = 8, 64, 832, 64
+# the float32 pairs: greedy, MEM_F32_NEW new, N(0, 1) memory; the VLM at
+# one period (4 self-attention layers + 1 CROSS; 8.6 GB in float32),
+# Whisper whole
+MEM_F32_NEW, VLM_F32_LAYERS = 16, 5
+# depth cut, width never cut: the VLM learner at one period of 5 layers
+# (2.14B params, ~26 GB of weights, AdamW moments and the float32
+# gradient sum before activations; all 40 layers would take ~117 GB)
+VLM_LEARN_LAYERS = 5
+MEM_LEARN_S = 512                  # the learners' rows: B 8 x S 512
+# launch/serve.py's VLM stub: 0.02 N(0, 1) patch embeddings
+STUB_SCALE = 0.02
+# Whisper's encoder output through K5 against the chunked attention,
+# float32 (summation order through 12 layers of unit-RMS activations)
+TOL_ENC_F32 = 1e-4
+# K5 at the cross-attention and encoder shapes: (label, B, Sq, Sk, Hq, Hkv,
+# D), non-causal; bf16 and float32 each
+MEMORY_FLASH_CASES = (
+    ("vlm decode cross", 8, 1, 1601, 32, 8, 128),
+    ("vlm prefill cross", 8, 832, 1601, 32, 8, 128),
+    ("whisper encoder", 8, 1500, 1500, 12, 12, 64),
+    ("whisper decode cross", 8, 1, 1500, 12, 12, 64),
+    ("whisper prefill cross", 8, 192, 1500, 12, 12, 64),
+)
+# K1/K2 at the two learners' microbatches and padded vocabularies
+MEMORY_LOGPROB = (("llama-3.2-vision-11b", 4 * (MEM_LEARN_S - 1), 128256),
+                  ("whisper-small", 4 * (MEM_LEARN_S - 1), 51968))
+# one jamba MoE layer (E 16 top-2, d 8192, f 24576) on the card against
+# the CPU on the same bf16 inputs: the router is float32 on both, so the
+# drops must be equal; the expert products are bf16 sums in another order
+# (|y| ~ 0.5, a bf16 ulp there 2e-3), held to this share of max|y_cpu|
+JAMBA_MOE_TOKENS = 128
+JAMBA_SSD_S = 4096                 # K6 at jamba's layer: B 1 x S 4096
+TOL_MOE_CARD_CPU = 2e-2
+
+
+def memory_flash_rows(dev, seed):
+    """K5 at the new shapes, non-causal, in bf16 and float32: each against
+    its twin, timed beside the twin, SDPA (GQA, no mask) and the bound.
+    The last memory row has k 0 and v 1000, so it carries ~1000 / (Sk
+    e^0.5) ~ 0.4 of every output: the control, the twin over Sk - 1 keys
+    (a kernel that drops the last memory row), must be off by more than
+    ten bars."""
+    gen = torch.Generator(device=dev).manual_seed(seed + 21)
+    rows = []
+    for label, b, sq, sk, hq, hkv, d in MEMORY_FLASH_CASES:
+        for dtype in (torch.bfloat16, torch.float32):
+            q = torch.randn((b, sq, hq, d), generator=gen, device=dev)
+            k, v = (torch.randn((b, sk, hkv, d), generator=gen, device=dev)
+                    for _ in range(2))
+            k[:, -1], v[:, -1] = 0.0, 1000.0
+            q, k, v = (t.to(dtype) for t in (q, k, v))
+            f32 = [t.float() for t in (q, k, v)]
+            got = fa.flash_attention(q, k, v, causal=False)
+            want = fa.flash_attention_ref(*f32, causal=False)
+            torch.cuda.synchronize()
+            err, tol = max_err(got, want), TOL_FLASH[dtype]
+            drop = max_err(fa.flash_attention_ref(
+                f32[0], f32[1][:, :-1], f32[2][:, :-1], causal=False), want)
+            finite = bool(torch.isfinite(got.float()).all())
+            del want, got, f32
+            nbytes = q.element_size() * (2 * q.numel() + k.numel()
+                                         + v.numel())
+            b_ms, b_by = bound(nbytes, 4 * d * hq * b * sq * sk,
+                               BF16_FLOPS_S if dtype == torch.bfloat16
+                               else F32_FLOPS_S)
+            row = dict(case=label, max_abs_err=err, tol=tol,
+                       control_drop_last_row=drop, bound_ms=b_ms,
+                       bound_by=b_by,
+                       ms=time_ms(lambda: fa.flash_attention(
+                           q, k, v, causal=False), iters=10),
+                       plain_ms=time_ms(lambda: fa.flash_attention_ref(
+                           q, k, v, causal=False), iters=3, warmup=1),
+                       library_ms=sdpa_flash(q, k, v, False, None),
+                       shape=f"B={b} Sq={sq} Sk={sk} Hq={hq} Hkv={hkv} "
+                             f"D={d} non-causal {str(dtype)[6:]}")
+            rows.append(row)
+            log(f"[memory] K5 {label} (B {b}, Sq {sq}, Sk {sk}, Hq {hq}, "
+                f"Hkv {hkv}, D {d}, {str(dtype)[6:]}): max|err| {err:.3e} "
+                f"(tol {tol}); twin over Sk - 1 keys {drop:.3e} (must be > "
+                f"{10 * tol}); {row['ms']:.4f} ms, bound {b_ms:.4f} ms "
+                f"({b_by}), twin {row['plain_ms']:.3f} ms, SDPA "
+                f"{row['library_ms']:.4f} ms")
+            if not err <= tol or not finite:
+                raise AssertionError(f"K5 disagrees with its twin ({label}, "
+                                     f"{dtype})")
+            if not drop > 10 * tol:
+                raise AssertionError(f"K5's check cannot see a dropped "
+                                     f"memory row ({label})")
+            del q, k, v
+            torch.cuda.empty_cache()
+    return rows
+
+
+def memory_prompts(vocab, seed):
+    """MEM_ROWS prompts of MEM_MIN_PROMPT-MEM_PROMPT tokens (both ends
+    present), left-padded with PAD to MEM_PROMPT: (MEM_ROWS, MEM_PROMPT)
+    int32."""
+    rng = np.random.default_rng(seed + 13)
+    lens = [MEM_MIN_PROMPT, MEM_PROMPT] + [int(n) for n in rng.integers(
+        MEM_MIN_PROMPT, MEM_PROMPT + 1, MEM_ROWS - 2)]
+    out = np.full((MEM_ROWS, MEM_PROMPT), PAD, np.int32)
+    for i, n in enumerate(lens):
+        out[i, MEM_PROMPT - n:] = rng.integers(3, vocab, n)
+    return out
+
+
+def stub_input(cfg, rows, seed, dev, scale=None):
+    """A modality stub of ``rows`` rows in ``cfg.dtype`` from a generator
+    seeded by ``seed``: N(0, 1) frame embeddings (rows, encoder_seq, d) for
+    an encoder-decoder model, STUB_SCALE N(0, 1) patch embeddings (rows,
+    memory_seq, d) for a CROSS model (``scale`` overrides), as
+    ``launch/serve.py`` stubs them."""
+    gen = torch.Generator(device=dev).manual_seed(seed + 14)
+    n = cfg.encoder_seq if cfg.is_encdec else cfg.memory_seq
+    if scale is None:
+        scale = 1.0 if cfg.is_encdec else STUB_SCALE
+    x = torch.randn((rows, n, cfg.d_model), generator=gen, device=dev)
+    return (scale * x).to(getattr(torch, cfg.dtype))
+
+
+def cross_layers(cfg):
+    """(self-attention layers, cross-attention sub-layers) of a model."""
+    if cfg.is_encdec:
+        return cfg.num_layers, cfg.num_layers
+    n = cfg.block_pattern.count(CROSS) * cfg.num_blocks
+    return cfg.num_layers - n, n
+
+
+def memory_encode(cfg, params, frames, card):
+    """Whisper's encoder over ``frames`` through K5 (bidir, one launch a
+    layer) and through the chunked attention, timed; the two memories
+    must agree (bf16: the mean |diff| within TOL_BF16; float32: the max
+    within TOL_ENC_F32). Returns (the K5 memory, K5 launches)."""
+    out, ms = {}, {}
+    for impl in ("pallas", "chunked"):
+        icfg = dataclasses.replace(cfg, attn_impl=impl)
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            out[impl] = encode(icfg, params, frames)
+        torch.cuda.synchronize()
+        ms[impl] = (time.perf_counter() - t0) * 1e3
+        got = counts()["flash_attention"]
+        want = cfg.encoder_layers if impl == "pallas" else 0
+        if got != want:
+            raise AssertionError(f"encode ({impl}) launched K5 {got} times, "
+                                 f"want {want}")
+    diff = (out["pallas"].float() - out["chunked"].float()).abs()
+    f32 = cfg.dtype == "float32"
+    got, bar = ((float(diff.max()), TOL_ENC_F32) if f32
+                else (float(diff.mean()), TOL_BF16))
+    log(f"[memory] {cfg.name} {cfg.dtype} encode over {tuple(frames.shape)}: "
+        f"through K5 ({cfg.encoder_layers} launches, bidir S "
+        f"{frames.shape[1]}) {ms['pallas']:.1f} ms, chunked "
+        f"{ms['chunked']:.1f} ms; |K5 - chunked| max "
+        f"{float(diff.max()):.3e}, mean {float(diff.mean()):.3e} "
+        f"({'max' if f32 else 'mean'} <= {bar}) | {card}")
+    if not got <= bar or not torch.isfinite(out["pallas"].float()).all():
+        raise AssertionError(f"{cfg.name}: encode through K5 disagrees")
+    return out["pallas"], cfg.encoder_layers
+
+
+def memory_serve(cfg, params, memory, prompts, seed, card):
+    """The static engine with ``memory`` (attn_impl "pallas"): the serve
+    traffic, the K5 launches the run implies (prefill: every self- and
+    cross-attention; each decode step: every cross-attention), the decode
+    ms per step, then the App. B.1 recompute through K5 and through the
+    chunked attention in turns: the mean |K5 - chunked| and the mean |K5
+    recompute - sampler| within TOL_LOGP_MEAN_BF16 (bf16 noise through
+    every layer; the max printed against TOL_LOGP_PATHS). Returns the K5
+    and K1 launches (``recompute`` holds each run to one K1 launch)."""
+    cfg = dataclasses.replace(cfg, attn_impl="pallas")
+    rl = RLConfig(**SERVE_PROFILE)
+    eng = build_engine(cfg, params, ServeConfig(engine="static", seed=seed),
+                       rl=rl, vocab_limit=cfg.vocab_size, memory=memory,
+                       key=prng.PRNGKey(seed))
+    sp = SamplingParams.from_rl(rl, max_new=MEM_NEW)
+    # warm-up: cuBLAS handles, allocator, first launches
+    eng.generate([Request(rid=100 + i, prompt=prompts[i, -MEM_MIN_PROMPT:],
+                          params=SamplingParams.from_rl(rl, max_new=4))
+                  for i in range(MEM_ROWS)])
+    reqs = [Request(rid=i, prompt=p, params=sp) for i, p in enumerate(prompts)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    res = eng.generate(reqs)
+    torch.cuda.synchronize()
+    t_roll = time.perf_counter() - t0
+    got = counts()
+    n_self, n_cross = cross_layers(cfg)
+    want = {k: 0 for k in got}
+    want["flash_attention"] = n_self + n_cross + n_cross * (MEM_NEW - 1)
+    if got != want:
+        raise AssertionError(f"{cfg.name} static rollout launched {got}, "
+                             f"want {want}")
+    k5 = got["flash_attention"]
+    for r in res:
+        if not np.isfinite(r.logps).all() or (r.logps > 1e-6).any() or \
+                (r.tokens < 0).any() or (r.tokens >= cfg.vocab_size).any():
+            raise AssertionError(f"{cfg.name} request {r.rid}: bad tokens or "
+                                 f"logps")
+    toks = torch.from_numpy(prompts.astype(np.int64)).to(
+        params["embed"].device)
+    with torch.no_grad():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        cache = init_cache(cfg, params, MEM_ROWS, MEM_PROMPT + MEM_NEW,
+                           memory=memory)
+        forward(cfg, params, toks, cache=cache, memory=memory)
+        torch.cuda.synchronize()
+        t_pre = time.perf_counter() - t0
+    del cache
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    n_tok = sum(r.gen_count for r in res)
+    dec_ms = (t_roll - t_pre) * 1e3 / (MEM_NEW - 1)
+    log(f"[memory] {cfg.name} {cfg.dtype} static engine, memory "
+        f"{tuple(memory.shape)}: {MEM_ROWS} requests of "
+        f"{MEM_MIN_PROMPT}-{MEM_PROMPT} "
+        f"tokens (left-padded to {MEM_PROMPT}), {MEM_NEW} new, temperature "
+        f"0.6 / top-k 20 / top-p 0.95: {n_tok} tokens in {t_roll:.2f}s; "
+        f"prefill alone (cache + memory projections + forward) "
+        f"{t_pre * 1e3:.1f} ms, decode {dec_ms:.2f} ms per step (rollout "
+        f"minus prefill over {MEM_NEW - 1} decode steps); K5 launches {k5} "
+        f"= {n_self} self + {n_cross} cross (prefill) + {n_cross} x "
+        f"{MEM_NEW - 1} cross (decode); peak {peak:.2f} GiB | {card}")
+    roll = rollout_from_results(prompts, res, MEM_NEW, device=toks.device)
+    tokens = roll["tokens"]
+    lps, ms = {}, {"pallas": [], "chunked": []}
+    runs = ("pallas", "chunked", "chunked", "pallas")
+    for impl in runs:
+        lp, t, n = recompute(cfg, params, tokens, impl,
+                             n_self + n_cross if impl == "pallas" else 0,
+                             memory=memory)
+        k5 += n
+        lps[impl] = lp
+        ms[impl].append(t)
+    d = (lps["pallas"] - lps["chunked"]).abs()
+    mask = roll["comp_mask"] > 0
+    gap = (lps["pallas"][:, MEM_PROMPT - 1:] - roll["sampler_lp"]).abs()[mask]
+    log(f"[memory] {cfg.name} recompute over {tuple(tokens.shape)}: through "
+        f"K5 {' / '.join(f'{t:.1f}' for t in ms['pallas'])} ms, chunked "
+        f"{' / '.join(f'{t:.1f}' for t in ms['chunked'])} ms (K5 "
+        f"{n_self + n_cross} + K1 1 launches a K5 run); |K5 - chunked| mean "
+        f"{float(d.mean()):.3e} max {float(d.max()):.4f}; |K5 recompute - "
+        f"sampler| over {int(mask.sum())} generated tokens mean "
+        f"{float(gap.mean()):.3e} max {float(gap.max()):.4f} (means <= "
+        f"{TOL_LOGP_MEAN_BF16}; max against {TOL_LOGP_PATHS} printed) | "
+        f"{card}")
+    if not float(d.mean()) <= TOL_LOGP_MEAN_BF16 or \
+            not float(gap.mean()) <= TOL_LOGP_MEAN_BF16:
+        raise AssertionError(f"{cfg.name}: the recompute through K5 "
+                             f"disagrees")
+    return {"flash_attention": k5, "logprob_fwd": len(runs)}
+
+
+def memory_f32_pair(cfg, params, memory, prompts, card):
+    """The float32 check of one memory model, greedy through K5: the
+    static engine's logps (its decode steps attend the cached memory
+    through K5 at Sq 1) and the recompute through K5 against the recompute
+    through the chunked attention, every token within TOL_LOGP_F32. The
+    control: the recompute with the memory zeroed must miss that bar.
+    Returns the K5 and K1 launches."""
+    cfg = dataclasses.replace(cfg, attn_impl="pallas")
+    rl = RLConfig(temperature=1.0, top_k=1, top_p=1.0)
+    eng = build_engine(cfg, params, ServeConfig(engine="static"), rl=rl,
+                       vocab_limit=cfg.vocab_size, memory=memory,
+                       key=prng.PRNGKey(0))
+    sp = SamplingParams.from_rl(rl, max_new=MEM_F32_NEW)
+    reset_counts()
+    res = eng.generate([Request(rid=i, prompt=p, params=sp)
+                        for i, p in enumerate(prompts)])
+    k5 = counts()["flash_attention"]
+    roll = rollout_from_results(prompts, res, MEM_F32_NEW,
+                                device=params["embed"].device)
+    tokens, mask = roll["tokens"], roll["comp_mask"] > 0
+    n_self, n_cross = cross_layers(cfg)
+    lp_k5, _, n = recompute(cfg, params, tokens, "pallas", n_self + n_cross,
+                            memory=memory)
+    k5 += n
+    lp_ch, _, _ = recompute(cfg, params, tokens, "chunked", 0, memory=memory)
+    lp_0, _, n = recompute(cfg, params, tokens, "pallas", n_self + n_cross,
+                           memory=torch.zeros_like(memory))
+    k5 += n
+    eng_d = float((lp_ch[:, MEM_PROMPT - 1:] - roll["sampler_lp"]).abs()[
+        mask].max())
+    rec_d = float((lp_k5 - lp_ch).abs().max())
+    zero_d = float((lp_0 - lp_ch).abs().max())
+    log(f"[memory] {cfg.name} float32 ({cfg.num_layers} layers, memory "
+        f"{tuple(memory.shape)} at N(0, 1) scale), greedy, {MEM_F32_NEW} "
+        f"new: max |engine logp (K5 decode) - chunked recompute| "
+        f"{eng_d:.3e}, max |K5 recompute - chunked recompute| {rec_d:.3e} "
+        f"(both <= {TOL_LOGP_F32}); control, the memory zeroed: "
+        f"{zero_d:.3e} (must be > {TOL_LOGP_F32}) | {card}")
+    if not eng_d <= TOL_LOGP_F32 or not rec_d <= TOL_LOGP_F32:
+        raise AssertionError(f"{cfg.name} float32: K5 disagrees with the "
+                             f"chunked attention")
+    if not zero_d > TOL_LOGP_F32:
+        raise AssertionError(f"{cfg.name} float32: the check cannot see a "
+                             f"dropped memory")
+    return {"flash_attention": k5, "logprob_fwd": 3}
+
+
+def vlm_models(dev, seed, card):
+    """The VLM at full depth in bf16 (serve + recompute), then its float32
+    pair at one period. Returns the launches."""
+    launches = {"flash_attention": 0, "logprob_fwd": 0}
+
+    def add(d):
+        for k, n in d.items():
+            launches[k] += n
+    cfg, params = load_family(VLM, seed, dev)
+    prompts = memory_prompts(cfg.vocab_size, seed)
+    memory = stub_input(cfg, MEM_ROWS, seed, dev)
+    add(memory_serve(cfg, params, memory, prompts, seed, card))
+    del params, memory
+    free()
+    cfg, params = load_family(VLM, seed, dev, dtype=torch.float32,
+                              num_layers=VLM_F32_LAYERS)
+    memory = stub_input(cfg, MEM_ROWS, seed + 1, dev, scale=1.0)
+    add(memory_f32_pair(cfg, params, memory, prompts, card))
+    del params, memory
+    free()
+    return launches
+
+
+def whisper_models(dev, seed, card):
+    """Whisper whole in bf16 (encode through K5, serve + recompute), then
+    in float32 (encode, the float32 pair). Returns the launches."""
+    launches = {"flash_attention": 0, "logprob_fwd": 0}
+
+    def add(d):
+        for k, n in d.items():
+            launches[k] += n
+    for dtype in (torch.bfloat16, torch.float32):
+        cfg, params = load_family(WHISPER, seed, dev, dtype=dtype)
+        prompts = memory_prompts(cfg.vocab_size, seed)
+        frames = stub_input(cfg, MEM_ROWS, seed, dev)
+        memory, n = memory_encode(cfg, params, frames, card)
+        add({"flash_attention": n})
+        if dtype == torch.bfloat16:
+            add(memory_serve(cfg, params, memory, prompts, seed, card))
+        else:
+            add(memory_f32_pair(cfg, params, memory, prompts, card))
+        del params, memory, frames
+        free()
+    return launches
+
+
+def jamba_pieces(dev, seed, card):
+    """Jamba's full-width pieces one at a time: K6 at its SSM layer (256
+    heads, P 64, N 128, G 1, B 1 x S 4096) against its twin, timed; one
+    MoE layer (E 16 top-2, d 8192, f 24576, 9.66B params, 19.3 GB bf16)
+    through ``moe_ffn`` on the card against the CPU on the same inputs,
+    drops equal. Returns the K6 row."""
+    cfg = get_config(JAMBA)
+    gen = torch.Generator(device=dev).manual_seed(seed + 22)
+    row = ssd_row(gen, dev, "jamba layer", 1, JAMBA_SSD_S, cfg.ssm_heads,
+                  cfg.ssm_headdim, cfg.ssm_ngroups, cfg.ssm_state,
+                  cfg.ssm_chunk, torch.bfloat16, True)
+    e, d, f = cfg.num_experts, cfg.d_model, cfg.d_ff
+
+    def normal(shape, scale):
+        out = torch.empty(shape, dtype=torch.bfloat16, device=dev)
+        for i in range(shape[0]):          # float32 one expert at a time
+            out[i] = scale * torch.randn(shape[1:], generator=gen,
+                                         device=dev)
+        return out
+    out_scale = 0.02 / np.sqrt(2 * cfg.num_layers)
+    p = {"router": normal((d, e), 0.02), "w_gate": normal((e, d, f), 0.02),
+         "w_up": normal((e, d, f), 0.02), "w_down": normal((e, f, d),
+                                                           out_scale)}
+    x = torch.randn((1, JAMBA_MOE_TOKENS, d), generator=gen,
+                    device=dev).bfloat16()
+    n = sum(t.numel() for t in p.values())
+    with torch.no_grad():
+        y, aux = moe_ffn(cfg, p, x)
+        torch.cuda.synchronize()
+        ms = time_ms(lambda: moe_ffn(cfg, p, x), iters=5, warmup=1)
+        pc = {k: t.cpu() for k, t in p.items()}
+        del p
+        free()
+        t0 = time.perf_counter()
+        y_cpu, aux_cpu = moe_ffn(cfg, pc, x.cpu())
+        cpu_s = time.perf_counter() - t0
+    del pc
+    rel = float((y.cpu().float() - y_cpu.float()).abs().max()) / float(
+        y_cpu.float().abs().max())
+    auxs = {k: (float(aux[k]), float(aux_cpu[k])) for k in aux}
+    log(f"[memory] jamba MoE layer (E {e} top-{cfg.experts_per_token}, d "
+        f"{d}, f {f}, {n / 1e9:.2f}B params bf16), x (1, "
+        f"{JAMBA_MOE_TOKENS}, {d}): card {ms:.3f} ms, CPU {cpu_s:.1f} s; "
+        f"max|card - CPU| / max|CPU| {rel:.3e} (<= {TOL_MOE_CARD_CPU}); "
+        f"aux card / CPU "
+        + ", ".join(f"{k} {a:.6g} / {b:.6g}" for k, (a, b) in auxs.items())
+        + f" | {card}")
+    if not rel <= TOL_MOE_CARD_CPU or not torch.isfinite(y.float()).all():
+        raise AssertionError("jamba MoE layer: card and CPU disagree")
+    if auxs["moe_drop_frac"][0] != auxs["moe_drop_frac"][1]:
+        raise AssertionError("jamba MoE layer: drops differ on card and CPU")
+    for k in ("moe_load_balance", "moe_z_loss"):
+        a, b = auxs[k]
+        if not abs(a - b) <= 1e-4 * abs(b):
+            raise AssertionError(f"jamba MoE layer: {k} differs")
+    del y, x
+    free()
+    return row
+
+
+def memory_phase(dev, seed, card):
+    """Phase 13. Returns (launches by kernel, kernel rows)."""
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(seed + 23)
+    rows = {"flash_attention": memory_flash_rows(dev, seed)}
+    rows.update(logprob_rows(gen, dev, MEMORY_LOGPROB, "memory"))
+    log(f"[time] memory: kernel rows {time.perf_counter() - t0:.1f}s")
+    launches = {k: 0 for k in ("flash_attention", "logprob_fwd",
+                               "logprob_bwd")}
+
+    def add(d):
+        for k, n in d.items():
+            launches[k] += n
+    for label, fn in (("VLM", vlm_models), ("whisper", whisper_models)):
+        t0 = time.perf_counter()
+        add(fn(dev, seed, card))
+        log(f"[time] memory: {label} {time.perf_counter() - t0:.1f}s")
+    t0 = time.perf_counter()
+    add(learner_family(dev, seed, card, WHISPER, MEM_LEARN_S,
+                       stub="frames"))
+    log(f"[time] memory: whisper learner {time.perf_counter() - t0:.1f}s")
+    t0 = time.perf_counter()
+    add(learner_family(dev, seed, card, VLM, MEM_LEARN_S,
+                       stub="image_embeds", num_layers=VLM_LEARN_LAYERS))
+    log(f"[time] memory: VLM learner {time.perf_counter() - t0:.1f}s")
+    t0 = time.perf_counter()
+    rows["ssd_scan"] = [jamba_pieces(dev, seed, card)]
+    log(f"[time] memory: jamba pieces {time.perf_counter() - t0:.1f}s")
+    log(f"[memory] launches: {launches}")
     return launches, rows
 
 
@@ -4016,6 +4529,16 @@ def main(argv=None) -> int:
     for name, rows in fam_rows.items():
         kernels[name]["families"] = rows
     log(f"[time] families phase {time.perf_counter() - t0:.1f}s")
+    t0 = time.perf_counter()
+    mem_launches, mem_rows = memory_phase(dev, args.seed, card)
+    for name, n in mem_launches.items():
+        launches[name] += n
+    for name, rows in mem_rows.items():
+        kernels[name]["memory"] = rows
+    kernels["flash_attention"]["launches_by_phase"][
+        "memory (VLM and Whisper: encode, static engines, recomputes)"] = \
+        mem_launches["flash_attention"]
+    log(f"[time] memory phase {time.perf_counter() - t0:.1f}s")
     for name, row in kernels.items():
         row["launches"] = launches[name]
         row["kernel_ms"], row["twin_ms"] = row["ms"], row["plain_ms"]

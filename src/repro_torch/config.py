@@ -168,22 +168,27 @@ class ModelConfig:
         return self.encoder_layers > 0
 
     def param_count(self) -> int:
-        """Parameter count of the layouts this port serves: embedding,
-        untied head, per layer its mixer (attention or Mamba2) and FFN
-        (MLP, MoE with its router and shared expert, or none) and two
-        norms, as the JAX package counts them, plus the final norm and the
-        QKV biases, which the JAX count leaves out."""
+        """Parameter count: embedding, untied head, per layer its mixer
+        (attention, cross-attention or Mamba2) and FFN (MLP, MoE with its
+        router and shared expert, or none) and two norms, and the encoder
+        of an encoder-decoder model, as the JAX package counts them; plus
+        what the JAX count leaves out: the final norm, the QKV biases, and
+        in an encoder-decoder model the decoder's cross-attention and its
+        norm in every layer and the encoder's final norm."""
         d, h = self.d_model, self.head_dim
         n_q, n_kv = self.num_heads, self.num_kv_heads
+        attn = d * (n_q * h) + 2 * d * (n_kv * h) + (n_q * h) * d
         total = self.padded_vocab * d
         if not self.tie_embeddings:
             total += self.padded_vocab * d
         for li in range(self.num_layers):
             kind = self.block_pattern[li % self.period]
-            if kind in (ATTN, LOCAL):
-                total += d * (n_q * h) + 2 * d * (n_kv * h) + (n_q * h) * d
-                if self.qkv_bias:
+            if kind in (ATTN, LOCAL, CROSS):
+                total += attn
+                if self.qkv_bias and kind != CROSS:
                     total += (n_q + 2 * n_kv) * h
+                if self.is_encdec:                # the decoder's cross
+                    total += attn + d
             elif kind == MAMBA:
                 di, n, g = self.d_inner, self.ssm_state, self.ssm_ngroups
                 total += d * (2 * di + 2 * g * n + self.ssm_heads)  # in_proj
@@ -198,6 +203,11 @@ class ModelConfig:
                 if self.shared_expert:
                     total += 3 * d * self.d_ff
             total += 2 * d                                            # norms
+        if self.encoder_layers:
+            # the JAX count takes 4 d (n_q h) for the attention, as if
+            # n_kv == n_q (true of whisper-small)
+            total += self.encoder_layers * (attn + 3 * d * self.d_ff + 2 * d)
+            total += d                                    # its final norm
         return total + d
 
 

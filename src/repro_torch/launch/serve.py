@@ -21,6 +21,17 @@ warning. Its prefill fills a cache, so it runs the chunked SSD, and its
 decode runs the recurrence: the SSD kernel K6 serves only the cache-free
 recompute (``ModelConfig.ssd_impl``).
 
+The modality-memory families serve static with a stub memory of one row
+per request, drawn from a ``torch.Generator`` seeded by ``--seed``, as
+the JAX package's launcher stubs it: ``llama-3.2-vision-11b`` cross-attends
+to 0.02 N(0, 1) patch embeddings (``memory_seq`` of them), and
+``whisper-small``'s decoder to ``encode`` over N(0, 1) frame embeddings
+(``encoder_seq`` frames); ``--listen`` refuses both, since the front door
+serves the continuous engine:
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch whisper-small
+  PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --smoke --arch llama-3.2-vision-11b
+
 ``--spec-k K`` turns on speculative decoding in the continuous engine:
 an n-gram drafter proposes up to K tokens a round, one forward verifies
 them (``--spec-ngram``: the longest suffix n-gram matched;
@@ -47,6 +58,7 @@ import argparse
 import asyncio
 import dataclasses
 import time
+from typing import Optional
 
 import numpy as np
 import torch
@@ -54,7 +66,7 @@ import torch
 from repro_torch.config import RLConfig, ServeConfig
 from repro_torch.configs import get_config, smoke
 from repro_torch.data import Tokenizer
-from repro_torch.models import init_params
+from repro_torch.models import encode, init_params
 from repro_torch.sampling import StaticEngine, build_engine
 from repro_torch.sampling.prng import PRNGKey, split
 from repro_torch.serving.api import Request, SamplingParams
@@ -120,6 +132,24 @@ def parse_args(argv=None) -> argparse.Namespace:
     return ap.parse_args(argv)
 
 
+@torch.no_grad()
+def stub_memory(cfg, params, batch: int, seed: int) -> Optional[torch.Tensor]:
+    """The stub memory of a memory or encoder-decoder model, one row per
+    request (None for any other model): ``encode`` over N(0, 1) frame
+    embeddings (batch, encoder_seq, d) for an encoder-decoder model,
+    0.02 N(0, 1) patch embeddings (batch, memory_seq, d) for a CROSS
+    model, in ``cfg.dtype``, from a generator seeded by ``seed``."""
+    if not (cfg.is_encdec or cfg.memory_seq):
+        return None
+    dev = params["embed"].device
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    rows = cfg.encoder_seq if cfg.is_encdec else cfg.memory_seq
+    x = torch.randn((batch, rows, cfg.d_model), generator=gen, device=dev)
+    if cfg.is_encdec:
+        return encode(cfg, params, x.to(getattr(torch, cfg.dtype)))
+    return (0.02 * x).to(getattr(torch, cfg.dtype))
+
+
 def main(argv=None) -> None:
     args = parse_args(argv)
     cfg = smoke(args.arch) if args.smoke else get_config(args.arch)
@@ -141,7 +171,11 @@ def main(argv=None) -> None:
                   engine=serve.engine)
     params = init_params(cfg, args.seed, device=args.device)
     key = PRNGKey(serve.seed)
+    memory = stub_memory(cfg, params, args.batch, args.seed)
     if args.listen:
+        if memory is not None:
+            raise SystemExit("--listen serves decoder-only KV-cache "
+                             "architectures (continuous engine)")
         from repro_torch.serving.server import serve_forever
         tok = Tokenizer()
         try:
@@ -152,7 +186,7 @@ def main(argv=None) -> None:
             pass
         return
     engine = build_engine(cfg, params, serve, rl=rl,
-                          vocab_limit=cfg.vocab_size, key=key)
+                          vocab_limit=cfg.vocab_size, memory=memory, key=key)
     static = isinstance(engine, StaticEngine)
     sp = SamplingParams.from_rl(rl)
     rng = np.random.default_rng(args.seed)

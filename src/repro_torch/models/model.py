@@ -1,13 +1,25 @@
 """The decoder forward: dense full-sequence (with or without a dense
-cache), and paged prefill/decode.
+cache), and paged prefill/decode; the encoder of an encoder-decoder model.
 
-The port of the decoder of ``repro/models/model.py`` for attention and
-Mamba2 layers: token embedding, then for every layer RMSNorm and its
-mixer, either attention (q/k/v projections with rotary embeddings,
-attention, the output projection) or a Mamba2 block
+The port of ``repro/models/model.py``: token embedding, then for every
+layer RMSNorm and its mixer, either self-attention (q/k/v projections
+with rotary embeddings, attention, the output projection),
+cross-attention to a modality memory (a CROSS layer), or a Mamba2 block
 (``models.ssm.mamba_block``), then a SwiGLU MLP, a MoE FFN
 (``models.moe.moe_ffn``) or no FFN (``ffn_pattern`` NONE), then the final
-norm and the (tied or separate) head in float32. A config with MoE layers
+norm and the (tied or separate) head in float32. In an encoder-decoder
+model (Whisper) every decoder layer adds, after its self-attention, a
+``cross_norm`` and cross-attention to the memory. The memory (B, M, d) is
+what a forward or ``init_cache`` takes as ``memory=``: stub image patch
+embeddings for a CROSS model, the output of ``encode`` (the encoder's
+bidirectional attention + MLP layers over stub frame embeddings, then its
+final norm) for an encoder-decoder model. ``init_cache(memory=)``
+projects the memory's keys and values once per layer into the cache
+(``"mem"``: ``k_mem`` / ``v_mem``), which every later forward and decode
+step over that cache reads. Cross-attention masks nothing and has no
+positions, so it always takes K5 under ``attn_impl="pallas"``
+(non-causal, Sq != Sk), as the JAX package's jitted forward does with its
+traced zero positions. A config with MoE layers
 sums each layer's router metrics (``moe_load_balance``, ``moe_z_loss``,
 ``moe_drop_frac``) into the ``aux`` that ``forward`` returns, from float32
 zeros in layer order, as the JAX package's scan carries them. Three ways
@@ -47,7 +59,8 @@ from typing import Any, Dict, List, Optional, Tuple, Union
 import torch
 import torch.utils.checkpoint
 
-from repro_torch.config import ATTN, LOCAL, MAMBA, MLP, MOE, NONE, ModelConfig
+from repro_torch.config import (ATTN, CROSS, LOCAL, MAMBA, MLP, MOE, NONE,
+                                ModelConfig)
 from repro_torch.kernels.ops import paged_decode, paged_prefill
 from repro_torch.models.attention import (attention, decode_attention,
                                           fill_ring, ring_decode_attention,
@@ -109,8 +122,10 @@ def _self_attn(cfg: ModelConfig, p: Dict, x: torch.Tensor, *, kind: str,
                positions: torch.Tensor, paged: Optional[Tuple],
                decode: bool, dense: Optional[Tuple] = None,
                contiguous: Optional[bool] = None,
-               tape: Optional[List] = None) -> torch.Tensor:
-    """Self-attention sub-layer (input already normed).
+               tape: Optional[List] = None,
+               bidir: bool = False) -> torch.Tensor:
+    """Self-attention sub-layer (input already normed); ``bidir`` (the
+    encoder's layers) masks nothing.
 
     ``paged`` is None for the dense paths, else (kp, vp, page_table,
     widx): this chunk's K/V are written into the pools in place, then
@@ -127,7 +142,8 @@ def _self_attn(cfg: ModelConfig, p: Dict, x: torch.Tensor, *, kind: str,
     q, k, v = _project_qkv(cfg, p, x)
     q = rope(q, positions, cfg.rope_theta)
     k = rope(k, positions, cfg.rope_theta)
-    mask_kind = "local" if kind == LOCAL else "causal"
+    mask_kind = ("bidir" if bidir else
+                 "local" if kind == LOCAL else "causal")
     if paged is None:
         ring = cfg.local_ring_kv and kind == LOCAL
         if dense is not None and decode:
@@ -182,6 +198,36 @@ def _self_attn(cfg: ModelConfig, p: Dict, x: torch.Tensor, *, kind: str,
     return o.reshape(b, sq, -1) @ p["wo"]
 
 
+def _cross_attn(cfg: ModelConfig, p: Dict, x: torch.Tensor, *,
+                memory: Optional[torch.Tensor],
+                mem: Optional[Tuple[torch.Tensor, torch.Tensor]]
+                ) -> torch.Tensor:
+    """Cross-attention sub-layer (input already normed) to a modality or
+    encoder memory: the keys and values are ``mem`` (this layer's
+    (k_mem, v_mem) of a cache from ``init_cache``) when given, else
+    projected from ``memory`` (B, M, d). Every query attends every memory
+    row, with no positions ("bidir" over zeros, as in the JAX package),
+    so the call tells ``attention`` that the layout is contiguous: under
+    ``attn_impl="pallas"`` it launches K5 non-causal at Sq != Sk instead
+    of checking zeros that are not ``arange`` and falling back."""
+    b, sq, _ = x.shape
+    q = (x @ p["wq"]).reshape(b, sq, cfg.num_heads, cfg.head_dim)
+    if mem is not None:
+        k, v = mem
+    elif memory is None:
+        raise ValueError(f"{cfg.name}: cross-attention needs memory= (or a "
+                         "cache from init_cache(memory=...))")
+    else:
+        m = memory.shape[1]
+        k = (memory @ p["wk"]).reshape(b, m, cfg.num_kv_heads, cfg.head_dim)
+        v = (memory @ p["wv"]).reshape(b, m, cfg.num_kv_heads, cfg.head_dim)
+    zeros = torch.zeros((b, 1), dtype=torch.long, device=x.device)
+    o = attention(q, k, v, pos_q=zeros.expand(b, sq),
+                  pos_k=zeros.expand(b, k.shape[1]), kind="bidir",
+                  impl=cfg.attn_impl, chunk=cfg.attn_chunk, contiguous=True)
+    return o.reshape(b, sq, -1) @ p["wo"]
+
+
 def _aux_init(cfg: ModelConfig, device: torch.device
               ) -> Dict[str, torch.Tensor]:
     if MOE in cfg.ffn_pattern:
@@ -195,22 +241,31 @@ def _apply_layer(cfg: ModelConfig, kind: str, ffn_kind: str, p: Dict,
                  decode: bool, dense: Union[None, Tuple, Dict] = None,
                  contiguous: Optional[bool] = None,
                  tape: Optional[List] = None,
-                 aux: Optional[Dict[str, torch.Tensor]] = None
-                 ) -> torch.Tensor:
+                 aux: Optional[Dict[str, torch.Tensor]] = None,
+                 memory: Optional[torch.Tensor] = None,
+                 mem: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+                 encoder: bool = False) -> torch.Tensor:
     """One layer. ``dense`` is this layer's part of a dense cache: (k, v,
-    pos) of an attention layer, the ``{"conv", "ssm"}`` of a Mamba2
-    layer. A MoE layer adds its router metrics to ``aux`` (from
-    ``_aux_init``) in place."""
-    if kind not in (ATTN, LOCAL, MAMBA) or ffn_kind not in (MLP, MOE, NONE):
-        raise NotImplementedError(
-            f"layer ({kind!r}, {ffn_kind!r}) is not ported yet")
+    pos) of a self-attention layer, the ``{"conv", "ssm"}`` of a Mamba2
+    layer; ``mem`` its cached memory (k_mem, v_mem), if any, and
+    ``memory`` the memory its cross-attention projects otherwise. An
+    ``encoder`` layer is bidirectional self-attention + MLP. A MoE layer
+    adds its router metrics to ``aux`` (from ``_aux_init``) in place."""
+    if kind not in (ATTN, LOCAL, CROSS, MAMBA) or \
+            ffn_kind not in (MLP, MOE, NONE):
+        raise ValueError(f"unknown layer ({kind!r}, {ffn_kind!r})")
     h = rmsnorm(x, p["norm"], cfg.norm_eps)
     if kind == MAMBA:
         x = x + mamba_block(cfg, p["mamba"], h, cache=dense, decode=decode)
+    elif kind == CROSS:
+        x = x + _cross_attn(cfg, p["attn"], h, memory=memory, mem=mem)
     else:
         x = x + _self_attn(cfg, p["attn"], h, kind=kind, positions=positions,
                            paged=paged, decode=decode, dense=dense,
-                           contiguous=contiguous, tape=tape)
+                           contiguous=contiguous, tape=tape, bidir=encoder)
+        if cfg.is_encdec and not encoder:                # whisper decoder
+            h = rmsnorm(x, p["cross_norm"], cfg.norm_eps)
+            x = x + _cross_attn(cfg, p["cross"], h, memory=memory, mem=mem)
     if ffn_kind == MLP:
         x = x + swiglu(rmsnorm(x, p["ffn_norm"], cfg.norm_eps), p["mlp"])
     elif ffn_kind == MOE:
@@ -223,7 +278,7 @@ def _apply_layer(cfg: ModelConfig, kind: str, ffn_kind: str, p: Dict,
 
 # cache layouts: layer kind -> (key of its cache dict, leaves it holds)
 _DENSE = {ATTN: ("self", ("k", "v")), LOCAL: ("self", ("k", "v")),
-          MAMBA: ("ssm_c", ("conv", "ssm"))}
+          MAMBA: ("ssm_c", ("conv", "ssm")), CROSS: ("mem", ("k_mem", "v_mem"))}
 _PAGED = {ATTN: ("self", ("kp", "vp")), LOCAL: ("self", ("kp", "vp"))}
 
 
@@ -255,7 +310,8 @@ _CACHE_KINDS = ("a cache is the page pools of "
 def _run_dense(cfg: ModelConfig, params: Dict, x: torch.Tensor, *,
                positions: torch.Tensor, contiguous: Optional[bool],
                cache: Optional[Dict] = None,
-               pos: Union[None, int, torch.Tensor] = None
+               pos: Union[None, int, torch.Tensor] = None,
+               memory: Optional[torch.Tensor] = None
                ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Full-sequence layers (``pos`` None) or one decode step at ``pos``
     over a dense ``cache``; returns (x, aux). Without a cache, one
@@ -267,24 +323,31 @@ def _run_dense(cfg: ModelConfig, params: Dict, x: torch.Tensor, *,
         raise ValueError(_CACHE_KINDS)
     decode = pos is not None
 
-    def block(x: torch.Tensor, bp: Dict, bc, aux: Dict[str, torch.Tensor]
+    def block(x: torch.Tensor, bp: Dict, bc, aux: Dict[str, torch.Tensor],
+              memory: Optional[torch.Tensor]
               ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         aux = dict(aux)
         for i, kind in enumerate(cfg.block_pattern):
+            dense, mem = (None, None) if bc is None else bc[i]
             x = _apply_layer(cfg, kind, cfg.ffn_kind(i), bp[f"layer_{i}"], x,
                              positions=positions, paged=None, decode=decode,
-                             dense=None if bc is None else bc[i],
-                             contiguous=contiguous, aux=aux)
+                             dense=dense, contiguous=contiguous, aux=aux,
+                             memory=memory, mem=mem)
         return x, aux
 
     def layer_views(bi: int, i: int, kind: str):
         """Block ``bi`` of layer slot ``i``'s stacked cache, as
-        ``_apply_layer`` takes it: (k, v, pos) views or the Mamba2 dict."""
+        ``_apply_layer`` takes it: ((k, v, pos) views, the Mamba2 dict or
+        None; the (k_mem, v_mem) views or None)."""
+        lc = cache[f"layer_{i}"]
+        mem = lc.get("mem")
+        mem = None if mem is None else (mem["k_mem"][bi], mem["v_mem"][bi])
+        if kind == CROSS:
+            return None, mem
         key, names = _DENSE[kind]
-        lc = cache[f"layer_{i}"][key]
         if kind == MAMBA:
-            return {n: lc[n][bi] for n in names}
-        return tuple(lc[n][bi] for n in names) + (pos,)
+            return {n: lc[key][n][bi] for n in names}, mem
+        return tuple(lc[key][n][bi] for n in names) + (pos,), mem
 
     remat = cfg.remat and torch.is_grad_enabled() and cache is None
     aux = _aux_init(cfg, x.device)
@@ -294,9 +357,9 @@ def _run_dense(cfg: ModelConfig, params: Dict, x: torch.Tensor, *,
             for i, kind in enumerate(cfg.block_pattern)]
         if remat:
             x, aux = torch.utils.checkpoint.checkpoint(
-                block, x, bp, bc, aux, use_reentrant=False)
+                block, x, bp, bc, aux, memory, use_reentrant=False)
         else:
-            x, aux = block(x, bp, bc, aux)
+            x, aux = block(x, bp, bc, aux, memory)
     return x, aux
 
 
@@ -351,7 +414,41 @@ def _logits(cfg: ModelConfig, params: Dict, x: torch.Tensor) -> torch.Tensor:
     return logits
 
 
+def _encoder_layer(cfg: ModelConfig, p: Dict, x: torch.Tensor,
+                   positions: torch.Tensor) -> torch.Tensor:
+    return _apply_layer(cfg, ATTN, MLP, p, x, positions=positions,
+                        paged=None, decode=False, contiguous=True,
+                        encoder=True)
+
+
+def encode(cfg: ModelConfig, params: Dict, frames: torch.Tensor
+           ) -> torch.Tensor:
+    """The encoder of an encoder-decoder model (Whisper) over stub frame
+    embeddings (B, S_enc, d): ``encoder_layers`` layers of bidirectional
+    self-attention at positions ``arange(S_enc)`` (K5 non-causal under
+    ``attn_impl="pallas"``) and an MLP, then the encoder's final norm.
+    Returns the memory (B, S_enc, d) the decoder cross-attends to. Under
+    ``cfg.remat`` (and autograd recording) each layer runs under
+    ``torch.utils.checkpoint``, as the JAX package checkpoints its
+    encoder scan body."""
+    if not cfg.is_encdec:
+        raise ValueError(f"{cfg.name} has no encoder (encoder_layers 0)")
+    b, s, _ = frames.shape
+    positions = torch.arange(s, device=frames.device).expand(b, s)
+    enc = params["encoder"]
+    remat = cfg.remat and torch.is_grad_enabled()
+    x = frames
+    for lp in _unstack(enc["blocks"], cfg.encoder_layers):
+        if remat:
+            x = torch.utils.checkpoint.checkpoint(
+                _encoder_layer, cfg, lp, x, positions, use_reentrant=False)
+        else:
+            x = _encoder_layer(cfg, lp, x, positions)
+    return rmsnorm(x, enc["final_norm"], cfg.norm_eps)
+
+
 def forward(cfg: ModelConfig, params: Dict, tokens: torch.Tensor, *,
+            memory: Optional[torch.Tensor] = None,
             positions: Optional[torch.Tensor] = None,
             cache: Optional[Dict] = None,
             page_table: Optional[torch.Tensor] = None,
@@ -363,7 +460,9 @@ def forward(cfg: ModelConfig, params: Dict, tokens: torch.Tensor, *,
     ``init_cache`` also writes the K/V of positions [0, S) into it (the
     static engine's prefill); with page pools and ``page_table`` a chunked
     prefill whose K/V are written into the pools. Caches are written in
-    place. Returns (logits (B, S, V_padded) f32, cache, aux).
+    place. Returns (logits (B, S, V_padded) f32, cache, aux). ``memory``
+    (B, M, d) is what the cross-attention of a CROSS or encoder-decoder
+    model attends, unless ``cache`` holds its projections already.
 
     ``record_queries`` (paged prefill only) puts ``q_tape`` and ``o_tape``
     in ``aux``: every layer's post-rope queries and attention outputs,
@@ -385,7 +484,8 @@ def forward(cfg: ModelConfig, params: Dict, tokens: torch.Tensor, *,
                 f"record_queries needs every layer on the paged attention "
                 f"path; layer kind {cfg.block_pattern[0]!r} is not")
         x, aux = _run_dense(cfg, params, x, positions=positions,
-                            contiguous=contiguous, cache=cache)
+                            contiguous=contiguous, cache=cache,
+                            memory=memory)
     else:
         tape: Optional[List] = [] if record_queries else None
         x, aux = _run_paged(cfg, params, x, positions=positions, cache=cache,
@@ -398,13 +498,16 @@ def forward(cfg: ModelConfig, params: Dict, tokens: torch.Tensor, *,
 
 def decode_step(cfg: ModelConfig, params: Dict, cache: Dict,
                 token: torch.Tensor, pos: Union[int, torch.Tensor], *,
+                memory: Optional[torch.Tensor] = None,
                 page_table: Optional[torch.Tensor] = None
                 ) -> Tuple[torch.Tensor, Dict]:
     """One decode step. token (B,). Over a paged cache (with
     ``page_table``) ``pos`` is a scalar or a (B,) vector of write
     positions; over a dense cache it is one position shared by the batch
     (an int or a 0-d tensor), as the dense layout has one write column.
-    Returns (logits (B, V_padded) f32, cache)."""
+    Cross-attention reads the memory's keys and values from the cache
+    (``init_cache(memory=)``), or projects ``memory`` when the cache has
+    none. Returns (logits (B, V_padded) f32, cache)."""
     b = token.shape[0]
     x = _embed(cfg, params, token[:, None])
     if page_table is None and not _is_paged(cfg, cache):
@@ -418,7 +521,8 @@ def decode_step(cfg: ModelConfig, params: Dict, cache: Dict,
                              f"by the batch, got pos of shape "
                              f"{tuple(pos.shape)}")
         x, _ = _run_dense(cfg, params, x, positions=positions,
-                          contiguous=None, cache=cache, pos=pos)
+                          contiguous=None, cache=cache, pos=pos,
+                          memory=memory)
         return _logits(cfg, params, x)[:, 0], cache
     pos = torch.as_tensor(pos, device=token.device)
     if pos.dim() == 0:
@@ -430,19 +534,40 @@ def decode_step(cfg: ModelConfig, params: Dict, cache: Dict,
     return _logits(cfg, params, x)[:, 0], cache
 
 
-def init_cache(cfg: ModelConfig, params: Dict, batch: int,
-               max_len: int) -> Dict:
+def init_cache(cfg: ModelConfig, params: Dict, batch: int, max_len: int,
+               *, memory: Optional[torch.Tensor] = None) -> Dict:
     """The dense decode cache, zeros on the params' device in the JAX
     layout, stacked on the block axis: ``cache["layer_i"]["self"]["k" |
-    "v"]`` (nb, batch, max_len, Hkv, D) in ``cfg.dtype`` for an attention
-    layer; ``cache["layer_i"]["ssm_c"]`` for a Mamba2 layer, ``"conv"``
-    (nb, batch, K - 1, conv channels) in ``cfg.dtype`` and ``"ssm"`` (nb,
-    batch, H, P, N) in float32. With ``cfg.local_ring_kv`` a local
-    layer's k/v hold ``min(max_len, sliding_window)`` rows, a ring."""
+    "v"]`` (nb, batch, max_len, Hkv, D) in ``cfg.dtype`` for a
+    self-attention layer; ``cache["layer_i"]["ssm_c"]`` for a Mamba2
+    layer, ``"conv"`` (nb, batch, K - 1, conv channels) in ``cfg.dtype``
+    and ``"ssm"`` (nb, batch, H, P, N) in float32. With
+    ``cfg.local_ring_kv`` a local layer's k/v hold ``min(max_len,
+    sliding_window)`` rows, a ring. A CROSS layer, and every decoder layer
+    of an encoder-decoder model, holds ``cache["layer_i"]["mem"]["k_mem" |
+    "v_mem"]`` (nb, batch, M, Hkv, D) in ``cfg.dtype``: ``memory`` (batch,
+    M, d) projected once here through its cross-attention's wk / wv."""
     dt = getattr(torch, cfg.dtype)
     dev = params["embed"].device
     cache: Dict[str, Any] = {}
     nb = cfg.num_blocks
+
+    def mem_kv(i: int) -> Dict[str, torch.Tensor]:
+        if memory is None:
+            raise ValueError(f"{cfg.name}: a cross-attention layer's cache "
+                             "needs memory=")
+        if memory.shape[0] != batch:
+            raise ValueError(f"memory batch {memory.shape[0]} != cache "
+                             f"batch {batch}")
+        w = params["blocks"][f"layer_{i}"]["cross" if cfg.is_encdec
+                                           else "attn"]
+        m = memory.shape[1]
+
+        def proj(wt: torch.Tensor) -> torch.Tensor:
+            return torch.einsum("bmd,ndh->nbmh", memory, wt).reshape(
+                nb, batch, m, cfg.num_kv_heads, cfg.head_dim).to(dt)
+        return {"k_mem": proj(w["wk"]), "v_mem": proj(w["wv"])}
+
     for i, kind in enumerate(cfg.block_pattern):
         if kind == MAMBA:
             conv_ch = cfg.d_inner + 2 * cfg.ssm_ngroups * cfg.ssm_state
@@ -453,13 +578,15 @@ def init_cache(cfg: ModelConfig, params: Dict, batch: int,
                                     cfg.ssm_headdim, cfg.ssm_state),
                                    dtype=torch.float32, device=dev)}}
             continue
-        if kind not in (ATTN, LOCAL):
-            raise NotImplementedError(
-                f"layer kind {kind!r} is not ported yet")
+        if kind == CROSS:
+            cache[f"layer_{i}"] = {"mem": mem_kv(i)}
+            continue
         rows = max_len
         if cfg.local_ring_kv and kind == LOCAL:
             rows = min(max_len, cfg.sliding_window)
         shape = (nb, batch, rows, cfg.num_kv_heads, cfg.head_dim)
         cache[f"layer_{i}"] = {"self": {
             n: torch.zeros(shape, dtype=dt, device=dev) for n in ("k", "v")}}
+        if cfg.is_encdec:
+            cache[f"layer_{i}"]["mem"] = mem_kv(i)
     return cache

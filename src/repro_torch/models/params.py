@@ -2,10 +2,16 @@
 
 The same template tree as the JAX package's ``repro/models/params.py``:
 every leaf is declared once with its shape, initializer and logical axes,
-and block leaves carry a leading stacked-block axis ``(nb, ...)``. The
-port serves attention layers (ATTN / LOCAL) with an MLP or a MoE FFN and
-Mamba2 layers (MAMBA) without an FFN; other layer kinds raise until their
-slice lands.
+and block leaves carry a leading stacked-block axis ``(nb, ...)``. Every
+layer kind of the JAX package: self-attention (ATTN / LOCAL),
+cross-attention to a modality memory (CROSS, no QKV biases), Mamba2
+(MAMBA), each with an MLP, a MoE FFN or none. An encoder-decoder config
+(``encoder_layers`` > 0) adds ``cross_norm`` and ``cross`` to every
+decoder layer and an ``encoder`` subtree: one stacked layer dict of
+``encoder_layers`` bidirectional attention + MLP layers, built from the
+config with ``qkv_bias=False`` and ``num_layers=encoder_layers`` (which
+sets its output-projection init scale), and the encoder's
+``final_norm``.
 
 ``init_params`` draws random weights from a seeded ``torch.Generator`` on
 the target device, with the JAX package's initializers (normal, zeros,
@@ -22,7 +28,8 @@ from typing import Any, Dict, Optional, Tuple
 import numpy as np
 import torch
 
-from repro_torch.config import ATTN, LOCAL, MAMBA, MLP, MOE, NONE, ModelConfig
+from repro_torch.config import (ATTN, CROSS, LOCAL, MAMBA, MLP, MOE, NONE,
+                                ModelConfig)
 from repro_torch.device import DeviceLike, resolve_device
 
 
@@ -63,7 +70,8 @@ def _moe_templates(cfg: ModelConfig) -> Dict[str, Any]:
     return t
 
 
-def _attn_templates(cfg: ModelConfig) -> Dict[str, ParamTemplate]:
+def _attn_templates(cfg: ModelConfig,
+                    cross: bool = False) -> Dict[str, ParamTemplate]:
     d, h = cfg.d_model, cfg.head_dim
     nq, nkv = cfg.num_heads, cfg.num_kv_heads
     out_scale = 0.02 / np.sqrt(2 * max(cfg.num_layers, 1))
@@ -73,7 +81,7 @@ def _attn_templates(cfg: ModelConfig) -> Dict[str, ParamTemplate]:
         "wv": ParamTemplate((d, nkv * h), ("embed", "kv")),
         "wo": ParamTemplate((nq * h, d), ("qkv", "embed"), scale=out_scale),
     }
-    if cfg.qkv_bias:
+    if cfg.qkv_bias and not cross:
         t["bq"] = ParamTemplate((nq * h,), ("qkv",), init="zeros")
         t["bk"] = ParamTemplate((nkv * h,), ("kv",), init="zeros")
         t["bv"] = ParamTemplate((nkv * h,), ("kv",), init="zeros")
@@ -99,20 +107,23 @@ def _mamba_templates(cfg: ModelConfig) -> Dict[str, ParamTemplate]:
     }
 
 
-def _layer_templates(cfg: ModelConfig, kind: str,
-                     ffn_kind: str) -> Dict[str, Any]:
-    if (kind not in (ATTN, LOCAL, MAMBA) or ffn_kind not in (MLP, MOE, NONE)
-            or cfg.is_encdec):
-        raise NotImplementedError(
-            f"{cfg.name}: layer ({kind!r}, {ffn_kind!r}) is not ported yet; "
-            "the port serves ATTN/LOCAL and MAMBA layers with an MLP, a MoE "
-            "or no FFN")
+def _layer_templates(cfg: ModelConfig, kind: str, ffn_kind: str,
+                     decoder: bool = False) -> Dict[str, Any]:
+    if (kind not in (ATTN, LOCAL, CROSS, MAMBA)
+            or ffn_kind not in (MLP, MOE, NONE)):
+        raise ValueError(f"{cfg.name}: unknown layer ({kind!r}, "
+                         f"{ffn_kind!r})")
     d = cfg.d_model
     t: Dict[str, Any] = {"norm": ParamTemplate((d,), ("embed",), init="ones")}
-    if kind == MAMBA:
-        t["mamba"] = _mamba_templates(cfg)
-    else:
+    if kind in (ATTN, LOCAL):
         t["attn"] = _attn_templates(cfg)
+        if cfg.is_encdec and decoder:      # whisper decoder: + cross-attn
+            t["cross_norm"] = ParamTemplate((d,), ("embed",), init="ones")
+            t["cross"] = _attn_templates(cfg, cross=True)
+    elif kind == CROSS:
+        t["attn"] = _attn_templates(cfg, cross=True)
+    else:
+        t["mamba"] = _mamba_templates(cfg)
     if ffn_kind == MLP:
         t["ffn_norm"] = ParamTemplate((d,), ("embed",), init="ones")
         t["mlp"] = _mlp_templates(cfg)
@@ -136,7 +147,8 @@ def _stack(tree: Any, n: int) -> Any:
 
 def param_templates(cfg: ModelConfig) -> Dict[str, Any]:
     d, v = cfg.d_model, cfg.padded_vocab
-    block = {f"layer_{i}": _layer_templates(cfg, kind, cfg.ffn_kind(i))
+    block = {f"layer_{i}": _layer_templates(cfg, kind, cfg.ffn_kind(i),
+                                            decoder=True)
              for i, kind in enumerate(cfg.block_pattern)}
     t: Dict[str, Any] = {
         "embed": ParamTemplate((v, d), ("vocab", "embed"), scale=1.0),
@@ -145,6 +157,14 @@ def param_templates(cfg: ModelConfig) -> Dict[str, Any]:
     }
     if not cfg.tie_embeddings:
         t["lm_head"] = ParamTemplate((d, v), ("embed", "vocab"))
+    if cfg.encoder_layers:
+        enc = dataclasses.replace(cfg, qkv_bias=False,
+                                  num_layers=cfg.encoder_layers)
+        t["encoder"] = {
+            "blocks": _stack(_layer_templates(enc, ATTN, MLP),
+                             cfg.encoder_layers),
+            "final_norm": ParamTemplate((d,), ("embed",), init="ones"),
+        }
     return t
 
 

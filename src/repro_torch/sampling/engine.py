@@ -14,6 +14,14 @@ request-level contract (``repro_torch.serving.api``):
 - **continuous** (:class:`repro_torch.sampling.continuous.ContinuousEngine`):
   a slot pool over a paged KV cache.
 
+A model with a modality memory (a CROSS layer) or an encoder takes
+``memory=`` (B, M, d), one row per request of the batch (the encoder's
+output for an encoder-decoder model): the static engine projects it once
+into its cache (``init_cache(memory=)``). Such a model serves static
+only, as in the JAX package: ``build_engine`` and ``generate`` warn and
+fall back under ``engine="continuous"``, and ``ContinuousEngine``
+refuses it.
+
 Draw ``t`` of request ``rid`` uses the threefry key
 ``fold_in(fold_in(key, rid), t)`` (``sampling.prng``), as in the JAX
 package: keyed per request and never per batch row, so a request draws
@@ -53,15 +61,18 @@ from repro_torch.serving.api import GenerationResult, Request
 @torch.no_grad()
 def _generate_static(cfg: ModelConfig, rl: RLConfig, params: Dict[str, Any],
                      prompts: torch.Tensor, key: torch.Tensor, max_new: int,
-                     vocab_limit: int, rids: Optional[torch.Tensor] = None
+                     vocab_limit: int, rids: Optional[torch.Tensor] = None,
+                     memory: Optional[torch.Tensor] = None
                      ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """prompts (B, Tp) on the params' device -> (completions (B, max_new),
     sampler_lp (B, max_new) float32, comp_mask (B, max_new) float32).
     Draw ``t`` of row ``r`` uses ``fold_in(fold_in(key, rids[r]), t)``;
-    ``rids`` default to the batch rows."""
+    ``rids`` default to the batch rows. ``memory`` (B, M, d) is projected
+    into the cache once."""
     b, tp = prompts.shape
-    cache = init_cache(cfg, params, b, tp + max_new)
-    logits, cache, _ = forward(cfg, params, prompts, cache=cache)
+    cache = init_cache(cfg, params, b, tp + max_new, memory=memory)
+    logits, cache, _ = forward(cfg, params, prompts, cache=cache,
+                               memory=memory)
     last = logits[:, -1]
     del logits
     if rids is None:
@@ -94,13 +105,17 @@ class StaticEngine:
     max and each request is trimmed on the host, which is exact because
     draw ``t`` of request ``rid`` never depends on the loop's length.
     Runs on the device its params live on; ``key`` (default
-    ``PRNGKey(0)``) keys the draws.
+    ``PRNGKey(0)``) keys the draws. ``memory`` (B, M, d), for a memory or
+    encoder-decoder model, gives row i of every batch memory row i, so a
+    batch has B requests, as in the JAX package.
     """
 
     def __init__(self, cfg: ModelConfig, params: Dict[str, Any], *,
                  rl: RLConfig, vocab_limit: Optional[int] = None,
+                 memory: Optional[torch.Tensor] = None,
                  key: Optional[torch.Tensor] = None) -> None:
         self.cfg, self.rl, self.params = cfg, rl, params
+        self.memory = memory
         self.device = params["embed"].device
         self.vocab_limit = vocab_limit or cfg.padded_vocab
         self.key = PRNGKey(0) if key is None else as_key(key)
@@ -136,7 +151,7 @@ class StaticEngine:
         max_new = max(r.params.max_new_tokens for r in requests)
         completions, sampler_lp, comp_mask = _generate_static(
             self.cfg, self.rl, self.params, prompts, self.key, max_new,
-            self.vocab_limit, rids)
+            self.vocab_limit, rids, self.memory)
         # the one host sync: the batch ends here by design
         comp_np = completions.cpu().numpy()
         lp_np = sampler_lp.cpu().numpy()
@@ -163,20 +178,21 @@ class StaticEngine:
 def build_engine(cfg: ModelConfig, params: Dict[str, Any],
                  serve: ServeConfig, *, rl: Optional[RLConfig] = None,
                  vocab_limit: Optional[int] = None,
+                 memory: Optional[torch.Tensor] = None,
                  key: Optional[torch.Tensor] = None
                  ) -> Union[StaticEngine, ContinuousEngine]:
     """The engine a ``ServeConfig`` describes, on the device ``params``
     live on. ``rl`` carries the sampling profile every request must
     match; ``key`` (default the engine's ``PRNGKey(0)``) keys the token
-    draws. Falls
-    back to the static engine, with a warning, for architectures the paged
-    cache cannot serve (Mamba2 layers, for one), as the JAX package
-    does."""
+    draws; ``memory`` is the static engine's. Falls back to the static
+    engine, with a warning, for architectures the paged cache cannot
+    serve (Mamba2 layers, an encoder) and whenever a memory is given, as
+    the JAX package does."""
     rl = rl or RLConfig(engine=serve.engine)
     if serve.paged_attn_impl:
         cfg = dataclasses.replace(cfg, paged_attn_impl=serve.paged_attn_impl)
     if serve.engine == "continuous":
-        if paged_cache_supported(cfg):
+        if memory is None and paged_cache_supported(cfg):
             return ContinuousEngine(
                 cfg, params, rl=rl, max_total_tokens=serve.max_total_tokens,
                 num_slots=serve.num_slots, page_size=serve.page_size,
@@ -192,7 +208,7 @@ def build_engine(cfg: ModelConfig, params: Dict[str, Any],
                       "architecture/memory setup; serving static",
                       stacklevel=2)
     return StaticEngine(cfg, params, rl=rl, vocab_limit=vocab_limit,
-                        key=key)
+                        memory=memory, key=key)
 
 
 # --------------------------------------------------------------------------
@@ -204,6 +220,7 @@ def generate(cfg: ModelConfig, rl: RLConfig, params: Dict[str, Any],
              key: Optional[torch.Tensor] = None, *,
              max_new: Optional[int] = None,
              vocab_limit: Optional[int] = None,
+             memory: Optional[torch.Tensor] = None,
              engine: Optional[str] = None,
              **continuous_kwargs) -> Dict[str, Any]:
     """Batched generation over ``prompts`` (B, Tp). Returns the rollout
@@ -217,8 +234,8 @@ def generate(cfg: ModelConfig, rl: RLConfig, params: Dict[str, Any],
     continuous slot pool (which takes ``continuous_kwargs``);
     architectures the paged cache cannot serve fall back to the static
     path with a warning that names the ignored ``continuous_kwargs``, as
-    in the JAX package. ``key`` (default ``PRNGKey(0)``) keys the draws;
-    row ``i`` is request ``i``."""
+    in the JAX package, and so does a call with a ``memory``. ``key``
+    (default ``PRNGKey(0)``) keys the draws; row ``i`` is request ``i``."""
     key = PRNGKey(0) if key is None else key
     engine = engine or rl.engine
     if engine not in ("static", "continuous"):
@@ -230,7 +247,7 @@ def generate(cfg: ModelConfig, rl: RLConfig, params: Dict[str, Any],
     max_new = max_new or rl.max_new_tokens
     vocab_limit = vocab_limit or cfg.padded_vocab
     if engine == "continuous":
-        if paged_cache_supported(cfg):
+        if memory is None and paged_cache_supported(cfg):
             return generate_continuous(cfg, rl, params, prompts, key,
                                        max_new=max_new,
                                        vocab_limit=vocab_limit,
@@ -243,7 +260,7 @@ def generate(cfg: ModelConfig, rl: RLConfig, params: Dict[str, Any],
     dev = params["embed"].device
     prompts = torch.as_tensor(prompts).to(dev, torch.int64)
     completions, sampler_lp, comp_mask = _generate_static(
-        cfg, rl, params, prompts, key, max_new, vocab_limit)
+        cfg, rl, params, prompts, key, max_new, vocab_limit, memory=memory)
     return {"tokens": torch.cat([prompts.to(torch.int32),
                                  completions.to(torch.int32)], 1),
             "completions": completions.to(torch.int32),
@@ -254,6 +271,7 @@ def generate(cfg: ModelConfig, rl: RLConfig, params: Dict[str, Any],
 @torch.no_grad()
 def token_logps(cfg: ModelConfig, params: Dict[str, Any],
                 tokens: torch.Tensor, *,
+                memory: Optional[torch.Tensor] = None,
                 logprob_impl: Optional[str] = None) -> torch.Tensor:
     """Teacher-forced log p(tokens[t] | tokens[<t]) -> (B, T-1) float32.
 
@@ -263,8 +281,10 @@ def token_logps(cfg: ModelConfig, params: Dict[str, Any],
     log-prob path as the learner's loss (the K1 kernel on the card)
     instead of a (B*T, V) log-softmax. ``logprob_impl`` takes the
     ``TrainConfig.logprob_impl`` vocabulary; None or "fused"
-    auto-dispatches."""
-    logits, _, _ = forward(cfg, params, tokens[:, :-1])
+    auto-dispatches. ``memory`` (B, M, d) is what a memory or
+    encoder-decoder model cross-attends (through K5 under
+    ``attn_impl="pallas"``)."""
+    logits, _, _ = forward(cfg, params, tokens[:, :-1], memory=memory)
     impl = None if logprob_impl == "fused" else logprob_impl
     lp, _ = fused_token_logprob(logits, tokens[:, 1:], impl=impl)
     return lp

@@ -28,7 +28,7 @@ from repro_torch.config import ModelConfig, RLConfig, TrainConfig
 from repro_torch.core import group_advantages, policy_loss
 from repro_torch.core.logprob import token_logprob_from_logits
 from repro_torch.kernels.ops import fused_token_logprob
-from repro_torch.models import forward
+from repro_torch.models import encode, forward
 from repro_torch.optim import (adafactor_init, adafactor_update, adamw_init,
                                adamw_update, clip_by_global_norm, tree_leaves,
                                warmup_schedule)
@@ -66,14 +66,21 @@ def init_state(cfg: ModelConfig, tc: TrainConfig, params: Any,
 
 
 def rl_loss_fn(cfg: ModelConfig, rl: RLConfig, params: Any,
-               batch: Dict[str, torch.Tensor], logprob_impl: str = "fused"
+               batch: Dict[str, torch.Tensor],
+               memory: Optional[torch.Tensor] = None,
+               logprob_impl: str = "fused"
                ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    if "frames" in batch or "image_embeds" in batch:
-        raise NotImplementedError(
-            "modality memory (audio frames / image embeds) is not ported "
-            "yet: ROADMAP queue 1 item 9")
+    """The GEPO (or ``rl.loss_type``) loss of one batch and its metrics.
+    The modality stubs ride in the batch, so they microbatch with it:
+    ``frames`` (B, S_enc, d) go through ``encode`` (which then takes
+    gradients), ``image_embeds`` (B, M, d) are the memory itself; an
+    explicit ``memory`` takes precedence, as in the JAX package."""
+    if memory is None and "frames" in batch:
+        memory = encode(cfg, params, batch["frames"])
+    elif memory is None and "image_embeds" in batch:
+        memory = batch["image_embeds"]
     tokens = batch["tokens"]
-    logits, _, aux = forward(cfg, params, tokens[:, :-1])
+    logits, _, aux = forward(cfg, params, tokens[:, :-1], memory=memory)
     learner_lp, learner_ent = _token_lp_ent(logits, tokens[:, 1:],
                                             logprob_impl)
     sampler_lp = batch["sampler_lp"]
@@ -91,13 +98,14 @@ def rl_loss_fn(cfg: ModelConfig, rl: RLConfig, params: Any,
     return loss, metrics
 
 
-def _grads(cfg, rl, tc, params, mb) -> Tuple[list, Dict[str, torch.Tensor]]:
+def _grads(cfg, rl, tc, params, mb, memory=None
+           ) -> Tuple[list, Dict[str, torch.Tensor]]:
     """Gradients of one loss evaluation as a list in ``tree_leaves``
     order, and its detached metrics."""
     leaves = tree_leaves(params)
     for p in leaves:
         p.requires_grad_(True)
-    loss, metrics = rl_loss_fn(cfg, rl, params, mb,
+    loss, metrics = rl_loss_fn(cfg, rl, params, mb, memory=memory,
                                logprob_impl=tc.logprob_impl)
     grads = list(torch.autograd.grad(loss, leaves))
     return grads, {k: v.detach() for k, v in metrics.items()}
@@ -105,14 +113,17 @@ def _grads(cfg, rl, tc, params, mb) -> Tuple[list, Dict[str, torch.Tensor]]:
 
 def train_step(cfg: ModelConfig, rl: RLConfig, tc: TrainConfig,
                state: TrainState, batch: Dict[str, torch.Tensor], *,
-               optimizer: str = "adamw"
+               optimizer: str = "adamw",
+               memory: Optional[torch.Tensor] = None
                ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
     """One (optionally micro-batched) RL update, in place on ``state``.
 
-    With ``grad_accum > 1`` the batch is cut as
-    ``x.reshape((accum, -1) + x.shape[1:])`` does, the gradients are
-    summed in float32 from zeros and divided by ``accum``, and the metrics
-    are averaged, except ``MAX_METRICS`` (max over microbatches)."""
+    With ``grad_accum > 1`` the batch (``frames`` / ``image_embeds``
+    included) is cut as ``x.reshape((accum, -1) + x.shape[1:])`` does, the
+    gradients are summed in float32 from zeros and divided by ``accum``,
+    and the metrics are averaged, except ``MAX_METRICS`` (max over
+    microbatches). ``memory`` is handed to every microbatch whole, as the
+    JAX package's step closes over it."""
     params = state.params
     if tc.grad_accum > 1:
         acc = [torch.zeros(p.shape, dtype=torch.float32, device=p.device)
@@ -121,7 +132,7 @@ def train_step(cfg: ModelConfig, rl: RLConfig, tc: TrainConfig,
         for i in range(tc.grad_accum):
             mb = {k: v.reshape((tc.grad_accum, -1) + tuple(v.shape[1:]))[i]
                   for k, v in batch.items()}
-            grads, m = _grads(cfg, rl, tc, params, mb)
+            grads, m = _grads(cfg, rl, tc, params, mb, memory)
             with torch.no_grad():
                 for a, g in zip(acc, grads):
                     a.add_(g)
@@ -140,7 +151,7 @@ def train_step(cfg: ModelConfig, rl: RLConfig, tc: TrainConfig,
         metrics = {k: (v if k in MAX_METRICS else v / tc.grad_accum)
                    for k, v in msum.items()}
     else:
-        flat, metrics = _grads(cfg, rl, tc, params, batch)
+        flat, metrics = _grads(cfg, rl, tc, params, batch, memory)
     # the flat list in tree_leaves order stands for the gradient tree
     grads, gnorm = clip_by_global_norm(flat, tc.grad_clip)
     lr = warmup_schedule(tc, state.step)

@@ -12,6 +12,8 @@ import subprocess
 import sys
 from pathlib import Path
 
+import pytest
+
 ROOT = Path(__file__).resolve().parents[1]
 PKG = ROOT / "src" / "repro_torch"
 
@@ -83,3 +85,29 @@ def test_serve_cli_runs_the_moe_family_on_cpu():
     assert "arch=llama4-scout-17b-a16e-smoke device=cpu" in out.stdout
     assert "engine=continuous" in out.stdout
     assert "total 12 tokens" in out.stdout, out.stdout
+
+
+@pytest.mark.parametrize("arch", ["whisper-small", "llama-3.2-vision-11b"])
+def test_serve_cli_runs_the_memory_families_on_cpu(arch):
+    """``--smoke`` serves the reduced VLM (a stub memory of 0.02 N(0, 1)
+    patch embeddings) and Whisper (``encode`` over N(0, 1) frames) on the
+    CPU: the continuous engine warns and the static engine serves, its
+    cross-attention through K5's twin under ``--attn-impl pallas``;
+    ``--listen`` refuses a memory model."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    base = [sys.executable, "-m", "repro_torch.launch.serve", "--device",
+            "cpu", "--smoke", "--arch", arch, "--batch", "3",
+            "--prompt-len", "10", "--max-new", "4"]
+    out = subprocess.run(base + ["--rounds", "2", "--attn-impl", "pallas"],
+                         cwd=ROOT, env=env, capture_output=True, text=True,
+                         timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert f"arch={arch}-smoke device=cpu" in out.stdout
+    assert "engine=static attn=pallas" in out.stdout
+    assert "total 24 tokens" in out.stdout, out.stdout
+    assert "serving static" in out.stderr
+    out = subprocess.run(base + ["--listen", "--port", "0"], cwd=ROOT,
+                         env=env, capture_output=True, text=True,
+                         timeout=300)
+    assert out.returncode != 0
+    assert "--listen serves decoder-only" in out.stderr

@@ -307,7 +307,7 @@ def _logprob_case(dev, t, v, dtype, seed=0):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("t,v", [(64, 1001), (77, 77), (33, 152064),
-                                 (5, 4), (3, 1)])
+                                 (5, 4), (3, 1), (33, 128256), (40, 51968)])
 def test_logprob_kernels_match_twin(cuda, t, v, dtype):
     x, tgt, g_lp, g_ent = _logprob_case(cuda, t, v, dtype, seed=t + v)
     tgt32 = fl.clamp_target_ids(tgt, v)
@@ -489,6 +489,31 @@ def test_flash_kernel_masks_and_ragged_lengths(cuda, s, mask, dtype):
           "bidir": dict(causal=False)}[mask]
     q, k, v = _flash_inputs(cuda, dtype, s=s, seed=s)
     _flash_check(q, k, v, **kw)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("sk", [1500, 1601])
+@pytest.mark.parametrize("sq", [1, 77])
+@pytest.mark.parametrize("rep,d", [(4, 128), (1, 64)])
+def test_flash_kernel_non_causal_at_unequal_lengths(cuda, dtype, sq, sk, rep,
+                                                    d):
+    """Cross-attention's shapes: non-causal, one decode row or a prompt
+    (Sq 1, 77) against a memory of Sk rows (1601, the VLM's patches; 1500,
+    Whisper's frames), at the VLM's group (rep 4, D 128) and Whisper's
+    (rep 1, D 64). The last memory row has k 0 and v 1000, so it carries
+    ~1000 / (Sk e^0.5) ~ 0.4 of every output: the twin over Sk - 1 keys
+    (a kernel that drops the last row) is off by more than ten bars."""
+    hkv = 2
+    q, k, v = _flash_inputs(cuda, dtype, b=3, s=sk, hkv=hkv, rep=rep, d=d,
+                            seed=sq + sk + d)
+    q = q[:, :sq].contiguous()
+    k[:, -1], v[:, -1] = 0.0, 1000.0
+    _flash_check(q, k, v, causal=False)
+    f32 = [t.float() for t in (q, k, v)]
+    drop = fa.flash_attention_ref(f32[0], f32[1][:, :-1], f32[2][:, :-1],
+                                  causal=False)
+    full = fa.flash_attention_ref(*f32, causal=False)
+    assert float((drop - full).abs().max()) > 10 * TOL_FLASH[dtype]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

@@ -519,9 +519,29 @@ def test_generate_continuous_greedy_matches_jax():
 
 
 def test_rl_loss_fn_refuses_modality_memory():
+    """The modality stubs ride in the batch, as in the JAX package (the
+    families that use them are held in ``tests/test_torch_memory.py``). A
+    model without cross-attention or an encoder (``TINY``) refuses
+    ``frames``, which need an encoder (the reference asserts
+    ``cfg.is_encdec``), and leaves ``image_embeds`` unread: its loss and
+    metrics are the reference's on the same batch, and the loss is the
+    one the batch gives without them."""
     jcfg, tcfg = _cfgs()
-    _, tp = _params(jcfg)
-    batch = _t(_batch(1))
-    batch["frames"] = torch.zeros(1)
-    with pytest.raises(NotImplementedError, match="queue 1 item 9"):
-        ttraining.rl_loss_fn(tcfg, RLConfig(group_size=4), tp, batch)
+    jp, tp = _params(jcfg)
+    rl = RLConfig(group_size=4)
+    batch = _batch(1)
+    frames = dict(batch, frames=np.zeros((8, 4, 48), np.float32))
+    with pytest.raises(ValueError, match="no encoder"):
+        ttraining.rl_loss_fn(tcfg, rl, tp, _t(frames))
+    with pytest.raises(AssertionError):
+        jtraining.rl_loss_fn(jcfg, JRLConfig(group_size=4), jp, _j(frames))
+    embeds = dict(batch, image_embeds=np.random.default_rng(2).standard_normal(
+        (8, 5, 48)).astype(np.float32))
+    jl, jm = jtraining.rl_loss_fn(jcfg, JRLConfig(group_size=4), jp,
+                                  _j(embeds))
+    with torch.no_grad():
+        tl, tm = ttraining.rl_loss_fn(tcfg, rl, tp, _t(embeds))
+        plain, _ = ttraining.rl_loss_fn(tcfg, rl, tp, _t(batch))
+    np.testing.assert_allclose(float(tl), float(jl), rtol=1e-5, atol=1e-6)
+    _close_metrics(tm, jm)
+    assert float(tl) == float(plain)
