@@ -114,8 +114,8 @@ def _close_metrics(got, want, rtol=1e-4, atol=1e-6):
 # registry and parameters
 
 
-# the hybrid and modality-memory families of the next slice: registered
-# field for field, and counted (their parity is in test_torch_jamba.py and
+# the hybrid and modality-memory families: registered field for field,
+# and counted (their parity is in test_torch_jamba.py and
 # test_torch_memory.py)
 LATER = ("jamba-1.5-large-398b", "llama-3.2-vision-11b", "whisper-small")
 
