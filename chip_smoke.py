@@ -224,6 +224,22 @@ never jax, never the JAX package. Phases, each fatal on failure:
    1 x S 4096, 256 heads, P 64, N 128) against its twin, and one MoE
    layer (E 16 top-2, d 8192, f 24576) on the card against the CPU on the
    same inputs, drops equal.
+14. sharded: the learner through ``repro_torch.parallel``. (a) A 1x1 mesh
+   of a one-rank NCCL group (every collective runs): 3 steps of
+   ``make_sharded_train_step`` on qwen3-1.7b (bf16, B 16 x S 1024,
+   ``grad_accum`` 2, AdamW) against ``train_step`` from the same state and
+   batch, bit for bit, both step times and K1/K2 launch counts printed and
+   equal. (b) Two rank processes on the one card over gloo with CUDA
+   tensors (NCCL refuses two ranks on one device; ``--shard-rank``), the
+   2x1 ``train_fsdp`` and 1x2 ``train`` plans: a float32 pair at
+   SHARD_F32_LAYERS of 28 layers (B 8 x S 1024, ``grad_accum`` 2) held
+   against the one-device step at the parity bars of
+   tests/test_parallel_parity.py, a control (the wrong microbatch order)
+   that must miss them, and one bf16 step at full depth (B 8 x S 1024) for
+   its ms and peak GiB per rank. (c) One llama4-scout MoE layer at full
+   width (E 16 top-1, d 5120, f 8192, shared expert; float32) through
+   ``moe_ep="train"`` on the 1x2 mesh against ``models/moe.py`` on one
+   rank, at a capacity that drops nothing, drop fractions printed.
 
 Prints a ``{"kernels": [...]}`` JSON line, then as the last line
 ``{"ok": true, "device": {...}}``. Exits non-zero, printing no result,
@@ -2343,12 +2359,17 @@ class HostTimer:
 
 def timed_loop(timer):
     """Wrap the loop's publish, sync, sampler batch and learner step in
-    ``timer``; returns the undo."""
-    saved = [(nodes_mod, "publish_params"), (nodes_mod, "train_step"),
-             (SamplerNode, "sync"), (SamplerNode, "generate_batch")]
+    ``timer`` (the step that ``jit_train_step`` builds for a learner node,
+    so build the nodes after this call); returns the undo."""
+    saved = [(nodes_mod, "publish_params"), (SamplerNode, "sync"),
+             (SamplerNode, "generate_batch")]
     saved = [(obj, name, getattr(obj, name)) for obj, name in saved]
     for obj, name, fn in saved:
         setattr(obj, name, timer.wrap(name, fn))
+    real_jit = nodes_mod.jit_train_step
+    saved.append((nodes_mod, "jit_train_step", real_jit))
+    nodes_mod.jit_train_step = lambda *a, **kw: timer.wrap(
+        "train_step", real_jit(*a, **kw))
 
     def undo():
         for obj, name, fn in saved:
@@ -4439,9 +4460,355 @@ def memory_phase(dev, seed, card):
     return launches, rows
 
 
+# --------------------------------------------------------------------------
+# phase 14: the sharded learner (parallel/, ExecutionPlan)
+
+SHARD_ROWS_A, SHARD_ROWS_B, SHARD_S = 16, 8, 1024
+SHARD_F32_LAYERS = 4                  # the float32 pair: 4 of 28 layers
+# the parity bars of tests/test_parallel_parity.py
+SHARD_RTOL_P, SHARD_ATOL_P, SHARD_RTOL_M, SHARD_ATOL_M = 5e-4, 1e-5, 2e-3, \
+    1e-5
+# one llama4-scout MoE layer at full width through moe_ep="train" on the
+# two-rank mesh, float32, a capacity that drops nothing (cap = T k)
+SHARD_MOE_ROWS, SHARD_MOE_S = 4, 512
+TOL_SHARD_MOE = 1e-4                  # max|EP - moe_ffn| / max|moe_ffn|
+SHARD_RANK_TIMEOUT_S = 420
+
+
+def shard_batch(cfg, rows, s, seed, dev):
+    """``rows`` rows of ``s`` random tokens, the last NEW_TOKENS targets
+    the completion, the sampler's logps at the random policy's level
+    (-log V) plus seeded noise, a Bernoulli(0.5) reward per row (groups
+    of ``rows // 2``, none all equal: each microbatch of grad_accum 2 is
+    one group). The same on every rank (numpy, ``seed``)."""
+    rng = np.random.default_rng(seed + 40)
+    tokens = torch.from_numpy(rng.integers(3, cfg.vocab_size,
+                                           (rows, s))).to(dev)
+    mask = torch.zeros((rows, s - 1), device=dev)
+    mask[:, -NEW_TOKENS:] = 1.0
+    lp = -np.log(cfg.padded_vocab) + rng.normal(0.0, SAMPLER_NOISE,
+                                                (rows, s - 1))
+    g = rows // 2
+    r = np.zeros(rows, bool)
+    for i in range(0, rows, g):
+        while r[i:i + g].all() or not r[i:i + g].any():
+            r[i:i + g] = rng.random(g) < 0.5
+    return {"tokens": tokens, "mask": mask,
+            "sampler_lp": torch.from_numpy(lp).to(dev, torch.float32) * mask,
+            "rewards": torch.from_numpy(r.astype(np.float32)).to(dev)}
+
+
+def shard_steps(step, state, batch, n, label, card, rank=0):
+    """``n`` steps of ``step``; their ms, peak GiB and metrics. Prints a
+    line per step (rank 0)."""
+    out = []
+    for i in range(n):
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = step(state, batch)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        vals = {k: float(v) for k, v in m.items()}
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        out.append((dt * 1e3, peak, vals))
+        if rank == 0:
+            log(f"[sharded] {label} step {i + 1}: loss {vals['loss']:.6e} "
+                f"iw_mean {vals['iw_mean']:.6f} grad_norm "
+                f"{vals['grad_norm']:.4e} | {dt * 1e3:.1f} ms, peak "
+                f"{peak:.2f} GiB | {card}")
+        bad = [k for k, v in vals.items() if not np.isfinite(v)]
+        if bad:
+            raise AssertionError(f"{label} step {i + 1}: non-finite {bad}")
+    return state, out
+
+
+def one_rank_nccl(dev, seed, card, work):
+    """Phase 14 (a): the sharded step on a 1x1 mesh of a one-rank NCCL
+    group (every collective runs) against ``train_step`` from the same
+    state and batch: qwen3-1.7b bf16, B 16 x S 1024, grad_accum 2, AdamW,
+    3 steps. Returns the sharded run's K1/K2 launches."""
+    import datetime
+    import torch.distributed as dist
+    from repro_torch.parallel import (ExecutionPlan, make_debug_mesh,
+                                      make_sharded_train_step)
+    torch.cuda.set_device(dev)
+    dist.init_process_group("nccl", init_method=f"file://{work}/nccl",
+                            rank=0, world_size=1,
+                            timeout=datetime.timedelta(seconds=120))
+    try:
+        plan = ExecutionPlan(make_debug_mesh(1, 1, device=dev), "train")
+        cfg = get_config("qwen3-1.7b")
+        params = init_params(cfg, seed + 30, device=dev)
+        batch = shard_batch(cfg, SHARD_ROWS_A, SHARD_S, seed, dev)
+        rl = RLConfig(loss_type="gepo", group_size=SHARD_ROWS_A // 2,
+                      beta_kl=0.005)
+        tc = TrainConfig(learning_rate=1e-6, grad_accum=2)
+        sharded = init_state(cfg, tc, params, plan=plan)     # a copy
+        state = init_state(cfg, tc, params)                   # in place
+        fl.reset_launch_counts()
+        state, ref = shard_steps(
+            lambda st, b: train_step(cfg, rl, tc, st, b), state, batch, 3,
+            "train_step (one device)", card)
+        ref_launch = dict(fl.LAUNCHES)
+        ref_params = state.params
+        del state, params
+        free()
+        step = make_sharded_train_step(cfg, rl, tc, plan)
+        fl.reset_launch_counts()
+        sharded, got = shard_steps(step, sharded, batch, 3,
+                                   f"sharded step, {plan.describe()} NCCL "
+                                   "one rank", card)
+        launch = dict(fl.LAUNCHES)
+        diff = max(float((a.detach().float() - b.detach().float()).abs()
+                         .max())
+                   for a, b in zip(tree_leaves(sharded.params),
+                                   tree_leaves(ref_params)))
+        mdiff = max(abs(g[2][k] - r[2][k]) for g, r in zip(got, ref)
+                    for k in r[2])
+        log(f"[sharded] (a) one-rank NCCL 1x1 against train_step, {cfg.name} "
+            f"bf16 B {SHARD_ROWS_A} x S {SHARD_S}, grad_accum 2, AdamW, 3 "
+            f"steps: max|params diff| {diff:.3e}, max|metrics diff| "
+            f"{mdiff:.3e} ({'bit-equal' if diff == 0 and mdiff == 0 else 'NOT bit-equal'}); "
+            f"step ms {[round(g[0], 1) for g in got]} sharded vs "
+            f"{[round(r[0], 1) for r in ref]} train_step; peak "
+            f"{max(g[1] for g in got):.2f} vs {max(r[1] for r in ref):.2f} "
+            f"GiB; K1/K2 launches {launch['logprob_fwd']}/"
+            f"{launch['logprob_bwd']} vs {ref_launch['logprob_fwd']}/"
+            f"{ref_launch['logprob_bwd']} | {card}")
+        if launch != ref_launch or launch["logprob_fwd"] != 6:
+            raise AssertionError(f"(a) launches {launch} != {ref_launch}")
+        if diff != 0 or mdiff != 0:
+            # not bit-equal: hold the learner phase's bars
+            rel = max(abs(g[2][k] - r[2][k]) / max(abs(r[2][k]), 1e-6)
+                      for g, r in zip(got, ref) for k in r[2])
+            if rel > TOL_LOSS_REL:
+                raise AssertionError(f"(a) metrics rel diff {rel:.3e}")
+        del sharded, ref_params, batch
+        free()
+        return launch, [g[0] for g in got], [r[0] for r in ref]
+    finally:
+        dist.destroy_process_group()
+
+
+def shard_rank_main(rank, world, work, seed, dev=None):
+    """Phase 14 (b) and (c), one of two rank processes on the one card
+    (gloo with CUDA tensors: NCCL refuses two ranks on one device).
+    Writes ``work/rank<r>.json``."""
+    import datetime
+    import torch.distributed as dist
+    from repro_torch.models.moe_ep import moe_ffn_ep
+    from repro_torch.parallel import (ExecutionPlan, make_mesh,
+                                      make_sharded_train_step)
+    from repro_torch.runtime_context import mesh_context
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = dev or torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    dist.init_process_group("gloo", init_method=f"file://{work}/gloo",
+                            rank=rank, world_size=world,
+                            timeout=datetime.timedelta(seconds=300))
+    card = ""
+    out = {"rank": rank, "plans": {}}
+    cfg = get_config("qwen3-1.7b")
+    rl = RLConfig(loss_type="gepo", group_size=SHARD_ROWS_B // 2,
+                  beta_kl=0.005)
+    tc = TrainConfig(learning_rate=1e-3, grad_accum=2)       # float32 pair
+    tc_bf16 = TrainConfig(learning_rate=1e-6, grad_accum=2)
+    meshes = {}
+    for dims, mode in (((2, 1), "train_fsdp"), ((1, 2), "train")):
+        meshes[dims] = make_mesh(dims, ("data", "model"), device=dev)
+        plan = ExecutionPlan(meshes[dims], mode)
+        rec = out["plans"][plan.describe()] = {}
+        # the float32 pair at SHARD_F32_LAYERS layers against train_step
+        # (it also warms the collectives and the GEMMs up)
+        c4 = dataclasses.replace(cfg, num_layers=SHARD_F32_LAYERS,
+                                 dtype="float32")
+        p4 = init_params(c4, seed + 32, device=dev)
+        b4 = shard_batch(c4, SHARD_ROWS_B, SHARD_S, seed + 1, dev)
+        st = init_state(c4, tc, p4, plan=plan)
+        ctl = init_state(c4, tc, p4, plan=plan) if dims[0] > 1 else None
+        ref = None
+        if rank == 0:                         # the one-device step
+            ref, ref_m = train_step(c4, rl, tc, init_state(c4, tc, p4), b4)
+        step = make_sharded_train_step(c4, rl, tc, plan)
+        st, m = step(st, b4)
+        runs = {"sharded": (plan.gather_params(c4, st.params), m)}
+        if ctl is not None:
+            # the control: the batch sharded first and cut into
+            # microbatches on each rank (rows 4r + 2i, 4r + 2i + 1 make
+            # microbatch i of rank r), fed as the permutation it amounts to
+            perm = [0, 1, 4, 5, 2, 3, 6, 7]
+            ctl, cm = step(ctl, {k: v[perm] for k, v in b4.items()})
+            runs["control (wrong microbatch order)"] = (
+                plan.gather_params(c4, ctl.params), cm)
+        if rank == 0:
+            for label, (fp, fm) in runs.items():
+                worst_p, miss = 0.0, 0
+                for a, b in zip(tree_leaves(fp), tree_leaves(ref.params)):
+                    d = (a - b.detach()).abs()
+                    worst_p = max(worst_p, float(d.max()))
+                    miss += int((d > SHARD_ATOL_P + SHARD_RTOL_P
+                                 * b.detach().abs()).sum())
+                worst_m = max(abs(float(fm[k]) - float(ref_m[k]))
+                              / max(abs(float(ref_m[k])), 1e-12)
+                              for k in ref_m)
+                mmiss = [k for k in ref_m if abs(float(fm[k])
+                                                 - float(ref_m[k]))
+                         > SHARD_ATOL_M + SHARD_RTOL_M
+                         * abs(float(ref_m[k]))]
+                rec[label] = {"max_param_diff": worst_p,
+                              "params_past_bar": miss,
+                              "max_metric_rel": worst_m,
+                              "metrics_past_bar": mmiss}
+        del st, ctl, ref, runs, p4, b4
+        free()
+        # bf16 at full depth: one step's ms and peak GiB per rank
+        params = init_params(cfg, seed + 31, device=dev)
+        batch = shard_batch(cfg, SHARD_ROWS_B, SHARD_S, seed, dev)
+        state = init_state(cfg, tc_bf16, params, plan=plan)
+        del params
+        free()
+        fl.reset_launch_counts()
+        state, runs = shard_steps(
+            make_sharded_train_step(cfg, rl, tc_bf16, plan), state, batch,
+            1, f"bf16 {plan.describe()}", card, rank=rank)
+        rec["bf16_ms"] = [r[0] for r in runs]
+        rec["bf16_peak_gib"] = [r[1] for r in runs]
+        rec["bf16_launches"] = dict(fl.LAUNCHES)
+        del state, batch
+        free()
+    # (c) one llama4-scout MoE layer at full width, float32, through
+    # moe_ep="train" on the 1x2 mesh against models/moe.py on one rank
+    scout = dataclasses.replace(get_config(SCOUT), capacity_factor=16.0,
+                                dtype="float32")
+    ep = dataclasses.replace(scout, moe_ep="train", ep_dp_axes=("data",))
+    gen = torch.Generator(device=dev).manual_seed(seed + 33)
+    e, d, f = scout.num_experts, scout.d_model, scout.d_ff
+
+    def normal(shape, scale):
+        return scale * torch.randn(shape, generator=gen, device=dev)
+    p = {"router": normal((d, e), 0.02), "w_gate": normal((e, d, f), 0.02),
+         "w_up": normal((e, d, f), 0.02), "w_down": normal((e, f, d), 0.02),
+         "shared": {"w_gate": normal((d, f), 0.02),
+                    "w_up": normal((d, f), 0.02),
+                    "w_down": normal((f, d), 0.02)}}
+    x = normal((SHARD_MOE_ROWS, SHARD_MOE_S, d), 1.0)
+    mesh = meshes[(1, 2)]
+    with torch.no_grad(), mesh_context(mesh):
+        y, aux = moe_ffn_ep(ep, p, x)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(3):
+            moe_ffn_ep(ep, p, x)
+        torch.cuda.synchronize()
+        ep_ms = (time.perf_counter() - t0) / 3 * 1e3
+    moe = {"ep_ms": ep_ms, "ep_drop": float(aux["moe_drop_frac"]),
+           "ep_lb": float(aux["moe_load_balance"]), "shape": [
+               e, scout.experts_per_token, d, f, scout.num_layers]}
+    if rank == 0:
+        with torch.no_grad():
+            want, waux = moe_ffn(scout, p, x)
+            torch.cuda.synchronize()
+            moe["one_rank_ms"] = time_ms(lambda: moe_ffn(scout, p, x),
+                                         iters=3, warmup=1)
+        moe["rel_err"] = float((y - want).abs().max()) / float(
+            want.abs().max())
+        moe["one_rank_drop"] = float(waux["moe_drop_frac"])
+        moe["one_rank_lb"] = float(waux["moe_load_balance"])
+        moe["finite"] = bool(torch.isfinite(y).all())
+    out["moe"] = moe
+    del p, x, y
+    free()
+    dist.barrier()
+    dist.destroy_process_group()
+    with open(Path(work) / f"rank{rank}.json", "w") as fh:
+        json.dump(out, fh)
+    return 0
+
+
+def two_ranks(seed, card, work):
+    """Phase 14 (b) and (c): two rank processes on the one card."""
+    procs = [subprocess.Popen(
+        [sys.executable, str(Path(__file__).resolve()), "--shard-rank",
+         str(r), "--shard-work", str(work), "--seed", str(seed)],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for r in range(2)]
+    logs = []
+    try:
+        for pr in procs:
+            logs.append(pr.communicate(timeout=SHARD_RANK_TIMEOUT_S)[0])
+    finally:
+        for pr in procs:
+            pr.kill()
+            pr.wait()
+    for r, text in enumerate(logs):
+        for line in text.splitlines():
+            if line.startswith("[sharded]"):
+                log(line + f" (rank {r})")
+    if any(pr.returncode != 0 for pr in procs):
+        raise AssertionError("phase 14 ranks failed:\n" + "\n".join(
+            t[-3000:] for t in logs))
+    return [json.loads((Path(work) / f"rank{r}.json").read_text())
+            for r in range(2)]
+
+
+def sharded_phase(dev, seed, card):
+    """Phase 14. Returns the K1/K2 launches of (a)'s sharded run."""
+    import tempfile
+    work = tempfile.mkdtemp(prefix="chip-smoke-phase14-")
+    t0 = time.perf_counter()
+    launch, got_ms, ref_ms = one_rank_nccl(dev, seed, card, work)
+    log(f"[time] sharded: (a) one-rank NCCL {time.perf_counter() - t0:.1f}s")
+    t0 = time.perf_counter()
+    ranks = two_ranks(seed, card, work)
+    log(f"[time] sharded: (b)+(c) two ranks {time.perf_counter() - t0:.1f}s")
+    r0 = ranks[0]
+    for name, rec in r0["plans"].items():
+        peaks = [max(r["plans"][name]["bf16_peak_gib"]) for r in ranks]
+        log(f"[sharded] (b) {name} over gloo (CUDA tensors, 2 ranks on one "
+            f"card), qwen3-1.7b bf16, all layers, B {SHARD_ROWS_B} x S "
+            f"{SHARD_S}, grad_accum 2, one step after the float32 pair: "
+            f"{rec['bf16_ms'][0]:.1f} ms, peak GiB per rank "
+            f"{[round(x, 2) for x in peaks]}, K1/K2 "
+            f"{rec['bf16_launches']} | {card}")
+        for label in [k for k in rec if k.startswith(("sharded", "control"))]:
+            v = rec[label]
+            log(f"[sharded] (b) {name} float32 {SHARD_F32_LAYERS}/28 layers, "
+                f"{label} vs train_step: max|param diff| "
+                f"{v['max_param_diff']:.3e} ({v['params_past_bar']} elements "
+                f"past rtol {SHARD_RTOL_P} / atol {SHARD_ATOL_P}), max metric "
+                f"rel {v['max_metric_rel']:.3e} (past rtol {SHARD_RTOL_M}: "
+                f"{v['metrics_past_bar']}) | {card}")
+            held = v["params_past_bar"] == 0 and not v["metrics_past_bar"]
+            if label == "sharded" and not held:
+                raise AssertionError(f"(b) {name} misses the parity bars")
+            if label.startswith("control") and held:
+                raise AssertionError(f"(b) {name}: the control holds the "
+                                     "bars, which see nothing")
+    moe = r0["moe"]
+    e, k, d, f, _ = moe["shape"]
+    log(f"[sharded] (c) llama4-scout MoE layer (E {e} top-{k}, d {d}, f {f}, "
+        f"shared expert) float32, x ({SHARD_MOE_ROWS}, {SHARD_MOE_S}, {d}), "
+        f"capacity factor 16: moe_ep='train' on 1x2 (gloo) {moe['ep_ms']:.2f}"
+        f" ms vs models/moe.py on one rank {moe['one_rank_ms']:.2f} ms; "
+        f"max|EP - moe_ffn| / max|moe_ffn| {moe['rel_err']:.3e} (<= "
+        f"{TOL_SHARD_MOE}); drop fraction EP {moe['ep_drop']} (rank 1 "
+        f"{ranks[1]['moe']['ep_drop']}), one rank {moe['one_rank_drop']}; "
+        f"load balance EP {moe['ep_lb']:.6f}, one rank "
+        f"{moe['one_rank_lb']:.6f} | {card}")
+    if not moe["finite"] or not moe["rel_err"] <= TOL_SHARD_MOE or \
+            moe["ep_drop"] != 0.0 or moe["one_rank_drop"] != 0.0:
+        raise AssertionError("(c) the EP MoE layer disagrees or drops")
+    return launch
+
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description="PyTorch port smoke on one GPU")
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--shard-rank", type=int, default=None,
+                    help=argparse.SUPPRESS)     # phase 14's rank processes
+    ap.add_argument("--shard-work", default=None, help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -4449,6 +4816,9 @@ def main(argv=None) -> int:
         return 1
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    if args.shard_rank is not None:
+        return shard_rank_main(args.shard_rank, 2, args.shard_work,
+                               args.seed)
     dev = torch.device("cuda", 0)
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -4539,6 +4909,11 @@ def main(argv=None) -> int:
         "memory (VLM and Whisper: encode, static engines, recomputes)"] = \
         mem_launches["flash_attention"]
     log(f"[time] memory phase {time.perf_counter() - t0:.1f}s")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    for name, n in sharded_phase(dev, args.seed, card).items():
+        launches[name] += n
+    log(f"[time] sharded phase {time.perf_counter() - t0:.1f}s")
     for name, row in kernels.items():
         row["launches"] = launches[name]
         row["kernel_ms"], row["twin_ms"] = row["ms"], row["plain_ms"]

@@ -2,13 +2,14 @@
 
 The port's own copy of the model, policy-optimization, training and
 serving configuration (``repro/config.py`` in the JAX package).
-``ModelConfig`` (less the JAX sharding knobs), ``RLConfig`` and
-``TrainConfig`` keep the same fields and defaults, so a config built here
-describes the same model and update as its JAX namesake; only the
-``paged_attn_impl`` default differs (see below). ``HeteroConfig`` keeps
-the JAX package's fields and defaults too; a sampler mesh other than 1x1
-and speculative drafts raise. ``ServeConfig`` holds the deployment
-fields the serving path uses.
+``ModelConfig``, ``RLConfig`` and ``TrainConfig`` keep the same fields
+and defaults, so a config built here describes the same model and update
+as its JAX namesake; only the ``paged_attn_impl`` default differs (see
+below). ``HeteroConfig`` keeps the JAX package's fields and defaults too;
+a sampler mesh other than 1x1 raises, as does a serve mesh
+(``ServeConfig.mesh``): the sampler side of the parallel layer is ROADMAP
+queue 1 item 10. ``ServeConfig`` holds the deployment fields the serving
+path uses.
 """
 from __future__ import annotations
 
@@ -64,11 +65,12 @@ class ModelConfig:
     experts_per_token: int = 0
     shared_expert: bool = False
     capacity_factor: float = 1.25
-    # shard_map expert-parallel MoE ("train" | "serve"; None = the
-    # single-device dispatch of models/moe.py). Expert parallelism is a
-    # mesh's, so setting it raises until parallel/ lands (ROADMAP queue 1
-    # item 10)
+    # expert-parallel MoE ("train" | "serve"; None = the dispatch of
+    # models/moe.py): experts split over the mesh's 'model' axis
+    # (models/moe_ep.py), which the sharded step registers
+    # (runtime_context); ep_dp_axes = the data axes of the mesh
     moe_ep: Optional[str] = None
+    ep_dp_axes: Optional[Tuple[str, ...]] = None
 
     # SSM (Mamba2 / SSD) options -----------------------------------------
     ssm_state: int = 0
@@ -88,6 +90,14 @@ class ModelConfig:
     dtype: str = "bfloat16"
     tie_embeddings: bool = False
     scale_embed: bool = False       # multiply embeddings by sqrt(d) (gemma)
+
+    # residual-stream sharding and head-sharded q/k/v of the JAX
+    # package's tensor-parallel layout (set by a launcher from
+    # parallel.axes.act_sharding_for). Accepted and recorded: the port's
+    # sharded step computes each rank's rows with whole weights, so they
+    # change no number (ROADMAP queue 3)
+    act_sharding: Optional[Tuple] = None
+    attn_gather_qkv: bool = False
 
     # implementation knobs (not architecture) -----------------------------
     attn_impl: str = "chunked"      # naive | chunked | pallas
@@ -131,11 +141,8 @@ class ModelConfig:
         if self.ssd_impl not in SSD_IMPLS:
             raise ValueError(f"unknown ssd_impl {self.ssd_impl!r}; have "
                              f"{SSD_IMPLS}")
-        if self.moe_ep is not None:
-            raise NotImplementedError(
-                f"{self.name}: moe_ep={self.moe_ep!r}: expert-parallel MoE "
-                "is shard_map over a mesh and lands with parallel/ (ROADMAP "
-                "queue 1 item 10)")
+        if self.moe_ep not in (None, "train", "serve"):
+            raise ValueError(f"moe_ep={self.moe_ep!r} not train|serve|None")
 
     # derived -------------------------------------------------------------
     @property
@@ -250,8 +257,11 @@ class TrainConfig:
     grad_clip: float = 1.0
     grad_accum: int = 1
     seed: int = 0
-    # Learner device mesh "DxM". The port runs one device; sharded
-    # learners arrive with parallel/ (ROADMAP queue 1 item 10).
+    # Learner rank mesh as "DxM" (data x model; "PxDxM" adds the slow
+    # inter-pod axis). "1x1" = one device, no process group. Resolved by
+    # the execution layer (repro_torch.parallel.plan_from_flag) when a
+    # plan is built: a larger mesh runs under torchrun, one rank a
+    # process, and raises when the process group is smaller.
     mesh: str = "1x1"
     # Token log-prob backend of the loss (repro_torch.kernels.ops):
     #   "fused"   -- the K1/K2 kernels on CUDA tensors, the twin on CPU;
@@ -261,11 +271,6 @@ class TrainConfig:
     logprob_impl: str = "fused"
 
     def __post_init__(self):
-        if self.mesh != "1x1":
-            raise NotImplementedError(
-                f"TrainConfig.mesh={self.mesh!r}: the port's learner runs on "
-                "one device; meshes land with parallel/ (ROADMAP queue 1 "
-                "item 10)")
         if self.logprob_impl not in LOGPROB_IMPLS:
             raise ValueError(f"unknown logprob_impl {self.logprob_impl!r}; "
                              f"have {LOGPROB_IMPLS}")
@@ -303,8 +308,8 @@ class HeteroConfig:
         if self.sampler_mesh != "1x1":
             raise NotImplementedError(
                 f"HeteroConfig.sampler_mesh={self.sampler_mesh!r}: the "
-                "port's sampler nodes run on one device; meshes land with "
-                "parallel/ (ROADMAP queue 1 item 10)")
+                "port's sampler nodes run on one device; the sampler side "
+                "of parallel/ is ROADMAP queue 1 item 10")
         if self.spec_k < 0:
             raise ValueError(f"spec_k must be >= 0, got {self.spec_k}")
 
@@ -313,10 +318,11 @@ class HeteroConfig:
 class ServeConfig:
     """Deployment settings for a generation engine and its serving front
     door: engine kind, KV capacity, decode horizon, speculative drafting,
-    admission limits (the JAX package's ``ServeConfig`` without ``mesh``,
-    which joins with parallel/). The same object configures batch serving
-    (``launch/serve.py``), the asyncio front door
-    (``repro_torch.serving.server``) and HeteroRL sampler nodes."""
+    admission limits (the JAX package's ``ServeConfig``; a ``mesh``
+    other than 1x1 raises until the serve mode runs in the engines). The
+    same object configures batch serving (``launch/serve.py``), the
+    asyncio front door (``repro_torch.serving.server``) and HeteroRL
+    sampler nodes."""
     engine: str = "continuous"       # static | continuous
     num_slots: int = 8
     page_size: int = 16
@@ -347,8 +353,13 @@ class ServeConfig:
     default_priority: int = 1        # priority class for unlabelled requests
     default_deadline_s: float = 0.0  # TTFT SLO applied when none given (0=off)
     seed: int = 0
+    mesh: str = "1x1"                # serve mesh DxM (TrainConfig.mesh conv.)
 
     def __post_init__(self):
+        if self.mesh != "1x1":
+            raise NotImplementedError(
+                f"ServeConfig.mesh={self.mesh!r}: the engines run on one "
+                "device; serve meshes are ROADMAP queue 1 item 10")
         if self.engine not in ("static", "continuous"):
             raise ValueError(f"engine={self.engine!r} not static|continuous")
         if self.num_slots < 1 or self.page_size < 1 or self.sync_every < 1:

@@ -16,7 +16,11 @@ learner clones the caller's state, and a sampler's params never share
 storage with the learner's. A sampler that aliased them would serve the
 newest weights under an old version stamp, and staleness would be a
 fiction. A node runs on ``device`` (default ``cuda``); on a CUDA device
-the engines and the learner step launch the kernels or raise.
+the engines and the learner step launch the kernels or raise. The
+learner runs on an ``ExecutionPlan`` (``plan=``, default the
+``TrainConfig.mesh`` knob; ``device=`` is the shorthand for the local
+plan on that device): on a live mesh it keeps its state sharded, and
+samplers and evals take its ``full_params()``.
 """
 from __future__ import annotations
 
@@ -42,7 +46,8 @@ from repro_torch.sampling import (ContinuousEngine, build_engine,
                                   rollout_from_results, token_logps)
 from repro_torch.sampling.prng import PRNGKey, split
 from repro_torch.serving.api import Request, SamplingParams
-from repro_torch.training import TrainState, train_step
+from repro_torch.parallel import ExecutionPlan, plan_from_flag
+from repro_torch.training import TrainState, jit_train_step
 from repro_torch.transport import (ChunkSubscriber, SimulatedLink,
                                    publish_params)
 
@@ -338,13 +343,19 @@ class LearnerNode:
 
     def __init__(self, cfg: ModelConfig, rl: RLConfig, tc: TrainConfig,
                  hcfg: HeteroConfig, state: TrainState,
-                 store: PolicyStore, device: DeviceLike = "cuda") -> None:
+                 store: PolicyStore, device: DeviceLike = "cuda",
+                 plan: Optional[ExecutionPlan] = None) -> None:
         self.cfg, self.rl, self.tc, self.hcfg = cfg, rl, tc, hcfg
         self.device = resolve_device(device)
-        # the step updates its state in place, so the node takes a copy:
-        # the caller's state (often a warm start shared across runs)
-        # stays as it was
-        self.state = copy_tree(state, self.device)
+        # learner execution plan: the TrainConfig.mesh knob by default
+        # (the local plan on ``device`` for 1x1). The step updates its
+        # state in place, so the node takes a plan-placed copy: the
+        # caller's state (often a warm start shared across runs) stays as
+        # it was
+        self.plan = plan or plan_from_flag(tc.mesh, "train", self.device)
+        self.state = self.plan.device_put_state(cfg, state, "adamw",
+                                                copy=True)
+        self.step_fn = jit_train_step(cfg, rl, tc, plan=self.plan)
         self.store = store
         self.buffer: List[Tuple[float, RolloutBatch]] = []
         self.step = 0
@@ -360,10 +371,16 @@ class LearnerNode:
         """Stream this step's params into the store as content-addressed
         chunks (repro_torch.transport) plus the version manifest.
         Unchanged chunks cost nothing."""
-        self.publish_stats = publish_params(self.store, self.step,
-                                            self.state.params)
+        self.publish_stats = publish_params(
+            self.store, self.step, self.plan, self.cfg, self.state.params)
         self.bytes_streamed += self.publish_stats.bytes_new
         self.chunks_streamed += self.publish_stats.chunks_new
+
+    def full_params(self) -> Any:
+        """The learner's params as full leaves on its device: the state's
+        own tensors on a local plan, a gather (every rank together) on a
+        live one. Samplers and evals take these."""
+        return self.plan.gather_params(self.cfg, self.state.params)
 
     def receive(self, now_s: float, batch: RolloutBatch) -> None:
         self.buffer.append((now_s, batch))
@@ -385,10 +402,10 @@ class LearnerNode:
         with obs.trace.span("learner_step", track="learner",
                             step=self.step, version=batch.version,
                             sampler=batch.sampler_id):
-            tb = {k: torch.from_numpy(getattr(batch, k)).to(self.device)
+            dev = self.plan.device or self.device
+            tb = {k: torch.from_numpy(getattr(batch, k)).to(dev)
                   for k in ("tokens", "mask", "sampler_lp", "rewards")}
-            self.state, metrics = train_step(self.cfg, self.rl, self.tc,
-                                             self.state, tb)
+            self.state, metrics = self.step_fn(self.state, tb)
             self.step += 1
             out = {k: float(v) for k, v in metrics.items()}
         out["staleness"] = float(self.step - 1 - batch.version)

@@ -10,7 +10,8 @@ Time model (defaults follow the paper's scale): one learner step costs
 ``learner_step_s`` simulated seconds; the paper's 1800 s max delay then
 corresponds to 1800/28.125 = 64 learner steps — the "Max Tolerable
 Delay 64" setting of Table 2. Every node runs on ``device`` (default
-``cuda``), each with its own copy of the weights.
+``cuda``), each with its own copy of the weights; the learner on
+``learner_plan`` (default the ``TrainConfig.mesh`` knob).
 """
 from __future__ import annotations
 
@@ -25,6 +26,7 @@ from repro_torch.device import DeviceLike
 from repro_torch.hetero.events import EventSim, Transport
 from repro_torch.hetero.nodes import (LearnerNode, RolloutBatch, SamplerNode,
                                       link_telemetry)
+from repro_torch.parallel import ExecutionPlan
 from repro_torch.training import TrainState
 
 
@@ -36,7 +38,8 @@ class HeteroRuntime:
                  sampler_gen_s: Optional[float] = None,
                  eval_fn: Optional[Callable[[Any], float]] = None,
                  eval_every: int = 10,
-                 device: DeviceLike = "cuda") -> None:
+                 device: DeviceLike = "cuda",
+                 learner_plan: Optional[ExecutionPlan] = None) -> None:
         self.cfg, self.rl, self.tc, self.hcfg = cfg, rl, tc, hcfg
         self.task, self.tok = task, tok
         self.learner_step_s = learner_step_s
@@ -55,12 +58,13 @@ class HeteroRuntime:
         self.transport = Transport(self.sim)
         self.store = PolicyStore()
         self.learner = LearnerNode(cfg, rl, tc, hcfg, state, self.store,
-                                   device=device)
+                                   device=device, plan=learner_plan)
+        weights = self.learner.full_params()
         self.samplers = [
             SamplerNode(i, cfg, rl,
                         PromptPipeline(task, tok, prompts_per_batch,
                                        rl.group_size),
-                        task, tok, self.learner.state.params, self.store,
+                        task, tok, weights, self.store,
                         hcfg, seed=hcfg.seed * 1000 + i,
                         logprob_impl=tc.logprob_impl, device=device)
             for i in range(hcfg.num_samplers)
@@ -117,7 +121,7 @@ class HeteroRuntime:
         self._learner_busy = False
         if (self.eval_fn is not None
                 and self.learner.step % self.eval_every == 0):
-            score = self.eval_fn(self.learner.state.params)
+            score = self.eval_fn(self.learner.full_params())
             self.eval_scores.append(score)
             self.learner.history.append(self.learner.step,
                                         {"eval_score": score})
@@ -146,29 +150,32 @@ def run_online(cfg: ModelConfig, rl: RLConfig, tc: TrainConfig,
                task: ArithmeticTask, tok: Tokenizer, state: TrainState, *,
                num_steps: int, prompts_per_batch: int = 8, seed: int = 0,
                eval_fn: Optional[Callable[[Any], float]] = None,
-               eval_every: int = 10, device: DeviceLike = "cuda"):
+               eval_every: int = 10, device: DeviceLike = "cuda",
+               learner_plan: Optional[ExecutionPlan] = None):
     """Synchronous on-policy RL (Max Tolerable Delay 0, Table 1): the
-    sampler always holds the learner's current parameters."""
+    sampler always holds the learner's current parameters. The learner
+    runs on ``learner_plan`` (default the ``TrainConfig.mesh`` knob)."""
     hcfg = HeteroConfig(num_samplers=1, max_delay_steps=0,
                         delay_distribution="constant", delay_min_s=0.0,
                         delay_median_s=0.0, seed=seed)
     store = PolicyStore()
-    learner = LearnerNode(cfg, rl, tc, hcfg, state, store, device=device)
+    learner = LearnerNode(cfg, rl, tc, hcfg, state, store, device=device,
+                          plan=learner_plan)
     pipeline = PromptPipeline(task, tok, prompts_per_batch, rl.group_size)
     sampler = SamplerNode(0, cfg, rl, pipeline, task, tok,
-                          learner.state.params, store, hcfg, seed=seed,
+                          learner.full_params(), store, hcfg, seed=seed,
                           logprob_impl=tc.logprob_impl, device=device)
     eval_scores: List[float] = []
     for step in range(num_steps):
         # strict synchrony: the learner's weights are copied into the
         # sampler's own tensors every step
-        sampler.load_params(learner.state.params, learner.step)
+        sampler.load_params(learner.full_params(), learner.step)
         batch = sampler.generate_batch(float(step))
         learner.receive(float(step), batch)
         b = learner.pop_eligible(float(step))
         learner.train_on(b)
         if eval_fn is not None and learner.step % eval_every == 0:
-            score = eval_fn(learner.state.params)
+            score = eval_fn(learner.full_params())
             eval_scores.append(score)
             learner.history.append(learner.step, {"eval_score": score})
     return learner.history, eval_scores, learner

@@ -19,7 +19,7 @@ from __future__ import annotations
 import queue
 import threading
 import time
-from typing import List
+from typing import List, Optional
 
 from repro_torch import obs
 from repro_torch.checkpoint import PolicyStore
@@ -29,6 +29,7 @@ from repro_torch.data import ArithmeticTask, PromptPipeline, Tokenizer
 from repro_torch.device import DeviceLike
 from repro_torch.hetero.nodes import (LearnerNode, RolloutBatch, SamplerNode,
                                       link_telemetry)
+from repro_torch.parallel import ExecutionPlan
 from repro_torch.training import TrainState
 
 
@@ -43,12 +44,13 @@ class ThreadedHeteroRuntime:
                  state: TrainState, *, prompts_per_batch: int = 4,
                  time_scale: float = 1e-4,
                  queue_size: int = 16,
-                 device: DeviceLike = "cuda") -> None:
+                 device: DeviceLike = "cuda",
+                 learner_plan: Optional[ExecutionPlan] = None) -> None:
         self.hcfg = hcfg
         self.time_scale = time_scale
         self.store = PolicyStore()
         self.learner = LearnerNode(cfg, rl, tc, hcfg, state, self.store,
-                                   device=device)
+                                   device=device, plan=learner_plan)
         self.queue: queue.Queue[RolloutBatch] = queue.Queue(queue_size)
         # each sampler owns a copy of the params (SamplerNode): the
         # learner thread's in-place step never touches them
@@ -56,7 +58,7 @@ class ThreadedHeteroRuntime:
             SamplerNode(i, cfg, rl,
                         PromptPipeline(task, tok, prompts_per_batch,
                                        rl.group_size),
-                        task, tok, self.learner.state.params, self.store,
+                        task, tok, self.learner.full_params(), self.store,
                         hcfg, seed=hcfg.seed * 1000 + i,
                         logprob_impl=tc.logprob_impl, device=device)
             for i in range(hcfg.num_samplers)

@@ -12,13 +12,21 @@ Usage:
   PYTHONPATH=src python -m repro_torch.launch.train --device cpu \
       --mode hetero --steps 2 --sft-steps 2 --num-samplers 2
 
-The port runs one device: ``--mesh`` and ``--sampler-mesh`` other than
-1x1 raise (ROADMAP queue 1 item 10).
+``--mesh DxM`` (or ``PxDxM``) builds the learner's ``ExecutionPlan``:
+the SFT warm start and the RL learner run sharded on it. A mesh of more
+than one rank runs under ``torchrun``, one rank a process (NCCL on
+``cuda``, gloo on ``cpu``); without enough ranks it raises the
+``mesh_from_flag`` error. ``--smoke`` is the quick run (2 SFT steps, 2
+RL steps, 2 samplers unless given):
+  torchrun --nproc-per-node 2 -m repro_torch.launch.train --device cpu \
+      --smoke --mesh 2x1
+``--sampler-mesh`` other than 1x1 raises (ROADMAP queue 1 item 10).
 """
 from __future__ import annotations
 
 import argparse
 import json
+import os
 import time
 
 import numpy as np
@@ -33,9 +41,10 @@ from repro_torch.data.tasks import EOS
 from repro_torch.hetero import HeteroRuntime, run_online
 from repro_torch.models import init_params
 from repro_torch.optim import tree_leaves
+from repro_torch.parallel import plan_from_flag
 from repro_torch.sampling import generate
 from repro_torch.sampling.prng import PRNGKey
-from repro_torch.training import init_state, sft_step
+from repro_torch.training import init_state, jit_sft_step
 
 
 def make_eval_fn(cfg, rl, task, tok, n_prompts=32, seed=1234):
@@ -55,9 +64,12 @@ def make_eval_fn(cfg, rl, task, tok, n_prompts=32, seed=1234):
     return eval_fn
 
 
-def sft_warmstart(cfg, tc, task, tok, state, steps=400, batch=64, seed=0):
+def sft_warmstart(cfg, tc, task, tok, state, steps=400, batch=64, seed=0,
+                  plan=None):
     """Supervised warm start (the paper RL-tunes a pretrained model), in
-    place on ``state``. Returns ``(state, last loss)``."""
+    place on ``state``, through ``jit_sft_step`` on ``plan`` (default the
+    ``TrainConfig.mesh`` knob). Returns ``(state, last loss)``."""
+    step_fn = jit_sft_step(cfg, tc, plan=plan)
     dev = tree_leaves(state.params)[0].device
     width = task.prompt_width + 8
     loss = torch.zeros(())
@@ -72,8 +84,8 @@ def sft_warmstart(cfg, tc, task, tok, state, steps=400, batch=64, seed=0):
             m += [0.0] * (width - 1 - len(m))
             rows.append(ids[:width])
             masks.append(m[:width - 1])
-        state, loss = sft_step(
-            cfg, tc, state,
+        state, loss = step_fn(
+            state,
             torch.tensor(rows, dtype=torch.int32, device=dev),
             torch.tensor(masks, dtype=torch.float32, device=dev))
     return state, float(loss)
@@ -85,13 +97,20 @@ def main(argv=None) -> None:
     ap.add_argument("--loss", default="gepo")
     ap.add_argument("--mode", default="online",
                     choices=["online", "hetero"])
-    ap.add_argument("--steps", type=int, default=120)
-    ap.add_argument("--sft-steps", type=int, default=400)
+    ap.add_argument("--steps", type=int, default=None,
+                    help="RL steps (default 120; 2 with --smoke)")
+    ap.add_argument("--sft-steps", type=int, default=None,
+                    help="SFT warm-start steps (default 400; 2 with "
+                         "--smoke)")
+    ap.add_argument("--smoke", action="store_true",
+                    help="the quick run: 2 SFT steps, 2 RL steps, 2 "
+                         "samplers unless given")
     ap.add_argument("--group-size", type=int, default=8)
     ap.add_argument("--prompts", type=int, default=8)
     ap.add_argument("--max-delay", type=int, default=64)
     ap.add_argument("--delay-dist", default="lognormal")
-    ap.add_argument("--num-samplers", type=int, default=4)
+    ap.add_argument("--num-samplers", type=int, default=None,
+                    help="sampler nodes (default 4; 2 with --smoke)")
     ap.add_argument("--beta-kl", type=float, default=None)
     ap.add_argument("--lr", type=float, default=1e-3)
     ap.add_argument("--logprob-impl", default="fused",
@@ -99,7 +118,8 @@ def main(argv=None) -> None:
                     help="learner token-logprob backend (see "
                          "TrainConfig.logprob_impl)")
     ap.add_argument("--mesh", default="1x1",
-                    help="learner mesh DxM; the port runs 1x1 only")
+                    help="learner mesh DxM or PxDxM, e.g. 2x1; more than "
+                         "one rank runs under torchrun")
     ap.add_argument("--sampler-mesh", default="1x1",
                     help="sampler-node mesh DxM; the port runs 1x1 only")
     ap.add_argument("--paged-attn-impl", default=None,
@@ -112,10 +132,24 @@ def main(argv=None) -> None:
     ap.add_argument("--eval-every", type=int, default=10)
     ap.add_argument("--out", default=None)
     args = ap.parse_args(argv)
+    quick = dict(steps=2, sft_steps=2, num_samplers=2) if args.smoke else \
+        dict(steps=120, sft_steps=400, num_samplers=4)
+    for k, v in quick.items():
+        if getattr(args, k) is None:
+            setattr(args, k, v)
 
-    # both raise for a mesh other than 1x1 (ROADMAP queue 1 item 10)
+    # raises for a sampler mesh other than 1x1 (ROADMAP queue 1 item 10)
     HeteroConfig(sampler_mesh=args.sampler_mesh)
-    TrainConfig(mesh=args.mesh)
+    device = args.device
+    world = int(os.environ.get("WORLD_SIZE", "1"))
+    if world > 1:                                # under torchrun
+        import torch.distributed as dist
+        if device == "cuda":
+            device = f"cuda:{int(os.environ.get('LOCAL_RANK', '0'))}"
+            torch.cuda.set_device(torch.device(device))
+        dist.init_process_group("nccl" if args.device == "cuda" else "gloo")
+    learner_plan = plan_from_flag(args.mesh, "train", device)
+    rank0 = learner_plan.mesh.rank in (None, 0)
     cfg = smoke(args.arch)
     beta = args.beta_kl if args.beta_kl is not None else (
         0.0 if args.mode == "online" else 0.005)   # paper §4.1
@@ -125,21 +159,24 @@ def main(argv=None) -> None:
     tok = Tokenizer()
     task = ArithmeticTask(max_operand=20, ops="+", prompt_width=6,
                           seed=args.seed)
-    print(f"[train] {cfg.name} on {args.device}: learner and samplers "
-          "1x1")
+    if rank0:
+        print(f"[train] {cfg.name} on {device}: learner "
+              f"{learner_plan.describe()} | samplers 1x1")
 
-    params = init_params(cfg, args.seed, device=args.device)
+    params = init_params(cfg, args.seed, device=device)
     tc_sft = TrainConfig(learning_rate=1e-2, total_steps=args.sft_steps,
-                         logprob_impl=args.logprob_impl)
-    state = init_state(cfg, tc_sft, params)
+                         logprob_impl=args.logprob_impl, mesh=args.mesh)
+    state = init_state(cfg, tc_sft, params, plan=learner_plan)
     t0 = time.time()
     state, sft_loss = sft_warmstart(cfg, tc_sft, task, tok, state,
-                                    steps=args.sft_steps, seed=args.seed)
-    print(f"[train] SFT warm start done: loss={sft_loss:.3f} "
-          f"({time.time()-t0:.0f}s)")
+                                    steps=args.sft_steps, seed=args.seed,
+                                    plan=learner_plan)
+    if rank0:
+        print(f"[train] SFT warm start done: loss={sft_loss:.3f} "
+              f"({time.time()-t0:.0f}s)")
 
     tc = TrainConfig(learning_rate=args.lr, total_steps=args.steps,
-                     logprob_impl=args.logprob_impl)
+                     logprob_impl=args.logprob_impl, mesh=args.mesh)
     state = state._replace(step=torch.zeros_like(state.step))
     eval_fn = make_eval_fn(cfg, rl, task, tok)
 
@@ -148,7 +185,7 @@ def main(argv=None) -> None:
             cfg, rl, tc, task, tok, state, num_steps=args.steps,
             prompts_per_batch=args.prompts, seed=args.seed,
             eval_fn=eval_fn, eval_every=args.eval_every,
-            device=args.device)
+            device=device, learner_plan=learner_plan)
     else:
         hcfg = HeteroConfig(num_samplers=args.num_samplers,
                             max_delay_steps=args.max_delay,
@@ -158,7 +195,7 @@ def main(argv=None) -> None:
         rt = HeteroRuntime(cfg, rl, tc, hcfg, task, tok, state,
                            prompts_per_batch=args.prompts,
                            eval_fn=eval_fn, eval_every=args.eval_every,
-                           device=args.device)
+                           device=device, learner_plan=learner_plan)
         hist = rt.run(args.steps)
         evals = rt.eval_scores
         learner = rt.learner
@@ -174,10 +211,14 @@ def main(argv=None) -> None:
         "staleness_mean": float(np.nanmean(hist.get("staleness"))),
         "wall_s": round(time.time() - t0, 1),
     }
-    print("[train] " + json.dumps(summary, indent=1))
-    if args.out:
-        with open(args.out, "w") as f:
-            json.dump(summary, f, indent=1)
+    if rank0:
+        print("[train] " + json.dumps(summary, indent=1))
+        if args.out:
+            with open(args.out, "w") as f:
+                json.dump(summary, f, indent=1)
+    if world > 1:
+        import torch.distributed as dist
+        dist.destroy_process_group()
 
 
 if __name__ == "__main__":

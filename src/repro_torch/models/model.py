@@ -67,6 +67,7 @@ from repro_torch.models.attention import (attention, decode_attention,
                                           standard_positions)
 from repro_torch.models.layers import rmsnorm, rope, softcap, swiglu
 from repro_torch.models.moe import moe_ffn
+from repro_torch.models.moe_ep import moe_ffn_ep
 from repro_torch.models.ssm import mamba_block
 
 # sampling.paged_cache.SCRATCH_PAGE (not imported: sampling imports this
@@ -269,7 +270,8 @@ def _apply_layer(cfg: ModelConfig, kind: str, ffn_kind: str, p: Dict,
     if ffn_kind == MLP:
         x = x + swiglu(rmsnorm(x, p["ffn_norm"], cfg.norm_eps), p["mlp"])
     elif ffn_kind == MOE:
-        y, a = moe_ffn(cfg, p["moe"], rmsnorm(x, p["ffn_norm"], cfg.norm_eps))
+        ffn = moe_ffn if cfg.moe_ep is None else moe_ffn_ep
+        y, a = ffn(cfg, p["moe"], rmsnorm(x, p["ffn_norm"], cfg.norm_eps))
         for k, v in a.items():
             aux[k] = aux[k] + v
         x = x + y

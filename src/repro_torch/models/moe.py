@@ -36,6 +36,7 @@ from typing import Dict, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch import runtime_context
 from repro_torch.config import ModelConfig
 from repro_torch.models.layers import swiglu
 
@@ -83,7 +84,25 @@ def moe_ffn(cfg: ModelConfig, p: Dict[str, torch.Tensor], x: torch.Tensor
             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """x (B, S, d) -> (y (B, S, d), aux metrics): ``moe_load_balance``
     (Switch), ``moe_z_loss`` (router z-loss) and ``moe_drop_frac``, 0-dim
-    float32 tensors, for logging."""
+    float32 tensors, for logging.
+
+    Under a live mesh whose rows are split (the sharded step registers
+    it, ``runtime_context``), ``x`` is this rank's rows. The reference's
+    dispatch is global, its capacity a function of all T tokens, so the
+    rows of every rank are gathered over the row axes (autograd-aware),
+    dispatched as one batch, and this rank's rows kept: the same tokens
+    drop as on one device, and the router metrics are the global
+    batch's."""
+    mesh, rows = runtime_context.active_mesh(), runtime_context.row_axes()
+    if mesh is not None and rows:
+        from repro_torch.parallel.collectives import gather_rows, own_rows
+        y, aux = _moe_ffn(cfg, p, gather_rows(x, mesh, rows))
+        return own_rows(y, mesh, rows), aux
+    return _moe_ffn(cfg, p, x)
+
+
+def _moe_ffn(cfg: ModelConfig, p: Dict[str, torch.Tensor], x: torch.Tensor
+             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     b, s, d = x.shape
     e, k = cfg.num_experts, cfg.experts_per_token
     t = b * s

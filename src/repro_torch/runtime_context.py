@@ -1,0 +1,55 @@
+"""Process-level runtime context: the active rank mesh (the port of
+``repro/runtime_context.py``).
+
+Model code is mesh-agnostic except for the layers that split work across
+ranks: the expert-parallel MoE (``models/moe_ep.py``) and the MoE
+dispatch under a data-sharded plan (``models/moe.py``). Those read the
+mesh registered here, and the axes the current batch rows are split over
+(``row_axes``), which the sharded step sets around its forward."""
+from __future__ import annotations
+
+from contextlib import contextmanager
+from typing import TYPE_CHECKING, Optional, Tuple
+
+if TYPE_CHECKING:                    # no import cycle through the models
+    from repro_torch.parallel.mesh import Mesh
+
+_MESH: Optional["Mesh"] = None
+_ROWS: Tuple[str, ...] = ()
+
+
+def set_mesh(mesh: Optional["Mesh"], row_axes: Tuple[str, ...] = ()) -> None:
+    global _MESH, _ROWS
+    _MESH, _ROWS = mesh, tuple(row_axes)
+
+
+def get_mesh() -> "Mesh":
+    if _MESH is None:
+        raise RuntimeError("no mesh registered — the caller must call "
+                           "repro_torch.runtime_context.set_mesh(mesh)")
+    return _MESH
+
+
+def active_mesh() -> Optional["Mesh"]:
+    """The registered mesh when it is live (its collectives run), else
+    None."""
+    return _MESH if _MESH is not None and _MESH.live else None
+
+
+def row_axes() -> Tuple[str, ...]:
+    """The mesh axes the rows of the current forward are split over."""
+    return _ROWS
+
+
+@contextmanager
+def mesh_context(mesh: "Mesh", row_axes: Tuple[str, ...] = ()):
+    prev = (_MESH, _ROWS)
+    set_mesh(mesh, row_axes)
+    try:
+        yield mesh
+    finally:
+        set_mesh(*prev)
+
+
+__all__ = ["set_mesh", "get_mesh", "active_mesh", "row_axes",
+           "mesh_context"]

@@ -1,29 +1,28 @@
-"""Subscriber half of the chunked weight transport (the port of
+"""Subscriber half of the shard-streamed transport (the port of
 ``repro/transport/subscribe.py``).
 
 A ``ChunkSubscriber`` is one sampler's checkpoint client: it pulls the
-newest manifest over its ``SimulatedLink``, delta-syncs against its local
+newest manifest over its ``SimulatedLink``, computes the chunk set its
+execution plan needs (the chunks overlapping its plan's shard grid,
+optionally scoped to a subset of ranks), delta-syncs against its local
 content-addressed cache (unchanged chunks never touch the wire), and
 survives a dropped link mid-transfer: partial byte progress is kept per
 chunk and the next sync resumes from the offset. It assembles the
 version on the host, as CPU tensors in the structure of ``like``; the
-caller copies them onto its device.
-
-The port runs one device, so a subscriber needs every chunk of the
-manifest; the JAX package's plan- and host-scoped fetches join with
-parallel/ (ROADMAP queue 1 item 10).
+caller places them on its device (or its plan).
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Dict, Iterable, List, Optional, Tuple
 
 from repro_torch.checkpoint.store import (PolicyStore, flatten_with_paths,
                                           unflatten_like)
-from repro_torch.transport.chunks import ChunkRef, assemble_leaf
+from repro_torch.transport.chunks import (ChunkRef, assemble_leaf, overlaps,
+                                          shard_regions)
 from repro_torch.transport.link import (LinkDropped, SimulatedLink,
                                         SyncInterrupted)
-from repro_torch.transport.manifest import Manifest
+from repro_torch.transport.manifest import LeafManifest, Manifest
 
 
 @dataclasses.dataclass
@@ -48,7 +47,7 @@ class SyncStats:
 
 
 class ChunkSubscriber:
-    """Delta-synced, resumable checkpoint client."""
+    """Plan-scoped, delta-synced, resumable checkpoint client."""
 
     def __init__(self, store: PolicyStore,
                  link: Optional[SimulatedLink] = None) -> None:
@@ -63,12 +62,49 @@ class ChunkSubscriber:
         self.bytes_fetched = 0
         self.manifest_bytes = 0
 
-    def sync(self, like: Any, *,
-             version: Optional[int] = None) -> Tuple[int, Any, SyncStats]:
+    # ---- need-set computation -------------------------------------------
+    def needed_refs(self, manifest: Manifest, *, plan=None, cfg=None,
+                    devices: Optional[Iterable[int]] = None
+                    ) -> List[Tuple[LeafManifest, List[ChunkRef]]]:
+        """The publisher chunks this plan needs, per leaf: every chunk
+        overlapping a distinct shard region of the plan's fitted sharding
+        held by one of ``devices`` (ranks). Without rank scoping a plan's
+        regions tile every leaf, so the need-set is all chunks."""
+        if plan is None or cfg is None or devices is None:
+            return [(lm, list(lm.chunks)) for lm in manifest.leaves]
+        shardings = dict(flatten_with_paths(plan.param_shardings(cfg)))
+        out = []
+        for lm in manifest.leaves:
+            sharding = shardings.get(lm.key)
+            if sharding is None:
+                out.append((lm, list(lm.chunks)))
+                continue
+            regions = shard_regions(sharding, lm.shape, devices=devices)
+            need = [ref for ref in lm.chunks
+                    if any(overlaps(ref, start, cshape)
+                           for start, cshape, _ in regions)]
+            out.append((lm, need))
+        return out
+
+    # ---- sync ------------------------------------------------------------
+    def sync(self, like: Any, *, cfg=None, plan=None,
+             version: Optional[int] = None,
+             devices: Optional[Iterable[int]] = None,
+             assemble: Optional[bool] = None
+             ) -> Tuple[int, Any, SyncStats]:
         """Fetch ``version`` (newest when None) and assemble it into the
-        structure of ``like``. Returns ``(version, host_tree, stats)``.
-        Raises ``SyncInterrupted`` if the link drops; call again to resume
-        from the recorded byte offsets."""
+        structure of ``like``. Returns ``(version, host_tree, stats)``;
+        ``host_tree`` is None for rank-scoped fetches (``devices``): those
+        are partial by construction, so ``assemble`` defaults to
+        ``devices is None`` and forcing it on a scoped fetch is an error.
+        Raises ``SyncInterrupted`` if the link drops; call again to
+        resume from the recorded byte offsets."""
+        if assemble is None:
+            assemble = devices is None
+        elif assemble and devices is not None:
+            raise ValueError("a rank-scoped fetch is partial — it cannot "
+                             "assemble full leaves; pass assemble=False "
+                             "(or drop devices=)")
         v, blob = self.store.fetch(version)
         manifest = Manifest.from_json(blob)
         stats = SyncStats(version=v, manifest_bytes=len(blob))
@@ -78,10 +114,12 @@ class ChunkSubscriber:
         except LinkDropped:
             raise SyncInterrupted(
                 "link dropped while fetching the manifest") from None
+        needed = self.needed_refs(manifest, plan=plan, cfg=cfg,
+                                  devices=devices)
         missing: List[ChunkRef] = []
         seen = set()
-        for lm in manifest.leaves:
-            for ref in lm.chunks:
+        for _, refs in needed:
+            for ref in refs:
                 if ref.hash in seen:
                     continue
                 seen.add(ref.hash)
@@ -98,7 +136,7 @@ class ChunkSubscriber:
         payload = self.store.get_chunks([r.hash for r in missing])
         for ref in missing:
             self._fetch(ref, payload[ref.hash], stats)
-        tree = self._assemble(manifest, like)
+        tree = self._assemble(manifest, like) if assemble else None
         # cache hygiene: keep only chunks the current version references —
         # the cache is bounded by one model copy, not the run length
         keep = manifest.hashes()

@@ -57,6 +57,7 @@ from repro_torch.hetero import LearnerNode, RolloutBatch, SamplerNode
 from repro_torch.launch import train as tlaunch
 from repro_torch.models import init_params, params_from_numpy
 from repro_torch.optim import tree_leaves
+from repro_torch.parallel import local_plan
 from repro_torch.transport import ChunkSubscriber, publish_params
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -299,11 +300,11 @@ def test_synced_sampler_serves_the_new_weights(recompute):
                            device="cpu")
 
     store = PolicyStore()
-    publish_params(store, 0, old)
+    publish_params(store, 0, local_plan(), TINY, old)
     synced = node(old, store)
     synced.generate_batch(0.0)
     assert synced._gen_engine.prefix_cache.stats["inserts"] > 0
-    publish_params(store, 1, new)
+    publish_params(store, 1, local_plan(), TINY, new)
     assert synced.sync() > 0 and synced.version == 1
     got = synced.generate_batch(1.0)
     want = node(new, PolicyStore()).generate_batch(1.0)
@@ -335,7 +336,7 @@ def test_nodes_default_to_cuda_and_refuse_what_is_not_ported():
     with pytest.raises(NotImplementedError, match="queue 1 item 10"):
         HeteroConfig(sampler_mesh="1x2")
     assert HeteroConfig(spec_k=2).spec_k == 2
-    with pytest.raises(NotImplementedError, match="queue 1 item 10"):
+    with pytest.raises(RuntimeError, match="torchrun --nproc-per-node 4"):
         tlaunch.main(["--device", "cpu", "--mesh", "2x2"])
 
 

@@ -26,6 +26,7 @@ from repro_torch.data import ArithmeticTask, PromptPipeline, Tokenizer
 from repro_torch.hetero import SamplerNode, ThreadedHeteroRuntime
 from repro_torch.models import init_params
 from repro_torch.optim import tree_leaves
+from repro_torch.parallel import local_plan
 from repro_torch.transport import publish_params
 
 SHAPE = dict(name="tiny", family="dense", num_layers=2, d_model=48,
@@ -109,12 +110,13 @@ def _node_and_store():
     tok = Tokenizer()
     task = ArithmeticTask(max_operand=9, ops="+", prompt_width=5, seed=0)
     store = PolicyStore()
-    publish_params(store, 0, init_params(TINY, 0, device="cpu"))
+    publish_params(store, 0, local_plan(), TINY,
+                   init_params(TINY, 0, device="cpu"))
     node = SamplerNode(0, TINY, RL, PromptPipeline(task, tok, 2, 4), task,
                        tok, init_params(TINY, 0, device="cpu"), store,
                        HeteroConfig(), seed=0, device="cpu")
     new = init_params(TINY, 1, device="cpu")
-    publish_params(store, 1, new)
+    publish_params(store, 1, local_plan(), TINY, new)
     return node, new
 
 

@@ -32,12 +32,14 @@ from repro import transport as jtransport
 from repro_torch import obs as tobs
 from repro_torch.checkpoint import store as tstore
 from repro_torch.config import HeteroConfig
+from repro_torch.configs import smoke as tsmoke
 from repro_torch.data import pipeline as tpipeline
 from repro_torch.data import tasks as ttasks
 from repro_torch.hetero import events as tevents
 from repro_torch.hetero import latency as tlatency
 from repro_torch.models import params_from_numpy
 from repro_torch.optim import tree_leaves
+from repro_torch.parallel import local_plan as tlocal_plan
 from repro_torch import transport as ttransport
 
 
@@ -246,6 +248,11 @@ def test_obs_outputs_match_jax(scenario, tmp_path):
 # checkpoint: the npz blob both ways, PolicyStore bookkeeping
 
 
+def _tcfg(dtype):
+    """The port's twin of ``_model_params``'s JAX config."""
+    return dataclasses.replace(tsmoke("qwen3-1.7b"), dtype=dtype)
+
+
 def _model_params(dtype, extra=False):
     """The JAX package's smoke qwen3 params and the same in torch; with
     ``extra``, an int32 leaf and a 0-dim leaf beside them."""
@@ -332,7 +339,7 @@ def test_chunk_hashes_and_manifest_match_jax(dtype):
     jcfg, jp, tp = _model_params(dtype)
     js, ts = jstore.PolicyStore(), tstore.PolicyStore()
     jst = jtransport.publish_params(js, 3, local_plan("train"), jcfg, jp)
-    tst = ttransport.publish_params(ts, 3, tp)
+    tst = ttransport.publish_params(ts, 3, tlocal_plan(), _tcfg(dtype), tp)
     assert dataclasses.asdict(tst) == dataclasses.asdict(jst)
     assert ts.fetch(3)[1] == js.fetch(3)[1]           # manifest JSON bytes
     man = jtransport.Manifest.from_json(ts.fetch(3)[1])
@@ -355,18 +362,20 @@ def test_chunk_hashes_and_manifest_match_jax(dtype):
 
 def test_delta_sync_moves_only_changed_chunks():
     _, _, tp = _model_params("bfloat16")
+    tcfg = _tcfg("bfloat16")
     store = tstore.PolicyStore()
-    st0 = ttransport.publish_params(store, 0, tp)
+    st0 = ttransport.publish_params(store, 0, tlocal_plan(), tcfg, tp)
     sub = ttransport.ChunkSubscriber(store)
     _, _, s0 = sub.sync(tp)
     assert s0.chunk_bytes == st0.bytes_new and s0.chunks_fetched > 0
-    st1 = ttransport.publish_params(store, 1, tp)
+    st1 = ttransport.publish_params(store, 1, tlocal_plan(), tcfg, tp)
     assert st1.bytes_new == 0 and st1.chunks_new == 0
     v, tree1, s1 = sub.sync(tp)
     assert v == 1 and s1.chunks_fetched == 0 and s1.dedup_ratio == 1.0
     assert s1.bytes_on_wire == s1.manifest_bytes
     changed = {**tp, "final_norm": tp["final_norm"] + 1.0}
-    st2 = ttransport.publish_params(store, 2, changed)
+    st2 = ttransport.publish_params(store, 2, tlocal_plan(), tcfg,
+                                   changed)
     assert st2.chunks_new == 1
     assert st2.bytes_new == changed["final_norm"].numel() * 2
     v, tree2, s2 = sub.sync(tp)
@@ -385,7 +394,8 @@ def test_resume_after_drop_matches_jax():
                                      "cfg": jcfg})):
         store = (tstore if name == "port" else jstore).PolicyStore()
         if name == "port":
-            st0 = mod.publish_params(store, 0, params)
+            st0 = mod.publish_params(store, 0, tlocal_plan(),
+                                     _tcfg("float32"), params)
         else:
             st0 = mod.publish_params(store, 0, kw["plan"], jcfg, params)
         link = mod.SimulatedLink(bandwidth_mbps=100.0,

@@ -32,6 +32,9 @@ def _modules():
 def test_modules_import_without_jax_or_repro():
     mods = _modules()
     assert "repro_torch.kernels.paged_attention" in mods
+    assert {"repro_torch.parallel.step", "repro_torch.parallel.collectives",
+            "repro_torch.models.moe_ep", "repro_torch.runtime_context",
+            "repro_torch.launch.sharding"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"

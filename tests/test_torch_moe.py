@@ -236,8 +236,3 @@ def test_top_k_ties_go_to_the_lower_expert():
     np.testing.assert_array_equal(ids.numpy(), jids)
     np.testing.assert_array_equal(ids.numpy(), np.tile([1, 3], (6, 1)))
     _close(gate.numpy(), np.full((6, 2), 0.5))
-
-
-def test_moe_ep_raises_until_parallel_lands():
-    with pytest.raises(NotImplementedError, match="queue 1 item 10"):
-        ModelConfig(**dict(BASE, experts_per_token=1, moe_ep="serve"))

@@ -480,3 +480,51 @@ def test_serve_cli_runs_spec_on_cpu():
     assert out.returncode == 0, out.stderr
     assert "spec_k=4 accept_rate" in out.stdout, out.stdout
     assert "total 36 tokens" in out.stdout, out.stdout
+
+
+def test_greedy_spec_engine_matches_jax_through_moe(monkeypatch):
+    """MoE through spec rounds: llama4-scout's smoke (4 experts, top-1,
+    a shared expert) on the repeating-pattern workload of ``chip_smoke.py``
+    phase 9 (a), greedy over a 12-token alphabet and cut to six prompts of
+    9-22 tokens, so drafts are accepted. Three slots for six requests
+    leave slots idle in the later rounds, and spec_k 4 makes a verify
+    window of 5 tokens, wider than the 4-token page. Every verify window
+    reaches the MoE with the reference's token count (all slots, padded
+    windows), so capacity drops match. The JAX package's MoE runs through
+    ``tests/_jax_moe_ref.py`` (its kept-only scatter)."""
+    from _jax_moe_ref import patch_jax_moe
+    from repro import configs as jconfigs
+    from repro_torch import configs as tconfigs
+    patch_jax_moe(monkeypatch)
+    name, vocab = "llama4-scout-17b-a16e", 12
+    jcfg = jconfigs.smoke(name, paged_attn_impl="ref")
+    tcfg = tconfigs.smoke(name, paged_attn_impl="ref")
+    jp, tp = _params(jcfg, 2)
+    rng = np.random.default_rng(9)
+    prompts = []
+    for _ in range(6):
+        pat = rng.integers(3, vocab, int(rng.integers(3, 6)))
+        n = int(rng.integers(9, 23))
+        prompts.append(np.tile(pat, -(-n // len(pat)))[:n].astype(np.int32))
+    serve = _serve(prompts, 12, spec_k=4)
+    jrl = JRLConfig(max_new_tokens=12, engine="continuous", **GREEDY)
+    jeng = jbuild_engine(jcfg, jp, JServeConfig(**serve), rl=jrl,
+                         vocab_limit=vocab, key=jax.random.PRNGKey(0))
+    jres = jeng.generate([JRequest(rid=i, prompt=p,
+                                   params=JSamplingParams.from_rl(jrl))
+                          for i, p in enumerate(prompts)])
+    rl = RLConfig(max_new_tokens=12, engine="continuous", **GREEDY)
+    teng = build_engine(tcfg, tp, ServeConfig(**serve), rl=rl,
+                        vocab_limit=vocab)
+    tres = teng.generate([Request(rid=i, prompt=p,
+                                  params=SamplingParams.from_rl(rl))
+                          for i, p in enumerate(prompts)])
+    for a, b in zip(jres, tres):
+        np.testing.assert_array_equal(b.tokens, a.tokens)
+        np.testing.assert_allclose(b.logps, a.logps, atol=1e-4, rtol=0)
+        assert a.finish_reason == b.finish_reason
+    js, ts = jeng.stats(), teng.stats()
+    keys = ("drafted_tokens_total", "accepted_tokens_total", "spec_rounds",
+            "spec_fallback_chunks", "decode_steps", "draft_hits")
+    assert {k: ts[k] for k in keys} == {k: js[k] for k in keys}
+    assert ts["accepted_tokens_total"] > 0 and ts["spec_rounds"] > 0

@@ -46,6 +46,7 @@ from repro_torch.config import ModelConfig, RLConfig, TrainConfig
 from repro_torch.core import diagnostics as tdiag
 from repro_torch.models import attention as tattn
 from repro_torch.models import forward, params_from_numpy
+from repro_torch.parallel import plan_from_flag
 from repro_torch.sampling import (generate_continuous, rollout_from_results,
                                   token_logps)
 from repro_torch.sampling.prng import PRNGKey
@@ -271,8 +272,10 @@ def test_clip_and_schedules_match_jax():
                        (toptim.cosine_schedule, joptim.cosine_schedule)):
             np.testing.assert_allclose(float(tf(ttc, torch.tensor(s))),
                                        float(jf(jtc, s)), rtol=1e-6)
-    with pytest.raises(NotImplementedError, match="queue 1 item 10"):
-        TrainConfig(mesh="2x2")
+    # the mesh is checked when a plan is built: no process group here
+    assert TrainConfig(mesh="2x2").mesh == "2x2"
+    with pytest.raises(RuntimeError, match="torchrun"):
+        plan_from_flag("2x2", "train")
 
 
 # --------------------------------------------------------------------------
