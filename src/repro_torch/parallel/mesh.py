@@ -125,10 +125,11 @@ def make_mesh(dims: Tuple[int, ...], axis_names: Tuple[str, ...], *,
               device: Optional[DeviceLike] = None) -> Mesh:
     """A live mesh over the initialised process group, which must hold
     exactly ``prod(dims)`` ranks. ``device`` is where the plan places
-    tensors: default ``cuda`` (this process's current card) on an NCCL
-    group, the CPU on a gloo group. Every rank must call this together,
-    in the same order: it creates one process group for every non-empty
-    set of axes."""
+    tensors: default this process's current card whenever CUDA is
+    available, whatever the backend (gloo included), else None, which
+    leaves every tensor where it is. The CPU only when the caller asks
+    for it. Every rank must call this together, in the same order: it
+    creates one process group for every non-empty set of axes."""
     import torch.distributed as dist
     from torch.distributed.device_mesh import init_device_mesh
     need = int(np.prod(dims))
@@ -139,10 +140,10 @@ def make_mesh(dims: Tuple[int, ...], axis_names: Tuple[str, ...], *,
                            f"mesh {spec} covers {need} of the group's "
                            f"{have} ranks; a mesh spans the whole group")
     backend = dist.get_backend()
-    if device is None:
-        device = "cuda" if backend == "nccl" else "cpu"
-    dev = resolve_device(device)
-    if dev.type == "cuda" and dev.index is None:
+    if device is None and torch.cuda.is_available():
+        device = "cuda"
+    dev = None if device is None else resolve_device(device)
+    if dev is not None and dev.type == "cuda" and dev.index is None:
         dev = torch.device("cuda", torch.cuda.current_device())
     dm = init_device_mesh("cuda" if backend == "nccl" else "cpu",
                           tuple(dims), mesh_dim_names=tuple(axis_names))

@@ -37,6 +37,21 @@ from repro_torch.parallel.mesh import (Mesh, data_axes, local_mesh,
                                        mesh_from_flag)
 
 
+def placement_device(target: Optional[torch.device],
+                     current: torch.device) -> torch.device:
+    """Where a plan whose device is ``target`` puts a tensor now on
+    ``current``: ``target``, or ``current`` when the plan names none.
+    Placement never moves a tensor off the card: a CUDA tensor on a plan
+    whose device is not CUDA raises."""
+    if target is None:
+        return current
+    if current.type == "cuda" and target.type != "cuda":
+        raise RuntimeError(f"the plan places on {target}, but the tensor is "
+                           f"on {current}: placement does not move a tensor "
+                           "off the card")
+    return target
+
+
 @dataclasses.dataclass(frozen=True)
 class ExecutionPlan:
     """Mesh + parameter-sharding mode. Frozen and hashable: equal plans
@@ -104,14 +119,6 @@ class ExecutionPlan:
         return axes.entry_axes(sh["tokens"].spec[0])
 
     # ---- microbatches ---------------------------------------------------
-    def microbatch_constraint(self, cfg: ModelConfig,
-                              grad_accum: int) -> Optional[Any]:
-        """The ``mb_constraint`` hook for ``train_step``: one shared
-        construction site for the grad-accum cut."""
-        if grad_accum <= 1:
-            return None
-        return functools.partial(self.constrain_microbatches, cfg)
-
     def constrain_microbatches(self, cfg: ModelConfig,
                                mbs: Dict[str, Any]) -> Dict[str, Any]:
         """The cut (accum, mb, ...) tree -> this rank's rows of every
@@ -135,7 +142,7 @@ class ExecutionPlan:
     # ---- placement / gather ---------------------------------------------
     def _place(self, leaf: torch.Tensor, sh: axes.NamedSharding,
                shape: Tuple[int, ...], copy: bool) -> torch.Tensor:
-        dev = self.device or leaf.device
+        dev = placement_device(self.device, leaf.device)
         if not self.mesh.live:
             return leaf.detach().to(dev, copy=copy)
         if tuple(leaf.shape) == tuple(shape):
@@ -281,5 +288,5 @@ def plan_for_params(params: Any, mode: str = "serve") -> ExecutionPlan:
     return local_plan(mode, leaves[0].device if leaves else None)
 
 
-__all__ = ["ExecutionPlan", "make_plan", "local_plan", "plan_from_flag",
+__all__ = ["ExecutionPlan", "placement_device", "make_plan", "local_plan", "plan_from_flag",
            "plan_for_params"]

@@ -41,13 +41,17 @@ from repro_torch.optim import (AdafactorState, adafactor_update,
                                adamw_update, clip_by_global_norm,
                                tree_leaves, warmup_schedule)
 from repro_torch.parallel.collectives import all_reduce_sum, gather_rows
-from repro_torch.parallel.plan import ExecutionPlan
+from repro_torch.parallel.plan import ExecutionPlan, placement_device
 from repro_torch.runtime_context import mesh_context
 
 
 def _to_device(plan: ExecutionPlan, batch: Dict[str, Any]
                ) -> Dict[str, torch.Tensor]:
-    return {k: torch.as_tensor(v).to(plan.device) for k, v in batch.items()}
+    out = {}
+    for k, v in batch.items():
+        t = torch.as_tensor(v)
+        out[k] = t.to(placement_device(plan.device, t.device))
+    return out
 
 
 def _reduce_grads(plan: ExecutionPlan, grads: list,
@@ -144,8 +148,8 @@ def make_sharded_sft_step(cfg: ModelConfig, tc: TrainConfig,
     mesh = plan.mesh
 
     def step_fn(state, tokens, mask):
-        tokens = torch.as_tensor(tokens).to(plan.device)
-        mask = torch.as_tensor(mask).to(plan.device)
+        placed = _to_device(plan, {"tokens": tokens, "mask": mask})
+        tokens, mask = placed["tokens"], placed["mask"]
         rows = plan.row_axes(cfg, {"tokens": tokens})
         mine = plan.constrain_microbatches(cfg, {"tokens": tokens[None]})
         full = plan.gather(state.params, sh.params)

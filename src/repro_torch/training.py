@@ -193,20 +193,16 @@ def _accumulate(cfg, rl, tc, params, batch, memory=None, mb_constraint=None,
 def train_step(cfg: ModelConfig, rl: RLConfig, tc: TrainConfig,
                state: TrainState, batch: Dict[str, torch.Tensor], *,
                optimizer: str = "adamw",
-               memory: Optional[torch.Tensor] = None,
-               mb_constraint: Optional[Any] = None
+               memory: Optional[torch.Tensor] = None
                ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
     """One (optionally micro-batched) RL update, in place on ``state``
     (see ``_accumulate`` for the microbatch cut). ``memory`` is handed to
     every microbatch whole, as the JAX package's step closes over it.
-    ``mb_constraint`` (``ExecutionPlan.microbatch_constraint``) maps the
-    cut (accum, mb, ...) tree to the rows the forward runs on; the local
-    plan's keeps them all, and a live plan's step is
-    ``parallel.make_sharded_train_step``, which also gathers the rows'
+    The step on a live plan is ``parallel.make_sharded_train_step``,
+    which runs each rank's rows of every microbatch and gathers their
     log-probs back into the loss of the whole batch."""
     params = state.params
-    flat, metrics = _accumulate(cfg, rl, tc, params, batch, memory,
-                                mb_constraint)
+    flat, metrics = _accumulate(cfg, rl, tc, params, batch, memory)
     # the flat list in tree_leaves order stands for the gradient tree
     grads, gnorm = clip_by_global_norm(flat, tc.grad_clip)
     lr = warmup_schedule(tc, state.step)

@@ -12,8 +12,13 @@ one-axis tuple entry is the axis name. Exact equality, no tolerance.
 Also the plan's own contract on the CPU without a process group: the
 local plan launches nothing and places tensors, a mesh larger than the
 group raises with the ``torchrun`` recipe, ``batch_shardings`` refuses
-unknown keys, and an abstract plan's shard grid tiles every leaf.
+unknown keys, and an abstract plan's shard grid tiles every leaf. A live
+mesh on a one-rank gloo group built without a device places on the card
+whenever CUDA is available, and placement never moves a card tensor to
+the host.
 """
+import datetime
+
 import jax
 import numpy as np
 import pytest
@@ -30,7 +35,9 @@ from repro_torch import configs as tconfigs
 from repro_torch.models import init_cache, init_params, params_from_numpy
 from repro_torch.optim import tree_leaves
 from repro_torch.parallel import (ExecutionPlan, abstract_mesh, local_plan,
-                                  mesh_from_flag, plan_from_flag)
+                                  make_debug_mesh, mesh_from_flag,
+                                  plan_from_flag)
+from repro_torch.parallel.plan import placement_device
 from repro_torch.parallel import axes as taxes
 from repro_torch.sampling.paged_cache import init_paged_pool
 
@@ -188,6 +195,35 @@ def test_mesh_larger_than_group_raises_with_the_recipe():
         mesh_from_flag("2by2")
     with pytest.raises(ValueError, match="mode"):
         ExecutionPlan(abstract_mesh((2, 2)), "pipeline")
+
+
+def test_gloo_mesh_without_a_device_never_places_on_the_host(
+        tmp_path, monkeypatch):
+    dist = torch.distributed
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path}/store",
+                            rank=0, world_size=1,
+                            timeout=datetime.timedelta(seconds=60))
+    try:
+        mesh = make_debug_mesh(1, 1)
+        # no card here: the plan names no device and leaves stay put
+        assert mesh.live and mesh.device is None
+        plan = ExecutionPlan(mesh, "train")
+        cfg = tconfigs.smoke("qwen3-1.7b")
+        placed = plan.device_put_params(cfg, init_params(cfg, 0,
+                                                         device="cpu"))
+        assert all(t.device.type == "cpu" for t in tree_leaves(placed))
+        # with a card, a gloo mesh built without a device places on it
+        monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+        monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
+        assert make_debug_mesh(1, 1).device == torch.device("cuda", 0)
+    finally:
+        dist.destroy_process_group()
+    card, host = torch.device("cuda", 0), torch.device("cpu")
+    assert placement_device(None, card) == card
+    assert placement_device(card, host) == card
+    assert placement_device(host, host) == host
+    with pytest.raises(RuntimeError, match="off the card"):
+        placement_device(host, card)
 
 
 def test_batch_shardings_and_shard_grid_on_an_abstract_plan():
