@@ -99,8 +99,9 @@ never jax, never the JAX package. Phases, each fatal on failure:
    + 1 for the recompute and K2 2 per step, and the rollout's K3/K4 28
    per decode step and per prefill chunk; last, a torch.profiler trace of
    a fourth step (device time by kernel, device busy share).
-8. hetero: the HeteroRL loop on qwen3-1.7b at full width (bf16, random
-   weights from --seed, the chunked attention with remat) through its
+8. hetero: the HeteroRL loop on qwen3-1.7b at full width and
+   LOOP_LAYERS of its 28 layers (bf16, random weights from --seed, the
+   chunked attention with remat) through its
    entry points: ``sft_warmstart`` (2 steps of 8 x 840 tokens through
    K1/K2), then ``HeteroRuntime.run(4)`` with 2 sampler nodes serving
    ``ArithmeticTask`` prompts (832 wide, groups of 8, 2 prompts a batch,
@@ -111,8 +112,8 @@ never jax, never the JAX package. Phases, each fatal on failure:
    sync inside the run: each in-run sync gives the published version's
    params bit for bit, and every batch a node makes after a sync carries
    that version's stamp; staleness in (0, 64], finite metrics, the launch
-   counts the run implies (K3/K4 28 per decode step and prefill chunk, K1
-   1 per sampler batch + 2 per learner step, K2 2 per learner step), each
+   counts the run implies (K3/K4 a layer's launch per decode step and
+   prefill chunk, K1 1 per sampler batch + 2 per learner step, K2 2 per learner step), each
    sampler's sync to the newest version equal to the learner's weights
    and a fresh subscriber's bit-exact; then ``run_online(2)`` through the
    static engine within tests/test_system.py's thresholds (staleness 0,
@@ -120,7 +121,8 @@ never jax, never the JAX package. Phases, each fatal on failure:
    publish, sync, sampler batch and learner step, one publish's D2H, hash
    and store times apart, the peak device memory and the host's peak RSS.
 9. spec: speculative decoding through ``ContinuousEngine`` on qwen3-1.7b
-   at full width (bf16, random weights from --seed, K3/K4 ``"pallas"``, 8
+   at full width and SPEC_LAYERS of its 28 layers (bf16, random weights
+   from --seed, K3/K4 ``"pallas"``, 8
    slots, page 16, prefill chunk 512): (a) 16 greedy requests whose
    prompts repeat a short token pattern, 128 new, and (b) the engine
    phase's 24 requests, 64 new, temperature 0.6 / top-k 20 / top-p 0.95,
@@ -128,8 +130,9 @@ never jax, never the JAX package. Phases, each fatal on failure:
    finishes and the page pool balances, with the prefix cache's pages
    and after it is emptied; the folded K4 rescore equals the forward's
    attention exactly on every verify round; the launches are what the run
-   implies (K4 28 per verify round + 1 per rescore + 28 per prefill
-   chunk, K3 28 per fallback decode step); (a) accepts drafts; every
+   implies (K4 a layer's per verify round + 1 per rescore + a layer's per
+   prefill chunk, K3 a layer's per fallback decode step); (a) accepts
+   drafts; every
    emitted logp equals the teacher-forced forward's within
    TOL_LOGP_PATHS; greedy spec tokens equal the non-spec tokens up to the
    first position where the non-spec sequence's top-2 logit gap is under
@@ -140,9 +143,9 @@ never jax, never the JAX package. Phases, each fatal on failure:
    takes the top-2 gap of logits + the draw's threefry Gumbel noise (key
    ``fold_in(fold_in(key, rid), g)``) and so holds the verify round's
    draw keys. The folded K4 launch of the rescore (one
-   launch over 28 layers' pools, page ids up to 28 x 1537) at the verify
-   shape is held against each layer's twin in bf16 and float32 and
-   against 28 per-layer launches bit for bit, and timed against them. It
+   launch over every layer's pools, page ids up to layers x 1537) at the
+   verify shape is held against each layer's twin in bf16 and float32 and
+   against the per-layer launches bit for bit, and timed against them. It
    prints decode tokens/s, ms per decode step and the accept rate of
    every run;
 10. threads: ``ThreadedHeteroRuntime.run(4)`` on the hetero phase's model,
@@ -235,11 +238,35 @@ never jax, never the JAX package. Phases, each fatal on failure:
    SHARD_F32_LAYERS of 28 layers (B 8 x S 1024, ``grad_accum`` 2) held
    against the one-device step at the parity bars of
    tests/test_parallel_parity.py, a control (the wrong microbatch order)
-   that must miss them, and one bf16 step at full depth (B 8 x S 1024) for
+   that must miss them, and one bf16 step at SHARD_BF16_LAYERS of 28
+   layers (B 8 x S 1024) for
    its ms and peak GiB per rank. (c) One llama4-scout MoE layer at full
    width (E 16 top-1, d 5120, f 8192, shared expert; float32) through
    ``moe_ep="train"`` on the 1x2 mesh against ``models/moe.py`` on one
    rank, at a capacity that drops nothing, drop fractions printed.
+15. serve plan: ``ContinuousEngine`` on ``serve`` ``ExecutionPlan``s
+   (tensor-parallel over 'model', slots over 'data'), qwen3-1.7b at full
+   width, the serve cell's traffic cut to 8 requests of 64-1024 tokens
+   (the last, submitted a round later, shares request 0's first 48 tokens
+   and hits its cached pages), 32 new, temperature 0.6 / top-k 20 / top-p
+   0.95, page 16, prefill chunk 512. (a) A 1x1 plan of a one-rank NCCL
+   group (the plan's code path; a size-1 axis runs no collective, so
+   the lockstep broadcast is the one that runs), bf16 28/28 layers:
+   tokens and logps bit-equal to the one-device engine, K3/K4 launches
+   equal. (b) Two rank
+   processes on the one card over gloo (``--serve-rank``), 1x2: bf16 at
+   28/28 layers (per-rank weight and pool bytes, which must be half the
+   one-device engine's, on the card; decode ms a step, host-staged, not a
+   speed figure; |Δ logp| against the one-device engine before each
+   request's first differing token, the mean within TOL_LOGP_MEAN_BF16),
+   a float32 pair at PLAN_F32_LAYERS layers (tokens equal, logps within
+   TOL_PLAN_LP) and a control with the two ranks' q heads swapped that
+   must miss that bar. (c) 2x1, float32 at PLAN_F32_LAYERS layers: the
+   slots split over 'data', the shared-prefix request admitted on the
+   other data rank than the one that cached it; the one-device tokens.
+   Both ranks emit the same tokens in every run. (d) K3/K4 at one rank's
+   heads (Hq 8, Hkv 4, D 128; K4 C 512 after 1024) against their twins,
+   timed beside the twin, the bound and SDPA.
 
 Prints a ``{"kernels": [...]}`` JSON line, then as the last line
 ``{"ok": true, "device": {...}}``. Exits non-zero, printing no result,
@@ -344,6 +371,11 @@ PROMPTS, GROUP, PROMPT_LEN, NEW_TOKENS = 2, 8, 832, 192
 # the hetero phase: learner steps of HeteroRuntime.run and run_online, SFT
 # warm-start steps, prompts per sampler batch (x GROUP rows)
 HETERO_STEPS, HETERO_ONLINE_STEPS, HETERO_SFT_STEPS = 4, 2, 2
+# depth cuts that keep the script inside its 1200 s limit (PERF.md §4): the
+# loop phases (8, 10) and the spec phase (9) run qwen3-1.7b at full width
+# but LOOP_LAYERS / SPEC_LAYERS of its 28 layers (a publish of the loop's
+# weights is 2.05 GB at 8 layers, 4.06 GB at 28)
+LOOP_LAYERS, SPEC_LAYERS = 8, 14
 HETERO_PROMPTS = 2
 # the threaded phase waits this long for each sampler thread after the run
 # (a sampler batch in flight takes 2-6 s alone, longer beside a learner)
@@ -2466,7 +2498,8 @@ def hetero_phase(dev, seed, card):
     """SFT warm start, HeteroRuntime.run and run_online on qwen3-1.7b at
     full width; returns the K1-K4 launches of the three runs, the warm
     start (on the host) and the median learner step seconds."""
-    cfg = get_config("qwen3-1.7b")
+    cfg = dataclasses.replace(get_config("qwen3-1.7b"),
+                              num_layers=LOOP_LAYERS)
     tok = Tokenizer()
     task = ArithmeticTask(max_operand=99, ops="+-", prompt_width=PROMPT_LEN,
                           seed=seed)
@@ -2895,7 +2928,8 @@ def spec_phase(dev, seed, card):
     runs and the folded rescore launch's max errors against its twin
     (bf16, float32)."""
     cfg = dataclasses.replace(get_config("qwen3-1.7b"),
-                              paged_attn_impl="pallas")
+                              paged_attn_impl="pallas",
+                              num_layers=SPEC_LAYERS)
     params = init_params(cfg, seed, device=dev)
     greedy = RLConfig(temperature=1.0, top_k=1, top_p=1.0)
     # (a) draws from the ids a HeteroRL sampler serves (the arithmetic
@@ -2949,7 +2983,7 @@ def spec_phase(dev, seed, card):
                f"{TOL_GAP[torch.bfloat16]}, " if name == "a" else "")
             + f"{same_end}/{len(prompts)} identical to the end")
 
-    # the folded rescore launch against 28 per-layer launches at the
+    # the folded rescore launch against the per-layer launches at the
     # verify shape (8 slots, window 5, ~1000 keys a slot), on a pool of
     # the engine's size
     g = torch.Generator(device=dev).manual_seed(seed)
@@ -3048,7 +3082,8 @@ def threads_phase(dev, seed, card, warm, step_s):
     """ThreadedHeteroRuntime.run(4) on the hetero phase's model, task and
     warm start: 2 sampler threads at spec_k 4 and the learner, on one
     card. Returns the K1-K4 launches of the run."""
-    cfg = get_config("qwen3-1.7b")
+    cfg = dataclasses.replace(get_config("qwen3-1.7b"),
+                              num_layers=LOOP_LAYERS)
     tok = Tokenizer()
     task = ArithmeticTask(max_operand=99, ops="+-", prompt_width=PROMPT_LEN,
                           seed=seed)
@@ -3115,8 +3150,8 @@ def threads_phase(dev, seed, card, warm, step_s):
             f"rounds, {e['spec_fallback_chunks']} fallback chunks, rescore "
             f"max diff {e['spec_rescore_max_diff']}")
     log(f"[threads] launches {launches} (K1 {batches} + 2 x {HETERO_STEPS}, "
-        f"K2 2 x {HETERO_STEPS}, K3 28 x 8 per fallback chunk, K4 29 per "
-        f"verify round + 28 per prefill chunk)")
+        f"K2 2 x {HETERO_STEPS}, K3 {lyr} x 8 per fallback chunk, K4 "
+        f"{lyr + 1} per verify round + {lyr} per prefill chunk)")
     if rt.learner.step != HETERO_STEPS or bad or \
             stale.max() > hcfg.max_delay_steps or syncs == 0 or \
             any(e["spec_rescore_max_diff"] != 0.0 for e in est):
@@ -4465,6 +4500,7 @@ def memory_phase(dev, seed, card):
 
 SHARD_ROWS_A, SHARD_ROWS_B, SHARD_S = 16, 8, 1024
 SHARD_F32_LAYERS = 4                  # the float32 pair: 4 of 28 layers
+SHARD_BF16_LAYERS = 8                 # the timed bf16 steps: 8 of 28
 # the parity bars of tests/test_parallel_parity.py
 SHARD_RTOL_P, SHARD_ATOL_P, SHARD_RTOL_M, SHARD_ATOL_M = 5e-4, 1e-5, 2e-3, \
     1e-5
@@ -4673,16 +4709,17 @@ def shard_rank_main(rank, world, work, seed, card, dev=None):
                               "metrics_past_bar": mmiss}
         del st, ctl, ref, runs, p4, b4
         free()
-        # bf16 at full depth: a warm-up step, then the timed step; ms and
-        # peak GiB per rank of each
-        params = init_params(cfg, seed + 31, device=dev)
-        batch = shard_batch(cfg, SHARD_ROWS_B, SHARD_S, seed, dev)
-        state = init_state(cfg, tc_bf16, params, plan=plan)
+        # bf16 at SHARD_BF16_LAYERS layers: a warm-up step, then the timed
+        # step; ms and peak GiB per rank of each
+        c14 = dataclasses.replace(cfg, num_layers=SHARD_BF16_LAYERS)
+        params = init_params(c14, seed + 31, device=dev)
+        batch = shard_batch(c14, SHARD_ROWS_B, SHARD_S, seed, dev)
+        state = init_state(c14, tc_bf16, params, plan=plan)
         del params
         free()
         fl.reset_launch_counts()
         state, runs = shard_steps(
-            make_sharded_train_step(cfg, rl, tc_bf16, plan), state, batch,
+            make_sharded_train_step(c14, rl, tc_bf16, plan), state, batch,
             2, f"bf16 {plan.describe()}", card, rank=rank)
         rec["bf16_ms"] = [r[0] for r in runs]
         rec["bf16_peak_gib"] = [r[1] for r in runs]
@@ -4779,7 +4816,8 @@ def sharded_phase(dev, seed, card):
     for name, rec in r0["plans"].items():
         peaks = [max(r["plans"][name]["bf16_peak_gib"]) for r in ranks]
         log(f"[sharded] (b) {name} over gloo (CUDA tensors, 2 ranks on one "
-            f"card), qwen3-1.7b bf16, all layers, B {SHARD_ROWS_B} x S "
+            f"card), qwen3-1.7b bf16, {SHARD_BF16_LAYERS}/28 layers, B "
+            f"{SHARD_ROWS_B} x S "
             f"{SHARD_S}, grad_accum 2, after the float32 pair: step "
             f"{rec['bf16_ms'][1]:.1f} ms (the second; the first, a warm-up, "
             f"{rec['bf16_ms'][0]:.1f} ms), peak GiB per rank "
@@ -4816,6 +4854,390 @@ def sharded_phase(dev, seed, card):
     return launch
 
 
+# --------------------------------------------------------------------------
+# phase 15: tensor-parallel serving on a serve ExecutionPlan
+
+PLAN_NEW = 32
+PLAN_F32_LAYERS = 4                  # the float32 pairs: 4 of 28 layers
+PLAN_PREFIX = 48                     # the shared prefix: 3 pages of 16
+TOL_PLAN_LP = 1e-4                   # float32 plan against one device
+SERVE_RANK_TIMEOUT_S = 420
+
+
+def plan_prompts(vocab, seed):
+    """The serve cell's traffic cut to 8 requests of 64-1024 tokens (the
+    families' lengths); the last shares request 0's first PLAN_PREFIX
+    tokens."""
+    prompts = family_prompts(vocab, seed + 3)
+    prompts[-1][:PLAN_PREFIX] = prompts[0][:PLAN_PREFIX]
+    return prompts
+
+
+def tree_bytes(tree):
+    return sum(t.numel() * t.element_size() for t in tree_leaves(tree))
+
+
+def plan_run(cfg, params, prompts, plan, seed):
+    """Serve ``prompts`` through a ContinuousEngine on ``plan`` (None: one
+    device): 8 slots, page 16, prefill chunk 512, the serve profile,
+    PLAN_NEW new tokens. The last request is submitted after the first
+    round, once request 0's prompt is cached: it is admitted into the
+    last slot (on a 2x1 plan the other data rank's) and hits the cached
+    prefix. Every request finishes, launches are what the run implies.
+    Returns a dict: results, stats, launches, decode ms per step (the
+    rounds without a prefill chunk), the slot of the last request, the
+    engine's pool bytes."""
+    serve = ServeConfig(num_slots=SLOTS, page_size=PAGE, prefill_chunk=512,
+                        sync_every=8, max_total_tokens=2048,
+                        paged_attn_impl=cfg.paged_attn_impl, seed=seed)
+    rl = RLConfig(**SERVE_PROFILE)
+    eng = build_engine(cfg, params, serve, rl=rl, vocab_limit=cfg.vocab_size,
+                       key=prng.PRNGKey(seed), plan=plan)
+    sp = SamplingParams.from_rl(rl, max_new=PLAN_NEW)
+    reqs = [Request(rid=i, prompt=p, params=sp)
+            for i, p in enumerate(prompts)]
+    for r in reqs[:-1]:
+        eng.submit(r)
+    reset_counts()
+    results, dec_s, dec_steps, rnd, last_slot = {}, 0.0, 0, 0, -1
+    while len(results) < len(reqs):
+        if rnd == 1:
+            eng.submit(reqs[-1])
+        before = eng.stats()
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        events = eng.step(now_s=float(rnd))
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t1
+        after = eng.stats()
+        if rnd == 1:
+            last_slot = next(s for s, r in enumerate(eng.sched.slots)
+                             if r is not None and r.rid == len(reqs) - 1)
+        for ev in events:
+            if ev.finished:
+                results[ev.rid] = eng.pop_result(ev.rid)
+        if after["prefill_chunks"] == before["prefill_chunks"]:
+            dec_s += dt
+            dec_steps += after["decode_steps"] - before["decode_steps"]
+        if not eng.has_work() and len(results) < len(reqs):
+            raise AssertionError("engine drained with requests unfinished")
+        rnd += 1
+    st = eng.stats()
+    launches = {k: counts()[k] for k in ("paged_decode", "paged_prefill")}
+    lyr = cfg.num_layers if cfg.paged_attn_impl == "pallas" else 0
+    want = {"paged_decode": lyr * st["decode_steps"],
+            "paged_prefill": lyr * st["prefill_chunks"]}
+    if launches != want:
+        raise AssertionError(f"launches {launches} != {want} ({st})")
+    res = [results[i] for i in range(len(reqs))]
+    for r in res:
+        if r.finish_reason not in ("eos", "length") or r.gen_count < 1 \
+                or not np.isfinite(r.logps).all() or (r.logps > 1e-6).any():
+            raise AssertionError(f"request {r.rid}: {r.finish_reason}, "
+                                 f"bad logps {r.logps.tolist()}")
+    if res[-1].prefix_hit_tokens < PLAN_PREFIX - PAGE:
+        raise AssertionError(f"the last request hit "
+                             f"{res[-1].prefix_hit_tokens} cached tokens, "
+                             "not its shared prefix")
+    return {"results": res, "stats": st, "launches": launches,
+            "ms": dec_s * 1e3 / max(dec_steps, 1), "last_slot": last_slot,
+            "pool_bytes": tree_bytes(eng.pool)}
+
+
+def logp_gap(got, ref):
+    """|Δ logp| of each request's tokens before its first token that
+    differs from ``ref``'s: (mean, max, requests whose tokens all equal)."""
+    gaps, same = [], 0
+    for a, b in zip(got, ref):
+        n = min(a.gen_count, b.gen_count)
+        diff = np.nonzero(a.tokens[:n] != b.tokens[:n])[0]
+        k = int(diff[0]) if diff.size else n
+        same += int(not diff.size and a.gen_count == b.gen_count)
+        gaps.append(np.abs(a.logps[:k] - b.logps[:k]))
+    g = np.concatenate(gaps)
+    return float(g.mean()), float(g.max()), same
+
+
+def plan_held(got, ref):
+    """Float32 plan against one device: every token equal and every logp
+    within TOL_PLAN_LP."""
+    return all(a.gen_count == b.gen_count
+               and np.array_equal(a.tokens, b.tokens)
+               and np.abs(a.logps - b.logps).max() <= TOL_PLAN_LP
+               for a, b in zip(got, ref))
+
+
+def serve_plan_one_rank(dev, seed, card, work):
+    """Phase 15 (a): qwen3-1.7b bf16 at 28/28 layers served on a 1x1 serve
+    plan of a one-rank NCCL group (the lockstep broadcast runs; axes of
+    size 1 run no other collective) against the one-device engine on the
+    same weights: tokens and logps bit-equal, K3/K4 launches equal.
+    Returns the plan run's launches."""
+    import datetime
+    import torch.distributed as dist
+    from repro_torch.parallel import ExecutionPlan, make_debug_mesh
+    torch.cuda.set_device(dev)
+    dist.init_process_group("nccl", init_method=f"file://{work}/nccl15",
+                            rank=0, world_size=1,
+                            timeout=datetime.timedelta(seconds=120))
+    try:
+        plan = ExecutionPlan(make_debug_mesh(1, 1, device=dev), "serve")
+        cfg = dataclasses.replace(get_config("qwen3-1.7b"),
+                                  paged_attn_impl="pallas")
+        params = init_params(cfg, seed + 50, device=dev)
+        prompts = plan_prompts(cfg.vocab_size, seed)
+        ref = plan_run(cfg, params, prompts, None, seed)
+        got = plan_run(cfg, params, prompts, plan, seed)
+        equal = all(np.array_equal(a.tokens, b.tokens)
+                    and np.array_equal(a.logps, b.logps)
+                    for a, b in zip(got["results"], ref["results"]))
+        log(f"[serve-plan] (a) {plan.describe()} one-rank NCCL, {cfg.name} "
+            f"bf16 28/28 layers, {len(prompts)} requests of "
+            f"{min(map(len, prompts))}-{max(map(len, prompts))} tokens "
+            f"(the last hits {got['results'][-1].prefix_hit_tokens} cached "
+            f"tokens), {PLAN_NEW} new, temperature 0.6 / top-k 20 / top-p "
+            f"0.95: tokens and logps "
+            f"{'bit-equal' if equal else 'NOT bit-equal'} to the one-device "
+            f"engine; decode {got['ms']:.2f} ms a step on the plan vs "
+            f"{ref['ms']:.2f}; K3/K4 launches {got['launches']} vs "
+            f"{ref['launches']} | {card}")
+        if not equal or got["launches"] != ref["launches"]:
+            raise AssertionError("(a) the 1x1 serve plan differs from one "
+                                 "device")
+        del params
+        free()
+        return got["launches"]
+    finally:
+        dist.destroy_process_group()
+
+
+def swap_q_heads(params):
+    """The control: every layer's wq with its two column halves (the two
+    ranks' q heads on a 1x2 plan) swapped."""
+    out = {**params, "blocks": {k: dict(v) for k, v in
+                                params["blocks"].items()}}
+    for layer in out["blocks"].values():
+        wq = layer["attn"]["wq"]
+        half = wq.shape[-1] // 2
+        layer["attn"] = {**layer["attn"], "wq": torch.cat(
+            [wq[..., half:], wq[..., :half]], dim=-1)}
+    return out
+
+
+def serve_rank_main(rank, world, work, seed, card, dev=None):
+    """Phase 15 (b) and (c), one of two rank processes on the one card
+    (gloo with CUDA tensors). Writes ``work/serve<r>.json``."""
+    import datetime
+    import torch.distributed as dist
+    from repro_torch.parallel import ExecutionPlan, make_mesh
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = dev or torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    dist.init_process_group("gloo", init_method=f"file://{work}/gloo15",
+                            rank=rank, world_size=world,
+                            timeout=datetime.timedelta(seconds=300))
+    plans = {dims: ExecutionPlan(make_mesh(dims, ("data", "model"),
+                                           device=dev), "serve")
+             for dims in ((1, 2), (2, 1))}
+    cfg = dataclasses.replace(get_config("qwen3-1.7b"),
+                              paged_attn_impl="pallas")
+    prompts = plan_prompts(cfg.vocab_size, seed)
+    out = {"rank": rank, "launches": {"paged_decode": 0, "paged_prefill": 0}}
+
+    def run(c, p, plan, tag):
+        r = plan_run(c, p, prompts, plan, seed)
+        for k, n in r["launches"].items():
+            out["launches"][k] += n
+        out[tag] = {"tokens": [x.tokens.tolist() for x in r["results"]],
+                    "ms": r["ms"], "last_slot": r["last_slot"],
+                    "hit": r["results"][-1].prefix_hit_tokens,
+                    "pool_bytes": r["pool_bytes"]}
+        return r
+
+    # (b) bf16 at 28/28 layers on 1x2: per-rank bytes, decode ms a step
+    plan = plans[(1, 2)]
+    params = plan.device_put_params(cfg, init_params(cfg, seed + 50,
+                                                     device=dev))
+    free()
+    out["weight_bytes"] = tree_bytes(params)
+    out["on_card"] = all(t.device == dev for t in tree_leaves(params))
+    bf16 = run(cfg, params, plan, "bf16")
+    del params
+    free()
+    if rank == 0:                         # the one-device engine
+        full = init_params(cfg, seed + 50, device=dev)
+        out["full_weight_bytes"] = tree_bytes(full)
+        ref = plan_run(cfg, full, prompts, None, seed)
+        out["full_pool_bytes"] = ref["pool_bytes"]
+        out["bf16_ref_ms"] = ref["ms"]
+        out["bf16_gap"] = logp_gap(bf16["results"], ref["results"])
+        del full, ref
+        free()
+    # (b) the float32 pair at PLAN_F32_LAYERS layers, and its control
+    c4 = dataclasses.replace(cfg, num_layers=PLAN_F32_LAYERS,
+                             dtype="float32")
+    p4 = init_params(c4, seed + 51, device=dev)
+    f32 = run(c4, plan.device_put_params(c4, p4), plan, "f32")
+    ctl = run(c4, plan.device_put_params(c4, swap_q_heads(p4)), plan,
+              "control")
+    # (c) 2x1: the slots split over 'data'
+    plan21 = plans[(2, 1)]
+    data = run(c4, plan21.device_put_params(c4, p4), plan21, "data")
+    if rank == 0:
+        ref = plan_run(c4, p4, prompts, None, seed)["results"]
+        for tag, r in (("f32", f32), ("control", ctl), ("data", data)):
+            out[tag]["held"] = plan_held(r["results"], ref)
+            out[tag]["gap"] = logp_gap(r["results"], ref)
+    del p4
+    free()
+    dist.barrier()
+    dist.destroy_process_group()
+    with open(Path(work) / f"serve{rank}.json", "w") as fh:
+        json.dump(out, fh)
+    return 0
+
+
+def serve_two_ranks(seed, card, work):
+    """Phase 15 (b) and (c): two rank processes on the one card."""
+    procs = [subprocess.Popen(
+        [sys.executable, str(Path(__file__).resolve()), "--serve-rank",
+         str(r), "--shard-work", str(work), "--seed", str(seed),
+         "--shard-card", card],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for r in range(2)]
+    logs = []
+    try:
+        for pr in procs:
+            logs.append(pr.communicate(timeout=SERVE_RANK_TIMEOUT_S)[0])
+    finally:
+        for pr in procs:
+            pr.kill()
+            pr.wait()
+    if any(pr.returncode != 0 for pr in procs):
+        raise AssertionError("phase 15 ranks failed:\n" + "\n".join(
+            t[-3000:] for t in logs))
+    return [json.loads((Path(work) / f"serve{r}.json").read_text())
+            for r in range(2)]
+
+
+def plan_kernel_rows(dev, seed):
+    """Phase 15 (d): K3 and K4 at the heads one rank of qwen3-1.7b's 1x2
+    serve plan launches them with (Hq 8, Hkv 4, D 128; 8 slots up to 2048
+    keys, one chunk of 512 after 1024), against their twins at the
+    existing bars, timed beside the twin, the bound and SDPA."""
+    gen = torch.Generator(device=dev).manual_seed(seed + 15)
+    hq, hkv = HQ // 2, HKV // 2
+    width = 2048 // PAGE
+    lengths = [2048, 1537, 1024, 700, 333, 64, 1, width * PAGE + 1]
+    live = slice(0, SLOTS - 1)
+    q, kp, vp, table, lens = decode_case(gen, dev, lengths, width, hq, hkv)
+    err = max_err(pa.paged_attention(q, kp, vp, table, lens),
+                  pa.paged_decode_ref(q.float(), kp.float(), vp.float(),
+                                      table, lens), live)
+    b_ms, b_by = decode_bound(q, table, lengths, width, hkv)
+    shape = f"Hq={hq} Hkv={hkv} D={D} page={PAGE}"
+    k3 = dict(case="serve plan 1x2, one rank", max_abs_err=err,
+              bound_ms=b_ms, bound_by=b_by,
+              ms=time_ms(lambda: pa.paged_attention(q, kp, vp, table, lens)),
+              plain_ms=time_ms(lambda: pa.paged_decode_ref(
+                  q, kp, vp, table, lens), iters=5),
+              library_ms=library_ms(*sdpa_decode(q, kp, vp, table, lens)),
+              shape=f"B={SLOTS} {shape} lengths={lengths} bf16")
+    if not err <= TOL_BF16:
+        raise AssertionError("K3 at a rank's local heads disagrees with its "
+                             "twin")
+    c, start = 512, 1024
+    q, kp, vp, table, pos = prefill_case(gen, dev, c, start, hq, hkv)
+    err = max_err(ops.paged_prefill(q, kp, vp, table, pos, impl="pallas"),
+                  ops.paged_prefill(q.float(), kp.float(), vp.float(), table,
+                                    pos, impl="ref"))
+    kv_elems = -(-(start + c) // PAGE) * PAGE * hkv * D * 2
+    b_ms, b_by = bound(kv_elems * 2 + 2 * q.numel() * 2 + table.numel() * 4,
+                       sum(4 * hq * D * (start + i + 1) for i in range(c)))
+    k4 = dict(case="serve plan 1x2, one rank", max_abs_err=err,
+              bound_ms=b_ms, bound_by=b_by,
+              ms=time_ms(lambda: ops.paged_prefill(q, kp, vp, table, pos,
+                                                   impl="pallas")),
+              plain_ms=time_ms(lambda: ops.paged_prefill(
+                  q, kp, vp, table, pos, impl="ref"), iters=5),
+              library_ms=library_ms(*sdpa_prefill(q, kp, vp, table, pos)),
+              shape=f"B=1 C={c} start={start} {shape} bf16")
+    if not err <= TOL_BF16:
+        raise AssertionError("K4 at a rank's local heads disagrees with its "
+                             "twin")
+    for name, row in (("K3", k3), ("K4", k4)):
+        log(f"[serve-plan] (d) {name} at a 1x2 rank's heads ({row['shape']}):"
+            f" max|err| {row['max_abs_err']:.3e} (tol {TOL_BF16}), "
+            f"{row['ms']:.4f} ms, bound {row['bound_ms']:.5f} ms "
+            f"({row['bound_by']}), twin {row['plain_ms']:.3f} ms, SDPA "
+            f"{row['library_ms']:.4f} ms")
+    return {"paged_decode": k3, "paged_prefill": k4}
+
+
+def serve_plan_phase(dev, seed, card):
+    """Phase 15. Returns (the K3/K4 launches of its plan runs, the kernel
+    rows of (d))."""
+    import tempfile
+    work = tempfile.mkdtemp(prefix="chip-smoke-phase15-")
+    t0 = time.perf_counter()
+    launches = dict(serve_plan_one_rank(dev, seed, card, work))
+    log(f"[time] serve plan: (a) one-rank NCCL "
+        f"{time.perf_counter() - t0:.1f}s")
+    t0 = time.perf_counter()
+    ranks = serve_two_ranks(seed, card, work)
+    log(f"[time] serve plan: (b)+(c) two ranks "
+        f"{time.perf_counter() - t0:.1f}s")
+    r0, r1 = ranks
+    for k in launches:
+        launches[k] += r0["launches"][k] + r1["launches"][k]
+    for tag in ("bf16", "f32", "control", "data"):
+        if r0[tag]["tokens"] != r1[tag]["tokens"]:
+            raise AssertionError(f"({tag}) the two ranks emit different "
+                                 "tokens")
+    mean, worst, same = r0["bf16_gap"]
+    log(f"[serve-plan] (b) 1x2 over gloo (CUDA tensors, 2 ranks on one card),"
+        f" qwen3-1.7b bf16 28/28 layers: weights "
+        f"{r0['weight_bytes'] / 1e9:.3f} / {r1['weight_bytes'] / 1e9:.3f} GB "
+        f"per rank (one device "
+        f"{r0['full_weight_bytes'] / 1e9:.3f} GB), on the card "
+        f"{r0['on_card'] and r1['on_card']}; page pools "
+        f"{r0['bf16']['pool_bytes'] / 2 ** 30:.3f} GiB per rank (one device "
+        f"{r0['full_pool_bytes'] / 2 ** 30:.3f} GiB); decode "
+        f"{r0['bf16']['ms']:.2f} ms a step (gloo stages every all-reduce "
+        f"through the host: not a speed figure; one device "
+        f"{r0['bf16_ref_ms']:.2f} ms); |Δ logp| against the one-device "
+        f"engine before each request's first differing token: mean "
+        f"{mean:.3e}, max {worst:.3e}; {same}/{len(r0['bf16']['tokens'])} "
+        f"requests token-equal | {card}")
+    if r0["weight_bytes"] * 2 > r0["full_weight_bytes"] * 1.01 or \
+            r0["bf16"]["pool_bytes"] * 2 != r0["full_pool_bytes"] or \
+            not (r0["on_card"] and r1["on_card"]) or \
+            not mean <= TOL_LOGP_MEAN_BF16:
+        raise AssertionError("(b) bf16: a rank holds more than its half, or "
+                             "the logps are off the one-device engine's")
+    for tag, label in (("f32", "1x2 float32"),
+                       ("control", "1x2 float32 control (q heads swapped)"),
+                       ("data", "2x1 float32 (slots over 'data')")):
+        v = r0[tag]
+        log(f"[serve-plan] ({'c' if tag == 'data' else 'b'}) {label}, "
+            f"{PLAN_F32_LAYERS}/28 layers: tokens equal and logps within "
+            f"{TOL_PLAN_LP} of one device: {v['held']}; |Δ logp| mean "
+            f"{v['gap'][0]:.3e}, max {v['gap'][1]:.3e}, "
+            f"{v['gap'][2]}/{len(v['tokens'])} requests token-equal; decode "
+            f"{v['ms']:.2f} ms a step; the last request in slot "
+            f"{v['last_slot']}, {v['hit']} cached tokens | {card}")
+        if v["held"] != (tag != "control"):
+            raise AssertionError(f"({tag}) the bar is "
+                                 f"{'missed' if tag != 'control' else 'held'}")
+    if r0["data"]["last_slot"] < SLOTS // 2:
+        raise AssertionError("(c) the shared-prefix request landed on data "
+                             "rank 0, beside the request that cached it")
+    t0 = time.perf_counter()
+    rows = plan_kernel_rows(dev, seed)
+    log(f"[time] serve plan: (d) kernel rows {time.perf_counter() - t0:.1f}s")
+    return launches, rows
+
+
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description="PyTorch port smoke on one GPU")
@@ -4824,6 +5246,8 @@ def main(argv=None) -> int:
                     help=argparse.SUPPRESS)     # phase 14's rank processes
     ap.add_argument("--shard-work", default=None, help=argparse.SUPPRESS)
     ap.add_argument("--shard-card", default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--serve-rank", type=int, default=None,
+                    help=argparse.SUPPRESS)     # phase 15's rank processes
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -4833,6 +5257,9 @@ def main(argv=None) -> int:
     torch.backends.cudnn.allow_tf32 = False
     if args.shard_rank is not None:
         return shard_rank_main(args.shard_rank, 2, args.shard_work,
+                               args.seed, args.shard_card)
+    if args.serve_rank is not None:
+        return serve_rank_main(args.serve_rank, 2, args.shard_work,
                                args.seed, args.shard_card)
     dev = torch.device("cuda", 0)
     card = subprocess.run(
@@ -4929,6 +5356,14 @@ def main(argv=None) -> int:
     for name, n in sharded_phase(dev, args.seed, card).items():
         launches[name] += n
     log(f"[time] sharded phase {time.perf_counter() - t0:.1f}s")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    plan_launches, plan_rows = serve_plan_phase(dev, args.seed, card)
+    for name, n in plan_launches.items():
+        launches[name] += n
+    for name, row in plan_rows.items():
+        kernels[name]["serve_plan"] = [row]
+    log(f"[time] serve plan phase {time.perf_counter() - t0:.1f}s")
     for name, row in kernels.items():
         row["launches"] = launches[name]
         row["kernel_ms"], row["twin_ms"] = row["ms"], row["plain_ms"]

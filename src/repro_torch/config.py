@@ -5,11 +5,13 @@ serving configuration (``repro/config.py`` in the JAX package).
 ``ModelConfig``, ``RLConfig`` and ``TrainConfig`` keep the same fields
 and defaults, so a config built here describes the same model and update
 as its JAX namesake; only the ``paged_attn_impl`` default differs (see
-below). ``HeteroConfig`` keeps the JAX package's fields and defaults too;
-a sampler mesh other than 1x1 raises, as does a serve mesh
-(``ServeConfig.mesh``): the sampler side of the parallel layer is ROADMAP
-queue 1 item 10. ``ServeConfig`` holds the deployment fields the serving
-path uses.
+below). ``HeteroConfig`` keeps the JAX package's fields and defaults
+too. ``ServeConfig`` holds the deployment fields the serving path uses.
+Both take a ``DxM`` (or ``PxDxM``) mesh, ``sampler_mesh`` and ``mesh``:
+the continuous engine serves tensor-parallel on it; what a serve mesh
+does not serve yet (the static engine, the front door, the MoE, SSM and
+memory families) raises where it is used, naming ROADMAP queue 1 item
+10.
 """
 from __future__ import annotations
 
@@ -278,6 +280,15 @@ class TrainConfig:
             raise ValueError(f"grad_accum must be >= 1, got {self.grad_accum}")
 
 
+def _check_mesh(field: str, spec: str) -> None:
+    """``ValueError`` unless ``spec`` is a ``DxM`` (or ``PxDxM``) mesh."""
+    from repro_torch.parallel.mesh import parse_mesh
+    try:
+        parse_mesh(spec)
+    except ValueError as e:
+        raise ValueError(f"{field}: {e}") from None
+
+
 @dataclass(frozen=True)
 class HeteroConfig:
     """HeteroRL runtime settings (paper §4.1 + App. E), the JAX package's
@@ -296,7 +307,8 @@ class HeteroConfig:
     # payload_bytes/bandwidth serialization time to the sampled
     # propagation delay (hetero.latency.sync_delay_s).
     bandwidth_mbps: float = float("inf")
-    # Sampler-node mesh "DxM"; the port's samplers run on one device.
+    # Sampler-node mesh "DxM" (a serve-mode ExecutionPlan; more than one
+    # rank runs under torchrun).
     sampler_mesh: str = "1x1"
     # Sampler-side paged-attention backend (ModelConfig.paged_attn_impl
     # vocabulary; None keeps the arch's).
@@ -305,11 +317,7 @@ class HeteroConfig:
     spec_k: int = 0
 
     def __post_init__(self):
-        if self.sampler_mesh != "1x1":
-            raise NotImplementedError(
-                f"HeteroConfig.sampler_mesh={self.sampler_mesh!r}: the "
-                "port's sampler nodes run on one device; the sampler side "
-                "of parallel/ is ROADMAP queue 1 item 10")
+        _check_mesh("HeteroConfig.sampler_mesh", self.sampler_mesh)
         if self.spec_k < 0:
             raise ValueError(f"spec_k must be >= 0, got {self.spec_k}")
 
@@ -318,11 +326,10 @@ class HeteroConfig:
 class ServeConfig:
     """Deployment settings for a generation engine and its serving front
     door: engine kind, KV capacity, decode horizon, speculative drafting,
-    admission limits (the JAX package's ``ServeConfig``; a ``mesh``
-    other than 1x1 raises until the serve mode runs in the engines). The
-    same object configures batch serving (``launch/serve.py``), the
-    asyncio front door (``repro_torch.serving.server``) and HeteroRL
-    sampler nodes."""
+    admission limits, and the serve mesh ``DxM`` (the JAX package's
+    ``ServeConfig``). The same object configures batch serving
+    (``launch/serve.py``), the asyncio front door
+    (``repro_torch.serving.server``) and HeteroRL sampler nodes."""
     engine: str = "continuous"       # static | continuous
     num_slots: int = 8
     page_size: int = 16
@@ -356,10 +363,7 @@ class ServeConfig:
     mesh: str = "1x1"                # serve mesh DxM (TrainConfig.mesh conv.)
 
     def __post_init__(self):
-        if self.mesh != "1x1":
-            raise NotImplementedError(
-                f"ServeConfig.mesh={self.mesh!r}: the engines run on one "
-                "device; serve meshes are ROADMAP queue 1 item 10")
+        _check_mesh("ServeConfig.mesh", self.mesh)
         if self.engine not in ("static", "continuous"):
             raise ValueError(f"engine={self.engine!r} not static|continuous")
         if self.num_slots < 1 or self.page_size < 1 or self.sync_every < 1:

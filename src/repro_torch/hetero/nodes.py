@@ -20,7 +20,12 @@ the engines and the learner step launch the kernels or raise. The
 learner runs on an ``ExecutionPlan`` (``plan=``, default the
 ``TrainConfig.mesh`` knob; ``device=`` is the shorthand for the local
 plan on that device): on a live mesh it keeps its state sharded, and
-samplers and evals take its ``full_params()``.
+samplers and evals take its ``full_params()``. A sampler runs on a
+``serve`` plan (``plan=``, default the ``HeteroConfig.sampler_mesh``
+knob): on a live one it keeps its shard of the weights, serves
+tensor-parallel, and fetches only its rank's cells of each published
+version (``ChunkSubscriber.sync(rank=)``); ``sync(plan=)`` re-fits it
+onto another plan.
 """
 from __future__ import annotations
 
@@ -95,7 +100,8 @@ class SamplerNode:
                  tok: Tokenizer, params: Any, store: PolicyStore,
                  hcfg: HeteroConfig, seed: int,
                  logprob_impl: str = "fused",
-                 device: DeviceLike = "cuda") -> None:
+                 device: DeviceLike = "cuda",
+                 plan: Optional[ExecutionPlan] = None) -> None:
         self.sid = sid
         # sampler-side paged-attention backend (the HeteroConfig knob
         # beats the arch default)
@@ -106,10 +112,14 @@ class SamplerNode:
         # sampler-side speculative decoding (continuous engine only)
         self.spec_k = hcfg.spec_k
         self.pipeline, self.task, self.tok = pipeline, task, tok
-        self.device = resolve_device(device)
-        # the node's own copy: never an alias of the learner's tensors,
-        # which its optimizer overwrites in place
-        self.params = copy_tree(params, self.device)
+        # serve-mode execution plan of this node: the sampler_mesh knob by
+        # default (the local plan on ``device`` for 1x1)
+        self.plan = plan or plan_from_flag(hcfg.sampler_mesh, "serve",
+                                           resolve_device(device))
+        self.device = self.plan.device or resolve_device(device)
+        # the node's own copy (its shard on a live plan): never an alias
+        # of the learner's tensors, which its optimizer overwrites in place
+        self.params = self.plan.device_put_params(cfg, params, copy=True)
         self.store = store
         self.hcfg = hcfg
         # chunked checkpoint client: chunk cache + WAN link of this node
@@ -197,7 +207,7 @@ class SamplerNode:
                     num_slots=min(b, 8), spec_k=self.spec_k)
                 self._gen_engine = build_engine(
                     self.cfg, self.params, serve, rl=self.rl,
-                    vocab_limit=self.tok.vocab_size)
+                    vocab_limit=self.tok.vocab_size, plan=self.plan)
                 self._engine_tp = tp
             return self._gen_engine
 
@@ -244,7 +254,7 @@ class SamplerNode:
             # App. B.1: engine logps are untrusted; do a dedicated
             # forward pass under the *sampler's own* parameters.
             lp = token_logps(self.cfg, self.params, roll["tokens"],
-                             logprob_impl=self.logprob_impl)
+                             logprob_impl=self.logprob_impl, plan=self.plan)
             comp_lp = lp[:, tp - 1:]
         else:
             comp_lp = roll["sampler_lp"]
@@ -260,20 +270,36 @@ class SamplerNode:
                             version=self.version, created_s=now_s,
                             sampler_id=self.sid)
 
-    def sync(self) -> int:
+    def sync(self, plan: Optional[ExecutionPlan] = None) -> int:
         """Fetch the newest published checkpoint through the chunk
         transport (delta-synced against this node's local cache) and copy
-        it into this node's params on its device. Returns the simulated
-        bytes that moved on the wire (manifest + missing chunks), which
-        feeds the payload-aware delay of the *next* sync."""
+        it into this node's params on its device (a rank of a live plan
+        fetches and copies its own shards). Returns the simulated bytes
+        that moved on the wire (manifest + missing chunks), which feeds
+        the payload-aware delay of the *next* sync.
+
+        ``plan`` re-fits the node onto another plan: the newest version,
+        or the weights it holds when nothing newer is published, placed
+        on the new plan's grid, the engine rebuilt at the next batch (its
+        pools are the old plan's). The plan is committed only after the
+        fetch succeeds."""
+        refit = plan is not None and plan != self.plan
         latest = self.store.latest_version()
-        if latest < 0 or latest <= self.version:
+        if latest < 0 or (latest <= self.version and not refit):
+            if refit:           # nothing newer: re-place the live weights
+                full = self.plan.gather_params(self.cfg, self.params)
+                with self._lock:
+                    self._refit_locked(plan, plan.device_put_params(
+                        self.cfg, full, copy=True))
             return 0
+        target = plan if refit else self.plan
+        rank = target.mesh.rank if target.mesh.live else None
         for attempt in range(3):
             try:
                 with obs.trace.span("weight_sync", track=self._track,
-                                    sampler=self.sid):
-                    v, host_tree, stats = self.subscriber.sync(self.params)
+                                    sampler=self.sid, refit=refit):
+                    v, host_tree, stats = self.subscriber.sync(
+                        self.params, cfg=self.cfg, plan=target, rank=rank)
                 break
             except KeyError:
                 # threaded runtime: a publisher on another thread pruned
@@ -281,23 +307,38 @@ class SamplerNode:
                 # assembly; retry against the newest version, three times
                 if attempt == 2:
                     raise
-        self.load_params(host_tree, v)
+        newer = v > self.version
+        if refit:
+            with self._lock:
+                self._refit_locked(
+                    target, target.device_put_params(self.cfg, host_tree))
+                self.version = v
+        else:
+            self.load_params(host_tree, v)
         with self._lock:
-            self.syncs += 1
+            self.syncs += int(newer)
         self._m_syncs.inc()
         self._m_sync_bytes.inc(stats.bytes_on_wire)
         self._g_version.set(self.version)
         return stats.bytes_on_wire
 
     def load_params(self, tree: Any, version: int) -> None:
-        """Copy ``tree`` into this node's own tensors and stamp it
-        ``version``. The engine is told of the change, so it drops KV it
-        computed under the old weights (its prefix cache)."""
+        """Copy ``tree`` (full leaves, or this rank's shards) into this
+        node's own tensors and stamp it ``version``. The engine is told of
+        the change, so it drops KV it computed under the old weights (its
+        prefix cache)."""
         with self._lock:
-            copy_into(self.params, tree)
+            copy_into(self.params, self.plan.local_shards(self.cfg, tree))
             if self._gen_engine is not None:
                 self._gen_engine.update_params(self.params)
             self.version = version
+
+    def _refit_locked(self, plan: ExecutionPlan, params: Any) -> None:
+        """Commit ``plan`` and the params placed on it (caller holds
+        ``self._lock``)."""
+        self.plan, self.params = plan, params
+        self.device = plan.device or self.device
+        self._gen_engine = None
 
     def next_delay(self, payload_bytes: int = 0) -> float:
         return sync_delay_s(self.rng, self.hcfg, payload_bytes)

@@ -11,7 +11,10 @@ Time model (defaults follow the paper's scale): one learner step costs
 corresponds to 1800/28.125 = 64 learner steps — the "Max Tolerable
 Delay 64" setting of Table 2. Every node runs on ``device`` (default
 ``cuda``), each with its own copy of the weights; the learner on
-``learner_plan`` (default the ``TrainConfig.mesh`` knob).
+``learner_plan`` (default the ``TrainConfig.mesh`` knob), the samplers on
+``sampler_plan`` (default the ``HeteroConfig.sampler_mesh`` knob). The
+event clock is deterministic, so on live plans every rank runs the same
+events in the same order and meets each node's collectives in step.
 """
 from __future__ import annotations
 
@@ -39,7 +42,8 @@ class HeteroRuntime:
                  eval_fn: Optional[Callable[[Any], float]] = None,
                  eval_every: int = 10,
                  device: DeviceLike = "cuda",
-                 learner_plan: Optional[ExecutionPlan] = None) -> None:
+                 learner_plan: Optional[ExecutionPlan] = None,
+                 sampler_plan: Optional[ExecutionPlan] = None) -> None:
         self.cfg, self.rl, self.tc, self.hcfg = cfg, rl, tc, hcfg
         self.task, self.tok = task, tok
         self.learner_step_s = learner_step_s
@@ -66,7 +70,8 @@ class HeteroRuntime:
                                        rl.group_size),
                         task, tok, weights, self.store,
                         hcfg, seed=hcfg.seed * 1000 + i,
-                        logprob_impl=tc.logprob_impl, device=device)
+                        logprob_impl=tc.logprob_impl, device=device,
+                        plan=sampler_plan)
             for i in range(hcfg.num_samplers)
         ]
         self._learner_busy = False
@@ -151,10 +156,12 @@ def run_online(cfg: ModelConfig, rl: RLConfig, tc: TrainConfig,
                num_steps: int, prompts_per_batch: int = 8, seed: int = 0,
                eval_fn: Optional[Callable[[Any], float]] = None,
                eval_every: int = 10, device: DeviceLike = "cuda",
-               learner_plan: Optional[ExecutionPlan] = None):
+               learner_plan: Optional[ExecutionPlan] = None,
+               sampler_plan: Optional[ExecutionPlan] = None):
     """Synchronous on-policy RL (Max Tolerable Delay 0, Table 1): the
     sampler always holds the learner's current parameters. The learner
-    runs on ``learner_plan`` (default the ``TrainConfig.mesh`` knob)."""
+    runs on ``learner_plan`` (default the ``TrainConfig.mesh`` knob), the
+    sampler on ``sampler_plan`` (default the local plan on ``device``)."""
     hcfg = HeteroConfig(num_samplers=1, max_delay_steps=0,
                         delay_distribution="constant", delay_min_s=0.0,
                         delay_median_s=0.0, seed=seed)
@@ -164,7 +171,8 @@ def run_online(cfg: ModelConfig, rl: RLConfig, tc: TrainConfig,
     pipeline = PromptPipeline(task, tok, prompts_per_batch, rl.group_size)
     sampler = SamplerNode(0, cfg, rl, pipeline, task, tok,
                           learner.full_params(), store, hcfg, seed=seed,
-                          logprob_impl=tc.logprob_impl, device=device)
+                          logprob_impl=tc.logprob_impl, device=device,
+                          plan=sampler_plan)
     eval_scores: List[float] = []
     for step in range(num_steps):
         # strict synchrony: the learner's weights are copied into the

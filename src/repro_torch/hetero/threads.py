@@ -13,6 +13,12 @@ hashing a publish) overlaps. A node's ``generate_batch`` and ``sync``
 never overlap: one thread runs both, in turn. Autograd's mode is per
 thread and on in a fresh one: every sampler-side entry point (the engine's
 ``step``, ``token_logps``) runs under ``torch.no_grad``.
+
+``sampler_plan`` places the samplers (default the
+``HeteroConfig.sampler_mesh`` knob); a live one raises
+``NotImplementedError``: each thread's batches and syncs follow the wall
+clock, so ranks would meet the samplers' collectives in different orders.
+Run a sampler mesh under the event-clock ``HeteroRuntime``.
 """
 from __future__ import annotations
 
@@ -29,7 +35,8 @@ from repro_torch.data import ArithmeticTask, PromptPipeline, Tokenizer
 from repro_torch.device import DeviceLike
 from repro_torch.hetero.nodes import (LearnerNode, RolloutBatch, SamplerNode,
                                       link_telemetry)
-from repro_torch.parallel import ExecutionPlan
+from repro_torch.parallel import ExecutionPlan, plan_from_flag
+from repro_torch.parallel.plan import QUEUE_ITEM
 from repro_torch.training import TrainState
 
 
@@ -45,7 +52,16 @@ class ThreadedHeteroRuntime:
                  time_scale: float = 1e-4,
                  queue_size: int = 16,
                  device: DeviceLike = "cuda",
-                 learner_plan: Optional[ExecutionPlan] = None) -> None:
+                 learner_plan: Optional[ExecutionPlan] = None,
+                 sampler_plan: Optional[ExecutionPlan] = None) -> None:
+        sampler_plan = sampler_plan or plan_from_flag(
+            hcfg.sampler_mesh, "serve", device)
+        if sampler_plan.mesh.live:
+            raise NotImplementedError(
+                f"{sampler_plan.describe()}: sampler threads on a mesh reach "
+                "their collectives in wall-clock order, which differs by "
+                f"rank; run the sampler mesh under HeteroRuntime "
+                f"({QUEUE_ITEM})")
         self.hcfg = hcfg
         self.time_scale = time_scale
         self.store = PolicyStore()
@@ -60,7 +76,8 @@ class ThreadedHeteroRuntime:
                                        rl.group_size),
                         task, tok, self.learner.full_params(), self.store,
                         hcfg, seed=hcfg.seed * 1000 + i,
-                        logprob_impl=tc.logprob_impl, device=device)
+                        logprob_impl=tc.logprob_impl, device=device,
+                        plan=sampler_plan)
             for i in range(hcfg.num_samplers)
         ]
         self.threads: List[threading.Thread] = []

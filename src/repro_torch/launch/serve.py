@@ -49,14 +49,31 @@ listens on (``--port 0`` takes a free one) and runs until interrupted:
   PYTHONPATH=src python -m repro_torch.launch.serve --listen --device cpu --smoke
   curl -s localhost:8100/generate -d '{"text": "12+7=", "max_new_tokens": 4}'
 
-``--smoke`` serves the reduced variant of ``--arch``. Meshes are a later
-slice.
+``--smoke`` serves the reduced variant of ``--arch``.
+
+``--mesh DxM`` serves on a ``serve`` ``ExecutionPlan`` (``ServeConfig.mesh``):
+the continuous engine runs tensor-parallel over 'model' (each rank keeps
+its heads, FFN columns and vocab rows of the weights and its KV heads of
+the page pools) and splits the decode slots over 'data'. A mesh of more
+than one rank runs under ``torchrun``, one rank a process (NCCL on
+``cuda``, each rank on card ``LOCAL_RANK``; gloo on ``cpu``); every rank
+serves the same rounds, and rank 0 prints the plan and the lines below:
+
+  torchrun --standalone --nproc-per-node 2 -m repro_torch.launch.serve \
+      --device cpu --smoke --mesh 1x2
+  torchrun --standalone --nproc-per-node 2 -m repro_torch.launch.serve \
+      --mesh 1x2
+
+Every rank draws the full weights from ``--seed`` and keeps its shard. The
+static engine, ``--listen`` and the MoE, SSM and memory families on a
+mesh raise ``NotImplementedError`` (ROADMAP queue 1 item 10).
 """
 from __future__ import annotations
 
 import argparse
 import asyncio
 import dataclasses
+import os
 import time
 from typing import Optional
 
@@ -67,6 +84,7 @@ from repro_torch.config import RLConfig, ServeConfig
 from repro_torch.configs import get_config, smoke
 from repro_torch.data import Tokenizer
 from repro_torch.models import encode, init_params
+from repro_torch.parallel import plan_from_flag
 from repro_torch.sampling import StaticEngine, build_engine
 from repro_torch.sampling.prng import PRNGKey, split
 from repro_torch.serving.api import Request, SamplingParams
@@ -105,6 +123,10 @@ def parse_args(argv=None) -> argparse.Namespace:
                     help="disable shared-prefix KV page reuse")
     ap.add_argument("--paged-attn-impl", default=None,
                     choices=("auto", "pallas", "ref", "gather"))
+    ap.add_argument("--mesh", default="1x1",
+                    help="serve mesh DxM (decode slots over data x tensor "
+                         "parallel over model); more than one rank runs "
+                         "under torchrun")
     ap.add_argument("--spec-k", type=int, default=0,
                     help="speculative decoding: drafts per verify round "
                          "(0 = off; continuous engine only)")
@@ -152,6 +174,22 @@ def stub_memory(cfg, params, batch: int, seed: int) -> Optional[torch.Tensor]:
 
 def main(argv=None) -> None:
     args = parse_args(argv)
+    device = args.device
+    world = int(os.environ.get("WORLD_SIZE", "1"))
+    if world > 1:                                # under torchrun
+        import torch.distributed as dist
+        if device == "cuda":
+            device = f"cuda:{int(os.environ.get('LOCAL_RANK', '0'))}"
+            torch.cuda.set_device(torch.device(device))
+        dist.init_process_group("nccl" if args.device == "cuda" else "gloo")
+    try:
+        _serve(args, device)
+    finally:
+        if world > 1:
+            dist.destroy_process_group()
+
+
+def _serve(args: argparse.Namespace, device: str) -> None:
     cfg = smoke(args.arch) if args.smoke else get_config(args.arch)
     if args.attn_impl:
         cfg = dataclasses.replace(cfg, attn_impl=args.attn_impl)
@@ -165,11 +203,23 @@ def main(argv=None) -> None:
         spec_ngram_max=args.spec_ngram,
         spec_rescore=not args.no_spec_rescore, host=args.host,
         port=args.port, max_queue=args.max_queue,
-        default_deadline_s=args.deadline_s, seed=args.seed)
+        default_deadline_s=args.deadline_s, seed=args.seed, mesh=args.mesh)
     rl = RLConfig(temperature=args.temperature, top_k=args.top_k,
                   top_p=args.top_p, max_new_tokens=args.max_new,
                   engine=serve.engine)
-    params = init_params(cfg, args.seed, device=args.device)
+    plan = plan_from_flag(serve.mesh, "serve", device)
+    rank0 = plan.mesh.rank in (None, 0)
+    if plan.mesh.live:
+        if args.listen:
+            raise NotImplementedError(
+                "--listen on a mesh (rank 0 accepts and broadcasts) is "
+                "ROADMAP queue 1 item 10")
+        plan.serve_shard(cfg)            # raises for what it cannot serve
+        if rank0:
+            print(f"[serve] {plan.describe()}")
+    # every rank draws the full weights and keeps its shard
+    params = plan.device_put_params(cfg, init_params(cfg, args.seed,
+                                                     device=device))
     key = PRNGKey(serve.seed)
     memory = stub_memory(cfg, params, args.batch, args.seed)
     if args.listen:
@@ -186,7 +236,8 @@ def main(argv=None) -> None:
             pass
         return
     engine = build_engine(cfg, params, serve, rl=rl,
-                          vocab_limit=cfg.vocab_size, memory=memory, key=key)
+                          vocab_limit=cfg.vocab_size, memory=memory, key=key,
+                          plan=plan)
     static = isinstance(engine, StaticEngine)
     sp = SamplingParams.from_rl(rl)
     rng = np.random.default_rng(args.seed)
@@ -205,6 +256,8 @@ def main(argv=None) -> None:
         results = engine.generate(reqs, key=k)
         if args.device == "cuda":
             torch.cuda.synchronize()
+        if not rank0:
+            continue
         dt = time.perf_counter() - t1
         n_tok = sum(res.gen_count for res in results)
         total_tok += n_tok
@@ -218,6 +271,8 @@ def main(argv=None) -> None:
         print(f"[serve] round {r}: {n_tok} tokens in {dt:.3f}s "
               f"({n_tok / dt:.1f} tok/s) | {detail} | rid "
               f"{results[0].rid}: {results[0].tokens[:8].tolist()}")
+    if not rank0:
+        return
     spec = ""
     if not static and engine.spec_k > 0:
         st = engine.stats()

@@ -20,7 +20,13 @@ than one rank runs under ``torchrun``, one rank a process (NCCL on
 RL steps, 2 samplers unless given):
   torchrun --nproc-per-node 2 -m repro_torch.launch.train --device cpu \
       --smoke --mesh 2x1
-``--sampler-mesh`` other than 1x1 raises (ROADMAP queue 1 item 10).
+``--sampler-mesh DxM`` builds the samplers' ``serve`` plan
+(``HeteroConfig.sampler_mesh``): every sampler node serves
+tensor-parallel on it and fetches its rank's cells of each published
+version, through the continuous engine. It spans the same ranks as
+``--mesh`` (both meshes cover the whole group):
+  torchrun --nproc-per-node 2 -m repro_torch.launch.train --device cpu \
+      --smoke --mesh 2x1 --sampler-mesh 1x2
 """
 from __future__ import annotations
 
@@ -121,7 +127,8 @@ def main(argv=None) -> None:
                     help="learner mesh DxM or PxDxM, e.g. 2x1; more than "
                          "one rank runs under torchrun")
     ap.add_argument("--sampler-mesh", default="1x1",
-                    help="sampler-node mesh DxM; the port runs 1x1 only")
+                    help="sampler-node mesh DxM (a serve plan); more than "
+                         "one rank runs under torchrun")
     ap.add_argument("--paged-attn-impl", default=None,
                     choices=["auto", "pallas", "ref", "gather"],
                     help="sampler paged-attention backend "
@@ -138,8 +145,7 @@ def main(argv=None) -> None:
         if getattr(args, k) is None:
             setattr(args, k, v)
 
-    # raises for a sampler mesh other than 1x1 (ROADMAP queue 1 item 10)
-    HeteroConfig(sampler_mesh=args.sampler_mesh)
+    HeteroConfig(sampler_mesh=args.sampler_mesh)     # checks the spec
     device = args.device
     world = int(os.environ.get("WORLD_SIZE", "1"))
     if world > 1:                                # under torchrun
@@ -149,19 +155,25 @@ def main(argv=None) -> None:
             torch.cuda.set_device(torch.device(device))
         dist.init_process_group("nccl" if args.device == "cuda" else "gloo")
     learner_plan = plan_from_flag(args.mesh, "train", device)
+    sampler_plan = plan_from_flag(args.sampler_mesh, "serve", device)
     rank0 = learner_plan.mesh.rank in (None, 0)
     cfg = smoke(args.arch)
     beta = args.beta_kl if args.beta_kl is not None else (
         0.0 if args.mode == "online" else 0.005)   # paper §4.1
+    # a sampler mesh serves through the continuous engine (the static
+    # engine on a mesh is ROADMAP queue 1 item 10)
     rl = RLConfig(loss_type=args.loss, group_size=args.group_size,
                   beta_kl=beta, max_new_tokens=6, temperature=1.0,
-                  top_k=0, top_p=1.0)
+                  top_k=0, top_p=1.0,
+                  engine="static" if args.sampler_mesh == "1x1"
+                  else "continuous")
     tok = Tokenizer()
     task = ArithmeticTask(max_operand=20, ops="+", prompt_width=6,
                           seed=args.seed)
     if rank0:
         print(f"[train] {cfg.name} on {device}: learner "
-              f"{learner_plan.describe()} | samplers 1x1")
+              f"{learner_plan.describe()} | samplers "
+              f"{sampler_plan.describe()}")
 
     params = init_params(cfg, args.seed, device=device)
     tc_sft = TrainConfig(learning_rate=1e-2, total_steps=args.sft_steps,
@@ -185,17 +197,20 @@ def main(argv=None) -> None:
             cfg, rl, tc, task, tok, state, num_steps=args.steps,
             prompts_per_batch=args.prompts, seed=args.seed,
             eval_fn=eval_fn, eval_every=args.eval_every,
-            device=device, learner_plan=learner_plan)
+            device=device, learner_plan=learner_plan,
+            sampler_plan=sampler_plan)
     else:
         hcfg = HeteroConfig(num_samplers=args.num_samplers,
                             max_delay_steps=args.max_delay,
                             delay_distribution=args.delay_dist,
                             delay_median_s=300.0, seed=args.seed,
-                            paged_attn_impl=args.paged_attn_impl)
+                            paged_attn_impl=args.paged_attn_impl,
+                            sampler_mesh=args.sampler_mesh)
         rt = HeteroRuntime(cfg, rl, tc, hcfg, task, tok, state,
                            prompts_per_batch=args.prompts,
                            eval_fn=eval_fn, eval_every=args.eval_every,
-                           device=device, learner_plan=learner_plan)
+                           device=device, learner_plan=learner_plan,
+                           sampler_plan=sampler_plan)
         hist = rt.run(args.steps)
         evals = rt.eval_scores
         learner = rt.learner

@@ -10,6 +10,8 @@ from typing import Dict
 import torch
 import torch.nn.functional as F
 
+from repro_torch import runtime_context
+
 
 def rmsnorm(x: torch.Tensor, scale: torch.Tensor,
             eps: float = 1e-6) -> torch.Tensor:
@@ -36,8 +38,13 @@ def rope(x: torch.Tensor, positions: torch.Tensor,
 
 
 def swiglu(x: torch.Tensor, p: Dict[str, torch.Tensor]) -> torch.Tensor:
+    """On a tensor-parallel serving forward the weights are this rank's
+    FFN columns (``w_gate``/``w_up``) and rows (``w_down``), and the
+    product is summed over 'model' (``runtime_context.serve_shard``)."""
     h = F.silu(x @ p["w_gate"]) * (x @ p["w_up"])
-    return h @ p["w_down"]
+    y = h @ p["w_down"]
+    tp = runtime_context.serve_shard()
+    return y if tp is None else tp.reduce_ffn(y)
 
 
 def softcap(x: torch.Tensor, cap: float) -> torch.Tensor:

@@ -59,6 +59,7 @@ from typing import Any, Dict, List, Optional, Tuple, Union
 import torch
 import torch.utils.checkpoint
 
+from repro_torch import runtime_context
 from repro_torch.config import (ATTN, CROSS, LOCAL, MAMBA, MLP, MOE, NONE,
                                 ModelConfig)
 from repro_torch.kernels.ops import paged_decode, paged_prefill
@@ -83,18 +84,46 @@ def _unstack(tree: Any, n: int) -> List[Any]:
     return list(torch.unbind(tree, 0))
 
 
+def _rows(t: torch.Tensor) -> torch.Tensor:
+    """This rank's batch rows of ``t`` when the serving forward splits
+    them over the data axes (``runtime_context.serve_shard``), else
+    ``t``."""
+    tp = runtime_context.serve_shard()
+    return t if tp is None else tp.own_rows(t)
+
+
 def _project_qkv(cfg: ModelConfig, p: Dict, x: torch.Tensor
                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """q, k, v (B, S, H, D). On a tensor-parallel serving forward the
+    weights are this rank's columns, so the heads are its own: its q heads
+    and the KV heads its pools hold (k/v columns cut finer than those are
+    gathered over 'model' first)."""
     b, s, _ = x.shape
     q = x @ p["wq"]
     k = x @ p["wk"]
     v = x @ p["wv"]
     if "bq" in p:
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
-    q = q.reshape(b, s, cfg.num_heads, cfg.head_dim)
-    k = k.reshape(b, s, cfg.num_kv_heads, cfg.head_dim)
-    v = v.reshape(b, s, cfg.num_kv_heads, cfg.head_dim)
+    hq, hkv = cfg.num_heads, cfg.num_kv_heads
+    tp = runtime_context.serve_shard()
+    if tp is not None:
+        k, v = tp.kv_columns(k), tp.kv_columns(v)
+        hq, hkv = tp.q_heads[1], tp.kv_heads[1]
+    q = q.reshape(b, s, hq, cfg.head_dim)
+    k = k.reshape(b, s, hkv, cfg.head_dim)
+    v = v.reshape(b, s, hkv, cfg.head_dim)
     return q, k, v
+
+
+def _attn_out(p: Dict, o: torch.Tensor) -> torch.Tensor:
+    """The output projection of the attention output o (B, S, H, D); on a
+    tensor-parallel serving forward, of this rank's heads through its rows
+    of ``wo``, summed over 'model'."""
+    b, sq = o.shape[0], o.shape[1]
+    tp = runtime_context.serve_shard()
+    if tp is None:
+        return o.reshape(b, sq, -1) @ p["wo"]
+    return tp.reduce_attn(tp.own_heads(o).reshape(b, sq, -1) @ p["wo"])
 
 
 def _kv_write_index(positions: torch.Tensor, page_table: torch.Tensor,
@@ -126,7 +155,11 @@ def _self_attn(cfg: ModelConfig, p: Dict, x: torch.Tensor, *, kind: str,
                tape: Optional[List] = None,
                bidir: bool = False) -> torch.Tensor:
     """Self-attention sub-layer (input already normed); ``bidir`` (the
-    encoder's layers) masks nothing.
+    encoder's layers) masks nothing. On a tensor-parallel serving forward
+    (``runtime_context.serve_shard``) it runs this rank's heads: the paged
+    kernels take its q heads against the KV heads of its pools, and a
+    chunk whose rows are split over 'data' gathers its new K/V rows first,
+    so every data rank writes them all.
 
     ``paged`` is None for the dense paths, else (kp, vp, page_table,
     widx): this chunk's K/V are written into the pools in place, then
@@ -139,10 +172,13 @@ def _self_attn(cfg: ModelConfig, p: Dict, x: torch.Tensor, *, kind: str,
     ``arange(S)`` (``attention``'s argument). ``tape`` (paged prefill
     only) gets this layer's post-rope queries and attention outputs, both
     (B, S, Hq, D), appended as a pair."""
-    b, sq = x.shape[0], x.shape[1]
+    sq = x.shape[1]
     q, k, v = _project_qkv(cfg, p, x)
     q = rope(q, positions, cfg.rope_theta)
     k = rope(k, positions, cfg.rope_theta)
+    tp = runtime_context.serve_shard()
+    if tp is not None:
+        q = tp.attn_heads(q)
     mask_kind = ("bidir" if bidir else
                  "local" if kind == LOCAL else "causal")
     if paged is None:
@@ -155,12 +191,12 @@ def _self_attn(cfg: ModelConfig, p: Dict, x: torch.Tensor, *, kind: str,
             if ring:
                 o = ring_decode_attention(q, kc, vc, pos=pos,
                                           softcap=cfg.attn_softcap)
-                return o.reshape(b, sq, -1) @ p["wo"]
+                return _attn_out(p, o)
             o = decode_attention(
                 q, kc, vc, pos=pos, kind=mask_kind,
                 window=cfg.sliding_window, softcap=cfg.attn_softcap,
                 length=pos + 1 if isinstance(pos, int) else None)
-            return o.reshape(b, sq, -1) @ p["wo"]
+            return _attn_out(p, o)
         if dense is not None and ring:                    # prefill fills it
             kc, vc, _ = dense
             kc.copy_(fill_ring(k, kc.shape[1]))
@@ -173,10 +209,12 @@ def _self_attn(cfg: ModelConfig, p: Dict, x: torch.Tensor, *, kind: str,
                       kind=mask_kind, window=cfg.sliding_window,
                       softcap=cfg.attn_softcap, impl=cfg.attn_impl,
                       chunk=cfg.attn_chunk, contiguous=contiguous)
-        return o.reshape(b, sq, -1) @ p["wo"]
+        return _attn_out(p, o)
     kp, vp, page_table, (phys, off) = paged
-    kp[phys, off] = k.reshape((b * sq,) + k.shape[2:]).to(kp.dtype)
-    vp[phys, off] = v.reshape((b * sq,) + v.shape[2:]).to(vp.dtype)
+    if tp is not None:                   # every data rank writes every row
+        k, v = tp.all_rows(k), tp.all_rows(v)
+    kp[phys, off] = k.reshape((-1,) + k.shape[2:]).to(kp.dtype)
+    vp[phys, off] = v.reshape((-1,) + v.shape[2:]).to(vp.dtype)
     if decode:
         o = paged_decode(q, kp, vp, page_table, positions[:, 0] + 1,
                          kind=mask_kind, window=cfg.sliding_window,
@@ -196,7 +234,7 @@ def _self_attn(cfg: ModelConfig, p: Dict, x: torch.Tensor, *, kind: str,
                           attn_impl=cfg.attn_impl, chunk=cfg.attn_chunk)
         if tape is not None:
             tape.append((q, o))
-    return o.reshape(b, sq, -1) @ p["wo"]
+    return _attn_out(p, o)
 
 
 def _cross_attn(cfg: ModelConfig, p: Dict, x: torch.Tensor, *,
@@ -377,7 +415,10 @@ def _run_paged(cfg: ModelConfig, params: Dict, x: torch.Tensor, *,
     if not _is_paged(cfg, cache) or page_table is None:
         raise ValueError(_CACHE_KINDS)
     page_size = cache["layer_0"]["self"]["kp"].shape[2]
+    # every row's write index; a serving forward whose rows are split
+    # over 'data' attends its own rows (``x`` holds them already)
     widx = _kv_write_index(positions, page_table, page_size)
+    positions, page_table = _rows(positions), _rows(page_table)
     blocks = _unstack(params["blocks"], cfg.num_blocks)
     pools = [(list(torch.unbind(cache[f"layer_{i}"]["self"]["kp"], 0)),
               list(torch.unbind(cache[f"layer_{i}"]["self"]["vp"], 0)))
@@ -395,7 +436,9 @@ def _run_paged(cfg: ModelConfig, params: Dict, x: torch.Tensor, *,
 
 def _embed(cfg: ModelConfig, params: Dict, tokens: torch.Tensor
            ) -> torch.Tensor:
-    x = params["embed"][tokens]
+    tp = runtime_context.serve_shard()
+    x = params["embed"][tokens] if tp is None else \
+        tp.embed(params["embed"], tokens)
     if cfg.scale_embed:
         x = x * torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype)
     return x
@@ -405,6 +448,9 @@ def _logits(cfg: ModelConfig, params: Dict, x: torch.Tensor) -> torch.Tensor:
     x = rmsnorm(x, params["final_norm"], cfg.norm_eps)
     head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
     logits = (x @ head).float()
+    tp = runtime_context.serve_shard()
+    if tp is not None:                   # this rank's vocab columns
+        logits = tp.gather_vocab(logits)
     if cfg.final_softcap is not None and torch.is_grad_enabled():
         logits = softcap(logits, cfg.final_softcap)
     elif cfg.final_softcap is not None:
@@ -479,7 +525,7 @@ def forward(cfg: ModelConfig, params: Dict, tokens: torch.Tensor, *,
         positions = torch.arange(s, device=tokens.device).expand(b, s)
     elif cfg.attn_impl == "pallas" and page_table is None:
         contiguous = standard_positions(positions)   # once, not per layer
-    x = _embed(cfg, params, tokens)
+    x = _embed(cfg, params, _rows(tokens))
     if page_table is None and not _is_paged(cfg, cache):
         if record_queries:
             raise ValueError(
@@ -511,7 +557,7 @@ def decode_step(cfg: ModelConfig, params: Dict, cache: Dict,
     (``init_cache(memory=)``), or projects ``memory`` when the cache has
     none. Returns (logits (B, V_padded) f32, cache)."""
     b = token.shape[0]
-    x = _embed(cfg, params, token[:, None])
+    x = _embed(cfg, params, _rows(token)[:, None])
     if page_table is None and not _is_paged(cfg, cache):
         if isinstance(pos, int):
             positions = torch.full((b, 1), pos, dtype=torch.int64,

@@ -1,10 +1,16 @@
-"""The collectives of the sharded learner, over a mesh's axis groups.
+"""The collectives of the sharded learner and of tensor-parallel serving,
+over a mesh's axis groups.
 
-Only ``all_gather`` (the list form) and ``all_reduce`` are used: both
-gloo and NCCL serve them, on CPU and on CUDA tensors. Over no axes every
-function is the identity and launches nothing, so a local plan never
-touches ``torch.distributed``; over axes of size 1 on a live mesh the
-collective still runs.
+``all_gather`` (the list form), ``all_reduce`` and
+``broadcast_object_list`` are used: gloo and NCCL serve them, on CPU and
+on CUDA tensors. Over no axes every function is the identity and
+launches nothing, so a local plan never touches ``torch.distributed``;
+over axes of size 1 on a live mesh the collective still runs.
+
+Serving's collectives are forward-only (no autograd): ``all_reduce_sum``
+after the row-parallel products, ``all_gather_dim`` of the logits' vocab
+shards and of a step's rows over the data axes, ``all_reduce_max`` of a
+round's statistic, and ``broadcast_object`` of rank 0's round inputs.
 
 The autograd-aware pieces:
 
@@ -59,6 +65,25 @@ def all_reduce_mean(t: torch.Tensor, mesh: Mesh, axes: Tuple[str, ...]
     if not axes:
         return t
     return all_reduce_sum(t, mesh, axes).div_(mesh.axes_size(axes))
+
+
+def all_reduce_max(t: torch.Tensor, mesh: Mesh, axes: Tuple[str, ...]
+                   ) -> torch.Tensor:
+    """Max of ``t`` over ``axes``, in place on ``t`` (no autograd)."""
+    if axes:
+        dist.all_reduce(t, op=dist.ReduceOp.MAX, group=mesh.group(axes))
+    return t
+
+
+def broadcast_object(obj, mesh: Mesh):
+    """Mesh rank 0's ``obj`` (pickled) on every rank of a live mesh; the
+    object itself off one. A mesh spans the whole process group, so its
+    rank 0 is the group's."""
+    if not mesh.live:
+        return obj
+    box = [obj]
+    dist.broadcast_object_list(box, src=0, group=mesh.group(mesh.axis_names))
+    return box[0]
 
 
 def gather_leaf(shard: torch.Tensor, mesh: Mesh,
@@ -169,5 +194,6 @@ def slice_from(t: torch.Tensor, mesh: Mesh, axes: Tuple[str, ...]
 
 
 __all__ = ["all_gather_dim", "all_reduce_sum", "all_reduce_mean",
+           "all_reduce_max", "broadcast_object",
            "gather_leaf", "gather_rows", "own_rows", "copy_to",
            "reduce_from", "slice_from"]

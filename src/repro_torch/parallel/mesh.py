@@ -209,7 +209,9 @@ def local_mesh(device: Optional[DeviceLike] = None) -> Mesh:
                   (1, 1))
 
 
-def _parse_flag(spec: str) -> Tuple[int, ...]:
+def parse_mesh(spec: str) -> Tuple[int, ...]:
+    """The dims of a ``DxM`` / ``PxDxM`` mesh spec; ``ValueError`` on any
+    other form."""
     try:
         dims = tuple(int(p) for p in spec.lower().split("x"))
     except ValueError:
@@ -226,7 +228,7 @@ def mesh_from_flag(spec: str, device: Optional[DeviceLike] = None) -> Mesh:
     any other is a live mesh over the initialised group, and a mesh that
     needs more ranks than the group has raises ``RuntimeError`` with the
     ``torchrun`` recipe."""
-    dims = _parse_flag(spec)
+    dims = parse_mesh(spec)
     need = int(np.prod(dims))
     have = _world()
     if need == 1 and (dims == (1, 1) or not have):
@@ -246,4 +248,4 @@ def data_axes(mesh: Mesh) -> Tuple[str, ...]:
 
 __all__ = ["Mesh", "PEAK_BF16_FLOPS", "HBM_BW", "ICI_BW", "abstract_mesh",
            "make_mesh", "make_production_mesh", "make_debug_mesh",
-           "local_mesh", "mesh_from_flag", "data_axes"]
+           "local_mesh", "mesh_from_flag", "parse_mesh", "data_axes"]

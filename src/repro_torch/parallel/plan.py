@@ -12,7 +12,13 @@ state, batch, KV cache) out of the logical-axis rules in
   only its own shard), ``gather``/``host_gather`` put the full leaves
   back together;
 - the publisher cuts checkpoint chunks on the plan's shard grid
-  (``repro_torch.transport``).
+  (``repro_torch.transport``);
+- on a live ``serve`` plan, ``serve_shard`` reads this rank's part of a
+  dense model from the fitted shardings (its q and KV heads, whether the
+  output projections' rows and the vocab are split), which the
+  continuous engine hands the model around each forward
+  (``runtime_context.serve_context``), and ``cache_shardings`` fits the
+  paged pools (KV heads over 'model').
 
 A torch tensor does not carry its placement, so the trees a plan places
 and gathers are matched with the sharding trees by position; a leaf whose
@@ -29,10 +35,11 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 
-from repro_torch.config import ModelConfig
+from repro_torch.config import ATTN, LOCAL, MLP, ModelConfig
 from repro_torch.device import DeviceLike
 from repro_torch.parallel import axes
-from repro_torch.parallel.collectives import gather_leaf
+from repro_torch.parallel.collectives import (all_gather_dim, all_reduce_sum,
+                                              gather_leaf, own_rows)
 from repro_torch.parallel.mesh import (Mesh, data_axes, local_mesh,
                                        mesh_from_flag)
 
@@ -50,6 +57,111 @@ def placement_device(target: Optional[torch.device],
                            f"on {current}: placement does not move a tensor "
                            "off the card")
     return target
+
+
+_TP = ("model",)
+QUEUE_ITEM = "ROADMAP queue 1 item 10"
+
+
+@dataclasses.dataclass(frozen=True)
+class ServeShard:
+    """This rank's part of a dense model on a live ``serve`` plan, read
+    from the plan's fitted shardings, and the forward-only collectives a
+    tensor-parallel forward runs with it (Megatron's column and row
+    splits over 'model'):
+
+    - ``q_heads`` / ``kv_heads``: (first, count) of the q heads of this
+      rank's ``wq``/``wo`` columns and rows, and of the KV heads its page
+      pools hold. Where Hkv does not split over 'model' but Hq does, the
+      pools hold every KV head (``kv_gather``: the rank's ``wk``/``wv``
+      columns, if split, are gathered into every head) and the rank's q
+      heads are padded to all heads for the attention (``attn_heads``),
+      so each attends the KV heads of its group at the kernels' GQA
+      layout; ``own_heads`` keeps its own outputs;
+    - ``attn_split`` / ``ffn_split``: ``wo`` / ``w_down`` rows split, so
+      their products are all-reduced over 'model';
+    - ``vocab``: (first, count) of the ``embed`` rows (and ``lm_head``
+      columns) this rank holds, None when whole: the lookup masks the ids
+      outside the range and all-reduces, the logits are gathered;
+    - ``rows``: the data axes the forward's batch rows split over (the
+      decode and verify chunks' slots): the model takes every row, runs
+      its own and gathers each layer's new K/V rows, so every data rank
+      writes every row and the pools stay equal over 'data'.
+
+    A split over an axis of size 1 splits nothing, so it runs no
+    collective: a Dx1 plan reduces nothing over 'model', and a 1xM plan's
+    rows are whole (on a 1x1 live mesh only the engine's lockstep
+    broadcast runs)."""
+    mesh: Mesh
+    q_heads: Tuple[int, int]
+    kv_heads: Tuple[int, int]
+    num_heads: int
+    group: int                         # q heads per KV head
+    kv_gather: bool
+    attn_split: bool
+    ffn_split: bool
+    vocab: Optional[Tuple[int, int]]
+    rows: Tuple[str, ...] = ()
+
+    def with_rows(self, rows: Tuple[str, ...]) -> "ServeShard":
+        return dataclasses.replace(self, rows=tuple(rows))
+
+    @property
+    def pads_heads(self) -> bool:
+        return self.q_heads[1] != self.kv_heads[1] * self.group
+
+    def own_rows(self, t: torch.Tensor) -> torch.Tensor:
+        return own_rows(t, self.mesh, self.rows)
+
+    def all_rows(self, t: torch.Tensor) -> torch.Tensor:
+        return all_gather_dim(t, self.mesh, self.rows, 0)
+
+    def kv_columns(self, t: torch.Tensor) -> torch.Tensor:
+        return all_gather_dim(t, self.mesh, _TP, -1) if self.kv_gather else t
+
+    def attn_heads(self, q: torch.Tensor) -> torch.Tensor:
+        """q (..., Hq_local, D) as the attention takes it: padded with
+        zeros to every head where the pools hold every KV head."""
+        if not self.pads_heads:
+            return q
+        first, n = self.q_heads
+        full = q.new_zeros(q.shape[:-2] + (self.num_heads, q.shape[-1]))
+        full[..., first:first + n, :] = q
+        return full
+
+    def own_heads(self, o: torch.Tensor) -> torch.Tensor:
+        first, n = self.q_heads
+        return o[..., first:first + n, :] if self.pads_heads else o
+
+    def reduce_attn(self, t: torch.Tensor) -> torch.Tensor:
+        return all_reduce_sum(t, self.mesh, _TP) if self.attn_split else t
+
+    def reduce_ffn(self, t: torch.Tensor) -> torch.Tensor:
+        return all_reduce_sum(t, self.mesh, _TP) if self.ffn_split else t
+
+    def embed(self, table: torch.Tensor, tokens: torch.Tensor
+              ) -> torch.Tensor:
+        """The rows of ``tokens`` from this rank's vocab rows of the
+        table, zero elsewhere, summed over 'model': exact, since each id
+        lives on one rank."""
+        if self.vocab is None:
+            return table[tokens]
+        first, n = self.vocab
+        ids = tokens - first
+        ok = (ids >= 0) & (ids < n)
+        x = torch.where(ok[..., None], table[ids.clamp(0, n - 1)], 0)
+        return all_reduce_sum(x, self.mesh, _TP)
+
+    def gather_vocab(self, logits: torch.Tensor) -> torch.Tensor:
+        if self.vocab is None:
+            return logits
+        return all_gather_dim(logits, self.mesh, _TP, -1)
+
+
+def _dense(cfg: ModelConfig) -> bool:
+    return (all(k in (ATTN, LOCAL) for k in cfg.block_pattern)
+            and all(f == MLP for f in cfg.ffn_pattern)
+            and not cfg.is_encdec and cfg.memory_seq == 0)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -90,6 +202,21 @@ class ExecutionPlan:
 
     def param_shardings(self, cfg: ModelConfig) -> Any:
         return _param_shardings(self, cfg)
+
+    def cache_shardings(self, cfg: ModelConfig, cache: Any) -> Any:
+        """Fitted shardings of a dense decode cache or of paged pools
+        (``axes.cache_specs``): ``cache`` is a tree of tensors or of
+        their shapes."""
+        shapes = axes._map(lambda t: tuple(getattr(t, "shape", t)), cache)
+        return axes.to_named_fit(
+            self.mesh, axes.cache_specs(cfg, cache, self.mode, self.mesh),
+            shapes)
+
+    def serve_shard(self, cfg: ModelConfig) -> Optional[ServeShard]:
+        """This rank's part of ``cfg`` on a live ``serve`` plan (see
+        ``ServeShard``); None off a live mesh. The ``long`` mode, and the
+        MoE, SSM and memory families, raise ``NotImplementedError``."""
+        return _serve_shard(self, cfg)
 
     def state_shardings(self, cfg: ModelConfig,
                         optimizer: str = "adamw") -> Any:
@@ -140,28 +267,60 @@ class ExecutionPlan:
         return self.mesh.rank if self.mesh.rank is not None else 0
 
     # ---- placement / gather ---------------------------------------------
+    def _piece(self, leaf: torch.Tensor, sh: axes.NamedSharding,
+               shape: Tuple[int, ...]) -> torch.Tensor:
+        """This rank's slice of ``leaf`` (a view): a leaf of the global
+        shape is cut, a leaf of the shard's shape is the shard."""
+        if not self.mesh.live:
+            return leaf.detach()
+        if tuple(leaf.shape) == tuple(shape):
+            return leaf.detach()[sh.index(self._rank, shape)]
+        if tuple(leaf.shape) == sh.shard_shape(shape):
+            return leaf.detach()
+        raise ValueError(f"leaf of shape {tuple(leaf.shape)} is neither "
+                         f"the global {shape} nor the shard "
+                         f"{sh.shard_shape(shape)}")
+
     def _place(self, leaf: torch.Tensor, sh: axes.NamedSharding,
-               shape: Tuple[int, ...], copy: bool) -> torch.Tensor:
+               shape: Tuple[int, ...], copy: bool,
+               keep: bool = False) -> torch.Tensor:
         dev = placement_device(self.device, leaf.device)
         if not self.mesh.live:
             return leaf.detach().to(dev, copy=copy)
-        if tuple(leaf.shape) == tuple(shape):
-            piece = leaf.detach()[sh.index(self._rank, shape)]
-        elif tuple(leaf.shape) == sh.shard_shape(shape):
-            piece = leaf.detach()
-        else:
-            raise ValueError(f"leaf of shape {tuple(leaf.shape)} is neither "
-                             f"the global {shape} nor the shard "
-                             f"{sh.shard_shape(shape)}")
+        if keep and leaf.device == dev and \
+                tuple(leaf.shape) == sh.shard_shape(shape):
+            return leaf
+        piece = self._piece(leaf, sh, shape)
         return torch.empty(piece.shape, dtype=piece.dtype,
                            device=dev).copy_(piece)
 
     def _place_tree(self, tree: Any, shardings: Any, shapes: Any,
-                    copy: bool) -> Any:
+                    copy: bool, keep: bool = False) -> Any:
         if isinstance(tree, dict):
             return {k: self._place_tree(tree[k], shardings[k], shapes[k],
-                                        copy) for k in tree}
-        return self._place(tree, shardings, shapes, copy)
+                                        copy, keep) for k in tree}
+        return self._place(tree, shardings, shapes, copy, keep)
+
+    def adopt_params(self, cfg: ModelConfig, params: Any) -> Any:
+        """``device_put_params`` that keeps what is placed: a leaf that
+        already is this rank's shard on the plan's device is taken as it
+        is, so an engine given a node's placed copy makes no second one;
+        full leaves are cut into fresh shards."""
+        return self._place_tree(params, self.param_shardings(cfg),
+                                axes.param_shapes(cfg), False, keep=True)
+
+    def local_shards(self, cfg: ModelConfig, params: Any) -> Any:
+        """This rank's slice of every param leaf, as views (nothing is
+        copied or moved): full leaves are cut, shard-shaped ones taken as
+        they are. The params themselves off a live mesh."""
+        return self._shards(params, self.param_shardings(cfg),
+                            axes.param_shapes(cfg))
+
+    def _shards(self, tree: Any, shardings: Any, shapes: Any) -> Any:
+        if isinstance(tree, dict):
+            return {k: self._shards(tree[k], shardings[k], shapes[k])
+                    for k in tree}
+        return self._piece(tree, shardings, shapes)
 
     def device_put_params(self, cfg: ModelConfig, params: Any, *,
                           copy: bool = False) -> Any:
@@ -230,6 +389,53 @@ def _param_shardings(plan: ExecutionPlan, cfg: ModelConfig) -> Any:
 
 
 @functools.lru_cache(maxsize=64)
+def _serve_shard(plan: ExecutionPlan, cfg: ModelConfig
+                 ) -> Optional[ServeShard]:
+    if not plan.mesh.live:
+        return None
+    if plan.mode != "serve":
+        raise NotImplementedError(
+            f"{plan.describe()}: the engines serve on 'serve' plans; the "
+            f"{plan.mode!r} mode (a context-parallel decode with a "
+            f"log-sum-exp combine over ranks) is {QUEUE_ITEM}")
+    if not _dense(cfg):
+        raise NotImplementedError(
+            f"{cfg.name}: a serve plan runs dense attention + MLP models; "
+            f"the MoE, SSM and memory families on a mesh are {QUEUE_ITEM}")
+    sh, shapes = plan.param_shardings(cfg), axes.param_shapes(cfg)
+    rank, hd = plan._rank, cfg.head_dim
+
+    def span(s: axes.NamedSharding, shape: Tuple[int, ...], dim: int
+             ) -> Tuple[int, int]:
+        cut = s.index(rank, shape)[dim]
+        return cut.start, cut.stop - cut.start
+
+    attn, ashape = sh["blocks"]["layer_0"]["attn"], \
+        shapes["blocks"]["layer_0"]["attn"]
+    q0, qn = span(attn["wq"], ashape["wq"], 2)
+    if q0 % hd or qn % hd:
+        raise NotImplementedError(
+            f"{cfg.name}: {cfg.num_heads} q heads do not split over "
+            f"model={plan.mesh.shape['model']} (wq is cut inside a head); "
+            f"a head-misaligned split is {QUEUE_ITEM}")
+    pool_shape = (cfg.num_blocks, 2, 1, cfg.num_kv_heads, hd)
+    pool = plan.cache_shardings(cfg, {"layer_0": {"self": {"kp": pool_shape}}})
+    k0, kn = span(pool["layer_0"]["self"]["kp"], pool_shape, 3)
+    _, cn = span(attn["wk"], ashape["wk"], 2)
+    v0, vn = span(sh["embed"], shapes["embed"], 0)
+    wide = plan.mesh.shape["model"] > 1       # size 1: nothing is split
+
+    def split(s: axes.NamedSharding) -> bool:
+        return wide and bool(s.sharded_dims())
+    return ServeShard(
+        mesh=plan.mesh, q_heads=(q0 // hd, qn // hd), kv_heads=(k0, kn),
+        num_heads=cfg.num_heads, group=cfg.num_heads // cfg.num_kv_heads,
+        kv_gather=cn != kn * hd, attn_split=split(attn["wo"]),
+        ffn_split=split(sh["blocks"]["layer_0"]["mlp"]["w_down"]),
+        vocab=(v0, vn) if split(sh["embed"]) else None)
+
+
+@functools.lru_cache(maxsize=64)
 def _state_shardings(plan: ExecutionPlan, cfg: ModelConfig,
                      optimizer: str) -> Any:
     from repro_torch.training import TrainState
@@ -288,5 +494,5 @@ def plan_for_params(params: Any, mode: str = "serve") -> ExecutionPlan:
     return local_plan(mode, leaves[0].device if leaves else None)
 
 
-__all__ = ["ExecutionPlan", "placement_device", "make_plan", "local_plan", "plan_from_flag",
-           "plan_for_params"]
+__all__ = ["ExecutionPlan", "ServeShard", "placement_device", "make_plan",
+           "local_plan", "plan_from_flag", "plan_for_params"]

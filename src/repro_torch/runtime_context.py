@@ -5,17 +5,27 @@ Model code is mesh-agnostic except for the layers that split work across
 ranks: the expert-parallel MoE (``models/moe_ep.py``) and the MoE
 dispatch under a data-sharded plan (``models/moe.py``). Those read the
 mesh registered here, and the axes the current batch rows are split over
-(``row_axes``), which the sharded step sets around its forward."""
+(``row_axes``), which the sharded step sets around its forward.
+
+Serving has its own entry: ``serve_shard()``, the tensor-parallel shard
+of the current forward (``parallel.plan.ServeShard``), which the
+continuous engine sets around each forward on a live ``serve`` plan
+(``serve_context``). It is None everywhere else, and then every model
+function runs its single-device arithmetic bit for bit. It is kept per
+thread: the threaded runtime's nodes forward on threads of their own."""
 from __future__ import annotations
 
+import threading
 from contextlib import contextmanager
 from typing import TYPE_CHECKING, Optional, Tuple
 
 if TYPE_CHECKING:                    # no import cycle through the models
     from repro_torch.parallel.mesh import Mesh
+    from repro_torch.parallel.plan import ServeShard
 
 _MESH: Optional["Mesh"] = None
 _ROWS: Tuple[str, ...] = ()
+_SERVE = threading.local()
 
 
 def set_mesh(mesh: Optional["Mesh"], row_axes: Tuple[str, ...] = ()) -> None:
@@ -51,5 +61,21 @@ def mesh_context(mesh: "Mesh", row_axes: Tuple[str, ...] = ()):
         set_mesh(*prev)
 
 
+def serve_shard() -> Optional["ServeShard"]:
+    """The tensor-parallel shard of the current serving forward, or
+    None."""
+    return getattr(_SERVE, "shard", None)
+
+
+@contextmanager
+def serve_context(shard: Optional["ServeShard"]):
+    prev = serve_shard()
+    _SERVE.shard = shard
+    try:
+        yield shard
+    finally:
+        _SERVE.shard = prev
+
+
 __all__ = ["set_mesh", "get_mesh", "active_mesh", "row_axes",
-           "mesh_context"]
+           "mesh_context", "serve_shard", "serve_context"]

@@ -31,20 +31,46 @@ the pool is append-only, no page is copied. Rounds where no slot drafted
 run a sequential chunk in the same convention (``_spec_decode_chunk``,
 through K3). The non-speculative path keeps the last logits per slot
 instead; an engine runs one convention for all its requests.
+
+On a live ``serve`` plan (``plan=``; default the local plan on the
+params' device) the engine is one of the plan's ranks, in lockstep with
+the others; every rank emits the same tokens, those of one device:
+
+- each rank holds its shard of the weights (the plan's fitted
+  shardings: q/KV heads, FFN columns, vocab over 'model', replicated over
+  'data') and of the page pools (KV heads over 'model'), and runs each
+  forward under its ``ServeShard`` (``runtime_context.serve_context``):
+  K3/K4 on its own heads, the row-parallel products summed over 'model',
+  the logits gathered over the vocab and drawn on every rank;
+- rank 0 broadcasts each round's new submissions and its clock
+  (``collectives.broadcast_object``), so every rank takes the same
+  admission, page, prefix-cache and expiry decisions;
+- a decode chunk or verify round splits its slots over the data axes
+  (where they divide them): each data rank computes its slots' rows, the
+  draws and log-probs are gathered, and each layer's new K/V rows are
+  gathered and written on every rank, so the pools stay equal over
+  'data' and a prefix hit or a copy-on-write page filled on another data
+  rank holds the right bytes. A prefill chunk is one request's row: every
+  data rank runs it.
 """
 from __future__ import annotations
 
+import contextlib
 import time
 from typing import Any, Dict, List, Optional, Sequence, Union
 
 import numpy as np
 import torch
 
-from repro_torch import obs
+from repro_torch import obs, runtime_context
 from repro_torch.config import ModelConfig, RLConfig
 from repro_torch.data.tasks import EOS, PAD
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models.model import decode_step, forward
+from repro_torch.parallel import axes
+from repro_torch.parallel.collectives import (all_gather_dim, all_reduce_max,
+                                              broadcast_object)
+from repro_torch.parallel.plan import ExecutionPlan, plan_for_params
 from repro_torch.sampling.paged_cache import (PageAllocator, SCRATCH_PAGE,
                                               init_paged_pool,
                                               paged_cache_supported,
@@ -111,7 +137,10 @@ class ContinuousEngine:
     through one folded K4 launch and keeps the max difference
     (``stats()["spec_rescore_max_diff"]``). ``key`` (default
     ``PRNGKey(0)``) keys the draws: request ``rid`` draws with
-    ``fold_in(key, rid)``.
+    ``fold_in(key, rid)``. ``plan`` (default the local plan on the params'
+    device) is the ``serve`` plan the engine runs on (module note); on a
+    live one ``params`` are full leaves, cut here, or this rank's shards,
+    taken as they are.
     """
 
     def __init__(self, cfg: ModelConfig, params: Dict[str, Any], *,
@@ -129,15 +158,23 @@ class ContinuousEngine:
                  spec_ngram_max: int = 3,
                  spec_ngram_min: int = 1,
                  spec_rescore: bool = True,
-                 key: Optional[torch.Tensor] = None) -> None:
+                 key: Optional[torch.Tensor] = None,
+                 plan: Optional[ExecutionPlan] = None) -> None:
         if not paged_cache_supported(cfg):
             raise ValueError(f"{cfg.name}: continuous engine needs an "
                              "attention-only decode cache (no enc-dec / "
                              "ring-KV / modality memory)")
         if spec_k < 0:
             raise ValueError(f"spec_k must be >= 0, got {spec_k}")
-        self.cfg, self.rl, self.params = cfg, rl, params
-        self.device = params["embed"].device
+        self.cfg, self.rl = cfg, rl
+        self.plan = plan if plan is not None else \
+            plan_for_params(params, "serve")
+        # this rank's part of the model; None off a live mesh, where the
+        # engine runs the single-device path unchanged
+        self.shard = self.plan.serve_shard(cfg)
+        self.params = params if self.shard is None else \
+            self.plan.adopt_params(cfg, params)
+        self.device = self.params["embed"].device
         self.vocab_limit = vocab_limit or cfg.padded_vocab
         self.num_slots = num_slots
         self.page_size = page_size
@@ -158,7 +195,23 @@ class ContinuousEngine:
                                          page_size, allocator,
                                          prefix_cache=self.prefix_cache)
         self.pool = init_paged_pool(cfg, self.num_pages, page_size,
-                                    device=self.device)
+                                    device=self.device,
+                                    plan=None if self.shard is None
+                                    else self.plan)
+        # the slots this rank computes in a decode chunk or verify round:
+        # [lo, lo + n) of num_slots, split over the data axes (of size > 1)
+        # where they divide the slots (the reference's fitted batch spec)
+        self._row_axes: tuple = ()
+        self._lo, self._n = 0, num_slots
+        self._inbox: List[Request] = []      # submissions of this round
+        if self.shard is not None:
+            mesh = self.plan.mesh
+            spec = axes.fit_spec(mesh, axes.P(self.plan.dp_axes),
+                                 (num_slots,))
+            self._row_axes = tuple(a for a in axes.entry_axes(spec[0])
+                                   if mesh.shape[a] > 1)
+            self._n = num_slots // mesh.axes_size(self._row_axes)
+            self._lo = mesh.axis_index(self._row_axes) * self._n
         self.key = PRNGKey(0) if key is None else as_key(key)
         self.spec_k = spec_k
         self.spec_rescore = spec_rescore
@@ -166,7 +219,7 @@ class ContinuousEngine:
         if spec_k > 0 and drafter is None:
             self.drafter = NGramDrafter(max_ngram=spec_ngram_max,
                                         min_ngram=spec_ngram_min)
-        self._last = torch.zeros((num_slots, cfg.padded_vocab),
+        self._last = torch.zeros((self._n, cfg.padded_vocab),
                                  dtype=torch.float32, device=self.device)
         self._pos = np.zeros((num_slots,), np.int64)
         self._active = np.zeros((num_slots,), bool)
@@ -228,14 +281,15 @@ class ContinuousEngine:
         return self.sched.allocator.available
 
     def has_work(self) -> bool:
-        return (self.sched.queue_depth > 0
+        return (bool(self._inbox) or self.sched.queue_depth > 0
                 or any(r is not None for r in self.sched.slots))
 
     def update_params(self, params: Any) -> None:
-        """Serve ``params`` from now on. The prefix cache is keyed on
-        tokens only and its pages hold KV of the old weights, so it is
-        emptied."""
-        self.params = params
+        """Serve ``params`` from now on (re-placed on a live plan: full
+        leaves cut, shards taken). The prefix cache is keyed on tokens only
+        and its pages hold KV of the old weights, so it is emptied."""
+        self.params = params if self.shard is None else \
+            self.plan.adopt_params(self.cfg, params)
         if self.prefix_cache is not None:
             self.prefix_cache.clear()
 
@@ -267,6 +321,12 @@ class ContinuousEngine:
             raise ValueError(
                 f"request {req.rid}: {total} tokens exceed the engine's "
                 f"max_total_tokens={self.max_total_tokens}")
+        if self.shard is not None:       # rank 0's go out with the round
+            self._inbox.append(req)
+            return
+        self._enqueue(req)
+
+    def _enqueue(self, req: Request) -> None:
         self.sched.submit(GenRequest(
             rid=req.rid, prompt=req.prompt,
             max_new=req.params.max_new_tokens, priority=req.priority,
@@ -307,6 +367,23 @@ class ContinuousEngine:
     def _tensor(self, arr: np.ndarray) -> torch.Tensor:
         return torch.as_tensor(arr).to(self.device)
 
+    def _serving(self, split: bool):
+        """The rank's shard around a forward: with ``split`` (a decode
+        chunk or verify round) its rows split over the data axes. Nothing
+        off a live mesh."""
+        if self.shard is None:
+            return contextlib.nullcontext()
+        return runtime_context.serve_context(
+            self.shard.with_rows(self._row_axes) if split else self.shard)
+
+    def _own(self, t: torch.Tensor) -> torch.Tensor:
+        """This rank's slots of a (num_slots, ...) tensor."""
+        return t[self._lo:self._lo + self._n]
+
+    def _all(self, t: torch.Tensor) -> torch.Tensor:
+        """Every data rank's slots of a (n, ...) tensor, in slot order."""
+        return all_gather_dim(t, self.plan.mesh, self._row_axes, 0)
+
     def _prefill_chunk(self, page_row: np.ndarray, chunk: np.ndarray,
                        start: int) -> torch.Tensor:
         """One chunk of one request's prompt: tokens at positions
@@ -314,9 +391,11 @@ class ContinuousEngine:
         logits (C, V)."""
         tokens = self._tensor(chunk[None].astype(np.int64))
         positions = start + torch.arange(chunk.shape[0], device=self.device)
-        logits, _, _ = forward(self.cfg, self.params, tokens,
-                               positions=positions[None], cache=self.pool,
-                               page_table=self._tensor(page_row))
+        with self._serving(split=False):
+            logits, _, _ = forward(self.cfg, self.params, tokens,
+                                   positions=positions[None],
+                                   cache=self.pool,
+                                   page_table=self._tensor(page_row))
         return logits[0]
 
     def _decode_chunk(self, bt: np.ndarray):
@@ -327,7 +406,9 @@ class ContinuousEngine:
         PAD at position ``width * page_size``, past the block table, so
         their K/V write is dropped: with shared prefixes a dead slot must
         write nowhere. Draw ``i`` of slot ``s`` is draw ``gen[s] + i`` of
-        its request; the host discards draws past EOS."""
+        its request; the host discards draws past EOS. A rank whose slots
+        split over 'data' draws its own slots' rows (``_last`` holds their
+        logits) and gathers the draws."""
         rl = self.rl
         page_table = self._tensor(bt)
         pos = self._tensor(self._pos)
@@ -336,22 +417,26 @@ class ContinuousEngine:
         req_keys = self._tensor(self._req_keys)
         done = ~self._tensor(self._active)
         oob_pos = bt.shape[1] * self.page_size
+        keys, gen = self._own(req_keys), self._own(gen0)
         last = self._last
         toks, lps = [], []
-        for i in range(self.sync_every):
-            dead = done | ((gen0 + i) >= max_new)
-            lg = mask_vocab(last, self.vocab_limit)
-            tok = sample_token_rows(fold_in(req_keys, gen0 + i), lg,
-                                    temperature=rl.temperature,
-                                    top_k=rl.top_k, top_p=rl.top_p)
-            lp = torch.where(dead, 0.0, model_logp(last, tok))
-            tok = torch.where(dead, PAD, tok)
-            step_pos = torch.where(dead, oob_pos, pos + i)
-            last, _ = decode_step(self.cfg, self.params, self.pool, tok,
-                                  step_pos, page_table=page_table)
-            done = done | (tok == EOS)
-            toks.append(tok)
-            lps.append(lp)
+        with self._serving(split=True):
+            for i in range(self.sync_every):
+                dead = done | ((gen0 + i) >= max_new)
+                lg = mask_vocab(last, self.vocab_limit)
+                tok = sample_token_rows(fold_in(keys, gen + i), lg,
+                                        temperature=rl.temperature,
+                                        top_k=rl.top_k, top_p=rl.top_p)
+                lp = self._all(model_logp(last, tok))
+                tok = self._all(tok)
+                lp = torch.where(dead, 0.0, lp)
+                tok = torch.where(dead, PAD, tok)
+                step_pos = torch.where(dead, oob_pos, pos + i)
+                last, _ = decode_step(self.cfg, self.params, self.pool, tok,
+                                      step_pos, page_table=page_table)
+                done = done | (tok == EOS)
+                toks.append(tok)
+                lps.append(lp)
         self._last = last
         return torch.stack(toks), torch.stack(lps)
 
@@ -373,22 +458,26 @@ class ContinuousEngine:
         req_keys = self._tensor(self._req_keys)
         done = ~self._tensor(self._active)
         oob_pos = bt.shape[1] * self.page_size
+        keys = self._own(req_keys)
         toks, lps = [], []
-        for i in range(self.sync_every):
-            gi = gen_base_t + 1 + i
-            dead = done | (gi >= max_new)
-            step_pos = torch.where(dead, oob_pos, pos0_t + i)
-            logits, _ = decode_step(self.cfg, self.params, self.pool, tok,
-                                    step_pos, page_table=page_table)
-            nt = sample_token_rows(fold_in(req_keys, gi),
-                                   mask_vocab(logits, self.vocab_limit),
-                                   temperature=rl.temperature,
-                                   top_k=rl.top_k, top_p=rl.top_p)
-            lp = torch.where(dead, 0.0, model_logp(logits, nt))
-            tok = torch.where(dead, PAD, nt)
-            done = done | (tok == EOS)
-            toks.append(tok)
-            lps.append(lp)
+        with self._serving(split=True):
+            for i in range(self.sync_every):
+                gi = gen_base_t + 1 + i
+                dead = done | (gi >= max_new)
+                step_pos = torch.where(dead, oob_pos, pos0_t + i)
+                logits, _ = decode_step(self.cfg, self.params, self.pool,
+                                        tok, step_pos, page_table=page_table)
+                nt = sample_token_rows(fold_in(keys, self._own(gi)),
+                                       mask_vocab(logits, self.vocab_limit),
+                                       temperature=rl.temperature,
+                                       top_k=rl.top_k, top_p=rl.top_p)
+                lp = self._all(model_logp(logits, nt))
+                nt = self._all(nt)
+                lp = torch.where(dead, 0.0, lp)
+                tok = torch.where(dead, PAD, nt)
+                done = done | (tok == EOS)
+                toks.append(tok)
+                lps.append(lp)
         return torch.stack(toks), torch.stack(lps)
 
     def _verify_chunk(self, bt: np.ndarray, packed: np.ndarray):
@@ -420,21 +509,29 @@ class ContinuousEngine:
         max_new = t[:, w + 6]
         page_table = self._tensor(bt)
         positions = pos0[:, None] + torch.arange(w, device=self.device)
-        logits, _, aux = forward(self.cfg, self.params, window,
-                                 positions=positions, cache=self.pool,
-                                 page_table=page_table,
-                                 record_queries=self.spec_rescore)
+        with self._serving(split=True):
+            logits, _, aux = forward(self.cfg, self.params, window,
+                                     positions=positions, cache=self.pool,
+                                     page_table=page_table,
+                                     record_queries=self.spec_rescore)
+        own = self._own
         toks, lps, n_emit, n_acc = accept_drafts(
-            logits, window, draft_len, active, req_keys, gen_base,
-            max_new, temperature=rl.temperature, top_k=rl.top_k,
-            top_p=rl.top_p, vocab_limit=self.vocab_limit)
+            logits, own(window), own(draft_len), own(active), own(req_keys),
+            own(gen_base), own(max_new), temperature=rl.temperature,
+            top_k=rl.top_k, top_p=rl.top_p, vocab_limit=self.vocab_limit)
         diff = torch.zeros((), dtype=torch.float32, device=self.device)
         if self.spec_rescore:
+            # this rank's rows and heads; the round's max over every rank
             diff = fused_rescore_diff(self.cfg, self.pool, aux["q_tape"],
-                                      aux["o_tape"], page_table, positions)
+                                      aux["o_tape"], own(page_table),
+                                      own(positions))
+            if self.shard is not None:
+                mesh = self.plan.mesh
+                diff = all_reduce_max(diff.reshape(1), mesh, tuple(
+                    a for a in mesh.axis_names if mesh.shape[a] > 1))[0]
         iout = torch.cat([toks, n_emit[:, None], n_acc[:, None]], dim=1)
         fout = torch.cat([lps, diff.expand(lps.shape[0], 1)], dim=1)
-        return iout, fout
+        return self._all(iout), self._all(fout)
 
     # ------------------------------------------------------------------
     def _append(self, r: GenRequest, toks, lps, now: float,
@@ -495,6 +592,12 @@ class ContinuousEngine:
         slot -> one decode chunk (or speculative round). Returns this
         round's token events."""
         now = time.perf_counter() if now_s is None else now_s
+        if self.shard is not None:
+            # lockstep: every rank takes rank 0's clock and submissions
+            now, reqs = broadcast_object((now, self._inbox), self.plan.mesh)
+            self._inbox = []
+            for req in reqs:
+                self._enqueue(req)
         events: List[TokenEvent] = []
         sched = self.sched
         newly = sched.admit(now)
@@ -537,8 +640,10 @@ class ContinuousEngine:
             self._m_prefill_tokens.inc(pref.prefill_pos - c0)
             if pref.prefill_pos >= pref.prompt_len:  # prompt fully cached
                 s = pref.slot
-                if self.spec_k == 0:     # the spec path keeps it pending
-                    self._last[s] = logits_c[pref.prompt_len - 1 - c0]
+                # the spec path keeps it pending; a rank keeps its slots'
+                if self.spec_k == 0 and self._lo <= s < self._lo + self._n:
+                    self._last[s - self._lo] = \
+                        logits_c[pref.prompt_len - 1 - c0]
                 pref.state = DECODE
                 self._active[s], self._pos[s] = True, pref.prompt_len
                 self._gen[s], self._max_new[s] = 0, pref.max_new
@@ -751,10 +856,14 @@ def generate_continuous(cfg: ModelConfig, rl: RLConfig, params: Dict[str, Any],
                         prefill_chunk: Optional[int] = None,
                         prompt_lens: Optional[Sequence[int]] = None,
                         sync_every: int = 8,
-                        prefix_cache: bool = False) -> Dict[str, Any]:
+                        prefix_cache: bool = False,
+                        plan: Optional[ExecutionPlan] = None
+                        ) -> Dict[str, Any]:
     """Continuous-batching generation over ``prompts`` (B, Tp): the
-    rollout dict of ``rollout_from_results`` on the params' device, plus
-    the engine's ``stats``.
+    rollout dict of ``rollout_from_results`` on the engine's device, plus
+    the engine's ``stats``. ``plan`` is the engine's (``ContinuousEngine``):
+    on a live ``serve`` plan every rank calls this with the same
+    arguments and gets the same rollout.
 
     ``key`` (default ``PRNGKey(0)``) keys the token draws, per request
     with rid the row, as in the JAX package. ``num_slots`` decode slots
@@ -772,7 +881,8 @@ def generate_continuous(cfg: ModelConfig, rl: RLConfig, params: Dict[str, Any],
         num_slots=min(b, num_slots or 8), page_size=page_size,
         sync_every=sync_every,
         prefill_chunk=clamp_prefill_chunk(prefill_chunk, tp),
-        vocab_limit=vocab_limit, prefix_cache=prefix_cache, key=key)
+        vocab_limit=vocab_limit, prefix_cache=prefix_cache, key=key,
+        plan=plan)
     sp = SamplingParams(temperature=rl.temperature, top_k=rl.top_k,
                         top_p=rl.top_p, max_new_tokens=max_new)
     requests = []

@@ -31,6 +31,14 @@ given the same key, rid and logits.
 ``generate(cfg, rl, params, prompts, ...)`` is the legacy batch entry
 point, a thin shim over the engines. ``token_logps`` is the App. B.1
 untrusted-sampler recompute.
+
+Every entry point takes ``plan=`` (default ``plan_for_params(params,
+"serve")``, the local plan on the params' device). On a live ``serve``
+plan the continuous engine serves tensor-parallel
+(``sampling/continuous.py``) and ``token_logps`` runs its forward on the
+rank's shard; the static engine on a live plan raises
+``NotImplementedError`` (its dense cache shards the sequence over
+'model', which needs a context-parallel decode: ROADMAP queue 1 item 10).
 """
 from __future__ import annotations
 
@@ -45,7 +53,10 @@ import torch
 from repro_torch.config import ModelConfig, RLConfig, ServeConfig
 from repro_torch.data.tasks import EOS, PAD
 from repro_torch.kernels.ops import fused_token_logprob
+from repro_torch import runtime_context
 from repro_torch.models.model import decode_step, forward, init_cache
+from repro_torch.parallel.plan import (QUEUE_ITEM, ExecutionPlan,
+                                       plan_for_params, plan_from_flag)
 from repro_torch.sampling.continuous import (ContinuousEngine,
                                              generate_continuous)
 from repro_torch.sampling.paged_cache import paged_cache_supported
@@ -171,6 +182,15 @@ class StaticEngine:
         return out
 
 
+def _refuse_static(plan: ExecutionPlan) -> None:
+    if plan.mesh.live:
+        raise NotImplementedError(
+            f"{plan.describe()}: the static engine on a mesh (its dense "
+            "cache shards the sequence over 'model', a context-parallel "
+            f"decode with a log-sum-exp combine over ranks) is {QUEUE_ITEM}; "
+            "serve with engine='continuous'")
+
+
 # --------------------------------------------------------------------------
 # factory
 
@@ -179,16 +199,23 @@ def build_engine(cfg: ModelConfig, params: Dict[str, Any],
                  serve: ServeConfig, *, rl: Optional[RLConfig] = None,
                  vocab_limit: Optional[int] = None,
                  memory: Optional[torch.Tensor] = None,
-                 key: Optional[torch.Tensor] = None
+                 key: Optional[torch.Tensor] = None,
+                 plan: Optional[ExecutionPlan] = None
                  ) -> Union[StaticEngine, ContinuousEngine]:
-    """The engine a ``ServeConfig`` describes, on the device ``params``
-    live on. ``rl`` carries the sampling profile every request must
+    """The engine a ``ServeConfig`` describes, on ``plan`` (default the
+    plan of ``serve.mesh`` on the params' device: the local plan for
+    1x1, else a live mesh over the process group). ``rl`` carries the
+    sampling profile every request must
     match; ``key`` (default the engine's ``PRNGKey(0)``) keys the token
     draws; ``memory`` is the static engine's. Falls back to the static
     engine, with a warning, for architectures the paged cache cannot
     serve (Mamba2 layers, an encoder) and whenever a memory is given, as
-    the JAX package does."""
+    the JAX package does; on a live plan the static engine raises."""
     rl = rl or RLConfig(engine=serve.engine)
+    if plan is None:
+        plan = plan_for_params(params, "serve")
+        if serve.mesh != "1x1":
+            plan = plan_from_flag(serve.mesh, "serve", plan.device)
     if serve.paged_attn_impl:
         cfg = dataclasses.replace(cfg, paged_attn_impl=serve.paged_attn_impl)
     if serve.engine == "continuous":
@@ -203,10 +230,11 @@ def build_engine(cfg: ModelConfig, params: Dict[str, Any],
                 prefix_cache_entries=serve.prefix_cache_entries,
                 spec_k=serve.spec_k, spec_ngram_max=serve.spec_ngram_max,
                 spec_ngram_min=serve.spec_ngram_min,
-                spec_rescore=serve.spec_rescore, key=key)
+                spec_rescore=serve.spec_rescore, key=key, plan=plan)
         warnings.warn(f"{cfg.name}: continuous engine unsupported for this "
                       "architecture/memory setup; serving static",
                       stacklevel=2)
+    _refuse_static(plan)
     return StaticEngine(cfg, params, rl=rl, vocab_limit=vocab_limit,
                         memory=memory, key=key)
 
@@ -222,6 +250,7 @@ def generate(cfg: ModelConfig, rl: RLConfig, params: Dict[str, Any],
              vocab_limit: Optional[int] = None,
              memory: Optional[torch.Tensor] = None,
              engine: Optional[str] = None,
+             plan: Optional[ExecutionPlan] = None,
              **continuous_kwargs) -> Dict[str, Any]:
     """Batched generation over ``prompts`` (B, Tp). Returns the rollout
     dict, tensors on the params' device: tokens (B, Tp + max_new),
@@ -235,9 +264,11 @@ def generate(cfg: ModelConfig, rl: RLConfig, params: Dict[str, Any],
     architectures the paged cache cannot serve fall back to the static
     path with a warning that names the ignored ``continuous_kwargs``, as
     in the JAX package, and so does a call with a ``memory``. ``key``
-    (default ``PRNGKey(0)``) keys the draws; row ``i`` is request ``i``."""
+    (default ``PRNGKey(0)``) keys the draws; row ``i`` is request ``i``.
+    ``plan`` defaults to the local plan on the params' device."""
     key = PRNGKey(0) if key is None else key
     engine = engine or rl.engine
+    plan = plan or plan_for_params(params, "serve")
     if engine not in ("static", "continuous"):
         raise ValueError(f"unknown engine {engine!r}")
     if engine == "static" and continuous_kwargs:
@@ -250,13 +281,14 @@ def generate(cfg: ModelConfig, rl: RLConfig, params: Dict[str, Any],
         if memory is None and paged_cache_supported(cfg):
             return generate_continuous(cfg, rl, params, prompts, key,
                                        max_new=max_new,
-                                       vocab_limit=vocab_limit,
+                                       vocab_limit=vocab_limit, plan=plan,
                                        **continuous_kwargs)
         dropped = (f"; ignoring {sorted(continuous_kwargs)}"
                    if continuous_kwargs else "")
         warnings.warn(f"{cfg.name}: continuous engine unsupported for this "
                       f"architecture/memory setup; falling back to "
                       f"static{dropped}", stacklevel=2)
+    _refuse_static(plan)
     dev = params["embed"].device
     prompts = torch.as_tensor(prompts).to(dev, torch.int64)
     completions, sampler_lp, comp_mask = _generate_static(
@@ -272,7 +304,8 @@ def generate(cfg: ModelConfig, rl: RLConfig, params: Dict[str, Any],
 def token_logps(cfg: ModelConfig, params: Dict[str, Any],
                 tokens: torch.Tensor, *,
                 memory: Optional[torch.Tensor] = None,
-                logprob_impl: Optional[str] = None) -> torch.Tensor:
+                logprob_impl: Optional[str] = None,
+                plan: Optional[ExecutionPlan] = None) -> torch.Tensor:
     """Teacher-forced log p(tokens[t] | tokens[<t]) -> (B, T-1) float32.
 
     The App. B.1 untrusted-sampler recompute: one dense forward (through
@@ -283,8 +316,12 @@ def token_logps(cfg: ModelConfig, params: Dict[str, Any],
     ``TrainConfig.logprob_impl`` vocabulary; None or "fused"
     auto-dispatches. ``memory`` (B, M, d) is what a memory or
     encoder-decoder model cross-attends (through K5 under
-    ``attn_impl="pallas"``)."""
-    logits, _, _ = forward(cfg, params, tokens[:, :-1], memory=memory)
+    ``attn_impl="pallas"``). ``params`` on a live ``serve`` ``plan`` are
+    this rank's shards: the forward runs on them (every rank the whole
+    batch) and gathers the logits over the vocab."""
+    shard = None if plan is None else plan.serve_shard(cfg)
+    with runtime_context.serve_context(shard):
+        logits, _, _ = forward(cfg, params, tokens[:, :-1], memory=memory)
     impl = None if logprob_impl == "fused" else logprob_impl
     lp, _ = fused_token_logprob(logits, tokens[:, 1:], impl=impl)
     return lp

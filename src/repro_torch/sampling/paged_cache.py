@@ -98,23 +98,33 @@ class PageAllocator:
 
 def init_paged_pool(cfg: ModelConfig, num_pages: int, page_size: int,
                     device: DeviceLike = "cuda",
-                    dtype: Optional[torch.dtype] = None) -> Dict:
+                    dtype: Optional[torch.dtype] = None,
+                    plan=None) -> Dict:
     """Zeroed page pools matching the model's per-block cache structure:
     ``{"layer_i": {"self": {"kp": ..., "vp": ...}}}``. Attention layers
-    only; other layer kinds do not page."""
+    only; other layer kinds do not page. ``plan`` (an ``ExecutionPlan``)
+    allocates this rank's shard of every pool, the KV heads its fitted
+    ``cache_shardings`` give it, on the plan's device when it names
+    one."""
     dev = resolve_device(device)
     dt = dtype or getattr(torch, cfg.dtype)
     shape = (cfg.num_blocks, num_pages, page_size, cfg.num_kv_heads,
              cfg.head_dim)
-    pool: Dict[str, Dict] = {}
+    shapes: Dict[str, Dict] = {}
     for i, kind in enumerate(cfg.block_pattern):
         if kind not in (ATTN, LOCAL):
             raise ValueError(
                 f"paged cache supports attention layers only, got {kind!r}")
-        pool[f"layer_{i}"] = {"self": {
-            "kp": torch.zeros(shape, dtype=dt, device=dev),
-            "vp": torch.zeros(shape, dtype=dt, device=dev)}}
-    return pool
+        shapes[f"layer_{i}"] = {"self": {"kp": shape, "vp": shape}}
+    if plan is not None:
+        sh = plan.cache_shardings(cfg, shapes)
+        shapes = {k: {"self": {n: sh[k]["self"][n].shard_shape(shape)
+                               for n in ("kp", "vp")}}
+                  for k in shapes}
+        dev = plan.device or dev
+    return {k: {"self": {n: torch.zeros(s, dtype=dt, device=dev)
+                         for n, s in layer["self"].items()}}
+            for k, layer in shapes.items()}
 
 
 def paged_cache_supported(cfg: ModelConfig) -> bool:

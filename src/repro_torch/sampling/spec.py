@@ -191,7 +191,9 @@ def fused_rescore_diff(cfg: ModelConfig, pool: Dict, q_tape: torch.Tensor,
     ``paged_prefill_layers`` launch per mask kind and return max |fused -
     in-forward| as a float32 scalar tensor. A kind that one pattern slot
     holds (every kind of qwen3 and Gemma2) folds that slot's pool leaves
-    as they are: no gather."""
+    as they are: no gather. On a serve plan each rank replays its own:
+    the tapes hold its heads and rows, the pools its KV heads, and the
+    table and positions are its slots'."""
     period = cfg.period
     diff = torch.zeros((), dtype=torch.float32, device=q_tape.device)
     for kind in dict.fromkeys(cfg.block_pattern):

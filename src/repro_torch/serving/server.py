@@ -107,11 +107,16 @@ async def _ws_read_frame(reader: asyncio.StreamReader
 class FrontDoor:
     """The serving front door: engine pump + HTTP/websocket endpoints.
     Serves on the device ``params`` live on; ``key`` keys the engine's
-    draws (default ``PRNGKey(0)``)."""
+    draws (default ``PRNGKey(0)``). A ``ServeConfig.mesh`` other than 1x1
+    raises: the door on a mesh is ROADMAP queue 1 item 10."""
 
     def __init__(self, cfg: ModelConfig, params, serve: ServeConfig, *,
                  rl: Optional[RLConfig] = None, tokenizer=None,
                  vocab_limit: Optional[int] = None, key=None) -> None:
+        if serve.mesh != "1x1":
+            raise NotImplementedError(
+                f"ServeConfig.mesh={serve.mesh!r}: the front door on a mesh "
+                "(rank 0 accepts and broadcasts) is ROADMAP queue 1 item 10")
         self.serve = serve
         self.rl = rl or RLConfig(engine="continuous")
         self.tokenizer = tokenizer

@@ -9,14 +9,19 @@ content-addressed cache (unchanged chunks never touch the wire), and
 survives a dropped link mid-transfer: partial byte progress is kept per
 chunk and the next sync resumes from the offset. It assembles the
 version on the host, as CPU tensors in the structure of ``like``; the
-caller places them on its device (or its plan).
+caller places them on its device (or its plan). A rank of a live plan
+(``rank=``) fetches only the cells of its shards on its plan's grid and
+assembles those shards, whatever grid the publisher cut.
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import Any, Dict, Iterable, List, Optional, Tuple
 
-from repro_torch.checkpoint.store import (PolicyStore, flatten_with_paths,
+import torch
+
+from repro_torch.checkpoint.store import (PolicyStore, decode_array,
+                                          flatten_with_paths, torch_dtype,
                                           unflatten_like)
 from repro_torch.transport.chunks import (ChunkRef, assemble_leaf, overlaps,
                                           shard_regions)
@@ -90,15 +95,20 @@ class ChunkSubscriber:
     def sync(self, like: Any, *, cfg=None, plan=None,
              version: Optional[int] = None,
              devices: Optional[Iterable[int]] = None,
-             assemble: Optional[bool] = None
+             assemble: Optional[bool] = None,
+             rank: Optional[int] = None
              ) -> Tuple[int, Any, SyncStats]:
         """Fetch ``version`` (newest when None) and assemble it into the
         structure of ``like``. Returns ``(version, host_tree, stats)``;
         ``host_tree`` is None for rank-scoped fetches (``devices``): those
         are partial by construction, so ``assemble`` defaults to
         ``devices is None`` and forcing it on a scoped fetch is an error.
-        Raises ``SyncInterrupted`` if the link drops; call again to
-        resume from the recorded byte offsets."""
+        ``rank`` (with ``plan`` and ``cfg``) fetches that rank's cells
+        alone and returns its shard of every leaf. Raises
+        ``SyncInterrupted`` if the link drops; call again to resume from
+        the recorded byte offsets."""
+        if rank is not None:
+            devices, assemble = [rank], False
         if assemble is None:
             assemble = devices is None
         elif assemble and devices is not None:
@@ -137,6 +147,8 @@ class ChunkSubscriber:
         for ref in missing:
             self._fetch(ref, payload[ref.hash], stats)
         tree = self._assemble(manifest, like) if assemble else None
+        if rank is not None:
+            tree = self._assemble_shards(manifest, like, plan, cfg, rank)
         # cache hygiene: keep only chunks the current version references —
         # the cache is bounded by one model copy, not the run length
         keep = manifest.hashes()
@@ -165,6 +177,40 @@ class ChunkSubscriber:
         stats.chunks_fetched += 1
         self.chunks_fetched += 1
         self.bytes_fetched += remaining
+
+    def _assemble_shards(self, manifest: Manifest, like: Any, plan, cfg,
+                         rank: int) -> Any:
+        """``rank``'s shard of every leaf on ``plan``'s grid, tiled from
+        the cached chunks that overlap it (the publisher's grid may be
+        another's: each chunk gives its intersection with the shard)."""
+        shardings = dict(flatten_with_paths(plan.param_shardings(cfg)))
+        by_key = {lm.key: lm for lm in manifest.leaves}
+        leaves = {}
+        for key, _ in flatten_with_paths(like):
+            lm = by_key[key]
+            cut = shardings[key].index(rank, lm.shape)
+            lo = [c.start for c in cut]
+            out = torch.empty([c.stop - c.start for c in cut],
+                              dtype=torch_dtype(lm.dtype))
+            covered = 0
+            for ref in lm.chunks:
+                if not overlaps(ref, tuple(lo), tuple(out.shape)):
+                    continue
+                part = decode_array(self._cache[ref.hash], lm.dtype,
+                                    ref.shape)
+                a = [max(s, c.start) for s, c in zip(ref.start, cut)]
+                b = [min(s + n, c.stop)
+                     for s, n, c in zip(ref.start, ref.shape, cut)]
+                dst = out[tuple(slice(x - o, y - o)
+                                for x, y, o in zip(a, b, lo))]
+                dst.copy_(part[tuple(slice(x - s, y - s)
+                                     for x, y, s in zip(a, b, ref.start))])
+                covered += dst.numel()
+            if covered != out.numel():
+                raise ValueError(f"leaf {key!r}: chunks cover {covered} of "
+                                 f"the shard's {out.numel()} elements")
+            leaves[key] = out
+        return unflatten_like(like, leaves)
 
     def _assemble(self, manifest: Manifest, like: Any) -> Any:
         by_key = {lm.key: lm for lm in manifest.leaves}

@@ -26,12 +26,13 @@ import torch.distributed as dist
 
 
 def run_job(work: Path, spec: dict, inputs: dict, world: int = 4,
-            timeout: float = 240.0) -> list:
+            timeout: float = 240.0, script: str = __file__) -> list:
     """Run the ``spec`` cases (``{"cases", "models", "rl"}``) on ``world``
-    rank processes over a ``file://`` store in ``work``; returns each
-    rank's outputs (a dict of arrays). Every rank is killed at the
-    timeout, so a hung collective fails the test instead of holding its
-    worker."""
+    rank processes of ``script`` (default this one; the serving jobs run
+    ``_torch_serve_ranks.py``) over a ``file://`` store in ``work``;
+    returns each rank's outputs (a dict of arrays). Every rank is killed
+    at the timeout, so a hung collective fails the test instead of
+    holding its worker."""
     root = Path(__file__).resolve().parents[1]
     np.savez(work / "inputs.npz", **inputs)
     (work / "cases.json").write_text(json.dumps(spec))
@@ -39,8 +40,8 @@ def run_job(work: Path, spec: dict, inputs: dict, world: int = 4,
                OMP_NUM_THREADS="1")
     env.pop("WORLD_SIZE", None)
     procs = [subprocess.Popen(
-        [sys.executable, __file__, str(r), str(world), str(work / "store"),
-         str(work)], env=env, stdout=subprocess.PIPE,
+        [sys.executable, str(script), str(r), str(world),
+         str(work / "store"), str(work)], env=env, stdout=subprocess.PIPE,
         stderr=subprocess.STDOUT, text=True) for r in range(world)]
     logs = []
     try:

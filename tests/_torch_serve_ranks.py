@@ -1,0 +1,251 @@
+"""One rank of the tensor-parallel serving jobs (run as a script, one
+process a rank, by ``_torch_parallel_ranks.run_job``, which
+``tests/test_torch_serve_plan.py`` calls).
+
+    python tests/_torch_serve_ranks.py RANK WORLD STORE_FILE WORKDIR
+
+Joins a gloo group of WORLD ranks through a ``file://`` store (60 s
+timeout, one torch thread), reads the models' weights from
+``WORKDIR/inputs.npz`` and the cases from ``WORKDIR/cases.json``, and
+runs each case's ``serve`` plan. It writes, per rank,
+``WORKDIR/out_<rank>.npz``: each case's tokens and log-probs, the element
+count and device of every param and pool leaf the rank holds, and what
+the case records besides. Imports torch and the port only.
+"""
+import dataclasses
+import datetime
+import json
+import os
+import sys
+
+import numpy as np
+import torch
+import torch.distributed as dist
+
+sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+from _torch_parallel_ranks import _leaves_with_paths, _unflatten  # noqa: E402
+
+
+def _config(spec):
+    from repro_torch.config import ModelConfig
+    return ModelConfig(**{k: tuple(v) if isinstance(v, list) else v
+                          for k, v in spec.items()})
+
+
+def _results(res):
+    """(tokens, logps, lengths) of a list of GenerationResults."""
+    return (np.concatenate([r.tokens for r in res]).astype(np.int64),
+            np.concatenate([r.logps for r in res]).astype(np.float32),
+            np.array([r.gen_count for r in res]))
+
+
+def _drive(case, cfg, params, plan, inputs, out):
+    """Run one case's traffic on ``plan`` (None: one device, the local
+    plan); returns the engine used, if any."""
+    from repro_torch.config import RLConfig
+    from repro_torch.sampling import generate_continuous
+    from repro_torch.sampling.continuous import ContinuousEngine
+    from repro_torch.sampling.prng import PRNGKey
+    from repro_torch.serving.api import Request, SamplingParams
+    kw = case["engine"]
+    rl = RLConfig(temperature=1.0, top_k=0, top_p=1.0,
+                  max_new_tokens=kw["max_new"])
+    prompts = inputs[case["prompts"]]
+    key = PRNGKey(case["key"])
+    if case["kind"] == "generate":
+        roll = generate_continuous(
+            cfg, rl, params, prompts, key, max_new=kw["max_new"],
+            vocab_limit=kw["vocab_limit"], num_slots=kw["num_slots"],
+            page_size=kw["page_size"], prefill_chunk=kw["prefill_chunk"],
+            sync_every=kw["sync_every"], plan=plan)
+        mask = roll["comp_mask"].numpy() > 0
+        return None, (roll["completions"].numpy()[mask].astype(np.int64),
+                      roll["sampler_lp"].numpy()[mask], mask.sum(1))
+    sp = SamplingParams(temperature=1.0, top_k=0, top_p=1.0,
+                        max_new_tokens=kw["max_new"])
+    eng = ContinuousEngine(
+        cfg, params, rl=rl, max_total_tokens=prompts.shape[1]
+        + kw["max_new"], num_slots=kw["num_slots"],
+        page_size=kw["page_size"], sync_every=kw["sync_every"],
+        prefill_chunk=kw["prefill_chunk"], vocab_limit=kw["vocab_limit"],
+        prefix_cache=case["kind"] == "prefix", spec_k=kw.get("spec_k", 0),
+        key=key, plan=plan)
+    reqs = [Request(rid=i, prompt=p, params=sp)
+            for i, p in enumerate(prompts)]
+    if case["kind"] == "spec":
+        return eng, _results(eng.generate(reqs))
+    # prefix: request 0 alone until its prompt is cached, then request 1,
+    # which shares its first tokens, into the other slot
+    eng.submit(reqs[0])
+    for _ in range(case["steps_before"]):
+        eng.step(now_s=0.0)
+    eng.submit(reqs[1])
+    eng.step(now_s=0.0)
+    second = eng.sched.slots[1]
+    out[f"{case['name']}/second_slot"] = np.array(
+        -1 if second is None or second.rid != 1 else 1)
+    while eng.has_work():
+        eng.step(now_s=0.0)
+    res = [eng.pop_result(0), eng.pop_result(1)]
+    out[f"{case['name']}/prefix_hits"] = np.array(
+        [r.prefix_hit_tokens for r in res])
+    return eng, _results(res)
+
+
+def _node_case(case, cfg, params, plans, inputs, out):
+    """A SamplerNode on the 1x2 serve plan syncs a version a 2x1 learner
+    plan (``train_fsdp``: the weights' fan-out dims cut over 'data')
+    published, fetching only its rank's cells, then re-fits onto the 2x1
+    serve plan with a newer version; its batches against a one-device
+    node's."""
+    from repro_torch.checkpoint import PolicyStore
+    from repro_torch.config import HeteroConfig, RLConfig
+    from repro_torch.data import ArithmeticTask, PromptPipeline, Tokenizer
+    from repro_torch.hetero import SamplerNode
+    from repro_torch.parallel import local_plan
+    from repro_torch.transport import publish_params
+    from repro_torch.transport.manifest import Manifest
+    name = case["name"]
+    learner = plans[("train_fsdp", (2, 1))]
+    serve, refit = plans[("serve", (1, 2))], plans[("serve", (2, 1))]
+    rl = RLConfig(loss_type="gepo", group_size=4, max_new_tokens=4,
+                  temperature=1.0, top_k=0, top_p=1.0, engine="continuous")
+    tok = Tokenizer()
+    store = PolicyStore()
+    new = {v: _unflatten_params(inputs, f"{case['model']}_{v}")
+           for v in ("v1", "v2")}
+
+    def node(plan, store):                # its own prompt stream
+        task = ArithmeticTask(max_operand=20, ops="+", prompt_width=6,
+                              seed=0)
+        return SamplerNode(0, cfg, rl, PromptPipeline(task, tok, 2, 4), task,
+                           tok, params, store, HeteroConfig(), seed=3,
+                           device="cpu", plan=plan)
+    sharded = node(serve, store)
+    publish_params(store, 1, learner, cfg,
+                   learner.device_put_params(cfg, new["v1"]))
+    sharded.sync()
+    sub = sharded.subscriber
+    manifest = Manifest.from_json(store.fetch(1)[1])
+    need = sub.needed_refs(manifest, plan=serve, cfg=cfg,
+                           devices=[serve.mesh.rank])
+    out[f"{name}/fetched"] = np.array([
+        sub.chunks_fetched, len({r.hash for _, refs in need for r in refs}),
+        len({r.hash for lm in manifest.leaves for r in lm.chunks})])
+    want = serve.local_shards(cfg, new["v1"])
+    out[f"{name}/v1_equal"] = np.array(all(
+        torch.equal(a, b) for (_, a), (_, b) in zip(
+            _leaves_with_paths(sharded.params), _leaves_with_paths(want))))
+    one = node(local_plan("serve", "cpu"), PolicyStore())
+    one.load_params(new["v1"], 1)
+    got, ref = sharded.generate_batch(0.0), one.generate_batch(0.0)
+    out[f"{name}/batch_tokens"] = np.stack([got.tokens, ref.tokens])
+    out[f"{name}/batch_lp"] = np.stack([got.sampler_lp, ref.sampler_lp])
+    # re-fit onto the 2x1 serve plan with a newer version
+    publish_params(store, 2, learner, cfg,
+                   learner.device_put_params(cfg, new["v2"]))
+    sharded.sync(plan=refit)
+    one.load_params(new["v2"], 2)
+    out[f"{name}/refit"] = np.array([sharded.plan == refit,
+                                     sharded.version == 2])
+    out[f"{name}/v2_equal"] = np.array(all(
+        torch.equal(a, b) for (_, a), (_, b) in zip(
+            _leaves_with_paths(sharded.params),
+            _leaves_with_paths(new["v2"]))))
+    got, ref = sharded.generate_batch(1.0), one.generate_batch(1.0)
+    out[f"{name}/refit_tokens"] = np.stack([got.tokens, ref.tokens])
+    out[f"{name}/refit_lp"] = np.stack([got.sampler_lp, ref.sampler_lp])
+
+
+def _refusals(cfg, params, plans, out):
+    """What a 1x2 serve plan does not serve yet: each must raise
+    ``NotImplementedError`` naming ROADMAP queue 1 item 10."""
+    from repro_torch.config import HeteroConfig, RLConfig, ServeConfig
+    from repro_torch.configs import smoke
+    from repro_torch.hetero import ThreadedHeteroRuntime
+    from repro_torch.models import init_params
+    from repro_torch.parallel import ExecutionPlan
+    from repro_torch.sampling import build_engine, generate
+    serve = plans[("serve", (1, 2))]
+    scout = smoke("llama4-scout-17b-a16e")
+    tries = {
+        "static": lambda: build_engine(cfg, params, ServeConfig(
+            engine="static"), plan=serve),
+        "generate_static": lambda: generate(
+            cfg, RLConfig(), params, np.full((2, 4), 5), plan=serve),
+        "long": lambda: build_engine(cfg, params, ServeConfig(),
+                                     plan=ExecutionPlan(serve.mesh, "long")),
+        "moe": lambda: build_engine(scout, init_params(scout, 0,
+                                                       device="cpu"),
+                                    ServeConfig(), plan=serve),
+        "threads": lambda: ThreadedHeteroRuntime(
+            cfg, RLConfig(), None, HeteroConfig(), None, None, None,
+            device="cpu", sampler_plan=serve),
+    }
+    for name, fn in tries.items():
+        try:
+            fn()
+            got = "no error"
+        except NotImplementedError as e:
+            got = str(e)
+        out[f"refuse/{name}"] = np.array("queue 1 item 10" in got)
+
+
+def _unflatten_params(inputs, prefix):
+    from repro_torch.models import params_from_numpy
+    pre = prefix + "/"
+    return params_from_numpy(_unflatten(
+        {k[len(pre):]: inputs[k] for k in inputs.files
+         if k.startswith(pre)}), device="cpu")
+
+
+def main():
+    rank, world, store, work = (int(sys.argv[1]), int(sys.argv[2]),
+                                sys.argv[3], sys.argv[4])
+    torch.set_num_threads(1)
+    dist.init_process_group("gloo", init_method=f"file://{store}",
+                            rank=rank, world_size=world,
+                            timeout=datetime.timedelta(seconds=60))
+    from repro_torch.parallel import ExecutionPlan, make_mesh
+    inputs = np.load(os.path.join(work, "inputs.npz"))
+    with open(os.path.join(work, "cases.json")) as f:
+        spec = json.load(f)
+    meshes, plans, out = {}, {}, {}
+    for dims in spec["meshes"]:               # every rank builds in order
+        meshes[tuple(dims)] = make_mesh(tuple(dims), ("data", "model"),
+                                        device="cpu")
+    for mode in ("serve", "train_fsdp"):
+        for dims, mesh in meshes.items():
+            plans[(mode, dims)] = ExecutionPlan(mesh, mode)
+    for case in spec["cases"]:
+        name = case["name"]
+        cfg = _config(spec["models"][case["model"]])
+        if case.get("impl"):
+            cfg = dataclasses.replace(cfg, paged_attn_impl=case["impl"])
+        params = _unflatten_params(inputs, case["model"])
+        if case["kind"] == "node":
+            _node_case(case, cfg, params, plans, inputs, out)
+            _refusals(cfg, params, plans, out)
+            continue
+        plan = plans[("serve", tuple(case["mesh"]))]
+        eng, (toks, lps, lens) = _drive(case, cfg, params, plan, inputs, out)
+        out[f"{name}/tokens"], out[f"{name}/logps"] = toks, lps
+        out[f"{name}/lengths"] = lens
+        if eng is not None:
+            for key, leaf in _leaves_with_paths(eng.params):
+                out[f"{name}/numel/params/{key}"] = np.array(
+                    [leaf.numel(), leaf.device.type == "cpu"])
+            for key, leaf in _leaves_with_paths(eng.pool):
+                out[f"{name}/numel/pool/{key}"] = np.array(
+                    [leaf.numel(), leaf.device.type == "cpu"])
+            if case["kind"] == "spec":
+                st = eng.stats()
+                out[f"{name}/spec"] = np.array(
+                    [st["spec_rounds"], st["drafted_tokens_total"],
+                     st["spec_rescore_max_diff"]])
+    np.savez(os.path.join(work, f"out_{rank}.npz"), **out)
+    dist.destroy_process_group()
+
+
+if __name__ == "__main__":
+    main()

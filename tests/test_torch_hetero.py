@@ -50,7 +50,7 @@ from repro.serving.api import SamplingParams as JSamplingParams
 from repro_torch import training as ttraining
 from repro_torch.checkpoint import PolicyStore
 from repro_torch.config import (HeteroConfig, ModelConfig, RLConfig,
-                                TrainConfig)
+                                ServeConfig, TrainConfig)
 from repro_torch.data import ArithmeticTask, PromptPipeline, Tokenizer
 from repro_torch.data.tasks import EOS
 from repro_torch.hetero import LearnerNode, RolloutBatch, SamplerNode
@@ -326,18 +326,53 @@ def test_sampler_paged_attn_impl_threads_into_cfg():
         == "ref"
 
 
-def test_nodes_default_to_cuda_and_refuse_what_is_not_ported():
+def test_nodes_default_to_cuda_and_refuse_what_is_not_ported(tmp_path):
+    """A node defaults to the card; a sampler mesh needs its ranks; on a
+    live serve plan (here a one-rank gloo group's 1x1 mesh, every
+    collective live; the 1x2 refusals run in
+    tests/test_torch_serve_plan.py) the static engine, the ``long`` mode
+    and a MoE config raise, naming ROADMAP queue 1 item 10."""
     if torch.cuda.is_available():
         pytest.skip("checks the behaviour on a machine without a card")
     with pytest.raises(RuntimeError, match="cuda"):
         SamplerNode(0, TINY, RL, None, None, Tokenizer(),
                     init_params(TINY, 0, device="cpu"), PolicyStore(),
                     HeteroConfig(), seed=0)
-    with pytest.raises(NotImplementedError, match="queue 1 item 10"):
-        HeteroConfig(sampler_mesh="1x2")
+    assert HeteroConfig(sampler_mesh="1x2").sampler_mesh == "1x2"
+    with pytest.raises(ValueError, match="DxM"):
+        HeteroConfig(sampler_mesh="two")
+    with pytest.raises(RuntimeError, match="torchrun --nproc-per-node 2"):
+        SamplerNode(0, TINY, RL, None, None, Tokenizer(),
+                    init_params(TINY, 0, device="cpu"), PolicyStore(),
+                    HeteroConfig(sampler_mesh="1x2"), seed=0, device="cpu")
     assert HeteroConfig(spec_k=2).spec_k == 2
     with pytest.raises(RuntimeError, match="torchrun --nproc-per-node 4"):
         tlaunch.main(["--device", "cpu", "--mesh", "2x2"])
+    import datetime
+
+    import torch.distributed as dist
+    from repro_torch.configs import smoke
+    from repro_torch.parallel import ExecutionPlan, make_debug_mesh
+    from repro_torch.sampling import build_engine
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path}/store",
+                            rank=0, world_size=1,
+                            timeout=datetime.timedelta(seconds=60))
+    try:
+        mesh = make_debug_mesh(1, 1, device="cpu")
+        serve = ExecutionPlan(mesh, "serve")
+        params = init_params(TINY, 0, device="cpu")
+        with pytest.raises(NotImplementedError, match="queue 1 item 10"):
+            build_engine(TINY, params, ServeConfig(engine="static"),
+                         plan=serve)
+        with pytest.raises(NotImplementedError, match="queue 1 item 10"):
+            build_engine(TINY, params, ServeConfig(),
+                         plan=ExecutionPlan(mesh, "long"))
+        scout = smoke("llama4-scout-17b-a16e")
+        with pytest.raises(NotImplementedError, match="queue 1 item 10"):
+            build_engine(scout, init_params(scout, 0, device="cpu"),
+                         ServeConfig(), plan=serve)
+    finally:
+        dist.destroy_process_group()
 
 
 def test_train_launcher_runs_hetero_on_the_cpu(tmp_path):

@@ -165,6 +165,43 @@ def test_prefill_kernel_matches_twin(cuda, dtype, c, d, page, rep, window,
     torch.testing.assert_close(got.float(), want, rtol=0, atol=TOL[dtype])
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_paged_kernels_at_a_1x2_ranks_local_heads(cuda, dtype):
+    """K3 and K4 at the heads one rank of qwen3-1.7b's 1x2 serve plan
+    launches them with (Hq 8, Hkv 4 of 16 / 8, D 128, page 16): the
+    (B, Hkv) grids and K3's cluster at half the KV heads, against the
+    twins; and each rank's half of the heads gives, bit for bit, the
+    rows of those heads of the one-device launch over all 16 / 8."""
+    q, kp, vp, table, lens = _dev(decode_inputs(
+        page=16, rep=2, d=128, hkv=8, seed=5), cuda, dtype)
+    live = lens <= table.shape[1] * 16
+    full = pa.paged_attention(q, kp, vp, table, lens)
+    for r in range(2):
+        qs, ks, vs = (t[..., 4 * r * m:4 * (r + 1) * m, :].contiguous()
+                      for t, m in ((q, 2), (kp, 1), (vp, 1)))
+        got = pa.paged_attention(qs, ks, vs, table, lens)
+        want = pa.paged_decode_ref(qs.float(), ks.float(), vs.float(),
+                                   table, lens)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got[live].float(), want[live], rtol=0,
+                                   atol=TOL[dtype])
+        assert torch.equal(got, full[:, 8 * r:8 * (r + 1)])
+    q, kp, vp, table, positions = _dev(prefill_inputs(
+        page=16, rep=2, d=128, c=77, hkv=8, seed=6), cuda, dtype)
+    full = ops.paged_prefill(q, kp, vp, table, positions, impl="pallas")
+    for r in range(2):
+        qs, ks, vs = (t[..., 4 * r * m:4 * (r + 1) * m, :].contiguous()
+                      for t, m in ((q, 2), (kp, 1), (vp, 1)))
+        got = ops.paged_prefill(qs, ks, vs, table, positions,
+                                impl="pallas")
+        want = ops.paged_prefill(qs.float(), ks.float(), vs.float(), table,
+                                 positions, impl="ref")
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got.float(), want, rtol=0,
+                                   atol=TOL[dtype])
+        assert torch.equal(got, full[:, :, 8 * r:8 * (r + 1)])
+
+
 def _poison_tails(kp, vp, table, lengths, page):
     """NaN in every pool row past a slot's length on its last live page
     (the pages past it in the table are the NaN scratch page already)."""
