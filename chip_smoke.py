@@ -267,6 +267,32 @@ never jax, never the JAX package. Phases, each fatal on failure:
    Both ranks emit the same tokens in every run. (d) K3/K4 at one rank's
    heads (Hq 8, Hkv 4, D 128; K4 C 512 after 1024) against their twins,
    timed beside the twin, the bound and SDPA.
+16. static plan: ``StaticEngine`` on ``serve`` and ``long`` plans (a
+   context-parallel dense-cache decode: each rank its span of positions
+   with every KV head, the ranks' partial softmaxes merged). (a)
+   qwen3-1.7b bf16 28/28, 16 x 832 + 192 (the static phase's traffic,
+   prefill through K5), on a 1x1 plan of a one-rank NCCL group: tokens
+   and logps bit-equal to one device, K5 launches equal. Two rank
+   processes on the one card over gloo (``--static-rank``): (b) 1x2, 16 x
+   832 + SPLAN_NEW, bf16 28/28 (weight bytes a rank, dense-cache bytes a
+   rank for 1024 positions, which must be half one device's; |Δ logp|
+   against one device, the mean within TOL_LOGP_MEAN_BF16), a float32
+   pair at SPLAN_F32_LAYERS layers with wq and wk x SPLAN_SHARP (tokens
+   equal, logps within TOL_PLAN_LP) and the control, the ranks' partials
+   merged without their max rescale, which must miss that bar; (c) a
+   ``long`` 2x1 plan, 1 x 8192 + 64 (half the cache's 8256 positions a
+   rank); (d) on 1x2, mamba2-1.3b 48/48 (its tied embedding x
+   SSM_EMBED_SCALE, so the layers and not the input token's own row
+   decide the logits; its recompute through K6 at 32 of 64 heads), whisper-small whole (its encoder through K5 at 6 of 12
+   heads, 750 memory rows a rank) and llama-3.2-vision-11b 40/40 (1601
+   memory rows on every rank) in bf16 against one device, each with a
+   float32 pair at a cut depth; (e) the front door on 1x2 (float32,
+   SPLAN_F32_LAYERS layers): 8 clients at once against rank 0, rank 1
+   following its rounds, tokens equal to the plan engine's ``generate``
+   under the same key. Both ranks emit the same tokens in every run. (f)
+   K5 at one rank's heads (the static prefill at 8 of 16 q heads,
+   Whisper's encoder and cross prefill at 6 of 12) and K6 at 32 of 64
+   heads against their twins, timed beside the twin, the bound and SDPA.
 
 Prints a ``{"kernels": [...]}`` JSON line, then as the last line
 ``{"ok": true, "device": {...}}``. Exits non-zero, printing no result,
@@ -318,7 +344,8 @@ from repro_torch import training as training_mod  # noqa: E402
 from repro_torch.models import model as model_mod  # noqa: E402
 from repro_torch.models.layers import rmsnorm  # noqa: E402
 from repro_torch.optim import global_norm, tree_leaves  # noqa: E402
-from repro_torch.sampling import (build_engine, generate_continuous,  # noqa: E402
+from repro_torch.sampling import (StaticEngine, build_engine,  # noqa: E402
+                                  generate_continuous,
                                   init_paged_pool, mask_vocab,
                                   rollout_from_results, stacked_pools,
                                   token_logps)
@@ -374,8 +401,8 @@ HETERO_STEPS, HETERO_ONLINE_STEPS, HETERO_SFT_STEPS = 4, 2, 2
 # depth cuts that keep the script inside its 1200 s limit (PERF.md §4): the
 # loop phases (8, 10) and the spec phase (9) run qwen3-1.7b at full width
 # but LOOP_LAYERS / SPEC_LAYERS of its 28 layers (a publish of the loop's
-# weights is 2.05 GB at 8 layers, 4.06 GB at 28)
-LOOP_LAYERS, SPEC_LAYERS = 8, 14
+# weights is 1.65 GB at 4 layers, 2.05 GB at 8, 4.06 GB at 28)
+LOOP_LAYERS, SPEC_LAYERS = 4, 8
 HETERO_PROMPTS = 2
 # the threaded phase waits this long for each sampler thread after the run
 # (a sampler batch in flight takes 2-6 s alone, longer beside a learner)
@@ -4500,7 +4527,7 @@ def memory_phase(dev, seed, card):
 
 SHARD_ROWS_A, SHARD_ROWS_B, SHARD_S = 16, 8, 1024
 SHARD_F32_LAYERS = 4                  # the float32 pair: 4 of 28 layers
-SHARD_BF16_LAYERS = 8                 # the timed bf16 steps: 8 of 28
+SHARD_BF16_LAYERS = 4                 # the timed bf16 steps: 4 of 28
 # the parity bars of tests/test_parallel_parity.py
 SHARD_RTOL_P, SHARD_ATOL_P, SHARD_RTOL_M, SHARD_ATOL_M = 5e-4, 1e-5, 2e-3, \
     1e-5
@@ -5238,6 +5265,629 @@ def serve_plan_phase(dev, seed, card):
     return launches, rows
 
 
+# --------------------------------------------------------------------------
+# phase 16: the static engine on serve and long plans (context-parallel
+# dense-cache decode), the SSM and memory families on a serve plan, and the
+# front door on a mesh
+
+SPLAN_NEW = 16                  # (b) new tokens over gloo ((a) runs all 192)
+SPLAN_LONG, SPLAN_LONG_NEW = 8192, 64                # (c) 1 x 8192 + 64
+SPLAN_F32_LAYERS = 4            # the float32 pairs: 4 of 28 layers
+SPLAN_SHARP = 4.0               # the pairs' wq, wk scale (scores x 16)
+FAM_ROWS, FAM_PROMPT, FAM_NEW = 4, 256, 16          # (d) 4 x 256 + 16
+VLM_PROMPT, VLM_NEW = 128, 8                        # (d) VLM 4 x 128 + 8
+SPLAN_DOOR_CLIENTS, SPLAN_DOOR_NEW = 8, 16
+STATIC_RANK_TIMEOUT_S = 600
+SSM_EMBED_SCALE = 0.05          # (d) mamba2's embedding (family_params)
+# (d) mamba2 bf16 on the plan against one device, mean |Δ logp|: with its
+# embedding scaled, the 48 Mamba2 layers decide the logits, and the plan's
+# sums (the gated RMSNorm's squares and out_proj over the ranks) round in
+# another order than one device's through all of them: mean 9.88e-2 (the
+# rollout) and 7.67e-2 (the recompute) on the H100, where the float32 pair
+# agreed to 2e-6. A rank scanning another rank's heads moves the logps by
+# nats (tests/test_torch_family_plan.py's control); the float32 pair is
+# the check that sees a fault of the split
+TOL_SSD_PLAN_MEAN_BF16 = 0.5
+
+
+def static_prompts(vocab, seed, rows=PROMPTS * GROUP, length=PROMPT_LEN):
+    rng = np.random.default_rng(seed + 16)
+    return rng.integers(3, vocab, (rows, length)).astype(np.int32)
+
+
+def static_run(cfg, params, prompts, plan, seed, new, memory=None):
+    """``StaticEngine`` on ``plan`` (None: one device) over ``prompts``
+    (temperature 1.0, ``new`` new tokens, every request rid i): the
+    results, the launches of the run, its seconds, the decode ms a step
+    (the run minus a prefill's time over new - 1 steps)."""
+    rl = RLConfig(temperature=1.0, top_k=0, top_p=1.0, max_new_tokens=new)
+    eng = StaticEngine(cfg, params, rl=rl, vocab_limit=cfg.vocab_size,
+                       memory=memory, key=prng.PRNGKey(seed), plan=plan)
+    sp = SamplingParams.from_rl(rl)
+    reqs = [Request(rid=i, prompt=p, params=sp) for i, p in enumerate(prompts)]
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    res = eng.generate(reqs)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = counts()
+    for r in res:
+        if not np.isfinite(r.logps).all() or (r.logps > 1e-6).any() or \
+                (r.tokens < 0).any() or (r.tokens >= cfg.vocab_size).any():
+            raise AssertionError(f"{cfg.name} request {r.rid}: bad tokens "
+                                 f"or logps")
+    return {"results": res, "launches": launches, "s": secs, "engine": eng}
+
+
+def results_equal(a, b):
+    return all(x.gen_count == y.gen_count and np.array_equal(x.tokens, y.tokens)
+               and np.array_equal(x.logps, y.logps) for x, y in zip(a, b))
+
+
+def static_plan_one_rank(dev, seed, card, work):
+    """Phase 16 (a): qwen3-1.7b bf16 at 28/28 layers, ``StaticEngine`` 16 x
+    832 + 192 (the static phase's traffic, prefill through K5), on a 1x1
+    serve plan of a one-rank NCCL group against one device on the same
+    weights: tokens and logps bit-equal, K5 launches equal. Returns the
+    plan run's launches."""
+    import datetime
+    import torch.distributed as dist
+    from repro_torch.parallel import ExecutionPlan, make_debug_mesh
+    torch.cuda.set_device(dev)
+    dist.init_process_group("nccl", init_method=f"file://{work}/nccl16",
+                            rank=0, world_size=1,
+                            timeout=datetime.timedelta(seconds=120))
+    try:
+        plan = ExecutionPlan(make_debug_mesh(1, 1, device=dev), "serve")
+        cfg = dataclasses.replace(get_config("qwen3-1.7b"), attn_impl="pallas")
+        params = init_params(cfg, seed + 60, device=dev)
+        prompts = static_prompts(cfg.vocab_size, seed)
+        ref = static_run(cfg, params, prompts, None, seed, NEW_TOKENS)
+        got = static_run(cfg, params, prompts, plan, seed, NEW_TOKENS)
+        equal = results_equal(got["results"], ref["results"])
+        k5 = (got["launches"]["flash_attention"],
+              ref["launches"]["flash_attention"])
+        log(f"[static-plan] (a) {plan.describe()} one-rank NCCL, {cfg.name} "
+            f"bf16 28/28 layers, StaticEngine {len(prompts)} x {PROMPT_LEN} "
+            f"+ {NEW_TOKENS}, temperature 1.0: tokens and logps "
+            f"{'bit-equal' if equal else 'NOT bit-equal'} to one device; "
+            f"{got['s']:.2f} s on the plan vs {ref['s']:.2f} s; K5 launches "
+            f"{k5[0]} vs {k5[1]} | {card}")
+        if not equal or got["launches"] != ref["launches"] or \
+                k5[0] != cfg.num_layers:
+            raise AssertionError("(a) the 1x1 serve plan differs from one "
+                                 "device")
+        del params, got, ref
+        free()
+        return {"flash_attention": k5[0]}
+    finally:
+        dist.destroy_process_group()
+
+
+def sharpen(params, f=SPLAN_SHARP):
+    """Every layer's wq and wk scaled by ``f`` (new leaves): sharper
+    attention, so the ranks' running maxima differ and a merge that drops
+    their rescale shows in the logps."""
+    out = {**params, "blocks": {k: dict(v) for k, v in
+                                params["blocks"].items()}}
+    for layer in out["blocks"].values():
+        layer["attn"] = {**layer["attn"], "wq": layer["attn"]["wq"] * f,
+                         "wk": layer["attn"]["wk"] * f}
+    return out
+
+
+def unscaled_combine(self, o, m, l, axes_):
+    """The control: each rank's partial weighted by its sum alone, without
+    exp(m - max over ranks)."""
+    if not axes_:
+        return o
+    parts = self.gather(torch.cat([o, l[..., None]], -1)[None], axes_, 0)
+    o_r, l_r = parts[..., :-1], parts[..., -1]
+    return (o_r * l_r[..., None]).sum(0) / l_r.sum(0)[..., None]
+
+
+def cache_bytes(cfg, eng, rows, length, memory=None):
+    """Bytes of the dense cache ``eng`` (a plan's StaticEngine) holds on
+    this rank for ``rows`` requests of ``length`` positions: the rank's
+    rows, its span of positions (and of the memory's rows)."""
+    from repro_torch import runtime_context
+    shard = eng.shard.with_cache(length, 0 if memory is None
+                                 else memory.shape[1])
+    _, r0, rn = shard.row_span(rows)
+    with torch.no_grad(), runtime_context.serve_context(shard):
+        cache = init_cache(cfg, eng.params, rn, length,
+                           memory=None if memory is None
+                           else memory[r0:r0 + rn])
+    n = tree_bytes(cache)
+    del cache
+    return n
+
+
+def full_cache_bytes(cfg, rows, length):
+    """A dense KV cache's bytes on one device (self-attention layers)."""
+    return (2 * cfg.num_layers * rows * length * cfg.num_kv_heads
+            * cfg.head_dim * torch.finfo(getattr(torch, cfg.dtype)).bits // 8)
+
+
+def add_launches(out, got):
+    for k, n in got.items():
+        out["launches"][k] = out["launches"].get(k, 0) + n
+
+
+def bf16_pair(out, tag, got, ref):
+    out[tag]["gap"] = logp_gap(got["results"], ref["results"])
+    out[tag]["ref_s"] = ref["s"]
+
+
+def family_params(cfg, seed, dev):
+    """``init_params``, with mamba2's tied N(0, 1) embedding scaled by
+    SSM_EMBED_SCALE: at init the residual carries the input token's row,
+    whose logit ||e||^2 ~ d outweighs what the Mamba2 layers add, so every
+    draw would be the argmax at logp 0 whatever the scan computes."""
+    params = init_params(cfg, seed, device=dev)
+    if cfg.family == "ssm":
+        params["embed"].mul_(SSM_EMBED_SCALE)
+    return params
+
+
+def placed_params(cfg, plan, seed, dev):
+    """This rank's shard of ``family_params(cfg, seed)`` on the card, the
+    ranks one after the other, so that one full copy at a time is on the
+    card beside the shards."""
+    import torch.distributed as dist
+    out = None
+    for r in range(plan.mesh.size):
+        if plan.mesh.rank == r:
+            full = family_params(cfg, seed, dev)
+            out = plan.device_put_params(cfg, full)
+            del full
+            free()
+        dist.barrier()
+    return out
+
+
+def static_rank_main(rank, world, work, seed, card, dev=None):
+    """Phase 16 (b)-(e), one of two rank processes on the one card (gloo
+    with CUDA tensors). Writes ``work/static<r>.json``."""
+    import datetime
+    import torch.distributed as dist
+    from repro_torch import runtime_context
+    from repro_torch.parallel import ExecutionPlan, make_mesh
+    from repro_torch.parallel import plan as plan_mod
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = dev or torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    dist.init_process_group("gloo", init_method=f"file://{work}/gloo16",
+                            rank=rank, world_size=world,
+                            timeout=datetime.timedelta(seconds=300))
+    meshes = {d: make_mesh(d, ("data", "model"), device=dev)
+              for d in ((1, 2), (2, 1))}
+    serve = ExecutionPlan(meshes[(1, 2)], "serve")
+    long = ExecutionPlan(meshes[(2, 1)], "long")
+    out = {"rank": rank, "launches": {}}
+    t_all = time.perf_counter()
+
+    def run(tag, cfg, params, prompts, plan, new, memory=None):
+        r = static_run(cfg, params, prompts, plan, seed, new, memory)
+        add_launches(out, r["launches"])
+        out[tag] = {"tokens": [x.tokens.tolist() for x in r["results"]],
+                    "s": r["s"], "launches": r["launches"]}
+        return r
+
+    # (b) qwen3-1.7b bf16 28/28 on 1x2: bytes a rank, the bf16 gap
+    cfg = dataclasses.replace(get_config("qwen3-1.7b"), attn_impl="pallas")
+    prompts = static_prompts(cfg.vocab_size, seed)
+    params = placed_params(cfg, serve, seed + 60, dev)
+    out["weight_bytes"] = tree_bytes(params)
+    out["on_card"] = all(t.device == dev for t in tree_leaves(params))
+    b16 = run("bf16", cfg, params, prompts, serve, SPLAN_NEW)
+    out["cache_bytes"] = cache_bytes(cfg, b16["engine"], len(prompts),
+                                     PROMPT_LEN + NEW_TOKENS)
+    out["cache_bytes_full"] = full_cache_bytes(cfg, len(prompts),
+                                               PROMPT_LEN + NEW_TOKENS)
+    del params, b16["engine"]
+    free()
+    if rank == 0:
+        full = init_params(cfg, seed + 60, device=dev)
+        out["full_weight_bytes"] = tree_bytes(full)
+        ref = static_run(cfg, full, prompts, None, seed, SPLAN_NEW)
+        bf16_pair(out, "bf16", b16, ref)
+        del full, ref
+        free()
+    # (b) the float32 pair at SPLAN_F32_LAYERS, sharpened; the control
+    c4 = dataclasses.replace(cfg, num_layers=SPLAN_F32_LAYERS,
+                             dtype="float32")
+    p4 = sharpen(init_params(c4, seed + 61, device=dev))
+    f32 = run("f32", c4, serve.device_put_params(c4, p4), prompts, serve,
+              SPLAN_NEW)
+    combine = plan_mod.ServeShard.combine
+    plan_mod.ServeShard.combine = unscaled_combine
+    try:
+        ctl = run("control", c4, serve.device_put_params(c4, p4), prompts,
+                  serve, SPLAN_NEW)
+    finally:
+        plan_mod.ServeShard.combine = combine
+    if rank == 0:
+        ref = static_run(c4, p4, prompts, None, seed, SPLAN_NEW)["results"]
+        for tag, r in (("f32", f32), ("control", ctl)):
+            out[tag]["held"] = plan_held(r["results"], ref)
+            out[tag]["gap"] = logp_gap(r["results"], ref)
+    del p4, f32, ctl
+    free()
+    out["t_b"] = time.perf_counter() - t_all
+    # (c) long 2x1: one request of 8192 + 64, the sequence over 'data'
+    t0 = time.perf_counter()
+    lp = static_prompts(cfg.vocab_size, seed + 1, 1, SPLAN_LONG)
+    params = placed_params(cfg, long, seed + 60, dev)
+    out["long_weight_bytes"] = tree_bytes(params)
+    lng = run("long", cfg, params, lp, long, SPLAN_LONG_NEW)
+    out["long_cache_bytes"] = cache_bytes(cfg, lng["engine"], 1,
+                                          SPLAN_LONG + SPLAN_LONG_NEW)
+    out["long_cache_full"] = full_cache_bytes(cfg, 1,
+                                              SPLAN_LONG + SPLAN_LONG_NEW)
+    del params, lng["engine"]
+    free()
+    if rank == 0:
+        full = init_params(cfg, seed + 60, device=dev)
+        bf16_pair(out, "long", lng, static_run(cfg, full, lp, None, seed,
+                                               SPLAN_LONG_NEW))
+        del full
+        free()
+    out["t_c"] = time.perf_counter() - t0
+    # (d) the families on 1x2
+    t0 = time.perf_counter()
+    for name, new, plen in (("mamba2-1.3b", FAM_NEW, FAM_PROMPT),
+                            ("whisper-small", FAM_NEW, FAM_PROMPT),
+                            ("llama-3.2-vision-11b", VLM_NEW, VLM_PROMPT)):
+        family_rank(out, run, name, new, plen, serve, seed, dev)
+    out["t_d"] = time.perf_counter() - t0
+    # (e) the door on 1x2: float32 qwen3 at SPLAN_F32_LAYERS
+    t0 = time.perf_counter()
+    door_rank(out, c4, init_params(c4, seed + 62, device=dev), serve, seed)
+    out["t_e"] = time.perf_counter() - t0
+    free()
+    dist.barrier()
+    dist.destroy_process_group()
+    with open(Path(work) / f"static{rank}.json", "w") as fh:
+        json.dump(out, fh)
+    return 0
+
+
+def family_rank(out, run, name, new, plen, serve, seed, dev):
+    """Phase 16 (d), one family on a rank: the static engine on the 1x2
+    plan in bf16 (rank 0 also on one device: the bf16 gap), the dense
+    cache's bytes a rank, a recompute on the plan (mamba2: through K6 at
+    the rank's SSM heads), and a float32 pair at a cut depth."""
+    from repro_torch import runtime_context
+    base = get_config(name)
+    tag = name.split("-")[0]
+    prompts = static_prompts(base.vocab_size, seed + 2, FAM_ROWS, plen)
+    layers = {"mamba2": 4, "whisper": base.num_layers,
+              "llama": VLM_F32_LAYERS}[tag]
+    for cfg, sfx, pseed in (
+            (dataclasses.replace(base, attn_impl="pallas",
+                                 ssd_impl="pallas"), "", seed + 63),
+            (dataclasses.replace(base, attn_impl="pallas", ssd_impl="pallas",
+                                 num_layers=layers, dtype="float32"),
+             "_f32", seed + 64)):
+        params = placed_params(cfg, serve, pseed, dev)
+        out[tag + sfx + "_weight_bytes"] = tree_bytes(params)
+        memory = x = None
+        if cfg.is_encdec or cfg.memory_seq:
+            x = stub_input(cfg, FAM_ROWS, seed, dev)
+            memory = x
+        if cfg.is_encdec:              # the plan's encoder: K5 at the
+            reset_counts()             # rank's heads
+            with torch.no_grad(), runtime_context.serve_context(
+                    serve.serve_shard(cfg)):
+                memory = encode(cfg, params, x)
+            add_launches(out, counts())
+            out[f"{tag}{sfx}_encode_k5"] = counts()["flash_attention"]
+        r = run(tag + sfx, cfg, params, prompts, serve, new, memory)
+        v = out[tag + sfx]
+        v["cache_bytes"] = cache_bytes(cfg, r["engine"], FAM_ROWS,
+                                       plen + new, memory)
+        if memory is not None:
+            v["mem_rows"] = r["engine"].shard.span(memory.shape[1])[2]
+        lp = roll = None
+        if not sfx:                    # the recompute on the plan
+            roll = rollout_from_results(prompts, r["results"], new,
+                                        device=dev)
+            reset_counts()
+            lp = token_logps(cfg, params, roll["tokens"], memory=memory,
+                             plan=serve)
+            torch.cuda.synchronize()
+            add_launches(out, counts())
+            v["recompute_launches"] = counts()
+        del r["engine"], params
+        free()
+        if out["rank"] == 0:
+            full = family_params(cfg, pseed, dev)
+            fmem = memory
+            if cfg.is_encdec:
+                with torch.no_grad():
+                    fmem = encode(cfg, full, x)
+            ref = static_run(cfg, full, prompts, None, seed, new, fmem)
+            if sfx:
+                v["held"] = plan_held(r["results"], ref["results"])
+                v["gap"] = logp_gap(r["results"], ref["results"])
+            else:
+                bf16_pair(out, tag, r, ref)
+                want = token_logps(cfg, full, roll["tokens"], memory=fmem)
+                mask = roll["comp_mask"] > 0
+                d = (lp[:, plen - 1:] - want[:, plen - 1:]).abs()[mask]
+                v["recompute_gap"] = [float(d.mean()), float(d.max())]
+            del full, fmem, ref
+        del memory, x, lp, roll, r
+        free()
+
+
+def door_rank(out, cfg, params, serve, seed):
+    """Phase 16 (e): the front door on the 1x2 plan. Rank 0 serves
+    SPLAN_DOOR_CLIENTS clients at once over HTTP and rank 1 follows its
+    rounds; then every rank runs the plan engine's ``generate`` on the
+    same (rid, prompt) pairs under the same key, whose tokens the door's
+    must equal."""
+    from repro_torch.parallel.collectives import broadcast_object
+    from repro_torch.serving.server import FrontDoor
+    sc = ServeConfig(num_slots=SLOTS, page_size=PAGE, prefill_chunk=512,
+                     sync_every=8, max_total_tokens=1024 + SPLAN_DOOR_NEW,
+                     seed=seed, port=0)
+    rl = RLConfig(**SERVE_PROFILE)
+    door = FrontDoor(cfg, params, sc, rl=rl, vocab_limit=cfg.vocab_size,
+                     plan=serve, key=prng.PRNGKey(seed))
+    prompts = family_prompts(cfg.vocab_size, seed + 16)
+    pairs = []
+    if door.leader:
+        build = door.build_request
+
+        def recorded(payload, now_s):
+            req = build(payload, now_s)
+            pairs.append((req.rid, payload["id"]))
+            return req
+        door.build_request = recorded
+
+        async def clients():
+            await door.start()
+            t0 = time.perf_counter()
+            got = await asyncio.gather(*(door_http(
+                door.port, "POST", "/generate",
+                {"id": i, "tokens": prompts[i].tolist(),
+                 "max_new_tokens": SPLAN_DOOR_NEW})
+                for i in range(SPLAN_DOOR_CLIENTS)))
+            wall = time.perf_counter() - t0
+            await door.close()
+            return got, wall
+        reset_counts()
+        got, wall = asyncio.run(clients())
+        add_launches(out, counts())
+        if any(st != 200 for st, _ in got):
+            raise AssertionError(f"(e) door statuses {[st for st, _ in got]}")
+        door_tokens = {i: body["tokens"] for i, (_, body) in enumerate(got)}
+        out["door"] = {"wall_s": wall}
+    else:
+        reset_counts()
+        door.follow()
+        add_launches(out, counts())
+        out["door"] = {}
+    pairs = broadcast_object(pairs, serve.mesh)
+    eng = door.engine
+    sp = SamplingParams.from_rl(rl, max_new=SPLAN_DOOR_NEW)
+    reset_counts()
+    res = eng.generate([Request(rid=rid, prompt=prompts[i], params=sp)
+                        for rid, i in sorted(pairs)])
+    add_launches(out, counts())
+    want = {i: r.tokens.tolist() for (rid, i), r in zip(sorted(pairs), res)}
+    if door.leader:
+        out["door"]["equal"] = all(door_tokens[i] == want[i]
+                                   for i in door_tokens)
+        out["door"]["clients"] = len(door_tokens)
+    del door, eng
+    free()
+
+
+def static_two_ranks(seed, card, work):
+    """Phase 16 (b)-(e): two rank processes on the one card."""
+    procs = [subprocess.Popen(
+        [sys.executable, str(Path(__file__).resolve()), "--static-rank",
+         str(r), "--shard-work", str(work), "--seed", str(seed),
+         "--shard-card", card],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for r in range(2)]
+    logs = []
+    try:
+        for pr in procs:
+            logs.append(pr.communicate(timeout=STATIC_RANK_TIMEOUT_S)[0])
+    finally:
+        for pr in procs:
+            pr.kill()
+            pr.wait()
+    if any(pr.returncode != 0 for pr in procs):
+        raise AssertionError("phase 16 ranks failed:\n" + "\n".join(
+            t[-3000:] for t in logs))
+    return [json.loads((Path(work) / f"static{r}.json").read_text())
+            for r in range(2)]
+
+
+def static_kernel_rows(dev, seed, card):
+    """Phase 16 (f): K5 and K6 at the shapes one rank of a 1x2 plan
+    launches them with, each against its twin, timed beside the twin, the
+    bound and SDPA (K6: none): K5 at qwen3-1.7b's static prefill on 8 of
+    16 q heads (4 of 8 KV heads), at Whisper's encoder (bidir, 1500
+    frames) and cross prefill (Sq 256 x Sk 1500) on 6 of 12 heads; K6 at
+    mamba2-1.3b's recompute (B 16, S 1024) on 32 of 64 heads."""
+    gen = torch.Generator(device=dev).manual_seed(seed + 17)
+    rows = {"flash_attention": [], "ssd_scan": []}
+    cases = (("static prefill, 1x2 rank", 16, PROMPT_LEN, PROMPT_LEN, 8, 4,
+              128, True),
+             ("whisper encoder, 1x2 rank", FAM_ROWS, 1500, 1500, 6, 6, 64,
+              False),
+             ("whisper cross prefill, 1x2 rank", FAM_ROWS, FAM_PROMPT, 1500,
+              6, 6, 64, False))
+    for label, b, sq, sk, hq, hkv, d, causal in cases:
+        q = torch.randn((b, sq, hq, d), generator=gen, device=dev).to(
+            torch.bfloat16)
+        k, v = (torch.randn((b, sk, hkv, d), generator=gen, device=dev).to(
+            torch.bfloat16) for _ in range(2))
+        got = fa.flash_attention(q, k, v, causal=causal)
+        want = fa.flash_attention_ref(q.float(), k.float(), v.float(),
+                                      causal=causal)
+        err = max_err(got, want)
+        del got, want
+        pairs = flash_pairs(sq, True, None) if causal else sq * sk
+        b_ms, b_by = bound(2 * (2 * q.numel() + k.numel() + v.numel()),
+                           4 * d * hq * b * pairs)
+        row = dict(case=label, max_abs_err=err, tol=TOL_FLASH[torch.bfloat16],
+                   bound_ms=b_ms, bound_by=b_by,
+                   ms=time_ms(lambda: fa.flash_attention(q, k, v,
+                                                         causal=causal),
+                              iters=10),
+                   plain_ms=time_ms(lambda: fa.flash_attention_ref(
+                       q, k, v, causal=causal), iters=3, warmup=1),
+                   library_ms=sdpa_flash(q, k, v, causal, None),
+                   shape=f"B={b} Sq={sq} Sk={sk} Hq={hq} Hkv={hkv} D={d} "
+                         f"causal={causal} bf16")
+        log(f"[static-plan] (f) K5 {label} ({row['shape']}): max|err| "
+            f"{err:.3e} (tol {row['tol']}), {row['ms']:.4f} ms, bound "
+            f"{b_ms:.4f} ms ({b_by}), twin {row['plain_ms']:.3f} ms, SDPA "
+            f"{row['library_ms']:.4f} ms | {card}")
+        if not err <= row["tol"]:
+            raise AssertionError(f"K5 at a rank's heads disagrees with its "
+                                 f"twin ({label})")
+        rows["flash_attention"].append(row)
+        del q, k, v
+        torch.cuda.empty_cache()
+    k6 = ssd_row(gen, dev, "mamba2 recompute, 1x2 rank (32 of 64 heads)",
+                 16, PROMPT_LEN + NEW_TOKENS, 32, 64, 1, 128, 256,
+                 torch.bfloat16, True)
+    log(f"[static-plan] (f) K6 at 32 of 64 heads: {k6['ms']:.4f} ms, bound "
+        f"{k6['bound_ms']:.4f} ms, twin {k6['plain_ms']:.3f} ms | {card}")
+    rows["ssd_scan"].append(k6)
+    return rows
+
+
+def static_plan_phase(dev, seed, card):
+    """Phase 16. Returns (its launches, the kernel rows of (f))."""
+    import tempfile
+    work = tempfile.mkdtemp(prefix="chip-smoke-phase16-")
+    t0 = time.perf_counter()
+    launches = dict(static_plan_one_rank(dev, seed, card, work))
+    log(f"[time] static plan: (a) one-rank NCCL "
+        f"{time.perf_counter() - t0:.1f}s")
+    t0 = time.perf_counter()
+    r0, r1 = static_two_ranks(seed, card, work)
+    log(f"[time] static plan: (b)-(e) two ranks "
+        f"{time.perf_counter() - t0:.1f}s ((b) {r0['t_b']:.1f}, (c) "
+        f"{r0['t_c']:.1f}, (d) {r0['t_d']:.1f}, (e) {r0['t_e']:.1f})")
+    for r in (r0, r1):
+        for k, n in r["launches"].items():
+            launches[k] = launches.get(k, 0) + n
+    tags = ["bf16", "f32", "control", "long", "mamba2", "whisper", "llama",
+            "mamba2_f32", "whisper_f32", "llama_f32"]
+    for tag in tags:
+        if r0[tag]["tokens"] != r1[tag]["tokens"]:
+            raise AssertionError(f"({tag}) the two ranks emit different "
+                                 "tokens")
+    mean, worst, same = r0["bf16"]["gap"]
+    half = r0["cache_bytes"] * 2 == r0["cache_bytes_full"] and \
+        r1["cache_bytes"] == r0["cache_bytes"]
+    log(f"[static-plan] (b) 1x2 over gloo (CUDA tensors, 2 ranks on one "
+        f"card), qwen3-1.7b bf16 28/28 layers, StaticEngine "
+        f"{PROMPTS * GROUP} x {PROMPT_LEN} + {SPLAN_NEW}: weights "
+        f"{r0['weight_bytes'] / 1e9:.3f} / {r1['weight_bytes'] / 1e9:.3f} GB "
+        f"per rank (one device {r0['full_weight_bytes'] / 1e9:.3f} GB), on "
+        f"the card {r0['on_card'] and r1['on_card']}; dense cache of "
+        f"{PROMPT_LEN + NEW_TOKENS} positions {r0['cache_bytes'] / 1e9:.3f} "
+        f"GB per rank (one device {r0['cache_bytes_full'] / 1e9:.3f} GB); "
+        f"{r0['bf16']['s']:.2f} s on the plan (gloo stages every collective "
+        f"through the host: not a speed figure; one device "
+        f"{r0['bf16']['ref_s']:.2f} s); |Δ logp| against one device before "
+        f"each request's first differing token: mean {mean:.3e}, max "
+        f"{worst:.3e}; {same}/{len(r0['bf16']['tokens'])} requests "
+        f"token-equal | {card}")
+    if r0["weight_bytes"] * 2 > r0["full_weight_bytes"] * 1.01 or not half \
+            or not (r0["on_card"] and r1["on_card"]) or \
+            not mean <= TOL_LOGP_MEAN_BF16:
+        raise AssertionError("(b) bf16: a rank holds more than its half, or "
+                             "the logps are off one device's")
+    for tag, label in (("f32", "1x2 float32"),
+                       ("control", "1x2 float32 control (partials merged "
+                                   "without their max rescale)")):
+        v = r0[tag]
+        log(f"[static-plan] (b) {label}, {SPLAN_F32_LAYERS}/28 layers, wq "
+            f"and wk x {SPLAN_SHARP}: tokens equal and logps within "
+            f"{TOL_PLAN_LP} of one device: {v['held']}; |Δ logp| mean "
+            f"{v['gap'][0]:.3e}, max {v['gap'][1]:.3e}, "
+            f"{v['gap'][2]}/{len(v['tokens'])} requests token-equal | {card}")
+        if v["held"] != (tag == "f32"):
+            raise AssertionError(f"({tag}) the bar is "
+                                 f"{'missed' if tag == 'f32' else 'held'}")
+    mean, worst, same = r0["long"]["gap"]
+    log(f"[static-plan] (c) long 2x1 (the sequence and heads over 'data'), "
+        f"qwen3-1.7b bf16 28/28, 1 x {SPLAN_LONG} + {SPLAN_LONG_NEW}: "
+        f"weights {r0['long_weight_bytes'] / 1e9:.3f} GB a rank; dense cache "
+        f"{r0['long_cache_bytes'] / 1e9:.3f} GB a rank of "
+        f"{r0['long_cache_full'] / 1e9:.3f} GB ({SPLAN_LONG + SPLAN_LONG_NEW} "
+        f"positions, {(SPLAN_LONG + SPLAN_LONG_NEW) // 2} a rank); "
+        f"{r0['long']['s']:.2f} s (one device {r0['long']['ref_s']:.2f} s); "
+        f"|Δ logp| mean {mean:.3e}, max {worst:.3e}, {same}/1 token-equal "
+        f"| {card}")
+    if r0["long_cache_bytes"] * 2 != r0["long_cache_full"] or \
+            not mean <= TOL_LOGP_MEAN_BF16:
+        raise AssertionError("(c) long: a rank holds more than half the "
+                             "cache, or the logps are off one device's")
+    for tag in ("mamba2", "whisper", "llama"):
+        v = r0[tag]
+        mean, worst, same = v["gap"]
+        bar = TOL_SSD_PLAN_MEAN_BF16 if tag == "mamba2" else \
+            TOL_LOGP_MEAN_BF16
+        extra = ""
+        if tag == "whisper":
+            extra = (f"; encoder through K5 at a rank's heads "
+                     f"({r0['whisper_encode_k5']} launches), memory "
+                     f"{v['mem_rows']} rows a rank")
+        if tag == "llama":
+            extra = f"; memory {v['mem_rows']} rows a rank"
+        log(f"[static-plan] (d) {tag} bf16 on 1x2: weights "
+            f"{r0[tag + '_weight_bytes'] / 1e9:.3f} GB a rank; cache "
+            f"{v['cache_bytes'] / 1e6:.1f} MB a rank; {v['s']:.2f} s (one "
+            f"device {v['ref_s']:.2f} s); |Δ logp| mean {mean:.3e}, max "
+            f"{worst:.3e}, {same}/{len(v['tokens'])} token-equal; recompute "
+            f"on the plan launched {v['recompute_launches']}, |Δ| against "
+            f"one device's mean {v['recompute_gap'][0]:.3e} max "
+            f"{v['recompute_gap'][1]:.3e} (means <= {bar}){extra} | {card}")
+        f = r0[tag + "_f32"]
+        log(f"[static-plan] (d) {tag} float32 pair: tokens equal and logps "
+            f"within {TOL_PLAN_LP}: {f['held']}; |Δ logp| mean "
+            f"{f['gap'][0]:.3e}, max {f['gap'][1]:.3e} | {card}")
+        if not mean <= bar or not f["held"] or \
+                not v["recompute_gap"][0] <= bar:
+            raise AssertionError(f"(d) {tag}: off one device's")
+    mamba, whisper, vlm = (get_config(n) for n in (
+        "mamba2-1.3b", "whisper-small", "llama-3.2-vision-11b"))
+
+    def half(n):
+        return n // 2 if n % 2 == 0 else n
+    if r0["mamba2"]["recompute_launches"]["ssd_scan"] != mamba.num_layers \
+            or r0["whisper_encode_k5"] != whisper.encoder_layers \
+            or r0["whisper"]["mem_rows"] != half(whisper.encoder_seq) \
+            or r0["llama"]["mem_rows"] != half(vlm.memory_seq):
+        raise AssertionError("(d) K6 / K5 launches or memory rows off")
+    d = r0["door"]
+    log(f"[static-plan] (e) the door on 1x2 (float32, {SPLAN_F32_LAYERS} "
+        f"layers): {d['clients']} clients at once against rank 0 in "
+        f"{d['wall_s']:.2f} s; tokens equal to the plan engine's generate "
+        f"under the same key: {d['equal']} | {card}")
+    if not d["equal"] or d["clients"] != SPLAN_DOOR_CLIENTS:
+        raise AssertionError("(e) the door's tokens differ from the plan "
+                             "engine's")
+    t0 = time.perf_counter()
+    rows = static_kernel_rows(dev, seed, card)
+    log(f"[time] static plan: (f) kernel rows {time.perf_counter() - t0:.1f}s")
+    return launches, rows
+
+
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description="PyTorch port smoke on one GPU")
@@ -5248,6 +5898,8 @@ def main(argv=None) -> int:
     ap.add_argument("--shard-card", default=None, help=argparse.SUPPRESS)
     ap.add_argument("--serve-rank", type=int, default=None,
                     help=argparse.SUPPRESS)     # phase 15's rank processes
+    ap.add_argument("--static-rank", type=int, default=None,
+                    help=argparse.SUPPRESS)     # phase 16's rank processes
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -5261,6 +5913,9 @@ def main(argv=None) -> int:
     if args.serve_rank is not None:
         return serve_rank_main(args.serve_rank, 2, args.shard_work,
                                args.seed, args.shard_card)
+    if args.static_rank is not None:
+        return static_rank_main(args.static_rank, 2, args.shard_work,
+                                args.seed, args.shard_card)
     dev = torch.device("cuda", 0)
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -5364,6 +6019,17 @@ def main(argv=None) -> int:
     for name, row in plan_rows.items():
         kernels[name]["serve_plan"] = [row]
     log(f"[time] serve plan phase {time.perf_counter() - t0:.1f}s")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    splan_launches, splan_rows = static_plan_phase(dev, args.seed, card)
+    for name, n in splan_launches.items():
+        launches[name] += n
+    for name, rows in splan_rows.items():
+        kernels[name]["static_plan"] = rows
+    kernels["flash_attention"]["launches_by_phase"][
+        "static plan (16: 1x1 NCCL, 1x2 and long 2x1 over gloo, families, "
+        "door)"] = splan_launches.get("flash_attention", 0)
+    log(f"[time] static plan phase {time.perf_counter() - t0:.1f}s")
     for name, row in kernels.items():
         row["launches"] = launches[name]
         row["kernel_ms"], row["twin_ms"] = row["ms"], row["plain_ms"]

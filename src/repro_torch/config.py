@@ -8,10 +8,10 @@ as its JAX namesake; only the ``paged_attn_impl`` default differs (see
 below). ``HeteroConfig`` keeps the JAX package's fields and defaults
 too. ``ServeConfig`` holds the deployment fields the serving path uses.
 Both take a ``DxM`` (or ``PxDxM``) mesh, ``sampler_mesh`` and ``mesh``:
-the continuous engine serves tensor-parallel on it; what a serve mesh
-does not serve yet (the static engine, the front door, the MoE, SSM and
-memory families) raises where it is used, naming ROADMAP queue 1 item
-10.
+both engines and the front door serve on it (the continuous engine
+tensor-parallel, the static engine with a context-parallel decode); what
+a serve mesh does not serve yet (the MoE family and jamba) raises where
+it is used, naming ROADMAP queue 1 item 10, slice 15.
 """
 from __future__ import annotations
 

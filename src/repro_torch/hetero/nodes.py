@@ -22,10 +22,12 @@ learner runs on an ``ExecutionPlan`` (``plan=``, default the
 plan on that device): on a live mesh it keeps its state sharded, and
 samplers and evals take its ``full_params()``. A sampler runs on a
 ``serve`` plan (``plan=``, default the ``HeteroConfig.sampler_mesh``
-knob): on a live one it keeps its shard of the weights, serves
-tensor-parallel, and fetches only its rank's cells of each published
-version (``ChunkSubscriber.sync(rank=)``); ``sync(plan=)`` re-fits it
-onto another plan.
+knob): on a live one it keeps its shard of the weights, serves through
+either engine (``rl.engine``: the continuous engine tensor-parallel, the
+static engine with a context-parallel decode, which also serves the SSM
+and memory families), and fetches only its rank's cells of each
+published version (``ChunkSubscriber.sync(rank=)``); ``sync(plan=)``
+re-fits it onto another plan.
 """
 from __future__ import annotations
 

@@ -54,19 +54,27 @@ listens on (``--port 0`` takes a free one) and runs until interrupted:
 ``--mesh DxM`` serves on a ``serve`` ``ExecutionPlan`` (``ServeConfig.mesh``):
 the continuous engine runs tensor-parallel over 'model' (each rank keeps
 its heads, FFN columns and vocab rows of the weights and its KV heads of
-the page pools) and splits the decode slots over 'data'. A mesh of more
-than one rank runs under ``torchrun``, one rank a process (NCCL on
-``cuda``, each rank on card ``LOCAL_RANK``; gloo on ``cpu``); every rank
-serves the same rounds, and rank 0 prints the plan and the lines below:
+the page pools) and splits the decode slots over 'data'; the static
+engine (``--engine static``, and the SSM and memory families) keeps the
+same shard of the weights and its span of the dense cache's positions
+over 'model', its rows over 'data', and decodes context-parallel. A mesh
+of more than one rank runs under ``torchrun``, one rank a process (NCCL
+on ``cuda``, each rank on card ``LOCAL_RANK``; gloo on ``cpu``); every
+rank serves the same rounds, and rank 0 prints the plan and the lines
+below:
 
   torchrun --standalone --nproc-per-node 2 -m repro_torch.launch.serve \
       --device cpu --smoke --mesh 1x2
   torchrun --standalone --nproc-per-node 2 -m repro_torch.launch.serve \
-      --mesh 1x2
+      --mesh 1x2 --engine static
+  torchrun --standalone --nproc-per-node 2 -m repro_torch.launch.serve \
+      --mesh 1x2 --listen --port 8100
 
-Every rank draws the full weights from ``--seed`` and keeps its shard. The
-static engine, ``--listen`` and the MoE, SSM and memory families on a
-mesh raise ``NotImplementedError`` (ROADMAP queue 1 item 10).
+With ``--listen`` rank 0 runs the front door and the other ranks follow
+its engine rounds (``FrontDoor.follow``). Every rank draws the full
+weights from ``--seed`` and keeps its shard. The MoE family (and jamba)
+on a mesh raise ``NotImplementedError`` (ROADMAP queue 1 item 10, slice
+15).
 """
 from __future__ import annotations
 
@@ -80,6 +88,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from repro_torch import runtime_context
 from repro_torch.config import RLConfig, ServeConfig
 from repro_torch.configs import get_config, smoke
 from repro_torch.data import Tokenizer
@@ -155,12 +164,15 @@ def parse_args(argv=None) -> argparse.Namespace:
 
 
 @torch.no_grad()
-def stub_memory(cfg, params, batch: int, seed: int) -> Optional[torch.Tensor]:
+def stub_memory(cfg, params, batch: int, seed: int,
+                plan=None) -> Optional[torch.Tensor]:
     """The stub memory of a memory or encoder-decoder model, one row per
     request (None for any other model): ``encode`` over N(0, 1) frame
     embeddings (batch, encoder_seq, d) for an encoder-decoder model,
     0.02 N(0, 1) patch embeddings (batch, memory_seq, d) for a CROSS
-    model, in ``cfg.dtype``, from a generator seeded by ``seed``."""
+    model, in ``cfg.dtype``, from a generator seeded by ``seed``. On a
+    live ``plan`` ``params`` are this rank's shards, and the encoder runs
+    on the rank's heads (every rank the whole memory)."""
     if not (cfg.is_encdec or cfg.memory_seq):
         return None
     dev = params["embed"].device
@@ -168,7 +180,9 @@ def stub_memory(cfg, params, batch: int, seed: int) -> Optional[torch.Tensor]:
     rows = cfg.encoder_seq if cfg.is_encdec else cfg.memory_seq
     x = torch.randn((batch, rows, cfg.d_model), generator=gen, device=dev)
     if cfg.is_encdec:
-        return encode(cfg, params, x.to(getattr(torch, cfg.dtype)))
+        shard = None if plan is None else plan.serve_shard(cfg)
+        with runtime_context.serve_context(shard):
+            return encode(cfg, params, x.to(getattr(torch, cfg.dtype)))
     return (0.02 * x).to(getattr(torch, cfg.dtype))
 
 
@@ -210,10 +224,6 @@ def _serve(args: argparse.Namespace, device: str) -> None:
     plan = plan_from_flag(serve.mesh, "serve", device)
     rank0 = plan.mesh.rank in (None, 0)
     if plan.mesh.live:
-        if args.listen:
-            raise NotImplementedError(
-                "--listen on a mesh (rank 0 accepts and broadcasts) is "
-                "ROADMAP queue 1 item 10")
         plan.serve_shard(cfg)            # raises for what it cannot serve
         if rank0:
             print(f"[serve] {plan.describe()}")
@@ -221,7 +231,7 @@ def _serve(args: argparse.Namespace, device: str) -> None:
     params = plan.device_put_params(cfg, init_params(cfg, args.seed,
                                                      device=device))
     key = PRNGKey(serve.seed)
-    memory = stub_memory(cfg, params, args.batch, args.seed)
+    memory = stub_memory(cfg, params, args.batch, args.seed, plan)
     if args.listen:
         if memory is not None:
             raise SystemExit("--listen serves decoder-only KV-cache "
@@ -231,7 +241,8 @@ def _serve(args: argparse.Namespace, device: str) -> None:
         try:
             asyncio.run(serve_forever(cfg, params, serve, rl=rl,
                                       tokenizer=tok,
-                                      vocab_limit=tok.vocab_size, key=key))
+                                      vocab_limit=tok.vocab_size, key=key,
+                                      plan=plan))
         except KeyboardInterrupt:
             pass
         return

@@ -160,8 +160,8 @@ def main(argv=None) -> None:
     cfg = smoke(args.arch)
     beta = args.beta_kl if args.beta_kl is not None else (
         0.0 if args.mode == "online" else 0.005)   # paper §4.1
-    # a sampler mesh serves through the continuous engine (the static
-    # engine on a mesh is ROADMAP queue 1 item 10)
+    # a sampler mesh serves through the continuous engine (page pools
+    # split over 'model'), one device through the static engine
     rl = RLConfig(loss_type=args.loss, group_size=args.group_size,
                   beta_kl=beta, max_new_tokens=6, temperature=1.0,
                   top_k=0, top_p=1.0,

@@ -1,7 +1,13 @@
 """Attention for the full-sequence forward (naive, chunked, the K5 flash
 kernel) and for one decode step against a dense KV cache, or against the
 ring-buffered cache of a local layer (``ring_decode_attention``,
-``fill_ring``).
+``fill_ring``). On a context-parallel decode each rank runs the decode
+functions on its span of the cache (``offset``, ``slots``) and returns
+its partial softmax (``partial=True``: the output over its keys with the
+running max and sum), which the ranks merge (``ServeShard.combine``);
+``memory_attention`` is the same partial over a rank's rows of a
+cross-attention memory. All of it is plain PyTorch, as the JAX package
+computes the decode outside any Pallas kernel.
 
 The port of ``repro/models/attention.py``. GQA is handled with grouped
 einsums (no repeated K/V); causal, sliding-window and bidirectional
@@ -19,7 +25,7 @@ the CUDA kernel on the card, its twin on the CPU; forward only).
 """
 from __future__ import annotations
 
-from typing import Optional, Union
+from typing import Optional, Tuple, Union
 
 import torch
 
@@ -199,31 +205,59 @@ def chunked_attention(q, k, v, *, pos_q, pos_k, kind="causal", window=4096,
                         min(q_chunk, q.shape[1]), min(kv_chunk, k.shape[1]))
 
 
+def _partial(s: torch.Tensor, v: torch.Tensor, b: int, hq: int, d: int):
+    """Masked scores s (B,G,R,K) and values v (B,K,G,D) -> the attention
+    over these keys alone, normalised over them, with its running max and
+    sum: (o (B,1,Hq,D), m (B,1,Hq), l (B,1,Hq)), float32."""
+    m = s.amax(dim=-1)
+    p = torch.exp(s - m[..., None])
+    l = p.sum(dim=-1)
+    o = torch.einsum("bgrk,bkgd->bgrd", p, v.float()) / l[..., None]
+    return (o.reshape(b, 1, hq, d), m.reshape(b, 1, hq),
+            l.reshape(b, 1, hq))
+
+
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
                      v_cache: torch.Tensor, *,
                      pos: Union[int, torch.Tensor], kind: str = "causal",
                      window: int = 4096, softcap: Optional[float] = None,
-                     length: Optional[int] = None) -> torch.Tensor:
+                     length: Optional[int] = None, offset: int = 0,
+                     partial: bool = False):
     """Single-token attention against a (B, Smax, Hkv, D) cache.
 
     q (B, 1, Hq, D); ``pos`` the current position, a scalar or a (B,)
     vector. Entries > pos are masked (and those <= pos - window for
     ``kind == "local"``). ``length`` (an int) is an optional upper bound on
     ``pos + 1``: the cache is sliced to it, so the masked tail is never
-    read."""
+    read.
+
+    ``offset`` is the position of the cache's first row: a rank of a
+    context-parallel decode holds the rows [offset, offset + Smax) of the
+    sequence and masks by their absolute positions. With ``partial`` it
+    returns (o, m, l), its attention over these rows alone (float32) with
+    the running max and sum a log-sum-exp merge over the ranks takes
+    (``ServeShard.combine``); a span with no visible row keeps one masked
+    row, whose weight in the merge is 0."""
     b, _, hq, d = q.shape
-    if length is not None and length < k_cache.shape[1]:
-        k_cache, v_cache = k_cache[:, :length], v_cache[:, :length]
+    if length is not None:
+        keep = max(1, min(k_cache.shape[1], length - offset))
+        if keep < k_cache.shape[1]:
+            k_cache, v_cache = k_cache[:, :keep], v_cache[:, :keep]
     smax, g = k_cache.shape[1], k_cache.shape[2]
     s = _scores(q.reshape(b, 1, g, hq // g, d), k_cache,
                 softcap)[:, :, :, 0]                      # (B,G,R,Smax)
     idx = torch.arange(smax, device=q.device)
+    if offset:
+        idx = idx + offset
     # an int position stays a host scalar: no copy to the device per layer
     posv = pos if isinstance(pos, int) else pos.reshape(-1, 1)   # (1|B, 1)
     valid = idx[None, :] <= posv
     if kind == "local":
         valid &= idx[None, :] > posv - window
-    p = torch.softmax(torch.where(valid[:, None, None], s, NEG_INF), dim=-1)
+    s = torch.where(valid[:, None, None], s, NEG_INF)
+    if partial:
+        return _partial(s, v_cache, b, hq, d)
+    p = torch.softmax(s, dim=-1)
     o = torch.einsum("bgrk,bkgd->bgrd", p, v_cache.float())
     return o.reshape(b, 1, hq, d).to(q.dtype)
 
@@ -231,7 +265,9 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
 def ring_decode_attention(q: torch.Tensor, k_ring: torch.Tensor,
                           v_ring: torch.Tensor, *,
                           pos: Union[int, torch.Tensor],
-                          softcap: Optional[float] = None) -> torch.Tensor:
+                          softcap: Optional[float] = None,
+                          slots: Optional[Tuple[int, int]] = None,
+                          partial: bool = False):
     """Single-token attention against a ring-buffered local-window cache.
 
     k_ring/v_ring (B, W, Hkv, D): slot ``s`` holds the key of position
@@ -239,17 +275,38 @@ def ring_decode_attention(q: torch.Tensor, k_ring: torch.Tensor,
     (pos - W, pos]; slots whose position is negative are not written yet
     and are masked. ``pos`` is shared by the batch (an int or a 0-d
     tensor). With W the sliding window the ring holds exactly the local
-    band, so no other mask applies."""
+    band, so no other mask applies.
+
+    ``slots`` (first, W) says that these rows are the ring's slots
+    [first, first + rows) of a ring of W (a rank's span of a
+    context-parallel decode; default the whole ring); ``partial`` returns
+    (o, m, l) as ``decode_attention`` does."""
     b, _, hq, d = q.shape
-    w, g = k_ring.shape[1], k_ring.shape[2]
+    n, g = k_ring.shape[1], k_ring.shape[2]
+    first, w = (0, n) if slots is None else slots
     s = _scores(q.reshape(b, 1, g, hq // g, d), k_ring,
-                softcap)[:, :, :, 0]                      # (B,G,R,W)
-    slot = torch.arange(w, device=q.device)
+                softcap)[:, :, :, 0]                      # (B,G,R,n)
+    slot = torch.arange(n, device=q.device)
+    if first:
+        slot = slot + first
     p = pos - torch.remainder(pos - slot, w)              # slot position
-    prob = torch.softmax(torch.where((p >= 0)[None, None, None], s,
-                                     NEG_INF), dim=-1)
+    s = torch.where((p >= 0)[None, None, None], s, NEG_INF)
+    if partial:
+        return _partial(s, v_ring, b, hq, d)
+    prob = torch.softmax(s, dim=-1)
     o = torch.einsum("bgrk,bkgd->bgrd", prob, v_ring.float())
     return o.reshape(b, 1, hq, d).to(q.dtype)
+
+
+def memory_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
+                     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """A rank's partial of unmasked attention of q (B, 1, Hq, D) over its
+    rows of a memory's keys and values (B, M_local, Hkv, D): (o, m, l) as
+    ``decode_attention(partial=True)`` returns them."""
+    b, _, hq, d = q.shape
+    g = k.shape[2]
+    s = _scores(q.reshape(b, 1, g, hq // g, d), k, None)[:, :, :, 0]
+    return _partial(s, v, b, hq, d)
 
 
 def fill_ring(k: torch.Tensor, window: int) -> torch.Tensor:

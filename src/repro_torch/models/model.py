@@ -44,6 +44,14 @@ through the attention:
   attention through ``repro_torch.kernels.ops``. The pools are written
   *in place*: a forward returns the same cache object it was given.
 
+On a serving plan (``runtime_context.serve_shard``) every layer runs
+this rank's shard: the paged path attends its KV heads through K3/K4;
+the dense path (the static engine and the recompute) runs its q heads
+through K5 in a prefill and decodes context-parallel, its part of the
+dense cache a span of positions with every KV head
+(``_self_attn_plan``, ``_cross_attn_plan``), and a Mamba2 layer runs its
+SSM heads (``models.ssm.mamba_block``).
+
 Parameters are the JAX package's tree: block leaves are stacked
 ``(nb, ...)`` and applied one block at a time in a Python loop (the JAX
 package scans them). With ``cfg.local_ring_kv`` the dense cache of a
@@ -64,7 +72,8 @@ from repro_torch.config import (ATTN, CROSS, LOCAL, MAMBA, MLP, MOE, NONE,
                                 ModelConfig)
 from repro_torch.kernels.ops import paged_decode, paged_prefill
 from repro_torch.models.attention import (attention, decode_attention,
-                                          fill_ring, ring_decode_attention,
+                                          fill_ring, memory_attention,
+                                          ring_decode_attention,
                                           standard_positions)
 from repro_torch.models.layers import rmsnorm, rope, softcap, swiglu
 from repro_torch.models.moe import moe_ffn
@@ -115,15 +124,107 @@ def _project_qkv(cfg: ModelConfig, p: Dict, x: torch.Tensor
     return q, k, v
 
 
-def _attn_out(p: Dict, o: torch.Tensor) -> torch.Tensor:
+def _attn_out(p: Dict, o: torch.Tensor, own: bool = False) -> torch.Tensor:
     """The output projection of the attention output o (B, S, H, D); on a
     tensor-parallel serving forward, of this rank's heads through its rows
-    of ``wo``, summed over 'model'."""
+    of ``wo``, summed over the head axes (``own``: o holds exactly this
+    rank's heads already)."""
     b, sq = o.shape[0], o.shape[1]
     tp = runtime_context.serve_shard()
     if tp is None:
         return o.reshape(b, sq, -1) @ p["wo"]
-    return tp.reduce_attn(tp.own_heads(o).reshape(b, sq, -1) @ p["wo"])
+    if not own:
+        o = tp.own_heads(o)
+    return tp.reduce_attn(o.reshape(b, sq, -1) @ p["wo"])
+
+
+def _project_local(cfg: ModelConfig, p: Dict, x: torch.Tensor, tp
+                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """q of this rank's heads (B, S, Hq_local, D) and k, v of every KV
+    head (B, S, Hkv, D): the dense-cache forward of a serving plan (its
+    cache holds a span of positions with every KV head)."""
+    b, s, _ = x.shape
+    q = x @ p["wq"]
+    k = x @ p["wk"]
+    v = x @ p["wv"]
+    if "bq" in p:
+        q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
+    return (q.reshape(b, s, tp.q_heads[1], cfg.head_dim),
+            tp.kv_all(k).reshape(b, s, cfg.num_kv_heads, cfg.head_dim),
+            tp.kv_all(v).reshape(b, s, cfg.num_kv_heads, cfg.head_dim))
+
+
+def _heads_attention(tp, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     **kw) -> torch.Tensor:
+    """``attention`` of this rank's q heads (B, S, Hq_local, D) against
+    every KV head (B, Sk, Hkv, D): the KV heads of their groups where the
+    rank's heads are whole groups (or lie in one), else its heads padded
+    to all heads. Returns the rank's heads' outputs."""
+    kv = tp.kv_span()
+    if kv is not None:
+        k0, kn = kv
+        return attention(q, k[:, :, k0:k0 + kn], v[:, :, k0:k0 + kn], **kw)
+    return tp.take_heads(attention(tp.pad_heads(q), k, v, **kw))
+
+
+def _self_attn_plan(cfg: ModelConfig, p: Dict, x: torch.Tensor, tp, *,
+                    kind: str, mask_kind: str, positions: torch.Tensor,
+                    decode: bool, dense: Optional[Tuple],
+                    contiguous: Optional[bool]) -> torch.Tensor:
+    """Self-attention over a dense cache (or none) on a serving plan: a
+    context-parallel decode. The rank's cache holds its span of positions
+    (``ServeShard.span`` of ``cache_len``, or of the ring's rows) with
+    every KV head.
+
+    - prefill (or no cache): the rank's q heads attend the whole prompt
+      (K5 under ``attn_impl="pallas"``), and its span of the cache is
+      filled from every KV head;
+    - decode: the new K/V row is written by the rank whose span holds
+      its slot (``pos``, or ``pos mod W`` in a ring), q is gathered to
+      every head, each rank attends its span and the ranks' partials are
+      merged (``ServeShard.combine``); where the cache does not split,
+      every rank attends all of it (the plain path). The rank keeps its
+      own heads for the row-parallel ``wo``."""
+    q, k, v = _project_local(cfg, p, x, tp)
+    q = rope(q, positions, cfg.rope_theta)
+    k = rope(k, positions, cfg.rope_theta)
+    ring = cfg.local_ring_kv and kind == LOCAL
+    glen = min(tp.cache_len, cfg.sliding_window) if ring else tp.cache_len
+    if dense is not None and decode:
+        kc, vc, pos = dense
+        pos = pos if isinstance(pos, int) else int(pos)
+        ax, s0, n = tp.span(glen)
+        j = (pos % glen if ring else pos) - s0
+        if 0 <= j < n:
+            kc[:, j] = k[:, 0].to(kc.dtype)
+            vc[:, j] = v[:, 0].to(vc.dtype)
+        qa = tp.gather_heads(q)
+        if ring:
+            out = ring_decode_attention(qa, kc, vc, pos=pos,
+                                        softcap=cfg.attn_softcap,
+                                        slots=(s0, glen), partial=bool(ax))
+        else:
+            out = decode_attention(qa, kc, vc, pos=pos, kind=mask_kind,
+                                   window=cfg.sliding_window,
+                                   softcap=cfg.attn_softcap, length=pos + 1,
+                                   offset=s0, partial=bool(ax))
+        o = tp.combine(*out, ax).to(q.dtype) if ax else out
+        return _attn_out(p, tp.take_heads(o), own=True)
+    if dense is not None:
+        kc, vc, _ = dense
+        _, s0, n = tp.span(glen)
+        if ring:
+            kc.copy_(fill_ring(k, glen)[:, s0:s0 + n])
+            vc.copy_(fill_ring(v, glen)[:, s0:s0 + n])
+        else:
+            cnt = max(0, min(n, x.shape[1] - s0))
+            kc[:, :cnt] = k[:, s0:s0 + cnt].to(kc.dtype)
+            vc[:, :cnt] = v[:, s0:s0 + cnt].to(vc.dtype)
+    o = _heads_attention(tp, q, k, v, pos_q=positions, pos_k=positions,
+                         kind=mask_kind, window=cfg.sliding_window,
+                         softcap=cfg.attn_softcap, impl=cfg.attn_impl,
+                         chunk=cfg.attn_chunk, contiguous=contiguous)
+    return _attn_out(p, o, own=True)
 
 
 def _kv_write_index(positions: torch.Tensor, page_table: torch.Tensor,
@@ -173,14 +274,18 @@ def _self_attn(cfg: ModelConfig, p: Dict, x: torch.Tensor, *, kind: str,
     only) gets this layer's post-rope queries and attention outputs, both
     (B, S, Hq, D), appended as a pair."""
     sq = x.shape[1]
+    mask_kind = ("bidir" if bidir else
+                 "local" if kind == LOCAL else "causal")
+    tp = runtime_context.serve_shard()
+    if tp is not None and paged is None:
+        return _self_attn_plan(cfg, p, x, tp, kind=kind, mask_kind=mask_kind,
+                               positions=positions, decode=decode,
+                               dense=dense, contiguous=contiguous)
     q, k, v = _project_qkv(cfg, p, x)
     q = rope(q, positions, cfg.rope_theta)
     k = rope(k, positions, cfg.rope_theta)
-    tp = runtime_context.serve_shard()
     if tp is not None:
         q = tp.attn_heads(q)
-    mask_kind = ("bidir" if bidir else
-                 "local" if kind == LOCAL else "causal")
     if paged is None:
         ring = cfg.local_ring_kv and kind == LOCAL
         if dense is not None and decode:
@@ -250,6 +355,9 @@ def _cross_attn(cfg: ModelConfig, p: Dict, x: torch.Tensor, *,
     ``attn_impl="pallas"`` it launches K5 non-causal at Sq != Sk instead
     of checking zeros that are not ``arange`` and falling back."""
     b, sq, _ = x.shape
+    tp = runtime_context.serve_shard()
+    if tp is not None:
+        return _cross_attn_plan(cfg, p, x, tp, memory=memory, mem=mem)
     q = (x @ p["wq"]).reshape(b, sq, cfg.num_heads, cfg.head_dim)
     if mem is not None:
         k, v = mem
@@ -265,6 +373,43 @@ def _cross_attn(cfg: ModelConfig, p: Dict, x: torch.Tensor, *,
                   pos_k=zeros.expand(b, k.shape[1]), kind="bidir",
                   impl=cfg.attn_impl, chunk=cfg.attn_chunk, contiguous=True)
     return o.reshape(b, sq, -1) @ p["wo"]
+
+
+def _cross_attn_plan(cfg: ModelConfig, p: Dict, x: torch.Tensor, tp, *,
+                     memory: Optional[torch.Tensor],
+                     mem: Optional[Tuple[torch.Tensor, torch.Tensor]]
+                     ) -> torch.Tensor:
+    """Cross-attention on a serving plan, from this rank's q heads. A
+    cached memory holds the rank's span of its rows (``span`` of
+    ``mem_len``) with every KV head: a decode step attends its rows with
+    every head and merges the ranks' partials; a prefill gathers the rows
+    and runs K5 (under ``attn_impl="pallas"``) on its heads. A memory that
+    does not split (every rank holds every row), or one projected here,
+    takes K5 on the rank's heads with no merge."""
+    b, sq, _ = x.shape
+    q = (x @ p["wq"]).reshape(b, sq, tp.q_heads[1], cfg.head_dim)
+    if mem is not None:
+        k, v = mem
+        ax, _, _ = tp.span(tp.mem_len)
+        if ax and sq == 1:
+            o = tp.combine(*memory_attention(tp.gather_heads(q), k, v), ax)
+            return _attn_out(p, tp.take_heads(o.to(q.dtype)), own=True)
+        k, v = tp.gather(k, ax, 1), tp.gather(v, ax, 1)
+    elif memory is None:
+        raise ValueError(f"{cfg.name}: cross-attention needs memory= (or a "
+                         "cache from init_cache(memory=...))")
+    else:
+        m = memory.shape[1]
+        k = tp.kv_all(memory @ p["wk"]).reshape(b, m, cfg.num_kv_heads,
+                                                cfg.head_dim)
+        v = tp.kv_all(memory @ p["wv"]).reshape(b, m, cfg.num_kv_heads,
+                                                cfg.head_dim)
+    zeros = torch.zeros((b, 1), dtype=torch.long, device=x.device)
+    o = _heads_attention(tp, q, k, v, pos_q=zeros.expand(b, sq),
+                         pos_k=zeros.expand(b, k.shape[1]), kind="bidir",
+                         impl=cfg.attn_impl, chunk=cfg.attn_chunk,
+                         contiguous=True)
+    return _attn_out(p, o, own=True)
 
 
 def _aux_init(cfg: ModelConfig, device: torch.device
@@ -594,11 +739,20 @@ def init_cache(cfg: ModelConfig, params: Dict, batch: int, max_len: int,
     sliding_window)`` rows, a ring. A CROSS layer, and every decoder layer
     of an encoder-decoder model, holds ``cache["layer_i"]["mem"]["k_mem" |
     "v_mem"]`` (nb, batch, M, Hkv, D) in ``cfg.dtype``: ``memory`` (batch,
-    M, d) projected once here through its cross-attention's wk / wv."""
+    M, d) projected once here through its cross-attention's wk / wv.
+
+    Under a serving plan's shard (``runtime_context.serve_shard``, set
+    with ``ServeShard.with_cache``) the cache is this rank's part, as the
+    plan's fitted ``cache_specs`` cut it: ``batch`` is the rank's rows,
+    and each self-attention layer holds its span of the ``max_len``
+    positions (or of the ring's rows), a memory its span of the M rows,
+    both with every KV head; a Mamba2 layer its conv channels and SSM
+    heads."""
     dt = getattr(torch, cfg.dtype)
     dev = params["embed"].device
     cache: Dict[str, Any] = {}
     nb = cfg.num_blocks
+    tp = runtime_context.serve_shard()
 
     def mem_kv(i: int) -> Dict[str, torch.Tensor]:
         if memory is None:
@@ -612,17 +766,24 @@ def init_cache(cfg: ModelConfig, params: Dict, batch: int, max_len: int,
         m = memory.shape[1]
 
         def proj(wt: torch.Tensor) -> torch.Tensor:
-            return torch.einsum("bmd,ndh->nbmh", memory, wt).reshape(
-                nb, batch, m, cfg.num_kv_heads, cfg.head_dim).to(dt)
+            kv = torch.einsum("bmd,ndh->nbmh", memory, wt)
+            if tp is not None:                    # every KV head, its rows
+                _, r0, rn = tp.span(m)
+                kv = tp.kv_all(kv)[:, :, r0:r0 + rn]
+            return kv.reshape(nb, batch, kv.shape[2], cfg.num_kv_heads,
+                              cfg.head_dim).to(dt)
         return {"k_mem": proj(w["wk"]), "v_mem": proj(w["wv"])}
 
     for i, kind in enumerate(cfg.block_pattern):
         if kind == MAMBA:
             conv_ch = cfg.d_inner + 2 * cfg.ssm_ngroups * cfg.ssm_state
+            heads = cfg.ssm_heads
+            if tp is not None:                # its channels and heads
+                conv_ch, heads = tp.ssm.conv[1], tp.ssm.heads[1]
             cache[f"layer_{i}"] = {"ssm_c": {
                 "conv": torch.zeros((nb, batch, cfg.ssm_conv - 1, conv_ch),
                                     dtype=dt, device=dev),
-                "ssm": torch.zeros((nb, batch, cfg.ssm_heads,
+                "ssm": torch.zeros((nb, batch, heads,
                                     cfg.ssm_headdim, cfg.ssm_state),
                                    dtype=torch.float32, device=dev)}}
             continue
@@ -632,6 +793,8 @@ def init_cache(cfg: ModelConfig, params: Dict, batch: int, max_len: int,
         rows = max_len
         if cfg.local_ring_kv and kind == LOCAL:
             rows = min(max_len, cfg.sliding_window)
+        if tp is not None:                    # its span of positions
+            rows = tp.span(rows)[2]
         shape = (nb, batch, rows, cfg.num_kv_heads, cfg.head_dim)
         cache[f"layer_{i}"] = {"self": {
             n: torch.zeros(shape, dtype=dt, device=dev) for n in ("k", "v")}}

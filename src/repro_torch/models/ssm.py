@@ -30,6 +30,7 @@ import torch
 import torch.nn.functional as F
 import torch.utils.checkpoint
 
+from repro_torch import runtime_context
 from repro_torch.config import ModelConfig
 from repro_torch.kernels.ops import ssd_scan
 from repro_torch.models.layers import rmsnorm
@@ -216,14 +217,16 @@ def _split_xbc(cfg: ModelConfig, xbc: torch.Tensor):
             b.reshape(*shp, g, n), c.reshape(*shp, g, n))
 
 
-def _head_slice(cfg: ModelConfig, bsz: int, s: int) -> int:
-    """Heads per slice of ``ssd_chunked``: the intra-chunk working set of
-    a slice stays within HEAD_SLICE_BUDGET elements (~256 MB float32), as
-    in the JAX package; 0 = all heads at once."""
+def _head_slice(cfg: ModelConfig, bsz: int, s: int,
+                heads: Optional[int] = None) -> int:
+    """Heads per slice of ``ssd_chunked`` over ``heads`` heads (default
+    all): the intra-chunk working set of a slice stays within
+    HEAD_SLICE_BUDGET elements (~256 MB float32), as in the JAX package;
+    0 = all heads at once."""
     lc = min(cfg.ssm_chunk, s)
     nc = -(-s // lc)
     hc = max(1, HEAD_SLICE_BUDGET // max(bsz * nc * lc * lc, 1))
-    h = cfg.ssm_heads
+    h = cfg.ssm_heads if heads is None else heads
     while hc < h and h % hc:               # round down to a divisor
         hc -= 1
     return 0 if hc >= h else hc
@@ -242,31 +245,62 @@ def _ssd_kernel(cfg: ModelConfig, xs, dt, a_log_neg, b, c) -> torch.Tensor:
     return ssd_scan(xs, dt, a_log_neg, b, c, chunk=cfg.ssm_chunk)[:, :s]
 
 
+def _conv(p: Dict, xbc: torch.Tensor, cache: Optional[Dict], decode: bool
+          ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The causal depthwise conv of xbc (B,S,ch) -> (conv out (B,S,ch),
+    the new window (B,K-1,ch)); a decode step continues the cache's
+    window."""
+    k = p["conv_w"].shape[0]
+    if decode:
+        if cache is None:
+            raise ValueError("a Mamba2 decode step needs a cache")
+        window = torch.cat([cache["conv"], xbc], dim=1)        # (B,K,ch)
+        conv_out = torch.einsum("bkc,kc->bc", window[:, -k:], p["conv_w"])
+        return (conv_out + p["conv_b"])[:, None], window[:, 1:]
+    # the last K-1 inputs, zeros before the sequence's start
+    return (_causal_conv(xbc, p["conv_w"], p["conv_b"]),
+            F.pad(xbc, (0, 0, k - 1, 0))[:, -(k - 1):])
+
+
 def mamba_block(cfg: ModelConfig, p: Dict, x_in: torch.Tensor,
                 cache: Optional[Dict] = None,
                 decode: bool = False) -> torch.Tensor:
     """x_in (B,S,d) (S == 1 for decode) -> out (B,S,d). With ``cache`` (a
     layer's ``{"conv", "ssm"}``) a prefill starts from its state and a
     decode step from its window and state; both write the new window and
-    state into it in place."""
-    zxbcdt = x_in @ p["in_proj"]                      # (B,S,fan_out)
-    z, xbc, dt_raw = _split_in_proj(cfg, zxbcdt)
-    k = p["conv_w"].shape[0]
+    state into it in place.
 
-    if decode:
-        if cache is None:
-            raise ValueError("a Mamba2 decode step needs a cache")
-        window = torch.cat([cache["conv"], xbc], dim=1)        # (B,K,ch)
-        conv_out = torch.einsum("bkc,kc->bc", window[:, -k:], p["conv_w"])
-        conv_out = (conv_out + p["conv_b"])[:, None]           # (B,1,ch)
-        new_conv = window[:, 1:]
+    On a serving plan (``runtime_context.serve_shard`` with a Mamba2
+    split, ``ServeShard.ssm``) the weights are the reference's contiguous
+    cuts of the fused ``in_proj`` columns, the conv channels and the SSM
+    heads, which do not line up (the fused fan-out z | x | B | C | dt is
+    cut inside its parts): the rank gathers the projection's columns, runs
+    the conv on its channels (its conv weights and cache) and gathers the
+    conv's output, then runs the scan (K6 under ``ssd_impl="pallas"``) on
+    its heads with their state, the gated RMSNorm over ``d_inner`` with
+    its squares summed over the ranks, and ``out_proj`` on its rows,
+    summed over the ranks."""
+    tp = runtime_context.serve_shard()
+    sp = None if tp is None else tp.ssm
+    zxbcdt = x_in @ p["in_proj"]                      # (B,S,fan_out)
+    if sp is not None:
+        zxbcdt = tp.gather(zxbcdt, sp.in_axes, -1)
+    z, xbc, dt_raw = _split_in_proj(cfg, zxbcdt)
+    if sp is not None:
+        c0, cn = sp.conv
+        conv_out, new_conv = _conv(p, xbc[..., c0:c0 + cn], cache, decode)
+        conv_out = tp.gather(conv_out, sp.conv_axes, -1)
     else:
-        conv_out = _causal_conv(xbc, p["conv_w"], p["conv_b"])
-        # the last K-1 inputs, zeros before the sequence's start
-        new_conv = F.pad(xbc, (0, 0, k - 1, 0))[:, -(k - 1):]
+        conv_out, new_conv = _conv(p, xbc, cache, decode)
 
     xbc = F.silu(conv_out)
     xs, b, c = _split_xbc(cfg, xbc)
+    heads, di = cfg.ssm_heads, cfg.d_inner
+    if sp is not None:                                # this rank's heads
+        h0, heads = sp.heads
+        di = heads * cfg.ssm_headdim
+        xs, dt_raw = xs[:, :, h0:h0 + heads], dt_raw[..., h0:h0 + heads]
+        z = z[..., h0 * cfg.ssm_headdim:h0 * cfg.ssm_headdim + di]
     dt = F.softplus(dt_raw.float() + p["dt_bias"].float())
     a_log_neg = -torch.exp(p["A_log"].float())
 
@@ -280,13 +314,20 @@ def mamba_block(cfg: ModelConfig, p: Dict, x_in: torch.Tensor,
         y, state = ssd_chunked(
             xs, dt, a_log_neg, b, c, chunk=cfg.ssm_chunk,
             init_state=None if cache is None else cache["ssm"],
-            head_slice=_head_slice(cfg, xs.shape[0], xs.shape[1]))
+            head_slice=_head_slice(cfg, xs.shape[0], xs.shape[1], heads))
     if cache is not None:
         cache["conv"].copy_(new_conv)
         cache["ssm"].copy_(state)
 
     y = y + xs.float() * p["D"].float()[:, None]
-    y = y.reshape(*y.shape[:2], cfg.d_inner)                    # (B,S,di)
+    y = y.reshape(*y.shape[:2], di)                             # (B,S,di)
     y = y * F.silu(z.float())
-    y = rmsnorm(y.to(x_in.dtype), p["gate_norm"], cfg.norm_eps)
-    return y @ p["out_proj"]
+    if sp is None:
+        y = rmsnorm(y.to(x_in.dtype), p["gate_norm"], cfg.norm_eps)
+        return y @ p["out_proj"]
+    # the gated RMSNorm over all of d_inner: its squares summed over ranks
+    yf = y.to(x_in.dtype).float()
+    ss = tp.reduce((yf * yf).sum(dim=-1, keepdim=True), sp.inner_axes)
+    yf = yf * torch.rsqrt(ss / cfg.d_inner + cfg.norm_eps)
+    y = (yf * p["gate_norm"].float()).to(x_in.dtype)
+    return tp.reduce(y @ p["out_proj"], sp.inner_axes)

@@ -13,12 +13,15 @@ state, batch, KV cache) out of the logical-axis rules in
   back together;
 - the publisher cuts checkpoint chunks on the plan's shard grid
   (``repro_torch.transport``);
-- on a live ``serve`` plan, ``serve_shard`` reads this rank's part of a
-  dense model from the fitted shardings (its q and KV heads, whether the
-  output projections' rows and the vocab are split), which the
-  continuous engine hands the model around each forward
-  (``runtime_context.serve_context``), and ``cache_shardings`` fits the
-  paged pools (KV heads over 'model').
+- on a live ``serve`` or ``long`` plan, ``serve_shard`` reads this
+  rank's part of a model from the fitted shardings (its q and KV heads,
+  the axes the output projections' rows, the FFN and the vocab split
+  over, its Mamba2 channels and heads, and how a dense cache splits its
+  sequence and rows), which the engines hand the model around each
+  forward (``runtime_context.serve_context``), and ``cache_shardings``
+  fits the dense cache (sequence over 'model' on ``serve``, over
+  'data' x 'model' on ``long``) and the paged pools (KV heads over
+  'model').
 
 A torch tensor does not carry its placement, so the trees a plan places
 and gathers are matched with the sharding trees by position; a leaf whose
@@ -35,7 +38,7 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 
-from repro_torch.config import ATTN, LOCAL, MLP, ModelConfig
+from repro_torch.config import MAMBA, MOE, ModelConfig
 from repro_torch.device import DeviceLike
 from repro_torch.parallel import axes
 from repro_torch.parallel.collectives import (all_gather_dim, all_reduce_sum,
@@ -59,16 +62,39 @@ def placement_device(target: Optional[torch.device],
     return target
 
 
-_TP = ("model",)
-QUEUE_ITEM = "ROADMAP queue 1 item 10"
+QUEUE_ITEM = "ROADMAP queue 1 item 10, slice 15"
+
+
+def _live(mesh: Mesh, axes_: Tuple[str, ...]) -> Tuple[str, ...]:
+    """The axes of ``axes_`` of size > 1: a split over an axis of size 1
+    splits nothing and runs no collective."""
+    return tuple(a for a in axes_ if mesh.shape[a] > 1)
+
+
+@dataclasses.dataclass(frozen=True)
+class SsmSplit:
+    """This rank's part of a Mamba2 block (the reference's contiguous cuts
+    of the fitted param specs, kept as they are): ``in_axes`` the axes
+    ``in_proj``'s fused columns split over (the rank gathers the
+    activations); ``conv`` (first, count) of the conv channels of its
+    ``conv_w``/``conv_b`` and conv cache, split over ``conv_axes``;
+    ``heads`` (first, count) of the SSM heads of its ``A_log``/``D``/
+    ``dt_bias`` and state cache, whose ``d_inner`` channels are its
+    ``gate_norm`` and ``out_proj`` rows, split over ``inner_axes``."""
+    in_axes: Tuple[str, ...]
+    conv: Tuple[int, int]
+    conv_axes: Tuple[str, ...]
+    heads: Tuple[int, int]
+    inner_axes: Tuple[str, ...]
 
 
 @dataclasses.dataclass(frozen=True)
 class ServeShard:
-    """This rank's part of a dense model on a live ``serve`` plan, read
-    from the plan's fitted shardings, and the forward-only collectives a
-    tensor-parallel forward runs with it (Megatron's column and row
-    splits over 'model'):
+    """This rank's part of a model on a live ``serve`` or ``long`` plan,
+    read from the plan's fitted shardings, and the forward-only
+    collectives a tensor-parallel forward runs with it (Megatron's column
+    and row splits over the plan's tensor axes: 'model' on ``serve``,
+    'data' x 'model' on ``long``):
 
     - ``q_heads`` / ``kv_heads``: (first, count) of the q heads of this
       rank's ``wq``/``wo`` columns and rows, and of the KV heads its page
@@ -78,19 +104,34 @@ class ServeShard:
       heads are padded to all heads for the attention (``attn_heads``),
       so each attends the KV heads of its group at the kernels' GQA
       layout; ``own_heads`` keeps its own outputs;
-    - ``attn_split`` / ``ffn_split``: ``wo`` / ``w_down`` rows split, so
-      their products are all-reduced over 'model';
+    - ``head_axes`` / ``kv_axes`` / ``ffn_axes``: the axes ``wq``'s
+      columns (and ``wo``'s rows), ``wk``'s columns and the FFN's columns
+      (``w_down``'s rows) split over; the row-parallel products are summed
+      over them;
     - ``vocab``: (first, count) of the ``embed`` rows (and ``lm_head``
-      columns) this rank holds, None when whole: the lookup masks the ids
-      outside the range and all-reduces, the logits are gathered;
+      columns) this rank holds over ``vocab_axes``, None when whole: the
+      lookup masks the ids outside the range and all-reduces, the logits
+      are gathered;
     - ``rows``: the data axes the forward's batch rows split over (the
-      decode and verify chunks' slots): the model takes every row, runs
-      its own and gathers each layer's new K/V rows, so every data rank
-      writes every row and the pools stay equal over 'data'.
+      paged engine's decode and verify chunks' slots): the model takes
+      every row, runs its own and gathers each layer's new K/V rows, so
+      every data rank writes every row and the pools stay equal over
+      'data';
+    - the dense cache (the static engine's): ``tp`` the mode's tensor
+      axes, over which a dense cache splits its sequence (``span``) and
+      a Mamba2 layer its channels and heads; ``batch`` the axes its rows
+      split over (the data axes on ``serve``, none on ``long``);
+      ``cache_len`` and ``mem_len`` the global rows of this forward's
+      cache and memory (``with_cache``), from which each rank reads the
+      span of positions it holds. A decode gathers q over the head axes,
+      attends its span with every head and merges the ranks' partial
+      softmaxes (``combine``);
+    - ``ssm``: the Mamba2 split (``SsmSplit``), None without Mamba2
+      layers.
 
     A split over an axis of size 1 splits nothing, so it runs no
-    collective: a Dx1 plan reduces nothing over 'model', and a 1xM plan's
-    rows are whole (on a 1x1 live mesh only the engine's lockstep
+    collective: a Dx1 serve plan reduces nothing over 'model', and a 1xM
+    plan's rows are whole (on a 1x1 live mesh only the engines' lockstep
     broadcast runs)."""
     mesh: Mesh
     q_heads: Tuple[int, int]
@@ -98,14 +139,49 @@ class ServeShard:
     num_heads: int
     group: int                         # q heads per KV head
     kv_gather: bool
-    attn_split: bool
-    ffn_split: bool
+    head_axes: Tuple[str, ...]
+    kv_axes: Tuple[str, ...]
+    ffn_axes: Tuple[str, ...]
     vocab: Optional[Tuple[int, int]]
+    vocab_axes: Tuple[str, ...]
+    tp: Tuple[str, ...]
+    batch: Tuple[str, ...]
+    ssm: Optional[SsmSplit] = None
     rows: Tuple[str, ...] = ()
+    cache_len: int = 0
+    mem_len: int = 0
 
     def with_rows(self, rows: Tuple[str, ...]) -> "ServeShard":
         return dataclasses.replace(self, rows=tuple(rows))
 
+    def with_cache(self, cache_len: int, mem_len: int = 0) -> "ServeShard":
+        """This shard over a dense cache of ``cache_len`` positions (and a
+        memory of ``mem_len`` rows)."""
+        return dataclasses.replace(self, cache_len=int(cache_len),
+                                   mem_len=int(mem_len))
+
+    # ---- spans of a dense cache -----------------------------------------
+    def _span(self, axes_: Tuple[str, ...], length: int
+              ) -> Tuple[Tuple[str, ...], int, int]:
+        spec = axes.fit_spec(self.mesh, axes.P(axes_ or None), (length,))
+        live = _live(self.mesh, axes.entry_axes(spec[0]))
+        n = length // self.mesh.axes_size(live)
+        return live, self.mesh.axis_index(live) * n, n
+
+    def span(self, length: int) -> Tuple[Tuple[str, ...], int, int]:
+        """(axes, first, count) of the rows of a ``length``-row dense
+        cache (its sequence, or a memory's rows) this rank holds, as the
+        fitted ``cache_specs`` cut them: axes () where ``length`` does not
+        split, and the rank holds every row."""
+        return self._span(self.tp, length)
+
+    def row_span(self, batch: int) -> Tuple[Tuple[str, ...], int, int]:
+        """(axes, first, count) of the batch rows of a dense cache this
+        rank computes (split over the data axes on ``serve`` where they
+        divide the batch; every row on ``long``)."""
+        return self._span(self.batch, batch)
+
+    # ---- heads -----------------------------------------------------------
     @property
     def pads_heads(self) -> bool:
         return self.q_heads[1] != self.kv_heads[1] * self.group
@@ -117,13 +193,37 @@ class ServeShard:
         return all_gather_dim(t, self.mesh, self.rows, 0)
 
     def kv_columns(self, t: torch.Tensor) -> torch.Tensor:
-        return all_gather_dim(t, self.mesh, _TP, -1) if self.kv_gather else t
+        return all_gather_dim(t, self.mesh, self.kv_axes, -1) \
+            if self.kv_gather else t
+
+    def kv_all(self, t: torch.Tensor) -> torch.Tensor:
+        """k or v columns (..., cols) of this rank -> every KV head's."""
+        return all_gather_dim(t, self.mesh, self.kv_axes, -1)
+
+    def gather_heads(self, q: torch.Tensor) -> torch.Tensor:
+        """q (B, S, Hq_local, D) -> every q head (B, S, Hq, D)."""
+        return all_gather_dim(q, self.mesh, self.head_axes, 2)
+
+    def kv_span(self) -> Optional[Tuple[int, int]]:
+        """(first, count) of the KV heads this rank's q heads attend, when
+        they form whole groups of one contiguous run; None when the
+        rank's q heads straddle a group (then pad them, ``attn_heads``)."""
+        q0, qn = self.q_heads
+        g = self.group
+        if q0 % g == 0 and qn % g == 0:
+            return q0 // g, qn // g
+        if q0 // g == (q0 + qn - 1) // g:
+            return q0 // g, 1
+        return None
 
     def attn_heads(self, q: torch.Tensor) -> torch.Tensor:
         """q (..., Hq_local, D) as the attention takes it: padded with
         zeros to every head where the pools hold every KV head."""
         if not self.pads_heads:
             return q
+        return self.pad_heads(q)
+
+    def pad_heads(self, q: torch.Tensor) -> torch.Tensor:
         first, n = self.q_heads
         full = q.new_zeros(q.shape[:-2] + (self.num_heads, q.shape[-1]))
         full[..., first:first + n, :] = q
@@ -133,35 +233,76 @@ class ServeShard:
         first, n = self.q_heads
         return o[..., first:first + n, :] if self.pads_heads else o
 
+    def take_heads(self, o: torch.Tensor) -> torch.Tensor:
+        """This rank's q heads of an output over every head."""
+        first, n = self.q_heads
+        return o[..., first:first + n, :]
+
+    def combine(self, o: torch.Tensor, m: torch.Tensor, l: torch.Tensor,
+                axes_: Tuple[str, ...]) -> torch.Tensor:
+        """The ranks' partial attentions over their spans of keys merged
+        into the attention over all keys (a log-sum-exp merge over
+        ``axes_``): o (..., H, D) each rank's output normalised over its
+        keys, m / l (..., H) its running max and sum, float32. One
+        all-gather of the packed partials; every rank then weighs each by
+        l exp(m - max over ranks) in rank order, so all get the same
+        bits."""
+        if not axes_:
+            return o
+        packed = torch.cat([o, m[..., None], l[..., None]], dim=-1)
+        parts = self.gather(packed[None], axes_, 0)
+        o_r, m_r, l_r = parts[..., :-2], parts[..., -2], parts[..., -1]
+        w = l_r * torch.exp(m_r - m_r.amax(dim=0))
+        return (o_r * w[..., None]).sum(dim=0) / w.sum(dim=0)[..., None]
+
+    def gather(self, t: torch.Tensor, axes_: Tuple[str, ...],
+               dim: int) -> torch.Tensor:
+        """Every rank's ``t`` over ``axes_`` concatenated along ``dim``."""
+        return all_gather_dim(t, self.mesh, axes_, dim)
+
+    def reduce(self, t: torch.Tensor, axes_: Tuple[str, ...]
+               ) -> torch.Tensor:
+        """The sum of ``t`` over ``axes_``, in place."""
+        return all_reduce_sum(t, self.mesh, axes_)
+
+    # ---- row-parallel sums, vocab ---------------------------------------
     def reduce_attn(self, t: torch.Tensor) -> torch.Tensor:
-        return all_reduce_sum(t, self.mesh, _TP) if self.attn_split else t
+        return all_reduce_sum(t, self.mesh, self.head_axes)
 
     def reduce_ffn(self, t: torch.Tensor) -> torch.Tensor:
-        return all_reduce_sum(t, self.mesh, _TP) if self.ffn_split else t
+        return all_reduce_sum(t, self.mesh, self.ffn_axes)
 
     def embed(self, table: torch.Tensor, tokens: torch.Tensor
               ) -> torch.Tensor:
         """The rows of ``tokens`` from this rank's vocab rows of the
-        table, zero elsewhere, summed over 'model': exact, since each id
-        lives on one rank."""
+        table, zero elsewhere, summed over the vocab axes: exact, since
+        each id lives on one rank."""
         if self.vocab is None:
             return table[tokens]
         first, n = self.vocab
         ids = tokens - first
         ok = (ids >= 0) & (ids < n)
         x = torch.where(ok[..., None], table[ids.clamp(0, n - 1)], 0)
-        return all_reduce_sum(x, self.mesh, _TP)
+        return all_reduce_sum(x, self.mesh, self.vocab_axes)
 
     def gather_vocab(self, logits: torch.Tensor) -> torch.Tensor:
         if self.vocab is None:
             return logits
-        return all_gather_dim(logits, self.mesh, _TP, -1)
+        return all_gather_dim(logits, self.mesh, self.vocab_axes, -1)
 
 
-def _dense(cfg: ModelConfig) -> bool:
-    return (all(k in (ATTN, LOCAL) for k in cfg.block_pattern)
-            and all(f == MLP for f in cfg.ffn_pattern)
-            and not cfg.is_encdec and cfg.memory_seq == 0)
+def _refuse(plan: "ExecutionPlan", cfg: ModelConfig) -> None:
+    """What a live plan does not serve yet raises, naming its queue
+    item: the MoE family (``moe_ep="serve"``), jamba (its MoE and Mamba2
+    layers together)."""
+    if MOE not in cfg.ffn_pattern:
+        return
+    what = ("jamba (MoE and Mamba2 layers together)"
+            if MAMBA in cfg.block_pattern else
+            "the MoE family (moe_ep='serve': experts over 'model', the "
+            "expert FFN over 'data')")
+    raise NotImplementedError(f"{cfg.name} on {plan.describe()}: {what} on "
+                              f"a plan is {QUEUE_ITEM}")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -213,9 +354,9 @@ class ExecutionPlan:
             shapes)
 
     def serve_shard(self, cfg: ModelConfig) -> Optional[ServeShard]:
-        """This rank's part of ``cfg`` on a live ``serve`` plan (see
-        ``ServeShard``); None off a live mesh. The ``long`` mode, and the
-        MoE, SSM and memory families, raise ``NotImplementedError``."""
+        """This rank's part of ``cfg`` on a live ``serve`` or ``long``
+        plan (see ``ServeShard``); None off a live mesh. The MoE family
+        and jamba raise ``NotImplementedError`` (``QUEUE_ITEM``)."""
         return _serve_shard(self, cfg)
 
     def state_shardings(self, cfg: ModelConfig,
@@ -393,15 +534,11 @@ def _serve_shard(plan: ExecutionPlan, cfg: ModelConfig
                  ) -> Optional[ServeShard]:
     if not plan.mesh.live:
         return None
-    if plan.mode != "serve":
-        raise NotImplementedError(
-            f"{plan.describe()}: the engines serve on 'serve' plans; the "
-            f"{plan.mode!r} mode (a context-parallel decode with a "
-            f"log-sum-exp combine over ranks) is {QUEUE_ITEM}")
-    if not _dense(cfg):
-        raise NotImplementedError(
-            f"{cfg.name}: a serve plan runs dense attention + MLP models; "
-            f"the MoE, SSM and memory families on a mesh are {QUEUE_ITEM}")
+    if plan.mode not in ("serve", "long"):
+        raise ValueError(f"{plan.describe()}: serving runs on 'serve' or "
+                         f"'long' plans, not {plan.mode!r}")
+    _refuse(plan, cfg)
+    mesh = plan.mesh
     sh, shapes = plan.param_shardings(cfg), axes.param_shapes(cfg)
     rank, hd = plan._rank, cfg.head_dim
 
@@ -410,29 +547,61 @@ def _serve_shard(plan: ExecutionPlan, cfg: ModelConfig
         cut = s.index(rank, shape)[dim]
         return cut.start, cut.stop - cut.start
 
-    attn, ashape = sh["blocks"]["layer_0"]["attn"], \
-        shapes["blocks"]["layer_0"]["attn"]
-    q0, qn = span(attn["wq"], ashape["wq"], 2)
-    if q0 % hd or qn % hd:
-        raise NotImplementedError(
-            f"{cfg.name}: {cfg.num_heads} q heads do not split over "
-            f"model={plan.mesh.shape['model']} (wq is cut inside a head); "
-            f"a head-misaligned split is {QUEUE_ITEM}")
-    pool_shape = (cfg.num_blocks, 2, 1, cfg.num_kv_heads, hd)
-    pool = plan.cache_shardings(cfg, {"layer_0": {"self": {"kp": pool_shape}}})
-    k0, kn = span(pool["layer_0"]["self"]["kp"], pool_shape, 3)
-    _, cn = span(attn["wk"], ashape["wk"], 2)
-    v0, vn = span(sh["embed"], shapes["embed"], 0)
-    wide = plan.mesh.shape["model"] > 1       # size 1: nothing is split
+    def split(s: axes.NamedSharding, dim: int) -> Tuple[str, ...]:
+        spec = list(s.spec) + [None] * (dim + 1 - len(s.spec))
+        return _live(mesh, axes.entry_axes(spec[dim]))
 
-    def split(s: axes.NamedSharding) -> bool:
-        return wide and bool(s.sharded_dims())
-    return ServeShard(
-        mesh=plan.mesh, q_heads=(q0 // hd, qn // hd), kv_heads=(k0, kn),
-        num_heads=cfg.num_heads, group=cfg.num_heads // cfg.num_kv_heads,
-        kv_gather=cn != kn * hd, attn_split=split(attn["wo"]),
-        ffn_split=split(sh["blocks"]["layer_0"]["mlp"]["w_down"]),
-        vocab=(v0, vn) if split(sh["embed"]) else None)
+    def first(key: str):
+        """The fitted shardings and shapes of the first layer slot that
+        holds ``key`` (every slot holding it has the same leaf shapes)."""
+        for name, layer in sh["blocks"].items():
+            if key in layer:
+                return layer[key], shapes["blocks"][name][key]
+        return None, None
+
+    tp = ("model",) if plan.mode == "serve" else \
+        axes.entry_axes(axes._rules("long", mesh)["qkv"])
+    out = dict(mesh=mesh, num_heads=cfg.num_heads, tp=tp,
+               batch=plan.dp_axes if plan.mode == "serve" else (),
+               vocab=None, vocab_axes=split(sh["embed"], 0),
+               q_heads=(0, cfg.num_heads), kv_heads=(0, cfg.num_kv_heads),
+               group=max(cfg.num_heads // max(cfg.num_kv_heads, 1), 1),
+               kv_gather=False, head_axes=(), kv_axes=(), ffn_axes=())
+    if out["vocab_axes"]:
+        out["vocab"] = span(sh["embed"], shapes["embed"], 0)
+    attn, ashape = first("attn")
+    if attn is not None:
+        q0, qn = span(attn["wq"], ashape["wq"], 2)
+        if q0 % hd or qn % hd:
+            raise NotImplementedError(
+                f"{cfg.name}: {cfg.num_heads} q heads do not split over "
+                f"{plan.describe()} (wq is cut inside a head); a "
+                f"head-misaligned split is {QUEUE_ITEM}")
+        pool_shape = (cfg.num_blocks, 2, 1, cfg.num_kv_heads, hd)
+        pool = plan.cache_shardings(
+            cfg, {"layer_0": {"self": {"kp": pool_shape}}})
+        k0, kn = span(pool["layer_0"]["self"]["kp"], pool_shape, 3)
+        _, cn = span(attn["wk"], ashape["wk"], 2)
+        out.update(q_heads=(q0 // hd, qn // hd), kv_heads=(k0, kn),
+                   kv_gather=cn != kn * hd, head_axes=split(attn["wq"], 2),
+                   kv_axes=split(attn["wk"], 2))
+    mlp, _ = first("mlp")
+    if mlp is not None:
+        out["ffn_axes"] = split(mlp["w_down"], 1)
+    mb, mshape = first("mamba")
+    if mb is not None:
+        h0, hn = span(mb["A_log"], mshape["A_log"], 1)
+        i0, i_n = span(mb["gate_norm"], mshape["gate_norm"], 1)
+        if (i0, i_n) != (h0 * cfg.ssm_headdim, hn * cfg.ssm_headdim):
+            raise NotImplementedError(
+                f"{cfg.name}: the SSM heads and d_inner split differently "
+                f"over {plan.describe()}; such a split is {QUEUE_ITEM}")
+        out["ssm"] = SsmSplit(
+            in_axes=split(mb["in_proj"], 2),
+            conv=span(mb["conv_b"], mshape["conv_b"], 1),
+            conv_axes=split(mb["conv_b"], 1), heads=(h0, hn),
+            inner_axes=split(mb["gate_norm"], 1))
+    return ServeShard(**out)
 
 
 @functools.lru_cache(maxsize=64)

@@ -7,12 +7,18 @@ dispatch under a data-sharded plan (``models/moe.py``). Those read the
 mesh registered here, and the axes the current batch rows are split over
 (``row_axes``), which the sharded step sets around its forward.
 
-Serving has its own entry: ``serve_shard()``, the tensor-parallel shard
-of the current forward (``parallel.plan.ServeShard``), which the
-continuous engine sets around each forward on a live ``serve`` plan
-(``serve_context``). It is None everywhere else, and then every model
-function runs its single-device arithmetic bit for bit. It is kept per
-thread: the threaded runtime's nodes forward on threads of their own."""
+Serving has its own entry: ``serve_shard()``, the shard of the current
+serving forward (``parallel.plan.ServeShard``), which the engines set
+around each forward on a live ``serve`` or ``long`` plan
+(``serve_context``). It carries the rank's heads and the axes its
+products split over, and, for the static engine's dense cache, the
+context-parallel description: the cache's and the memory's global rows
+(``ServeShard.with_cache``), from which each layer reads the span of
+positions the rank holds (``ServeShard.span``), and the axes its rows and
+its Mamba2 channels and heads split over. It is None everywhere else, and
+then every model function runs its single-device arithmetic bit for bit.
+It is kept per thread: the threaded runtime's nodes forward on threads of
+their own."""
 from __future__ import annotations
 
 import threading

@@ -70,7 +70,8 @@ from repro_torch.models.model import decode_step, forward
 from repro_torch.parallel import axes
 from repro_torch.parallel.collectives import (all_gather_dim, all_reduce_max,
                                               broadcast_object)
-from repro_torch.parallel.plan import ExecutionPlan, plan_for_params
+from repro_torch.parallel.plan import (QUEUE_ITEM, ExecutionPlan,
+                                       plan_for_params)
 from repro_torch.sampling.paged_cache import (PageAllocator, SCRATCH_PAGE,
                                               init_paged_pool,
                                               paged_cache_supported,
@@ -169,6 +170,12 @@ class ContinuousEngine:
         self.cfg, self.rl = cfg, rl
         self.plan = plan if plan is not None else \
             plan_for_params(params, "serve")
+        if self.plan.mesh.live and self.plan.mode != "serve":
+            raise NotImplementedError(
+                f"{self.plan.describe()}: the continuous engine serves on "
+                f"'serve' plans; on a {self.plan.mode!r} plan (the page "
+                f"pools' positions over the ranks) it is {QUEUE_ITEM}; serve "
+                "with engine='static'")
         # this rank's part of the model; None off a live mesh, where the
         # engine runs the single-device path unchanged
         self.shard = self.plan.serve_shard(cfg)

@@ -35,13 +35,15 @@ untrusted-sampler recompute.
 Every entry point takes ``plan=`` (default ``plan_for_params(params,
 "serve")``, the local plan on the params' device). On a live ``serve``
 plan the continuous engine serves tensor-parallel
-(``sampling/continuous.py``) and ``token_logps`` runs its forward on the
-rank's shard; the static engine on a live plan raises
-``NotImplementedError`` (its dense cache shards the sequence over
-'model', which needs a context-parallel decode: ROADMAP queue 1 item 10).
+(``sampling/continuous.py``); on a live ``serve`` or ``long`` plan the
+static engine serves context-parallel (``StaticEngine``: its dense cache
+shards the sequence over 'model', or 'data' x 'model' on ``long``, and a
+decode merges the ranks' partial softmaxes) and ``token_logps`` runs its
+forward on the rank's shard.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import time
 import warnings
@@ -55,7 +57,8 @@ from repro_torch.data.tasks import EOS, PAD
 from repro_torch.kernels.ops import fused_token_logprob
 from repro_torch import runtime_context
 from repro_torch.models.model import decode_step, forward, init_cache
-from repro_torch.parallel.plan import (QUEUE_ITEM, ExecutionPlan,
+from repro_torch.parallel.collectives import broadcast_object
+from repro_torch.parallel.plan import (ExecutionPlan, ServeShard,
                                        plan_for_params, plan_from_flag)
 from repro_torch.sampling.continuous import (ContinuousEngine,
                                              generate_continuous)
@@ -73,21 +76,47 @@ from repro_torch.serving.api import GenerationResult, Request
 def _generate_static(cfg: ModelConfig, rl: RLConfig, params: Dict[str, Any],
                      prompts: torch.Tensor, key: torch.Tensor, max_new: int,
                      vocab_limit: int, rids: Optional[torch.Tensor] = None,
-                     memory: Optional[torch.Tensor] = None
+                     memory: Optional[torch.Tensor] = None,
+                     shard: Optional[ServeShard] = None
                      ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """prompts (B, Tp) on the params' device -> (completions (B, max_new),
     sampler_lp (B, max_new) float32, comp_mask (B, max_new) float32).
     Draw ``t`` of row ``r`` uses ``fold_in(fold_in(key, rids[r]), t)``;
     ``rids`` default to the batch rows. ``memory`` (B, M, d) is projected
-    into the cache once."""
+    into the cache once.
+
+    With ``shard`` (a serving plan's, ``ExecutionPlan.serve_shard``) the
+    params are this rank's shards: the rank runs its rows of the batch
+    (``ServeShard.row_span``) over its part of the dense cache, and the
+    rows' tokens are gathered, so every rank returns every row's."""
+    b, tp = prompts.shape
+    if rids is None:
+        rids = torch.arange(b, device=prompts.device)
+    ctx, ax = contextlib.nullcontext(), ()
+    if shard is not None:
+        ax, r0, rn = shard.row_span(b)
+        prompts, rids = prompts[r0:r0 + rn], rids[r0:r0 + rn]
+        memory = None if memory is None else memory[r0:r0 + rn]
+        shard = shard.with_cache(tp + max_new, 0 if memory is None
+                                 else memory.shape[1])
+        ctx = runtime_context.serve_context(shard)
+    with ctx:
+        toks, lps, valid = _static_loop(cfg, rl, params, prompts, key,
+                                        max_new, vocab_limit, rids, memory)
+    if ax:
+        toks, lps, valid = (shard.gather(t, ax, 0)
+                            for t in (toks, lps, valid))
+    return toks, lps, valid
+
+
+def _static_loop(cfg, rl, params, prompts, key, max_new, vocab_limit, rids,
+                 memory):
     b, tp = prompts.shape
     cache = init_cache(cfg, params, b, tp + max_new, memory=memory)
     logits, cache, _ = forward(cfg, params, prompts, cache=cache,
                                memory=memory)
     last = logits[:, -1]
     del logits
-    if rids is None:
-        rids = torch.arange(b, device=prompts.device)
     row_keys = fold_in(as_key(key, prompts.device), rids)
     done = torch.zeros((b,), dtype=torch.bool, device=prompts.device)
     toks, lps, valid = [], [], []
@@ -119,15 +148,36 @@ class StaticEngine:
     ``PRNGKey(0)``) keys the draws. ``memory`` (B, M, d), for a memory or
     encoder-decoder model, gives row i of every batch memory row i, so a
     batch has B requests, as in the JAX package.
+
+    ``plan`` (default the local plan on the params' device) is the
+    ``serve`` or ``long`` plan the engine runs on. On a live one the
+    engine is one of the plan's ranks: ``params`` are full leaves, cut
+    here, or this rank's shards, taken as they are; every rank calls
+    ``generate`` together and serves rank 0's requests and key (broadcast
+    with the call), and every rank returns every request's tokens. The
+    rank runs its rows of the batch (split over 'data' on ``serve``,
+    every row on ``long``) over its part of the dense cache: the heads and
+    FFN columns of its weights, its span of the cache's positions (over
+    'model' on ``serve``, 'data' x 'model' on ``long``) with every KV
+    head, a context-parallel decode whose partial softmaxes the ranks
+    merge (``models/model.py``). ``memory`` is every row's, the same on
+    every rank.
     """
 
     def __init__(self, cfg: ModelConfig, params: Dict[str, Any], *,
                  rl: RLConfig, vocab_limit: Optional[int] = None,
                  memory: Optional[torch.Tensor] = None,
-                 key: Optional[torch.Tensor] = None) -> None:
-        self.cfg, self.rl, self.params = cfg, rl, params
+                 key: Optional[torch.Tensor] = None,
+                 plan: Optional[ExecutionPlan] = None) -> None:
+        self.cfg, self.rl = cfg, rl
+        self.plan = plan if plan is not None else \
+            plan_for_params(params, "serve")
+        # this rank's part of the model; None off a live mesh
+        self.shard = self.plan.serve_shard(cfg)
+        self.params = params if self.shard is None else \
+            self.plan.adopt_params(cfg, params)
         self.memory = memory
-        self.device = params["embed"].device
+        self.device = self.params["embed"].device
         self.vocab_limit = vocab_limit or cfg.padded_vocab
         self.key = PRNGKey(0) if key is None else as_key(key)
 
@@ -136,13 +186,20 @@ class StaticEngine:
         return (self.rl.temperature, self.rl.top_k, self.rl.top_p)
 
     def update_params(self, params: Any) -> None:
-        self.params = params
+        """Serve ``params`` from now on (re-placed on a live plan: full
+        leaves cut, shards taken)."""
+        self.params = params if self.shard is None else \
+            self.plan.adopt_params(self.cfg, params)
 
     def generate(self, requests: Sequence[Request],
                  key: Optional[torch.Tensor] = None
                  ) -> List[GenerationResult]:
         if key is not None:
             self.key = as_key(key)
+        if self.shard is not None:           # lockstep: rank 0's batch
+            requests, k = broadcast_object(
+                (list(requests), self.key.cpu()), self.plan.mesh)
+            self.key = as_key(k)
         for req in requests:
             if req.params.profile != self.profile:
                 raise ValueError(
@@ -162,7 +219,7 @@ class StaticEngine:
         max_new = max(r.params.max_new_tokens for r in requests)
         completions, sampler_lp, comp_mask = _generate_static(
             self.cfg, self.rl, self.params, prompts, self.key, max_new,
-            self.vocab_limit, rids, self.memory)
+            self.vocab_limit, rids, self.memory, self.shard)
         # the one host sync: the batch ends here by design
         comp_np = completions.cpu().numpy()
         lp_np = sampler_lp.cpu().numpy()
@@ -180,15 +237,6 @@ class StaticEngine:
                 finish_reason=reason, prompt_len=req.prompt_len,
                 ttft_s=elapsed, latency_s=elapsed))
         return out
-
-
-def _refuse_static(plan: ExecutionPlan) -> None:
-    if plan.mesh.live:
-        raise NotImplementedError(
-            f"{plan.describe()}: the static engine on a mesh (its dense "
-            "cache shards the sequence over 'model', a context-parallel "
-            f"decode with a log-sum-exp combine over ranks) is {QUEUE_ITEM}; "
-            "serve with engine='continuous'")
 
 
 # --------------------------------------------------------------------------
@@ -210,7 +258,7 @@ def build_engine(cfg: ModelConfig, params: Dict[str, Any],
     draws; ``memory`` is the static engine's. Falls back to the static
     engine, with a warning, for architectures the paged cache cannot
     serve (Mamba2 layers, an encoder) and whenever a memory is given, as
-    the JAX package does; on a live plan the static engine raises."""
+    the JAX package does."""
     rl = rl or RLConfig(engine=serve.engine)
     if plan is None:
         plan = plan_for_params(params, "serve")
@@ -234,9 +282,8 @@ def build_engine(cfg: ModelConfig, params: Dict[str, Any],
         warnings.warn(f"{cfg.name}: continuous engine unsupported for this "
                       "architecture/memory setup; serving static",
                       stacklevel=2)
-    _refuse_static(plan)
     return StaticEngine(cfg, params, rl=rl, vocab_limit=vocab_limit,
-                        memory=memory, key=key)
+                        memory=memory, key=key, plan=plan)
 
 
 # --------------------------------------------------------------------------
@@ -265,7 +312,10 @@ def generate(cfg: ModelConfig, rl: RLConfig, params: Dict[str, Any],
     path with a warning that names the ignored ``continuous_kwargs``, as
     in the JAX package, and so does a call with a ``memory``. ``key``
     (default ``PRNGKey(0)``) keys the draws; row ``i`` is request ``i``.
-    ``plan`` defaults to the local plan on the params' device."""
+    ``plan`` defaults to the local plan on the params' device; on a live
+    one every rank calls this together, rank 0's prompts and key are
+    served (``StaticEngine``), and ``params`` are full leaves or this
+    rank's shards."""
     key = PRNGKey(0) if key is None else key
     engine = engine or rl.engine
     plan = plan or plan_for_params(params, "serve")
@@ -288,11 +338,17 @@ def generate(cfg: ModelConfig, rl: RLConfig, params: Dict[str, Any],
         warnings.warn(f"{cfg.name}: continuous engine unsupported for this "
                       f"architecture/memory setup; falling back to "
                       f"static{dropped}", stacklevel=2)
-    _refuse_static(plan)
+    shard = plan.serve_shard(cfg)
+    if shard is not None:
+        params = plan.adopt_params(cfg, params)
+        prompts, key = broadcast_object(
+            (np.asarray(torch.as_tensor(prompts).cpu()),
+             as_key(key).cpu()), plan.mesh)
     dev = params["embed"].device
     prompts = torch.as_tensor(prompts).to(dev, torch.int64)
     completions, sampler_lp, comp_mask = _generate_static(
-        cfg, rl, params, prompts, key, max_new, vocab_limit, memory=memory)
+        cfg, rl, params, prompts, key, max_new, vocab_limit, memory=memory,
+        shard=shard)
     return {"tokens": torch.cat([prompts.to(torch.int32),
                                  completions.to(torch.int32)], 1),
             "completions": completions.to(torch.int32),
@@ -316,9 +372,10 @@ def token_logps(cfg: ModelConfig, params: Dict[str, Any],
     ``TrainConfig.logprob_impl`` vocabulary; None or "fused"
     auto-dispatches. ``memory`` (B, M, d) is what a memory or
     encoder-decoder model cross-attends (through K5 under
-    ``attn_impl="pallas"``). ``params`` on a live ``serve`` ``plan`` are
-    this rank's shards: the forward runs on them (every rank the whole
-    batch) and gathers the logits over the vocab."""
+    ``attn_impl="pallas"``). ``params`` on a live ``serve`` or ``long``
+    ``plan`` are this rank's shards: the forward runs on them (every rank
+    the whole batch: its heads through K5, its SSM heads through K6) and
+    gathers the logits over the vocab."""
     shard = None if plan is None else plan.serve_shard(cfg)
     with runtime_context.serve_context(shard):
         logits, _, _ = forward(cfg, params, tokens[:, :-1], memory=memory)

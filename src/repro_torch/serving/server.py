@@ -39,6 +39,10 @@ allocator, the obs registry): it launches nothing and reads no device
 tensor, so a scrape never waits for a step. Admission and submission run
 between steps, in the pump, so they never race the scheduler.
 
+On a live ``serve`` plan (``plan=``) the door is one rank of the plan:
+rank 0 runs the loop above, and every other rank follows its engine
+rounds in lockstep (``FrontDoor.follow``).
+
 Left out: the reference installs ``analysis.sentinel``'s metrics
 listener, which counts XLA compiles into the registry
 (``xla_compiles_total``). The port compiles nothing at run time, so its
@@ -58,6 +62,7 @@ import numpy as np
 
 from repro_torch import obs
 from repro_torch.config import ModelConfig, RLConfig, ServeConfig
+from repro_torch.parallel.collectives import broadcast_object
 from repro_torch.sampling.continuous import ContinuousEngine
 from repro_torch.sampling.engine import build_engine
 from repro_torch.serving.admission import (EXPIRED, INFEASIBLE,
@@ -107,25 +112,38 @@ async def _ws_read_frame(reader: asyncio.StreamReader
 class FrontDoor:
     """The serving front door: engine pump + HTTP/websocket endpoints.
     Serves on the device ``params`` live on; ``key`` keys the engine's
-    draws (default ``PRNGKey(0)``). A ``ServeConfig.mesh`` other than 1x1
-    raises: the door on a mesh is ROADMAP queue 1 item 10."""
+    draws (default ``PRNGKey(0)``).
+
+    ``plan`` (default the plan of ``ServeConfig.mesh``, as
+    ``build_engine`` takes it) is the ``serve`` plan of the engine. On a
+    live one every rank builds the door together; rank 0 (``leader``)
+    runs the asyncio server and admits, and every other rank runs
+    ``follow``: before each engine step rank 0 broadcasts "step", and
+    every rank steps its engine in the same lockstep (the engine
+    broadcasts rank 0's submissions and clock with the round); while idle
+    it broadcasts "idle" every ``HEARTBEAT_S``, so no rank waits out a
+    collective's timeout; ``close`` broadcasts "stop", which ends the
+    followers."""
+
+    HEARTBEAT_S = 1.0
 
     def __init__(self, cfg: ModelConfig, params, serve: ServeConfig, *,
                  rl: Optional[RLConfig] = None, tokenizer=None,
-                 vocab_limit: Optional[int] = None, key=None) -> None:
-        if serve.mesh != "1x1":
-            raise NotImplementedError(
-                f"ServeConfig.mesh={serve.mesh!r}: the front door on a mesh "
-                "(rank 0 accepts and broadcasts) is ROADMAP queue 1 item 10")
+                 vocab_limit: Optional[int] = None, plan=None,
+                 key=None) -> None:
         self.serve = serve
         self.rl = rl or RLConfig(engine="continuous")
         self.tokenizer = tokenizer
         self.engine = build_engine(cfg, params, serve, rl=self.rl,
-                                   vocab_limit=vocab_limit, key=key)
+                                   vocab_limit=vocab_limit, plan=plan,
+                                   key=key)
         if not isinstance(self.engine, ContinuousEngine):
             raise ValueError("the front door streams from the continuous "
                              f"engine; ServeConfig.engine={serve.engine!r} "
                              "resolved to a non-streaming engine")
+        mesh = self.engine.plan.mesh
+        self._mesh = mesh if mesh.live else None
+        self.leader = self._mesh is None or mesh.rank == 0
         self.admission = AdmissionController(serve, self.engine)
         self.telemetry = ServeTelemetry(serve.num_slots)
         self._pending: asyncio.Queue = asyncio.Queue()
@@ -137,6 +155,9 @@ class FrontDoor:
 
     # -- lifecycle ---------------------------------------------------------
     async def start(self) -> None:
+        if not self.leader:
+            raise RuntimeError("rank 0 of the plan runs the server; every "
+                               "other rank runs FrontDoor.follow()")
         self._running = True
         self._pump_task = asyncio.ensure_future(self._pump())
         self._server = await asyncio.start_server(
@@ -154,6 +175,30 @@ class FrontDoor:
             await self._server.wait_closed()
         if self._pump_task is not None:
             await self._pump_task
+        if self._mesh is not None:           # the followers' last command
+            await asyncio.get_event_loop().run_in_executor(
+                None, broadcast_object, "stop", self._mesh)
+
+    def follow(self) -> None:
+        """A rank other than 0 of a live plan: step the engine whenever
+        rank 0 says "step", until it says "stop"."""
+        if self.leader:
+            raise RuntimeError("rank 0 runs the server (start), not follow")
+        while True:
+            cmd = broadcast_object(None, self._mesh)
+            if cmd == "stop":
+                return
+            if cmd == "step":
+                for ev in self.engine.step():
+                    if ev.finished:              # rank 0 answers clients
+                        self.engine.pop_result(ev.rid)
+
+    def _step(self):
+        """One engine round (on the executor thread), announced to the
+        followers first on a live plan."""
+        if self._mesh is not None:
+            broadcast_object("step", self._mesh)
+        return self.engine.step()
 
     # -- request intake ----------------------------------------------------
     def build_request(self, payload: Dict[str, Any],
@@ -208,6 +253,7 @@ class FrontDoor:
 
     async def _pump(self) -> None:
         loop = asyncio.get_event_loop()
+        beat = time.perf_counter()
         while self._running:
             while not self._pending.empty():
                 req, sub = self._pending.get_nowait()
@@ -219,8 +265,14 @@ class FrontDoor:
                     self._admit(req, sub)
                 except asyncio.TimeoutError:
                     pass
+                if self._mesh is not None and \
+                        time.perf_counter() - beat > self.HEARTBEAT_S:
+                    await loop.run_in_executor(None, broadcast_object,
+                                               "idle", self._mesh)
+                    beat = time.perf_counter()
                 continue
-            events = await loop.run_in_executor(None, self.engine.step)
+            events = await loop.run_in_executor(None, self._step)
+            beat = time.perf_counter()
             now = time.perf_counter()
             for ev in events:
                 sub = self._subs.get(ev.rid)
@@ -440,8 +492,13 @@ def _result_json(res: GenerationResult) -> Dict[str, Any]:
 
 async def serve_forever(cfg: ModelConfig, params, serve: ServeConfig,
                         **kwargs) -> None:
-    """Construct a FrontDoor and run until cancelled."""
+    """Construct a FrontDoor and run until cancelled. On a live plan
+    (``plan=`` or ``ServeConfig.mesh``) rank 0 serves and every other rank
+    follows it until it stops."""
     door = FrontDoor(cfg, params, serve, **kwargs)
+    if not door.leader:
+        await asyncio.get_event_loop().run_in_executor(None, door.follow)
+        return
     await door.start()
     print(f"[serving] listening on {serve.host}:{door.port} "
           f"(engine={serve.engine}, slots={serve.num_slots}, "

@@ -158,23 +158,98 @@ def _node_case(case, cfg, params, plans, inputs, out):
 
 
 def _refusals(cfg, params, plans, out):
-    """What a 1x2 serve plan does not serve yet: each must raise
-    ``NotImplementedError`` naming ROADMAP queue 1 item 10."""
-    from repro_torch.config import HeteroConfig, RLConfig, ServeConfig
+    """What a 1x2 serve plan serves and what it does not serve yet. The
+    static engine (``build_engine`` and the legacy ``generate``), a
+    ``long`` plan's static engine, the front door, a static-engine
+    ``SamplerNode`` and the SSM and memory families serve: every rank
+    returns the one-device run's tokens (the door is built and its engine
+    is the plan's). The continuous engine on
+    a ``long`` plan, a MoE config and the threaded runtime raise
+    ``NotImplementedError`` naming ROADMAP queue 1 item 10, slice 15."""
+    from repro_torch.config import (HeteroConfig, RLConfig, ServeConfig)
     from repro_torch.configs import smoke
     from repro_torch.hetero import ThreadedHeteroRuntime
     from repro_torch.models import init_params
     from repro_torch.parallel import ExecutionPlan
-    from repro_torch.sampling import build_engine, generate
+    from repro_torch.sampling import StaticEngine, build_engine, generate
+    from repro_torch.sampling.prng import PRNGKey
+    from repro_torch.serving.api import Request, SamplingParams
+    from repro_torch.serving.server import FrontDoor
     serve = plans[("serve", (1, 2))]
+    long = ExecutionPlan(serve.mesh, "long")
     scout = smoke("llama4-scout-17b-a16e")
-    tries = {
-        "static": lambda: build_engine(cfg, params, ServeConfig(
-            engine="static"), plan=serve),
-        "generate_static": lambda: generate(
-            cfg, RLConfig(), params, np.full((2, 4), 5), plan=serve),
-        "long": lambda: build_engine(cfg, params, ServeConfig(),
-                                     plan=ExecutionPlan(serve.mesh, "long")),
+    rl = RLConfig(temperature=1.0, top_k=0, top_p=1.0, max_new_tokens=4)
+    sp = SamplingParams.from_rl(rl)
+    prompts = np.arange(3, 27).reshape(4, 6) % 29 + 3
+
+    def static(c, p, plan, memory=None):
+        eng = build_engine(c, p, ServeConfig(engine="static"), rl=rl,
+                           memory=memory, key=PRNGKey(7), plan=plan)
+        got = eng.generate([Request(rid=i, prompt=q, params=sp)
+                            for i, q in enumerate(prompts)])
+        one = StaticEngine(c, p, rl=rl, memory=memory, key=PRNGKey(7))
+        want = one.generate([Request(rid=i, prompt=q, params=sp)
+                             for i, q in enumerate(prompts)])
+        return isinstance(eng, StaticEngine) and all(
+            np.array_equal(a.tokens, b.tokens) for a, b in zip(got, want))
+
+    def legacy():
+        got = generate(cfg, rl, params, prompts, PRNGKey(7),
+                       engine="static", plan=serve)["tokens"]
+        want = generate(cfg, rl, params, prompts, PRNGKey(7),
+                        engine="static")["tokens"]
+        return torch.equal(got, want)
+
+    def family(name):
+        c = smoke(name)
+        p = init_params(c, 0, device="cpu")
+        mem = None
+        if c.memory_seq:
+            mem = 0.02 * torch.randn((4, c.memory_seq, c.d_model),
+                                     generator=torch.Generator().manual_seed(
+                                         1))
+        return static(c, p, serve, mem)
+
+    def node():
+        """A static-engine SamplerNode on the plan (the static engine and
+        its recompute, ``token_logps(plan=)``) against one device's."""
+        from repro_torch.checkpoint import PolicyStore
+        from repro_torch.data import ArithmeticTask, PromptPipeline, Tokenizer
+        from repro_torch.hetero import SamplerNode
+        from repro_torch.parallel import local_plan
+        nrl = RLConfig(loss_type="gepo", group_size=4, max_new_tokens=4,
+                       temperature=1.0, top_k=0, top_p=1.0, engine="static")
+        tok = Tokenizer()
+        batches = []
+        for plan in (serve, local_plan("serve", "cpu")):
+            task = ArithmeticTask(max_operand=20, ops="+", prompt_width=6,
+                                  seed=0)
+            n = SamplerNode(0, cfg, nrl, PromptPipeline(task, tok, 2, 4),
+                            task, tok, params, PolicyStore(), HeteroConfig(),
+                            seed=3, device="cpu", plan=plan)
+            batches.append(n.generate_batch(0.0))
+        a, b = batches
+        return (np.array_equal(a.tokens, b.tokens)
+                and np.abs(a.sampler_lp - b.sampler_lp).max() <= 1e-5)
+
+    def door():
+        d = FrontDoor(cfg, params, ServeConfig(num_slots=2), rl=rl,
+                      plan=serve)
+        return d.engine.plan is serve and d.engine.shard is not None
+
+    serves = {
+        "static": lambda: static(cfg, params, serve),
+        "generate_static": legacy,
+        "long_static": lambda: static(cfg, params, long),
+        "door": door,
+        "node_static": node,
+        "ssm": lambda: family("mamba2-1.3b"),
+        "memory": lambda: family("llama-3.2-vision-11b"),
+    }
+    for name, fn in serves.items():
+        out[f"refuse/{name}"] = np.array(bool(fn()))
+    raises = {
+        "long": lambda: build_engine(cfg, params, ServeConfig(), plan=long),
         "moe": lambda: build_engine(scout, init_params(scout, 0,
                                                        device="cpu"),
                                     ServeConfig(), plan=serve),
@@ -182,13 +257,13 @@ def _refusals(cfg, params, plans, out):
             cfg, RLConfig(), None, HeteroConfig(), None, None, None,
             device="cpu", sampler_plan=serve),
     }
-    for name, fn in tries.items():
+    for name, fn in raises.items():
         try:
             fn()
             got = "no error"
         except NotImplementedError as e:
             got = str(e)
-        out[f"refuse/{name}"] = np.array("queue 1 item 10" in got)
+        out[f"refuse/{name}"] = np.array("queue 1 item 10, slice 15" in got)
 
 
 def _unflatten_params(inputs, prefix):

@@ -329,9 +329,11 @@ def test_sampler_paged_attn_impl_threads_into_cfg():
 def test_nodes_default_to_cuda_and_refuse_what_is_not_ported(tmp_path):
     """A node defaults to the card; a sampler mesh needs its ranks; on a
     live serve plan (here a one-rank gloo group's 1x1 mesh, every
-    collective live; the 1x2 refusals run in
-    tests/test_torch_serve_plan.py) the static engine, the ``long`` mode
-    and a MoE config raise, naming ROADMAP queue 1 item 10."""
+    collective live; the 1x2 cases run in
+    tests/test_torch_serve_plan.py) the static engine serves the
+    one-device tokens, on the ``serve`` and the ``long`` plan, while the
+    continuous engine on the ``long`` plan and a MoE config raise, naming
+    ROADMAP queue 1 item 10, slice 15."""
     if torch.cuda.is_available():
         pytest.skip("checks the behaviour on a machine without a card")
     with pytest.raises(RuntimeError, match="cuda"):
@@ -353,7 +355,7 @@ def test_nodes_default_to_cuda_and_refuse_what_is_not_ported(tmp_path):
     import torch.distributed as dist
     from repro_torch.configs import smoke
     from repro_torch.parallel import ExecutionPlan, make_debug_mesh
-    from repro_torch.sampling import build_engine
+    from repro_torch.sampling import build_engine, generate
     dist.init_process_group("gloo", init_method=f"file://{tmp_path}/store",
                             rank=0, world_size=1,
                             timeout=datetime.timedelta(seconds=60))
@@ -361,14 +363,22 @@ def test_nodes_default_to_cuda_and_refuse_what_is_not_ported(tmp_path):
         mesh = make_debug_mesh(1, 1, device="cpu")
         serve = ExecutionPlan(mesh, "serve")
         params = init_params(TINY, 0, device="cpu")
-        with pytest.raises(NotImplementedError, match="queue 1 item 10"):
-            build_engine(TINY, params, ServeConfig(engine="static"),
-                         plan=serve)
-        with pytest.raises(NotImplementedError, match="queue 1 item 10"):
+        prompts = np.full((2, 4), 5)
+        want = generate(TINY, RL, params, prompts, engine="static")
+        for plan in (serve, ExecutionPlan(mesh, "long")):
+            eng = build_engine(TINY, params, ServeConfig(engine="static"),
+                               rl=RL, plan=plan)
+            assert eng.shard is not None
+            got = generate(TINY, RL, params, prompts, engine="static",
+                           plan=plan)
+            assert torch.equal(got["tokens"], want["tokens"])
+        with pytest.raises(NotImplementedError,
+                           match="queue 1 item 10, slice 15"):
             build_engine(TINY, params, ServeConfig(),
                          plan=ExecutionPlan(mesh, "long"))
         scout = smoke("llama4-scout-17b-a16e")
-        with pytest.raises(NotImplementedError, match="queue 1 item 10"):
+        with pytest.raises(NotImplementedError,
+                           match="queue 1 item 10, slice 15"):
             build_engine(scout, init_params(scout, 0, device="cpu"),
                          ServeConfig(), plan=serve)
     finally:

@@ -251,3 +251,82 @@ def _leaves(tree):
     if isinstance(tree, dict):
         return [x for k in sorted(tree) for x in _leaves(tree[k])]
     return [tree]
+
+
+FIT_MESHES = [(1, 2), (2, 1), (2, 2), (1, 4)]
+
+
+def _dense_cache_shapes(cfg, batch, length):
+    """The leaf shapes of ``init_cache(cfg, ..., batch, length,
+    memory=)`` at the config's full widths (a memory of its
+    ``encoder_seq`` / ``memory_seq`` rows), without building it."""
+    nb, kv = cfg.num_blocks, (cfg.num_kv_heads, cfg.head_dim)
+    mem_rows = cfg.encoder_seq if cfg.is_encdec else cfg.memory_seq
+    out = {}
+    for i, kind in enumerate(cfg.block_pattern):
+        layer = {}
+        if kind == "mamba":
+            conv = cfg.d_inner + 2 * cfg.ssm_ngroups * cfg.ssm_state
+            layer["ssm_c"] = {
+                "conv": (nb, batch, cfg.ssm_conv - 1, conv),
+                "ssm": (nb, batch, cfg.ssm_heads, cfg.ssm_headdim,
+                        cfg.ssm_state)}
+        elif kind != "cross":
+            rows = min(length, cfg.sliding_window) \
+                if cfg.local_ring_kv and kind == "local" else length
+            layer["self"] = {n: (nb, batch, rows) + kv for n in ("k", "v")}
+        if kind == "cross" or cfg.is_encdec:
+            layer["mem"] = {n: (nb, batch, mem_rows) + kv
+                            for n in ("k_mem", "v_mem")}
+        out[f"layer_{i}"] = layer
+    return out
+
+
+def _fit_all(fit, mesh, specs, shapes):
+    return {path: _norm(fit(mesh, spec, shapes[path]))
+            for path, spec in specs.items()}
+
+
+def _raw_jax(tree):
+    flat, _ = jax.tree_util.tree_flatten_with_path(
+        tree, is_leaf=lambda x: isinstance(x, jax.sharding.PartitionSpec))
+    return {"/".join(str(getattr(p, "key", getattr(p, "idx", p)))
+                     for p in path): s for path, s in flat}
+
+
+def _raw_port(tree, path=()):
+    if isinstance(tree, dict):
+        out = {}
+        for k, v in tree.items():
+            out.update(_raw_port(v, path + (k,)))
+        return out
+    return {"/".join(str(p) for p in path): tree}
+
+
+@pytest.mark.parametrize("name", NAMES)
+def test_fitted_serve_and_long_specs_match_jax(name):
+    """The fitted specs (``fit_spec`` of the mode's rules over each
+    leaf's shape) of every param and every dense-cache leaf, at the
+    config's full widths (a batch of 4 and a cache of 8192 + 64
+    positions), equal the JAX package's on the ``serve`` and ``long``
+    modes over 1x2, 2x1, 2x2 and 1x4: the shards a serving rank holds."""
+    jcfg, tcfg = jconfigs.get_config(name), tconfigs.get_config(name)
+    pshapes = _raw_port(taxes.param_shapes(tcfg))
+    cshapes = _dense_cache_shapes(tcfg, 4, 8256)
+    jcache = jax.tree_util.tree_map(
+        lambda s: jax.ShapeDtypeStruct(s, jax.numpy.float32), cshapes,
+        is_leaf=lambda x: isinstance(x, tuple))
+    flat_c = _raw_port(cshapes)
+    for dims in FIT_MESHES:
+        jm, tm = _meshes(dims)
+        for mode in ("serve", "long"):
+            got = _fit_all(taxes.fit_spec, tm, _raw_port(
+                taxes.param_specs(tcfg, mode, tm)), pshapes)
+            want = _fit_all(jaxes.fit_spec, jm, _raw_jax(
+                jaxes.param_specs(jcfg, mode, jm)), pshapes)
+            assert got == want, (dims, mode)
+            got = _fit_all(taxes.fit_spec, tm, _raw_port(
+                taxes.cache_specs(tcfg, cshapes, mode, tm)), flat_c)
+            want = _fit_all(jaxes.fit_spec, jm, _raw_jax(
+                jaxes.cache_specs(jcfg, jcache, mode, jm)), flat_c)
+            assert got == want, (dims, mode)

@@ -326,12 +326,16 @@ def test_sampler_node_syncs_its_cells_and_refits(two):
 
 
 @pytest.mark.parametrize("what", ["static", "generate_static", "long",
-                                  "moe", "threads"])
+                                  "moe", "threads", "long_static", "door",
+                                  "node_static", "ssm", "memory"])
 def test_what_a_1x2_plan_does_not_serve_raises(two, what):
-    """The static engine (``build_engine`` and the legacy ``generate``),
-    the ``long`` mode, a MoE config and the threaded runtime on a live
-    1x2 plan raise ``NotImplementedError`` naming ROADMAP queue 1 item 10,
-    on every rank."""
+    """On a live 1x2 plan, on every rank: the continuous engine on a
+    ``long`` plan, a MoE config and the threaded runtime raise
+    ``NotImplementedError`` naming ROADMAP queue 1 item 10, slice 15; the
+    cases ported since (the static engine through ``build_engine`` and the
+    legacy ``generate``, on ``serve`` and on ``long``, the front door, a
+    ``SamplerNode`` on the static engine, the SSM and memory families)
+    serve the one-device run's tokens."""
     for out in two:
         assert out[f"refuse/{what}"]
 
