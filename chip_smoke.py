@@ -157,8 +157,8 @@ never jax, never the JAX package. Phases, each fatal on failure:
    threads; it prints the peak device memory;
 11. door: ``repro_torch.serving.server.FrontDoor`` on 127.0.0.1 (port 0)
    over the serve cell's engine (qwen3-1.7b, bf16, K3/K4 ``"pallas"``, 8
-   slots, page 16, prefill chunk 512): the serve cell's 24 prompts, 64
-   new, temperature 0.6 / top-k 20 / top-p 0.95, sent at once as 12 POST
+   slots, page 16, prefill chunk 512): the serve cell's 24 prompts,
+   DOOR_NEW new, temperature 0.6 / top-k 20 / top-p 0.95, sent at once as 12 POST
    /generate, 8 NDJSON streams and 4 requests on one websocket, plus an
    infeasible request (400) and one with a 1e-6 s deadline (408); a
    scrape of /healthz and /metrics while they decode; every request
@@ -178,15 +178,16 @@ never jax, never the JAX package. Phases, each fatal on failure:
    family's GQA group (rep 2, 7, 1 at Hkv 40, 5), K5 at rep 5 and K1/K2
    at the learners' vocabularies (202240, 50432), each against its twin
    and timed beside it, the bound and the library call. (a) internlm2-1.8b
-   (24/24 layers), qwen2-7b (28/28) and qwen1.5-32b (32/64) through
+   (12/24 layers), qwen2-7b (14/28) and qwen1.5-32b (16/64) through
    ``ContinuousEngine`` (K3/K4, 8 slots, page 16, prefill chunk 512): 8
    requests of 64-1024 tokens, 32 new, the serve profile; the launches the
    run implies; logps against the teacher-forced forward and through one
    ``token_logps`` recompute (K1), the mean within TOL_LOGP_MEAN_BF16, and
-   again with float32 weights (qwen1.5-32b at 16 layers) every token
+   again with float32 weights (qwen1.5-32b at 8 layers) every token
    within TOL_LOGP_F32. (b) llama4-scout (float32 at 2 layers; bf16 at
-   8/48) and llama4-maverick (one period of 2, 128 experts) serving the
-   serve cell's 24 requests, 64 new, through K3/K4 and through the twins
+   4/48) and llama4-maverick (one period of 2, 128 experts) serving the
+   serve cell's 24 requests, MOE_NEW new, through K3/K4 and through the
+   twins
    with the same key: float32 tokens equal and logps within TOL_LOGP_F32,
    bf16 the mean |dlogp| before each request's first differing token
    within TOL_LOGP_MEAN_BF16; ``moe_drop_frac`` by forward kind and the
@@ -233,7 +234,7 @@ never jax, never the JAX package. Phases, each fatal on failure:
    ``grad_accum`` 2, AdamW) against ``train_step`` from the same state and
    batch, bit for bit, both step times and K1/K2 launch counts printed and
    equal. (b) Two rank processes on the one card over gloo with CUDA
-   tensors (NCCL refuses two ranks on one device; ``--shard-rank``), the
+   tensors (NCCL refuses two ranks on one device; ``--rank``), the
    2x1 ``train_fsdp`` and 1x2 ``train`` plans: a float32 pair at
    SHARD_F32_LAYERS of 28 layers (B 8 x S 1024, ``grad_accum`` 2) held
    against the one-device step at the parity bars of
@@ -254,8 +255,9 @@ never jax, never the JAX package. Phases, each fatal on failure:
    the lockstep broadcast is the one that runs), bf16 28/28 layers:
    tokens and logps bit-equal to the one-device engine, K3/K4 launches
    equal. (b) Two rank
-   processes on the one card over gloo (``--serve-rank``), 1x2: bf16 at
-   28/28 layers (per-rank weight and pool bytes, which must be half the
+   processes on the one card over gloo (``--rank``), 1x2: bf16 at
+   PLAN_BF16_LAYERS of 28 layers (per-rank weight and pool bytes, which
+   must be half the
    one-device engine's, on the card; decode ms a step, host-staged, not a
    speed figure; |Δ logp| against the one-device engine before each
    request's first differing token, the mean within TOL_LOGP_MEAN_BF16),
@@ -270,21 +272,24 @@ never jax, never the JAX package. Phases, each fatal on failure:
 16. static plan: ``StaticEngine`` on ``serve`` and ``long`` plans (a
    context-parallel dense-cache decode: each rank its span of positions
    with every KV head, the ranks' partial softmaxes merged). (a)
-   qwen3-1.7b bf16 28/28, 16 x 832 + 192 (the static phase's traffic,
-   prefill through K5), on a 1x1 plan of a one-rank NCCL group: tokens
+   qwen3-1.7b bf16 28/28, 16 x 832 + SPLAN_ONE_NEW (the static phase's
+   prompts, prefill through K5), on a 1x1 plan of a one-rank NCCL group:
+   tokens
    and logps bit-equal to one device, K5 launches equal. Two rank
-   processes on the one card over gloo (``--static-rank``): (b) 1x2, 16 x
-   832 + SPLAN_NEW, bf16 28/28 (weight bytes a rank, dense-cache bytes a
+   processes on the one card over gloo (``--rank``): (b) 1x2, 16 x
+   832 + SPLAN_NEW, bf16 at SPLAN_BF16_LAYERS of 28 (weight bytes a rank,
+   dense-cache bytes a
    rank for 1024 positions, which must be half one device's; |Δ logp|
    against one device, the mean within TOL_LOGP_MEAN_BF16), a float32
    pair at SPLAN_F32_LAYERS layers with wq and wk x SPLAN_SHARP (tokens
    equal, logps within TOL_PLAN_LP) and the control, the ranks' partials
    merged without their max rescale, which must miss that bar; (c) a
-   ``long`` 2x1 plan, 1 x 8192 + 64 (half the cache's 8256 positions a
-   rank); (d) on 1x2, mamba2-1.3b 48/48 (its tied embedding x
-   SSM_EMBED_SCALE, so the layers and not the input token's own row
-   decide the logits; its recompute through K6 at 32 of 64 heads), whisper-small whole (its encoder through K5 at 6 of 12
-   heads, 750 memory rows a rank) and llama-3.2-vision-11b 40/40 (1601
+   ``long`` 2x1 plan, bf16 at SPLAN_BF16_LAYERS, 1 x 8192 + 64 (half the
+   cache's 8256 positions a rank); (d) on 1x2, mamba2-1.3b 16/48 (its
+   tied embedding x SSM_EMBED_SCALE, so the layers and not the input
+   token's own row decide the logits; its recompute through K6 at 32 of
+   64 heads), whisper-small whole (its encoder through K5 at 6 of 12
+   heads, 750 memory rows a rank) and llama-3.2-vision-11b 10/40 (1601
    memory rows on every rank) in bf16 against one device, each with a
    float32 pair at a cut depth; (e) the front door on 1x2 (float32,
    SPLAN_F32_LAYERS layers): 8 clients at once against rank 0, rank 1
@@ -293,6 +298,33 @@ never jax, never the JAX package. Phases, each fatal on failure:
    K5 at one rank's heads (the static prefill at 8 of 16 q heads,
    Whisper's encoder and cross prefill at 6 of 12) and K6 at 32 of 64
    heads against their twins, timed beside the twin, the bound and SDPA.
+17. MoE plan: the MoE family and jamba on serve plans, the continuous
+   engine on a ``long`` plan, the threaded runtime on a live sampler
+   plan (weights from ``draw_params``, slab by slab, so a rank draws only
+   its shard). (a) llama4-scout 4/48 bf16 through ``ContinuousEngine``
+   (8 requests of 64-1024 tokens, 32 new) on a 1x1 plan of a one-rank
+   NCCL group: tokens, logps and every MoE forward's ``moe_drop_frac``
+   bit-equal to one device. Two rank processes over gloo
+   (``--rank``): (b) scout 4/48 bf16 on 1x2 through both engines
+   (experts 0-7 / 8-15, half the weights a rank; bf16 mean |Δ logp|
+   within TOL_LOGP_MEAN_BF16), a float32 pair at 2/48 (tokens, logps
+   within TOL_PLAN_LP and every drop equal) and the control, each rank on
+   the next rank's experts, which must miss it; (c) maverick 2/48 on 2x1
+   (its experts' FFN columns over 'data', the decode slots over 'data':
+   every prefill forward's drops equal one device's, and all of them
+   where the tokens are equal), then with ``moe_ep="serve"`` on 1x2 at a
+   capacity factor of E / k (no drops) against one device's
+   ``moe_ffn``; (d) jamba 2/72 (attention + MoE, Mamba2 + MLP) on 1x2
+   through ``StaticEngine`` 4 x 512 + 16 and ``token_logps`` (K5 at 32 of
+   64 q heads, K6 at 128 of 256 SSM heads), bf16 and a float32 pair;
+   (e) qwen3-1.7b at LONG17_LAYERS of 28 on a ``long`` 2x1 plan through
+   ``ContinuousEngine``, 2 x 4096 + 32 (half the weights, the whole pools
+   a rank); (f) ``ThreadedHeteroRuntime.run(2)`` on a 1x2 sampler plan, 2
+   samplers at LOOP_LAYERS: both ranks' batches and staleness equal. Both
+   ranks emit the same tokens in every run. (g) K3/K4 at one rank of
+   scout's heads (Hq 20, Hkv 4) and K6 at one rank of jamba's recompute
+   (128 of 256 heads) against their twins, timed beside the twin, the
+   bound and SDPA (K6: none).
 
 Prints a ``{"kernels": [...]}`` JSON line, then as the last line
 ``{"ok": true, "device": {...}}``. Exits non-zero, printing no result,
@@ -401,8 +433,8 @@ HETERO_STEPS, HETERO_ONLINE_STEPS, HETERO_SFT_STEPS = 4, 2, 2
 # depth cuts that keep the script inside its 1200 s limit (PERF.md §4): the
 # loop phases (8, 10) and the spec phase (9) run qwen3-1.7b at full width
 # but LOOP_LAYERS / SPEC_LAYERS of its 28 layers (a publish of the loop's
-# weights is 1.65 GB at 4 layers, 2.05 GB at 8, 4.06 GB at 28)
-LOOP_LAYERS, SPEC_LAYERS = 4, 8
+# weights is 1.45 GB at 2 layers, 1.65 GB at 4, 4.06 GB at 28)
+LOOP_LAYERS, SPEC_LAYERS = 2, 4
 HETERO_PROMPTS = 2
 # the threaded phase waits this long for each sampler thread after the run
 # (a sampler batch in flight takes 2-6 s alone, longer beside a learner)
@@ -1185,7 +1217,10 @@ def engine_phase(dev, seed, card, draws):
 def profile_decode(eng, prompts, sp):
     """Trace 3 pure-decode scheduler rounds (8 slots, 24 decode steps)
     with torch.profiler; print device time by kernel and the device's busy
-    share of the window's wall time (where the decode step's time goes)."""
+    share of the window's wall time (where the decode step's time goes).
+    Every torch.profiler trace here records the CUDA activity alone (the
+    kernels, copies and runtime calls): the CPU ops of a trace of decode
+    steps or a learner step took 30 s of host time to record and read."""
     from torch.profiler import ProfilerActivity, profile
     for i in range(eng.num_slots):
         eng.submit(Request(rid=2000 + i, prompt=prompts[i][:512].astype(
@@ -1193,8 +1228,7 @@ def profile_decode(eng, prompts, sp):
     while any(r is None or r.state != "decode" for r in eng.sched.slots):
         eng.step()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(3):
             eng.step()
@@ -1203,7 +1237,8 @@ def profile_decode(eng, prompts, sp):
 
     # device-side entries only (kernels, memcpy/memset): the CPU op that
     # launched a kernel reports the same time again
-    rows = sorted((e for e in prof.key_averages()
+    avg = prof.key_averages()
+    rows = sorted((e for e in avg
                    if str(getattr(e, "device_type", "")).endswith("CUDA")),
                   key=dev_us, reverse=True)
     busy_ms = sum(dev_us(e) for e in rows) / 1e3
@@ -1212,9 +1247,8 @@ def profile_decode(eng, prompts, sp):
         f"device-side time, profiler on), {len(rows)} kernel names")
     # host-side calls that wait for the device (the last one is the
     # window's own torch.cuda.synchronize)
-    waits = {e.key: e.count for e in prof.key_averages()
-             if any(w in e.key for w in ("Synchronize", "nonzero",
-                                          "_local_scalar_dense", "Memcpy"))}
+    waits = {e.key: e.count for e in avg
+             if any(w in e.key for w in ("Synchronize", "Memcpy"))}
     log(f"[profile] host waits in the window: {waits}")
     for e in rows[:12]:
         log(f"[profile] {dev_us(e) / 1e3:9.3f} ms  x{e.count:<6d} "
@@ -1615,8 +1649,7 @@ def profile_static_decode(cfg, params, cache, tok, steps=8):
     from torch.profiler import ProfilerActivity, profile
     decode_step(cfg, params, cache, tok, PROMPT_LEN)        # warm
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for t in range(steps):
             decode_step(cfg, params, cache, tok, PROMPT_LEN + t)
@@ -1996,8 +2029,7 @@ def profile_recompute(cfg, params, tokens):
     and device time by kernel."""
     from torch.profiler import ProfilerActivity, profile
     icfg = dataclasses.replace(cfg, ssd_impl="pallas")
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         token_logps(icfg, params, tokens)
         torch.cuda.synchronize()
@@ -2347,8 +2379,7 @@ def profile_step(cfg, rl, tc, state, batch):
     """torch.profiler over a fourth step: device time by kernel and the
     device's busy share of the step's wall time."""
     from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         train_step(cfg, rl, tc, state, batch)
         torch.cuda.synchronize()
@@ -3197,7 +3228,7 @@ def threads_phase(dev, seed, card, warm, step_s):
 # clients sent at once: plain POST /generate, NDJSON streams, requests on
 # one websocket (the serve cell's 24 prompts, in this order)
 DOOR_HTTP, DOOR_NDJSON, DOOR_WS = 12, 8, 4
-DOOR_NEW = 64
+DOOR_NEW = 32
 
 
 async def door_http(port, method, path, payload=None, accept=""):
@@ -3425,8 +3456,8 @@ def door_phase(dev, seed, card):
             "engine_free_pages" not in prom:
         raise AssertionError("door: Prometheus text lacks the serve and "
                              "engine series")
-    # every admitted request: 64 tokens or a finish reason; each stream's
-    # events are its result
+    # every admitted request: DOOR_NEW tokens or a finish reason; each
+    # stream's events are its result
     for i in range(len(prompts)):
         r = results[i]
         if len(r["tokens"]) != DOOR_NEW and r["finish_reason"] != "eos":
@@ -3521,14 +3552,15 @@ def door_phase(dev, seed, card):
 # --------------------------------------------------------------------------
 # phase 12: the decoder-only families left on one card
 
-# depth cuts, width never cut: qwen1.5-32b serves 32 of its 64 layers
-# (70.4 GB of weights and 1.31 MB of KV a token at full depth do not fit
-# beside the pool), llama4-scout 8 of 48 (216 GB at full depth),
+# depth cuts, width never cut: the dense configs serve half their layers
+# (qwen1.5-32b 16 of 64: 70.4 GB of weights and 1.31 MB of KV a token at
+# full depth do not fit beside the pool; the halves keep the script inside
+# its 1200 s limit), llama4-scout 4 of 48 (216 GB at full depth),
 # llama4-maverick one period of 2 (MoE + MLP, 128 experts), the scout
 # float32 pair 2 layers, the scout learner 1 layer
-DENSE_DEPTH = {"internlm2-1.8b": 24, "qwen2-7b": 28, "qwen1.5-32b": 32}
-# the dense float32 pairs: qwen1.5-32b at 16 layers (39.9 GB in float32)
-DENSE_F32_DEPTH = {"internlm2-1.8b": 24, "qwen2-7b": 28, "qwen1.5-32b": 16}
+DENSE_DEPTH = {"internlm2-1.8b": 12, "qwen2-7b": 14, "qwen1.5-32b": 16}
+# the dense float32 pairs: qwen1.5-32b at 8 layers
+DENSE_F32_DEPTH = {"internlm2-1.8b": 12, "qwen2-7b": 14, "qwen1.5-32b": 8}
 # A dense config's engine (K3/K4) against its teacher-forced forward. bf16:
 # the paged path and the dense chunked path round apart through every
 # layer, and at qwen1.5-32b's width the max over 256 tokens reaches 0.156
@@ -3537,9 +3569,9 @@ DENSE_F32_DEPTH = {"internlm2-1.8b": 24, "qwen2-7b": 28, "qwen1.5-32b": 16}
 # phase's), with the max printed against TOL_LOGP_PATHS; the float32 pair
 # is held token by token to TOL_LOGP_F32, which a kernel fault breaks
 SCOUT, MAVERICK = "llama4-scout-17b-a16e", "llama4-maverick-400b-a17b"
-SCOUT_LAYERS, SCOUT_F32_LAYERS, MAVERICK_LAYERS = 8, 2, 2
+SCOUT_LAYERS, SCOUT_F32_LAYERS, MAVERICK_LAYERS = 4, 2, 2
 SCOUT_LEARN_LAYERS = 1
-DENSE_NEW, MOE_NEW = 32, 64
+DENSE_NEW, MOE_NEW = 32, 32
 LEARN_ROWS, SCOUT_LEARN_S, MAMBA_LEARN_S = 8, 512, 1024
 LEARN_GROUP = 4                      # a microbatch (grad_accum 2) = 1 group
 # learner batches: completion targets at the end of each row, the
@@ -3566,26 +3598,34 @@ FAMILY_LOGPROB = (("llama4", 4 * (SCOUT_LEARN_S - 1), 202240),
 
 class DropLog:
     """``moe_drop_frac`` of every MoE layer call while active (spec_run's
-    two warm-up requests, 64 + 8 tokens, included), by forward kind (a decode
-    step feeds all slots, B > 1; a prefill chunk one request, B = 1), kept
-    on the card and read after the run."""
+    two warm-up requests, 64 + 8 tokens, included), by forward kind (a
+    decode step feeds one token a row, S 1; a prefill chunk more), kept on
+    the card and read after the run. On a serve plan a layer's metrics
+    are the global dispatch's (``moe_ffn``) or, under ``moe_ep``, the
+    reference's mean over the ranks (``moe_ffn_ep``)."""
 
     def __init__(self):
         self.fracs = {"decode": [], "prefill": []}
 
     def __enter__(self):
-        real = self._real = model_mod.moe_ffn
-
-        def observed(cfg, p, x):
-            y, aux = real(cfg, p, x)
-            kind = "prefill" if x.shape[0] == 1 else "decode"
-            self.fracs[kind].append(aux["moe_drop_frac"].detach())
-            return y, aux
-        model_mod.moe_ffn = observed
+        self._real = {n: getattr(model_mod, n)
+                      for n in ("moe_ffn", "moe_ffn_ep")}
+        for name, real in self._real.items():
+            def observed(cfg, p, x, real=real):
+                y, aux = real(cfg, p, x)
+                kind = "prefill" if x.shape[1] > 1 else "decode"
+                self.fracs[kind].append(aux["moe_drop_frac"].detach())
+                return y, aux
+            setattr(model_mod, name, observed)
         return self
 
     def __exit__(self, *exc):
-        model_mod.moe_ffn = self._real
+        for name, real in self._real.items():
+            setattr(model_mod, name, real)
+
+    def lists(self):
+        return {k: (torch.stack(v).float().cpu().tolist() if v else [])
+                for k, v in self.fracs.items()}
 
     def summary(self):
         out = {}
@@ -4525,6 +4565,70 @@ def memory_phase(dev, seed, card):
 # --------------------------------------------------------------------------
 # phase 14: the sharded learner (parallel/, ExecutionPlan)
 
+# phases 14-17's two-rank parts run in one pair of rank processes on the
+# one card (gloo with CUDA tensors: NCCL refuses two ranks on one device),
+# started once: a process takes seconds to reach the card. Each part has a
+# process group of its own, destroyed before the next part's
+RANKS_TIMEOUT_S = 900
+
+
+def ranks_main(rank, world, work, seed, card):
+    """One of the two rank processes (``--rank``): phases 14-17's two-rank
+    parts one after the other, each writing ``work/<part><r>.json``; then
+    ``work/times<r>.json``, each part's seconds."""
+    secs = {}
+    for name, part in (("shard", shard_rank_main), ("serve", serve_rank_main),
+                       ("static", static_rank_main), ("moe", moe_rank_main)):
+        t0 = time.perf_counter()
+        part(rank, world, work, seed, card)
+        free()
+        secs[name] = time.perf_counter() - t0
+    with open(Path(work) / f"times{rank}.json", "w") as fh:
+        json.dump(secs, fh)
+    return 0
+
+
+def rank_pair(seed, card):
+    """Start the two rank processes and wait for them: ``{part: [rank 0's
+    record, rank 1's]}`` for the parts shard (14), serve (15), static (16)
+    and moe (17), rank 0's seconds of each under ``t_part``. A rank's
+    output goes to a file (a full pipe would stop it inside a
+    collective); the ``[sharded]`` lines are printed here."""
+    import tempfile
+    work = Path(tempfile.mkdtemp(prefix="chip-smoke-ranks-"))
+    files = [open(work / f"log{r}.txt", "w") for r in range(2)]
+    procs = [subprocess.Popen(
+        [sys.executable, str(Path(__file__).resolve()), "--rank", str(r),
+         "--rank-work", str(work), "--seed", str(seed), "--rank-card", card],
+        stdout=files[r], stderr=subprocess.STDOUT, text=True)
+        for r in range(2)]
+    try:
+        for pr in procs:
+            pr.wait(timeout=RANKS_TIMEOUT_S)
+    finally:
+        for pr in procs:
+            pr.kill()
+            pr.wait()
+        for fh in files:
+            fh.close()
+    logs = [(work / f"log{r}.txt").read_text() for r in range(2)]
+    for r, text in enumerate(logs):
+        for line in text.splitlines():
+            if line.startswith("[sharded]"):
+                log(line + f" (rank {r})")
+    if any(pr.returncode != 0 for pr in procs):
+        raise AssertionError("the rank processes failed:\n" + "\n".join(
+            t[-3000:] for t in logs))
+    secs = json.loads((work / "times0.json").read_text())
+    out = {}
+    for part, stem in (("shard", "rank"), ("serve", "serve"),
+                       ("static", "static"), ("moe", "moe")):
+        out[part] = [json.loads((work / f"{stem}{r}.json").read_text())
+                     for r in range(2)]
+        out[part][0]["t_part"] = secs[part]
+    return out
+
+
 SHARD_ROWS_A, SHARD_ROWS_B, SHARD_S = 16, 8, 1024
 SHARD_F32_LAYERS = 4                  # the float32 pair: 4 of 28 layers
 SHARD_BF16_LAYERS = 4                 # the timed bf16 steps: 4 of 28
@@ -4535,7 +4639,6 @@ SHARD_RTOL_P, SHARD_ATOL_P, SHARD_RTOL_M, SHARD_ATOL_M = 5e-4, 1e-5, 2e-3, \
 # two-rank mesh, float32, a capacity that drops nothing (cap = T k)
 SHARD_MOE_ROWS, SHARD_MOE_S = 4, 512
 TOL_SHARD_MOE = 1e-4                  # max|EP - moe_ffn| / max|moe_ffn|
-SHARD_RANK_TIMEOUT_S = 420
 
 
 def shard_batch(cfg, rows, s, seed, dev):
@@ -4802,44 +4905,16 @@ def shard_rank_main(rank, world, work, seed, card, dev=None):
     return 0
 
 
-def two_ranks(seed, card, work):
-    """Phase 14 (b) and (c): two rank processes on the one card."""
-    procs = [subprocess.Popen(
-        [sys.executable, str(Path(__file__).resolve()), "--shard-rank",
-         str(r), "--shard-work", str(work), "--seed", str(seed),
-         "--shard-card", card],
-        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-        for r in range(2)]
-    logs = []
-    try:
-        for pr in procs:
-            logs.append(pr.communicate(timeout=SHARD_RANK_TIMEOUT_S)[0])
-    finally:
-        for pr in procs:
-            pr.kill()
-            pr.wait()
-    for r, text in enumerate(logs):
-        for line in text.splitlines():
-            if line.startswith("[sharded]"):
-                log(line + f" (rank {r})")
-    if any(pr.returncode != 0 for pr in procs):
-        raise AssertionError("phase 14 ranks failed:\n" + "\n".join(
-            t[-3000:] for t in logs))
-    return [json.loads((Path(work) / f"rank{r}.json").read_text())
-            for r in range(2)]
-
-
-def sharded_phase(dev, seed, card):
-    """Phase 14. Returns the K1/K2 launches of (a)'s sharded run."""
+def sharded_phase(dev, seed, card, ranks):
+    """Phase 14; ``ranks`` the two rank processes' records of (b) and (c)
+    (``rank_pair``). Returns the K1/K2 launches of (a)'s sharded run."""
     import tempfile
     work = tempfile.mkdtemp(prefix="chip-smoke-phase14-")
     t0 = time.perf_counter()
     launch, got_ms, ref_ms = one_rank_nccl(dev, seed, card, work)
     log(f"[time] sharded: (a) one-rank NCCL {time.perf_counter() - t0:.1f}s")
-    t0 = time.perf_counter()
-    ranks = two_ranks(seed, card, work)
-    log(f"[time] sharded: (b)+(c) two ranks {time.perf_counter() - t0:.1f}s")
     r0 = ranks[0]
+    log(f"[time] sharded: (b)+(c) on the ranks {r0['t_part']:.1f}s")
     for name, rec in r0["plans"].items():
         peaks = [max(r["plans"][name]["bf16_peak_gib"]) for r in ranks]
         log(f"[sharded] (b) {name} over gloo (CUDA tensors, 2 ranks on one "
@@ -4886,9 +4961,11 @@ def sharded_phase(dev, seed, card):
 
 PLAN_NEW = 32
 PLAN_F32_LAYERS = 4                  # the float32 pairs: 4 of 28 layers
+# (b) bf16 over gloo: 8 of the 28 layers (the gloo runs' time grows with
+# the layers' collectives; the 1200 s limit)
+PLAN_BF16_LAYERS = 8
 PLAN_PREFIX = 48                     # the shared prefix: 3 pages of 16
 TOL_PLAN_LP = 1e-4                   # float32 plan against one device
-SERVE_RANK_TIMEOUT_S = 420
 
 
 def plan_prompts(vocab, seed):
@@ -5081,20 +5158,22 @@ def serve_rank_main(rank, world, work, seed, card, dev=None):
                     "pool_bytes": r["pool_bytes"]}
         return r
 
-    # (b) bf16 at 28/28 layers on 1x2: per-rank bytes, decode ms a step
+    # (b) bf16 at PLAN_BF16_LAYERS layers on 1x2: per-rank bytes, decode
+    # ms a step
     plan = plans[(1, 2)]
-    params = plan.device_put_params(cfg, init_params(cfg, seed + 50,
-                                                     device=dev))
+    c8 = dataclasses.replace(cfg, num_layers=PLAN_BF16_LAYERS)
+    params = plan.device_put_params(c8, init_params(c8, seed + 50,
+                                                    device=dev))
     free()
     out["weight_bytes"] = tree_bytes(params)
     out["on_card"] = all(t.device == dev for t in tree_leaves(params))
-    bf16 = run(cfg, params, plan, "bf16")
+    bf16 = run(c8, params, plan, "bf16")
     del params
     free()
     if rank == 0:                         # the one-device engine
-        full = init_params(cfg, seed + 50, device=dev)
+        full = init_params(c8, seed + 50, device=dev)
         out["full_weight_bytes"] = tree_bytes(full)
-        ref = plan_run(cfg, full, prompts, None, seed)
+        ref = plan_run(c8, full, prompts, None, seed)
         out["full_pool_bytes"] = ref["pool_bytes"]
         out["bf16_ref_ms"] = ref["ms"]
         out["bf16_gap"] = logp_gap(bf16["results"], ref["results"])
@@ -5124,36 +5203,15 @@ def serve_rank_main(rank, world, work, seed, card, dev=None):
     return 0
 
 
-def serve_two_ranks(seed, card, work):
-    """Phase 15 (b) and (c): two rank processes on the one card."""
-    procs = [subprocess.Popen(
-        [sys.executable, str(Path(__file__).resolve()), "--serve-rank",
-         str(r), "--shard-work", str(work), "--seed", str(seed),
-         "--shard-card", card],
-        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-        for r in range(2)]
-    logs = []
-    try:
-        for pr in procs:
-            logs.append(pr.communicate(timeout=SERVE_RANK_TIMEOUT_S)[0])
-    finally:
-        for pr in procs:
-            pr.kill()
-            pr.wait()
-    if any(pr.returncode != 0 for pr in procs):
-        raise AssertionError("phase 15 ranks failed:\n" + "\n".join(
-            t[-3000:] for t in logs))
-    return [json.loads((Path(work) / f"serve{r}.json").read_text())
-            for r in range(2)]
-
-
-def plan_kernel_rows(dev, seed):
+def plan_kernel_rows(dev, seed, hq=HQ // 2, hkv=HKV // 2,
+                     label="serve plan 1x2, one rank",
+                     tag="[serve-plan] (d)", salt=15):
     """Phase 15 (d): K3 and K4 at the heads one rank of qwen3-1.7b's 1x2
     serve plan launches them with (Hq 8, Hkv 4, D 128; 8 slots up to 2048
     keys, one chunk of 512 after 1024), against their twins at the
-    existing bars, timed beside the twin, the bound and SDPA."""
-    gen = torch.Generator(device=dev).manual_seed(seed + 15)
-    hq, hkv = HQ // 2, HKV // 2
+    existing bars, timed beside the twin, the bound and SDPA (phase 17
+    (g): at another rank's heads, ``hq``/``hkv``)."""
+    gen = torch.Generator(device=dev).manual_seed(seed + salt)
     width = 2048 // PAGE
     lengths = [2048, 1537, 1024, 700, 333, 64, 1, width * PAGE + 1]
     live = slice(0, SLOTS - 1)
@@ -5163,7 +5221,7 @@ def plan_kernel_rows(dev, seed):
                                       table, lens), live)
     b_ms, b_by = decode_bound(q, table, lengths, width, hkv)
     shape = f"Hq={hq} Hkv={hkv} D={D} page={PAGE}"
-    k3 = dict(case="serve plan 1x2, one rank", max_abs_err=err,
+    k3 = dict(case=label, max_abs_err=err,
               bound_ms=b_ms, bound_by=b_by,
               ms=time_ms(lambda: pa.paged_attention(q, kp, vp, table, lens)),
               plain_ms=time_ms(lambda: pa.paged_decode_ref(
@@ -5181,7 +5239,7 @@ def plan_kernel_rows(dev, seed):
     kv_elems = -(-(start + c) // PAGE) * PAGE * hkv * D * 2
     b_ms, b_by = bound(kv_elems * 2 + 2 * q.numel() * 2 + table.numel() * 4,
                        sum(4 * hq * D * (start + i + 1) for i in range(c)))
-    k4 = dict(case="serve plan 1x2, one rank", max_abs_err=err,
+    k4 = dict(case=label, max_abs_err=err,
               bound_ms=b_ms, bound_by=b_by,
               ms=time_ms(lambda: ops.paged_prefill(q, kp, vp, table, pos,
                                                    impl="pallas")),
@@ -5193,7 +5251,7 @@ def plan_kernel_rows(dev, seed):
         raise AssertionError("K4 at a rank's local heads disagrees with its "
                              "twin")
     for name, row in (("K3", k3), ("K4", k4)):
-        log(f"[serve-plan] (d) {name} at a 1x2 rank's heads ({row['shape']}):"
+        log(f"{tag} {name} at a 1x2 rank's heads ({row['shape']}):"
             f" max|err| {row['max_abs_err']:.3e} (tol {TOL_BF16}), "
             f"{row['ms']:.4f} ms, bound {row['bound_ms']:.5f} ms "
             f"({row['bound_by']}), twin {row['plain_ms']:.3f} ms, SDPA "
@@ -5201,20 +5259,18 @@ def plan_kernel_rows(dev, seed):
     return {"paged_decode": k3, "paged_prefill": k4}
 
 
-def serve_plan_phase(dev, seed, card):
-    """Phase 15. Returns (the K3/K4 launches of its plan runs, the kernel
-    rows of (d))."""
+def serve_plan_phase(dev, seed, card, ranks):
+    """Phase 15; ``ranks`` the two rank processes' records of (b) and (c)
+    (``rank_pair``). Returns (the K3/K4 launches of its plan runs, the
+    kernel rows of (d))."""
     import tempfile
     work = tempfile.mkdtemp(prefix="chip-smoke-phase15-")
     t0 = time.perf_counter()
     launches = dict(serve_plan_one_rank(dev, seed, card, work))
     log(f"[time] serve plan: (a) one-rank NCCL "
         f"{time.perf_counter() - t0:.1f}s")
-    t0 = time.perf_counter()
-    ranks = serve_two_ranks(seed, card, work)
-    log(f"[time] serve plan: (b)+(c) two ranks "
-        f"{time.perf_counter() - t0:.1f}s")
     r0, r1 = ranks
+    log(f"[time] serve plan: (b)+(c) on the ranks {r0['t_part']:.1f}s")
     for k in launches:
         launches[k] += r0["launches"][k] + r1["launches"][k]
     for tag in ("bf16", "f32", "control", "data"):
@@ -5223,7 +5279,7 @@ def serve_plan_phase(dev, seed, card):
                                  "tokens")
     mean, worst, same = r0["bf16_gap"]
     log(f"[serve-plan] (b) 1x2 over gloo (CUDA tensors, 2 ranks on one card),"
-        f" qwen3-1.7b bf16 28/28 layers: weights "
+        f" qwen3-1.7b bf16 {PLAN_BF16_LAYERS}/28 layers: weights "
         f"{r0['weight_bytes'] / 1e9:.3f} / {r1['weight_bytes'] / 1e9:.3f} GB "
         f"per rank (one device "
         f"{r0['full_weight_bytes'] / 1e9:.3f} GB), on the card "
@@ -5270,14 +5326,21 @@ def serve_plan_phase(dev, seed, card):
 # dense-cache decode), the SSM and memory families on a serve plan, and the
 # front door on a mesh
 
-SPLAN_NEW = 16                  # (b) new tokens over gloo ((a) runs all 192)
+SPLAN_NEW = 16                  # (b) new tokens over gloo
+SPLAN_ONE_NEW = 32              # (a) new tokens on the one-rank NCCL plan
 SPLAN_LONG, SPLAN_LONG_NEW = 8192, 64                # (c) 1 x 8192 + 64
+# (b) and (c) in bf16: 8 of qwen3-1.7b's 28 layers (the gloo runs' time
+# grows with the layers' collectives; the 1200 s limit)
+SPLAN_BF16_LAYERS = 8
 SPLAN_F32_LAYERS = 4            # the float32 pairs: 4 of 28 layers
 SPLAN_SHARP = 4.0               # the pairs' wq, wk scale (scores x 16)
 FAM_ROWS, FAM_PROMPT, FAM_NEW = 4, 256, 16          # (d) 4 x 256 + 16
+# (d) the bf16 runs' depths: mamba2 16 of 48 layers, the VLM two periods
+# (10 of 40), whisper whole (the gloo runs' time grows with the layers'
+# collectives; the 1200 s limit)
+FAM_LAYERS = {"mamba2": 16, "llama": 10}
 VLM_PROMPT, VLM_NEW = 128, 8                        # (d) VLM 4 x 128 + 8
 SPLAN_DOOR_CLIENTS, SPLAN_DOOR_NEW = 8, 16
-STATIC_RANK_TIMEOUT_S = 600
 SSM_EMBED_SCALE = 0.05          # (d) mamba2's embedding (family_params)
 # (d) mamba2 bf16 on the plan against one device, mean |Δ logp|: with its
 # embedding scaled, the 48 Mamba2 layers decide the logits, and the plan's
@@ -5327,7 +5390,7 @@ def results_equal(a, b):
 
 def static_plan_one_rank(dev, seed, card, work):
     """Phase 16 (a): qwen3-1.7b bf16 at 28/28 layers, ``StaticEngine`` 16 x
-    832 + 192 (the static phase's traffic, prefill through K5), on a 1x1
+    832 + 32 (the static phase's prompts, prefill through K5), on a 1x1
     serve plan of a one-rank NCCL group against one device on the same
     weights: tokens and logps bit-equal, K5 launches equal. Returns the
     plan run's launches."""
@@ -5343,14 +5406,14 @@ def static_plan_one_rank(dev, seed, card, work):
         cfg = dataclasses.replace(get_config("qwen3-1.7b"), attn_impl="pallas")
         params = init_params(cfg, seed + 60, device=dev)
         prompts = static_prompts(cfg.vocab_size, seed)
-        ref = static_run(cfg, params, prompts, None, seed, NEW_TOKENS)
-        got = static_run(cfg, params, prompts, plan, seed, NEW_TOKENS)
+        ref = static_run(cfg, params, prompts, None, seed, SPLAN_ONE_NEW)
+        got = static_run(cfg, params, prompts, plan, seed, SPLAN_ONE_NEW)
         equal = results_equal(got["results"], ref["results"])
         k5 = (got["launches"]["flash_attention"],
               ref["launches"]["flash_attention"])
         log(f"[static-plan] (a) {plan.describe()} one-rank NCCL, {cfg.name} "
             f"bf16 28/28 layers, StaticEngine {len(prompts)} x {PROMPT_LEN} "
-            f"+ {NEW_TOKENS}, temperature 1.0: tokens and logps "
+            f"+ {SPLAN_ONE_NEW}, temperature 1.0: tokens and logps "
             f"{'bit-equal' if equal else 'NOT bit-equal'} to one device; "
             f"{got['s']:.2f} s on the plan vs {ref['s']:.2f} s; K5 launches "
             f"{k5[0]} vs {k5[1]} | {card}")
@@ -5475,8 +5538,10 @@ def static_rank_main(rank, world, work, seed, card, dev=None):
                     "s": r["s"], "launches": r["launches"]}
         return r
 
-    # (b) qwen3-1.7b bf16 28/28 on 1x2: bytes a rank, the bf16 gap
-    cfg = dataclasses.replace(get_config("qwen3-1.7b"), attn_impl="pallas")
+    # (b) qwen3-1.7b bf16 at SPLAN_BF16_LAYERS on 1x2: bytes a rank, the
+    # bf16 gap
+    cfg = dataclasses.replace(get_config("qwen3-1.7b"), attn_impl="pallas",
+                              num_layers=SPLAN_BF16_LAYERS)
     prompts = static_prompts(cfg.vocab_size, seed)
     params = placed_params(cfg, serve, seed + 60, dev)
     out["weight_bytes"] = tree_bytes(params)
@@ -5566,8 +5631,9 @@ def family_rank(out, run, name, new, plen, serve, seed, dev):
     layers = {"mamba2": 4, "whisper": base.num_layers,
               "llama": VLM_F32_LAYERS}[tag]
     for cfg, sfx, pseed in (
-            (dataclasses.replace(base, attn_impl="pallas",
-                                 ssd_impl="pallas"), "", seed + 63),
+            (dataclasses.replace(base, attn_impl="pallas", ssd_impl="pallas",
+                                 num_layers=FAM_LAYERS.get(
+                                     tag, base.num_layers)), "", seed + 63),
             (dataclasses.replace(base, attn_impl="pallas", ssd_impl="pallas",
                                  num_layers=layers, dtype="float32"),
              "_f32", seed + 64)):
@@ -5687,29 +5753,6 @@ def door_rank(out, cfg, params, serve, seed):
     free()
 
 
-def static_two_ranks(seed, card, work):
-    """Phase 16 (b)-(e): two rank processes on the one card."""
-    procs = [subprocess.Popen(
-        [sys.executable, str(Path(__file__).resolve()), "--static-rank",
-         str(r), "--shard-work", str(work), "--seed", str(seed),
-         "--shard-card", card],
-        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-        for r in range(2)]
-    logs = []
-    try:
-        for pr in procs:
-            logs.append(pr.communicate(timeout=STATIC_RANK_TIMEOUT_S)[0])
-    finally:
-        for pr in procs:
-            pr.kill()
-            pr.wait()
-    if any(pr.returncode != 0 for pr in procs):
-        raise AssertionError("phase 16 ranks failed:\n" + "\n".join(
-            t[-3000:] for t in logs))
-    return [json.loads((Path(work) / f"static{r}.json").read_text())
-            for r in range(2)]
-
-
 def static_kernel_rows(dev, seed, card):
     """Phase 16 (f): K5 and K6 at the shapes one rank of a 1x2 plan
     launches them with, each against its twin, timed beside the twin, the
@@ -5767,19 +5810,19 @@ def static_kernel_rows(dev, seed, card):
     return rows
 
 
-def static_plan_phase(dev, seed, card):
-    """Phase 16. Returns (its launches, the kernel rows of (f))."""
+def static_plan_phase(dev, seed, card, ranks):
+    """Phase 16; ``ranks`` the two rank processes' records of (b)-(e)
+    (``rank_pair``). Returns (its launches, the kernel rows of (f))."""
     import tempfile
     work = tempfile.mkdtemp(prefix="chip-smoke-phase16-")
     t0 = time.perf_counter()
     launches = dict(static_plan_one_rank(dev, seed, card, work))
     log(f"[time] static plan: (a) one-rank NCCL "
         f"{time.perf_counter() - t0:.1f}s")
-    t0 = time.perf_counter()
-    r0, r1 = static_two_ranks(seed, card, work)
-    log(f"[time] static plan: (b)-(e) two ranks "
-        f"{time.perf_counter() - t0:.1f}s ((b) {r0['t_b']:.1f}, (c) "
-        f"{r0['t_c']:.1f}, (d) {r0['t_d']:.1f}, (e) {r0['t_e']:.1f})")
+    r0, r1 = ranks
+    log(f"[time] static plan: (b)-(e) on the ranks {r0['t_part']:.1f}s "
+        f"((b) {r0['t_b']:.1f}, (c) {r0['t_c']:.1f}, (d) {r0['t_d']:.1f}, "
+        f"(e) {r0['t_e']:.1f})")
     for r in (r0, r1):
         for k, n in r["launches"].items():
             launches[k] = launches.get(k, 0) + n
@@ -5793,7 +5836,7 @@ def static_plan_phase(dev, seed, card):
     half = r0["cache_bytes"] * 2 == r0["cache_bytes_full"] and \
         r1["cache_bytes"] == r0["cache_bytes"]
     log(f"[static-plan] (b) 1x2 over gloo (CUDA tensors, 2 ranks on one "
-        f"card), qwen3-1.7b bf16 28/28 layers, StaticEngine "
+        f"card), qwen3-1.7b bf16 {SPLAN_BF16_LAYERS}/28 layers, StaticEngine "
         f"{PROMPTS * GROUP} x {PROMPT_LEN} + {SPLAN_NEW}: weights "
         f"{r0['weight_bytes'] / 1e9:.3f} / {r1['weight_bytes'] / 1e9:.3f} GB "
         f"per rank (one device {r0['full_weight_bytes'] / 1e9:.3f} GB), on "
@@ -5825,7 +5868,8 @@ def static_plan_phase(dev, seed, card):
                                  f"{'missed' if tag == 'f32' else 'held'}")
     mean, worst, same = r0["long"]["gap"]
     log(f"[static-plan] (c) long 2x1 (the sequence and heads over 'data'), "
-        f"qwen3-1.7b bf16 28/28, 1 x {SPLAN_LONG} + {SPLAN_LONG_NEW}: "
+        f"qwen3-1.7b bf16 {SPLAN_BF16_LAYERS}/28, 1 x {SPLAN_LONG} + "
+        f"{SPLAN_LONG_NEW}: "
         f"weights {r0['long_weight_bytes'] / 1e9:.3f} GB a rank; dense cache "
         f"{r0['long_cache_bytes'] / 1e9:.3f} GB a rank of "
         f"{r0['long_cache_full'] / 1e9:.3f} GB ({SPLAN_LONG + SPLAN_LONG_NEW} "
@@ -5849,7 +5893,8 @@ def static_plan_phase(dev, seed, card):
                      f"{v['mem_rows']} rows a rank")
         if tag == "llama":
             extra = f"; memory {v['mem_rows']} rows a rank"
-        log(f"[static-plan] (d) {tag} bf16 on 1x2: weights "
+        depth = FAM_LAYERS.get(tag, "all")
+        log(f"[static-plan] (d) {tag} bf16 ({depth} layers) on 1x2: weights "
             f"{r0[tag + '_weight_bytes'] / 1e9:.3f} GB a rank; cache "
             f"{v['cache_bytes'] / 1e6:.1f} MB a rank; {v['s']:.2f} s (one "
             f"device {v['ref_s']:.2f} s); |Δ logp| mean {mean:.3e}, max "
@@ -5864,12 +5909,13 @@ def static_plan_phase(dev, seed, card):
         if not mean <= bar or not f["held"] or \
                 not v["recompute_gap"][0] <= bar:
             raise AssertionError(f"(d) {tag}: off one device's")
-    mamba, whisper, vlm = (get_config(n) for n in (
-        "mamba2-1.3b", "whisper-small", "llama-3.2-vision-11b"))
+    whisper, vlm = (get_config(n) for n in ("whisper-small",
+                                            "llama-3.2-vision-11b"))
 
     def half(n):
         return n // 2 if n % 2 == 0 else n
-    if r0["mamba2"]["recompute_launches"]["ssd_scan"] != mamba.num_layers \
+    if r0["mamba2"]["recompute_launches"]["ssd_scan"] != \
+            FAM_LAYERS["mamba2"] \
             or r0["whisper_encode_k5"] != whisper.encoder_layers \
             or r0["whisper"]["mem_rows"] != half(whisper.encoder_seq) \
             or r0["llama"]["mem_rows"] != half(vlm.memory_seq):
@@ -5888,18 +5934,618 @@ def static_plan_phase(dev, seed, card):
     return launches, rows
 
 
+# --------------------------------------------------------------------------
+# phase 17: the MoE family and jamba on serve plans, the continuous engine
+# on a long plan, the threaded runtime on a live sampler plan
+
+# depth cuts (widths never cut): scout 4 of 48 layers (21.8 GB in bf16),
+# its float32 pair 2; maverick one period, 2 of 48 (MoE + MLP, 37.2 GB);
+# jamba 2 of 72 (attention + MoE, Mamba2 + MLP: 23.5 GB in bf16, 47.0 in
+# float32), its float32 pair at the same depth
+MPLAN_SCOUT_LAYERS, MPLAN_F32_LAYERS, MPLAN_MAV_LAYERS = 4, 2, 2
+MPLAN_JAMBA_LAYERS = 2
+MPLAN_NEW = 16                    # new tokens of the gloo runs
+MPLAN_REQS = 2                    # requests of the gloo runs' traffic
+MPLAN_ROWS, MPLAN_LEN = 4, 256    # the static engine's batch: 4 x 256
+JAMBA_PLAN_ROWS, JAMBA_PLAN_LEN = 4, 512
+LONG17_LEN, LONG17_NEW, LONG17_REQS = 4096, 32, 2
+LONG17_LAYERS = 8                 # (e) qwen3-1.7b at 8 of its 28 layers
+THREADS17_STEPS = 2
+JAMBA = "jamba-1.5-large-398b"
+
+
+def draw_params(cfg, seed, dev, plan=None):
+    """Random weights for ``cfg`` drawn slab by slab: every (block[,
+    expert]) slab of a leaf from its own generator, seeded by (seed, leaf,
+    slab), so a rank of ``plan`` draws only the slabs its shard overlaps,
+    cuts them, and never holds a whole leaf (maverick's expert leaves are
+    10.7 GB each in bf16). ``plan`` None: the full tree, the same numbers.
+    Normal leaves N(0, scale^2), drawn in float32 and cast; the SSM's
+    A_log and dt_bias as ``init_params`` draws them."""
+    from repro_torch.models.params import param_templates
+    dt = getattr(torch, cfg.dtype)
+    shardings = None if plan is None else plan.param_shardings(cfg)
+
+    def slab(t, key, shape):
+        gen = torch.Generator(device=dev).manual_seed(key)
+        if t.init == "zeros":
+            return torch.zeros(shape, dtype=dt, device=dev)
+        if t.init == "ones":
+            return torch.ones(shape, dtype=dt, device=dev)
+        u = torch.empty(shape, dtype=torch.float32, device=dev)
+        if t.init == "ssm_a":
+            return u.uniform_(1.0, 16.0, generator=gen).log_().to(dt)
+        if t.init == "ssm_dt":
+            return u.uniform_(1e-3, 1e-1, generator=gen).expm1_().log_().to(
+                dt)
+        return u.normal_(generator=gen).mul_(t.scale).to(dt)
+
+    def leaf(t, sh, index):
+        shape = tuple(t.shape)
+        cut = (tuple(slice(0, n) for n in shape) if sh is None
+               else sh.index(plan._rank, shape))
+        lead = 0 if len(shape) <= 2 else (1 if len(shape) == 3 else 2)
+        out = torch.empty(tuple(c.stop - c.start for c in cut), dtype=dt,
+                          device=dev)
+        for pos in np.ndindex(*(c.stop - c.start for c in cut[:lead])):
+            at = tuple(c.start + i for c, i in zip(cut[:lead], pos))
+            key = seed * 1_000_003 + index * 65_537 + int(
+                np.ravel_multi_index(at, shape[:lead]) if lead else 0)
+            out[pos] = slab(t, key, shape[lead:])[cut[lead:]]
+        return out
+
+    counter = iter(range(1 << 30))
+
+    def walk(tmpl, sh):
+        if isinstance(tmpl, dict):
+            return {k: walk(tmpl[k], None if sh is None else sh[k])
+                    for k in sorted(tmpl)}
+        return leaf(tmpl, sh, next(counter))
+    return walk(param_templates(cfg), shardings)
+
+
+def wrong_experts(serve_shard):
+    """The MoE control: each rank runs the next rank's experts (its own
+    weights on the rows dispatched to other experts)."""
+    def wrong(plan, cfg):
+        shard = serve_shard(plan, cfg)
+        e0, en = shard.experts
+        return dataclasses.replace(
+            shard, experts=((e0 + en) % cfg.num_experts, en))
+    return wrong
+
+
+def moe_cfg(name, layers, dtype="bfloat16", **over):
+    """``name`` at full width, ``layers`` deep, through K3/K4 and K5/K6."""
+    cfg = get_config(name)
+    if cfg.period > layers:                 # jamba: its period cut
+        over = dict(block_pattern=cfg.block_pattern[:layers], **over)
+    return dataclasses.replace(cfg, num_layers=layers, dtype=dtype,
+                               paged_attn_impl="pallas", attn_impl="pallas",
+                               ssd_impl="pallas", **over)
+
+
+def moe_plan_one_rank(dev, seed, card, work):
+    """Phase 17 (a): scout 4 of 48 layers, bf16, on a 1x1 serve plan of a
+    one-rank NCCL group against the one-device engine on the same
+    weights: 8 requests of 64-1024 tokens, 32 new; tokens and logps
+    bit-equal, K3/K4 launches and drops equal."""
+    import datetime
+    import torch.distributed as dist
+    from repro_torch.parallel import ExecutionPlan, make_debug_mesh
+    torch.cuda.set_device(dev)
+    dist.init_process_group("nccl", init_method=f"file://{work}/nccl17",
+                            rank=0, world_size=1,
+                            timeout=datetime.timedelta(seconds=120))
+    try:
+        plan = ExecutionPlan(make_debug_mesh(1, 1, device=dev), "serve")
+        cfg = moe_cfg(SCOUT, MPLAN_SCOUT_LAYERS)
+        params = draw_params(cfg, seed + 70, dev)
+        prompts = plan_prompts(cfg.vocab_size, seed)
+        with DropLog() as d_ref:
+            ref = plan_run(cfg, params, prompts, None, seed)
+        with DropLog() as d_got:
+            got = plan_run(cfg, params, prompts, plan, seed)
+        equal = all(np.array_equal(a.tokens, b.tokens)
+                    and np.array_equal(a.logps, b.logps)
+                    for a, b in zip(got["results"], ref["results"]))
+        drops = d_got.lists()
+        log(f"[moe-plan] (a) {plan.describe()} one-rank NCCL, {cfg.name} "
+            f"bf16 {cfg.num_layers}/48 layers (E {cfg.num_experts} top-"
+            f"{cfg.experts_per_token} + shared), {len(prompts)} requests of "
+            f"{min(map(len, prompts))}-{max(map(len, prompts))} tokens, "
+            f"{PLAN_NEW} new: tokens and logps "
+            f"{'bit-equal' if equal else 'NOT bit-equal'} to the one-device "
+            f"engine; drops equal {drops == d_ref.lists()} (prefill mean "
+            f"{np.mean(drops['prefill']):.4f}); decode {got['ms']:.2f} ms a "
+            f"step on the plan vs {ref['ms']:.2f}; K3/K4 launches "
+            f"{got['launches']} vs {ref['launches']} | {card}")
+        if not equal or got["launches"] != ref["launches"] or \
+                drops != d_ref.lists():
+            raise AssertionError("(a) scout on the 1x1 serve plan differs "
+                                 "from one device")
+        del params
+        free()
+        return got["launches"]
+    finally:
+        dist.destroy_process_group()
+
+
+def moe_rank_main(rank, world, work, seed, card, dev=None):
+    """Phase 17 (b)-(f), one of two rank processes on the one card (gloo
+    with CUDA tensors). Writes ``work/moe<r>.json``."""
+    import datetime
+    import torch.distributed as dist
+    from repro_torch.parallel import ExecutionPlan, make_mesh
+    from repro_torch.parallel import plan as plan_mod
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = dev or torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    dist.init_process_group("gloo", init_method=f"file://{work}/gloo17",
+                            rank=rank, world_size=world,
+                            timeout=datetime.timedelta(seconds=300))
+    meshes = {d: make_mesh(d, ("data", "model"), device=dev)
+              for d in ((1, 2), (2, 1))}
+    s12, s21 = (ExecutionPlan(meshes[d], "serve") for d in ((1, 2), (2, 1)))
+    long21 = ExecutionPlan(meshes[(2, 1)], "long")
+    out = {"rank": rank, "launches": {}}
+    # the serve plan's traffic cut to MPLAN_REQS requests, the last still
+    # sharing request 0's prefix
+    prompts = plan_prompts(get_config(SCOUT).vocab_size, seed)
+    prompts = prompts[:MPLAN_REQS - 1] + prompts[-1:]
+
+    def params_on(cfg, plan, pseed):
+        """This rank's shard, the ranks one after the other."""
+        p = None
+        for r in range(world):
+            if rank == r:
+                p = draw_params(cfg, pseed, dev, plan)
+                free()
+            dist.barrier()
+        return p
+
+    def cont(tag, cfg, params, plan, reqs=prompts):
+        with DropLog() as drops:
+            r = plan_run(cfg, params, reqs, plan, seed)
+        add_launches(out, r["launches"])
+        out[tag] = {"tokens": [x.tokens.tolist() for x in r["results"]],
+                    "ms": r["ms"], "pool_bytes": r["pool_bytes"],
+                    "drops": drops.lists(), "launches": r["launches"]}
+        return r
+
+    def static(tag, cfg, params, plan, sprompts, new):
+        with DropLog() as drops:
+            r = static_run(cfg, params, sprompts, plan, seed, new)
+        del r["engine"]                    # it holds the params
+        add_launches(out, r["launches"])
+        out[tag] = {"tokens": [x.tokens.tolist() for x in r["results"]],
+                    "s": r["s"], "drops": drops.lists(),
+                    "launches": r["launches"]}
+        return r
+
+    def on_rank0(fn):
+        """``fn()`` on rank 0 alone, the other rank waiting."""
+        if rank == 0:
+            fn()
+            free()
+        dist.barrier()
+
+    def pair(tag, got, ref, kind="results"):
+        out[tag]["gap"] = logp_gap(got[kind], ref[kind])
+        out[tag]["held"] = plan_held(got[kind], ref[kind])
+
+    # (b) scout 4/48 bf16 on 1x2, both engines
+    t0 = time.perf_counter()
+    cfg = moe_cfg(SCOUT, MPLAN_SCOUT_LAYERS)
+    sprompts = static_prompts(cfg.vocab_size, seed + 3, MPLAN_ROWS,
+                              MPLAN_LEN)
+    params = params_on(cfg, s12, seed + 70)
+    out["scout_bytes"] = tree_bytes(params)
+    out["scout_experts"] = list(s12.serve_shard(cfg).experts)
+    b_c = cont("scout_c", cfg, params, s12)
+    b_s = static("scout_s", cfg, params, s12, sprompts, MPLAN_NEW)
+    del params
+    free()
+
+    def ref_b():
+        full = draw_params(cfg, seed + 70, dev)
+        out["scout_full_bytes"] = tree_bytes(full)
+        with DropLog() as drops:
+            rc = plan_run(cfg, full, prompts, None, seed)
+        out["scout_c"]["ref_drops"] = drops.lists()
+        out["scout_c"]["ref_ms"] = rc["ms"]
+        pair("scout_c", b_c, rc)
+        with DropLog() as drops:
+            rs = static_run(cfg, full, sprompts, None, seed, MPLAN_NEW)
+        out["scout_s"]["ref_drops"] = drops.lists()
+        out["scout_s"]["ref_s"] = rs["s"]
+        pair("scout_s", b_s, rs)
+    on_rank0(ref_b)
+    # (b) the float32 pair at 2/48 and its control
+    c2 = moe_cfg(SCOUT, MPLAN_F32_LAYERS, "float32")
+    params = params_on(c2, s12, seed + 71)
+    f32 = cont("scout_f32", c2, params, s12)
+    serve_shard = plan_mod._serve_shard
+    plan_mod._serve_shard = wrong_experts(serve_shard)
+    try:
+        ctl = cont("scout_ctl", c2, params, s12)
+    finally:
+        plan_mod._serve_shard = serve_shard
+    del params
+    free()
+
+    def ref_f32():
+        full = draw_params(c2, seed + 71, dev)
+        with DropLog() as drops:
+            rc = plan_run(c2, full, prompts, None, seed)
+        out["scout_f32"]["ref_drops"] = drops.lists()
+        pair("scout_f32", f32, rc)
+        pair("scout_ctl", ctl, rc)
+    on_rank0(ref_f32)
+    out["t_b"] = time.perf_counter() - t0
+    # (c) maverick's period on 2x1 (experts whole, FFN columns over
+    # 'data', the decode slots over 'data'), then moe_ep="serve" on 1x2
+    t0 = time.perf_counter()
+    cm = moe_cfg(MAVERICK, MPLAN_MAV_LAYERS)
+    params = params_on(cm, s21, seed + 72)
+    out["mav_bytes"] = tree_bytes(params)
+    out["mav_ffn"] = list(s21.serve_shard(cm).expert_ffn)
+    mav = cont("mav", cm, params, s21)
+    del params
+    free()
+    nodrop = float(cm.num_experts // cm.experts_per_token)
+    cep = dataclasses.replace(cm, moe_ep="serve", ep_dp_axes=("data",),
+                              capacity_factor=nodrop)
+    params = params_on(cep, s12, seed + 72)
+    out["mav_ep_bytes"] = tree_bytes(params)
+    out["mav_ep_experts"] = list(s12.serve_shard(cep).experts)
+    ep = cont("mav_ep", cep, params, s12)
+    del params
+    free()
+
+    def ref_c():
+        full = draw_params(cm, seed + 72, dev)
+        out["mav_full_bytes"] = tree_bytes(full)
+        with DropLog() as drops:
+            rc = plan_run(cm, full, prompts, None, seed)
+        out["mav"]["ref_drops"] = drops.lists()
+        out["mav"]["ref_ms"] = rc["ms"]
+        pair("mav", mav, rc)
+        one = dataclasses.replace(cm, capacity_factor=nodrop)
+        with DropLog() as drops:
+            rc = plan_run(one, full, prompts, None, seed)
+        out["mav_ep"]["ref_drops"] = drops.lists()
+        out["mav_ep"]["ref_ms"] = rc["ms"]
+        pair("mav_ep", ep, rc)
+    on_rank0(ref_c)
+    out["t_c"] = time.perf_counter() - t0
+    # (d) jamba 2/72 on 1x2 through the static engine and the recompute
+    t0 = time.perf_counter()
+    for dtype, tag, pseed in (("bfloat16", "jamba", seed + 73),
+                              ("float32", "jamba_f32", seed + 74)):
+        cj = moe_cfg(JAMBA, MPLAN_JAMBA_LAYERS, dtype)
+        jp = static_prompts(cj.vocab_size, seed + 4, JAMBA_PLAN_ROWS,
+                            JAMBA_PLAN_LEN)
+        params = params_on(cj, s12, pseed)
+        out[tag + "_bytes"] = tree_bytes(params)
+        r = static(tag, cj, params, s12, jp, MPLAN_NEW)
+        roll = rollout_from_results(jp, r["results"], MPLAN_NEW, device=dev)
+        reset_counts()
+        lp = token_logps(cj, params, roll["tokens"], plan=s12)
+        torch.cuda.synchronize()
+        add_launches(out, counts())
+        out[tag]["recompute_launches"] = counts()
+        del params
+        free()
+
+        def ref_d(cj=cj, jp=jp, pseed=pseed, r=r, lp=lp, roll=roll, tag=tag):
+            full = draw_params(cj, pseed, dev)
+            out[tag + "_full_bytes"] = tree_bytes(full)
+            rs = static_run(cj, full, jp, None, seed, MPLAN_NEW)
+            out[tag]["ref_s"] = rs["s"]
+            pair(tag, r, rs)
+            want = token_logps(cj, full, roll["tokens"])
+            mask = roll["comp_mask"] > 0
+            d = (lp[:, JAMBA_PLAN_LEN - 1:]
+                 - want[:, JAMBA_PLAN_LEN - 1:]).abs()[mask]
+            out[tag]["recompute_gap"] = [float(d.mean()), float(d.max())]
+        on_rank0(ref_d)
+        del lp, roll, r
+        free()
+    out["t_d"] = time.perf_counter() - t0
+    # (e) qwen3-1.7b at LONG17_LAYERS on a long 2x1 plan through
+    # ContinuousEngine
+    t0 = time.perf_counter()
+    cq = moe_cfg("qwen3-1.7b", LONG17_LAYERS)
+    lp_ = static_prompts(cq.vocab_size, seed + 5, LONG17_REQS, LONG17_LEN)
+    lreqs = [p for p in lp_]
+    params = params_on(cq, long21, seed + 75)
+    out["long_bytes"] = tree_bytes(params)
+    lng = long_run("long", cq, params, long21, lreqs, seed, out)
+    del params
+    free()
+
+    def ref_e():
+        full = draw_params(cq, seed + 75, dev)
+        out["long_full_bytes"] = tree_bytes(full)
+        rc = long_run(None, cq, full, None, lreqs, seed, out)
+        out["long"]["ref_s"] = rc["s"]
+        out["long_full_pool_bytes"] = rc["pool_bytes"]
+        pair("long", lng, rc)
+    on_rank0(ref_e)
+    out["t_e"] = time.perf_counter() - t0
+    # (f) ThreadedHeteroRuntime.run on the 1x2 sampler plan
+    t0 = time.perf_counter()
+    threads_rank(out, s12, seed, dev)
+    out["t_f"] = time.perf_counter() - t0
+    dist.barrier()
+    dist.destroy_process_group()
+    with open(Path(work) / f"moe{rank}.json", "w") as fh:
+        json.dump(out, fh)
+    return 0
+
+
+def long_run(tag, cfg, params, plan, prompts, seed, out):
+    """``prompts`` through a ContinuousEngine on ``plan`` (None: one
+    device): page 16, prefill chunk 512, LONG17_NEW new tokens at
+    temperature 1.0; records the run under ``tag`` in ``out``."""
+    rl = RLConfig(temperature=1.0, top_k=0, top_p=1.0,
+                  max_new_tokens=LONG17_NEW)
+    serve = ServeConfig(num_slots=len(prompts), page_size=PAGE,
+                        prefill_chunk=512, sync_every=8,
+                        max_total_tokens=LONG17_LEN + LONG17_NEW,
+                        paged_attn_impl="pallas", seed=seed)
+    eng = build_engine(cfg, params, serve, rl=rl, vocab_limit=cfg.vocab_size,
+                       key=prng.PRNGKey(seed), plan=plan)
+    sp = SamplingParams.from_rl(rl)
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    res = eng.generate([Request(rid=i, prompt=p, params=sp)
+                        for i, p in enumerate(prompts)])
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    st = eng.stats()
+    launches = {k: counts()[k] for k in ("paged_decode", "paged_prefill")}
+    want = {"paged_decode": cfg.num_layers * st["decode_steps"],
+            "paged_prefill": cfg.num_layers * st["prefill_chunks"]}
+    if launches != want:
+        raise AssertionError(f"long run launches {launches} != {want}")
+    r = {"results": res, "s": secs, "pool_bytes": tree_bytes(eng.pool),
+         "launches": launches}
+    if tag is not None:
+        add_launches(out, launches)
+        out[tag] = {"tokens": [x.tokens.tolist() for x in res], "s": secs,
+                    "pool_bytes": r["pool_bytes"], "launches": launches}
+    del eng
+    return r
+
+
+def threads_rank(out, plan, seed, dev):
+    """Phase 17 (f) on a rank: ``ThreadedHeteroRuntime.run`` on the 1x2
+    sampler plan, qwen3-1.7b at LOOP_LAYERS, 2 samplers (rank 0 runs the
+    threads, rank 1 replays its sections): every batch the rank's samplers
+    generated, in order, and the learner's history."""
+    cfg = dataclasses.replace(get_config("qwen3-1.7b"),
+                              num_layers=LOOP_LAYERS)
+    rl = RLConfig(loss_type="gepo", group_size=4, max_new_tokens=MPLAN_NEW,
+                  temperature=1.0, top_k=0, top_p=1.0, beta_kl=0.005,
+                  engine="continuous")
+    tc = TrainConfig(grad_accum=1, logprob_impl="fused")
+    hcfg = HeteroConfig(num_samplers=2, max_delay_steps=64,
+                        delay_median_s=60.0, seed=seed)
+    task = ArithmeticTask(max_operand=99, ops="+-", prompt_width=64,
+                          seed=seed)
+    state = init_state(cfg, tc, draw_params(cfg, seed + 76, dev))
+    rt = ThreadedHeteroRuntime(cfg, rl, tc, hcfg, task, Tokenizer(), state,
+                               prompts_per_batch=1, time_scale=1e-3,
+                               device=dev, sampler_plan=plan)
+    seen = []
+    for s in rt.samplers:
+        def recorded(now_s, gen=s.generate_batch):
+            b = gen(now_s)
+            seen.append(b)
+            return b
+        s.generate_batch = recorded
+    reset_counts()
+    t0 = time.perf_counter()
+    try:
+        hist = rt.run(THREADS17_STEPS)
+    finally:
+        for t in rt.threads:
+            t.join(THREAD_JOIN_S)
+    torch.cuda.synchronize()
+    add_launches(out, counts())
+    out["threads"] = {
+        "s": time.perf_counter() - t0, "leader": rt.leader,
+        "steps": rt.learner.step,
+        "alive": [t.name for t in rt.threads if t.is_alive()],
+        "batches": [[b.sampler_id, b.version, b.tokens.tolist(),
+                     np.round(b.sampler_lp, 6).tolist()] for b in seen],
+        "staleness": hist.get("staleness").tolist(),
+        "loss": hist.get("loss").tolist(), "launches": counts()}
+    del rt, state
+    free()
+
+
+def moe_plan_phase(dev, seed, card, ranks):
+    """Phase 17; ``ranks`` the two rank processes' records of (b)-(f)
+    (``rank_pair``). Returns (its launches, the kernel rows of (g))."""
+    import tempfile
+    work = tempfile.mkdtemp(prefix="chip-smoke-phase17-")
+    t0 = time.perf_counter()
+    launches = dict(moe_plan_one_rank(dev, seed, card, work))
+    log(f"[time] moe plan: (a) one-rank NCCL {time.perf_counter() - t0:.1f}s")
+    r0, r1 = ranks
+    log(f"[time] moe plan: (b)-(f) on the ranks {r0['t_part']:.1f}s ((b) "
+        f"{r0['t_b']:.1f}, (c) {r0['t_c']:.1f}, (d) {r0['t_d']:.1f}, (e) "
+        f"{r0['t_e']:.1f}, (f) {r0['t_f']:.1f})")
+    for r in (r0, r1):
+        for k, n in r["launches"].items():
+            launches[k] = launches.get(k, 0) + n
+    tags = ["scout_c", "scout_s", "scout_f32", "scout_ctl", "mav", "mav_ep",
+            "jamba", "jamba_f32", "long"]
+    for tag in tags:
+        if r0[tag]["tokens"] != r1[tag]["tokens"]:
+            raise AssertionError(f"({tag}) the two ranks emit different "
+                                 "tokens")
+    gib = 2 ** 30
+    # (b)
+    bars = []
+    for tag, label in (("scout_c", f"ContinuousEngine, {MPLAN_REQS} "
+                                   f"requests of the serve plan's + "
+                                   f"{PLAN_NEW}"),
+                       ("scout_s", f"StaticEngine {MPLAN_ROWS} x "
+                                   f"{MPLAN_LEN} + {MPLAN_NEW}")):
+        v = r0[tag]
+        mean, worst, same = v["gap"]
+        drops_eq = v["drops"] == v["ref_drops"]
+        log(f"[moe-plan] (b) 1x2 over gloo (2 ranks on one card), "
+            f"{SCOUT} bf16 {MPLAN_SCOUT_LAYERS}/48, {label}: experts "
+            f"{r0['scout_experts']} / {r1['scout_experts']} a rank, weights "
+            f"{r0['scout_bytes'] / 1e9:.3f} / "
+            f"{r1['scout_bytes'] / 1e9:.3f} GB "
+            f"a rank (one device {r0['scout_full_bytes'] / 1e9:.3f} GB); "
+            f"|Δ logp| against one device before each request's first "
+            f"differing token: mean {mean:.3e}, max {worst:.3e}, "
+            f"{same}/{len(v['tokens'])} requests token-equal; moe_drop_frac "
+            f"prefill mean {np.mean(v['drops']['prefill']):.4f} (one device "
+            f"{np.mean(v['ref_drops']['prefill']):.4f}), every forward equal "
+            f"{drops_eq}; launches {v['launches']} | {card}")
+        bars.append(mean <= TOL_LOGP_MEAN_BF16)
+    half = get_config(SCOUT).num_experts // 2
+    if not all(bars) or r0["scout_bytes"] * 2 > r0["scout_full_bytes"] * 1.01 \
+            or r0["scout_experts"] != [0, half] or \
+            r1["scout_experts"] != [half, half]:
+        raise AssertionError("(b) scout bf16: a rank holds more than its "
+                             "half, or the logps are off one device's")
+    for tag, label in (("scout_f32", "float32 pair"),
+                       ("scout_ctl", "float32 control (each rank on the "
+                                     "next rank's experts)")):
+        v = r0[tag]
+        log(f"[moe-plan] (b) {SCOUT} {label}, {MPLAN_F32_LAYERS}/48 layers, "
+            f"ContinuousEngine: tokens equal and logps within {TOL_PLAN_LP} "
+            f"of one device: {v['held']}; |Δ logp| mean {v['gap'][0]:.3e}, "
+            f"max {v['gap'][1]:.3e}, {v['gap'][2]}/{len(v['tokens'])} "
+            f"token-equal; drops equal to one device's "
+            f"{v['drops'] == r0['scout_f32']['ref_drops']} | {card}")
+    if not r0["scout_f32"]["held"] or r0["scout_ctl"]["held"] or \
+            r0["scout_f32"]["drops"] != r0["scout_f32"]["ref_drops"]:
+        raise AssertionError("(b) the float32 pair misses its bar, or the "
+                             "control holds it")
+    # (c)
+    for tag, label in (("mav", f"2x1 ({r0['mav_ffn']} / {r1['mav_ffn']} of "
+                               f"each expert's FFN columns a rank)"),
+                       ("mav_ep", f"1x2 moe_ep='serve' (experts "
+                                  f"{r0['mav_ep_experts']} / "
+                                  f"{r1['mav_ep_experts']}), capacity "
+                                  f"factor {get_config(MAVERICK).num_experts}"
+                                  f" (no drops)")):
+        v = r0[tag]
+        mean, worst, same = v["gap"]
+        log(f"[moe-plan] (c) {MAVERICK} bf16 {MPLAN_MAV_LAYERS}/48 on {label}"
+            f": weights {r0[tag + '_bytes'] / 1e9:.3f} GB a rank (one device "
+            f"{r0['mav_full_bytes'] / 1e9:.3f} GB); |Δ logp| mean "
+            f"{mean:.3e}, max {worst:.3e}, {same}/{len(v['tokens'])} "
+            f"token-equal; moe_drop_frac prefill "
+            f"{v['drops']['prefill']} decode mean "
+            f"{np.mean(v['drops']['decode'] or [0]):.4f} (one device "
+            f"{v['ref_drops']['prefill']}, "
+            f"{np.mean(v['ref_drops']['decode'] or [0]):.4f}); decode "
+            f"{v['ms']:.2f} ms a step (one device {v['ref_ms']:.2f}) | {card}")
+        if not mean <= TOL_LOGP_MEAN_BF16:
+            raise AssertionError(f"({tag}) maverick off one device's")
+    v = r0["mav"]
+    if v["drops"]["prefill"] != v["ref_drops"]["prefill"] or \
+            (v["gap"][2] == len(v["tokens"])
+             and v["drops"] != v["ref_drops"]) or \
+            not any(v["drops"]["prefill"] + v["drops"]["decode"]) or \
+            any(r0["mav_ep"]["drops"]["prefill"]):
+        raise AssertionError("(c) maverick's drops differ from one device's")
+    # (d)
+    for tag in ("jamba", "jamba_f32"):
+        v = r0[tag]
+        mean, worst, same = v["gap"]
+        log(f"[moe-plan] (d) {JAMBA} {tag[6:] or 'bf16'} "
+            f"{MPLAN_JAMBA_LAYERS}/72 layers on 1x2, StaticEngine "
+            f"{JAMBA_PLAN_ROWS} x {JAMBA_PLAN_LEN} + {MPLAN_NEW}: weights "
+            f"{r0[tag + '_bytes'] / 1e9:.3f} GB a rank (one device "
+            f"{r0[tag + '_full_bytes'] / 1e9:.3f} GB); tokens equal and "
+            f"logps within {TOL_PLAN_LP}: {v['held']}; |Δ logp| mean "
+            f"{mean:.3e}, max {worst:.3e}, {same}/{len(v['tokens'])} "
+            f"token-equal; recompute on the plan launched "
+            f"{v['recompute_launches']}, |Δ| against one device's mean "
+            f"{v['recompute_gap'][0]:.3e} max {v['recompute_gap'][1]:.3e}; "
+            f"{v['s']:.2f} s (one device {v['ref_s']:.2f} s) | {card}")
+        rl = v["recompute_launches"]
+        if rl["ssd_scan"] != 1 or rl["flash_attention"] != 1 or \
+                rl["logprob_fwd"] != 1:
+            raise AssertionError(f"({tag}) the recompute missed K5/K6/K1")
+    if not r0["jamba"]["gap"][0] <= TOL_LOGP_MEAN_BF16 or \
+            not r0["jamba"]["recompute_gap"][0] <= TOL_LOGP_MEAN_BF16 or \
+            not r0["jamba_f32"]["held"] or \
+            not r0["jamba_f32"]["recompute_gap"][1] <= TOL_PLAN_LP:
+        raise AssertionError("(d) jamba on the plan is off one device's")
+    # (e)
+    v = r0["long"]
+    mean, worst, same = v["gap"]
+    log(f"[moe-plan] (e) long 2x1, qwen3-1.7b bf16 {LONG17_LAYERS}/28, "
+        f"ContinuousEngine "
+        f"{LONG17_REQS} x {LONG17_LEN} + {LONG17_NEW}, page {PAGE}, prefill "
+        f"chunk 512: weights {r0['long_bytes'] / 1e9:.3f} GB a rank (one "
+        f"device {r0['long_full_bytes'] / 1e9:.3f} GB), page pools "
+        f"{v['pool_bytes'] / gib:.3f} GiB a rank (one device "
+        f"{r0['long_full_pool_bytes'] / gib:.3f} GiB, whole over 'data'); "
+        f"|Δ logp| mean {mean:.3e}, max {worst:.3e}, {same}/{LONG17_REQS} "
+        f"token-equal; {v['s']:.2f} s (one device {v['ref_s']:.2f} s); "
+        f"launches {v['launches']} | {card}")
+    if r0["long_bytes"] * 2 > r0["long_full_bytes"] * 1.01 or \
+            v["pool_bytes"] != r0["long_full_pool_bytes"] or \
+            not mean <= TOL_LOGP_MEAN_BF16:
+        raise AssertionError("(e) long: a rank holds more than half the "
+                             "weights, or not the whole pools, or the logps "
+                             "are off one device's")
+    # (f)
+    a, b = r0["threads"], r1["threads"]
+    log(f"[moe-plan] (f) ThreadedHeteroRuntime.run({THREADS17_STEPS}) on the "
+        f"1x2 sampler plan, qwen3-1.7b {LOOP_LAYERS}/28, 2 samplers: rank 0 "
+        f"led ({a['leader']}), rank 1 replayed; {a['s']:.2f} s; "
+        f"{len(a['batches'])} batches on each rank, equal "
+        f"{a['batches'] == b['batches']}; versions "
+        f"{[x[1] for x in a['batches']]}; staleness {a['staleness']} (rank "
+        f"1 {b['staleness']}); loss {a['loss']}; threads alive after the run "
+        f"{a['alive']} | {card}")
+    if a["batches"] != b["batches"] or a["staleness"] != b["staleness"] or \
+            a["steps"] != THREADS17_STEPS or b["steps"] != THREADS17_STEPS \
+            or not a["leader"] or b["leader"] or a["alive"] or \
+            not np.isfinite(a["loss"]).all():
+        raise AssertionError("(f) the threaded runtime's ranks disagree")
+    t0 = time.perf_counter()
+    cfg = get_config(SCOUT)
+    rows = plan_kernel_rows(dev, seed, cfg.num_heads // 2,
+                            cfg.num_kv_heads // 2,
+                            label="scout serve plan 1x2, one rank",
+                            tag="[moe-plan] (g)", salt=17)
+    # K6 at jamba's recompute on one 1x2 rank: 4 x 527 tokens padded to
+    # 3 chunks of 256, 128 of 256 SSM heads
+    jamba = get_config(JAMBA)
+    gen = torch.Generator(device=dev).manual_seed(seed + 18)
+    rows["ssd_scan"] = ssd_row(
+        gen, dev, f"jamba recompute, 1x2 rank ({jamba.ssm_heads // 2} of "
+        f"{jamba.ssm_heads} heads)", JAMBA_PLAN_ROWS, 3 * jamba.ssm_chunk,
+        jamba.ssm_heads // 2, jamba.ssm_headdim, jamba.ssm_ngroups,
+        jamba.ssm_state, jamba.ssm_chunk, torch.bfloat16, True)
+    log(f"[time] moe plan: (g) kernel rows {time.perf_counter() - t0:.1f}s")
+    return launches, rows
+
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description="PyTorch port smoke on one GPU")
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--shard-rank", type=int, default=None,
-                    help=argparse.SUPPRESS)     # phase 14's rank processes
-    ap.add_argument("--shard-work", default=None, help=argparse.SUPPRESS)
-    ap.add_argument("--shard-card", default=None, help=argparse.SUPPRESS)
-    ap.add_argument("--serve-rank", type=int, default=None,
-                    help=argparse.SUPPRESS)     # phase 15's rank processes
-    ap.add_argument("--static-rank", type=int, default=None,
-                    help=argparse.SUPPRESS)     # phase 16's rank processes
+    ap.add_argument("--rank", type=int, default=None,
+                    help=argparse.SUPPRESS)     # phases 14-17's rank processes
+    ap.add_argument("--rank-work", default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--rank-card", default=None, help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -5907,15 +6553,9 @@ def main(argv=None) -> int:
         return 1
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    if args.shard_rank is not None:
-        return shard_rank_main(args.shard_rank, 2, args.shard_work,
-                               args.seed, args.shard_card)
-    if args.serve_rank is not None:
-        return serve_rank_main(args.serve_rank, 2, args.shard_work,
-                               args.seed, args.shard_card)
-    if args.static_rank is not None:
-        return static_rank_main(args.static_rank, 2, args.shard_work,
-                                args.seed, args.shard_card)
+    if args.rank is not None:
+        return ranks_main(args.rank, 2, args.rank_work, args.seed,
+                          args.rank_card)
     dev = torch.device("cuda", 0)
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -6008,12 +6648,19 @@ def main(argv=None) -> int:
     log(f"[time] memory phase {time.perf_counter() - t0:.1f}s")
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    for name, n in sharded_phase(dev, args.seed, card).items():
+    pair = rank_pair(args.seed, card)
+    log(f"[time] phases 14-17 on the two ranks {time.perf_counter() - t0:.1f}s"
+        f" (" + ", ".join(f"{k} {v[0]['t_part']:.1f}" for k, v in
+                          pair.items()) + ")")
+    t0 = time.perf_counter()
+    for name, n in sharded_phase(dev, args.seed, card,
+                                 pair["shard"]).items():
         launches[name] += n
     log(f"[time] sharded phase {time.perf_counter() - t0:.1f}s")
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    plan_launches, plan_rows = serve_plan_phase(dev, args.seed, card)
+    plan_launches, plan_rows = serve_plan_phase(dev, args.seed, card,
+                                                pair["serve"])
     for name, n in plan_launches.items():
         launches[name] += n
     for name, row in plan_rows.items():
@@ -6021,7 +6668,8 @@ def main(argv=None) -> int:
     log(f"[time] serve plan phase {time.perf_counter() - t0:.1f}s")
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    splan_launches, splan_rows = static_plan_phase(dev, args.seed, card)
+    splan_launches, splan_rows = static_plan_phase(dev, args.seed, card,
+                                                   pair["static"])
     for name, n in splan_launches.items():
         launches[name] += n
     for name, rows in splan_rows.items():
@@ -6030,6 +6678,19 @@ def main(argv=None) -> int:
         "static plan (16: 1x1 NCCL, 1x2 and long 2x1 over gloo, families, "
         "door)"] = splan_launches.get("flash_attention", 0)
     log(f"[time] static plan phase {time.perf_counter() - t0:.1f}s")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    mplan_launches, mplan_rows = moe_plan_phase(dev, args.seed, card,
+                                                pair["moe"])
+    for name, n in mplan_launches.items():
+        launches[name] += n
+    for name, row in mplan_rows.items():
+        kernels[name]["moe_plan"] = [row]
+    kernels["flash_attention"]["launches_by_phase"][
+        "moe plan (17: scout's and jamba's static engines and jamba's "
+        "recompute on 1x2)"] = mplan_launches.get("flash_attention", 0)
+    log(f"[moe-plan] phase 17 launches {mplan_launches}")
+    log(f"[time] moe plan phase {time.perf_counter() - t0:.1f}s")
     for name, row in kernels.items():
         row["launches"] = launches[name]
         row["kernel_ms"], row["twin_ms"] = row["ms"], row["plain_ms"]

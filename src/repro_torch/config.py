@@ -9,9 +9,10 @@ below). ``HeteroConfig`` keeps the JAX package's fields and defaults
 too. ``ServeConfig`` holds the deployment fields the serving path uses.
 Both take a ``DxM`` (or ``PxDxM``) mesh, ``sampler_mesh`` and ``mesh``:
 both engines and the front door serve on it (the continuous engine
-tensor-parallel, the static engine with a context-parallel decode); what
-a serve mesh does not serve yet (the MoE family and jamba) raises where
-it is used, naming ROADMAP queue 1 item 10, slice 15.
+tensor-parallel, the static engine with a context-parallel decode). A
+split a plan does not serve (a q head cut over the ranks, SSM heads that
+split apart from their channels) raises where it is used, naming
+ROADMAP queue 1 item 5.
 """
 from __future__ import annotations
 

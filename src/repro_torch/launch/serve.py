@@ -72,9 +72,19 @@ below:
 
 With ``--listen`` rank 0 runs the front door and the other ranks follow
 its engine rounds (``FrontDoor.follow``). Every rank draws the full
-weights from ``--seed`` and keeps its shard. The MoE family (and jamba)
-on a mesh raise ``NotImplementedError`` (ROADMAP queue 1 item 10, slice
-15).
+weights from ``--seed`` and keeps its shard. The MoE family
+(``--arch llama4-scout-17b-a16e``, ``llama4-maverick-400b-a17b``) keeps
+its experts over 'model' and their FFN columns over 'data' and
+dispatches every token at the global capacity; jamba
+(``jamba-1.5-large-398b``) serves static, its Mamba2 layers on the
+rank's SSM heads:
+
+  torchrun --standalone --nproc-per-node 2 -m repro_torch.launch.serve \
+      --device cpu --smoke --mesh 1x2 --arch llama4-scout-17b-a16e
+
+A split that cuts a q head, or SSM heads apart from their channels (only
+past four ranks for the registry's configs), raises
+``NotImplementedError`` (ROADMAP queue 1 item 5).
 """
 from __future__ import annotations
 

@@ -646,6 +646,7 @@ def forward(cfg: ModelConfig, params: Dict, tokens: torch.Tensor, *,
             cache: Optional[Dict] = None,
             page_table: Optional[torch.Tensor] = None,
             record_queries: bool = False,
+            last_only: bool = False,
             ) -> Tuple[torch.Tensor, Optional[Dict], Dict]:
     """Full-sequence forward. tokens (B, S) at ``positions`` (B, S)
     (default ``arange(S)``). Without ``page_table`` the dense path
@@ -663,7 +664,10 @@ def forward(cfg: ModelConfig, params: Dict, tokens: torch.Tensor, *,
     layers' attention through one ``paged_prefill_layers`` launch. A
     config with MoE layers puts the sums over layers of their router
     metrics in ``aux`` (``moe_load_balance``, ``moe_z_loss``,
-    ``moe_drop_frac``); otherwise ``aux`` holds no more."""
+    ``moe_drop_frac``); otherwise ``aux`` holds no more. ``last_only``
+    returns the logits of the last position alone (B, 1, V_padded): an
+    engine's prefill draws from them, and the head (and, on a plan, the
+    logits' gather over the vocab) then runs on one row, not S."""
     b, s = tokens.shape
     contiguous = positions is None
     if positions is None:
@@ -686,6 +690,8 @@ def forward(cfg: ModelConfig, params: Dict, tokens: torch.Tensor, *,
         if tape is not None:
             aux["q_tape"] = torch.stack([q for q, _ in tape])
             aux["o_tape"] = torch.stack([o for _, o in tape])
+    if last_only:
+        x = x[:, -1:]
     return _logits(cfg, params, x), cache, aux
 
 

@@ -28,10 +28,22 @@ C = max(int(T k / E * capacity_factor), 4) depends on the token count T
 of the forward, so the callers feed the MoE the reference's token counts:
 every slot of a decode step, a prefill chunk, the padded verify window, a
 learner microbatch. Nothing here reads back to the host.
+
+On a serving plan (``runtime_context.serve_shard`` with an expert split)
+the layer keeps the reference's GSPMD semantics, a global dispatch: the
+rows a rank was given (its decode slots, or the static engine's rows) are
+gathered over the data axes, all T tokens are routed with the replicated
+router and dispatched at the global capacity, and the rank runs its
+experts (``ServeShard.experts``, over 'model') on its FFN columns
+(``expert_ffn``, over 'data'). ``silu(x Wg) * (x Wu)`` is columnwise, so
+a rank's columns give its columns of ``h`` and its rows of ``w_down`` a
+partial output; the partials are summed over both axes and the rank
+keeps its rows. The same tokens drop as on one device, and the router
+metrics are the global batch's.
 """
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import TYPE_CHECKING, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -39,6 +51,10 @@ import torch.nn.functional as F
 from repro_torch import runtime_context
 from repro_torch.config import ModelConfig
 from repro_torch.models.layers import swiglu
+from repro_torch.parallel.collectives import gather_rows, own_rows
+
+if TYPE_CHECKING:
+    from repro_torch.parallel.plan import ServeShard
 
 
 def route(cfg: ModelConfig, router: torch.Tensor, xf: torch.Tensor
@@ -92,16 +108,21 @@ def moe_ffn(cfg: ModelConfig, p: Dict[str, torch.Tensor], x: torch.Tensor
     rows of every rank are gathered over the row axes (autograd-aware),
     dispatched as one batch, and this rank's rows kept: the same tokens
     drop as on one device, and the router metrics are the global
-    batch's."""
+    batch's. On a serving plan's expert split, see the module note."""
+    tp = runtime_context.serve_shard()
+    if tp is not None and tp.experts is not None:
+        rows = tp.token_rows
+        y, aux = _moe_ffn(cfg, p, tp.gather(x, rows, 0), tp)
+        return own_rows(y, tp.mesh, rows), aux
     mesh, rows = runtime_context.active_mesh(), runtime_context.row_axes()
     if mesh is not None and rows:
-        from repro_torch.parallel.collectives import gather_rows, own_rows
         y, aux = _moe_ffn(cfg, p, gather_rows(x, mesh, rows))
         return own_rows(y, mesh, rows), aux
     return _moe_ffn(cfg, p, x)
 
 
-def _moe_ffn(cfg: ModelConfig, p: Dict[str, torch.Tensor], x: torch.Tensor
+def _moe_ffn(cfg: ModelConfig, p: Dict[str, torch.Tensor], x: torch.Tensor,
+             tp: Optional["ServeShard"] = None
              ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     b, s, d = x.shape
     e, k = cfg.num_experts, cfg.experts_per_token
@@ -117,14 +138,22 @@ def _moe_ffn(cfg: ModelConfig, p: Dict[str, torch.Tensor], x: torch.Tensor
     buf = xf.new_zeros((e * cap + 1, d)).index_copy(0, slot, xf[tok_of])
     buf = buf[:e * cap].reshape(e, cap, d)
 
-    # batched expert MLPs: (E, C, d) x (E, d, f) -> (E, C, f)
-    h = F.silu(torch.bmm(buf, p["w_gate"])) * torch.bmm(buf, p["w_up"])
+    # batched expert MLPs: (E, C, d) x (E, d, f) -> (E, C, f); on a
+    # serving plan the rank's experts on its columns, a partial output
+    e0, en = (0, e) if tp is None else tp.experts
+    part = buf[e0:e0 + en]
+    h = F.silu(torch.bmm(part, p["w_gate"])) * torch.bmm(part, p["w_up"])
     out_buf = torch.bmm(h, p["w_down"])                       # (E, C, d)
+    if en != e:
+        out_buf = buf.new_zeros((e, cap, d)).index_copy(
+            0, torch.arange(e0, e0 + en, device=x.device), out_buf)
 
     y_sorted = (out_buf[sorted_ids, rank.clamp(max=cap - 1)]
                 * keep[:, None].to(x.dtype))                   # (T k, d)
     y_flat = y_sorted.new_zeros((t * k, d)).index_copy(0, order, y_sorted)
     y = (y_flat.reshape(t, k, d) * gate[..., None].to(x.dtype)).sum(dim=1)
+    if tp is not None:                   # the partials over both splits
+        y = tp.reduce(y, tp.moe_axes)
 
     if cfg.shared_expert:
         y = y + swiglu(xf, p["shared"])

@@ -16,9 +16,10 @@ state, batch, KV cache) out of the logical-axis rules in
 - on a live ``serve`` or ``long`` plan, ``serve_shard`` reads this
   rank's part of a model from the fitted shardings (its q and KV heads,
   the axes the output projections' rows, the FFN and the vocab split
-  over, its Mamba2 channels and heads, and how a dense cache splits its
-  sequence and rows), which the engines hand the model around each
-  forward (``runtime_context.serve_context``), and ``cache_shardings``
+  over, its experts and expert-FFN columns, its Mamba2 channels and
+  heads, and how a dense cache splits its sequence and rows), which the
+  engines hand the model around each forward
+  (``runtime_context.serve_context``), and ``cache_shardings``
   fits the dense cache (sequence over 'model' on ``serve``, over
   'data' x 'model' on ``long``) and the paged pools (KV heads over
   'model').
@@ -38,7 +39,7 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 
-from repro_torch.config import MAMBA, MOE, ModelConfig
+from repro_torch.config import ModelConfig
 from repro_torch.device import DeviceLike
 from repro_torch.parallel import axes
 from repro_torch.parallel.collectives import (all_gather_dim, all_reduce_sum,
@@ -62,7 +63,7 @@ def placement_device(target: Optional[torch.device],
     return target
 
 
-QUEUE_ITEM = "ROADMAP queue 1 item 10, slice 15"
+QUEUE_ITEM = "ROADMAP queue 1 item 5"
 
 
 def _live(mesh: Mesh, axes_: Tuple[str, ...]) -> Tuple[str, ...]:
@@ -98,12 +99,17 @@ class ServeShard:
 
     - ``q_heads`` / ``kv_heads``: (first, count) of the q heads of this
       rank's ``wq``/``wo`` columns and rows, and of the KV heads its page
-      pools hold. Where Hkv does not split over 'model' but Hq does, the
-      pools hold every KV head (``kv_gather``: the rank's ``wk``/``wv``
-      columns, if split, are gathered into every head) and the rank's q
-      heads are padded to all heads for the attention (``attn_heads``),
-      so each attends the KV heads of its group at the kernels' GQA
-      layout; ``own_heads`` keeps its own outputs;
+      pools hold (split over ``pool_axes``, 'model'). Where the rank's
+      ``wk``/``wv`` columns are cut finer than its pools' heads (Hkv does
+      not split over 'model' but the columns do, or a ``long`` plan cuts
+      them over 'data' x 'model'), they are gathered and the pools' heads
+      kept (``kv_gather``). The paged kernels take the q heads of the
+      pools' KV-head groups (``pool_q``) at their GQA layout: a rank
+      whose q heads lie in them pads its heads with zeros to them
+      (``attn_heads``) and keeps its own outputs (``own_heads``); where
+      some rank's q heads do not (``regroup``: a ``long`` plan over
+      'data' and 'model'), every rank gathers q to every head, attends
+      its pools' groups, and gathers the outputs over ``pool_axes``;
     - ``head_axes`` / ``kv_axes`` / ``ffn_axes``: the axes ``wq``'s
       columns (and ``wo``'s rows), ``wk``'s columns and the FFN's columns
       (``w_down``'s rows) split over; the row-parallel products are summed
@@ -116,7 +122,17 @@ class ServeShard:
       paged engine's decode and verify chunks' slots): the model takes
       every row, runs its own and gathers each layer's new K/V rows, so
       every data rank writes every row and the pools stay equal over
-      'data';
+      'data'; ``held_rows``: the data axes over which the rows a forward
+      is given are this rank's already (the static engine's row split,
+      ``row_span``). A MoE layer gathers the rows over either
+      (``token_rows``) before it routes;
+    - ``experts`` / ``expert_ffn``: (first, count) of the experts of this
+      rank's ``moe`` leaves, split over ``expert_axes`` ('model'), and of
+      their FFN columns (``w_gate``/``w_up``; ``w_down``'s rows), split
+      over ``expert_ffn_axes`` ('data'); None where the MoE is absent.
+      ``models/moe.py`` runs the rank's experts on its columns over every
+      token and sums the partial outputs over both; ``models/moe_ep.py``
+      (``moe_ep="serve"``) gathers the columns in the layer;
     - the dense cache (the static engine's): ``tp`` the mode's tensor
       axes, over which a dense cache splits its sequence (``span``) and
       a Mamba2 layer its channels and heads; ``batch`` the axes its rows
@@ -147,12 +163,35 @@ class ServeShard:
     tp: Tuple[str, ...]
     batch: Tuple[str, ...]
     ssm: Optional[SsmSplit] = None
+    pool_axes: Tuple[str, ...] = ()
+    regroup: bool = False
+    experts: Optional[Tuple[int, int]] = None
+    expert_axes: Tuple[str, ...] = ()
+    expert_ffn: Optional[Tuple[int, int]] = None
+    expert_ffn_axes: Tuple[str, ...] = ()
     rows: Tuple[str, ...] = ()
+    held_rows: Tuple[str, ...] = ()
     cache_len: int = 0
     mem_len: int = 0
 
     def with_rows(self, rows: Tuple[str, ...]) -> "ServeShard":
         return dataclasses.replace(self, rows=tuple(rows))
+
+    def with_held_rows(self, rows: Tuple[str, ...]) -> "ServeShard":
+        """This shard for a forward given this rank's rows over ``rows``."""
+        return dataclasses.replace(self, held_rows=tuple(rows))
+
+    @property
+    def moe_axes(self) -> Tuple[str, ...]:
+        """The axes a MoE layer's partial outputs are summed over (its
+        experts' and their columns', in mesh order)."""
+        split = set(self.expert_axes + self.expert_ffn_axes)
+        return tuple(a for a in self.mesh.axis_names if a in split)
+
+    @property
+    def token_rows(self) -> Tuple[str, ...]:
+        """The axes this forward's rows (its tokens) split over."""
+        return self.rows or self.held_rows
 
     def with_cache(self, cache_len: int, mem_len: int = 0) -> "ServeShard":
         """This shard over a dense cache of ``cache_len`` positions (and a
@@ -183,8 +222,10 @@ class ServeShard:
 
     # ---- heads -----------------------------------------------------------
     @property
-    def pads_heads(self) -> bool:
-        return self.q_heads[1] != self.kv_heads[1] * self.group
+    def pool_q(self) -> Tuple[int, int]:
+        """(first, count) of the q heads of the pools' KV-head groups."""
+        k0, kn = self.kv_heads
+        return k0 * self.group, kn * self.group
 
     def own_rows(self, t: torch.Tensor) -> torch.Tensor:
         return own_rows(t, self.mesh, self.rows)
@@ -193,8 +234,14 @@ class ServeShard:
         return all_gather_dim(t, self.mesh, self.rows, 0)
 
     def kv_columns(self, t: torch.Tensor) -> torch.Tensor:
-        return all_gather_dim(t, self.mesh, self.kv_axes, -1) \
-            if self.kv_gather else t
+        """k or v columns (..., cols) of this rank -> those of its pools'
+        KV heads (gathered over ``kv_axes`` where cut finer)."""
+        if not self.kv_gather:
+            return t
+        t = all_gather_dim(t, self.mesh, self.kv_axes, -1)
+        k0, kn = self.kv_heads
+        hd = t.shape[-1] // (self.num_heads // self.group)
+        return t[..., k0 * hd:(k0 + kn) * hd]
 
     def kv_all(self, t: torch.Tensor) -> torch.Tensor:
         """k or v columns (..., cols) of this rank -> every KV head's."""
@@ -217,21 +264,35 @@ class ServeShard:
         return None
 
     def attn_heads(self, q: torch.Tensor) -> torch.Tensor:
-        """q (..., Hq_local, D) as the attention takes it: padded with
-        zeros to every head where the pools hold every KV head."""
-        if not self.pads_heads:
-            return q
-        return self.pad_heads(q)
+        """q (..., Hq_local, D) as the paged kernels take it: the q heads
+        of the pools' groups (``pool_q``), this rank's padded with zeros
+        to them, or gathered from every rank (``regroup``)."""
+        p0, pn = self.pool_q
+        if self.regroup:
+            return self.gather_heads(q)[..., p0:p0 + pn, :]
+        return q if self.q_heads == (p0, pn) else self.pad_heads(q, p0, pn)
 
-    def pad_heads(self, q: torch.Tensor) -> torch.Tensor:
+    def pad_heads(self, q: torch.Tensor, b0: int = 0,
+                  bn: Optional[int] = None) -> torch.Tensor:
+        """q of this rank's heads padded with zeros to the heads [b0, b0 +
+        bn) (default every head)."""
+        bn = self.num_heads if bn is None else bn
         first, n = self.q_heads
-        full = q.new_zeros(q.shape[:-2] + (self.num_heads, q.shape[-1]))
-        full[..., first:first + n, :] = q
+        full = q.new_zeros(q.shape[:-2] + (bn, q.shape[-1]))
+        full[..., first - b0:first - b0 + n, :] = q
         return full
 
     def own_heads(self, o: torch.Tensor) -> torch.Tensor:
+        """This rank's q heads of the paged kernels' output over
+        ``pool_q`` (``attn_heads``)."""
+        p0, pn = self.pool_q
         first, n = self.q_heads
-        return o[..., first:first + n, :] if self.pads_heads else o
+        if self.regroup:                 # every head, then this rank's
+            o = all_gather_dim(o, self.mesh, self.pool_axes, o.dim() - 2)
+            return o[..., first:first + n, :]
+        if (first, n) == (p0, pn):
+            return o
+        return o[..., first - p0:first - p0 + n, :]
 
     def take_heads(self, o: torch.Tensor) -> torch.Tensor:
         """This rank's q heads of an output over every head."""
@@ -291,20 +352,6 @@ class ServeShard:
         return all_gather_dim(logits, self.mesh, self.vocab_axes, -1)
 
 
-def _refuse(plan: "ExecutionPlan", cfg: ModelConfig) -> None:
-    """What a live plan does not serve yet raises, naming its queue
-    item: the MoE family (``moe_ep="serve"``), jamba (its MoE and Mamba2
-    layers together)."""
-    if MOE not in cfg.ffn_pattern:
-        return
-    what = ("jamba (MoE and Mamba2 layers together)"
-            if MAMBA in cfg.block_pattern else
-            "the MoE family (moe_ep='serve': experts over 'model', the "
-            "expert FFN over 'data')")
-    raise NotImplementedError(f"{cfg.name} on {plan.describe()}: {what} on "
-                              f"a plan is {QUEUE_ITEM}")
-
-
 @dataclasses.dataclass(frozen=True)
 class ExecutionPlan:
     """Mesh + parameter-sharding mode. Frozen and hashable: equal plans
@@ -355,8 +402,9 @@ class ExecutionPlan:
 
     def serve_shard(self, cfg: ModelConfig) -> Optional[ServeShard]:
         """This rank's part of ``cfg`` on a live ``serve`` or ``long``
-        plan (see ``ServeShard``); None off a live mesh. The MoE family
-        and jamba raise ``NotImplementedError`` (``QUEUE_ITEM``)."""
+        plan (see ``ServeShard``); None off a live mesh. A split that
+        cuts a q head, or SSM heads apart from their ``d_inner`` channels,
+        raises ``NotImplementedError`` (``QUEUE_ITEM``)."""
         return _serve_shard(self, cfg)
 
     def state_shardings(self, cfg: ModelConfig,
@@ -537,7 +585,6 @@ def _serve_shard(plan: ExecutionPlan, cfg: ModelConfig
     if plan.mode not in ("serve", "long"):
         raise ValueError(f"{plan.describe()}: serving runs on 'serve' or "
                          f"'long' plans, not {plan.mode!r}")
-    _refuse(plan, cfg)
     mesh = plan.mesh
     sh, shapes = plan.param_shardings(cfg), axes.param_shapes(cfg)
     rank, hd = plan._rank, cfg.head_dim
@@ -579,15 +626,33 @@ def _serve_shard(plan: ExecutionPlan, cfg: ModelConfig
                 f"head-misaligned split is {QUEUE_ITEM}")
         pool_shape = (cfg.num_blocks, 2, 1, cfg.num_kv_heads, hd)
         pool = plan.cache_shardings(
-            cfg, {"layer_0": {"self": {"kp": pool_shape}}})
-        k0, kn = span(pool["layer_0"]["self"]["kp"], pool_shape, 3)
+            cfg, {"layer_0": {"self": {"kp": pool_shape}}})["layer_0"][
+                "self"]["kp"]
+        k0, kn = span(pool, pool_shape, 3)
         _, cn = span(attn["wk"], ashape["wk"], 2)
+        g = out["group"]
+
+        def inside(r: int) -> bool:
+            """Rank ``r``'s q heads lie in its pools' groups."""
+            qc = attn["wq"].index(r, ashape["wq"])[2]
+            kc = pool.index(r, pool_shape)[3]
+            return kc.start * g * hd <= qc.start and \
+                qc.stop <= kc.stop * g * hd
         out.update(q_heads=(q0 // hd, qn // hd), kv_heads=(k0, kn),
                    kv_gather=cn != kn * hd, head_axes=split(attn["wq"], 2),
-                   kv_axes=split(attn["wk"], 2))
+                   kv_axes=split(attn["wk"], 2), pool_axes=split(pool, 3),
+                   regroup=not all(inside(r) for r in range(mesh.size)))
     mlp, _ = first("mlp")
+    moe, eshape = first("moe")
     if mlp is not None:
         out["ffn_axes"] = split(mlp["w_down"], 1)
+    elif moe is not None and "shared" in moe:
+        out["ffn_axes"] = split(moe["shared"]["w_down"], 1)
+    if moe is not None:                 # (nb, E, d, f)
+        out.update(experts=span(moe["w_gate"], eshape["w_gate"], 1),
+                   expert_axes=split(moe["w_gate"], 1),
+                   expert_ffn=span(moe["w_gate"], eshape["w_gate"], 3),
+                   expert_ffn_axes=split(moe["w_gate"], 3))
     mb, mshape = first("mamba")
     if mb is not None:
         h0, hn = span(mb["A_log"], mshape["A_log"], 1)

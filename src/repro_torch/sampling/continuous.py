@@ -32,16 +32,20 @@ run a sequential chunk in the same convention (``_spec_decode_chunk``,
 through K3). The non-speculative path keeps the last logits per slot
 instead; an engine runs one convention for all its requests.
 
-On a live ``serve`` plan (``plan=``; default the local plan on the
-params' device) the engine is one of the plan's ranks, in lockstep with
-the others; every rank emits the same tokens, those of one device:
+On a live ``serve`` or ``long`` plan (``plan=``; default the local plan
+on the params' device) the engine is one of the plan's ranks, in lockstep
+with the others; every rank emits the same tokens, those of one device:
 
 - each rank holds its shard of the weights (the plan's fitted
   shardings: q/KV heads, FFN columns, vocab over 'model', replicated over
-  'data') and of the page pools (KV heads over 'model'), and runs each
-  forward under its ``ServeShard`` (``runtime_context.serve_context``):
-  K3/K4 on its own heads, the row-parallel products summed over 'model',
-  the logits gathered over the vocab and drawn on every rank;
+  'data', on ``serve``; over 'data' x 'model' on ``long``; a MoE's
+  experts over 'model' and their FFN columns over 'data') and of the
+  page pools (KV heads over 'model', whole over 'data', in both modes),
+  and runs each forward under its ``ServeShard``
+  (``runtime_context.serve_context``): K3/K4 on the q heads of its
+  pools' KV-head groups, the row-parallel products summed over the
+  tensor axes, the logits gathered over the vocab and drawn on every
+  rank;
 - rank 0 broadcasts each round's new submissions and its clock
   (``collectives.broadcast_object``), so every rank takes the same
   admission, page, prefix-cache and expiry decisions;
@@ -51,7 +55,8 @@ the others; every rank emits the same tokens, those of one device:
   gathered and written on every rank, so the pools stay equal over
   'data' and a prefix hit or a copy-on-write page filled on another data
   rank holds the right bytes. A prefill chunk is one request's row: every
-  data rank runs it.
+  data rank runs it. A ``long`` plan splits no slots (its batch is not
+  split): every rank computes every row.
 """
 from __future__ import annotations
 
@@ -70,8 +75,7 @@ from repro_torch.models.model import decode_step, forward
 from repro_torch.parallel import axes
 from repro_torch.parallel.collectives import (all_gather_dim, all_reduce_max,
                                               broadcast_object)
-from repro_torch.parallel.plan import (QUEUE_ITEM, ExecutionPlan,
-                                       plan_for_params)
+from repro_torch.parallel.plan import ExecutionPlan, plan_for_params
 from repro_torch.sampling.paged_cache import (PageAllocator, SCRATCH_PAGE,
                                               init_paged_pool,
                                               paged_cache_supported,
@@ -139,9 +143,9 @@ class ContinuousEngine:
     (``stats()["spec_rescore_max_diff"]``). ``key`` (default
     ``PRNGKey(0)``) keys the draws: request ``rid`` draws with
     ``fold_in(key, rid)``. ``plan`` (default the local plan on the params'
-    device) is the ``serve`` plan the engine runs on (module note); on a
-    live one ``params`` are full leaves, cut here, or this rank's shards,
-    taken as they are.
+    device) is the ``serve`` or ``long`` plan the engine runs on (module
+    note); on a live one ``params`` are full leaves, cut here, or this
+    rank's shards, taken as they are.
     """
 
     def __init__(self, cfg: ModelConfig, params: Dict[str, Any], *,
@@ -170,12 +174,6 @@ class ContinuousEngine:
         self.cfg, self.rl = cfg, rl
         self.plan = plan if plan is not None else \
             plan_for_params(params, "serve")
-        if self.plan.mesh.live and self.plan.mode != "serve":
-            raise NotImplementedError(
-                f"{self.plan.describe()}: the continuous engine serves on "
-                f"'serve' plans; on a {self.plan.mode!r} plan (the page "
-                f"pools' positions over the ranks) it is {QUEUE_ITEM}; serve "
-                "with engine='static'")
         # this rank's part of the model; None off a live mesh, where the
         # engine runs the single-device path unchanged
         self.shard = self.plan.serve_shard(cfg)
@@ -207,13 +205,14 @@ class ContinuousEngine:
                                     else self.plan)
         # the slots this rank computes in a decode chunk or verify round:
         # [lo, lo + n) of num_slots, split over the data axes (of size > 1)
-        # where they divide the slots (the reference's fitted batch spec)
+        # where they divide the slots (the reference's fitted batch spec);
+        # whole on a ``long`` plan, whose batch is not split
         self._row_axes: tuple = ()
         self._lo, self._n = 0, num_slots
         self._inbox: List[Request] = []      # submissions of this round
-        if self.shard is not None:
+        if self.shard is not None and self.shard.batch:
             mesh = self.plan.mesh
-            spec = axes.fit_spec(mesh, axes.P(self.plan.dp_axes),
+            spec = axes.fit_spec(mesh, axes.P(self.shard.batch),
                                  (num_slots,))
             self._row_axes = tuple(a for a in axes.entry_axes(spec[0])
                                    if mesh.shape[a] > 1)
@@ -395,15 +394,17 @@ class ContinuousEngine:
                        start: int) -> torch.Tensor:
         """One chunk of one request's prompt: tokens at positions
         ``start + [0, C)``, K/V written into the request's pages. Returns
-        logits (C, V)."""
+        the logits of its last token (V,): a request draws from its
+        prompt's last token once its last chunk is in."""
         tokens = self._tensor(chunk[None].astype(np.int64))
         positions = start + torch.arange(chunk.shape[0], device=self.device)
         with self._serving(split=False):
             logits, _, _ = forward(self.cfg, self.params, tokens,
                                    positions=positions[None],
                                    cache=self.pool,
-                                   page_table=self._tensor(page_row))
-        return logits[0]
+                                   page_table=self._tensor(page_row),
+                                   last_only=True)
+        return logits[0, -1]
 
     def _decode_chunk(self, bt: np.ndarray):
         """``sync_every`` decode steps over every slot; returns (toks,
@@ -649,8 +650,7 @@ class ContinuousEngine:
                 s = pref.slot
                 # the spec path keeps it pending; a rank keeps its slots'
                 if self.spec_k == 0 and self._lo <= s < self._lo + self._n:
-                    self._last[s - self._lo] = \
-                        logits_c[pref.prompt_len - 1 - c0]
+                    self._last[s - self._lo] = logits_c
                 pref.state = DECODE
                 self._active[s], self._pos[s] = True, pref.prompt_len
                 self._gen[s], self._max_new[s] = 0, pref.max_new

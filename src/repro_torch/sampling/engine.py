@@ -98,7 +98,7 @@ def _generate_static(cfg: ModelConfig, rl: RLConfig, params: Dict[str, Any],
         prompts, rids = prompts[r0:r0 + rn], rids[r0:r0 + rn]
         memory = None if memory is None else memory[r0:r0 + rn]
         shard = shard.with_cache(tp + max_new, 0 if memory is None
-                                 else memory.shape[1])
+                                 else memory.shape[1]).with_held_rows(ax)
         ctx = runtime_context.serve_context(shard)
     with ctx:
         toks, lps, valid = _static_loop(cfg, rl, params, prompts, key,
@@ -114,7 +114,7 @@ def _static_loop(cfg, rl, params, prompts, key, max_new, vocab_limit, rids,
     b, tp = prompts.shape
     cache = init_cache(cfg, params, b, tp + max_new, memory=memory)
     logits, cache, _ = forward(cfg, params, prompts, cache=cache,
-                               memory=memory)
+                               memory=memory, last_only=True)
     last = logits[:, -1]
     del logits
     row_keys = fold_in(as_key(key, prompts.device), rids)

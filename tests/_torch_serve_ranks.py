@@ -7,16 +7,23 @@ process a rank, by ``_torch_parallel_ranks.run_job``, which
 Joins a gloo group of WORLD ranks through a ``file://`` store (60 s
 timeout, one torch thread), reads the models' weights from
 ``WORKDIR/inputs.npz`` and the cases from ``WORKDIR/cases.json``, and
-runs each case's ``serve`` plan. It writes, per rank,
-``WORKDIR/out_<rank>.npz``: each case's tokens and log-probs, the element
-count and device of every param and pool leaf the rank holds, and what
-the case records besides. Imports torch and the port only.
+runs each case on its ``serve`` or ``long`` plan (``mode``, default
+``serve``): ``generate_continuous`` ("generate"), the engine itself
+("engine", "spec", "prefix"), the engine with each rank running the next
+rank's experts ("control_experts"), or the threaded runtime on a 1x2
+sampler plan ("threads"). A MoE case (``drops``) also runs one device's
+engine in the rank and records the ``moe_drop_frac`` of every MoE
+forward of both runs. It writes, per rank, ``WORKDIR/out_<rank>.npz``:
+each case's tokens and log-probs, the element count and device of every
+param and pool leaf the rank holds, and what the case records besides.
+Imports torch and the port only.
 """
 import dataclasses
 import datetime
 import json
 import os
 import sys
+import time
 
 import numpy as np
 import torch
@@ -37,6 +44,33 @@ def _results(res):
     return (np.concatenate([r.tokens for r in res]).astype(np.int64),
             np.concatenate([r.logps for r in res]).astype(np.float32),
             np.array([r.gen_count for r in res]))
+
+
+DROPS = []                  # moe_drop_frac of each MoE forward, in order
+
+
+def _record_drops():
+    """Route models/moe.py's dispatch through a recorder of its drop
+    fraction (every MoE layer of every forward appends one)."""
+    from repro_torch.models import moe
+    inner = moe._moe_ffn
+
+    def recorded(cfg, p, x, tp=None):
+        y, aux = inner(cfg, p, x, tp)
+        DROPS.append(float(aux["moe_drop_frac"]))
+        return y, aux
+    moe._moe_ffn = recorded
+
+
+def _wrong_experts(serve_shard):
+    """The MoE control: each rank runs the next rank's experts (its own
+    weights on another expert's dispatched rows)."""
+    def wrong(plan, cfg):
+        shard = serve_shard(plan, cfg)
+        e0, en = shard.experts
+        return dataclasses.replace(
+            shard, experts=((e0 + en) % cfg.num_experts, en))
+    return wrong
 
 
 def _drive(case, cfg, params, plan, inputs, out):
@@ -72,7 +106,7 @@ def _drive(case, cfg, params, plan, inputs, out):
         key=key, plan=plan)
     reqs = [Request(rid=i, prompt=p, params=sp)
             for i, p in enumerate(prompts)]
-    if case["kind"] == "spec":
+    if case["kind"] in ("spec", "engine", "control_experts"):
         return eng, _results(eng.generate(reqs))
     # prefix: request 0 alone until its prompt is cached, then request 1,
     # which shares its first tokens, into the other slot
@@ -158,16 +192,19 @@ def _node_case(case, cfg, params, plans, inputs, out):
 
 
 def _refusals(cfg, params, plans, out):
-    """What a 1x2 serve plan serves and what it does not serve yet. The
-    static engine (``build_engine`` and the legacy ``generate``), a
-    ``long`` plan's static engine, the front door, a static-engine
-    ``SamplerNode`` and the SSM and memory families serve: every rank
+    """What a 1x2 serve plan serves, and what it still refuses. The static
+    engine (``build_engine`` and the legacy ``generate``), a ``long``
+    plan's static and continuous engines, the front door, a static-engine
+    ``SamplerNode``, the SSM, memory and MoE families serve: every rank
     returns the one-device run's tokens (the door is built and its engine
-    is the plan's). The continuous engine on
-    a ``long`` plan, a MoE config and the threaded runtime raise
-    ``NotImplementedError`` naming ROADMAP queue 1 item 10, slice 15."""
-    from repro_torch.config import (HeteroConfig, RLConfig, ServeConfig)
+    is the plan's); the threaded runtime runs its steps on the sampler
+    plan. A split that cuts a q head, or SSM heads apart from their
+    ``d_inner`` channels, raises ``NotImplementedError`` naming ROADMAP
+    queue 1 item 5."""
+    from repro_torch.config import (HeteroConfig, ModelConfig, RLConfig,
+                                    ServeConfig, TrainConfig)
     from repro_torch.configs import smoke
+    from repro_torch.data import ArithmeticTask, Tokenizer
     from repro_torch.hetero import ThreadedHeteroRuntime
     from repro_torch.models import init_params
     from repro_torch.parallel import ExecutionPlan
@@ -175,9 +212,9 @@ def _refusals(cfg, params, plans, out):
     from repro_torch.sampling.prng import PRNGKey
     from repro_torch.serving.api import Request, SamplingParams
     from repro_torch.serving.server import FrontDoor
+    from repro_torch.training import init_state
     serve = plans[("serve", (1, 2))]
     long = ExecutionPlan(serve.mesh, "long")
-    scout = smoke("llama4-scout-17b-a16e")
     rl = RLConfig(temperature=1.0, top_k=0, top_p=1.0, max_new_tokens=4)
     sp = SamplingParams.from_rl(rl)
     prompts = np.arange(3, 27).reshape(4, 6) % 29 + 3
@@ -193,6 +230,13 @@ def _refusals(cfg, params, plans, out):
         return isinstance(eng, StaticEngine) and all(
             np.array_equal(a.tokens, b.tokens) for a, b in zip(got, want))
 
+    def continuous(c, p, plan):
+        kw = dict(engine="continuous", num_slots=2, page_size=4,
+                  prefill_chunk=3, sync_every=2)
+        got = generate(c, rl, p, prompts, PRNGKey(7), plan=plan, **kw)
+        want = generate(c, rl, p, prompts, PRNGKey(7), **kw)
+        return torch.equal(got["tokens"], want["tokens"])
+
     def legacy():
         got = generate(cfg, rl, params, prompts, PRNGKey(7),
                        engine="static", plan=serve)["tokens"]
@@ -200,9 +244,11 @@ def _refusals(cfg, params, plans, out):
                         engine="static")["tokens"]
         return torch.equal(got, want)
 
-    def family(name):
+    def family(name, engine=static):
         c = smoke(name)
         p = init_params(c, 0, device="cpu")
+        if engine is continuous:
+            return continuous(c, p, serve)
         mem = None
         if c.memory_seq:
             mem = 0.02 * torch.randn((4, c.memory_seq, c.d_model),
@@ -214,7 +260,7 @@ def _refusals(cfg, params, plans, out):
         """A static-engine SamplerNode on the plan (the static engine and
         its recompute, ``token_logps(plan=)``) against one device's."""
         from repro_torch.checkpoint import PolicyStore
-        from repro_torch.data import ArithmeticTask, PromptPipeline, Tokenizer
+        from repro_torch.data import PromptPipeline
         from repro_torch.hetero import SamplerNode
         from repro_torch.parallel import local_plan
         nrl = RLConfig(loss_type="gepo", group_size=4, max_new_tokens=4,
@@ -237,9 +283,25 @@ def _refusals(cfg, params, plans, out):
                       plan=serve)
         return d.engine.plan is serve and d.engine.shard is not None
 
+    def threads():
+        trl = RLConfig(loss_type="gepo", group_size=4, max_new_tokens=4,
+                       temperature=1.0, top_k=0, top_p=1.0,
+                       engine="continuous")
+        tc = TrainConfig(learning_rate=1e-3, total_steps=50)
+        rt = ThreadedHeteroRuntime(
+            cfg, trl, tc, HeteroConfig(num_samplers=2, seed=7),
+            ArithmeticTask(max_operand=9, ops="+", prompt_width=5, seed=7),
+            Tokenizer(), init_state(cfg, tc, params), prompts_per_batch=2,
+            time_scale=5e-3, device="cpu", sampler_plan=serve)
+        rt.run(2)
+        return rt.learner.step == 2
+
     serves = {
         "static": lambda: static(cfg, params, serve),
         "generate_static": legacy,
+        "long": lambda: continuous(cfg, params, long),
+        "moe": lambda: family("llama4-scout-17b-a16e", continuous),
+        "threads": threads,
         "long_static": lambda: static(cfg, params, long),
         "door": door,
         "node_static": node,
@@ -248,22 +310,64 @@ def _refusals(cfg, params, plans, out):
     }
     for name, fn in serves.items():
         out[f"refuse/{name}"] = np.array(bool(fn()))
-    raises = {
-        "long": lambda: build_engine(cfg, params, ServeConfig(), plan=long),
-        "moe": lambda: build_engine(scout, init_params(scout, 0,
-                                                       device="cpu"),
-                                    ServeConfig(), plan=serve),
-        "threads": lambda: ThreadedHeteroRuntime(
-            cfg, RLConfig(), None, HeteroConfig(), None, None, None,
-            device="cpu", sampler_plan=serve),
-    }
+    # one q head of 64 columns cut in two over 'model'; three SSM heads
+    # (192 d_inner channels) whose heads do not split over 2 while their
+    # channels do
+    head = ModelConfig(name="one-head", family="dense", num_layers=1,
+                       d_model=64, num_heads=1, num_kv_heads=1, head_dim=64,
+                       d_ff=128, vocab_size=32, dtype="float32")
+    ssm = dataclasses.replace(smoke("mamba2-1.3b"), d_model=96,
+                              ssm_headdim=64)
+    raises = {"head_split": lambda: serve.serve_shard(head),
+              "ssm_split": lambda: serve.serve_shard(ssm)}
     for name, fn in raises.items():
         try:
             fn()
             got = "no error"
         except NotImplementedError as e:
             got = str(e)
-        out[f"refuse/{name}"] = np.array("queue 1 item 10, slice 15" in got)
+        out[f"refuse/{name}"] = np.array("ROADMAP queue 1 item 5" in got)
+
+
+def _threads_case(case, cfg, params, plans, out):
+    """``ThreadedHeteroRuntime.run`` on the 1x2 sampler plan (rank 0 runs
+    the threads, rank 1 replays its sections): every batch a rank's
+    samplers generate, in order, and the learner's staleness."""
+    from repro_torch import training
+    from repro_torch.config import HeteroConfig, RLConfig, TrainConfig
+    from repro_torch.data import ArithmeticTask, Tokenizer
+    from repro_torch.hetero import ThreadedHeteroRuntime
+    name = case["name"]
+    rl = RLConfig(loss_type="gepo", group_size=4, max_new_tokens=4,
+                  beta_kl=0.005, temperature=1.0, top_k=0, top_p=1.0,
+                  engine="continuous")
+    tc = TrainConfig(learning_rate=1e-3, total_steps=50)
+    task = ArithmeticTask(max_operand=9, ops="+", prompt_width=5, seed=7)
+    hc = HeteroConfig(num_samplers=2, max_delay_steps=16,
+                      delay_median_s=120.0, seed=7)
+    rt = ThreadedHeteroRuntime(
+        cfg, rl, tc, hc, task, Tokenizer(),
+        training.init_state(cfg, tc, params), prompts_per_batch=4,
+        time_scale=5e-3, device="cpu",
+        sampler_plan=plans[("serve", (1, 2))])
+    seen = []
+    for s in rt.samplers:
+        def recorded(now_s, gen=s.generate_batch):
+            b = gen(now_s)
+            seen.append(b)
+            return b
+        s.generate_batch = recorded
+    t0 = time.monotonic()
+    hist = rt.run(case["steps"])
+    out[f"{name}/seconds"] = np.array(time.monotonic() - t0)
+    out[f"{name}/leader"] = np.array(rt.leader)
+    out[f"{name}/steps"] = np.array(rt.learner.step)
+    out[f"{name}/batch_meta"] = np.array(
+        [[b.sampler_id, b.version] for b in seen])
+    out[f"{name}/batch_tokens"] = np.stack([b.tokens for b in seen])
+    out[f"{name}/batch_lp"] = np.stack([b.sampler_lp for b in seen])
+    for key in ("staleness", "loss", "kl", "iw_var"):
+        out[f"{name}/{key}"] = hist.get(key)
 
 
 def _unflatten_params(inputs, prefix):
@@ -289,7 +393,8 @@ def main():
     for dims in spec["meshes"]:               # every rank builds in order
         meshes[tuple(dims)] = make_mesh(tuple(dims), ("data", "model"),
                                         device="cpu")
-    for mode in ("serve", "train_fsdp"):
+    _record_drops()
+    for mode in ("serve", "long", "train_fsdp"):
         for dims, mesh in meshes.items():
             plans[(mode, dims)] = ExecutionPlan(mesh, mode)
     for case in spec["cases"]:
@@ -302,8 +407,25 @@ def main():
             _node_case(case, cfg, params, plans, inputs, out)
             _refusals(cfg, params, plans, out)
             continue
-        plan = plans[("serve", tuple(case["mesh"]))]
-        eng, (toks, lps, lens) = _drive(case, cfg, params, plan, inputs, out)
+        if case["kind"] == "threads":
+            _threads_case(case, cfg, params, plans, out)
+            continue
+        plan = plans[(case.get("mode", "serve"), tuple(case["mesh"]))]
+        from repro_torch.parallel import plan as plan_mod
+        serve_shard = plan_mod._serve_shard
+        if case["kind"] == "control_experts":
+            plan_mod._serve_shard = _wrong_experts(serve_shard)
+        DROPS.clear()
+        try:
+            eng, (toks, lps, lens) = _drive(case, cfg, params, plan, inputs,
+                                            out)
+        finally:
+            plan_mod._serve_shard = serve_shard
+        if case.get("drops"):             # the plan's, then one device's
+            out[f"{name}/drops"] = np.array(DROPS)
+            DROPS.clear()
+            _drive(case, cfg, params, None, inputs, out)
+            out[f"{name}/drops_one"] = np.array(DROPS)
         out[f"{name}/tokens"], out[f"{name}/logps"] = toks, lps
         out[f"{name}/lengths"] = lens
         if eng is not None:

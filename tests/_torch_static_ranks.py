@@ -11,14 +11,22 @@ timeout, one torch thread), reads the models' weights from
 runs each case on its ``serve`` or ``long`` plan: the ``StaticEngine``
 (``kind`` "static"), the legacy ``generate`` ("generate"), ``token_logps``
 ("logps"), or the static engine with the ranks' partial softmaxes summed
-without their max rescale ("control") or with each rank's Mamba2 scan on
-the next rank's heads ("ssm_control"). A memory model's memory is the
-case's input (patch embeddings), or the plan's ``encode`` of its frames
-(an encoder-decoder model). It writes, per rank, ``WORKDIR/out_<rank>.npz``:
-each case's tokens, log-probs and lengths (or recomputed log-probs), and
-the shape of every leaf of the dense cache the rank holds. Imports torch
-and the port only.
+without their max rescale ("control"), with each rank's Mamba2 scan on
+the next rank's heads ("ssm_control") or with each rank running the next
+rank's experts ("control_experts"); a ``forward`` of the rank's rows of a
+batch ("forward"), or one MoE layer on them ("moe_layer"), with its
+router metrics. A case with ``moe_ep`` runs its MoE layers through
+``models/moe_ep.py`` (``moe_ep="serve"``); a MoE case (``drops``) also
+runs one device's static engine in the rank and records the
+``moe_drop_frac`` of every MoE forward of both runs. A memory model's
+memory is the case's input (patch embeddings), or the plan's ``encode``
+of its frames (an encoder-decoder model). It writes, per rank,
+``WORKDIR/out_<rank>.npz``: each case's tokens, log-probs and lengths (or
+recomputed log-probs, or outputs), the shape of every leaf of the dense
+cache the rank holds and the element count of every param leaf. Imports
+torch and the port only.
 """
+import dataclasses
 import datetime
 import json
 import os
@@ -30,6 +38,8 @@ import torch.distributed as dist
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 from _torch_parallel_ranks import _leaves_with_paths, _unflatten  # noqa: E402
+from _torch_serve_ranks import (DROPS, _record_drops,  # noqa: E402
+                                _wrong_experts)
 
 
 def _config(spec):
@@ -95,6 +105,9 @@ def _run(case, cfg, params, plan, inputs, out):
     from repro_torch.serving.api import Request, SamplingParams
     name = case["name"]
     memory = _memory(case, cfg, params, plan, inputs)
+    if case["kind"] in ("forward", "moe_layer"):
+        _rows_case(case, cfg, params, plan, inputs, out)
+        return
     if case["kind"] == "logps":
         toks = torch.from_numpy(inputs[case["prompts"]]).long()
         lp = token_logps(cfg, plan.adopt_params(cfg, params), toks,
@@ -120,17 +133,30 @@ def _run(case, cfg, params, plan, inputs, out):
         plan_mod.ServeShard.combine = _unscaled_combine
     if case["kind"] == "ssm_control":
         plan_mod._serve_shard = _wrong_ssm_heads(serve_shard)
-    try:
+    if case["kind"] == "control_experts":
+        plan_mod._serve_shard = _wrong_experts(serve_shard)
+    sp = SamplingParams(temperature=1.0, top_k=0, top_p=1.0,
+                        max_new_tokens=new)
+
+    def generate_on(plan):
         eng = StaticEngine(cfg, params, rl=rl,
                            vocab_limit=case["vocab_limit"], memory=memory,
                            key=key, plan=plan)
-        sp = SamplingParams(temperature=1.0, top_k=0, top_p=1.0,
-                            max_new_tokens=new)
-        res = eng.generate([Request(rid=i, prompt=p, params=sp)
-                            for i, p in enumerate(prompts)])
+        return eng, eng.generate([Request(rid=i, prompt=p, params=sp)
+                                  for i, p in enumerate(prompts)])
+    DROPS.clear()
+    try:
+        eng, res = generate_on(plan)
     finally:
         plan_mod.ServeShard.combine = combine
         plan_mod._serve_shard = serve_shard
+    if case.get("drops"):                 # the plan's, then one device's
+        out[f"{name}/drops"] = np.array(DROPS)
+        DROPS.clear()
+        generate_on(None)
+        out[f"{name}/drops_one"] = np.array(DROPS)
+    for path, leaf in _leaves_with_paths(eng.params):
+        out[f"{name}/numel/params/{path}"] = np.array(leaf.numel())
     out[f"{name}/tokens"] = np.concatenate(
         [r.tokens for r in res]).astype(np.int64)
     out[f"{name}/logps"] = np.concatenate([r.logps for r in res]).astype(
@@ -149,6 +175,35 @@ def _run(case, cfg, params, plan, inputs, out):
         out[f"{name}/cache/{path}"] = np.array(leaf.shape)
 
 
+def _rows_case(case, cfg, params, plan, inputs, out):
+    """The rank's rows of a batch (its ``row_span``) through ``forward``
+    ("forward": the logits) or through the MoE of layer slot 0, block 0
+    ("moe_layer": its output), under its shard; the router metrics."""
+    from repro_torch import runtime_context
+    from repro_torch.models import forward
+    from repro_torch.models.moe import moe_ffn
+    from repro_torch.models.moe_ep import moe_ffn_ep
+    name = case["name"]
+    x = torch.from_numpy(inputs[case["prompts"]])
+    placed = plan.adopt_params(cfg, params)
+    shard = plan.serve_shard(cfg)
+    ax, r0, rn = shard.row_span(x.shape[0])
+    with torch.no_grad(), runtime_context.serve_context(
+            shard.with_held_rows(ax)):
+        if case["kind"] == "forward":
+            y, _, aux = forward(cfg, placed, x[r0:r0 + rn].long())
+        else:
+            p = {k: (v[0] if torch.is_tensor(v) else
+                     {n: t[0] for n, t in v.items()})
+                 for k, v in placed["blocks"]["layer_0"]["moe"].items()}
+            ffn = moe_ffn if cfg.moe_ep is None else moe_ffn_ep
+            y, aux = ffn(cfg, p, x[r0:r0 + rn])
+    out[f"{name}/y"] = y.numpy()
+    out[f"{name}/rows"] = np.array([r0, rn])
+    for k, v in aux.items():
+        out[f"{name}/metric/{k}"] = np.array(float(v))
+
+
 def main():
     rank, world, store, work = (int(sys.argv[1]), int(sys.argv[2]),
                                 sys.argv[3], sys.argv[4])
@@ -160,6 +215,7 @@ def main():
     inputs = np.load(os.path.join(work, "inputs.npz"))
     with open(os.path.join(work, "cases.json")) as f:
         spec = json.load(f)
+    _record_drops()
     meshes, out = {}, {}
     for dims in spec["meshes"]:               # every rank builds in order
         meshes[tuple(dims)] = make_mesh(tuple(dims), ("data", "model"),
@@ -167,6 +223,9 @@ def main():
     for case in spec["cases"]:
         plan = ExecutionPlan(meshes[tuple(case["mesh"])], case["mode"])
         cfg = _config(spec["models"][case["model"]])
+        if case.get("moe_ep"):
+            cfg = dataclasses.replace(cfg, moe_ep="serve",
+                                      ep_dp_axes=plan.dp_axes)
         _run(case, cfg, _params(inputs, case["model"]), plan, inputs, out)
     np.savez(os.path.join(work, f"out_{rank}.npz"), **out)
     dist.destroy_process_group()

@@ -331,9 +331,9 @@ def test_nodes_default_to_cuda_and_refuse_what_is_not_ported(tmp_path):
     live serve plan (here a one-rank gloo group's 1x1 mesh, every
     collective live; the 1x2 cases run in
     tests/test_torch_serve_plan.py) the static engine serves the
-    one-device tokens, on the ``serve`` and the ``long`` plan, while the
-    continuous engine on the ``long`` plan and a MoE config raise, naming
-    ROADMAP queue 1 item 10, slice 15."""
+    one-device tokens, on the ``serve`` and the ``long`` plan, and so do
+    the continuous engine on the ``long`` plan and a MoE config on the
+    ``serve`` plan, which raised before they were ported."""
     if torch.cuda.is_available():
         pytest.skip("checks the behaviour on a machine without a card")
     with pytest.raises(RuntimeError, match="cuda"):
@@ -372,15 +372,21 @@ def test_nodes_default_to_cuda_and_refuse_what_is_not_ported(tmp_path):
             got = generate(TINY, RL, params, prompts, engine="static",
                            plan=plan)
             assert torch.equal(got["tokens"], want["tokens"])
-        with pytest.raises(NotImplementedError,
-                           match="queue 1 item 10, slice 15"):
-            build_engine(TINY, params, ServeConfig(),
-                         plan=ExecutionPlan(mesh, "long"))
+        kw = dict(engine="continuous", num_slots=2, page_size=4,
+                  prefill_chunk=3, sync_every=2)
+        want = generate(TINY, RL, params, prompts, **kw)
+        long = ExecutionPlan(mesh, "long")
+        assert build_engine(TINY, params, ServeConfig(),
+                            plan=long).shard is not None
+        got = generate(TINY, RL, params, prompts, plan=long, **kw)
+        assert torch.equal(got["tokens"], want["tokens"])
         scout = smoke("llama4-scout-17b-a16e")
-        with pytest.raises(NotImplementedError,
-                           match="queue 1 item 10, slice 15"):
-            build_engine(scout, init_params(scout, 0, device="cpu"),
-                         ServeConfig(), plan=serve)
+        sp = init_params(scout, 0, device="cpu")
+        assert build_engine(scout, sp, ServeConfig(),
+                            plan=serve).shard.experts == (0, 4)
+        want = generate(scout, RL, sp, prompts, **kw)
+        got = generate(scout, RL, sp, prompts, plan=serve, **kw)
+        assert torch.equal(got["tokens"], want["tokens"])
     finally:
         dist.destroy_process_group()
 

@@ -202,6 +202,44 @@ def test_paged_kernels_at_a_1x2_ranks_local_heads(cuda, dtype):
         assert torch.equal(got, full[:, :, 8 * r:8 * (r + 1)])
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_paged_kernels_at_scouts_1x2_rank_heads(cuda, dtype):
+    """K3 and K4 at the heads one rank of llama4-scout's 1x2 serve plan
+    launches them with (Hq 20, Hkv 4 of 40 / 8: five q heads a KV head,
+    D 128, page 16), against the twins; each rank's half of the heads
+    gives, bit for bit, those heads' rows of the one-device launch."""
+    q, kp, vp, table, lens = _dev(decode_inputs(
+        page=16, rep=5, d=128, hkv=8, seed=7), cuda, dtype)
+    live = lens <= table.shape[1] * 16
+    full = pa.paged_attention(q, kp, vp, table, lens)
+    for r in range(2):
+        qs, ks, vs = (t[..., 4 * r * m:4 * (r + 1) * m, :].contiguous()
+                      for t, m in ((q, 5), (kp, 1), (vp, 1)))
+        pa.reset_launch_counts()
+        got = pa.paged_attention(qs, ks, vs, table, lens)
+        want = pa.paged_decode_ref(qs.float(), ks.float(), vs.float(),
+                                   table, lens)
+        torch.cuda.synchronize()
+        assert pa.LAUNCHES["paged_decode"] == 1
+        torch.testing.assert_close(got[live].float(), want[live], rtol=0,
+                                   atol=TOL[dtype])
+        assert torch.equal(got, full[:, 20 * r:20 * (r + 1)])
+    q, kp, vp, table, positions = _dev(prefill_inputs(
+        page=16, rep=5, d=128, c=77, hkv=8, seed=8), cuda, dtype)
+    full = ops.paged_prefill(q, kp, vp, table, positions, impl="pallas")
+    for r in range(2):
+        qs, ks, vs = (t[..., 4 * r * m:4 * (r + 1) * m, :].contiguous()
+                      for t, m in ((q, 5), (kp, 1), (vp, 1)))
+        got = ops.paged_prefill(qs, ks, vs, table, positions,
+                                impl="pallas")
+        want = ops.paged_prefill(qs.float(), ks.float(), vs.float(), table,
+                                 positions, impl="ref")
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got.float(), want, rtol=0,
+                                   atol=TOL[dtype])
+        assert torch.equal(got, full[:, :, 20 * r:20 * (r + 1)])
+
+
 def _poison_tails(kp, vp, table, lengths, page):
     """NaN in every pool row past a slot's length on its last live page
     (the pages past it in the table are the NaN scratch page already)."""
@@ -741,6 +779,28 @@ def test_ssd_kernel_p_splits_are_bit_identical(cuda):
                         chunk=128)
     assert torch.equal(heads.view(torch.int16),
                        whole[:1, :, :16].view(torch.int16))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_kernel_at_jambas_1x2_rank_heads(cuda, dtype):
+    """K6 at the heads one rank of jamba-1.5-large's 1x2 serve plan scans
+    (128 of 256 heads, P 64, one group, N 128, chunk 256; B 1, S 1024)
+    against its twin; each half of the heads gives, bit for bit, those
+    heads' rows of the one-device launch over all 256."""
+    x, dt, a, bm, cm = _ssd_inputs(cuda, dtype, 1, 1024, 256, 64, 1, 128,
+                                   seed=9)
+    whole = ss.ssd_scan(x, dt, a, bm, cm, chunk=256)
+    for r in range(2):
+        h = slice(128 * r, 128 * (r + 1))
+        args = (x[:, :, h].contiguous(), dt[:, :, h].contiguous(), a[h],
+                bm, cm)
+        ss.reset_launch_counts()
+        got = ss.ssd_scan(*args, chunk=256)
+        want = _ssd_twin(*args, 256)
+        torch.cuda.synchronize()
+        assert ss.LAUNCHES["ssd_scan"] == 1
+        assert ss.error_ratio(got, want) <= 1.0
+        assert torch.equal(got, whole[:, :, h])
 
 
 def test_ssd_kernel_is_deterministic_at_the_long_shape(cuda):

@@ -327,15 +327,19 @@ def test_sampler_node_syncs_its_cells_and_refits(two):
 
 @pytest.mark.parametrize("what", ["static", "generate_static", "long",
                                   "moe", "threads", "long_static", "door",
-                                  "node_static", "ssm", "memory"])
+                                  "node_static", "ssm", "memory",
+                                  "head_split", "ssm_split"])
 def test_what_a_1x2_plan_does_not_serve_raises(two, what):
-    """On a live 1x2 plan, on every rank: the continuous engine on a
-    ``long`` plan, a MoE config and the threaded runtime raise
-    ``NotImplementedError`` naming ROADMAP queue 1 item 10, slice 15; the
-    cases ported since (the static engine through ``build_engine`` and the
-    legacy ``generate``, on ``serve`` and on ``long``, the front door, a
-    ``SamplerNode`` on the static engine, the SSM and memory families)
-    serve the one-device run's tokens."""
+    """On a live 1x2 plan, on every rank: what used to raise serves now
+    (the continuous engine on a ``long`` plan and scout's smoke on the
+    ``serve`` plan emit the one-device tokens; the threaded runtime takes
+    its steps on the sampler plan), as do the cases ported before (the
+    static engine through ``build_engine`` and the legacy ``generate``, on
+    ``serve`` and on ``long``, the front door, a ``SamplerNode`` on the
+    static engine, the SSM and memory families). What a 1x2 plan still
+    does not serve raises ``NotImplementedError`` naming ROADMAP queue 1
+    item 5: a q head cut over 'model', SSM heads that split apart from
+    their channels."""
     for out in two:
         assert out[f"refuse/{what}"]
 
