@@ -6,7 +6,8 @@
 Imports torch, numpy and ``repro_torch`` (from ``src/`` beside this file);
 never jax, never the JAX package. Phases, each fatal on failure:
 
-1. device: the card's name and power limit, torch/CUDA versions, and the
+1. device: the card's name and power limit, torch/CUDA versions, the
+   dry-run's ``HBM_BYTES`` beside the card's ``total_memory``, and the
    kernels built from ``src/repro_torch/kernels/csrc`` with nvcc (sm_90a,
    one nvcc per source, in parallel); the bf16 bodies of K5 and K4 (the
    tensor-core tile core ``attention_tc.cuh``) and of K6
@@ -51,7 +52,10 @@ never jax, never the JAX package. Phases, each fatal on failure:
    ``paged_attn_impl="pallas"``: 24 requests, 4 sharing a 256-token
    prefix; every request finishes, the page pool balances, and the launch
    counters show both kernels on the path (28 per decode step and per
-   prefill chunk), and the draw's share of a decode step; then a
+   prefill chunk), and the draw's share of a decode step; the
+   launch-shape sentinel (``analysis.sentinel``) open over the rounds
+   counts the new launch shapes, at most ``executable_bound`` of the
+   engine's pages a slot; then a
    teacher-forced prefill + 8 decode steps through "pallas" and "ref" on
    copies of one pool, logits within a stated tolerance; last, a torch.profiler trace of 24 decode steps (device
    time by kernel, device busy share);
@@ -317,6 +321,8 @@ never jax, never the JAX package. Phases, each fatal on failure:
    ``moe_ffn``; (d) jamba 2/72 (attention + MoE, Mamba2 + MLP) on 1x2
    through ``StaticEngine`` 4 x 512 + 16 and ``token_logps`` (K5 at 32 of
    64 q heads, K6 at 128 of 256 SSM heads), bf16 and a float32 pair;
+   for (b) and (d) the dry-run's parameter bytes a rank on 1x2
+   (``launch.dryrun.rank_param_bytes``) equal the bytes each rank holds;
    (e) qwen3-1.7b at LONG17_LAYERS of 28 on a ``long`` 2x1 plan through
    ``ContinuousEngine``, 2 x 4096 + 32 (half the weights, the whole pools
    a rank); (f) ``ThreadedHeteroRuntime.run(2)`` on a 1x2 sampler plan, 2
@@ -350,6 +356,8 @@ sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
+from repro_torch.analysis.sentinel import (RecompileSentinel,  # noqa: E402
+                                           executable_bound)
 from repro_torch.checkpoint import PolicyStore  # noqa: E402
 from repro_torch.checkpoint.store import flatten_with_paths  # noqa: E402
 from repro_torch.config import (CROSS, MOE, HeteroConfig,  # noqa: E402
@@ -361,7 +369,9 @@ from repro_torch.hetero import (HeteroRuntime, SamplerNode,  # noqa: E402
                                 ThreadedHeteroRuntime, run_online)
 from repro_torch.hetero import nodes as nodes_mod  # noqa: E402
 from repro_torch.hetero.nodes import copy_tree  # noqa: E402
+from repro_torch.launch.dryrun import rank_param_bytes  # noqa: E402
 from repro_torch.launch.train import sft_warmstart  # noqa: E402
+from repro_torch.parallel.mesh import HBM_BYTES, abstract_mesh  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import fused_logprob as fl  # noqa: E402
@@ -1143,21 +1153,31 @@ def engine_phase(dev, seed, card, draws):
                            arrival_s=t_start))
     decode_round_ms = []
     results = {}
-    while len(results) < len(prompts):
-        before = eng.stats()
-        t1 = time.perf_counter()
-        for ev in eng.step():
-            if ev.finished:
-                results[ev.rid] = eng.pop_result(ev.rid)
-        torch.cuda.synchronize()
-        dt = time.perf_counter() - t1
-        after = eng.stats()
-        if after["prefill_chunks"] == before["prefill_chunks"] and \
-                after["decode_steps"] > before["decode_steps"]:
-            decode_round_ms.append(dt * 1e3 / eng.sync_every)
-        if not eng.has_work() and len(results) < len(prompts):
-            raise AssertionError("engine drained with requests unfinished")
+    with RecompileSentinel("engine rounds") as shapes:
+        while len(results) < len(prompts):
+            before = eng.stats()
+            t1 = time.perf_counter()
+            for ev in eng.step():
+                if ev.finished:
+                    results[ev.rid] = eng.pop_result(ev.rid)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t1
+            after = eng.stats()
+            if after["prefill_chunks"] == before["prefill_chunks"] and \
+                    after["decode_steps"] > before["decode_steps"]:
+                decode_round_ms.append(dt * 1e3 / eng.sync_every)
+            if not eng.has_work() and len(results) < len(prompts):
+                raise AssertionError("engine drained with requests "
+                                     "unfinished")
     wall = time.perf_counter() - t_start
+    shape_bound = executable_bound(eng.pages_per_slot)
+    kinds = {k: sum(e[0] == k for e in shapes.events)
+             for k in ("paged_decode", "paged_prefill")}
+    log(f"[engine] launch-shape sentinel over the rounds: "
+        f"{shapes.compiles} new launch shapes ({kinds}) against "
+        f"executable_bound({eng.pages_per_slot} pages a slot) = "
+        f"{shape_bound}")
+    shapes.assert_bound(shape_bound, "the engine phase's rounds")
     launches = dict(pa.LAUNCHES)
     st = eng.stats()
     d_steps = st["decode_steps"] - st0["decode_steps"]
@@ -6368,6 +6388,20 @@ def threads_rank(out, plan, seed, dev):
     free()
 
 
+def dry_run_bytes(cfg, tag, r0, r1):
+    """The dry-run's parameter bytes a rank of ``cfg`` on the 1x2 serve
+    plan (``launch.dryrun.rank_param_bytes``, from the fitted shardings)
+    beside the bytes the two ranks hold (``tree_bytes``); True when all
+    three are equal."""
+    from repro_torch.parallel import ExecutionPlan
+    dry = rank_param_bytes(cfg, ExecutionPlan(abstract_mesh((1, 2)),
+                                              "serve"))
+    log(f"[moe-plan] {tag}: the dry-run's parameter bytes a rank on 1x2 "
+        f"{dry} ({dry / 1e9:.3f} GB), held {r0[tag + '_bytes']} / "
+        f"{r1[tag + '_bytes']} (one device {r0[tag + '_full_bytes']})")
+    return dry == r0[tag + "_bytes"] == r1[tag + "_bytes"]
+
+
 def moe_plan_phase(dev, seed, card, ranks):
     """Phase 17; ``ranks`` the two rank processes' records of (b)-(f)
     (``rank_pair``). Returns (its launches, the kernel rows of (g))."""
@@ -6419,6 +6453,9 @@ def moe_plan_phase(dev, seed, card, ranks):
             r1["scout_experts"] != [half, half]:
         raise AssertionError("(b) scout bf16: a rank holds more than its "
                              "half, or the logps are off one device's")
+    if not dry_run_bytes(moe_cfg(SCOUT, MPLAN_SCOUT_LAYERS), "scout", r0, r1):
+        raise AssertionError("(b) scout bf16: the dry-run's bytes a rank "
+                             "differ from the bytes the ranks hold")
     for tag, label in (("scout_f32", "float32 pair"),
                        ("scout_ctl", "float32 control (each rank on the "
                                      "next rank's experts)")):
@@ -6481,6 +6518,13 @@ def moe_plan_phase(dev, seed, card, ranks):
         if rl["ssd_scan"] != 1 or rl["flash_attention"] != 1 or \
                 rl["logprob_fwd"] != 1:
             raise AssertionError(f"({tag}) the recompute missed K5/K6/K1")
+    held = [dry_run_bytes(moe_cfg(JAMBA, MPLAN_JAMBA_LAYERS, dtype), tag,
+                          r0, r1)
+            for tag, dtype in (("jamba", "bfloat16"),
+                               ("jamba_f32", "float32"))]
+    if not all(held):
+        raise AssertionError("(d) jamba: the dry-run's bytes a rank differ "
+                             "from the bytes the ranks hold")
     if not r0["jamba"]["gap"][0] <= TOL_LOGP_MEAN_BF16 or \
             not r0["jamba"]["recompute_gap"][0] <= TOL_LOGP_MEAN_BF16 or \
             not r0["jamba_f32"]["held"] or \
@@ -6565,6 +6609,11 @@ def main(argv=None) -> int:
     log(f"[device] python {sys.version.split()[0]}, torch {torch.__version__},"
         f" CUDA {torch.version.cuda}, {torch.cuda.get_device_name(0)} x "
         f"{torch.cuda.device_count()}")
+    log(f"[device] memory: the dry-run's HBM_BYTES {HBM_BYTES} "
+        f"({HBM_BYTES / 2 ** 30:.2f} GiB), the card's total_memory "
+        f"{torch.cuda.get_device_properties(0).total_memory} "
+        f"({torch.cuda.get_device_properties(0).total_memory / 2 ** 30:.2f}"
+        f" GiB)")
     built = build.build()
     log(f"[build] {', '.join(s.name for s in build.sources())}: "
         f"{built.seconds:.1f}s nvcc (sm_90a, one process per source)")

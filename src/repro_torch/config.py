@@ -9,10 +9,8 @@ below). ``HeteroConfig`` keeps the JAX package's fields and defaults
 too. ``ServeConfig`` holds the deployment fields the serving path uses.
 Both take a ``DxM`` (or ``PxDxM``) mesh, ``sampler_mesh`` and ``mesh``:
 both engines and the front door serve on it (the continuous engine
-tensor-parallel, the static engine with a context-parallel decode). A
-split a plan does not serve (a q head cut over the ranks, SSM heads that
-split apart from their channels) raises where it is used, naming
-ROADMAP queue 1 item 5.
+tensor-parallel, the static engine with a context-parallel decode),
+whatever the mesh's cut of the heads.
 """
 from __future__ import annotations
 
@@ -177,14 +175,17 @@ class ModelConfig:
     def is_encdec(self) -> bool:
         return self.encoder_layers > 0
 
-    def param_count(self) -> int:
+    def param_count(self, active_only: bool = False) -> int:
         """Parameter count: embedding, untied head, per layer its mixer
         (attention, cross-attention or Mamba2) and FFN (MLP, MoE with its
         router and shared expert, or none) and two norms, and the encoder
         of an encoder-decoder model, as the JAX package counts them; plus
         what the JAX count leaves out: the final norm, the QKV biases, and
         in an encoder-decoder model the decoder's cross-attention and its
-        norm in every layer and the encoder's final norm."""
+        norm in every layer and the encoder's final norm. ``active_only``
+        counts the ``experts_per_token`` experts a token runs of a MoE
+        layer's ``num_experts``. (The cost model keeps the JAX package's
+        own count: ``launch.costmodel.reference_param_count``.)"""
         d, h = self.d_model, self.head_dim
         n_q, n_kv = self.num_heads, self.num_kv_heads
         attn = d * (n_q * h) + 2 * d * (n_kv * h) + (n_q * h) * d
@@ -208,7 +209,9 @@ class ModelConfig:
             if fk == MLP:
                 total += 3 * d * self.d_ff
             elif fk == MOE:
-                total += 3 * d * self.d_ff * self.num_experts
+                n_e = (self.experts_per_token if active_only
+                       else self.num_experts)
+                total += 3 * d * self.d_ff * n_e
                 total += d * self.num_experts                        # router
                 if self.shared_expert:
                     total += 3 * d * self.d_ff
@@ -219,6 +222,23 @@ class ModelConfig:
             total += self.encoder_layers * (attn + 3 * d * self.d_ff + 2 * d)
             total += d                                    # its final norm
         return total + d
+
+
+@dataclass(frozen=True)
+class ShapeConfig:
+    """One of the dry-run's input shapes (the JAX package's)."""
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str                      # train | prefill | decode
+
+
+TRAIN_4K = ShapeConfig("train_4k", 4_096, 256, "train")
+PREFILL_32K = ShapeConfig("prefill_32k", 32_768, 32, "prefill")
+DECODE_32K = ShapeConfig("decode_32k", 32_768, 128, "decode")
+LONG_500K = ShapeConfig("long_500k", 524_288, 1, "decode")
+INPUT_SHAPES = (TRAIN_4K, PREFILL_32K, DECODE_32K, LONG_500K)
+SHAPES_BY_NAME = {s.name: s for s in INPUT_SHAPES}
 
 
 @dataclass(frozen=True)

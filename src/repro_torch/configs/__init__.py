@@ -14,7 +14,9 @@ output in every layer). Memory and encoder-decoder models serve static:
 the paged cache refuses them, as the JAX package's does.
 
 ``get_config(name)`` returns the full-size config; ``smoke(name)`` the
-reduced same-family variant the CPU tests use.
+reduced same-family variant the CPU tests use; ``supports_shape`` says
+which of the dry-run's input shapes an arch runs (``long_500k`` only for
+``LONG_CONTEXT_OK``).
 """
 from repro_torch.config import ModelConfig, smoke_variant
 from repro_torch.configs.gemma2_9b import CONFIG as _gemma2
@@ -36,6 +38,11 @@ ARCHS = {c.name: c for c in (_qwen15_32b, _llama32v, _jamba, _scout,
                              _mamba2, _qwen2)}
 ALL = {**ARCHS, **PAPER_ARCHS}
 
+# The architectures with a sub-quadratic (or natively windowed) path that
+# run the long_500k decode shape; every other one skips it.
+LONG_CONTEXT_OK = frozenset({"mamba2-1.3b", "jamba-1.5-large-398b",
+                             "gemma2-9b"})
+
 
 def get_config(name: str) -> ModelConfig:
     try:
@@ -46,3 +53,14 @@ def get_config(name: str) -> ModelConfig:
 
 def smoke(name: str, **over) -> ModelConfig:
     return smoke_variant(get_config(name), **over)
+
+
+def supports_shape(name: str, shape_name: str) -> bool:
+    """Whether arch ``name`` runs the input shape ``shape_name``: every
+    shape but long_500k, which only ``LONG_CONTEXT_OK`` runs (Whisper's
+    decoder takes the 32k shapes, its encoder memory at its own frame
+    count)."""
+    get_config(name)
+    if shape_name == "long_500k":
+        return name in LONG_CONTEXT_OK
+    return True

@@ -27,6 +27,12 @@ kernel for CUDA tensors, its twin for CPU tensors. Forward only.
 
 Token log-probs (``fused_token_logprob``): ``impl`` takes the
 ``TrainConfig.logprob_impl`` vocabulary or None (see the function).
+
+Every dispatch records its kernel, its route ("kernel", "twin",
+"gather" or "naive") and the shapes a jit would key on with
+``analysis.sentinel.record_launch`` (batch rows, chunk or sequence
+widths, block-table width), whichever route it takes: the launch-shape
+sentinel's count.
 """
 from __future__ import annotations
 
@@ -34,12 +40,17 @@ from typing import Optional, Tuple
 
 import torch
 
+from repro_torch.analysis.sentinel import record_launch
 from repro_torch.config import LOGPROB_IMPLS, PAGED_IMPLS
 from repro_torch.core.logprob import token_logprob_and_entropy
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import fused_logprob as fl
 from repro_torch.kernels import paged_attention as pa
 from repro_torch.kernels import ssd_scan as ss
+
+# the sentinel's route names of _resolve's paths
+_ROUTES = {"gather": "gather", "ref": "twin", "kernel": "kernel"}
+
 
 def _resolve(impl: Optional[str], q: torch.Tensor, kind: str) -> str:
     if impl not in PAGED_IMPLS + (None,):
@@ -62,6 +73,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     D). On a CUDA tensor the K5 kernel (or an exception), on a CPU tensor
     its twin; either raises in a backward. ``window`` applies only when
     ``causal``."""
+    record_launch("flash_attention", "twin" if q.device.type == "cpu"
+                  else "kernel", q.shape[0], q.shape[1], k.shape[1])
     if q.device.type == "cpu":
         return fa.forward_only(fa.flash_attention_ref, q, k, v,
                                causal=causal, window=window, softcap=softcap)
@@ -83,6 +96,8 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a_log_neg: torch.Tensor,
         raise RuntimeError(
             "ssd_scan (K6, ssd_impl='pallas') is forward-only, as in the JAX "
             "package: train with ssd_impl='chunked'")
+    record_launch("ssd_scan", "twin" if x.device.type == "cpu"
+                  else "kernel", x.shape[0], x.shape[1])
     if x.device.type == "cpu":
         return ss.ssd_scan_ref(x, dt, a_log_neg, b, c, chunk=chunk)
     return ss.ssd_scan(x, dt, a_log_neg, b, c, chunk=chunk)
@@ -108,6 +123,8 @@ def paged_decode(q: torch.Tensor, kp: torch.Tensor, vp: torch.Tensor,
     (num_pages, page_size, Hkv, D); page_table (B, npages); lengths (B,)
     valid tokens per slot. Returns (B, 1, Hq, D)."""
     path = _resolve(impl, q, kind)
+    record_launch("paged_decode", _ROUTES[path], q.shape[0],
+                  page_table.shape[1])
     if path == "gather":
         from repro_torch.models.attention import decode_attention
         kc, vc = _gather_view(kp, vp, page_table)
@@ -133,6 +150,8 @@ def paged_prefill(q: torch.Tensor, kp: torch.Tensor, vp: torch.Tensor,
     "chunked": K5 assumes query positions ``arange(C)``, and a chunk runs
     at an offset."""
     path = _resolve(impl, q, kind)
+    record_launch("paged_prefill", _ROUTES[path], q.shape[0], q.shape[1],
+                  page_table.shape[1])
     if path == "gather":
         from repro_torch.models.attention import attention
         kc, vc = _gather_view(kp, vp, page_table)
@@ -230,6 +249,7 @@ def fused_token_logprob(logits: torch.Tensor, targets: torch.Tensor, *,
     if impl not in LOGPROB_IMPLS + (None,):
         raise ValueError(f"unknown logprob impl {impl!r}")
     if impl == "naive":
+        record_launch("fused_token_logprob", "naive", targets.numel())
         return token_logprob_and_entropy(logits, targets)
     if logits.dim() == 1:                      # single token, no batch dim
         lp, ent = fused_token_logprob(logits[None], targets.reshape(1),
@@ -239,7 +259,9 @@ def fused_token_logprob(logits: torch.Tensor, targets: torch.Tensor, *,
         raise ValueError(f"logprob impl 'pallas' launches the CUDA kernels "
                          f"and needs CUDA tensors, got {logits.device}")
     if impl == "chunked" or logits.device.type == "cpu":
+        record_launch("fused_token_logprob", "twin", targets.numel())
         return fl.chunked_logprob(logits, targets, chunk=chunk)
+    record_launch("fused_token_logprob", "kernel", targets.numel())
     lead, v = logits.shape[:-1], logits.shape[-1]
     lp, ent = fl.fused_logprob(logits.reshape(-1, v), targets.reshape(-1))
     return lp.reshape(lead), ent.reshape(lead)

@@ -82,9 +82,10 @@ rank's SSM heads:
   torchrun --standalone --nproc-per-node 2 -m repro_torch.launch.serve \
       --device cpu --smoke --mesh 1x2 --arch llama4-scout-17b-a16e
 
-A split that cuts a q head, or SSM heads apart from their channels (only
-past four ranks for the registry's configs), raises
-``NotImplementedError`` (ROADMAP queue 1 item 5).
+A mesh whose 'model' axis cuts inside a q head (Qwen2-7B's 28 heads over
+16 ranks), or cuts SSM channels finer than their heads, serves too: the
+rank gathers the cut head's columns (``ServeShard.q_cols``) or keeps its
+channels of its heads (``SsmSplit.inner``).
 """
 from __future__ import annotations
 

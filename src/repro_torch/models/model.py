@@ -105,7 +105,8 @@ def _project_qkv(cfg: ModelConfig, p: Dict, x: torch.Tensor
                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """q, k, v (B, S, H, D). On a tensor-parallel serving forward the
     weights are this rank's columns, so the heads are its own: its q heads
-    and the KV heads its pools hold (k/v columns cut finer than those are
+    (every head where its ``wq`` columns cut inside one, ``split_q``) and
+    the KV heads its pools hold (k/v columns cut finer than those are
     gathered over 'model' first)."""
     b, s, _ = x.shape
     q = x @ p["wq"]
@@ -113,12 +114,13 @@ def _project_qkv(cfg: ModelConfig, p: Dict, x: torch.Tensor
     v = x @ p["wv"]
     if "bq" in p:
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
-    hq, hkv = cfg.num_heads, cfg.num_kv_heads
+    hkv = cfg.num_kv_heads
     tp = runtime_context.serve_shard()
     if tp is not None:
         k, v = tp.kv_columns(k), tp.kv_columns(v)
-        hq, hkv = tp.q_heads[1], tp.kv_heads[1]
-    q = q.reshape(b, s, hq, cfg.head_dim)
+        q, hkv = tp.split_q(q), tp.kv_heads[1]
+    else:
+        q = q.reshape(b, s, cfg.num_heads, cfg.head_dim)
     k = k.reshape(b, s, hkv, cfg.head_dim)
     v = v.reshape(b, s, hkv, cfg.head_dim)
     return q, k, v
@@ -126,30 +128,32 @@ def _project_qkv(cfg: ModelConfig, p: Dict, x: torch.Tensor
 
 def _attn_out(p: Dict, o: torch.Tensor, own: bool = False) -> torch.Tensor:
     """The output projection of the attention output o (B, S, H, D); on a
-    tensor-parallel serving forward, of this rank's heads through its rows
-    of ``wo``, summed over the head axes (``own``: o holds exactly this
-    rank's heads already)."""
+    tensor-parallel serving forward, of this rank's heads (its columns of
+    them where ``wq`` is cut inside a head) through its rows of ``wo``,
+    summed over the head axes (``own``: o holds exactly this rank's heads
+    already)."""
     b, sq = o.shape[0], o.shape[1]
     tp = runtime_context.serve_shard()
     if tp is None:
         return o.reshape(b, sq, -1) @ p["wo"]
     if not own:
         o = tp.own_heads(o)
-    return tp.reduce_attn(o.reshape(b, sq, -1) @ p["wo"])
+    return tp.reduce_attn(tp.own_columns(o.reshape(b, sq, -1)) @ p["wo"])
 
 
 def _project_local(cfg: ModelConfig, p: Dict, x: torch.Tensor, tp
                    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """q of this rank's heads (B, S, Hq_local, D) and k, v of every KV
-    head (B, S, Hkv, D): the dense-cache forward of a serving plan (its
-    cache holds a span of positions with every KV head)."""
+    """q of this rank's heads (B, S, Hq_local, D; every head where its
+    ``wq`` columns cut inside one, ``split_q``) and k, v of every KV head
+    (B, S, Hkv, D): the dense-cache forward of a serving plan (its cache
+    holds a span of positions with every KV head)."""
     b, s, _ = x.shape
     q = x @ p["wq"]
     k = x @ p["wk"]
     v = x @ p["wv"]
     if "bq" in p:
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
-    return (q.reshape(b, s, tp.q_heads[1], cfg.head_dim),
+    return (tp.split_q(q),
             tp.kv_all(k).reshape(b, s, cfg.num_kv_heads, cfg.head_dim),
             tp.kv_all(v).reshape(b, s, cfg.num_kv_heads, cfg.head_dim))
 
@@ -163,7 +167,8 @@ def _heads_attention(tp, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     kv = tp.kv_span()
     if kv is not None:
         k0, kn = kv
-        return attention(q, k[:, :, k0:k0 + kn], v[:, :, k0:k0 + kn], **kw)
+        return attention(tp.rank_heads(q), k[:, :, k0:k0 + kn],
+                         v[:, :, k0:k0 + kn], **kw)
     return tp.take_heads(attention(tp.pad_heads(q), k, v, **kw))
 
 
@@ -387,7 +392,7 @@ def _cross_attn_plan(cfg: ModelConfig, p: Dict, x: torch.Tensor, tp, *,
     does not split (every rank holds every row), or one projected here,
     takes K5 on the rank's heads with no merge."""
     b, sq, _ = x.shape
-    q = (x @ p["wq"]).reshape(b, sq, tp.q_heads[1], cfg.head_dim)
+    q = tp.split_q(x @ p["wq"])
     if mem is not None:
         k, v = mem
         ax, _, _ = tp.span(tp.mem_len)

@@ -277,9 +277,11 @@ def mamba_block(cfg: ModelConfig, p: Dict, x_in: torch.Tensor,
     cut inside its parts): the rank gathers the projection's columns, runs
     the conv on its channels (its conv weights and cache) and gathers the
     conv's output, then runs the scan (K6 under ``ssd_impl="pallas"``) on
-    its heads with their state, the gated RMSNorm over ``d_inner`` with
-    its squares summed over the ranks, and ``out_proj`` on its rows,
-    summed over the ranks."""
+    its heads with their state, keeps its ``d_inner`` channels of their
+    output (all of them, or fewer where the heads do not split as far as
+    the channels, ``SsmSplit.inner``), then the gated RMSNorm over
+    ``d_inner`` with its squares summed over the ranks, and ``out_proj``
+    on its rows, summed over the ranks."""
     tp = runtime_context.serve_shard()
     sp = None if tp is None else tp.ssm
     zxbcdt = x_in @ p["in_proj"]                      # (B,S,fan_out)
@@ -296,11 +298,11 @@ def mamba_block(cfg: ModelConfig, p: Dict, x_in: torch.Tensor,
     xbc = F.silu(conv_out)
     xs, b, c = _split_xbc(cfg, xbc)
     heads, di = cfg.ssm_heads, cfg.d_inner
-    if sp is not None:                                # this rank's heads
+    if sp is not None:                    # this rank's heads and channels
         h0, heads = sp.heads
-        di = heads * cfg.ssm_headdim
+        i0, di = sp.inner
         xs, dt_raw = xs[:, :, h0:h0 + heads], dt_raw[..., h0:h0 + heads]
-        z = z[..., h0 * cfg.ssm_headdim:h0 * cfg.ssm_headdim + di]
+        z = z[..., i0:i0 + di]
     dt = F.softplus(dt_raw.float() + p["dt_bias"].float())
     a_log_neg = -torch.exp(p["A_log"].float())
 
@@ -320,7 +322,10 @@ def mamba_block(cfg: ModelConfig, p: Dict, x_in: torch.Tensor,
         cache["ssm"].copy_(state)
 
     y = y + xs.float() * p["D"].float()[:, None]
-    y = y.reshape(*y.shape[:2], di)                             # (B,S,di)
+    y = y.reshape(*y.shape[:2], -1)                             # (B,S,H P)
+    if sp is not None:
+        lo = i0 - h0 * cfg.ssm_headdim
+        y = y[..., lo:lo + di]
     y = y * F.silu(z.float())
     if sp is None:
         y = rmsnorm(y.to(x_in.dtype), p["gate_norm"], cfg.norm_eps)

@@ -24,15 +24,47 @@ The autograd-aware pieces:
 - ``reduce_from`` (Megatron's g): all-reduce forward, identity backward.
 - ``slice_from``: a rank's block of dim 0 forward, all-gather backward
   (each model rank holds the gradient of its own experts).
+
+``COLLECTIVE_BYTES`` counts, by kind ("all-gather", "all-reduce",
+"broadcast"), the bytes of the result of every collective this process
+issues (a broadcast object's pickled size), as the kernels' ``LAUNCHES``
+count launches; ``reset_collective_bytes`` zeroes it. The dry-run reads
+it as its collective term (``launch.dryrun``).
 """
 from __future__ import annotations
 
-from typing import List, Tuple
+import pickle
+import threading
+from typing import Dict, List, Tuple
 
 import torch
 import torch.distributed as dist
 
 from repro_torch.parallel.mesh import Mesh
+
+COLLECTIVE_BYTES: Dict[str, int] = {"all-gather": 0, "all-reduce": 0,
+                                    "broadcast": 0}
+_bytes_lock = threading.Lock()        # the threaded runtime's threads
+
+
+def reset_collective_bytes() -> None:
+    with _bytes_lock:
+        for k in COLLECTIVE_BYTES:
+            COLLECTIVE_BYTES[k] = 0
+
+
+def _add(kind: str, nbytes: int) -> None:
+    with _bytes_lock:
+        COLLECTIVE_BYTES[kind] += nbytes
+
+
+def _count(kind: str, t: torch.Tensor, n: int = 1) -> None:
+    _add(kind, n * t.numel() * t.element_size())
+
+
+def _all_reduce(t: torch.Tensor, group, **kw) -> None:
+    dist.all_reduce(t, group=group, **kw)
+    _count("all-reduce", t)
 
 
 def _gather_list(t: torch.Tensor, mesh: Mesh, axes: Tuple[str, ...]
@@ -40,6 +72,7 @@ def _gather_list(t: torch.Tensor, mesh: Mesh, axes: Tuple[str, ...]
     n = mesh.axes_size(axes)
     parts = [torch.empty_like(t) for _ in range(n)]
     dist.all_gather(parts, t.contiguous(), group=mesh.group(axes))
+    _count("all-gather", t, n)
     return parts
 
 
@@ -56,7 +89,7 @@ def all_reduce_sum(t: torch.Tensor, mesh: Mesh, axes: Tuple[str, ...]
                    ) -> torch.Tensor:
     """Sum of ``t`` over ``axes``, in place on ``t`` (no autograd)."""
     if axes:
-        dist.all_reduce(t, group=mesh.group(axes))
+        _all_reduce(t, mesh.group(axes))
     return t
 
 
@@ -71,7 +104,7 @@ def all_reduce_max(t: torch.Tensor, mesh: Mesh, axes: Tuple[str, ...]
                    ) -> torch.Tensor:
     """Max of ``t`` over ``axes``, in place on ``t`` (no autograd)."""
     if axes:
-        dist.all_reduce(t, op=dist.ReduceOp.MAX, group=mesh.group(axes))
+        _all_reduce(t, mesh.group(axes), op=dist.ReduceOp.MAX)
     return t
 
 
@@ -83,6 +116,7 @@ def broadcast_object(obj, mesh: Mesh):
         return obj
     box = [obj]
     dist.broadcast_object_list(box, src=0, group=mesh.group(mesh.axis_names))
+    _add("broadcast", len(pickle.dumps(box[0])))
     return box[0]
 
 
@@ -141,7 +175,7 @@ class _CopyTo(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         g = g.contiguous().clone()
-        dist.all_reduce(g, group=ctx.mesh.group(ctx.axes))
+        _all_reduce(g, ctx.mesh.group(ctx.axes))
         return g, None, None
 
 
@@ -149,7 +183,7 @@ class _ReduceFrom(torch.autograd.Function):
     @staticmethod
     def forward(ctx, t, mesh, axes):
         out = t.contiguous().clone()
-        dist.all_reduce(out, group=mesh.group(axes))
+        _all_reduce(out, mesh.group(axes))
         return out
 
     @staticmethod
@@ -193,7 +227,8 @@ def slice_from(t: torch.Tensor, mesh: Mesh, axes: Tuple[str, ...]
     return _SliceFrom.apply(t, mesh, axes, mesh.axis_index(axes) * n, n)
 
 
-__all__ = ["all_gather_dim", "all_reduce_sum", "all_reduce_mean",
+__all__ = ["COLLECTIVE_BYTES", "reset_collective_bytes",
+           "all_gather_dim", "all_reduce_sum", "all_reduce_mean",
            "all_reduce_max", "broadcast_object",
            "gather_leaf", "gather_rows", "own_rows", "copy_to",
            "reduce_from", "slice_from"]

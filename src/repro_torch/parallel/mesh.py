@@ -35,10 +35,12 @@ from repro_torch.device import DeviceLike, resolve_device
 
 # NVIDIA H100 SXM constants (per card) for the roofline arithmetic: dense
 # bf16 tensor-core peak, HBM3 bandwidth, and NVLink 4 bandwidth per
-# direction in the place of the TPU's ICI link.
+# direction in the place of the TPU's ICI link; and the card's memory
+# (the dry-run's fit check, in the place of the TPU's 16 GB).
 PEAK_BF16_FLOPS = 989e12          # FLOP/s, H100 SXM
 HBM_BW = 3.35e12                  # bytes/s, H100 SXM
 ICI_BW = 450e9                    # bytes/s, H100 NVLink 4, one direction
+HBM_BYTES = 80 * 10 ** 9          # bytes, H100 80GB (the data sheet's)
 
 AXES_2D = ("data", "model")
 AXES_3D = ("pod", "data", "model")
@@ -246,6 +248,7 @@ def data_axes(mesh: Mesh) -> Tuple[str, ...]:
     return ("pod", "data") if "pod" in mesh.axis_names else ("data",)
 
 
-__all__ = ["Mesh", "PEAK_BF16_FLOPS", "HBM_BW", "ICI_BW", "abstract_mesh",
-           "make_mesh", "make_production_mesh", "make_debug_mesh",
-           "local_mesh", "mesh_from_flag", "parse_mesh", "data_axes"]
+__all__ = ["Mesh", "PEAK_BF16_FLOPS", "HBM_BW", "ICI_BW", "HBM_BYTES",
+           "abstract_mesh", "make_mesh", "make_production_mesh",
+           "make_debug_mesh", "local_mesh", "mesh_from_flag", "parse_mesh",
+           "data_axes"]

@@ -63,9 +63,6 @@ def placement_device(target: Optional[torch.device],
     return target
 
 
-QUEUE_ITEM = "ROADMAP queue 1 item 5"
-
-
 def _live(mesh: Mesh, axes_: Tuple[str, ...]) -> Tuple[str, ...]:
     """The axes of ``axes_`` of size > 1: a split over an axis of size 1
     splits nothing and runs no collective."""
@@ -80,12 +77,19 @@ class SsmSplit:
     activations); ``conv`` (first, count) of the conv channels of its
     ``conv_w``/``conv_b`` and conv cache, split over ``conv_axes``;
     ``heads`` (first, count) of the SSM heads of its ``A_log``/``D``/
-    ``dt_bias`` and state cache, whose ``d_inner`` channels are its
-    ``gate_norm`` and ``out_proj`` rows, split over ``inner_axes``."""
+    ``dt_bias`` and state cache; ``inner`` (first, count) of the
+    ``d_inner`` channels of its ``gate_norm`` and ``out_proj`` rows, split
+    over ``inner_axes``. The channels lie inside the heads' channels
+    (``fit_spec`` keeps a prefix of the same axes for both, and d_inner =
+    H P divides wherever H does), but may be fewer: where H does not
+    divide an axis that d_inner does (three heads over two ranks, or a
+    ``long`` plan's heads over 'data' and channels over 'data' x
+    'model'), the rank scans its heads and keeps its channels of them."""
     in_axes: Tuple[str, ...]
     conv: Tuple[int, int]
     conv_axes: Tuple[str, ...]
     heads: Tuple[int, int]
+    inner: Tuple[int, int]
     inner_axes: Tuple[str, ...]
 
 
@@ -99,7 +103,16 @@ class ServeShard:
 
     - ``q_heads`` / ``kv_heads``: (first, count) of the q heads of this
       rank's ``wq``/``wo`` columns and rows, and of the KV heads its page
-      pools hold (split over ``pool_axes``, 'model'). Where the rank's
+      pools hold (split over ``pool_axes``, 'model'). Where ``wq`` is cut
+      inside a head (Hq·hd divides the head axes, Hq does not: 28 heads
+      over 16 ranks), ``q_cols`` records the cut, (first, count) of the
+      rank's columns among those of the heads they touch: the columns
+      are gathered over ``head_axes`` to every head (``split_q``), its
+      ``q_heads`` are the heads its columns touch, which it attends (at
+      most one more than its share at each end, so the outputs it needs
+      are its own and no output gather runs), and it keeps its columns of
+      their outputs (``own_columns``) for its ``wo`` rows and their sum
+      over the head axes. Where the rank's
       ``wk``/``wv`` columns are cut finer than its pools' heads (Hkv does
       not split over 'model' but the columns do, or a ``long`` plan cuts
       them over 'data' x 'model'), they are gathered and the pools' heads
@@ -163,6 +176,7 @@ class ServeShard:
     tp: Tuple[str, ...]
     batch: Tuple[str, ...]
     ssm: Optional[SsmSplit] = None
+    q_cols: Optional[Tuple[int, int]] = None
     pool_axes: Tuple[str, ...] = ()
     regroup: bool = False
     experts: Optional[Tuple[int, int]] = None
@@ -247,8 +261,33 @@ class ServeShard:
         """k or v columns (..., cols) of this rank -> every KV head's."""
         return all_gather_dim(t, self.mesh, self.kv_axes, -1)
 
+    def split_q(self, q: torch.Tensor) -> torch.Tensor:
+        """q (..., cols) through this rank's ``wq`` columns -> its q heads
+        (..., Hq_local, D); where ``wq`` is cut inside a head (``q_cols``),
+        every head (..., Hq, D), the columns gathered over the head axes
+        (the rank's own heads are then ``rank_heads`` of it)."""
+        if self.q_cols is None:
+            return q.reshape(q.shape[:-1] + (self.q_heads[1], -1))
+        q = all_gather_dim(q, self.mesh, self.head_axes, -1)
+        return q.reshape(q.shape[:-1] + (self.num_heads, -1))
+
+    def rank_heads(self, q: torch.Tensor) -> torch.Tensor:
+        """This rank's q heads of ``split_q``'s output."""
+        return q if self.q_cols is None else self.take_heads(q)
+
+    def own_columns(self, o: torch.Tensor) -> torch.Tensor:
+        """This rank's ``wo`` rows of the flat output (..., Hq_local D) of
+        its q heads: all of them, or its ``q_cols`` of them."""
+        if self.q_cols is None:
+            return o
+        c0, cn = self.q_cols
+        return o[..., c0:c0 + cn]
+
     def gather_heads(self, q: torch.Tensor) -> torch.Tensor:
-        """q (B, S, Hq_local, D) -> every q head (B, S, Hq, D)."""
+        """q (B, S, Hq_local, D) -> every q head (B, S, Hq, D) (``split_q``
+        holds every head already where ``wq`` is cut inside a head)."""
+        if self.q_cols is not None:
+            return q
         return all_gather_dim(q, self.mesh, self.head_axes, 2)
 
     def kv_span(self) -> Optional[Tuple[int, int]]:
@@ -268,15 +307,19 @@ class ServeShard:
         of the pools' groups (``pool_q``), this rank's padded with zeros
         to them, or gathered from every rank (``regroup``)."""
         p0, pn = self.pool_q
-        if self.regroup:
+        if self.regroup or self.q_cols is not None:
             return self.gather_heads(q)[..., p0:p0 + pn, :]
         return q if self.q_heads == (p0, pn) else self.pad_heads(q, p0, pn)
 
     def pad_heads(self, q: torch.Tensor, b0: int = 0,
                   bn: Optional[int] = None) -> torch.Tensor:
         """q of this rank's heads padded with zeros to the heads [b0, b0 +
-        bn) (default every head)."""
+        bn) (default every head); where ``wq`` is cut inside a head, q
+        holds every head, and those are taken (the outputs of heads not
+        the rank's are dropped all the same)."""
         bn = self.num_heads if bn is None else bn
+        if self.q_cols is not None:
+            return q[..., b0:b0 + bn, :]
         first, n = self.q_heads
         full = q.new_zeros(q.shape[:-2] + (bn, q.shape[-1]))
         full[..., first - b0:first - b0 + n, :] = q
@@ -402,9 +445,9 @@ class ExecutionPlan:
 
     def serve_shard(self, cfg: ModelConfig) -> Optional[ServeShard]:
         """This rank's part of ``cfg`` on a live ``serve`` or ``long``
-        plan (see ``ServeShard``); None off a live mesh. A split that
-        cuts a q head, or SSM heads apart from their ``d_inner`` channels,
-        raises ``NotImplementedError`` (``QUEUE_ITEM``)."""
+        plan (see ``ServeShard``); None off a live mesh. A ``wq`` cut
+        inside a head is recorded in ``q_cols``, SSM heads cut apart from
+        their ``d_inner`` channels in ``SsmSplit.inner``."""
         return _serve_shard(self, cfg)
 
     def state_shardings(self, cfg: ModelConfig,
@@ -619,11 +662,9 @@ def _serve_shard(plan: ExecutionPlan, cfg: ModelConfig
     attn, ashape = first("attn")
     if attn is not None:
         q0, qn = span(attn["wq"], ashape["wq"], 2)
+        t0, t1 = q0 // hd, -(-(q0 + qn) // hd)     # the heads it touches
         if q0 % hd or qn % hd:
-            raise NotImplementedError(
-                f"{cfg.name}: {cfg.num_heads} q heads do not split over "
-                f"{plan.describe()} (wq is cut inside a head); a "
-                f"head-misaligned split is {QUEUE_ITEM}")
+            out["q_cols"] = (q0 - t0 * hd, qn)
         pool_shape = (cfg.num_blocks, 2, 1, cfg.num_kv_heads, hd)
         pool = plan.cache_shardings(
             cfg, {"layer_0": {"self": {"kp": pool_shape}}})["layer_0"][
@@ -633,12 +674,13 @@ def _serve_shard(plan: ExecutionPlan, cfg: ModelConfig
         g = out["group"]
 
         def inside(r: int) -> bool:
-            """Rank ``r``'s q heads lie in its pools' groups."""
+            """Rank ``r``'s q heads (those its columns touch) lie in its
+            pools' groups."""
             qc = attn["wq"].index(r, ashape["wq"])[2]
             kc = pool.index(r, pool_shape)[3]
-            return kc.start * g * hd <= qc.start and \
-                qc.stop <= kc.stop * g * hd
-        out.update(q_heads=(q0 // hd, qn // hd), kv_heads=(k0, kn),
+            return kc.start * g <= qc.start // hd and \
+                -(-qc.stop // hd) <= kc.stop * g
+        out.update(q_heads=(t0, t1 - t0), kv_heads=(k0, kn),
                    kv_gather=cn != kn * hd, head_axes=split(attn["wq"], 2),
                    kv_axes=split(attn["wk"], 2), pool_axes=split(pool, 3),
                    regroup=not all(inside(r) for r in range(mesh.size)))
@@ -655,16 +697,12 @@ def _serve_shard(plan: ExecutionPlan, cfg: ModelConfig
                    expert_ffn_axes=split(moe["w_gate"], 3))
     mb, mshape = first("mamba")
     if mb is not None:
-        h0, hn = span(mb["A_log"], mshape["A_log"], 1)
-        i0, i_n = span(mb["gate_norm"], mshape["gate_norm"], 1)
-        if (i0, i_n) != (h0 * cfg.ssm_headdim, hn * cfg.ssm_headdim):
-            raise NotImplementedError(
-                f"{cfg.name}: the SSM heads and d_inner split differently "
-                f"over {plan.describe()}; such a split is {QUEUE_ITEM}")
         out["ssm"] = SsmSplit(
             in_axes=split(mb["in_proj"], 2),
             conv=span(mb["conv_b"], mshape["conv_b"], 1),
-            conv_axes=split(mb["conv_b"], 1), heads=(h0, hn),
+            conv_axes=split(mb["conv_b"], 1),
+            heads=span(mb["A_log"], mshape["A_log"], 1),
+            inner=span(mb["gate_norm"], mshape["gate_norm"], 1),
             inner_axes=split(mb["gate_norm"], 1))
     return ServeShard(**out)
 

@@ -43,10 +43,12 @@ On a live ``serve`` plan (``plan=``) the door is one rank of the plan:
 rank 0 runs the loop above, and every other rank follows its engine
 rounds in lockstep (``FrontDoor.follow``).
 
-Left out: the reference installs ``analysis.sentinel``'s metrics
-listener, which counts XLA compiles into the registry
-(``xla_compiles_total``). The port compiles nothing at run time, so its
-``/metrics`` has no such series.
+The door installs ``analysis.sentinel``'s metrics listener, as the
+reference does: ``/metrics`` counts every kernel dispatch
+(``kernel_launches_total``) and every new launch shape
+(``kernel_launch_shapes_total``, the eager port's stand-in for the
+reference's ``xla_compiles_total``: a steady-state new shape is an
+operator page, not just a test failure).
 """
 from __future__ import annotations
 
@@ -61,6 +63,7 @@ from typing import Any, Dict, Optional, Tuple
 import numpy as np
 
 from repro_torch import obs
+from repro_torch.analysis.sentinel import install_metrics_listener
 from repro_torch.config import ModelConfig, RLConfig, ServeConfig
 from repro_torch.parallel.collectives import broadcast_object
 from repro_torch.sampling.continuous import ContinuousEngine
@@ -146,6 +149,7 @@ class FrontDoor:
         self.leader = self._mesh is None or mesh.rank == 0
         self.admission = AdmissionController(serve, self.engine)
         self.telemetry = ServeTelemetry(serve.num_slots)
+        install_metrics_listener()
         self._pending: asyncio.Queue = asyncio.Queue()
         self._subs: Dict[int, asyncio.Queue] = {}
         self._next_rid = 0

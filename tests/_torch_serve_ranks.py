@@ -9,7 +9,8 @@ timeout, one torch thread), reads the models' weights from
 ``WORKDIR/inputs.npz`` and the cases from ``WORKDIR/cases.json``, and
 runs each case on its ``serve`` or ``long`` plan (``mode``, default
 ``serve``): ``generate_continuous`` ("generate"), the engine itself
-("engine", "spec", "prefix"), the engine with each rank running the next
+("engine", "spec", "prefix"), the static engine ("static"), the engine
+with each rank running the next
 rank's experts ("control_experts"), or the threaded runtime on a 1x2
 sampler plan ("threads"). A MoE case (``drops``) also runs one device's
 engine in the rank and records the ``moe_drop_frac`` of every MoE
@@ -77,7 +78,7 @@ def _drive(case, cfg, params, plan, inputs, out):
     """Run one case's traffic on ``plan`` (None: one device, the local
     plan); returns the engine used, if any."""
     from repro_torch.config import RLConfig
-    from repro_torch.sampling import generate_continuous
+    from repro_torch.sampling import StaticEngine, generate_continuous
     from repro_torch.sampling.continuous import ContinuousEngine
     from repro_torch.sampling.prng import PRNGKey
     from repro_torch.serving.api import Request, SamplingParams
@@ -97,6 +98,12 @@ def _drive(case, cfg, params, plan, inputs, out):
                       roll["sampler_lp"].numpy()[mask], mask.sum(1))
     sp = SamplingParams(temperature=1.0, top_k=0, top_p=1.0,
                         max_new_tokens=kw["max_new"])
+    if case["kind"] == "static":
+        eng = StaticEngine(cfg, params, rl=rl,
+                           vocab_limit=kw["vocab_limit"], key=key, plan=plan)
+        return eng, _results(eng.generate(
+            [Request(rid=i, prompt=p, params=sp)
+             for i, p in enumerate(prompts)]))
     eng = ContinuousEngine(
         cfg, params, rl=rl, max_total_tokens=prompts.shape[1]
         + kw["max_new"], num_slots=kw["num_slots"],
@@ -192,17 +199,16 @@ def _node_case(case, cfg, params, plans, inputs, out):
 
 
 def _refusals(cfg, params, plans, out):
-    """What a 1x2 serve plan serves, and what it still refuses. The static
+    """What a 1x2 serve plan serves, beside the traffic cases. The static
     engine (``build_engine`` and the legacy ``generate``), a ``long``
     plan's static and continuous engines, the front door, a static-engine
     ``SamplerNode``, the SSM, memory and MoE families serve: every rank
     returns the one-device run's tokens (the door is built and its engine
     is the plan's); the threaded runtime runs its steps on the sampler
-    plan. A split that cuts a q head, or SSM heads apart from their
-    ``d_inner`` channels, raises ``NotImplementedError`` naming ROADMAP
-    queue 1 item 5."""
-    from repro_torch.config import (HeteroConfig, ModelConfig, RLConfig,
-                                    ServeConfig, TrainConfig)
+    plan. A q head cut over the ranks and SSM heads cut apart from their
+    channels serve too (the "head_split" and "ssm_split" cases)."""
+    from repro_torch.config import (HeteroConfig, RLConfig, ServeConfig,
+                                    TrainConfig)
     from repro_torch.configs import smoke
     from repro_torch.data import ArithmeticTask, Tokenizer
     from repro_torch.hetero import ThreadedHeteroRuntime
@@ -310,23 +316,6 @@ def _refusals(cfg, params, plans, out):
     }
     for name, fn in serves.items():
         out[f"refuse/{name}"] = np.array(bool(fn()))
-    # one q head of 64 columns cut in two over 'model'; three SSM heads
-    # (192 d_inner channels) whose heads do not split over 2 while their
-    # channels do
-    head = ModelConfig(name="one-head", family="dense", num_layers=1,
-                       d_model=64, num_heads=1, num_kv_heads=1, head_dim=64,
-                       d_ff=128, vocab_size=32, dtype="float32")
-    ssm = dataclasses.replace(smoke("mamba2-1.3b"), d_model=96,
-                              ssm_headdim=64)
-    raises = {"head_split": lambda: serve.serve_shard(head),
-              "ssm_split": lambda: serve.serve_shard(ssm)}
-    for name, fn in raises.items():
-        try:
-            fn()
-            got = "no error"
-        except NotImplementedError as e:
-            got = str(e)
-        out[f"refuse/{name}"] = np.array("ROADMAP queue 1 item 5" in got)
 
 
 def _threads_case(case, cfg, params, plans, out):
@@ -432,7 +421,7 @@ def main():
             for key, leaf in _leaves_with_paths(eng.params):
                 out[f"{name}/numel/params/{key}"] = np.array(
                     [leaf.numel(), leaf.device.type == "cpu"])
-            for key, leaf in _leaves_with_paths(eng.pool):
+            for key, leaf in _leaves_with_paths(getattr(eng, "pool", {})):
                 out[f"{name}/numel/pool/{key}"] = np.array(
                     [leaf.numel(), leaf.device.type == "cpu"])
             if case["kind"] == "spec":

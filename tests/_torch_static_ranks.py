@@ -68,15 +68,17 @@ def _unscaled_combine(self, o, m, l, axes_):
 
 
 def _wrong_ssm_heads(serve_shard):
-    """The Mamba2 control: each rank scans the next rank's SSM heads of
-    the gathered activations with its own parameters and state."""
+    """The Mamba2 control: each rank scans the next rank's SSM heads (and
+    takes their channels) of the gathered activations with its own
+    parameters and state."""
     import dataclasses
 
     def wrong(plan, cfg):
         shard = serve_shard(plan, cfg)
-        h0, hn = shard.ssm.heads
+        (h0, hn), (i0, i_n) = shard.ssm.heads, shard.ssm.inner
         return dataclasses.replace(shard, ssm=dataclasses.replace(
-            shard.ssm, heads=((h0 + hn) % cfg.ssm_heads, hn)))
+            shard.ssm, heads=((h0 + hn) % cfg.ssm_heads, hn),
+            inner=((i0 + hn * cfg.ssm_headdim) % cfg.d_inner, i_n)))
     return wrong
 
 

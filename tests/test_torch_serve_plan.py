@@ -23,9 +23,15 @@ reference's (4 prompts of 5 and of 9 tokens, 6 new, 2 slots, page 4,
 prefill chunk 3 for the 9-token prompts, sync every 2, temperature 1.0,
 vocab limit 20), a shared-prefix pair whose second request is admitted
 into the other slot (the other data rank) after the first one's prompt is
-cached, and a spec_k=3 run on 1x2. Tokens are held exactly on every rank,
-log-probs within 1e-4; each rank holds exactly 1/M of every leaf the
-plan's fitted spec splits.
+cached, and a spec_k=3 run on 1x2. Two cuts that split a head run on
+1x2: one q head of 64 columns cut in two over 'model' (the continuous
+engine: each rank gathers the q columns to the head, attends it, and
+keeps its columns of the output for its ``wo`` rows), and a Mamba2 smoke
+of three SSM heads whose 192 ``d_inner`` channels split over 2 while the
+heads do not (the static engine: each rank scans every head and keeps its
+channels; the embedding scaled as in ``tests/test_torch_family_plan.py``).
+Tokens are held exactly on every rank, log-probs within 1e-4; each rank
+holds exactly 1/M of every leaf the plan's fitted spec splits.
 """
 import os
 import re
@@ -49,6 +55,7 @@ from repro.config import RLConfig as JRLConfig
 from repro.models import init_params as jinit_params
 from repro.sampling import generate_continuous as jgenerate_continuous
 from repro.sampling.continuous import ContinuousEngine as JContinuousEngine
+from repro.sampling.engine import StaticEngine as JStaticEngine
 from repro.serving.api import Request as JRequest
 from repro.serving.api import SamplingParams as JSamplingParams
 from repro_torch import configs as tconfigs
@@ -66,7 +73,15 @@ MODELS = {"tiny": TINY,
           "local": dict(TINY, name="tiny-paged-local", num_layers=4,
                         block_pattern=["attn", "local"], sliding_window=6),
           "gemma": dataclasses.asdict(dataclasses.replace(
-              tconfigs.smoke("gemma2-9b"), paged_attn_impl="ref"))}
+              tconfigs.smoke("gemma2-9b"), paged_attn_impl="ref")),
+          # one q head of 64 columns: cut inside it over 'model' 2
+          "head": dict(TINY, name="one-head", num_layers=1, num_heads=1,
+                       num_kv_heads=1, head_dim=64),
+          # three SSM heads, 192 d_inner channels: the channels split over
+          # 'model' 2, the heads do not
+          "ssm": dataclasses.asdict(dataclasses.replace(
+              tconfigs.smoke("mamba2-1.3b"), d_model=96, ssm_headdim=64))}
+EMBED_SCALE = {"ssm": 0.05}
 WORLDS = {2: [(1, 2), (2, 1)], 4: [(2, 2), (1, 4)]}
 ENGINE = dict(max_new=6, vocab_limit=20, num_slots=2, page_size=4,
               sync_every=2)
@@ -81,6 +96,9 @@ TRAFFIC = {
     "prefix": ("prefix", "tiny", "shared", 4, 3, {"steps_before": 3}),
 }
 SPEC = ("spec", "tiny", "pattern", 3, 3, {"spec_k": 3})
+# the cuts that split a head, on 1x2
+SPLITS = {"head_split": ("generate", "head", "p9", 6, 3, {}),
+          "ssm_split": ("static", "ssm", "p9", 7, None, {})}
 TOL_LP = 1e-4
 
 
@@ -100,6 +118,9 @@ def _jcfg(model):
     if model == "gemma":
         return dataclasses.replace(jconfigs.smoke("gemma2-9b"),
                                    paged_attn_impl="ref")
+    if model == "ssm":
+        return dataclasses.replace(jconfigs.smoke("mamba2-1.3b"),
+                                   d_model=96, ssm_headdim=64)
     kw = dict(MODELS[model])
     kw["block_pattern"] = tuple(JLOCAL if k == "local" else JATTN
                                 for k in kw["block_pattern"])
@@ -121,6 +142,7 @@ def _cases(world):
              for d in WORLDS[world] for t in TRAFFIC]
     if world == 2:
         cases.append(_case("1x2/spec", (1, 2), SPEC))
+        cases += [_case(f"1x2/{t}", (1, 2), SPLITS[t]) for t in SPLITS]
         cases.append(dict(name="node", kind="node", model="node"))
     return cases
 
@@ -132,6 +154,8 @@ def weights():
     out, jp = {}, {}
     for i, model in enumerate(MODELS):
         params = jinit_params(_jcfg(model), jax.random.PRNGKey(i))
+        if model in EMBED_SCALE:
+            params["embed"] = params["embed"] * EMBED_SCALE[model]
         jp[model] = params
         for path, leaf in jax.tree_util.tree_flatten_with_path(params)[0]:
             key = "/".join(p.key for p in path)
@@ -188,16 +212,23 @@ def _jax_run(traffic, jp):
         mask = np.asarray(roll["comp_mask"]) > 0
         return (np.asarray(roll["completions"])[mask],
                 np.asarray(roll["sampler_lp"])[mask], mask.sum(1), None)
+    sp = JSamplingParams(temperature=1.0, top_k=0, top_p=1.0,
+                         max_new_tokens=ENGINE["max_new"])
+    reqs = [JRequest(rid=i, prompt=p, params=sp)
+            for i, p in enumerate(prompts)]
+    if kind == "static":
+        res = JStaticEngine(cfg, params, rl=rl,
+                            vocab_limit=ENGINE["vocab_limit"],
+                            key=k).generate(reqs)
+        return (np.concatenate([r.tokens for r in res]),
+                np.concatenate([r.logps for r in res]),
+                np.array([r.gen_count for r in res]), None)
     eng = JContinuousEngine(
         cfg, params, rl=rl, max_total_tokens=prompts.shape[1]
         + ENGINE["max_new"], num_slots=ENGINE["num_slots"],
         page_size=ENGINE["page_size"], sync_every=ENGINE["sync_every"],
         prefill_chunk=chunk, vocab_limit=ENGINE["vocab_limit"],
         prefix_cache=kind == "prefix", spec_k=extra.get("spec_k", 0), key=k)
-    sp = JSamplingParams(temperature=1.0, top_k=0, top_p=1.0,
-                         max_new_tokens=ENGINE["max_new"])
-    reqs = [JRequest(rid=i, prompt=p, params=sp)
-            for i, p in enumerate(prompts)]
     if kind == "spec":
         res = eng.generate(reqs)
     else:
@@ -220,6 +251,7 @@ def reference(weights):
     _, jp, _ = weights
     runs = {name: _jax_run(t, jp) for name, t in TRAFFIC.items()}
     runs["spec"] = _jax_run(SPEC, jp)
+    runs.update({name: _jax_run(t, jp) for name, t in SPLITS.items()})
     return runs
 
 
@@ -329,17 +361,21 @@ def test_sampler_node_syncs_its_cells_and_refits(two):
                                   "moe", "threads", "long_static", "door",
                                   "node_static", "ssm", "memory",
                                   "head_split", "ssm_split"])
-def test_what_a_1x2_plan_does_not_serve_raises(two, what):
-    """On a live 1x2 plan, on every rank: what used to raise serves now
-    (the continuous engine on a ``long`` plan and scout's smoke on the
-    ``serve`` plan emit the one-device tokens; the threaded runtime takes
-    its steps on the sampler plan), as do the cases ported before (the
-    static engine through ``build_engine`` and the legacy ``generate``, on
-    ``serve`` and on ``long``, the front door, a ``SamplerNode`` on the
-    static engine, the SSM and memory families). What a 1x2 plan still
-    does not serve raises ``NotImplementedError`` naming ROADMAP queue 1
-    item 5: a q head cut over 'model', SSM heads that split apart from
-    their channels."""
+def test_what_a_1x2_plan_does_not_serve_raises(two, reference, what):
+    """On a live 1x2 plan, on every rank: what used to raise serves now.
+    The cuts that split a head emit the reference's unplanned tokens, with
+    log-probs within ``TOL_LP``: a q head cut over 'model'
+    (``head_split``) and SSM heads cut apart from their channels
+    (``ssm_split``). The continuous engine on a ``long`` plan and scout's
+    smoke on the ``serve`` plan emit the one-device tokens, and the
+    threaded runtime takes its steps on the sampler plan, as do the cases
+    ported before (the static engine through ``build_engine`` and the
+    legacy ``generate``, on ``serve`` and on ``long``, the front door, a
+    ``SamplerNode`` on the static engine, the SSM and memory families).
+    Nothing raises."""
+    if what in SPLITS:
+        _check(two, f"1x2/{what}", reference[what])
+        return
     for out in two:
         assert out[f"refuse/{what}"]
 

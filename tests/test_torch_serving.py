@@ -390,8 +390,9 @@ def test_front_door_matches_jax_over_http_ndjson_and_ws(tiny):
 def test_rejects_health_and_metrics(tiny, monkeypatch):
     """400 infeasible, 408 expired, 429 queue_full (the queue cap reached
     while a step is held), /healthz, and /metrics as JSON and as
-    Prometheus text (no ``xla_compiles_total``: the port installs no
-    compile listener)."""
+    Prometheus text (no ``xla_compiles_total``: the port compiles nothing
+    and counts new launch shapes instead, ``tests/test_torch_sentinel.py``
+    holds those series)."""
     door = _door(tiny, max_queue=1)
     eng = door.engine
     gate = threading.Event()
