@@ -331,6 +331,19 @@ never jax, never the JAX package. Phases, each fatal on failure:
    scout's heads (Hq 20, Hkv 4) and K6 at one rank of jamba's recompute
    (128 of 256 heads) against their twins, timed beside the twin, the
    bound and SDPA (K6: none).
+18. analysis: the port's static analysis (``python -m
+   repro_torch.analysis``, RA001-RA005) in the process over its default
+   paths with ``analysis_baseline_torch.json``: 0 new and 0 stale
+   findings, then its self-test (all five rules fire on the fixture).
+   Its host-sync twin runs at the end of phase 3 on the same engine,
+   outside the timed window: SYNC_TWIN_PROMPTS of the phase's prompts
+   resubmitted and stepped to the end under
+   ``torch.cuda.set_sync_debug_mode("warn")``, every sync an aten op
+   reports mapped to the innermost frame in ``src/repro_torch/``; the
+   syncs per prefill and per decode round and each site are printed, and
+   a site in a hot function (RA003's definition) with no static RA003
+   finding at its line (noqa'd or baselined ones count) fails the run.
+   Static sites the card did not hit are printed, not failed.
 
 Prints a ``{"kernels": [...]}`` JSON line, then as the last line
 ``{"ok": true, "device": {...}}``. Exits non-zero, printing no result,
@@ -340,8 +353,11 @@ from __future__ import annotations
 
 import argparse
 import asyncio
+import collections
+import contextlib
 import dataclasses
 import gc
+import io
 import json
 import resource
 import statistics
@@ -349,6 +365,7 @@ import struct
 import subprocess
 import sys
 import time
+import warnings
 from pathlib import Path
 
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
@@ -356,6 +373,10 @@ sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
+from repro_torch.analysis import hot_function_at  # noqa: E402
+from repro_torch.analysis.core import (apply_baseline,  # noqa: E402
+                                       collect_files, load_baseline,
+                                       run_rules)
 from repro_torch.analysis.sentinel import (RecompileSentinel,  # noqa: E402
                                            executable_bound)
 from repro_torch.checkpoint import PolicyStore  # noqa: E402
@@ -517,7 +538,7 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     for _ in range(iters):
         fn()
     end.record()
-    torch.cuda.synchronize()
+    torch.cuda.synchronize()  # noqa: RA003 — timing
     return start.elapsed_time(end) / iters
 
 
@@ -528,11 +549,11 @@ def device_ms(fn, iters: int = 20) -> float:
     so back-to-back calls time the host."""
     from torch.profiler import ProfilerActivity, profile
     fn()
-    torch.cuda.synchronize()
+    torch.cuda.synchronize()  # noqa: RA003 — timing
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(iters):
             fn()
-        torch.cuda.synchronize()
+        torch.cuda.synchronize()  # noqa: RA003 — timing
     return sum(dev_us(e) for e in prof.key_averages()) / 1e3 / iters
 
 
@@ -558,7 +579,7 @@ def decode_case(gen, dev, lengths, width, hq=HQ, hkv=HKV):
     vp = torch.randn((pool, PAGE, hkv, D), generator=gen, device=dev)
     kp[0] = vp[0] = float("nan")             # scratch page: garbage
     table = torch.zeros((b, width), dtype=torch.int32)
-    perm = torch.randperm(pool - 1, generator=torch.Generator().manual_seed(
+    perm = torch.randperm(pool - 1, generator=torch.Generator().manual_seed(  # noqa: RA002 — a seed per case
         0)) + 1
     for s, n in enumerate(lengths):
         live = min(-(-n // PAGE), width)
@@ -566,8 +587,8 @@ def decode_case(gen, dev, lengths, width, hq=HQ, hkv=HKV):
             table[s, :live] = perm[s * width:s * width + live]
     q = torch.randn((b, hq, D), generator=gen, device=dev)
     lens = torch.tensor(lengths, dtype=torch.int32)
-    return (q.bfloat16(), kp.bfloat16(), vp.bfloat16(), table.to(dev),
-            lens.to(dev))
+    return (q.bfloat16(), kp.bfloat16(), vp.bfloat16(), table.to(dev),  # noqa: RA003 — case set-up
+            lens.to(dev))  # noqa: RA003 — case set-up
 
 
 def prefill_case(gen, dev, c, start, hq=HQ, hkv=HKV):
@@ -669,9 +690,9 @@ def decode_long(gen, dev):
     got = pa.paged_attention(q, kp, vp, table, lens)
     want = pa.paged_decode_ref(q.float(), kp.float(), vp.float(), table,
                                lens)
-    torch.cuda.synchronize()
+    torch.cuda.synchronize()  # noqa: RA003 — timing
     err = max_err(got, want)
-    if not err <= TOL_BF16:
+    if not err <= TOL_BF16:  # noqa: RA003 — the check reads its error
         raise AssertionError(f"K3 at one slot of {n} keys disagrees with "
                              f"its twin: {err:.3e}")
     b_ms, b_by = decode_bound(q, table, [n], width)
@@ -1231,7 +1252,16 @@ def engine_phase(dev, seed, card, draws):
         f"{st['slot_utilization']:.3f}")
     teacher_forced(cfg, params, dev, seed)
     profile_decode(eng, prompts, sp)
-    return launches
+    # phase 18's host-sync twin, outside the timed window and after the
+    # sentinel's check; phase 18 holds its sites against the static rule
+    t0 = time.perf_counter()
+    twin = sync_twin(eng, prompts, sp)
+    log(f"[analysis] host-sync twin: {SYNC_TWIN_PROMPTS} requests "
+        f"resubmitted, {len(twin)} engine rounds under "
+        f"set_sync_debug_mode('warn'), {time.perf_counter() - t0:.2f}s; "
+        f"syncs per prefill round {round_syncs(twin, 'prefill')}, per "
+        f"decode round {round_syncs(twin, 'decode')}")
+    return launches, twin
 
 
 def profile_decode(eng, prompts, sp):
@@ -1247,12 +1277,12 @@ def profile_decode(eng, prompts, sp):
             np.int32), params=sp))
     while any(r is None or r.state != "decode" for r in eng.sched.slots):
         eng.step()
-    torch.cuda.synchronize()
+    torch.cuda.synchronize()  # noqa: RA003 — trace window
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(3):
             eng.step()
-        torch.cuda.synchronize()
+        torch.cuda.synchronize()  # noqa: RA003 — trace window
         wall_ms = (time.perf_counter() - t0) * 1e3
 
     # device-side entries only (kernels, memcpy/memset): the CPU op that
@@ -1275,6 +1305,162 @@ def profile_decode(eng, prompts, sp):
             f"{e.key[:90]}")
     while eng.has_work():
         eng.step()
+
+
+PORT_PKG = Path(__file__).resolve().parent / "src" / "repro_torch"
+SYNC_TWIN_PROMPTS = 2
+SYNC_WARNING = "called a synchronizing CUDA operation"
+
+
+def port_frames(frame):
+    """The stack's frames in ``src/repro_torch/``, innermost first, as
+    (repo-relative path, line, function)."""
+    out = []
+    while frame is not None:
+        path = Path(frame.f_code.co_filename).resolve()
+        if path.is_relative_to(PORT_PKG):
+            out.append((path.relative_to(PORT_PKG.parent.parent).as_posix(),
+                        frame.f_lineno, frame.f_code.co_name))
+        frame = frame.f_back
+    return tuple(out)
+
+
+def sync_twin(eng, prompts, sp):
+    """The host-sync twin of the static rule RA003: resubmit
+    SYNC_TWIN_PROMPTS of the engine phase's prompts and step the engine
+    until they finish under ``torch.cuda.set_sync_debug_mode("warn")``.
+    Every synchronizing aten op warns; each warning is mapped to the port
+    frames on the stack. Returns one (round kind, [frames of each sync])
+    per ``step()``, the kind "prefill" when the round ran a prefill chunk,
+    else "decode". Warnings of other kinds go on to the usual handler."""
+    rounds = []
+    syncs = []
+
+    def hook(message, category, filename, lineno, file=None, line=None):
+        if SYNC_WARNING not in str(message):
+            show(message, category, filename, lineno, file, line)
+            return
+        syncs.append(port_frames(sys._getframe(1)))
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        show = warnings.showwarning
+        warnings.showwarning = hook
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            rids = set()
+            for i in range(SYNC_TWIN_PROMPTS):
+                rids.add(3000 + i)
+                eng.submit(Request(rid=3000 + i, prompt=prompts[i], params=sp))
+            while rids:
+                before = eng.stats()["prefill_chunks"]
+                syncs.clear()
+                for ev in eng.step():
+                    if ev.finished and ev.rid in rids:
+                        rids.discard(ev.rid)
+                        eng.pop_result(ev.rid)
+                kind = ("prefill" if eng.stats()["prefill_chunks"] > before
+                        else "decode")
+                rounds.append((kind, list(syncs)))
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return rounds
+
+
+def round_syncs(rounds, kind):
+    """The syncs of each round of ``kind``, in order."""
+    return [len(syncs) for k, syncs in rounds if k == kind]
+
+
+def twin_sites(rounds):
+    """The sites of ``rounds``: each sync's innermost port frame."""
+    return {frames[0] for _, syncs in rounds for frames in syncs if frames}
+
+
+def match_twin(rounds, files, findings):
+    """Each card site (the innermost port frame of a sync) with its
+    count by round kind, whether its function is hot, and whether a
+    static RA003 finding (noqa'd and baselined ones included) sits at its
+    line. Returns (rows, the hot sites no static finding covers, the
+    static RA003 sites of the package the card did not hit)."""
+    by_rel = {f.rel: f for f in files}
+    static = {(fd.path, fd.line) for fd in findings if fd.rule == "RA003"}
+    sites = {}
+    for kind, syncs in rounds:
+        for frames in syncs:
+            site = frames[0] if frames else None
+            sites.setdefault(site, collections.Counter())[kind] += 1
+    rows, unmatched = [], []
+    for site, by_kind in sites.items():
+        if site is None:
+            rows.append((None, by_kind, False, False))
+            continue
+        path, line, _ = site
+        f = by_rel.get(path)
+        hot = f is not None and hot_function_at(f, line) is not None
+        covered = (path, line) in static
+        rows.append((site, by_kind, hot, covered))
+        if hot and not covered:
+            unmatched.append(site)
+    hit = {(s[0], s[1]) for s in sites if s is not None}
+    unhit = sorted(s for s in static
+                   if s not in hit and s[0].startswith("src/repro_torch/"))
+    return rows, unmatched, unhit
+
+
+def analysis_phase(twin):
+    """Phase 18: the port's static analysis over its defaults with its
+    baseline (0 new, 0 stale findings), its self-test, and the host-sync
+    twin's card sites held against the static RA003 sites."""
+    from repro_torch.analysis.__main__ import BASELINE, default_paths, \
+        selftest
+    root = Path(__file__).resolve().parent
+    t0 = time.perf_counter()
+    files = collect_files(default_paths(root), root=root)
+    found = run_rules(files, keep_suppressed=True)
+    by_rel = {f.rel: f for f in files}
+    live = [fd for fd in found
+            if not by_rel[fd.path].suppressed(fd.rule, fd.line)]
+    new, stale = apply_baseline(live, load_baseline(root / BASELINE))
+    noqa = collections.Counter(fd.rule for fd in found
+                               if by_rel[fd.path].suppressed(fd.rule,
+                                                             fd.line))
+    log(f"[analysis] python -m repro_torch.analysis: {len(files)} files, "
+        f"{len(new)} new findings, {len(stale)} stale baseline entries, "
+        f"{len(live)} baselined, noqa'd sites {dict(sorted(noqa.items()))}"
+        f", {time.perf_counter() - t0:.2f}s")
+    for fd in new:
+        log(f"[analysis]   {fd.render()}")
+    if new or stale:
+        raise AssertionError(f"static analysis: {len(new)} new findings, "
+                             f"stale baseline entries {stale}")
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = selftest()
+    log(f"[analysis] {out.getvalue().strip().splitlines()[-1]}")
+    if rc != 0:
+        raise AssertionError("the analysis self-test failed")
+    rows, unmatched, unhit = match_twin(twin, files, found)
+    unread = {s[0] for s in twin_sites(twin) if s[0] not in by_rel}
+    if unread:
+        raise AssertionError(f"the analysis did not read the twin's "
+                             f"files {sorted(unread)}")
+    for site, by_kind, hot, covered in sorted(
+            rows, key=lambda r: -sum(r[1].values())):
+        where = ("outside the port" if site is None
+                 else f"{site[0]}:{site[1]} {site[2]}")
+        verdict = ("not hot: printed, not held" if not hot
+                   else "static RA003 site" if covered
+                   else "NO static RA003 site")
+        log(f"[analysis]   card sync site {where}: "
+            f"{dict(sorted(by_kind.items()))} syncs ({verdict})")
+    log(f"[analysis] static RA003 sites in src/repro_torch the card did "
+        f"not hit (the rule is conservative): "
+        + (", ".join(f"{p}:{n}" for p, n in unhit) or "none"))
+    if unmatched:
+        raise AssertionError(f"card sync sites in hot functions with no "
+                             f"static RA003 finding: {unmatched}")
 
 
 def teacher_forced(cfg, params, dev, seed):
@@ -1668,12 +1854,12 @@ def profile_static_decode(cfg, params, cache, tok, steps=8):
     busy share and device time by kernel."""
     from torch.profiler import ProfilerActivity, profile
     decode_step(cfg, params, cache, tok, PROMPT_LEN)        # warm
-    torch.cuda.synchronize()
+    torch.cuda.synchronize()  # noqa: RA003 — trace window
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for t in range(steps):
             decode_step(cfg, params, cache, tok, PROMPT_LEN + t)
-        torch.cuda.synchronize()
+        torch.cuda.synchronize()  # noqa: RA003 — trace window
         wall_ms = (time.perf_counter() - t0) * 1e3
     rows = sorted((e for e in prof.key_averages()
                    if str(getattr(e, "device_type", "")).endswith("CUDA")),
@@ -6632,7 +6818,7 @@ def main(argv=None) -> int:
     kernels.update(ssd_phase(dev, args.seed))
     log(f"[time] K6 phase {time.perf_counter() - t0:.1f}s")
     t0 = time.perf_counter()
-    launches = engine_phase(dev, args.seed, card, draws)
+    launches, twin = engine_phase(dev, args.seed, card, draws)
     log(f"[time] engine phase {time.perf_counter() - t0:.1f}s")
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
@@ -6740,6 +6926,9 @@ def main(argv=None) -> int:
         "recompute on 1x2)"] = mplan_launches.get("flash_attention", 0)
     log(f"[moe-plan] phase 17 launches {mplan_launches}")
     log(f"[time] moe plan phase {time.perf_counter() - t0:.1f}s")
+    t0 = time.perf_counter()
+    analysis_phase(twin)
+    log(f"[time] analysis phase {time.perf_counter() - t0:.1f}s")
     for name, row in kernels.items():
         row["launches"] = launches[name]
         row["kernel_ms"], row["twin_ms"] = row["ms"], row["plain_ms"]

@@ -446,7 +446,8 @@ class LearnerNode:
                             step=self.step, version=batch.version,
                             sampler=batch.sampler_id):
             dev = self.plan.device or self.device
-            tb = {k: torch.from_numpy(getattr(batch, k)).to(dev)
+            # the batch arrives on the host: one copy in per step
+            tb = {k: torch.from_numpy(getattr(batch, k)).to(dev)  # noqa: RA003 — batch in
                   for k in ("tokens", "mask", "sampler_lp", "rewards")}
             self.state, metrics = self.step_fn(self.state, tb)
             self.step += 1

@@ -103,6 +103,11 @@ def forward_only(fn: Callable, q: torch.Tensor, k: torch.Tensor,
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
+def _raise_on(err: int, what: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"{what} launch failed: cudaError {err}")
+
+
 def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             causal: bool, window: Optional[int],
             softcap: Optional[float]) -> torch.Tensor:
@@ -146,9 +151,7 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         err = lib.flash_attention_launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, sq,
             sk, hq, hkv, d, int(causal), win, cap, _DTYPES[q.dtype], stream)
-    if err != 0:
-        raise RuntimeError(f"flash_attention_kernel launch failed: "
-                           f"cudaError {err}")
+    _raise_on(err, "flash_attention_kernel")
     build.count_launch(LAUNCHES, "flash_attention")
     return out
 

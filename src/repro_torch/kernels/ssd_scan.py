@@ -132,6 +132,11 @@ def p_splits(blocks: int, p: int, sms: int) -> int:
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
+def _raise_on(err: int, what: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"{what} launch failed: cudaError {err}")
+
+
 def _aligned(t: torch.Tensor) -> torch.Tensor:
     t = t.contiguous()
     return t.clone() if t.data_ptr() % 16 else t
@@ -187,7 +192,6 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a_log_neg: torch.Tensor,
             x.data_ptr(), dt.data_ptr(), a.data_ptr(), b.data_ptr(),
             c.data_ptr(), y.data_ptr(), bsz, s, h, g, p, n, lc, nsplit,
             _DTYPES[x.dtype], stream)
-    if err != 0:
-        raise RuntimeError(f"ssd_scan_kernel launch failed: cudaError {err}")
+    _raise_on(err, "ssd_scan_kernel")
     build.count_launch(LAUNCHES, "ssd_scan")
     return y

@@ -162,7 +162,9 @@ def make_mesh(dims: Tuple[int, ...], axis_names: Tuple[str, ...], *,
             members = [r for r in range(need)
                        if all(probe.coords_of(r)[a] == c
                               for a, c in zip(other, combo))]
-            g = dist.new_group(members)         # every rank calls it
+            # every rank builds every group once, in one order, at mesh
+            # construction (collective)
+            g = dist.new_group(members)  # noqa: RA002 — once per mesh
             if rank in members:
                 groups[subset] = g
     return Mesh(dims, axis_names, device=dev, rank=rank, device_mesh=dm,

@@ -212,18 +212,20 @@ class StaticEngine:
                 f"lengths {sorted(plens)} — pad, or use the continuous "
                 "engine for ragged prompts")
         t0 = time.perf_counter()
+        # the batch's prompts and ids go to the card once, at its start
         prompts = torch.from_numpy(np.stack(
-            [np.asarray(r.prompt, np.int64) for r in requests])).to(
+            [np.asarray(r.prompt, np.int64) for r in requests])).to(  # noqa: RA003 — batch in
                 self.device)
-        rids = torch.tensor([r.rid for r in requests], device=self.device)
+        rids = torch.tensor(  # noqa: RA003 — batch in
+            [r.rid for r in requests], device=self.device)
         max_new = max(r.params.max_new_tokens for r in requests)
         completions, sampler_lp, comp_mask = _generate_static(
             self.cfg, self.rl, self.params, prompts, self.key, max_new,
             self.vocab_limit, rids, self.memory, self.shard)
         # the one host sync: the batch ends here by design
-        comp_np = completions.cpu().numpy()
-        lp_np = sampler_lp.cpu().numpy()
-        mask_np = comp_mask.cpu().numpy()
+        comp_np = completions.cpu().numpy()  # noqa: RA003 — batch out
+        lp_np = sampler_lp.cpu().numpy()  # noqa: RA003 — batch out
+        mask_np = comp_mask.cpu().numpy()  # noqa: RA003 — batch out
         elapsed = time.perf_counter() - t0
         out: List[GenerationResult] = []
         for i, req in enumerate(requests):
@@ -341,8 +343,9 @@ def generate(cfg: ModelConfig, rl: RLConfig, params: Dict[str, Any],
     shard = plan.serve_shard(cfg)
     if shard is not None:
         params = plan.adopt_params(cfg, params)
+        # rank 0's prompts and key reach every rank through the host
         prompts, key = broadcast_object(
-            (np.asarray(torch.as_tensor(prompts).cpu()),
+            (np.asarray(torch.as_tensor(prompts).cpu()),  # noqa: RA003 — to ranks
              as_key(key).cpu()), plan.mesh)
     dev = params["embed"].device
     prompts = torch.as_tensor(prompts).to(dev, torch.int64)

@@ -131,10 +131,14 @@ def uniform(key: torch.Tensor, shape: Sequence[int], *,
     bits = random_bits(key, shape)
     one_two = ((bits >> 9) | _ONE_F32_BITS).to(torch.int32).view(
         torch.float32)
-    lo = torch.tensor(minval, dtype=torch.float32, device=key.device)
-    hi = torch.tensor(maxval, dtype=torch.float32, device=key.device)
-    floats = (one_two - 1.0) * (hi - lo) + lo
-    return torch.maximum(lo, floats)
+    # the bounds as float32 values held in Python floats: a float32 tensor
+    # op takes them as float32 scalars, so the arithmetic is jax's float32
+    # one, and no bound tensor is copied to the card (a copy from host
+    # memory waits for the card: two per draw, on the decode path)
+    lo = float(np.float32(minval))
+    span = float(np.float32(maxval) - np.float32(minval))
+    floats = (one_two - 1.0) * span + lo
+    return floats.clamp_min(lo)
 
 
 def gumbel(key: torch.Tensor, shape: Sequence[int]) -> torch.Tensor:

@@ -1071,12 +1071,29 @@ def test_threefry_bits_on_card_equal_the_cpu(cuda):
         mag = gc.abs().clamp_min(1.0)
         ulp = torch.nextafter(mag, torch.full_like(mag, float("inf"))) - mag
         assert float(((gd - gc).abs() / ulp).max()) <= 4
-        lg = torch.randn((rows, v), generator=torch.Generator().manual_seed(
+        lg = torch.randn((rows, v), generator=torch.Generator().manual_seed(  # noqa: RA002 — seeded
             rows)) * 4
         for kw in (dict(temperature=0.6, top_k=20, top_p=0.95), {}):
             assert torch.equal(
                 sample_token_rows(kd, lg.to(cuda), **kw).cpu(),
                 sample_token_rows(kc, lg, **kw))
+
+
+def test_token_draw_makes_no_host_sync(cuda):
+    """The engines' draw on the card never waits for it: under
+    ``set_sync_debug_mode("error")`` a synchronizing op raises."""
+    from repro_torch.sampling import prng
+    from repro_torch.sampling.sample import sample_token_rows
+    keys = prng.fold_in(prng.PRNGKey(5, cuda), torch.arange(8, device=cuda))
+    logits = torch.randn((8, 152064), device=cuda)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        sample_token_rows(keys, logits, temperature=0.6, top_k=20,
+                          top_p=0.95)
+        prng.categorical(keys, logits)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

@@ -166,6 +166,22 @@ def test_sample_token_rows_matches_jax(kw):
         np.testing.assert_array_equal(got.numpy(), np.asarray(want))
 
 
+def test_draws_copy_no_host_data_to_the_device(monkeypatch):
+    """A draw builds no tensor from host data: on the card each such
+    tensor is a copy from pageable memory that waits for the card (the
+    bounds of ``uniform`` cost two of them per decode step)."""
+    keys = prng.fold_in(prng.PRNGKey(3), torch.arange(4))
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("a tensor built from host data in a draw")
+
+    monkeypatch.setattr(torch, "tensor", refuse)
+    monkeypatch.setattr(torch, "as_tensor", refuse)
+    logits = torch.zeros((4, 64))
+    prng.categorical(keys, logits)
+    sample_token_rows(keys, logits, temperature=0.6, top_k=20, top_p=0.95)
+
+
 def test_keys_from_jax_arrays_and_errors():
     jk = jax.random.PRNGKey(8)
     np.testing.assert_array_equal(prng.as_key(np.asarray(jk)).numpy(),
