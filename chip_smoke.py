@@ -9,7 +9,8 @@ never jax, never the JAX package. Phases, each fatal on failure:
 1. device: the card's name and power limit, torch/CUDA versions, the
    dry-run's ``HBM_BYTES`` beside the card's ``total_memory``, and the
    kernels built from ``src/repro_torch/kernels/csrc`` with nvcc (sm_90a,
-   one nvcc per source, in parallel); the bf16 bodies of K5 and K4 (the
+   one nvcc per source or part of one, in parallel); the bf16 bodies of
+   K5 and K4, at every exact and padded width (the
    tensor-core tile core ``attention_tc.cuh``) and of K6
    (``ssd_scan_tc_kernel``) must hold HMMA instructions in their SASS
    (``cuobjdump``) and spill nothing (``ptxas -v``);
@@ -344,6 +345,25 @@ never jax, never the JAX package. Phases, each fatal on failure:
    a site in a hot function (RA003's definition) with no static RA003
    finding at its line (noqa'd or baselined ones count) fails the run.
    Static sites the card did not hit are printed, not failed.
+19. small models: the repo's own small models, whose head dims (24, 32)
+   run the kernels' padded instantiations, served on the card in
+   float32 (their configs copied from ``benchmarks/``, not imported):
+   (a) ``bench-lm`` (2 layers, d_model 96, 4/2 heads, D 24) through
+   ``ContinuousEngine`` with ``paged_attn_impl`` "pallas" and "ref" on
+   the same keys; (b) ``serve-bench`` and ``spec-lm`` (D 32) with spec_k
+   4, K4's verify windows at D 32; (c) ``StaticEngine`` on bench-lm with
+   ``attn_impl`` "pallas" (K5 at D 24) and "chunked". Each pair: tokens
+   equal, logps within TOL_PLAN_LP, the kernels' launches equal to layers
+   x decode steps (K3), x prefill chunks and verify rounds (K4, plus the
+   rescore), x prefills (K5), none on the twin's run.
+
+Phase 2 also holds K3, K4 and K5 at D 12, 16, 20, 24, 32, 80 and 96 and
+at the reference's own paged test cases (B 4, Hkv 2, rep 4, D 32, page
+8), and K6 at the reference's SSD sweep and P 24 x N 48, each in bf16
+and float32 against its twin at the bar its dtype has, and times one
+float32 row a kernel at D 32 (K6: P 32, N 48) beside its twin, its bound
+and the library call; phase 1's HMMA and spill check covers every padded
+bf16 instantiation.
 
 Prints a ``{"kernels": [...]}`` JSON line, then as the last line
 ``{"ok": true, "device": {...}}``. Exits non-zero, printing no result,
@@ -381,8 +401,9 @@ from repro_torch.analysis.sentinel import (RecompileSentinel,  # noqa: E402
                                            executable_bound)
 from repro_torch.checkpoint import PolicyStore  # noqa: E402
 from repro_torch.checkpoint.store import flatten_with_paths  # noqa: E402
-from repro_torch.config import (CROSS, MOE, HeteroConfig,  # noqa: E402
-                                RLConfig, ServeConfig, TrainConfig)
+from repro_torch.config import (ATTN, CROSS, MLP, MOE,  # noqa: E402
+                                HeteroConfig, ModelConfig, RLConfig,
+                                ServeConfig, TrainConfig)
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.data import ArithmeticTask, Tokenizer  # noqa: E402
 from repro_torch.data.tasks import PAD  # noqa: E402
@@ -572,33 +593,33 @@ def bound(nbytes: float, flops: float, peak: float = BF16_FLOPS_S) -> tuple:
 # phase 2: the kernels at the slice's shapes
 
 
-def decode_case(gen, dev, lengths, width, hq=HQ, hkv=HKV):
+def decode_case(gen, dev, lengths, width, hq=HQ, hkv=HKV, d=D, page=PAGE):
     b = len(lengths)
     pool = 1 + b * width
-    kp = torch.randn((pool, PAGE, hkv, D), generator=gen, device=dev)
-    vp = torch.randn((pool, PAGE, hkv, D), generator=gen, device=dev)
+    kp = torch.randn((pool, page, hkv, d), generator=gen, device=dev)
+    vp = torch.randn((pool, page, hkv, d), generator=gen, device=dev)
     kp[0] = vp[0] = float("nan")             # scratch page: garbage
     table = torch.zeros((b, width), dtype=torch.int32)
     perm = torch.randperm(pool - 1, generator=torch.Generator().manual_seed(  # noqa: RA002 — a seed per case
         0)) + 1
     for s, n in enumerate(lengths):
-        live = min(-(-n // PAGE), width)
-        if n <= width * PAGE:                # the dead slot keeps scratch
+        live = min(-(-n // page), width)
+        if n <= width * page:                # the dead slot keeps scratch
             table[s, :live] = perm[s * width:s * width + live]
-    q = torch.randn((b, hq, D), generator=gen, device=dev)
+    q = torch.randn((b, hq, d), generator=gen, device=dev)
     lens = torch.tensor(lengths, dtype=torch.int32)
     return (q.bfloat16(), kp.bfloat16(), vp.bfloat16(), table.to(dev),  # noqa: RA003 — case set-up
             lens.to(dev))  # noqa: RA003 — case set-up
 
 
-def prefill_case(gen, dev, c, start, hq=HQ, hkv=HKV):
+def prefill_case(gen, dev, c, start, hq=HQ, hkv=HKV, d=D):
     width = -(-(start + c) // PAGE)
     pool = 1 + width + 4
-    kp = torch.randn((pool, PAGE, hkv, D), generator=gen, device=dev)
-    vp = torch.randn((pool, PAGE, hkv, D), generator=gen, device=dev)
+    kp = torch.randn((pool, PAGE, hkv, d), generator=gen, device=dev)
+    vp = torch.randn((pool, PAGE, hkv, d), generator=gen, device=dev)
     kp[0] = vp[0] = float("nan")
     table = torch.arange(1, width + 1, dtype=torch.int32, device=dev)[None]
-    q = torch.randn((1, c, hq, D), generator=gen, device=dev)
+    q = torch.randn((1, c, hq, d), generator=gen, device=dev)
     positions = (start + torch.arange(c, device=dev))[None]
     return q.bfloat16(), kp.bfloat16(), vp.bfloat16(), table, positions
 
@@ -634,10 +655,10 @@ def sdpa_decode(q, kp, vp, table, lengths):
     """Library yardstick setup: the dense per-slot view and its mask; the
     timed call is only the SDPA itself."""
     b, width = table.shape
-    hq, hkv = q.shape[1], kp.shape[2]
+    hq, hkv, d = q.shape[1], kp.shape[2], kp.shape[3]
     idx = table.long()
-    k = kp[idx].reshape(b, width * PAGE, hkv, D).transpose(1, 2)
-    v = vp[idx].reshape(b, width * PAGE, hkv, D).transpose(1, 2)
+    k = kp[idx].reshape(b, width * PAGE, hkv, d).transpose(1, 2)
+    v = vp[idx].reshape(b, width * PAGE, hkv, d).transpose(1, 2)
     k = k.repeat_interleave(hq // hkv, dim=1).contiguous()
     v = v.repeat_interleave(hq // hkv, dim=1).contiguous()
     cols = torch.arange(width * PAGE, device=q.device)
@@ -647,10 +668,10 @@ def sdpa_decode(q, kp, vp, table, lengths):
 
 def sdpa_prefill(q, kp, vp, table, positions):
     width = table.shape[1]
-    hq, hkv = q.shape[2], kp.shape[2]
+    hq, hkv, d = q.shape[2], kp.shape[2], kp.shape[3]
     idx = table.long()
-    k = kp[idx].reshape(1, width * PAGE, hkv, D).transpose(1, 2)
-    v = vp[idx].reshape(1, width * PAGE, hkv, D).transpose(1, 2)
+    k = kp[idx].reshape(1, width * PAGE, hkv, d).transpose(1, 2)
+    v = vp[idx].reshape(1, width * PAGE, hkv, d).transpose(1, 2)
     k = k.repeat_interleave(hq // hkv, dim=1).contiguous()
     v = v.repeat_interleave(hq // hkv, dim=1).contiguous()
     cols = torch.arange(width * PAGE, device=q.device)
@@ -1786,22 +1807,261 @@ def ssd_phase(dev, seed):
 
 
 # --------------------------------------------------------------------------
+# phase 2, widths: K3-K6 at every shape their TPU kernels take. Each width
+# runs a body instantiated at a padded width (kernels/csrc/*.cu); every row
+# holds the kernel against its twin at the bar its dtype already has (K3
+# and K4: TOL_BF16 / TOL_F32; K5: TOL_FLASH; K6: ss.error_ratio <= 1)
+
+# the repo's own models' and tests' head dims (bench-lm 24, serve-bench and
+# spec-lm 32, the tests' TINYs 16 and 12), bf16 rows that are not 16-byte
+# aligned (D 12, 20: the element-load staging) and padded widths past 64
+WIDTH_DS = (12, 16, 20, 24, 32, 80, 96)
+# (B, S, H, P, G, N, chunk): the reference's K6 sweep (tests/test_kernels.py,
+# chunk 32; its bf16 test takes the first) and P 24 x N 48
+SSD_WIDTH_CASES = ((1, 64, 2, 16, 1, 8, 32), (2, 128, 4, 32, 2, 16, 32),
+                   (1, 256, 8, 64, 1, 32, 32), (2, 256, 4, 24, 2, 48, 64))
+# the timed rows: float32 (the repo's small models' dtype) at D 32 and
+# serve-bench's heads (Hq 8, Hkv 4); K6 at P 32, N 48
+W_HQ, W_HKV, W_D = 8, 4, 32
+W_SSD = (8, 1024, 16, 32, 1, 48, 256)
+
+
+def width_errs(rows, key="max_abs_err"):
+    """(max over the bf16 rows, max over the float32 rows) of ``key``."""
+    return tuple(max((r[key] for r in rows if r["dtype"] == dt),
+                     default=0.0) for dt in ("bfloat16", "float32"))
+
+
+def k3_width_rows(gen, dev):
+    """K3 at every D of WIDTH_DS in both dtypes (plain and window 100 +
+    softcap 30, a dead slot and the NaN scratch page), and at the
+    reference's own case (tests/test_paged_attention.py::make_case: B 4,
+    Hkv 2, rep 4, D 32, page 8, lengths in [1, 48])."""
+    rows = []
+    width = 512 // PAGE
+    lengths = [512, 300, 17, 1, width * PAGE + 1]
+    cases = [(d, dict(hq=8, hkv=2, d=d), lengths, width) for d in WIDTH_DS]
+    ref_len = np.random.default_rng(0).integers(1, 49, 4).tolist()
+    cases.append(("ref make_case", dict(hq=8, hkv=2, d=32, page=8), ref_len,
+                  6))
+    for label, kw, lens_, w in cases:
+        case = decode_case(gen, dev, lens_, w, **kw)
+        page = kw.get("page", PAGE)
+        live = [i for i, n in enumerate(lens_) if n <= w * page]
+        for dt in (torch.bfloat16, torch.float32):
+            q, kp, vp = (t.to(dt) for t in case[:3])
+            table, lens = case[3], case[4]
+            f32 = [t.float() for t in (q, kp, vp)]
+            err = 0.0
+            for opt in ({}, dict(window=100, softcap=30.0)):
+                got = pa.paged_attention(q, kp, vp, table, lens, **opt)
+                want = pa.paged_decode_ref(*f32, table, lens, **opt)
+                err = max(err, max_err(got, want, live))
+            tol = TOL_BF16 if dt == torch.bfloat16 else TOL_F32
+            rows.append(dict(case=f"D {label}" if isinstance(label, int)
+                             else label, d=kw["d"], dtype=str(dt)[6:],
+                             max_abs_err=err, tol=tol))
+            if not err <= tol:
+                raise AssertionError(f"K3 at {label} {dt} disagrees with "
+                                     f"its twin: {err:.3e}")
+    return rows
+
+
+def k4_width_rows(gen, dev):
+    """K4 at every D of WIDTH_DS in both dtypes at the ragged C 77 after
+    300 keys (plain and local window 100 + softcap 30), and at the
+    reference's own case (make_prefill_case: B 3, C 8, Hkv 2, rep 4, D 32,
+    page 8, starts in [0, 40])."""
+    rows = []
+    cases = []
+    for d in WIDTH_DS:
+        q, kp, vp, table, pos = prefill_case(gen, dev, 77, 300, 8, 2, d=d)
+        cases.append((f"D {d} C 77", d, q, kp, vp, table, pos))
+    rng = np.random.default_rng(1)
+    q, kp, vp, table, _ = decode_case(gen, dev, [48] * 3, 6, 8, 2, d=32,
+                                      page=8)
+    starts = torch.tensor(rng.integers(0, 41, 3), device=dev)
+    q = torch.randn((3, 8, 8, 32), generator=gen, device=dev)
+    pos = starts[:, None] + torch.arange(8, device=dev)
+    cases.append(("ref make_prefill_case", 32, q, kp, vp, table, pos))
+    for label, d, q, kp, vp, table, pos in cases:
+        for dt in (torch.bfloat16, torch.float32):
+            qq, kk, vv = (t.to(dt) for t in (q, kp, vp))
+            f32 = [t.float() for t in (qq, kk, vv)]
+            err = 0.0
+            for opt in ({}, dict(kind="local", window=100, softcap=30.0)):
+                got = ops.paged_prefill(qq, kk, vv, table, pos,
+                                        impl="pallas", **opt)
+                want = ops.paged_prefill(*f32, table, pos, impl="ref",
+                                         **opt)
+                err = max(err, max_err(got, want))
+            tol = TOL_BF16 if dt == torch.bfloat16 else TOL_F32
+            rows.append(dict(case=label, d=d, dtype=str(dt)[6:],
+                             max_abs_err=err, tol=tol))
+            if not err <= tol:
+                raise AssertionError(f"K4 at {label} {dt} disagrees with "
+                                     f"its twin: {err:.3e}")
+    return rows
+
+
+def k5_width_rows(gen, dev):
+    """K5 at every D of WIDTH_DS in both dtypes at the ragged S 160 (B 2,
+    Hq 8, Hkv 2; causal, and window 50 + softcap 30)."""
+    rows = []
+    for d in WIDTH_DS:
+        base = [torch.randn((2, 160, h, d), generator=gen, device=dev)
+                for h in (8, 2, 2)]
+        for dt in (torch.bfloat16, torch.float32):
+            q, k, v = (t.to(dt) for t in base)
+            f32 = [t.float() for t in (q, k, v)]
+            err = 0.0
+            for kw in (dict(causal=True),
+                       dict(causal=True, window=50, softcap=30.0)):
+                err = max(err, max_err(fa.flash_attention(q, k, v, **kw),
+                                       fa.flash_attention_ref(*f32, **kw)))
+            tol = TOL_FLASH[dt]
+            rows.append(dict(case=f"D {d} S 160", d=d, dtype=str(dt)[6:],
+                             max_abs_err=err, tol=tol))
+            if not err <= tol:
+                raise AssertionError(f"K5 at D {d} {dt} disagrees with its "
+                                     f"twin: {err:.3e}")
+    return rows
+
+
+def k6_width_rows(gen, dev):
+    """K6 at the reference's sweep shapes and P 24 x N 48, both dtypes."""
+    rows = []
+    for b, s, h, p, g, n, chunk in SSD_WIDTH_CASES:
+        for dt in (torch.bfloat16, torch.float32):
+            args = ssd_inputs(gen, dev, b, s, h, p, g, n, dt)
+            got = ss.ssd_scan(*args, chunk=chunk)
+            want = ssd_twin(args, chunk)
+            ratio = ss.error_ratio(got, want)
+            rows.append(dict(case=f"B {b} S {s} H {h} P {p} G {g} N {n} "
+                                  f"chunk {chunk}", d=p, dtype=str(dt)[6:],
+                             max_abs_err=max_err(got, want),
+                             error_ratio=ratio))
+            if not ratio <= 1.0:
+                raise AssertionError(f"K6 at {rows[-1]['case']} {dt} "
+                                     f"disagrees with its twin: {ratio:.3e}")
+    return rows
+
+
+def width_timed(gen, dev):
+    """One timed row per kernel at D 32 (K6: P 32, N 48), float32: the
+    kernel, its twin, the card's bound and the library call."""
+    f32b = 4
+    out = {}
+    width = 2048 // PAGE
+    lengths = [2048, 1537, 1024, 700, 333, 64, 1, width * PAGE + 1]
+    q, kp, vp, table, lens = (t.float() if t.is_floating_point() else t
+                              for t in decode_case(gen, dev, lengths, width,
+                                                   W_HQ, W_HKV, d=W_D))
+    keys = [n for n in lengths if n <= width * PAGE]
+    nbytes = (sum(-(-n // PAGE) * PAGE for n in keys) * W_HKV * W_D * 2
+              * f32b + 2 * q.numel() * f32b + table.numel() * 4
+              + 4 * len(lengths))
+    b_ms, b_by = bound(nbytes, sum(4 * W_HQ * W_D * n for n in keys),
+                       F32_FLOPS_S)
+    out["paged_decode"] = dict(
+        shape=f"B={len(lengths)} Hq={W_HQ} Hkv={W_HKV} D={W_D} page={PAGE} "
+              f"lengths={lengths} float32",
+        ms=time_ms(lambda: pa.paged_attention(q, kp, vp, table, lens)),
+        plain_ms=time_ms(lambda: pa.paged_decode_ref(q, kp, vp, table,
+                                                     lens), iters=5),
+        bound_ms=b_ms, bound_by=b_by,
+        library_ms=library_ms(*sdpa_decode(q, kp, vp, table, lens)))
+    c, start = 512, 1024
+    q, kp, vp, table, pos = (t.float() if t.is_floating_point() else t
+                             for t in prefill_case(gen, dev, c, start, W_HQ,
+                                                   W_HKV, d=W_D))
+    kv = -(-(start + c) // PAGE) * PAGE * W_HKV * W_D * 2
+    b_ms, b_by = bound(kv * f32b + 2 * q.numel() * f32b + table.numel() * 4,
+                       sum(4 * W_HQ * W_D * (start + i + 1)
+                           for i in range(c)), F32_FLOPS_S)
+    out["paged_prefill"] = dict(
+        shape=f"B=1 C={c} start={start} Hq={W_HQ} Hkv={W_HKV} D={W_D} "
+              f"page={PAGE} float32",
+        ms=time_ms(lambda: ops.paged_prefill(q, kp, vp, table, pos,
+                                             impl="pallas")),
+        plain_ms=time_ms(lambda: ops.paged_prefill(q, kp, vp, table, pos,
+                                                   impl="ref"), iters=5),
+        bound_ms=b_ms, bound_by=b_by,
+        library_ms=library_ms(*sdpa_prefill(q, kp, vp, table, pos)))
+    b, s = 16, PROMPT_LEN
+    q, k, v = (torch.randn((b, s, h, W_D), generator=gen, device=dev)
+               for h in (W_HQ, W_HKV, W_HKV))
+    b_ms, b_by = bound(f32b * (2 * q.numel() + k.numel() + v.numel()),
+                       4 * W_D * W_HQ * b * flash_pairs(s, True, None),
+                       F32_FLOPS_S)
+    out["flash_attention"] = dict(
+        shape=f"B={b} S={s} Hq={W_HQ} Hkv={W_HKV} D={W_D} causal float32",
+        ms=time_ms(lambda: fa.flash_attention(q, k, v), iters=10),
+        plain_ms=time_ms(lambda: fa.flash_attention_ref(q, k, v), iters=3,
+                         warmup=1),
+        bound_ms=b_ms, bound_by=b_by,
+        library_ms=sdpa_flash(q, k, v, True, None))
+    b, s, h, p, g, n, chunk = W_SSD
+    args = ssd_inputs(gen, dev, b, s, h, p, g, n, torch.float32)
+    nbytes = (2 * args[0].numel() + args[1].numel() + args[2].numel()
+              + 2 * args[3].numel()) * f32b
+    b_ms, b_by = bound(nbytes, ssd_flops(b, s, h, p, g, n, chunk),
+                       F32_FLOPS_S)
+    out["ssd_scan"] = dict(
+        shape=f"B={b} S={s} H={h} P={p} G={g} N={n} chunk={chunk} float32",
+        ms=time_ms(lambda: ss.ssd_scan(*args, chunk=chunk), iters=10),
+        plain_ms=time_ms(lambda: ssd_twin(args, chunk), iters=3, warmup=1),
+        bound_ms=b_ms, bound_by=b_by, library_ms=None)
+    return out
+
+
+def width_phase(dev, seed):
+    """Phase 2's width rows: K3, K4, K5 at D 12 ... 96 and the reference's
+    paged cases, K6 at the reference's sweep and P 24 x N 48, each in bf16
+    and float32 against its twin, and one timed float32 row per kernel at
+    D 32. Returns {kernel: {"rows": [...], "timed": {...}}}."""
+    gen = torch.Generator(device=dev).manual_seed(seed + 28)
+    rows = {"paged_decode": k3_width_rows(gen, dev),
+            "paged_prefill": k4_width_rows(gen, dev),
+            "flash_attention": k5_width_rows(gen, dev),
+            "ssd_scan": k6_width_rows(gen, dev)}
+    torch.cuda.synchronize()
+    timed = width_timed(gen, dev)
+    out = {}
+    for name, rs in rows.items():
+        t = timed[name]
+        key = "error_ratio" if name == "ssd_scan" else "max_abs_err"
+        e16, e32 = width_errs(rs, key)
+        log(f"[widths] {name}: {len(rs)} rows (D or P "
+            f"{sorted({r['d'] for r in rs})}, bf16 and float32) against the "
+            f"twin, max {key} bf16 {e16:.3e}, float32 {e32:.3e}; timed "
+            f"{t['shape']}: {t['ms']:.4f} ms, bound {t['bound_ms']:.5f} ms "
+            f"({t['bound_by']}), twin {t['plain_ms']:.3f} ms, library "
+            + ("none" if t["library_ms"] is None
+               else f"{t['library_ms']:.4f} ms"))
+        out[name] = dict(rows=rs, timed=t)
+    return out
+
+
+# --------------------------------------------------------------------------
 # phases 4 and 5: the static engine and the recompute through K5, qwen3 and
 # gemma2 at full width
 
 
 # the bf16 bodies of K5, K4 and K6 (tensor-core products, no spills) and
-# their instantiations: D 64, 128, 256 for K5 and K4; P slice 16, 32, 64 x
-# N 16, 32, 64, 128 for K6
-TC_KERNELS = {"flash_attention_tc_kernel": 3, "paged_prefill_tc_kernel": 3,
-              "ssd_scan_tc_kernel": 12}
+# their instantiations: D 64, 128, 256 and the 16 padded widths (multiples
+# of 16) for K5 and K4; P slice 16, 32, 64 x N 16, 32, 64, 128 for K6,
+# exact and padded
+TC_KERNELS = {"flash_attention_tc_kernel": 19, "paged_prefill_tc_kernel": 19,
+              "ssd_scan_tc_kernel": 24}
 
 
 def tensor_core_check(built) -> None:
     """Every instantiation of the bf16 K5/K4/K6 bodies has HMMA (or HGMMA)
     instructions in its SASS and 0 spill bytes in the ptxas report."""
-    sass = build.sass_functions(built.path)
     report = build.ptxas_report(built.log)
+    sass = build.sass_functions(built.path, [
+        n for n in report if any(k in n for k in TC_KERNELS)])
     for kern, count in TC_KERNELS.items():
         names = [n for n in sass if kern in n]
         if len(names) != count:
@@ -3005,17 +3265,18 @@ def templated_prompts(vocab, seed):
     return out
 
 
-def spec_run(cfg, params, prompts, rl, max_new, vocab, spec_k, seed):
+def spec_run(cfg, params, prompts, rl, max_new, vocab, spec_k, seed,
+             rescore=True):
     """Serve ``prompts`` through a fresh ``ContinuousEngine`` (8 slots,
     page 16, prefill chunk 512, draws from ids below ``vocab``) at
     ``spec_k``; hold the pool, the launch counts (none through the twins,
-    ``paged_attn_impl="ref"``) and (spec on) the rescore. Returns
-    (results, stats delta, launches, decode tokens/s, decode ms per
-    step)."""
+    ``paged_attn_impl="ref"``) and (spec on, ``rescore``) the rescore.
+    Returns (results, stats delta, launches, decode tokens/s, decode ms
+    per step)."""
     serve = ServeConfig(num_slots=SLOTS, page_size=PAGE, prefill_chunk=512,
                         sync_every=8, max_total_tokens=2048,
                         paged_attn_impl=cfg.paged_attn_impl, spec_k=spec_k,
-                        seed=seed)
+                        spec_rescore=rescore, seed=seed)
     eng = build_engine(cfg, params, serve, rl=rl, vocab_limit=vocab,
                        key=prng.PRNGKey(seed))
     sp = SamplingParams.from_rl(rl, max_new=max_new)
@@ -3058,7 +3319,7 @@ def spec_run(cfg, params, prompts, rl, max_new, vocab, spec_k, seed):
     want = {"paged_decode": lyr * (eng.sync_every * st["spec_fallback_chunks"]
                                    if spec_k else st["decode_steps"]),
             "paged_prefill": lyr * st["prefill_chunks"]
-            + (lyr + 1) * st["spec_rounds"]}
+            + (lyr + (1 if lyr and rescore else 0)) * st["spec_rounds"]}
     if launches != want:
         raise AssertionError(f"spec_k={spec_k}: launches {launches} != "
                              f"{want} implied by {st}")
@@ -3077,7 +3338,7 @@ def spec_run(cfg, params, prompts, rl, max_new, vocab, spec_k, seed):
     eng.prefix_cache.clear()
     if eng.free_pages != eng.num_pages - 1 or eng.sched.allocator.in_use:
         raise AssertionError("page pool does not balance after the cache")
-    if spec_k and st["spec_rescore_max_diff"] != 0.0:
+    if spec_k and rescore and st["spec_rescore_max_diff"] != 0.0:
         raise AssertionError(f"folded K4 rescore differs from the forward "
                              f"by {st['spec_rescore_max_diff']}")
     return res, st, launches, dec_tok / dec_s, dec_s * 1e3 / dec_steps
@@ -6769,6 +7030,134 @@ def moe_plan_phase(dev, seed, card, ranks):
     return launches, rows
 
 
+# --------------------------------------------------------------------------
+# phase 19: the repo's own small models served through the kernels. Their
+# numbers are copied here (this script imports neither benchmarks/ nor the
+# JAX package): bench-lm, the paper's CPU-scale experiment model
+# (benchmarks/common.py:32-35; examples/quickstart.py, hetero_train.py),
+# serve-bench (benchmarks/serve_throughput.py:44-48) and spec-lm
+# (benchmarks/spec_bench.py:53), each at its only width and in float32
+SMALL_MODELS = {
+    "bench-lm": dict(num_layers=2, d_model=96, num_heads=4, num_kv_heads=2,
+                     d_ff=192, vocab_size=32),
+    "serve-bench": dict(num_layers=4, d_model=256, num_heads=8,
+                        num_kv_heads=4, d_ff=512, vocab_size=32),
+    "spec-lm": dict(num_layers=4, d_model=256, num_heads=8, num_kv_heads=4,
+                    d_ff=512, vocab_size=64),
+}
+SMALL_NEW = 48                 # new tokens a request
+SMALL_STATIC = (16, 128)       # the static engine's requests x prompt tokens
+
+
+def small_cfg(name, **over):
+    return ModelConfig(name=name, family="dense", block_pattern=(ATTN,),
+                       ffn_pattern=(MLP,), dtype="float32",
+                       attn_impl="naive", remat=False, rope_theta=1e4,
+                       **SMALL_MODELS[name], **over)
+
+
+def small_pair(tag, runs, tol):
+    """The kernel run against the twin run on the same keys: tokens equal,
+    logps within ``tol``. Returns the max |Δ logp|."""
+    worst = 0.0
+    for a, b in zip(runs["kernel"], runs["twin"]):
+        if not np.array_equal(a.tokens, b.tokens):
+            raise AssertionError(f"[small] {tag} request {a.rid}: tokens "
+                                 f"differ: {a.tokens.tolist()} vs "
+                                 f"{b.tokens.tolist()}")
+        worst = max(worst, float(np.abs(a.logps - b.logps).max()))
+    if not worst <= tol:
+        raise AssertionError(f"[small] {tag}: max |Δ logp| {worst:.3e} > "
+                             f"{tol}")
+    return worst
+
+
+def small_models_phase(dev, seed, card):
+    """(a) bench-lm through ContinuousEngine with paged_attn_impl "pallas"
+    (K3 and K4 at D 24) and "ref" on the same keys; (b) serve-bench and
+    spec-lm (D 32) with spec_k 4, K4's verify windows at D 32; (c) the
+    static engine on bench-lm with attn_impl "pallas" (K5 at D 24) and
+    "chunked". Each pair: tokens equal, logps within TOL_PLAN_LP (the
+    float32 pair bar), the kernels' launches equal to layers x decode steps
+    (K3), x prefill chunks and verify rounds (K4), x prefills (K5), and no
+    launch on the twin's run. Returns the launches."""
+    total = {"paged_decode": 0, "paged_prefill": 0, "flash_attention": 0}
+    rl = RLConfig(temperature=1.0, top_k=0, top_p=1.0)
+    for name, spec_k in (("bench-lm", 0), ("serve-bench", SPEC_K),
+                         ("spec-lm", SPEC_K)):
+        t0 = time.perf_counter()
+        cfg = small_cfg(name)
+        params = init_params(cfg, seed, device=dev)
+        prompts = templated_prompts(cfg.vocab_size, seed)[:SLOTS]
+        runs, stats = {}, {}
+        for tag, impl in (("kernel", "pallas"), ("twin", "ref")):
+            # the rescore replays the kernel's windows through the folded
+            # K4 launch; the twin's run has nothing to replay
+            icfg = dataclasses.replace(cfg, paged_attn_impl=impl)
+            res, st, launches, _, _ = spec_run(icfg, params, prompts, rl,
+                                               SMALL_NEW, cfg.vocab_size,
+                                               spec_k, seed,
+                                               rescore=impl == "pallas")
+            runs[tag], stats[tag] = res, (st, launches)
+            for k in launches:
+                total[k] += launches[k]
+        worst = small_pair(name, runs, TOL_PLAN_LP)
+        st, launches = stats["kernel"]
+        if min(launches.values()) == 0 or any(stats["twin"][1].values()):
+            raise AssertionError(f"[small] {name}: launches {launches}, "
+                                 f"twin {stats['twin'][1]}")
+        n_tok = sum(r.gen_count for r in runs["kernel"])
+        log(f"[small] {name} (D {cfg.head_dim}, float32, {cfg.num_layers} "
+            f"layers) through ContinuousEngine, spec_k {spec_k}: "
+            f"{len(prompts)} requests, {n_tok} tokens equal through the "
+            f"kernels and the twins, max |Δ logp| {worst:.3e} (<= "
+            f"{TOL_PLAN_LP}); {st['decode_steps']} decode steps, "
+            f"{st['prefill_chunks']} prefill chunks, {st['spec_rounds']} "
+            f"verify rounds, {st.get('spec_fallback_chunks', 0)} fallback "
+            f"chunks, accept rate {st['accept_rate']:.3f}; launches "
+            f"{launches} (= {cfg.num_layers} x steps, chunks and rounds, "
+            f"+1 a round for the rescore); {time.perf_counter() - t0:.1f}s "
+            f"| {card}")
+        del params
+    # (c) the static engine through K5 at D 24
+    t0 = time.perf_counter()
+    cfg = small_cfg("bench-lm")
+    params = init_params(cfg, seed, device=dev)
+    rows, width = SMALL_STATIC
+    rng = np.random.default_rng(seed + 19)
+    prompts = rng.integers(3, cfg.vocab_size, (rows, width)).astype(np.int32)
+    sp = SamplingParams.from_rl(rl, max_new=SMALL_NEW)
+    runs, got = {}, {}
+    for tag, impl in (("kernel", "pallas"), ("twin", "chunked")):
+        icfg = dataclasses.replace(cfg, attn_impl=impl)
+        eng = build_engine(icfg, params, ServeConfig(engine="static",
+                                                     seed=seed),
+                           rl=rl, vocab_limit=cfg.vocab_size,
+                           key=prng.PRNGKey(seed))
+        reset_counts()
+        runs[tag] = eng.generate([Request(rid=i, prompt=p, params=sp)
+                                  for i, p in enumerate(prompts)])
+        torch.cuda.synchronize()
+        got[tag] = counts()
+    want = {k: 0 for k in got["kernel"]}
+    if got["twin"] != want:
+        raise AssertionError(f"[small] static chunked run launched "
+                             f"{got['twin']}")
+    want["flash_attention"] = cfg.num_layers
+    if got["kernel"] != want:
+        raise AssertionError(f"[small] static run launched {got['kernel']}, "
+                             f"want {want} ({cfg.num_layers} K5 for the "
+                             "prefill)")
+    total["flash_attention"] += got["kernel"]["flash_attention"]
+    worst = small_pair("bench-lm static", runs, TOL_PLAN_LP)
+    log(f"[small] bench-lm through StaticEngine, attn_impl pallas against "
+        f"chunked: {rows} x {width} prompt tokens + {SMALL_NEW} new, tokens "
+        f"equal, max |Δ logp| {worst:.3e} (<= {TOL_PLAN_LP}); K5 launches "
+        f"{got['kernel']['flash_attention']} (= {cfg.num_layers} layers x 1 "
+        f"prefill); {time.perf_counter() - t0:.1f}s | {card}")
+    return total
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description="PyTorch port smoke on one GPU")
     ap.add_argument("--seed", type=int, default=0)
@@ -6802,8 +7191,11 @@ def main(argv=None) -> int:
         f" GiB)")
     built = build.build()
     log(f"[build] {', '.join(s.name for s in build.sources())}: "
-        f"{built.seconds:.1f}s nvcc (sm_90a, one process per source)")
+        f"{built.seconds:.1f}s nvcc (sm_90a, one process per source or "
+        f"part of one: {sum(map(build.parts, build.sources()))} processes)")
+    t0 = time.perf_counter()
     tensor_core_check(built)
+    log(f"[time] tensor-core check {time.perf_counter() - t0:.1f}s")
     t0 = time.perf_counter()
     kernels = logprob_phase(dev, args.seed)
     kernels.update(kernel_phase(dev, args.seed))
@@ -6817,6 +7209,17 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     kernels.update(ssd_phase(dev, args.seed))
     log(f"[time] K6 phase {time.perf_counter() - t0:.1f}s")
+    t0 = time.perf_counter()
+    for name, w in width_phase(dev, args.seed).items():
+        row = kernels[name]
+        row["widths"] = w
+        if name == "ssd_scan":
+            row["error_ratio"] = max(row["error_ratio"], *width_errs(
+                w["rows"], "error_ratio"))
+        e16, e32 = width_errs(w["rows"])
+        row["max_abs_err"] = max(row["max_abs_err"], e16)
+        row["max_abs_err_f32"] = max(row["max_abs_err_f32"], e32)
+    log(f"[time] widths phase {time.perf_counter() - t0:.1f}s")
     t0 = time.perf_counter()
     launches, twin = engine_phase(dev, args.seed, card, draws)
     log(f"[time] engine phase {time.perf_counter() - t0:.1f}s")
@@ -6929,6 +7332,15 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     analysis_phase(twin)
     log(f"[time] analysis phase {time.perf_counter() - t0:.1f}s")
+    t0 = time.perf_counter()
+    small = small_models_phase(dev, args.seed, card)
+    for name, n in small.items():
+        launches[name] += n
+    kernels["flash_attention"]["launches_by_phase"][
+        "small models (19: bench-lm's static prefills)"] = \
+        small["flash_attention"]
+    log(f"[small] phase 19 launches {small}")
+    log(f"[time] small models phase {time.perf_counter() - t0:.1f}s")
     for name, row in kernels.items():
         row["launches"] = launches[name]
         row["kernel_ms"], row["twin_ms"] = row["ms"], row["plain_ms"]

@@ -172,6 +172,10 @@ class ModelConfig:
         return self.ffn_pattern[layer_in_block % len(self.ffn_pattern)]
 
     @property
+    def has_attention(self) -> bool:
+        return any(k in (ATTN, LOCAL, CROSS) for k in self.block_pattern)
+
+    @property
     def is_encdec(self) -> bool:
         return self.encoder_layers > 0
 

@@ -1,12 +1,15 @@
 """Build and load the port's CUDA kernels.
 
 Every ``csrc/*.cu`` is compiled by ``nvcc`` for Hopper (``sm_90a``), one
-``nvcc`` process per source, all started together, and the objects are
-linked into one shared library with a plain C interface, loaded with
-``ctypes``. The library lands in ``build/repro_torch_kernels/`` of the
-checkout, named by a hash of all the sources (headers ``csrc/*.cuh``
-included) and the flags, and is built at first use; a changed source gets
-a new name, so a stale library is never loaded. The compiler's output
+``nvcc`` process per source, or per part of a source that names its parts
+(a ``// nvcc parts: N`` line: part i compiled with ``-DREPRO_PART=i``, so
+that the padded-width instantiations build beside the rest), all started
+together, and the objects are linked into one shared library with a plain
+C interface, loaded with ``ctypes``. The library lands in
+``build/repro_torch_kernels/`` of the checkout, named by a hash of all the
+sources (headers ``csrc/*.cuh`` included) and the flags, and is built at
+first use; a changed source gets a new name, so a stale library is never
+loaded. The compiler's output
 (the ``ptxas -v`` report of registers, shared memory and spills per
 function) is kept beside the library, so ``Built.log`` holds it for a
 cached library too. Nothing here runs at import time, and nothing is
@@ -26,8 +29,9 @@ import shutil
 import subprocess
 import threading
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
-from typing import Dict, List, Optional
+from typing import Dict, Iterable, List, Optional
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
@@ -75,6 +79,13 @@ def sources() -> List[Path]:
     return sorted(CSRC.glob("*.cu"))
 
 
+def parts(src: Path) -> int:
+    """The parts a source is compiled in: its ``// nvcc parts: N`` line,
+    else 1."""
+    m = re.search(r"^// nvcc parts: (\d+)$", src.read_text(), re.M)
+    return int(m.group(1)) if m else 1
+
+
 def lib_path() -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for src in sources() + sorted(CSRC.glob("*.cuh")):
@@ -98,16 +109,27 @@ def build() -> Built:
     t0 = time.perf_counter()
     jobs = []
     for src in sources():
-        obj = BUILD_DIR / f"{tag}.{src.stem}.o"
-        jobs.append((src, obj, subprocess.Popen(
-            [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+        n = parts(src)
+        for i in range(n):
+            name = src.name if n == 1 else f"{src.name} part {i}"
+            obj = BUILD_DIR / f"{tag}.{src.stem}.{i}.o"
+            part = [] if n == 1 else [f"-DREPRO_PART={i}"]
+            jobs.append((name, obj, [nvcc, *NVCC_FLAGS, *part, "-c", "-o",
+                                     str(obj), str(src)]))
+
+    def compile_one(cmd):
+        t = time.perf_counter()
+        proc = subprocess.run(cmd, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+        return proc.returncode, proc.stdout, time.perf_counter() - t
+
+    with ThreadPoolExecutor(len(jobs)) as pool:
+        results = list(pool.map(compile_one, (cmd for _, _, cmd in jobs)))
     logs, failed = [], []
-    for src, _, proc in jobs:
-        text = proc.communicate()[0]
-        logs.append(f"== {src.name}\n{text}")
-        if proc.returncode != 0:
-            failed.append(f"{src.name} (exit {proc.returncode})")
+    for (name, _, _), (rc, text, secs) in zip(jobs, results):
+        logs.append(f"== {name} ({secs:.1f}s)\n{text}")
+        if rc != 0:
+            failed.append(f"{name} (exit {rc})")
     if failed:
         raise RuntimeError(f"nvcc failed on {', '.join(failed)}:\n"
                            + "\n".join(logs))
@@ -149,17 +171,31 @@ def ptxas_report(log: str) -> Dict[str, Dict[str, int]]:
     return out
 
 
-def sass_functions(path: Path) -> Dict[str, str]:
-    """The SASS of every kernel in the library, by mangled name, from
-    ``cuobjdump -sass`` of the toolkit that builds it."""
+def sass_functions(path: Path, names: Optional[Iterable[str]] = None
+                   ) -> Dict[str, str]:
+    """The SASS of the kernels in the library, by mangled name, from
+    ``cuobjdump -sass`` of the toolkit that builds it: every kernel, or
+    only ``names`` (mangled), disassembled by one ``cuobjdump -fun`` per
+    core over its share of them."""
     tool = Path(_nvcc()).with_name("cuobjdump")
-    text = subprocess.run([str(tool), "-sass", str(path)], check=True,
-                          stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                          text=True).stdout
+    cmds = [[str(tool), "-sass", str(path)]]
+    if names is not None:
+        names = sorted(names)
+        n = max(1, min(len(names), os.cpu_count() or 1))
+        cmds = [[str(tool), "-sass", "-fun", ",".join(names[i::n]),
+                 str(path)] for i in range(n) if names[i::n]]
+
+    def dump(cmd):
+        return subprocess.run(cmd, check=True, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True).stdout
+
+    with ThreadPoolExecutor(len(cmds)) as pool:
+        texts = list(pool.map(dump, cmds))
     out: Dict[str, str] = {}
-    for part in text.split("Function : ")[1:]:
-        name, _, body = part.partition("\n")
-        out[name.strip()] = body
+    for text in texts:
+        for part in text.split("Function : ")[1:]:
+            name, _, body = part.partition("\n")
+            out[name.strip()] = body
     return out
 
 

@@ -3,7 +3,7 @@
 // (paged_attention.cu), for Hopper (sm_90a).
 //
 // attend_tc attends an M-row bf16 query tile (M = 16 x MB x warps) against
-// a stream of K/V tiles of BK keys (64, or 32 where MB x D >= 256, so that
+// a stream of K/V tiles of BK keys (64, or 32 where MB x D > 128, so that
 // the output accumulator and the scores fit the registers without
 // spilling), with an online softmax. The caller supplies the key-row source
 // (contiguous rows for K5, table_row[col / page_size] for K4, looked up
@@ -14,6 +14,17 @@
 // (GQA packing: the rep query heads of one kv head share every K/V tile
 // read); a row is live when its token < ntok and its head < nh. Key column
 // col sits at absolute position col; row r at pos0 + r / hr.
+//
+// Widths: the tile is instantiated at a padded width DP (a multiple of 16,
+// the depth of an m16n8k16 product and the width of an ldmatrix.x4.trans
+// of V) and, with PAD, takes the real head dim D <= DP at run time
+// (TileArgs.d): the staging reads columns [0, D) and zero-fills the rest,
+// so q.k is unchanged and the extra columns of P V are 0 and never stored.
+// Where a row's D bf16 elements are whole 16-byte chunks (D % 8 == 0) the
+// copies stay 16-byte cp.async ones, whole chunks past D zero-filled;
+// otherwise rows are not 16-byte aligned and each chunk is assembled from
+// element loads and stored to shared memory in the same layout. Without
+// PAD (the exact widths 64, 128, 256) D is DP and the masks compile away.
 //
 // Design:
 // - warp w owns MB blocks of 16 rows (at MB 2 each K or V fragment read
@@ -63,13 +74,14 @@ constexpr float kLog2e = 1.4426950408889634f;
 
 // keys per K/V tile: 64, or 32 where the float32 accumulators of a warp's
 // rows (MB x 16 x D) would leave too few registers for 64 keys of scores
+// (every width above the 128 of D 64 at MB 2 and D 128 at MB 1)
 template <int D, int MB>
 struct Tile {
-  static constexpr int BK = D * MB >= 256 ? 32 : 64;
+  static constexpr int BK = D * MB > 128 ? 32 : 64;
   static constexpr int LD = D + 8;                // padded shared row
 };
 
-// dynamic shared memory of attend_tc<D, NW, MB>: the Q tile and two K/V
+// dynamic shared memory of attend_tc<D, NW, MB, PAD>: the Q tile and two K/V
 // tiles
 template <int D, int NW, int MB>
 constexpr size_t smem_bytes() {
@@ -87,6 +99,7 @@ struct TileArgs {
   int pos0;           // absolute position of token 0
   int nkeys;          // key rows [0, nkeys) exist
   int lo, hi;         // reach of the tile's live rows: keys [lo, hi)
+  int d;              // the real head dim (<= the instantiated width)
   int causal;
   int window;         // <= 0: none (read only when causal)
   float softcap;      // <= 0: none
@@ -174,7 +187,40 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi,
   return *reinterpret_cast<const uint32_t*>(&h);
 }
 
-template <int D, int NW, int MB, typename Keys>
+// f(row, chunk) for every 16-byte chunk of a ROWS-row tile of CH chunks a
+// row, each once across the block's NT threads: thread t takes chunk t % CH
+// of rows t / CH, t / CH + NT / CH, ... where NT % CH == 0 (every exact
+// width), else the pairs t, t + NT, ... of the flattened tile
+template <int ROWS, int CH, int NT, typename F>
+__device__ __forceinline__ void for_chunks(F&& f) {
+  if constexpr (NT % CH == 0) {
+    const int cc = threadIdx.x % CH;
+    for (int r = threadIdx.x / CH; r < ROWS; r += NT / CH) f(r, cc);
+  } else {
+    for (int i = threadIdx.x; i < ROWS * CH; i += NT) f(i / CH, i % CH);
+  }
+}
+
+// chunk cc (elements 8 cc .. 8 cc + 7) of a row of D elements at src into
+// shared memory at dst: a 16-byte cp.async when vec (src 16-byte aligned
+// and D % 8 == 0; chunks past D zero-filled by the copy), else element
+// loads past which zeros are stored, as one 16-byte store; ok false
+// zero-fills the chunk
+__device__ __forceinline__ void copy_chunk(bf16* dst, const bf16* src, int cc,
+                                           int D, bool ok, bool vec) {
+  if (vec) {
+    const bool in = ok && cc * 8 < D;
+    cp_async16(smem_u32(dst), in ? src + cc * 8 : src, in);
+  } else {
+    __align__(16) bf16 e[8];
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+      e[i] = ok && cc * 8 + i < D ? src[cc * 8 + i] : __float2bfloat16(0.f);
+    *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<const uint4*>(e);
+  }
+}
+
+template <int DP, int NW, int MB, bool PAD, typename Keys>
 __device__ __forceinline__ void attend_tc(const TileArgs& a,
                                           const bf16* __restrict__ k,
                                           const bf16* __restrict__ v,
@@ -182,13 +228,15 @@ __device__ __forceinline__ void attend_tc(const TileArgs& a,
   constexpr int NT = 32 * NW;           // threads
   constexpr int WR = 16 * MB;           // rows per warp
   constexpr int M = WR * NW;            // query rows
-  constexpr int BK = Tile<D, MB>::BK;
-  constexpr int LD = Tile<D, MB>::LD;
-  constexpr int CH = D / 8;             // 16-byte chunks per row
+  constexpr int BK = Tile<DP, MB>::BK;
+  constexpr int LD = Tile<DP, MB>::LD;
+  constexpr int CH = DP / 8;            // 16-byte chunks per row
   constexpr int NS = BK / 8;            // 8-key score fragments per row
-  constexpr int NO = D / 8;             // 8-dim output fragments per row
-  constexpr bool kQRegs = D <= 128 && MB == 1;   // Q held in registers
-  static_assert(NT % CH == 0, "a pass of the copy covers whole rows");
+  constexpr int NO = DP / 8;            // 8-dim output fragments per row
+  constexpr bool kQRegs = DP <= 128 && MB == 1;  // Q held in registers
+  static_assert(DP % 16 == 0, "whole k16 steps and ldmatrix.x4 tiles");
+  static_assert(PAD || NT % CH == 0, "a pass of the copy covers whole rows");
+  const int D = PAD ? a.d : DP;         // the real head dim
   extern __shared__ __align__(16) unsigned char attn_tc_smem[];
   bf16* Qs = reinterpret_cast<bf16*>(attn_tc_smem);   // M x LD
   bf16* Ks = Qs + M * LD;                             // 2 x BK x LD
@@ -198,22 +246,42 @@ __device__ __forceinline__ void attend_tc(const TileArgs& a,
   const int g = lane / 4, tq = lane % 4;
   const int cc = tid % CH;              // this thread's chunk of a row
 
-  for (int r = tid / CH; r < M; r += NT / CH) {
-    const int t = r / a.hr, j = r % a.hr;
-    const bool ok = t < a.ntok && j < a.nh;
-    const bf16* src = ok ? a.q + size_t(t) * a.tok_stride + j * D + cc * 8
-                         : a.q;
-    cp_async16(smem_u32(Qs + r * LD + cc * 8), src, ok);
+  if constexpr (PAD) {
+    for_chunks<M, CH, NT>([&](int r, int c) {
+      const int t = r / a.hr, j = r % a.hr;
+      const bool ok = t < a.ntok && j < a.nh;
+      copy_chunk(Qs + r * LD + c * 8,
+                 ok ? a.q + size_t(t) * a.tok_stride + j * D : a.q, c, D,
+                 ok, D % 8 == 0);
+    });
+  } else {
+    for (int r = tid / CH; r < M; r += NT / CH) {
+      const int t = r / a.hr, j = r % a.hr;
+      const bool ok = t < a.ntok && j < a.nh;
+      const bf16* src = ok ? a.q + size_t(t) * a.tok_stride + j * D + cc * 8
+                           : a.q;
+      cp_async16(smem_u32(Qs + r * LD + cc * 8), src, ok);
+    }
   }
   auto load_kv = [&](int k0, int buf) {
     bf16* kd = Ks + buf * BK * LD;
     bf16* vd = Vs + buf * BK * LD;
-    for (int r = tid / CH; r < BK; r += NT / CH) {
-      const int col = k0 + r;
-      const bool ok = col < a.nkeys;
-      const size_t off = ok ? keys(col) + cc * 8 : 0;
-      cp_async16(smem_u32(kd + r * LD + cc * 8), k + off, ok);
-      cp_async16(smem_u32(vd + r * LD + cc * 8), v + off, ok);
+    if constexpr (PAD) {
+      for_chunks<BK, CH, NT>([&](int r, int c) {
+        const int col = k0 + r;
+        const bool ok = col < a.nkeys;
+        const size_t off = ok ? keys(col) : 0;
+        copy_chunk(kd + r * LD + c * 8, k + off, c, D, ok, D % 8 == 0);
+        copy_chunk(vd + r * LD + c * 8, v + off, c, D, ok, D % 8 == 0);
+      });
+    } else {
+      for (int r = tid / CH; r < BK; r += NT / CH) {
+        const int col = k0 + r;
+        const bool ok = col < a.nkeys;
+        const size_t off = ok ? keys(col) + cc * 8 : 0;
+        cp_async16(smem_u32(kd + r * LD + cc * 8), k + off, ok);
+        cp_async16(smem_u32(vd + r * LD + cc * 8), v + off, ok);
+      }
     }
   };
 
@@ -247,7 +315,7 @@ __device__ __forceinline__ void attend_tc(const TileArgs& a,
       l[i][h] = 0.f;
     }
   }
-  uint32_t qf[kQRegs ? D / 16 : 1][4];
+  uint32_t qf[kQRegs ? DP / 16 : 1][4];
 
   // ldmatrix lane offsets: A (Q) rows lane % 16, columns 8 (lane / 16);
   // B (K) keys lane % 8 + 8 (lane / 16), dims 8 ((lane / 8) % 2);
@@ -272,7 +340,7 @@ __device__ __forceinline__ void attend_tc(const TileArgs& a,
     const uint32_t vt = smem_u32(Vs + buf * BK * LD + v_lane);
     if (kQRegs && it == 0) {
 #pragma unroll
-      for (int kk = 0; kk < (kQRegs ? D / 16 : 1); ++kk)
+      for (int kk = 0; kk < (kQRegs ? DP / 16 : 1); ++kk)
         ldmatrix_x4(qf[kk], q_addr + kk * 32);
     }
 
@@ -285,7 +353,7 @@ __device__ __forceinline__ void attend_tc(const TileArgs& a,
 #pragma unroll
         for (int e = 0; e < 4; ++e) s[i][n][e] = 0.f;
 #pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
+    for (int kk = 0; kk < DP / 16; ++kk) {
       uint32_t af[MB][4];
 #pragma unroll
       for (int i = 0; i < MB; ++i) {
@@ -384,7 +452,7 @@ __device__ __forceinline__ void attend_tc(const TileArgs& a,
 #pragma unroll
     for (int kk = 0; kk < BK / 16; ++kk)
 #pragma unroll
-      for (int nn = 0; nn < D / 16; ++nn) {
+      for (int nn = 0; nn < DP / 16; ++nn) {
         uint32_t b[4];
         ldmatrix_x4_trans(b, vt + (kk * 16 * LD + nn * 16) * 2);
 #pragma unroll
@@ -398,7 +466,8 @@ __device__ __forceinline__ void attend_tc(const TileArgs& a,
   __syncthreads();                      // Q copies landed before reuse
 
   // epilogue: O / l in bf16, staged in the warp's own Q rows, then 16-byte
-  // stores of the live rows
+  // stores of the live rows (with PAD: the columns below D, element by
+  // element where rows are not 16-byte aligned)
 #pragma unroll
   for (int i = 0; i < MB; ++i)
 #pragma unroll
@@ -418,10 +487,23 @@ __device__ __forceinline__ void attend_tc(const TileArgs& a,
   for (int i = lane; i < WR * CH; i += 32) {
     const int r = warp * WR + i / CH, c = i % CH;
     const int t = r / a.hr, j = r % a.hr;
-    if (t < a.ntok && j < a.nh)
-      *reinterpret_cast<uint4*>(a.out + size_t(t) * a.tok_stride + j * D +
-                                c * 8) =
-          *reinterpret_cast<const uint4*>(Qs + r * LD + c * 8);
+    if constexpr (PAD) {
+      if (!(t < a.ntok && j < a.nh)) continue;
+      bf16* dst = a.out + size_t(t) * a.tok_stride + j * D + c * 8;
+      const bf16* src = Qs + r * LD + c * 8;
+      if (D % 8 == 0) {
+        if (c * 8 < D)
+          *reinterpret_cast<uint4*>(dst) =
+              *reinterpret_cast<const uint4*>(src);
+      } else {
+        for (int e = 0; e < 8 && c * 8 + e < D; ++e) dst[e] = src[e];
+      }
+    } else {
+      if (t < a.ntok && j < a.nh)
+        *reinterpret_cast<uint4*>(a.out + size_t(t) * a.tok_stride + j * D +
+                                  c * 8) =
+            *reinterpret_cast<const uint4*>(Qs + r * LD + c * 8);
+    }
   }
 }
 

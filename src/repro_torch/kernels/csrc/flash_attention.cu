@@ -57,6 +57,23 @@
 // producer warp with consumer warpgroups are the rest), the softmax and
 // tanhf run between the two products in one instruction stream, and
 // diagonal tiles compute their masked half.
+//
+// Head dims: both bodies are instantiated at a padded width DP and, with
+// PAD, take the real head dim D (1 ... 256) at run time; the exact widths
+// 64, 128 and 256 keep their own instantiations (PAD false: D is DP and
+// the masks compile away). DP is the smallest width the body's layout
+// allows: a multiple of 16 for the bf16 body (attention_tc.cuh states how
+// it stages and stores D < DP), a multiple of 64 for the float32 body
+// (thread tx owns output dims 4 tx + 64 j). The float32 body loads whole
+// float4s where D % 4 == 0 (those past D as zeros), else elements below
+// D; columns past D are zeros in q and k, and never stored.
+//
+// Build: kernels/build.py compiles this source once per part (the "nvcc
+// parts" line below), one nvcc each, with -DREPRO_PART=<i>; without it
+// every part is compiled: part 0 holds the exact widths, the float32
+// padded ones and the C entry point; parts 1 and 2 the bf16 padded widths
+// up to 128 and above, reached through namespace flash_parts.
+// nvcc parts: 3
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -64,6 +81,24 @@
 #include <stdint.h>
 
 #include "attention_tc.cuh"
+
+#ifdef REPRO_PART
+#define PART(i) (REPRO_PART == (i))
+#else
+#define PART(i) 1
+#endif
+
+namespace flash_parts {
+// the bf16 body at a padded width: D <= 128 (part 1) and above (part 2)
+int launch_bf16_padded_lo(const void* q, const void* k, const void* v,
+                          void* out, int B, int Sq, int Sk, int Hq, int Hkv,
+                          int D, int causal, int window, float softcap,
+                          void* stream);
+int launch_bf16_padded_hi(const void* q, const void* k, const void* v,
+                          void* out, int B, int Sq, int Sk, int Hq, int Hkv,
+                          int D, int causal, int window, float softcap,
+                          void* stream);
+}  // namespace flash_parts
 
 namespace {
 
@@ -101,42 +136,50 @@ __device__ __forceinline__ float half_warp_sum(float x) {
   return x;
 }
 
-template <int D>
+template <int DP>
 constexpr size_t smem_bytes() {
-  return 3 * size_t(kBQ) * (D + 4) * sizeof(float);
+  return 3 * size_t(kBQ) * (DP + 4) * sizeof(float);
 }
 
-// Stage `rows` rows of a (., D) head slice into a (64, D + 4) float tile;
-// row r is read at src + r * stride elements. Rows >= n are zeroed.
-template <typename T, int D>
+// Stage `rows` rows of a (., D) head slice into a (64, DP + 4) float tile;
+// row r is read at src + r * stride elements. Rows >= n are zeroed, and
+// with PAD the columns past D.
+template <typename T, int DP, bool PAD>
 __device__ __forceinline__ void stage(float* dst, const T* __restrict__ src,
-                                      size_t stride, int n) {
+                                      size_t stride, int n, int D) {
   constexpr int VN = Vec<T>::N;
-  constexpr int DV = D / VN;
+  constexpr int DV = DP / VN;
   for (int i = threadIdx.x; i < kBQ * DV; i += kThreads) {
     const int r = i / DV, c = (i % DV) * VN;
     float t[VN];
-    if (r < n) {
+    if (r < n && (!PAD || (D % VN == 0 && c < D))) {
       Vec<T>::load(src + r * stride + c, t);
+    } else if (PAD && r < n && D % VN != 0) {
+#pragma unroll
+      for (int e = 0; e < VN; ++e)
+        t[e] = c + e < D ? static_cast<float>(src[r * stride + c + e])
+                         : 0.f;
     } else {
 #pragma unroll
       for (int e = 0; e < VN; ++e) t[e] = 0.f;
     }
 #pragma unroll
     for (int e = 0; e < VN; e += 4)
-      *reinterpret_cast<float4*>(dst + r * (D + 4) + c + e) =
+      *reinterpret_cast<float4*>(dst + r * (DP + 4) + c + e) =
           make_float4(t[e], t[e + 1], t[e + 2], t[e + 3]);
   }
 }
 
-template <typename T, int D>
+template <typename T, int DP, bool PAD>
 __global__ void __launch_bounds__(kThreads)
 flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                        const T* __restrict__ v, T* __restrict__ out, int Sq,
                        int Sk, int Hq, int Hkv, int causal, int window,
-                       float softcap, float scale) {
-  constexpr int LD = D + 4;
-  constexpr int NJ = D / 64;            // output float4 groups per thread
+                       float softcap, float scale, int d) {
+  constexpr int LD = DP + 4;
+  constexpr int NJ = DP / 64;           // output float4 groups per thread
+  static_assert(DP % 64 == 0, "thread tx owns dims 4 tx + 64 j");
+  const int D = PAD ? d : DP;           // the real head dim
   extern __shared__ float smem[];
   float* Qs = smem;                     // kBQ x LD
   float* Ks = Qs + kBQ * LD;            // kBK x LD; then P, kBQ x kLDP
@@ -160,7 +203,7 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   const size_t q_stride = size_t(Hq) * D, kv_stride = size_t(Hkv) * D;
   const T* qb = q + (size_t(b) * Sq + q0) * q_stride + size_t(h) * D;
-  stage<T, D>(Qs, qb, q_stride, nq);
+  stage<T, DP, PAD>(Qs, qb, q_stride, nq, D);
 
   float m[4], l[4], acc[4][NJ][4];
 #pragma unroll
@@ -178,8 +221,8 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int k0 = (lo / kBK) * kBK; k0 < hi; k0 += kBK) {
     const int nk = min(kBK, Sk - k0);
     __syncthreads();               // previous P and V consumed
-    stage<T, D>(Ks, kb + size_t(k0) * kv_stride, kv_stride, nk);
-    stage<T, D>(Vs, vb + size_t(k0) * kv_stride, kv_stride, nk);
+    stage<T, DP, PAD>(Ks, kb + size_t(k0) * kv_stride, kv_stride, nk, D);
+    stage<T, DP, PAD>(Vs, vb + size_t(k0) * kv_stride, kv_stride, nk, D);
     __syncthreads();
 
     // scores: rows 4ty + i, columns tx + 16j
@@ -189,14 +232,14 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
       for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
 #pragma unroll 2
-    for (int d = 0; d < D; d += 4) {
+    for (int e = 0; e < DP; e += 4) {
       float4 qv[4], kv[4];
 #pragma unroll
       for (int i = 0; i < 4; ++i)
-        qv[i] = *reinterpret_cast<const float4*>(Qs + (4 * ty + i) * LD + d);
+        qv[i] = *reinterpret_cast<const float4*>(Qs + (4 * ty + i) * LD + e);
 #pragma unroll
       for (int j = 0; j < 4; ++j)
-        kv[j] = *reinterpret_cast<const float4*>(Ks + (tx + 16 * j) * LD + d);
+        kv[j] = *reinterpret_cast<const float4*>(Ks + (tx + 16 * j) * LD + e);
 #pragma unroll
       for (int i = 0; i < 4; ++i)
 #pragma unroll
@@ -294,30 +337,43 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
       float o[4];
 #pragma unroll
       for (int e = 0; e < 4; ++e) o[e] = acc[i][j][e] * inv;
-      Vec<T>::store4(ob + r * q_stride + 4 * tx + 64 * j, o);
+      if constexpr (PAD) {   // the columns below D
+        const int c = 4 * tx + 64 * j;
+        if (D % 4 == 0) {
+          if (c < D) Vec<T>::store4(ob + r * q_stride + c, o);
+        } else {
+          for (int e = 0; e < 4 && c + e < D; ++e)
+            ob[r * q_stride + c + e] = o[e];
+        }
+      } else {
+        Vec<T>::store4(ob + r * q_stride + 4 * tx + 64 * j, o);
+      }
     }
   }
 }
 
-// bf16 body: 4 warps of 2 x 16 rows (128 rows) at D <= 128, of 16 rows
-// (64) at D 256, where a warp's 16 x 256 float32 accumulator alone takes
-// 128 registers
-template <int D>
+// bf16 body: 4 warps of 2 x 16 rows (128 rows) at D 32 ... 128, of 16 rows
+// (64) above (at D 256 a warp's 16 x 256 float32 accumulator alone takes
+// 128 registers) and at D 16, where two blocks' scores of 64 keys (64
+// registers) cost more than the shared K fragments save: ptxas fit that
+// instantiation into 128 registers with a spill
+template <int DP>
 struct TcRows {
-  static constexpr int MB = D <= 128 ? 2 : 1;   // 16-row blocks per warp
+  static constexpr int MB = DP <= 128 && DP >= 32 ? 2 : 1;  // 16-row blocks
   static constexpr int M = 64 * MB;             // rows per block
 };
 
-template <int D>
+template <int DP, bool PAD>
 __global__ void __launch_bounds__(128)
 flash_attention_tc_kernel(const attn_tc::bf16* __restrict__ q,
                           const attn_tc::bf16* __restrict__ k,
                           const attn_tc::bf16* __restrict__ v,
                           attn_tc::bf16* __restrict__ out, int Sq, int Sk,
                           int Hq, int Hkv, int causal, int window,
-                          float softcap, float scale) {
+                          float softcap, float scale, int d) {
+  const int D = PAD ? d : DP;
   const int rep = Hq / Hkv;
-  constexpr int M = TcRows<D>::M;
+  constexpr int M = TcRows<DP>::M;
   const int hr = min(rep, M), ng = (rep + hr - 1) / hr, tq = M / hr;
   const int tile = gridDim.x - 1 - blockIdx.x;   // heavy tiles first
   const int y = blockIdx.y;
@@ -340,21 +396,22 @@ flash_attention_tc_kernel(const attn_tc::bf16* __restrict__ q,
     a.hi = min(Sk, tok0 + a.ntok);
     if (window > 0) a.lo = max(0, tok0 - window + 1);
   }
+  a.d = D;
   a.causal = causal;
   a.window = causal ? window : 0;
   a.softcap = softcap;
   a.scale = scale;
   const attn_tc::DenseKeys keys{
       size_t(b) * Sk * Hkv * D + size_t(kvh) * D, size_t(Hkv) * D};
-  attn_tc::attend_tc<D, 4, TcRows<D>::MB>(a, k, v, keys);
+  attn_tc::attend_tc<DP, 4, TcRows<DP>::MB, PAD>(a, k, v, keys);
 }
 
-template <int D>
+template <int DP, bool PAD>
 int launch_f32(const void* q, const void* k, const void* v, void* out, int B,
-               int Sq, int Sk, int Hq, int Hkv, int causal, int window,
-               float softcap, cudaStream_t stream) {
-  const size_t smem = smem_bytes<D>();
-  auto kern = flash_attention_kernel<float, D>;
+               int Sq, int Sk, int Hq, int Hkv, int D, int causal,
+               int window, float softcap, cudaStream_t stream) {
+  const size_t smem = smem_bytes<DP>();
+  auto kern = flash_attention_kernel<float, DP, PAD>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
   if (err != cudaSuccess) return int(err);
@@ -362,47 +419,81 @@ int launch_f32(const void* q, const void* k, const void* v, void* out, int B,
   kern<<<dim3((Sq + kBQ - 1) / kBQ, B * Hq), kThreads, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<float*>(out), Sq, Sk, Hq,
-      Hkv, causal, window, softcap, 1.0f / sqrtf(float(D)));
+      Hkv, causal, window, softcap, 1.0f / sqrtf(float(D)), D);
   return int(cudaGetLastError());
 }
 
-template <int D>
+template <int DP, bool PAD>
 int launch_bf16(const void* q, const void* k, const void* v, void* out,
-                int B, int Sq, int Sk, int Hq, int Hkv, int causal,
+                int B, int Sq, int Sk, int Hq, int Hkv, int D, int causal,
                 int window, float softcap, cudaStream_t stream) {
-  constexpr size_t smem = attn_tc::smem_bytes<D, 4, TcRows<D>::MB>();
-  auto kern = flash_attention_tc_kernel<D>;
+  constexpr size_t smem = attn_tc::smem_bytes<DP, 4, TcRows<DP>::MB>();
+  auto kern = flash_attention_tc_kernel<DP, PAD>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
   if (err != cudaSuccess) return int(err);
   if (B == 0 || Sq == 0) return int(cudaGetLastError());
   const int rep = Hq / Hkv;
-  constexpr int M = TcRows<D>::M;
+  constexpr int M = TcRows<DP>::M;
   const int hr = rep < M ? rep : M;
   const int tq = M / hr, ng = (rep + hr - 1) / hr;
   kern<<<dim3((Sq + tq - 1) / tq, B * Hkv * ng), 128, smem, stream>>>(
       static_cast<const attn_tc::bf16*>(q),
       static_cast<const attn_tc::bf16*>(k),
       static_cast<const attn_tc::bf16*>(v), static_cast<attn_tc::bf16*>(out),
-      Sq, Sk, Hq, Hkv, causal, window, softcap, 1.0f / sqrtf(float(D)));
+      Sq, Sk, Hq, Hkv, causal, window, softcap, 1.0f / sqrtf(float(D)), D);
   return int(cudaGetLastError());
 }
 
 }  // namespace
 
+// the bf16 body's padded widths, multiples of 16: up to 128 in part 1,
+// above in part 2
+#define K5_TC_WIDTHS_LO(X) X(16) X(32) X(48) X(64) X(80) X(96) X(112) X(128)
+#define K5_TC_WIDTHS_HI(X) \
+  X(144) X(160) X(176) X(192) X(208) X(224) X(240) X(256)
+#define K5_CASE(W)                                                         \
+  if (D <= W)                                                              \
+    return launch_bf16<W, true>(q, k, v, out, B, Sq, Sk, Hq, Hkv, D,       \
+                                causal, window, softcap,                   \
+                                static_cast<cudaStream_t>(stream));
+
+namespace flash_parts {
+#if PART(1)
+int launch_bf16_padded_lo(const void* q, const void* k, const void* v,
+                          void* out, int B, int Sq, int Sk, int Hq, int Hkv,
+                          int D, int causal, int window, float softcap,
+                          void* stream) {
+  K5_TC_WIDTHS_LO(K5_CASE)
+  return int(cudaErrorInvalidValue);
+}
+#endif
+#if PART(2)
+int launch_bf16_padded_hi(const void* q, const void* k, const void* v,
+                          void* out, int B, int Sq, int Sk, int Hq, int Hkv,
+                          int D, int causal, int window, float softcap,
+                          void* stream) {
+  K5_TC_WIDTHS_HI(K5_CASE)
+  return int(cudaErrorInvalidValue);
+}
+#endif
+}  // namespace flash_parts
+
+#if PART(0)
 #define DISPATCH_D(FN)                                                    \
   switch (D) {                                                            \
-    case 64: return FN<64>(q, k, v, out, B, Sq, Sk, Hq, Hkv, causal,      \
-                           window, softcap, s);                           \
-    case 128: return FN<128>(q, k, v, out, B, Sq, Sk, Hq, Hkv, causal,    \
-                             window, softcap, s);                         \
-    case 256: return FN<256>(q, k, v, out, B, Sq, Sk, Hq, Hkv, causal,    \
-                             window, softcap, s);                         \
-    default: return int(cudaErrorInvalidValue);                          \
+    case 64: return FN<64, false>(q, k, v, out, B, Sq, Sk, Hq, Hkv, D,    \
+                                  causal, window, softcap, s);            \
+    case 128: return FN<128, false>(q, k, v, out, B, Sq, Sk, Hq, Hkv, D,  \
+                                    causal, window, softcap, s);          \
+    case 256: return FN<256, false>(q, k, v, out, B, Sq, Sk, Hq, Hkv, D,  \
+                                    causal, window, softcap, s);          \
   }
 
 // dtype: 0 = float32, 1 = bfloat16. causal: 0 or 1. window <= 0: no
-// sliding window (read only when causal). softcap <= 0: no softcap.
+// sliding window (read only when causal). softcap <= 0: no softcap. D in
+// 1 ... 256: 64, 128 and 256 run their exact instantiations, any other D
+// a padded one (float32: 64, 128, 192, 256; bf16: a multiple of 16).
 // Returns cudaGetLastError() after the launch.
 extern "C" int flash_attention_launch(const void* q, const void* k,
                                       const void* v, void* out, int B,
@@ -410,14 +501,33 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
                                       int causal, int window, float softcap,
                                       int dtype, void* stream) {
   if (Hkv <= 0 || Hq % Hkv != 0 || B < 0 || Sq < 0 || Sk < 0 ||
-      size_t(B) * Hq > 65535)
+      size_t(B) * Hq > 65535 || D < 1 || D > 256)
     return int(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) {
     DISPATCH_D(launch_f32)
+    if (D <= 64)
+      return launch_f32<64, true>(q, k, v, out, B, Sq, Sk, Hq, Hkv, D,
+                                  causal, window, softcap, s);
+    if (D <= 128)
+      return launch_f32<128, true>(q, k, v, out, B, Sq, Sk, Hq, Hkv, D,
+                                   causal, window, softcap, s);
+    if (D <= 192)
+      return launch_f32<192, true>(q, k, v, out, B, Sq, Sk, Hq, Hkv, D,
+                                   causal, window, softcap, s);
+    return launch_f32<256, true>(q, k, v, out, B, Sq, Sk, Hq, Hkv, D,
+                                 causal, window, softcap, s);
   }
   if (dtype == 1) {
     DISPATCH_D(launch_bf16)
+    if (D <= 128)
+      return flash_parts::launch_bf16_padded_lo(q, k, v, out, B, Sq, Sk, Hq,
+                                                Hkv, D, causal, window,
+                                                softcap, stream);
+    return flash_parts::launch_bf16_padded_hi(q, k, v, out, B, Sq, Sk, Hq,
+                                              Hkv, D, causal, window,
+                                              softcap, stream);
   }
   return int(cudaErrorInvalidValue);
 }
+#endif

@@ -92,6 +92,28 @@
 // blocks. K4's
 // bf16 body walks up to starts + C keys serially in each block (1536 at
 // start 1024, C 512).
+//
+// Head dims: every body is instantiated at a padded width DP and, with
+// PAD, takes the real head dim D (1 ... 256) at run time; the exact widths
+// 64, 128 and 256 keep their own instantiations (PAD false: D is DP and
+// every mask below compiles away). DP is the smallest width the body's
+// layout allows: 32, 64, 128 or 256 for K3 (a lane holds DP / 32 elements
+// of a row), a multiple of 16 for K4's tensor-core body (attention_tc.cuh)
+// and a multiple of 32 for its float32 body (attend_tile, DP / 4
+// accumulators a thread). Reads past D are zero-filled, so q.k
+// is unchanged, and the extra columns of P.V are never stored. K3 keeps
+// its 16-byte cp.async copies where a row's D elements are whole 16-byte
+// pieces (the pieces past D zero-filled by the copy) and otherwise stages
+// a chunk with element loads into the same shared layout (bf16 at an odd
+// D / 8: 24- or 40-byte rows are not 16-byte aligned).
+//
+// Build: kernels/build.py compiles this source once per part (the
+// "nvcc parts" line below), one nvcc each, with -DREPRO_PART=<i>; without
+// it (nvcc on the file alone) every part is compiled. Part 0 holds the
+// exact widths and the C entry points, parts 1-5 the padded
+// instantiations (K3 float32, K3 bf16, K4 float32, K4 bf16 up to 128 and
+// above), which part 0 reaches through namespace paged_parts.
+// nvcc parts: 6
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -101,6 +123,42 @@
 #include <cooperative_groups.h>
 
 #include "attention_tc.cuh"
+
+#ifdef REPRO_PART
+#define PART(i) (REPRO_PART == (i))
+#else
+#define PART(i) 1
+#endif
+
+namespace paged_parts {
+// the padded instantiations (parts 1-5), dispatched on the padded width:
+// K3 in float32 (part 1) and bf16 (part 2)
+int decode_padded_f32(const void* q, const void* kp, const void* vp,
+                      const void* table, const void* lengths, void* out,
+                      int B, int Hq, int Hkv, int D, int page_size,
+                      int npages, int window, float softcap, void* stream);
+int decode_padded_bf16(const void* q, const void* kp, const void* vp,
+                       const void* table, const void* lengths, void* out,
+                       int B, int Hq, int Hkv, int D, int page_size,
+                       int npages, int window, float softcap, void* stream);
+int prefill_padded_f32(const void* q, const void* kp, const void* vp,
+                       const void* table, const void* lengths,
+                       const void* starts, void* out, int B, int C, int Hq,
+                       int Hkv, int D, int page_size, int npages, int window,
+                       float softcap, void* stream);
+// K4's float32 body (part 3), its tensor-core body at D <= 128 (part 4)
+// and above (part 5)
+int prefill_padded_tc_lo(const void* q, const void* kp, const void* vp,
+                         const void* table, const void* lengths,
+                         const void* starts, void* out, int B, int C, int Hq,
+                         int Hkv, int D, int page_size, int npages,
+                         int window, float softcap, void* stream);
+int prefill_padded_tc_hi(const void* q, const void* kp, const void* vp,
+                         const void* table, const void* lengths,
+                         const void* starts, void* out, int B, int C, int Hq,
+                         int Hkv, int D, int page_size, int npages,
+                         int window, float softcap, void* stream);
+}  // namespace paged_parts
 
 namespace {
 
@@ -141,6 +199,29 @@ struct Vec<__nv_bfloat16> {
   }
 };
 
+// VN elements from src (element e0 of a row of D) as float32: the vector
+// load without PAD; with it, the vector load where D % VN == 0 (whole
+// aligned vectors, those past D zero), else element loads below D
+template <typename T, bool PAD>
+__device__ __forceinline__ void load_part(const T* src, float* dst, int e0,
+                                          int D) {
+  constexpr int VN = Vec<T>::N;
+  if constexpr (!PAD) {
+    Vec<T>::load(src, dst);
+  } else if (D % VN == 0) {
+    if (e0 < D) {
+      Vec<T>::load(src, dst);
+    } else {
+#pragma unroll
+      for (int e = 0; e < VN; ++e) dst[e] = 0.f;
+    }
+  } else {
+#pragma unroll
+    for (int e = 0; e < VN; ++e)
+      dst[e] = e0 + e < D ? static_cast<float>(src[e]) : 0.f;
+  }
+}
+
 __device__ __forceinline__ float warp_max(float x) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1)
@@ -154,10 +235,10 @@ __device__ __forceinline__ float warp_sum(float x) {
   return x;
 }
 
-template <int D>
+template <int DP>
 constexpr size_t smem_floats() {
-  return size_t(kTileK) * (D + 1) + size_t(kTileK) * D +
-         size_t(kMaxRows) * (D + 1) + size_t(kMaxRows) * kTileK +
+  return size_t(kTileK) * (DP + 1) + size_t(kTileK) * DP +
+         size_t(kMaxRows) * (DP + 1) + size_t(kMaxRows) * kTileK +
          3 * size_t(kMaxRows);
 }
 
@@ -165,39 +246,43 @@ constexpr size_t smem_floats() {
 // slot's table row. Row r is token r / rep of the tile (absolute position
 // pos0 + r / rep) and query head (kvh * rep + r % rep); q and out point at
 // the tile's first token and the kv head's first query head, tokens
-// `tok_stride` elements apart. V is zeroed outside [v_lo, length).
+// `tok_stride` elements apart. V is zeroed outside [v_lo, length). The
+// shared tiles are DP wide; with PAD, d is the real head dim (columns
+// past it staged as zeros and never stored).
 // Not inlined: inlined into paged_prefill_kernel, nvcc 12.9 at -O3
 // produced code that skipped the page loop (all-zero outputs) on an H100,
 // while the same body called out of line is correct.
-template <typename T, int D>
+template <typename T, int DP, bool PAD>
 __device__ __noinline__ void attend_tile(
     const T* __restrict__ q, const T* __restrict__ kp,
     const T* __restrict__ vp, const int* __restrict__ table_row,
     T* __restrict__ out, int rows, int rep, int tok_stride, int pos0,
     int length, int v_lo, int first, int last, int kvh, int Hkv,
-    int page_size, int window, float softcap, float scale) {
+    int page_size, int window, float softcap, float scale, int d) {
   extern __shared__ float smem[];
-  float* Ks = smem;                          // kTileK x (D + 1)
-  float* Vs = Ks + kTileK * (D + 1);         // kTileK x D
-  float* Qs = Vs + kTileK * D;               // kMaxRows x (D + 1)
-  float* Ps = Qs + kMaxRows * (D + 1);       // kMaxRows x kTileK
+  float* Ks = smem;                          // kTileK x (DP + 1)
+  float* Vs = Ks + kTileK * (DP + 1);        // kTileK x DP
+  float* Qs = Vs + kTileK * DP;              // kMaxRows x (DP + 1)
+  float* Ps = Qs + kMaxRows * (DP + 1);      // kMaxRows x kTileK
   float* m_s = Ps + kMaxRows * kTileK;
   float* l_s = m_s + kMaxRows;
   float* a_s = l_s + kMaxRows;
 
   constexpr int VN = Vec<T>::N;
-  constexpr int DV = D / VN;
-  constexpr int PT = kMaxRows * D / kThreads;
+  constexpr int DV = DP / VN;
+  constexpr int PT = kMaxRows * DP / kThreads;
+  const int D = PAD ? d : DP;
   const int tid = threadIdx.x;
   const int warp = tid / 32, lane = tid % 32;
 
   for (int i = tid; i < rows * DV; i += kThreads) {
     const int r = i / DV, v = i % DV;
     float t[VN];
-    Vec<T>::load(q + size_t(r / rep) * tok_stride + (r % rep) * D + v * VN,
-                 t);
+    load_part<T, PAD>(
+        q + size_t(r / rep) * tok_stride + (r % rep) * D + v * VN, t,
+        v * VN, D);
 #pragma unroll
-    for (int e = 0; e < VN; ++e) Qs[r * (D + 1) + v * VN + e] = t[e];
+    for (int e = 0; e < VN; ++e) Qs[r * (DP + 1) + v * VN + e] = t[e];
   }
   if (tid < kMaxRows) {
     m_s[tid] = kNegInf;
@@ -220,24 +305,24 @@ __device__ __noinline__ void attend_tile(
       const size_t off = (size_t(phys) * page_size + c % page_size) *
                              row_stride + size_t(kvh) * D + v * VN;
       float tk[VN], tv[VN];
-      Vec<T>::load(kp + off, tk);
-      Vec<T>::load(vp + off, tv);
+      load_part<T, PAD>(kp + off, tk, v * VN, D);
+      load_part<T, PAD>(vp + off, tv, v * VN, D);
       const int col = col0 + c;
       const bool vok = col >= v_lo && col < length;
 #pragma unroll
       for (int e = 0; e < VN; ++e) {
-        Ks[c * (D + 1) + v * VN + e] = tk[e];
-        Vs[c * D + v * VN + e] = vok ? tv[e] : 0.f;
+        Ks[c * (DP + 1) + v * VN + e] = tk[e];
+        Vs[c * DP + v * VN + e] = vok ? tv[e] : 0.f;
       }
     }
     __syncthreads();
     for (int i = tid; i < rows * ncols; i += kThreads) {
       const int r = i / ncols, c = i % ncols;
-      const float* qr = Qs + r * (D + 1);
-      const float* kc = Ks + c * (D + 1);
+      const float* qr = Qs + r * (DP + 1);
+      const float* kc = Ks + c * (DP + 1);
       float s = 0.f;
 #pragma unroll 8
-      for (int d = 0; d < D; ++d) s = fmaf(qr[d], kc[d], s);
+      for (int e = 0; e < DP; ++e) s = fmaf(qr[e], kc[e], s);
       s *= scale;
       if (softcap > 0.f) s = softcap * tanhf(s / softcap);
       const int col = col0 + c, pq = pos0 + r / rep;
@@ -270,11 +355,11 @@ __device__ __noinline__ void attend_tile(
 #pragma unroll
     for (int k = 0; k < PT; ++k) {
       const int idx = tid + k * kThreads;
-      const int r = idx / D, d = idx % D;
+      const int r = idx / DP, e = idx % DP;
       if (r < rows) {
         const float* pr = Ps + r * kTileK;
         float a = acc[k] * a_s[r];
-        for (int c = 0; c < ncols; ++c) a = fmaf(pr[c], Vs[c * D + d], a);
+        for (int c = 0; c < ncols; ++c) a = fmaf(pr[c], Vs[c * DP + e], a);
         acc[k] = a;
       }
     }
@@ -283,10 +368,10 @@ __device__ __noinline__ void attend_tile(
 #pragma unroll
   for (int k = 0; k < PT; ++k) {
     const int idx = tid + k * kThreads;
-    const int r = idx / D, d = idx % D;
-    if (r < rows) {
+    const int r = idx / DP, e = idx % DP;
+    if (r < rows && (!PAD || e < D)) {
       const float l = fmaxf(l_s[r], 1e-30f);
-      out[size_t(r / rep) * tok_stride + (r % rep) * D + d] =
+      out[size_t(r / rep) * tok_stride + (r % rep) * D + e] =
           Vec<T>::store(acc[k] / l);
     }
   }
@@ -302,35 +387,38 @@ constexpr int kDecWarps = 8;       // workers per block
 constexpr int kDecStages = 3;      // chunk stages in each warp's ring
 constexpr int kChunkBytes = 2048;  // bytes of K (and of V) in one chunk
 
-// KT keys of D elements of T per chunk; a lane holds E = D / 32 elements of
-// every row; a softmax step takes KS keys at a time, so that the scores of
-// a step (RG x KS) stay at 16 registers
-template <typename T, int D, int RG>
+// KT keys of DP elements of T per chunk (a staged row is DP wide); a lane
+// holds E = DP / 32 elements of every row; a softmax step takes KS keys at
+// a time, so that the scores of a step (RG x KS) stay at 16 registers
+template <typename T, int DP, int RG>
 struct DecodeShape {
-  static constexpr int RB = D * int(sizeof(T));  // bytes of a key row
+  static constexpr int RB = DP * int(sizeof(T));  // bytes of a staged row
   static constexpr int KT = kChunkBytes / RB;
-  static constexpr int E = D / 32;
+  static constexpr int E = DP / 32;
   static constexpr int KS = KT < 16 / RG ? KT : 16 / RG;
   static constexpr int PIECES = kChunkBytes / 16;  // 16 B copies of K
-  static_assert(KT >= 1 && KT % KS == 0, "chunk of whole softmax steps");
+  static_assert(KT >= 1 && KT <= 32 && KT % KS == 0,
+                "a lane per key; a chunk of whole softmax steps");
   static_assert(PIECES % 32 == 0, "whole copies per lane");
   // the partials (acc, m, l of RG rows) reuse the warp's ring
-  static_assert(RG * (D + 2) * 4 <= kDecStages * 2 * kChunkBytes,
+  static_assert(RG * (DP + 2) * 4 <= kDecStages * 2 * kChunkBytes,
                 "partials fit the ring");
 };
 
 // each warp's ring, then the block's partial (acc, m, l of RG rows)
-template <int D, int RG>
+template <int DP, int RG>
 constexpr size_t decode_smem_bytes() {
   return size_t(kDecWarps) * kDecStages * 2 * kChunkBytes +
-         (size_t(RG) * (D + 2) * 4 + 15) / 16 * 16;
+         (size_t(RG) * (DP + 2) * 4 + 15) / 16 * 16;
 }
 
 // E consecutive elements at p (16 B aligned for E * sizeof(T) >= 16) as
 // float32
 template <int E>
 __device__ __forceinline__ void load_row(const float* p, float (&o)[E]) {
-  if constexpr (E % 4 == 0) {
+  if constexpr (E == 1) {
+    o[0] = *p;
+  } else if constexpr (E % 4 == 0) {
 #pragma unroll
     for (int i = 0; i < E; i += 4) {
       const float4 v = *reinterpret_cast<const float4*>(p + i);
@@ -348,8 +436,12 @@ __device__ __forceinline__ void load_row(const float* p, float (&o)[E]) {
 template <int E>
 __device__ __forceinline__ void load_row(const __nv_bfloat16* p,
                                          float (&o)[E]) {
-  static_assert(E % 2 == 0, "bf16 pairs");
-  uint32_t w[E / 2];
+  if constexpr (E == 1) {                 // DP 32: one element a lane
+    o[0] = __bfloat162float(*p);
+    return;
+  }
+  static_assert(E == 1 || E % 2 == 0, "bf16 pairs");
+  uint32_t w[E == 1 ? 1 : E / 2];
   if constexpr (E % 8 == 0) {
 #pragma unroll
     for (int i = 0; i < E / 2; i += 4)
@@ -402,22 +494,26 @@ __device__ __forceinline__ void warp_sum_all(float (&v)[NV]) {
     v[i] = __shfl_sync(0xffffffffu, mine, i << (5 - LOG));
 }
 
-template <typename T, int D, int RG>
+template <typename T, int DP, int RG, bool PAD>
 __global__ void __cluster_dims__(kSplits, 1, 1)
 __launch_bounds__(kDecWarps * 32, RG == 2 ? 2 : 1)
 paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ kp,
                     const T* __restrict__ vp, const int* __restrict__ table,
                     const int* __restrict__ lengths, T* __restrict__ out,
                     int Hq, int Hkv, int page_size, int npages, int window,
-                    float softcap, float scale) {
-  using Sh = DecodeShape<T, D, RG>;
+                    float softcap, float scale, int d) {
+  using Sh = DecodeShape<T, DP, RG>;
   constexpr int KT = Sh::KT, E = Sh::E, KS = Sh::KS, RB = Sh::RB;
   constexpr int NT = kDecWarps * 32;
   constexpr int NW = kSplits * kDecWarps;         // workers per cluster
-  constexpr int DS = D / kSplits;                 // output columns a block
+  constexpr int DS = DP / kSplits;                // output columns a block
   constexpr int RING = kDecStages * 2 * kChunkBytes;
+  constexpr int EP = 16 / int(sizeof(T));         // elements of a 16 B piece
   extern __shared__ __align__(16) unsigned char dec_smem[];
   cg::cluster_group cluster = cg::this_cluster();
+  const int D = PAD ? d : DP;                     // the real head dim
+  // a row's D elements are whole 16-byte pieces: the copies stay cp.async
+  const bool pieces = !PAD || D % EP == 0;
 
   const int rank = int(cluster.block_rank());      // split: blockIdx.x
   const int kvh = blockIdx.y, b = blockIdx.z;
@@ -456,19 +552,35 @@ paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ kp,
   };
   // stage a chunk in ring slot st, K then V, from the key offsets `rows`
   // (key_row of the chunk): each 16-byte piece takes its key's offset from
-  // the lane that holds it; keys at or past length are zero-filled
+  // the lane that holds it; keys at or past length, and with PAD the
+  // pieces past D, are zero-filled. Where D elements are not whole pieces
+  // (PAD only), lanes load element by element into the same layout.
   auto fetch = [&](int st, long long rows) {
     unsigned char* dst = ring + st * 2 * kChunkBytes;
+    if (pieces) {
 #pragma unroll
-    for (int i = 0; i < Sh::PIECES / 32; ++i) {
-      const int j = lane + 32 * i;
-      const int key = j / (RB / 16), off = j % (RB / 16);
-      const long long at = __shfl_sync(0xffffffffu, rows, key);
-      const bool ok = at >= 0;
-      const size_t e = ok ? size_t(at) + off * (16 / sizeof(T)) : 0;
-      const uint32_t d = attn_tc::smem_u32(dst + key * RB + off * 16);
-      attn_tc::cp_async16(d, kp + e, ok);
-      attn_tc::cp_async16(d + kChunkBytes, vp + e, ok);
+      for (int i = 0; i < Sh::PIECES / 32; ++i) {
+        const int j = lane + 32 * i;
+        const int key = j / (RB / 16), off = j % (RB / 16);
+        const long long at = __shfl_sync(0xffffffffu, rows, key);
+        const bool ok = at >= 0 && (!PAD || off * EP < D);
+        const size_t e = ok ? size_t(at) + off * (16 / sizeof(T)) : 0;
+        const uint32_t sd = attn_tc::smem_u32(dst + key * RB + off * 16);
+        attn_tc::cp_async16(sd, kp + e, ok);
+        attn_tc::cp_async16(sd + kChunkBytes, vp + e, ok);
+      }
+    } else if constexpr (PAD) {
+      T* ks = reinterpret_cast<T*>(dst);
+      T* vs = reinterpret_cast<T*>(dst + kChunkBytes);
+#pragma unroll 4
+      for (int i = 0; i < KT * DP / 32; ++i) {
+        const int j = lane + 32 * i;
+        const int key = j / DP, e = j % DP;
+        const long long at = __shfl_sync(0xffffffffu, rows, key);
+        const bool ok = at >= 0 && e < D;
+        ks[j] = ok ? kp[at + e] : T(0.f);
+        vs[j] = ok ? vp[at + e] : T(0.f);
+      }
     }
     attn_tc::cp_async_commit();
   };
@@ -480,8 +592,16 @@ paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ kp,
     for (int r = 0; r < RG; ++r) {
 #pragma unroll
       for (int e = 0; e < E; ++e) qr[r][e] = acc[r][e] = 0.f;
-      if (r < nr) load_row<E>(q + qoff + size_t(r0 + r) * D + lane * E,
-                              qr[r]);
+      if constexpr (PAD) {
+        const T* qp = q + qoff + size_t(r0 + r) * D + lane * E;
+#pragma unroll
+        for (int e = 0; e < E; ++e)
+          if (r < nr && lane * E + e < D)
+            qr[r][e] = static_cast<float>(qp[e]);
+      } else {
+        if (r < nr) load_row<E>(q + qoff + size_t(r0 + r) * D + lane * E,
+                                qr[r]);
+      }
       m[r] = kNegInf;
       l[r] = 0.f;
     }
@@ -505,7 +625,7 @@ paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ kp,
       __syncwarp();        // chunk c's copies, from every lane, visible
       const T* Ks = reinterpret_cast<const T*>(
           ring + (i % kDecStages) * 2 * kChunkBytes);
-      const T* Vs = Ks + KT * D;
+      const T* Vs = Ks + KT * DP;
       const int col0 = first + c * KT;
 #pragma unroll
       for (int k0 = 0; k0 < KT; k0 += KS) {
@@ -513,7 +633,7 @@ paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ kp,
 #pragma unroll
         for (int kk = 0; kk < KS; ++kk) {
           float kv[E];
-          load_row<E>(Ks + (k0 + kk) * D + lane * E, kv);
+          load_row<E>(Ks + (k0 + kk) * DP + lane * E, kv);
 #pragma unroll
           for (int r = 0; r < RG; ++r) {
             float d = 0.f;
@@ -558,7 +678,7 @@ paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ kp,
 #pragma unroll
         for (int kk = 0; kk < KS; ++kk) {
           float vv[E];
-          load_row<E>(Vs + (k0 + kk) * D + lane * E, vv);
+          load_row<E>(Vs + (k0 + kk) * DP + lane * E, vv);
 #pragma unroll
           for (int r = 0; r < RG; ++r) {
             if (r >= nr) continue;
@@ -574,20 +694,20 @@ paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ kp,
 #pragma unroll
     for (int r = 0; r < RG; ++r) {
 #pragma unroll
-      for (int e = 0; e < E; ++e) part[r * D + lane * E + e] = acc[r][e];
+      for (int e = 0; e < E; ++e) part[r * DP + lane * E + e] = acc[r][e];
       if (lane == 0) {
-        part[RG * D + r] = m[r];
-        part[RG * D + RG + r] = l[r];
+        part[RG * DP + r] = m[r];
+        part[RG * DP + RG + r] = l[r];
       }
     }
     __syncthreads();               // every warp's partial written
     // the block's partial: its warps combined in warp order
-    for (int i = tid; i < nr * D; i += NT) {
-      const int r = i / D, d = i % D;
+    for (int i = tid; i < nr * DP; i += NT) {
+      const int r = i / DP, d = i % DP;
       float mw[kDecWarps], mx = kNegInf;
 #pragma unroll
       for (int w = 0; w < kDecWarps; ++w) {
-        mw[w] = reinterpret_cast<const float*>(dec_smem + w * RING)[RG * D +
+        mw[w] = reinterpret_cast<const float*>(dec_smem + w * RING)[RG * DP +
                                                                    r];
         mx = fmaxf(mx, mw[w]);
       }
@@ -597,28 +717,30 @@ paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ kp,
         const float* pw = reinterpret_cast<const float*>(dec_smem + w * RING);
         const float wt =
             attn_tc::exp2_approx((mw[w] - mx) * attn_tc::kLog2e);
-        lsum = fmaf(pw[RG * D + RG + r], wt, lsum);
-        o = fmaf(pw[r * D + d], wt, o);
+        lsum = fmaf(pw[RG * DP + RG + r], wt, lsum);
+        o = fmaf(pw[r * DP + d], wt, o);
       }
-      bpart[r * D + d] = o;
+      bpart[r * DP + d] = o;
       if (d == 0) {
-        bpart[RG * D + r] = mx;
-        bpart[RG * D + RG + r] = lsum;
+        bpart[RG * DP + r] = mx;
+        bpart[RG * DP + RG + r] = lsum;
       }
     }
     cluster.sync();                // every block's partial written
     // the outputs: block `rank` takes columns [rank DS, rank DS + DS) of
-    // every row and combines the cluster's blocks in rank order, reading
-    // their partials through distributed shared memory
+    // every row (with PAD, those below D) and combines the cluster's
+    // blocks in rank order, reading their partials through distributed
+    // shared memory
     for (int i = tid; i < nr * DS; i += NT) {
       const int r = i / DS, d = rank * DS + i % DS;
+      if (PAD && d >= D) continue;
       float mb[kSplits], lb[kSplits], ab[kSplits], mx = kNegInf;
 #pragma unroll
       for (int q = 0; q < kSplits; ++q) {
         const float* pb = cluster.map_shared_rank(bpart, q);
-        mb[q] = pb[RG * D + r];
-        lb[q] = pb[RG * D + RG + r];
-        ab[q] = pb[r * D + d];
+        mb[q] = pb[RG * DP + r];
+        lb[q] = pb[RG * DP + RG + r];
+        ab[q] = pb[r * DP + d];
       }
 #pragma unroll
       for (int q = 0; q < kSplits; ++q) mx = fmaxf(mx, mb[q]);
@@ -637,14 +759,15 @@ paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ kp,
   }
 }
 
-template <typename T, int D>
+template <typename T, int DP, bool PAD>
 __global__ void __launch_bounds__(kThreads)
 paged_prefill_kernel(const T* __restrict__ q, const T* __restrict__ kp,
                      const T* __restrict__ vp, const int* __restrict__ table,
                      const int* __restrict__ lengths,
                      const int* __restrict__ starts, T* __restrict__ out,
                      int C, int Hq, int Hkv, int page_size, int npages,
-                     int window, float softcap, float scale) {
+                     int window, float softcap, float scale, int d) {
+  const int D = PAD ? d : DP;
   const int b = blockIdx.x, tile = blockIdx.y, kvh = blockIdx.z;
   const int rep = Hq / Hkv;
   const int bq = kMaxRows / rep;
@@ -662,12 +785,13 @@ paged_prefill_kernel(const T* __restrict__ q, const T* __restrict__ kp,
   }
   const size_t qoff =
       ((size_t(b) * C + tok0) * Hq + size_t(kvh) * rep) * D;
-  attend_tile<T, D>(q + qoff, kp, vp, table + size_t(b) * npages,
-                    out + qoff, ntok * rep, rep, Hq * D, q0, length, 0,
-                    first, last, kvh, Hkv, page_size, window, softcap, scale);
+  attend_tile<T, DP, PAD>(q + qoff, kp, vp, table + size_t(b) * npages,
+                          out + qoff, ntok * rep, rep, Hq * D, q0, length, 0,
+                          first, last, kvh, Hkv, page_size, window, softcap,
+                          scale, D);
 }
 
-template <int D>
+template <int DP, bool PAD>
 __global__ void __launch_bounds__(64)
 paged_prefill_tc_kernel(const attn_tc::bf16* __restrict__ q,
                         const attn_tc::bf16* __restrict__ kp,
@@ -677,7 +801,8 @@ paged_prefill_tc_kernel(const attn_tc::bf16* __restrict__ q,
                         const int* __restrict__ starts,
                         attn_tc::bf16* __restrict__ out, int C, int Hq,
                         int Hkv, int page_size, int npages, int window,
-                        float softcap, float scale) {
+                        float softcap, float scale, int d) {
+  const int D = PAD ? d : DP;
   const int rep = Hq / Hkv, tq = 32 / rep;
   const int tile = gridDim.x - 1 - blockIdx.x;   // heavy tiles first
   const int b = blockIdx.y / Hkv, kvh = blockIdx.y % Hkv;
@@ -694,28 +819,31 @@ paged_prefill_tc_kernel(const attn_tc::bf16* __restrict__ q,
   a.nkeys = min(lengths[b], npages * page_size);
   a.hi = min(a.nkeys, a.pos0 + a.ntok);
   a.lo = window > 0 ? max(0, a.pos0 - window + 1) : 0;
+  a.d = D;
   a.causal = 1;
   a.window = window;
   a.softcap = softcap;
   a.scale = scale;
   const attn_tc::PagedKeys keys{table + size_t(b) * npages, page_size,
                                 size_t(kvh) * D, size_t(Hkv) * D};
-  attn_tc::attend_tc<D, 2, 1>(a, kp, vp, keys);
+  attn_tc::attend_tc<DP, 2, 1, PAD>(a, kp, vp, keys);
 }
 
 bool shape_ok(int Hq, int Hkv, int D, int page_size) {
-  return Hkv > 0 && Hq % Hkv == 0 && Hq / Hkv <= kMaxRows &&
-         (D == 64 || D == 128 || D == 256) && page_size >= 1 &&
-         page_size <= kTileK;
+  return Hkv > 0 && Hq % Hkv == 0 && Hq / Hkv <= kMaxRows && D >= 1 &&
+         D <= 256 && page_size >= 1 && page_size <= kTileK;
 }
 
-template <typename T, int D, int RG>
+bool exact_width(int D) { return D == 64 || D == 128 || D == 256; }
+
+template <typename T, int DP, int RG, bool PAD>
 int launch_decode_rg(const void* q, const void* kp, const void* vp,
                      const void* table, const void* lengths, void* out,
-                     int B, int Hq, int Hkv, int page_size, int npages,
-                     int window, float softcap, cudaStream_t stream) {
-  constexpr size_t smem = decode_smem_bytes<D, RG>();
-  auto kern = paged_decode_kernel<T, D, RG>;
+                     int B, int Hq, int Hkv, int D, int page_size,
+                     int npages, int window, float softcap,
+                     cudaStream_t stream) {
+  constexpr size_t smem = decode_smem_bytes<DP, RG>();
+  auto kern = paged_decode_kernel<T, DP, RG, PAD>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
   if (err != cudaSuccess) return int(err);
@@ -724,34 +852,34 @@ int launch_decode_rg(const void* q, const void* kp, const void* vp,
       static_cast<const T*>(q), static_cast<const T*>(kp),
       static_cast<const T*>(vp), static_cast<const int*>(table),
       static_cast<const int*>(lengths), static_cast<T*>(out), Hq, Hkv,
-      page_size, npages, window, softcap, 1.0f / sqrtf(float(D)));
+      page_size, npages, window, softcap, 1.0f / sqrtf(float(D)), D);
   return int(cudaGetLastError());
 }
 
 // rows of query heads a warp holds: 2 when rep <= 2 (Qwen3, Gemma2), else
 // 8 (larger rep in groups of 8)
-template <typename T, int D>
+template <typename T, int DP, bool PAD>
 int launch_decode(const void* q, const void* kp, const void* vp,
                   const void* table, const void* lengths, void* out, int B,
-                  int Hq, int Hkv, int page_size, int npages, int window,
-                  float softcap, cudaStream_t stream) {
+                  int Hq, int Hkv, int D, int page_size, int npages,
+                  int window, float softcap, cudaStream_t stream) {
   if (Hq / Hkv <= 2)
-    return launch_decode_rg<T, D, 2>(q, kp, vp, table, lengths, out, B, Hq,
-                                     Hkv, page_size, npages, window,
-                                     softcap, stream);
-  return launch_decode_rg<T, D, 8>(q, kp, vp, table, lengths, out, B, Hq,
-                                   Hkv, page_size, npages, window, softcap,
-                                   stream);
+    return launch_decode_rg<T, DP, 2, PAD>(q, kp, vp, table, lengths, out,
+                                           B, Hq, Hkv, D, page_size, npages,
+                                           window, softcap, stream);
+  return launch_decode_rg<T, DP, 8, PAD>(q, kp, vp, table, lengths, out, B,
+                                         Hq, Hkv, D, page_size, npages,
+                                         window, softcap, stream);
 }
 
-template <typename T, int D>
+template <typename T, int DP, bool PAD>
 int launch_prefill(const void* q, const void* kp, const void* vp,
                    const void* table, const void* lengths, const void* starts,
-                   void* out, int B, int C, int Hq, int Hkv, int page_size,
-                   int npages, int window, float softcap,
+                   void* out, int B, int C, int Hq, int Hkv, int D,
+                   int page_size, int npages, int window, float softcap,
                    cudaStream_t stream) {
-  const size_t smem = smem_floats<D>() * sizeof(float);
-  auto kern = paged_prefill_kernel<T, D>;
+  const size_t smem = smem_floats<DP>() * sizeof(float);
+  auto kern = paged_prefill_kernel<T, DP, PAD>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
   if (err != cudaSuccess) return int(err);
@@ -762,19 +890,19 @@ int launch_prefill(const void* q, const void* kp, const void* vp,
       static_cast<const T*>(vp), static_cast<const int*>(table),
       static_cast<const int*>(lengths), static_cast<const int*>(starts),
       static_cast<T*>(out), C, Hq, Hkv, page_size, npages, window, softcap,
-      1.0f / sqrtf(float(D)));
+      1.0f / sqrtf(float(D)), D);
   return int(cudaGetLastError());
 }
 
-// bfloat16 only (T is the pools' element type, for DISPATCH_D)
-template <typename T, int D>
+// bfloat16 only
+template <int DP, bool PAD>
 int launch_prefill_tc(const void* q, const void* kp, const void* vp,
                       const void* table, const void* lengths,
                       const void* starts, void* out, int B, int C, int Hq,
-                      int Hkv, int page_size, int npages, int window,
+                      int Hkv, int D, int page_size, int npages, int window,
                       float softcap, cudaStream_t stream) {
-  constexpr size_t smem = attn_tc::smem_bytes<D, 2, 1>();
-  auto kern = paged_prefill_tc_kernel<D>;
+  constexpr size_t smem = attn_tc::smem_bytes<DP, 2, 1>();
+  auto kern = paged_prefill_tc_kernel<DP, PAD>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
   if (err != cudaSuccess) return int(err);
@@ -786,39 +914,139 @@ int launch_prefill_tc(const void* q, const void* kp, const void* vp,
       static_cast<const attn_tc::bf16*>(vp), static_cast<const int*>(table),
       static_cast<const int*>(lengths), static_cast<const int*>(starts),
       static_cast<attn_tc::bf16*>(out), C, Hq, Hkv, page_size, npages,
-      window, softcap, 1.0f / sqrtf(float(D)));
+      window, softcap, 1.0f / sqrtf(float(D)), D);
   return int(cudaGetLastError());
 }
 
 }  // namespace
 
+// the padded widths: K3 32, 64, 128, 256; K4's float32 body multiples of
+// 32; its tensor-core body multiples of 16 (the low half in part 4, the
+// high half in part 5)
+#define K3_WIDTHS(X) X(32) X(64) X(128) X(256)
+#define K4_F32_WIDTHS(X) X(32) X(64) X(96) X(128) X(160) X(192) X(224) X(256)
+#define K4_TC_WIDTHS_LO(X) X(16) X(32) X(48) X(64) X(80) X(96) X(112) X(128)
+#define K4_TC_WIDTHS_HI(X) \
+  X(144) X(160) X(176) X(192) X(208) X(224) X(240) X(256)
+
+namespace paged_parts {
+
+#define K3_CASE(T, W)                                                    \
+  if (D <= W)                                                            \
+    return launch_decode<T, W, true>(q, kp, vp, table, lengths, out, B, Hq, \
+                                     Hkv, D, page_size, npages, window,     \
+                                     softcap,                               \
+                                     static_cast<cudaStream_t>(stream));
+#if PART(1)
+int decode_padded_f32(const void* q, const void* kp, const void* vp,
+                      const void* table, const void* lengths, void* out,
+                      int B, int Hq, int Hkv, int D, int page_size,
+                      int npages, int window, float softcap, void* stream) {
+#define CASE(W) K3_CASE(float, W)
+  K3_WIDTHS(CASE)
+#undef CASE
+  return int(cudaErrorInvalidValue);
+}
+#endif
+
+#if PART(2)
+int decode_padded_bf16(const void* q, const void* kp, const void* vp,
+                       const void* table, const void* lengths, void* out,
+                       int B, int Hq, int Hkv, int D, int page_size,
+                       int npages, int window, float softcap, void* stream) {
+#define CASE(W) K3_CASE(__nv_bfloat16, W)
+  K3_WIDTHS(CASE)
+#undef CASE
+  return int(cudaErrorInvalidValue);
+}
+#endif
+
+#if PART(3)
+int prefill_padded_f32(const void* q, const void* kp, const void* vp,
+                       const void* table, const void* lengths,
+                       const void* starts, void* out, int B, int C, int Hq,
+                       int Hkv, int D, int page_size, int npages, int window,
+                       float softcap, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define CASE(W)                                                            \
+  if (D <= W)                                                              \
+    return launch_prefill<float, W, true>(q, kp, vp, table, lengths,       \
+                                          starts, out, B, C, Hq, Hkv, D,   \
+                                          page_size, npages, window,       \
+                                          softcap, s);
+  K4_F32_WIDTHS(CASE)
+#undef CASE
+  return int(cudaErrorInvalidValue);
+}
+#endif
+
+#define K4_TC_CASE(W)                                                        \
+  if (D <= W)                                                              \
+    return launch_prefill_tc<W, true>(q, kp, vp, table, lengths, starts,   \
+                                      out, B, C, Hq, Hkv, D, page_size,    \
+                                      npages, window, softcap,             \
+                                      static_cast<cudaStream_t>(stream));
+#if PART(4)
+int prefill_padded_tc_lo(const void* q, const void* kp, const void* vp,
+                         const void* table, const void* lengths,
+                         const void* starts, void* out, int B, int C, int Hq,
+                         int Hkv, int D, int page_size, int npages,
+                         int window, float softcap, void* stream) {
+  K4_TC_WIDTHS_LO(K4_TC_CASE)
+  return int(cudaErrorInvalidValue);
+}
+#endif
+#if PART(5)
+int prefill_padded_tc_hi(const void* q, const void* kp, const void* vp,
+                         const void* table, const void* lengths,
+                         const void* starts, void* out, int B, int C, int Hq,
+                         int Hkv, int D, int page_size, int npages,
+                         int window, float softcap, void* stream) {
+  K4_TC_WIDTHS_HI(K4_TC_CASE)
+  return int(cudaErrorInvalidValue);
+}
+#endif
+
+}  // namespace paged_parts
+
+#if PART(0)
 #define DISPATCH_D(T, FN, ...)                                   \
   switch (D) {                                                   \
-    case 64: return FN<T, 64>(__VA_ARGS__);                      \
-    case 128: return FN<T, 128>(__VA_ARGS__);                    \
-    case 256: return FN<T, 256>(__VA_ARGS__);                    \
+    case 64: return FN<T, 64, false>(__VA_ARGS__);               \
+    case 128: return FN<T, 128, false>(__VA_ARGS__);             \
+    case 256: return FN<T, 256, false>(__VA_ARGS__);             \
     default: return int(cudaErrorInvalidValue);                 \
   }
 
 // dtype: 0 = float32, 1 = bfloat16. window < 0: no sliding window.
-// softcap <= 0: no softcap. Returns cudaGetLastError() after the launch.
+// softcap <= 0: no softcap. D in 1 ... 256: 64, 128 and 256 run their
+// exact instantiations, any other D a padded one. Returns
+// cudaGetLastError() after the launch.
 extern "C" int paged_decode_launch(const void* q, const void* kp,
                                    const void* vp, const void* table,
                                    const void* lengths, void* out, int B,
                                    int Hq, int Hkv, int D, int page_size,
                                    int npages, int window, float softcap,
                                    int dtype, void* stream) {
-  if (!shape_ok(Hq, Hkv, D, page_size)) return int(cudaErrorInvalidValue);
+  if (!shape_ok(Hq, Hkv, D, page_size) || (dtype != 0 && dtype != 1))
+    return int(cudaErrorInvalidValue);
+  if (!exact_width(D))
+    return dtype == 0
+               ? paged_parts::decode_padded_f32(q, kp, vp, table, lengths,
+                                                out, B, Hq, Hkv, D, page_size,
+                                                npages, window, softcap,
+                                                stream)
+               : paged_parts::decode_padded_bf16(q, kp, vp, table, lengths,
+                                                 out, B, Hq, Hkv, D,
+                                                 page_size, npages, window,
+                                                 softcap, stream);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) {
     DISPATCH_D(float, launch_decode, q, kp, vp, table, lengths, out, B, Hq,
-               Hkv, page_size, npages, window, softcap, s)
+               Hkv, D, page_size, npages, window, softcap, s)
   }
-  if (dtype == 1) {
-    DISPATCH_D(__nv_bfloat16, launch_decode, q, kp, vp, table, lengths, out,
-               B, Hq, Hkv, page_size, npages, window, softcap, s)
-  }
-  return int(cudaErrorInvalidValue);
+  DISPATCH_D(__nv_bfloat16, launch_decode, q, kp, vp, table, lengths, out,
+             B, Hq, Hkv, D, page_size, npages, window, softcap, s)
 }
 
 extern "C" int paged_prefill_launch(const void* q, const void* kp,
@@ -828,16 +1056,36 @@ extern "C" int paged_prefill_launch(const void* q, const void* kp,
                                     int D, int page_size, int npages,
                                     int window, float softcap, int dtype,
                                     void* stream) {
-  if (!shape_ok(Hq, Hkv, D, page_size)) return int(cudaErrorInvalidValue);
+  if (!shape_ok(Hq, Hkv, D, page_size) || (dtype != 0 && dtype != 1))
+    return int(cudaErrorInvalidValue);
+  if (!exact_width(D)) {
+    if (dtype == 0)
+      return paged_parts::prefill_padded_f32(
+          q, kp, vp, table, lengths, starts, out, B, C, Hq, Hkv, D,
+          page_size, npages, window, softcap, stream);
+    if (D <= 128)
+      return paged_parts::prefill_padded_tc_lo(
+          q, kp, vp, table, lengths, starts, out, B, C, Hq, Hkv, D,
+          page_size, npages, window, softcap, stream);
+    return paged_parts::prefill_padded_tc_hi(
+        q, kp, vp, table, lengths, starts, out, B, C, Hq, Hkv, D, page_size,
+        npages, window, softcap, stream);
+  }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) {
     DISPATCH_D(float, launch_prefill, q, kp, vp, table, lengths, starts, out,
-               B, C, Hq, Hkv, page_size, npages, window, softcap, s)
+               B, C, Hq, Hkv, D, page_size, npages, window, softcap, s)
   }
-  if (dtype == 1) {
-    DISPATCH_D(__nv_bfloat16, launch_prefill_tc, q, kp, vp, table, lengths,
-               starts, out, B, C, Hq, Hkv, page_size, npages, window,
-               softcap, s)
+  switch (D) {
+    case 64: return launch_prefill_tc<64, false>(
+        q, kp, vp, table, lengths, starts, out, B, C, Hq, Hkv, D, page_size,
+        npages, window, softcap, s);
+    case 128: return launch_prefill_tc<128, false>(
+        q, kp, vp, table, lengths, starts, out, B, C, Hq, Hkv, D, page_size,
+        npages, window, softcap, s);
+    default: return launch_prefill_tc<256, false>(
+        q, kp, vp, table, lengths, starts, out, B, C, Hq, Hkv, D, page_size,
+        npages, window, softcap, s);
   }
-  return int(cudaErrorInvalidValue);
 }
+#endif

@@ -96,6 +96,26 @@
 // dt/cumsum are not overlapped with math (prefetching them across tile
 // and chunk boundaries, with a second C buffer, measured 8% slower); one
 // block of 8 warps per SM.
+//
+// Widths: both bodies are instantiated at a padded slice PB (16, 32 or
+// 64 state rows) and state width N (16, 32, 64 or 128: the state's m16 x
+// n8 tiles divide over the tensor-core body's 8 warps only there) and,
+// with PAD, take the slice's real rows and the real N (any P and N of 1
+// ... 128) at run time; today's sizes (P / nsplit and N both in the sets)
+// keep their own instantiations (PAD false: the masks compile away). A
+// slice owns rows [split pb, split pb + pb) of P, pb = ceil(P / nsplit),
+// the last slice fewer. Staging zero-fills the columns past the real N of
+// B and C and past the slice's rows of x, so the scores, the state and y
+// are unchanged; y is stored only below the slice's rows. The copies stay
+// 16-byte ones (cp.async in the bf16 body, float4 loads in the float32
+// one) where rows are whole aligned vectors, else element loads.
+//
+// Build: kernels/build.py compiles this source once per part (the "nvcc
+// parts" line below), one nvcc each, with -DREPRO_PART=<i>; without it
+// every part is compiled: part 0 holds today's sizes and the C entry
+// point, part 1 the float32 padded body, part 2 the bf16 padded body,
+// reached through namespace ssd_parts.
+// nvcc parts: 3
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -105,6 +125,22 @@
 #include <type_traits>
 
 #include "attention_tc.cuh"
+
+#ifdef REPRO_PART
+#define PART(i) (REPRO_PART == (i))
+#else
+#define PART(i) 1
+#endif
+
+namespace ssd_parts {
+// the padded bodies: float32 (part 1) and bf16 (part 2)
+int padded_f32(const void* x, const void* dt, const void* a, const void* b,
+               const void* c, void* y, int B, int S, int H, int G, int P,
+               int N, int L, int nsplit, void* stream);
+int padded_tc(const void* x, const void* dt, const void* a, const void* b,
+              const void* c, void* y, int B, int S, int H, int G, int P,
+              int N, int L, int nsplit, void* stream);
+}  // namespace ssd_parts
 
 namespace {
 
@@ -158,23 +194,32 @@ size_t smem_bytes(int L) {
 
 // Stage rows [0, n) of a (., COLS) slice into a (64, LD) float tile; row r
 // is read at src + r * stride elements and multiplied by scale[r] when
-// scale is given. Rows >= n are zeroed.
-template <typename T, int COLS, int LD>
+// scale is given. Rows >= n are zeroed; with PAD, so are the columns past
+// cols, and rows are read element by element unless vec (aligned whole
+// vectors).
+template <typename T, int COLS, int LD, bool PAD>
 __device__ __forceinline__ void stage(float* dst, const T* __restrict__ src,
                                       size_t stride, int n,
-                                      const float* scale) {
+                                      const float* scale, int cols,
+                                      bool vec) {
   constexpr int VN = Vec<T>::N;
   constexpr int CV = COLS / VN;
   for (int i = threadIdx.x; i < kRows * CV; i += kThreads) {
     const int r = i / CV, c = (i % CV) * VN;
     float t[VN];
-    if (r < n) {
+    if (r < n && (!PAD || (vec && c < cols))) {
       Vec<T>::load(src + r * stride + c, t);
       if (scale != nullptr) {
         const float s = scale[r];
 #pragma unroll
         for (int e = 0; e < VN; ++e) t[e] *= s;
       }
+    } else if (PAD && r < n && !vec) {
+      const float s = scale != nullptr ? scale[r] : 1.f;
+#pragma unroll
+      for (int e = 0; e < VN; ++e)
+        t[e] = c + e < cols ? static_cast<float>(src[r * stride + c + e]) * s
+                            : 0.f;
     } else {
 #pragma unroll
       for (int e = 0; e < VN; ++e) t[e] = 0.f;
@@ -190,12 +235,12 @@ __device__ __forceinline__ float dot4(const float4 a, const float4 b) {
   return a.x * b.x + a.y * b.y + a.z * b.z + a.w * b.w;
 }
 
-template <typename T, int PB, int N>
+template <typename T, int PB, int N, bool PAD>
 __global__ void __launch_bounds__(kThreads, 1)
 ssd_scan_kernel(const T* __restrict__ x, const float* __restrict__ dt,
                 const float* __restrict__ a, const T* __restrict__ bm,
                 const T* __restrict__ cm, T* __restrict__ y, int S, int H,
-                int G, int P, int L, int nsplit) {
+                int G, int P, int L, int nsplit, int n, int pb) {
   constexpr int LDN = N + 4;
   constexpr int CP = PB / 16;   // y and state rows of p per thread
   constexpr int CN = N / 16;    // state columns of n per thread
@@ -218,14 +263,21 @@ ssd_scan_kernel(const T* __restrict__ x, const float* __restrict__ dt,
   const int g = h / (H / G);
   const float ah = a[h];
   const int nc = S / L, nt = (L + kRows - 1) / kRows;
+  // the real state width and this slice's rows of P (PB and N with PAD
+  // false); rows and columns are read as whole aligned vectors when vec
+  const int Nr = PAD ? n : N, rows = PAD ? pb : PB;
+  const int pr = PAD ? min(pb, P - split * pb) : PB;
+  constexpr int VN = Vec<T>::N;
+  const bool xvec = !PAD || (P % VN == 0 && pb % VN == 0);
+  const bool nvec = !PAD || Nr % VN == 0;
 
   const size_t xrow = size_t(H) * P;          // x / y stride along S
-  const size_t brow = size_t(G) * N;          // b / c stride along S
-  const T* xb = x + (size_t(b) * S * H + h) * P + size_t(split) * PB;
-  T* yb = y + (size_t(b) * S * H + h) * P + size_t(split) * PB;
+  const size_t brow = size_t(G) * Nr;         // b / c stride along S
+  const T* xb = x + (size_t(b) * S * H + h) * P + size_t(split) * rows;
+  T* yb = y + (size_t(b) * S * H + h) * P + size_t(split) * rows;
   const float* dtb = dt + size_t(b) * S * H + h;
-  const T* bb = bm + (size_t(b) * S * G + g) * N;
-  const T* cb = cm + (size_t(b) * S * G + g) * N;
+  const T* bb = bm + (size_t(b) * S * G + g) * Nr;
+  const T* cb = cm + (size_t(b) * S * G + g) * Nr;
 
   for (int i = tid; i < PB * LDN; i += kThreads) St[i] = 0.f;
 
@@ -264,8 +316,8 @@ ssd_scan_kernel(const T* __restrict__ x, const float* __restrict__ dt,
     for (int it = 0; it < nt; ++it) {
       const int t0 = it * kRows;
       __syncthreads();   // C_t, B_s, u_s and W of the last tile are free
-      stage<T, N, LDN>(Cs, cb + (c0 + t0) * brow, brow, min(kRows, L - t0),
-                       nullptr);
+      stage<T, N, LDN, PAD>(Cs, cb + (c0 + t0) * brow, brow,
+                            min(kRows, L - t0), nullptr, Nr, nvec);
       __syncthreads();
       float acc[4][CP];
 #pragma unroll
@@ -301,8 +353,10 @@ ssd_scan_kernel(const T* __restrict__ x, const float* __restrict__ dt,
         const int s0 = js * kRows;
         const int sn = min(kRows, L - s0);
         if (js > 0) __syncthreads();   // B_s, u_s and W of js - 1 are free
-        stage<T, N, LDN>(Bs, bb + (c0 + s0) * brow, brow, sn, nullptr);
-        stage<T, PB, PB>(Us, xb + (c0 + s0) * xrow, xrow, sn, dts + s0);
+        stage<T, N, LDN, PAD>(Bs, bb + (c0 + s0) * brow, brow, sn, nullptr,
+                              Nr, nvec);
+        stage<T, PB, PB, PAD>(Us, xb + (c0 + s0) * xrow, xrow, sn, dts + s0,
+                              pr, xvec);
         __syncthreads();
         // scores C_t B_s^T, masked (s <= t < L) before the decay's exp
         float sc[4][4];
@@ -382,7 +436,8 @@ ssd_scan_kernel(const T* __restrict__ x, const float* __restrict__ dt,
         if (t < L) {
 #pragma unroll
           for (int k = 0; k < CP; ++k)
-            Vec<T>::store(yb + (c0 + t) * xrow + tx + 16 * k, acc[i][k]);
+            if (!PAD || tx + 16 * k < pr)
+              Vec<T>::store(yb + (c0 + t) * xrow + tx + 16 * k, acc[i][k]);
         }
       }
     }
@@ -460,25 +515,34 @@ __device__ __forceinline__ void split_pair(float a, float b, uint32_t& hi,
 }
 
 // rows [0, n) of a (rows x COLS) bf16 slice into a padded tile by cp.async;
-// rows >= n are zero-filled by the copy (src-size 0)
-template <int ROWS, int COLS, int LD>
+// rows >= n are zero-filled by the copy (src-size 0); with PAD, so are the
+// columns past cols, and the rows are staged by attn_tc::copy_chunk (element
+// loads unless vec: aligned rows of whole 16-byte pieces)
+template <int ROWS, int COLS, int LD, bool PAD = false>
 __device__ __forceinline__ void stage(bf16* dst, const bf16* __restrict__ src,
-                                      size_t stride, int n) {
+                                      size_t stride, int n, int cols = COLS,
+                                      bool vec = true) {
   constexpr int CH = COLS / 8;            // 16 B pieces of a row
   for (int i = threadIdx.x; i < ROWS * CH; i += kThreads) {
     const int r = i / CH, c = (i % CH) * 8;
     const bool ok = r < n;
-    cp_async16(smem_u32(dst + r * LD + c),
-               ok ? src + size_t(r) * stride + c : src, ok);
+    if constexpr (PAD) {
+      attn_tc::copy_chunk(dst + r * LD + c,
+                          ok ? src + size_t(r) * stride : src, c / 8, cols,
+                          ok, vec);
+    } else {
+      cp_async16(smem_u32(dst + r * LD + c),
+                 ok ? src + size_t(r) * stride + c : src, ok);
+    }
   }
 }
 
-template <int PB, int N>
+template <int PB, int N, bool PAD>
 __global__ void __launch_bounds__(kThreads, 1)
 ssd_scan_tc_kernel(const bf16* __restrict__ x, const float* __restrict__ dt,
                    const float* __restrict__ a, const bf16* __restrict__ bm,
                    const bf16* __restrict__ cm, bf16* __restrict__ y, int S,
-                   int H, int G, int P, int L, int nsplit) {
+                   int H, int G, int P, int L, int nsplit, int n, int pb) {
   using SM = Smem<PB, N>;
   constexpr int LDN = SM::LDN, LDP = SM::LDP;
   constexpr int NK = N / 16;              // k16 steps over N
@@ -509,14 +573,20 @@ ssd_scan_tc_kernel(const bf16* __restrict__ x, const float* __restrict__ dt,
   const float ah = a[h];
   const int nc = S / L;
   const int nt = (L + TT - 1) / TT;
+  // the real state width and this slice's rows of P (as in the float32
+  // body); x rows are whole 16-byte pieces when xvec
+  const int Nr = PAD ? n : N, rows = PAD ? pb : PB;
+  const int pr = PAD ? min(pb, P - split * pb) : PB;
+  const bool xvec = !PAD || (P % 8 == 0 && pb % 8 == 0);
+  const bool nvec = !PAD || Nr % 8 == 0;
 
   const size_t xrow = size_t(H) * P;          // x / y stride along S
-  const size_t brow = size_t(G) * N;          // b / c stride along S
-  const bf16* xb = x + (size_t(b) * S * H + h) * P + size_t(split) * PB;
-  bf16* yb = y + (size_t(b) * S * H + h) * P + size_t(split) * PB;
+  const size_t brow = size_t(G) * Nr;         // b / c stride along S
+  const bf16* xb = x + (size_t(b) * S * H + h) * P + size_t(split) * rows;
+  bf16* yb = y + (size_t(b) * S * H + h) * P + size_t(split) * rows;
   const float* dtb = dt + size_t(b) * S * H + h;
-  const bf16* bb = bm + (size_t(b) * S * G + grp) * N;
-  const bf16* cb = cm + (size_t(b) * S * G + grp) * N;
+  const bf16* bb = bm + (size_t(b) * S * G + grp) * Nr;
+  const bf16* cb = cm + (size_t(b) * S * G + grp) * Nr;
 
   // this warp's tiles of the carried state (float32, in registers): m16
   // tile sm0, n8 tiles sn0 .. sn0 + NPW - 1
@@ -576,9 +646,10 @@ ssd_scan_tc_kernel(const bf16* __restrict__ x, const float* __restrict__ dt,
       const int w0 = t0 + 16 * warp;    // this warp's first t row
       const bool live = w0 < L;
       __syncthreads();   // C_t, B_s, x_s, x' and the tables are visible
-      stage<TT, N, LDN>(Cs, cb + (c0 + t0) * brow, brow, min(TT, L - t0));
-      stage<TS, N, LDN>(Bs, bb + c0 * brow, brow, L);
-      stage<TS, PB, LDP>(Xs, xb + c0 * xrow, xrow, L);
+      stage<TT, N, LDN, PAD>(Cs, cb + (c0 + t0) * brow, brow,
+                             min(TT, L - t0), Nr, nvec);
+      stage<TS, N, LDN, PAD>(Bs, bb + c0 * brow, brow, L, Nr, nvec);
+      stage<TS, PB, LDP, PAD>(Xs, xb + c0 * xrow, xrow, L, pr, xvec);
       attn_tc::cp_async_commit();
 
       float yacc[NP][4];
@@ -596,10 +667,12 @@ ssd_scan_tc_kernel(const bf16* __restrict__ x, const float* __restrict__ dt,
         const int buf = js & 1;
         if (js + 1 < ns) {
           const int s1 = s0 + TS;
-          stage<TS, N, LDN>(Bs + (buf ^ 1) * TS * LDN,
-                            bb + (c0 + s1) * brow, brow, L - s1);
-          stage<TS, PB, LDP>(Xs + (buf ^ 1) * TS * LDP,
-                             xb + (c0 + s1) * xrow, xrow, L - s1);
+          stage<TS, N, LDN, PAD>(Bs + (buf ^ 1) * TS * LDN,
+                                 bb + (c0 + s1) * brow, brow, L - s1, Nr,
+                                 nvec);
+          stage<TS, PB, LDP, PAD>(Xs + (buf ^ 1) * TS * LDP,
+                                  xb + (c0 + s1) * xrow, xrow, L - s1, pr,
+                                  xvec);
           attn_tc::cp_async_commit();
           attn_tc::cp_async_wait<1>();
         } else {
@@ -757,12 +830,27 @@ ssd_scan_tc_kernel(const bf16* __restrict__ x, const float* __restrict__ dt,
 #pragma unroll
         for (int j = 0; j < NP; ++j) {
           const int col = 8 * j + 2 * tq;
-          if (ta < L)
-            *reinterpret_cast<__nv_bfloat162*>(yb + (c0 + ta) * xrow + col) =
+          if constexpr (PAD) {   // element stores below the slice's rows
+            const __nv_bfloat162 va =
                 __floats2bfloat162_rn(yacc[j][0], yacc[j][1]);
-          if (tb < L)
-            *reinterpret_cast<__nv_bfloat162*>(yb + (c0 + tb) * xrow + col) =
+            const __nv_bfloat162 vb =
                 __floats2bfloat162_rn(yacc[j][2], yacc[j][3]);
+            bf16* ra = yb + (c0 + ta) * xrow + col;
+            bf16* rb = yb + (c0 + tb) * xrow + col;
+            if (ta < L && col < pr) ra[0] = __low2bfloat16(va);
+            if (ta < L && col + 1 < pr) ra[1] = __high2bfloat16(va);
+            if (tb < L && col < pr) rb[0] = __low2bfloat16(vb);
+            if (tb < L && col + 1 < pr) rb[1] = __high2bfloat16(vb);
+          } else {
+            if (ta < L)
+              *reinterpret_cast<__nv_bfloat162*>(yb + (c0 + ta) * xrow +
+                                                 col) =
+                  __floats2bfloat162_rn(yacc[j][0], yacc[j][1]);
+            if (tb < L)
+              *reinterpret_cast<__nv_bfloat162*>(yb + (c0 + tb) * xrow +
+                                                 col) =
+                  __floats2bfloat162_rn(yacc[j][2], yacc[j][3]);
+          }
         }
       }
     }
@@ -784,12 +872,12 @@ ssd_scan_tc_kernel(const bf16* __restrict__ x, const float* __restrict__ dt,
   }
 }
 
-template <int PB, int N>
+template <int PB, int N, bool PAD>
 int launch(const void* x, const void* dt, const void* a, const void* b,
-           const void* c, void* y, int B, int S, int H, int G, int P, int L,
-           int nsplit, cudaStream_t stream) {
+           const void* c, void* y, int B, int S, int H, int G, int P, int n,
+           int L, int nsplit, cudaStream_t stream) {
   const size_t smem = Smem<PB, N>::bytes(L);
-  auto kern = ssd_scan_tc_kernel<PB, N>;
+  auto kern = ssd_scan_tc_kernel<PB, N, PAD>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
   if (err != cudaSuccess) return int(err);
@@ -798,18 +886,18 @@ int launch(const void* x, const void* dt, const void* a, const void* b,
       static_cast<const bf16*>(x), static_cast<const float*>(dt),
       static_cast<const float*>(a), static_cast<const bf16*>(b),
       static_cast<const bf16*>(c), static_cast<bf16*>(y), S, H, G, P, L,
-      nsplit);
+      nsplit, n, (P + nsplit - 1) / nsplit);
   return int(cudaGetLastError());
 }
 
 }  // namespace tc
 
-template <typename T, int PB, int N>
+template <typename T, int PB, int N, bool PAD>
 int launch(const void* x, const void* dt, const void* a, const void* b,
-           const void* c, void* y, int B, int S, int H, int G, int P, int L,
-           int nsplit, cudaStream_t stream) {
+           const void* c, void* y, int B, int S, int H, int G, int P, int n,
+           int L, int nsplit, cudaStream_t stream) {
   const size_t smem = smem_bytes<PB, N>(L);
-  auto kern = ssd_scan_kernel<T, PB, N>;
+  auto kern = ssd_scan_kernel<T, PB, N, PAD>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
   if (err != cudaSuccess) return int(err);
@@ -817,73 +905,116 @@ int launch(const void* x, const void* dt, const void* a, const void* b,
   kern<<<unsigned(size_t(B) * H * nsplit), kThreads, smem, stream>>>(
       static_cast<const T*>(x), static_cast<const float*>(dt),
       static_cast<const float*>(a), static_cast<const T*>(b),
-      static_cast<const T*>(c), static_cast<T*>(y), S, H, G, P, L, nsplit);
+      static_cast<const T*>(c), static_cast<T*>(y), S, H, G, P, L, nsplit, n,
+      (P + nsplit - 1) / nsplit);
   return int(cudaGetLastError());
 }
 
 // float32: the CUDA-core body; bfloat16: the tensor-core body
-template <typename T, int PB, int N>
+template <typename T, int PB, int N, bool PAD>
 int route(const void* x, const void* dt, const void* a, const void* b,
-          const void* c, void* y, int B, int S, int H, int G, int P, int L,
-          int nsplit, cudaStream_t s) {
+          const void* c, void* y, int B, int S, int H, int G, int P, int n,
+          int L, int nsplit, cudaStream_t s) {
   if constexpr (std::is_same<T, float>::value)
-    return launch<float, PB, N>(x, dt, a, b, c, y, B, S, H, G, P, L, nsplit,
-                                s);
+    return launch<float, PB, N, PAD>(x, dt, a, b, c, y, B, S, H, G, P, n, L,
+                                     nsplit, s);
   else
-    return tc::launch<PB, N>(x, dt, a, b, c, y, B, S, H, G, P, L, nsplit, s);
+    return tc::launch<PB, N, PAD>(x, dt, a, b, c, y, B, S, H, G, P, n, L,
+                                  nsplit, s);
 }
 
-template <typename T, int PB>
+// N: the real state width, padded to 16, 32, 64 or 128 with PAD; PB the
+// slice's padded rows
+template <typename T, int PB, bool PAD>
 int dispatch_n(const void* x, const void* dt, const void* a, const void* b,
                const void* c, void* y, int B, int S, int H, int G, int P,
                int N, int L, int nsplit, cudaStream_t s) {
-  switch (N) {
-    case 16: return route<T, PB, 16>(x, dt, a, b, c, y, B, S, H, G, P, L,
-                                     nsplit, s);
-    case 32: return route<T, PB, 32>(x, dt, a, b, c, y, B, S, H, G, P, L,
-                                     nsplit, s);
-    case 64: return route<T, PB, 64>(x, dt, a, b, c, y, B, S, H, G, P, L,
-                                     nsplit, s);
-    case 128: return route<T, PB, 128>(x, dt, a, b, c, y, B, S, H, G, P, L,
-                                       nsplit, s);
+  const int nw = PAD ? (N <= 16 ? 16 : N <= 32 ? 32 : N <= 64 ? 64 : 128)
+                     : N;
+  switch (nw) {
+    case 16: return route<T, PB, 16, PAD>(x, dt, a, b, c, y, B, S, H, G, P,
+                                          N, L, nsplit, s);
+    case 32: return route<T, PB, 32, PAD>(x, dt, a, b, c, y, B, S, H, G, P,
+                                          N, L, nsplit, s);
+    case 64: return route<T, PB, 64, PAD>(x, dt, a, b, c, y, B, S, H, G, P,
+                                          N, L, nsplit, s);
+    case 128: return route<T, PB, 128, PAD>(x, dt, a, b, c, y, B, S, H, G,
+                                            P, N, L, nsplit, s);
     default: return int(cudaErrorInvalidValue);
   }
 }
 
-template <typename T>
+// PB: the slice's rows, ceil(P / nsplit), padded to 16, 32 or 64 with PAD
+template <typename T, bool PAD>
 int dispatch(const void* x, const void* dt, const void* a, const void* b,
              const void* c, void* y, int B, int S, int H, int G, int P, int N,
              int L, int nsplit, cudaStream_t s) {
-  switch (P / nsplit) {
-    case 16: return dispatch_n<T, 16>(x, dt, a, b, c, y, B, S, H, G, P, N, L,
-                                      nsplit, s);
-    case 32: return dispatch_n<T, 32>(x, dt, a, b, c, y, B, S, H, G, P, N, L,
-                                      nsplit, s);
-    case 64: return dispatch_n<T, 64>(x, dt, a, b, c, y, B, S, H, G, P, N, L,
-                                      nsplit, s);
+  const int pb = (P + nsplit - 1) / nsplit;
+  const int pw = PAD ? (pb <= 16 ? 16 : pb <= 32 ? 32 : 64) : pb;
+  switch (pw) {
+    case 16: return dispatch_n<T, 16, PAD>(x, dt, a, b, c, y, B, S, H, G, P,
+                                           N, L, nsplit, s);
+    case 32: return dispatch_n<T, 32, PAD>(x, dt, a, b, c, y, B, S, H, G, P,
+                                           N, L, nsplit, s);
+    case 64: return dispatch_n<T, 64, PAD>(x, dt, a, b, c, y, B, S, H, G, P,
+                                           N, L, nsplit, s);
     default: return int(cudaErrorInvalidValue);
   }
 }
 
 }  // namespace
 
+namespace ssd_parts {
+#if PART(1)
+int padded_f32(const void* x, const void* dt, const void* a, const void* b,
+               const void* c, void* y, int B, int S, int H, int G, int P,
+               int N, int L, int nsplit, void* stream) {
+  return dispatch<float, true>(x, dt, a, b, c, y, B, S, H, G, P, N, L,
+                               nsplit, static_cast<cudaStream_t>(stream));
+}
+#endif
+#if PART(2)
+int padded_tc(const void* x, const void* dt, const void* a, const void* b,
+              const void* c, void* y, int B, int S, int H, int G, int P,
+              int N, int L, int nsplit, void* stream) {
+  return dispatch<__nv_bfloat16, true>(x, dt, a, b, c, y, B, S, H, G, P, N,
+                                       L, nsplit,
+                                       static_cast<cudaStream_t>(stream));
+}
+#endif
+}  // namespace ssd_parts
+
+#if PART(0)
 // x, b, c, y: dtype 0 = float32, 1 = bfloat16; dt and a float32. All
-// contiguous, 16-byte aligned. P / nsplit in {16, 32, 64}, N in {16, 32,
-// 64, 128}, H % G == 0, S % L == 0. Returns cudaGetLastError() after the
+// contiguous, 16-byte aligned. P and N in 1 ... 128, ceil(P / nsplit) <=
+// 64 with no slice empty, H % G == 0, S % L == 0. P / nsplit in {16, 32,
+// 64} and N in {16, 32, 64, 128} run their exact instantiations, any
+// other sizes the padded ones. Returns cudaGetLastError() after the
 // launch.
 extern "C" int ssd_scan_launch(const void* x, const void* dt, const void* a,
                                const void* b, const void* c, void* y, int B,
                                int S, int H, int G, int P, int N, int L,
                                int nsplit, int dtype, void* stream) {
   if (B < 0 || S < 0 || H <= 0 || G <= 0 || H % G != 0 || L <= 0 ||
-      S % L != 0 || nsplit <= 0 || P % nsplit != 0 ||
-      size_t(B) * H * nsplit > 0x7fffffffu)
+      S % L != 0 || nsplit <= 0 || P < 1 || P > 128 || N < 1 || N > 128 ||
+      (P + nsplit - 1) / nsplit > 64 ||
+      (nsplit - 1) * ((P + nsplit - 1) / nsplit) >= P ||
+      size_t(B) * H * nsplit > 0x7fffffffu || (dtype != 0 && dtype != 1))
     return int(cudaErrorInvalidValue);
+  const int pb = P / nsplit;
+  const bool exact = P % nsplit == 0 && (pb == 16 || pb == 32 || pb == 64) &&
+                     (N == 16 || N == 32 || N == 64 || N == 128);
+  if (!exact)
+    return dtype == 0
+               ? ssd_parts::padded_f32(x, dt, a, b, c, y, B, S, H, G, P, N,
+                                       L, nsplit, stream)
+               : ssd_parts::padded_tc(x, dt, a, b, c, y, B, S, H, G, P, N,
+                                      L, nsplit, stream);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return dispatch<float>(x, dt, a, b, c, y, B, S, H, G, P, N, L, nsplit, s);
-  if (dtype == 1)
-    return dispatch<__nv_bfloat16>(x, dt, a, b, c, y, B, S, H, G, P, N, L,
-                                   nsplit, s);
-  return int(cudaErrorInvalidValue);
+    return dispatch<float, false>(x, dt, a, b, c, y, B, S, H, G, P, N, L,
+                                  nsplit, s);
+  return dispatch<__nv_bfloat16, false>(x, dt, a, b, c, y, B, S, H, G, P, N,
+                                        L, nsplit, s);
 }
+#endif

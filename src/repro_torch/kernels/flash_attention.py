@@ -14,8 +14,11 @@ only when ``causal`` is true, keeps i - j < window.
   tensor. bfloat16 inputs run on the tensor cores (the tile core of
   ``csrc/attention_tc.cuh``, which also rounds the softmax weights to
   bfloat16 for the P.V product), float32 inputs on the CUDA cores in
-  float32. ``kernels.ops.flash_attention`` is the entry point that takes
-  the twin for CPU tensors.
+  float32. Both take every head dim from 1 to ``MAX_HEAD_DIM``: 64, 128
+  and 256 run their own instantiations, any other D a body instantiated
+  at a padded width that reads past D as zeros (no operand is padded).
+  ``kernels.ops.flash_attention`` is the entry point that takes the twin
+  for CPU tensors.
 - ``flash_attention_ref`` is the plain PyTorch twin: the function of the
   JAX package's oracle (``repro/kernels/ref.py::flash_attention_ref``), a
   softmax over the full masked score rows in float32, a block of query
@@ -36,6 +39,8 @@ from repro_torch.kernels import build
 
 NEG_INF = -1e30
 Q_ROWS = 1024       # query rows per block of the twin
+MAX_HEAD_DIM = 256  # K5 takes head dims 1 ... MAX_HEAD_DIM (check_shapes)
+MAX_GRID_Y = 65535  # B * Hq: the float32 body's grid rows
 
 # launches of the CUDA kernel since the last reset_launch_counts()
 LAUNCHES: Dict[str, int] = {"flash_attention": 0}
@@ -108,6 +113,32 @@ def _raise_on(err: int, what: str) -> None:
         raise RuntimeError(f"{what} launch failed: cudaError {err}")
 
 
+def check_shapes(q_shape, k_shape, v_shape, q_dtype, k_dtype,
+                 v_dtype) -> int:
+    """What K5 takes, from shapes and dtypes alone: q (B, Sq, Hq, D), k, v
+    (B, Sk, Hkv, D). Raises TypeError on the dtypes and ValueError on the
+    shapes it does not take; returns the dtype's code."""
+    if q_dtype not in _DTYPES or k_dtype != q_dtype or v_dtype != q_dtype:
+        raise TypeError(f"K5 takes float32 or bfloat16 q/k/v of one dtype, "
+                        f"got {q_dtype}/{k_dtype}/{v_dtype}")
+    q_shape, k_shape, v_shape = (tuple(x) for x in (q_shape, k_shape,
+                                                    v_shape))
+    if len(q_shape) != 4 or len(k_shape) != 4 or k_shape != v_shape:
+        raise ValueError(f"need q (B, Sq, Hq, D) and k, v (B, Sk, Hkv, D), "
+                         f"got {q_shape}, {k_shape}, {v_shape}")
+    b, _, hq, d = q_shape
+    hkv = k_shape[2]
+    if k_shape[0] != b or k_shape[3] != d or not 1 <= d <= MAX_HEAD_DIM:
+        raise ValueError(f"batch and head_dim must match and head_dim be 1 "
+                         f"to {MAX_HEAD_DIM}, got q {q_shape} k {k_shape}")
+    if hkv < 1 or hq % hkv:
+        raise ValueError(f"need Hq % Hkv == 0, got {hq}/{hkv}")
+    if b * hq > MAX_GRID_Y:
+        raise ValueError(f"B * Hq = {b * hq} exceeds the grid's "
+                         f"{MAX_GRID_Y}")
+    return _DTYPES[q_dtype]
+
+
 def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             causal: bool, window: Optional[int],
             softcap: Optional[float]) -> torch.Tensor:
@@ -118,23 +149,9 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     for name, t in (("k", k), ("v", v)):
         if t.device != q.device:
             raise ValueError(f"{name} on {t.device}, q on {q.device}")
-    if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
-        raise TypeError(f"K5 takes float32 or bfloat16 q/k/v of one dtype, "
-                        f"got {q.dtype}/{k.dtype}/{v.dtype}")
-    if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
-        raise ValueError(f"need q (B, Sq, Hq, D) and k, v (B, Sk, Hkv, D), "
-                         f"got {tuple(q.shape)}, {tuple(k.shape)}, "
-                         f"{tuple(v.shape)}")
+    code = check_shapes(q.shape, k.shape, v.shape, q.dtype, k.dtype, v.dtype)
     b, sq, hq, d = q.shape
     sk, hkv = k.shape[1], k.shape[2]
-    if k.shape[0] != b or k.shape[3] != d or d not in (64, 128, 256):
-        raise ValueError(f"batch and head_dim must match and head_dim be 64, "
-                         f"128 or 256, got q {tuple(q.shape)} k "
-                         f"{tuple(k.shape)}")
-    if hkv < 1 or hq % hkv:
-        raise ValueError(f"need Hq % Hkv == 0, got {hq}/{hkv}")
-    if b * hq > 65535:
-        raise ValueError(f"B * Hq = {b * hq} exceeds the grid's 65535")
     if window is not None and window < 1:
         raise ValueError(f"window must be >= 1 or None, got {window}")
     if softcap is not None and not softcap > 0:
@@ -150,7 +167,7 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = lib.flash_attention_launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, sq,
-            sk, hq, hkv, d, int(causal), win, cap, _DTYPES[q.dtype], stream)
+            sk, hq, hkv, d, int(causal), win, cap, code, stream)
     _raise_on(err, "flash_attention_kernel")
     build.count_launch(LAUNCHES, "flash_attention")
     return out
@@ -160,7 +177,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: Optional[int] = None,
                     softcap: Optional[float] = None) -> torch.Tensor:
     """K5 on CUDA tensors: q (B, Sq, Hq, D), k, v (B, Sk, Hkv, D) ->
-    (B, Sq, Hq, D) in q's dtype; float32 or bfloat16, D 64, 128 or 256,
-    any Sq and Sk. Raises on a CPU tensor and in a backward."""
+    (B, Sq, Hq, D) in q's dtype; float32 or bfloat16, D 1 ... 256, any Sq
+    and Sk. Raises on a CPU tensor and in a backward."""
     return forward_only(_launch, q, k, v, causal=causal, window=window,
                         softcap=softcap)

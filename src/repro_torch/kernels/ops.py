@@ -6,7 +6,8 @@ Paged attention (``paged_decode``, ``paged_prefill``): ``impl`` is
 
 - "pallas": the hand-written Hopper kernel; raises on a CPU tensor;
 - "ref": the plain PyTorch twin, on any device;
-- "auto" / None: the kernel for CUDA tensors, the twin for CPU tensors;
+- "auto" / None: the kernel for CUDA tensors, the twin for CPU tensors
+  (recorded on the route it takes: "kernel" or "twin");
 - "gather": the JAX package's dense gather path: the slot's logical
   (B, npages * page, Hkv, D) view is materialised from the pools and the
   dense ``decode_attention`` / ``attention`` of ``models.attention`` run
@@ -62,7 +63,7 @@ def _resolve(impl: Optional[str], q: torch.Tensor, kind: str) -> str:
     if impl == "pallas" and q.device.type != "cuda":
         raise ValueError(f"paged_attn_impl='pallas' launches the CUDA kernel "
                          f"and needs CUDA tensors, got {q.device}")
-    return "ref" if impl == "ref" else "kernel"
+    return "ref" if impl == "ref" or q.device.type == "cpu" else "kernel"
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,

@@ -16,7 +16,10 @@ sits at absolute position ``starts[slot] + i``.
   (slot, kv head) is one cluster of ``DECODE_SPLITS`` blocks of
   ``DECODE_WARPS`` warps; each warp takes a contiguous run of the slot's
   key chunks and the cluster combines the 32 partials in worker order,
-  in one launch, for both dtypes.
+  in one launch, for both dtypes. Both kernels take every head dim from
+  1 to ``MAX_HEAD_DIM``: 64, 128 and 256 run their own instantiations,
+  any other D a body instantiated at a padded width that reads past D as
+  zeros (no operand is padded or copied).
 - ``paged_decode_ref`` / ``paged_prefill_ref`` are the plain PyTorch twins:
   the online softmax of the JAX package's twins, bounded by the batch-max
   live page count, in float32 whatever the input dtype. They step over
@@ -52,6 +55,12 @@ DECODE_CHUNK_BYTES = 2048
 
 # pages the twins attend in one step of their online softmax
 TWIN_PAGES = 32
+
+# what K3 and K4 take: head dims 1 ... MAX_HEAD_DIM, up to MAX_REP query
+# heads per kv head, pages of 1 ... MAX_PAGE rows (check_shapes)
+MAX_HEAD_DIM = 256
+MAX_REP = 32
+MAX_PAGE = 64
 
 # launches of each CUDA kernel since the last reset_launch_counts()
 LAUNCHES: Dict[str, int] = {"paged_decode": 0, "paged_prefill": 0}
@@ -171,6 +180,33 @@ def paged_prefill_ref(q: torch.Tensor, kp: torch.Tensor, vp: torch.Tensor,
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
+def check_shapes(q_shape, pool_shape, v_shape, q_dtype, k_dtype,
+                 v_dtype) -> int:
+    """What K3 and K4 take, from shapes and dtypes alone: q (..., Hq, D),
+    pools (P, page, Hkv, D). Raises TypeError on the dtypes and ValueError
+    on the shapes they do not take; returns the dtype's code."""
+    if q_dtype not in _DTYPES or k_dtype != q_dtype or v_dtype != q_dtype:
+        raise TypeError(f"paged kernels take float32 or bfloat16 q/kp/vp of "
+                        f"one dtype, got {q_dtype}/{k_dtype}/{v_dtype}")
+    pool_shape, v_shape = tuple(pool_shape), tuple(v_shape)
+    if pool_shape != v_shape or len(pool_shape) != 4:
+        raise ValueError(f"pools must be (P, page, Hkv, D), got "
+                         f"{pool_shape} / {v_shape}")
+    _, page_size, hkv, d = pool_shape
+    hq = q_shape[-2]
+    if q_shape[-1] != d or not 1 <= d <= MAX_HEAD_DIM:
+        raise ValueError(f"head_dim must match the pools and be 1 to "
+                         f"{MAX_HEAD_DIM}, got q {tuple(q_shape)} pools "
+                         f"{pool_shape}")
+    if hkv < 1 or hq % hkv or hq // hkv > MAX_REP:
+        raise ValueError(f"need Hq % Hkv == 0 and Hq/Hkv <= {MAX_REP}, got "
+                         f"{hq}/{hkv}")
+    if not 1 <= page_size <= MAX_PAGE:
+        raise ValueError(f"page_size must be in [1, {MAX_PAGE}], got "
+                         f"{page_size}")
+    return _DTYPES[q_dtype]
+
+
 def _check(q, kp, vp, page_table, ints):
     """Validate what the kernels take; returns (Hkv, D, page, npages,
     dtype code) or raises."""
@@ -179,26 +215,13 @@ def _check(q, kp, vp, page_table, ints):
                     *ints.items()):
         if t.device != dev:
             raise ValueError(f"{name} on {t.device}, q on {dev}")
-    if q.dtype not in _DTYPES or kp.dtype != q.dtype or vp.dtype != q.dtype:
-        raise TypeError(f"paged kernels take float32 or bfloat16 q/kp/vp of "
-                        f"one dtype, got {q.dtype}/{kp.dtype}/{vp.dtype}")
-    if kp.shape != vp.shape or kp.dim() != 4:
-        raise ValueError(f"pools must be (P, page, Hkv, D), got "
-                         f"{tuple(kp.shape)} / {tuple(vp.shape)}")
-    _, page_size, hkv, d = kp.shape
-    hq = q.shape[-2]
-    if q.shape[-1] != d or d not in (64, 128, 256):
-        raise ValueError(f"head_dim must match the pools and be 64, 128 or "
-                         f"256, got q {tuple(q.shape)} pools {tuple(kp.shape)}")
-    if hq % hkv or hq // hkv > 32:
-        raise ValueError(f"need Hq % Hkv == 0 and Hq/Hkv <= 32, got "
-                         f"{hq}/{hkv}")
-    if not 1 <= page_size <= 64:
-        raise ValueError(f"page_size must be in [1, 64], got {page_size}")
+    code = check_shapes(q.shape, kp.shape, vp.shape, q.dtype, kp.dtype,
+                        vp.dtype)
     for name, t in (("q", q), ("kp", kp), ("vp", vp)):
         if not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError(f"{name} must be contiguous and 16-byte aligned")
-    return hkv, d, page_size, page_table.shape[1], _DTYPES[q.dtype]
+    _, page_size, hkv, d = kp.shape
+    return hkv, d, page_size, page_table.shape[1], code
 
 
 def _i32(t: torch.Tensor) -> torch.Tensor:

@@ -18,7 +18,10 @@ head) the chunks run in order carrying a float32 state (P, N):
   products of a chunk on the tensor cores (bf16 ``mma.sync``, float32
   accumulation), each float32 operand (the decayed scores, the carried
   state, x scaled for the state update) entering as a bf16 hi + lo pair;
-  float32 inputs run float32 on the CUDA cores.
+  float32 inputs run float32 on the CUDA cores. Both take every head dim
+  P and state width N from 1 to ``MAX_SIZE``: today's sizes (16, 32, 64,
+  128) run their own instantiations, any other a body instantiated at a
+  padded width that reads past P and N as zeros (no operand is padded).
 - ``ssd_scan_ref`` is the plain PyTorch twin: the TPU kernel's formula,
   one chunk at a time (masked quadratic form, the carried state's term,
   the state update), batched over (batch, head). It is not the model's
@@ -41,7 +44,7 @@ import torch
 from repro_torch.kernels import build
 
 MAX_CHUNK = 2048       # per-row tables of a chunk sit in shared memory
-SIZES = (16, 32, 64, 128)   # head_dim P and state N the kernel takes
+MAX_SIZE = 128         # head_dim P and state N: 1 ... MAX_SIZE
 ROWS_MAX = 64          # state rows of P one block owns
 
 # launches of the CUDA kernel since the last reset_launch_counts()
@@ -122,9 +125,11 @@ def p_splits(blocks: int, p: int, sms: int) -> int:
     a block, halved (down to 16) while twice the blocks still fit one
     wave of ``sms`` blocks. Both K6 bodies run one block per SM, so a grid
     past ``sms`` blocks takes a second wave, and every slice recomputes
-    the scores C B^T. The slices compute the same values."""
+    the scores C B^T. A slice holds ceil(P / n) rows, the last one fewer.
+    The slices compute the same values."""
     n = 1
-    while p // n > ROWS_MAX or (2 * blocks * n <= sms and p // (2 * n) >= 16):
+    while -(-p // n) > ROWS_MAX or (2 * blocks * n <= sms
+                                    and -(-p // (2 * n)) >= 16):
         n *= 2
     return n
 
@@ -142,12 +147,43 @@ def _aligned(t: torch.Tensor) -> torch.Tensor:
     return t.clone() if t.data_ptr() % 16 else t
 
 
+def check_shapes(x_shape, dt_shape, a_shape, b_shape, c_shape, x_dtype,
+                 b_dtype, c_dtype, chunk: int) -> int:
+    """What K6 takes, from shapes and dtypes alone (the JAX package's
+    layouts). Raises TypeError on the dtypes and ValueError on the shapes
+    it does not take; returns the chunk length."""
+    if x_dtype not in _DTYPES or b_dtype != x_dtype or c_dtype != x_dtype:
+        raise TypeError(f"K6 takes float32 or bfloat16 x/b/c of one dtype, "
+                        f"got {x_dtype}/{b_dtype}/{c_dtype}")
+    x_shape, b_shape, c_shape = (tuple(t) for t in (x_shape, b_shape,
+                                                    c_shape))
+    if len(x_shape) != 4 or len(b_shape) != 4 or b_shape != c_shape:
+        raise ValueError(f"need x (B, S, H, P) and b, c (B, S, G, N), got "
+                         f"{x_shape}, {b_shape}, {c_shape}")
+    bsz, s, h, p = x_shape
+    g, n = b_shape[2], b_shape[3]
+    if (tuple(dt_shape) != (bsz, s, h) or tuple(a_shape) != (h,)
+            or b_shape[:2] != (bsz, s)):
+        raise ValueError(f"need dt (B, S, H), a (H,) and b/c (B, S, G, N) "
+                         f"for x {x_shape}, got dt {tuple(dt_shape)}, "
+                         f"a {tuple(a_shape)}, b {b_shape}")
+    if g < 1 or h % g:
+        raise ValueError(f"need H % G == 0, got H {h}, G {g}")
+    if not (1 <= p <= MAX_SIZE and 1 <= n <= MAX_SIZE):
+        raise ValueError(f"K6 takes P and N in 1 ... {MAX_SIZE}, got P {p}, "
+                         f"N {n}")
+    lc = _chunk_len(s, chunk)
+    if lc > MAX_CHUNK:
+        raise ValueError(f"chunk {lc} > {MAX_CHUNK}")
+    return lc
+
+
 def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a_log_neg: torch.Tensor,
              b: torch.Tensor, c: torch.Tensor, *,
              chunk: int = 128) -> torch.Tensor:
     """K6 on CUDA tensors: the signature and layouts of the JAX package's
     ``ssd_scan``. x, b, c float32 or bfloat16 of one dtype, P and N in
-    16/32/64/128, H % G == 0, S % min(chunk, S) == 0, chunk <= 2048; dt
+    1 ... 128, H % G == 0, S % min(chunk, S) == 0, chunk <= 2048; dt
     and a_log_neg are used in float32. Returns y (B, S, H, P) in x's
     dtype; the P state rows of a head are split across ``p_splits``
     blocks. Raises on a CPU tensor."""
@@ -159,27 +195,10 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a_log_neg: torch.Tensor,
                     ("c", c)):
         if t.device != x.device:
             raise ValueError(f"{name} on {t.device}, x on {x.device}")
-    if x.dtype not in _DTYPES or b.dtype != x.dtype or c.dtype != x.dtype:
-        raise TypeError(f"K6 takes float32 or bfloat16 x/b/c of one dtype, "
-                        f"got {x.dtype}/{b.dtype}/{c.dtype}")
-    if x.dim() != 4 or b.dim() != 4 or b.shape != c.shape:
-        raise ValueError(f"need x (B, S, H, P) and b, c (B, S, G, N), got "
-                         f"{tuple(x.shape)}, {tuple(b.shape)}, "
-                         f"{tuple(c.shape)}")
+    lc = check_shapes(x.shape, dt.shape, a_log_neg.shape, b.shape, c.shape,
+                      x.dtype, b.dtype, c.dtype, chunk)
     bsz, s, h, p = x.shape
     g, n = b.shape[2], b.shape[3]
-    if (tuple(dt.shape) != (bsz, s, h) or tuple(a_log_neg.shape) != (h,)
-            or tuple(b.shape[:2]) != (bsz, s)):
-        raise ValueError(f"need dt (B, S, H), a (H,) and b/c (B, S, G, N) "
-                         f"for x {tuple(x.shape)}, got dt {tuple(dt.shape)}, "
-                         f"a {tuple(a_log_neg.shape)}, b {tuple(b.shape)}")
-    if g < 1 or h % g:
-        raise ValueError(f"need H % G == 0, got H {h}, G {g}")
-    if p not in SIZES or n not in SIZES:
-        raise ValueError(f"K6 takes P and N in {SIZES}, got P {p}, N {n}")
-    lc = _chunk_len(s, chunk)
-    if lc > MAX_CHUNK:
-        raise ValueError(f"chunk {lc} > {MAX_CHUNK}")
     sms = torch.cuda.get_device_properties(x.device).multi_processor_count
     nsplit = p_splits(bsz * h, p, sms)
     x, b, c = (_aligned(t) for t in (x, b, c))

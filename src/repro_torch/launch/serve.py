@@ -86,6 +86,15 @@ A mesh whose 'model' axis cuts inside a q head (Qwen2-7B's 28 heads over
 16 ranks), or cuts SSM channels finer than their heads, serves too: the
 rank gathers the cut head's columns (``ServeShard.q_cols``) or keeps its
 channels of its heads (``SsmSplit.inner``).
+
+``--obs`` turns on the metrics registry and the span tracer
+(``repro_torch.obs``; off by default, at no cost); ``--trace-out F``
+(which implies ``--obs``) writes the tracer's events, the continuous
+engine's prefill, decode and verify spans among them, as Chrome-trace /
+Perfetto JSON to F on exit, in batch and front-door mode:
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --smoke \
+      --trace-out /tmp/serve_trace.json
 """
 from __future__ import annotations
 
@@ -99,7 +108,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from repro_torch import runtime_context
+from repro_torch import obs, runtime_context
 from repro_torch.config import RLConfig, ServeConfig
 from repro_torch.configs import get_config, smoke
 from repro_torch.data import Tokenizer
@@ -171,7 +180,29 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--deadline-s", type=float, default=0.0,
                     help="default TTFT deadline applied to front-door "
                          "requests (0 = none)")
+    # observability --------------------------------------------------------
+    ap.add_argument("--obs", action="store_true",
+                    help="enable the unified metrics registry + span "
+                         "tracer (off by default: zero-cost)")
+    ap.add_argument("--trace-out", default="",
+                    help="write a Chrome-trace/Perfetto JSON here on exit "
+                         "(implies --obs)")
     return ap.parse_args(argv)
+
+
+def parse_serve_config(args: argparse.Namespace) -> ServeConfig:
+    """The single deployment object the loose flags collapse into."""
+    return ServeConfig(
+        engine=args.engine, num_slots=args.slots, page_size=args.page_size,
+        prefill_chunk=args.prefill_chunk, sync_every=args.sync_every,
+        max_total_tokens=args.max_total_tokens
+        or args.prompt_len + args.max_new, num_pages=args.num_pages,
+        prefix_cache=not args.no_prefix_cache,
+        paged_attn_impl=args.paged_attn_impl, spec_k=args.spec_k,
+        spec_ngram_max=args.spec_ngram,
+        spec_rescore=not args.no_spec_rescore, host=args.host,
+        port=args.port, max_queue=args.max_queue,
+        default_deadline_s=args.deadline_s, seed=args.seed, mesh=args.mesh)
 
 
 @torch.no_grad()
@@ -207,28 +238,23 @@ def main(argv=None) -> None:
             device = f"cuda:{int(os.environ.get('LOCAL_RANK', '0'))}"
             torch.cuda.set_device(torch.device(device))
         dist.init_process_group("nccl" if args.device == "cuda" else "gloo")
+    if args.obs or args.trace_out:
+        obs.configure(True)
     try:
         _serve(args, device)
     finally:
         if world > 1:
             dist.destroy_process_group()
+        if args.trace_out and int(os.environ.get("RANK", "0")) == 0:
+            n = obs.export_chrome_trace(args.trace_out)
+            print(f"[serve] wrote {n} trace events -> {args.trace_out}")
 
 
 def _serve(args: argparse.Namespace, device: str) -> None:
     cfg = smoke(args.arch) if args.smoke else get_config(args.arch)
     if args.attn_impl:
         cfg = dataclasses.replace(cfg, attn_impl=args.attn_impl)
-    serve = ServeConfig(
-        engine=args.engine, num_slots=args.slots, page_size=args.page_size,
-        prefill_chunk=args.prefill_chunk, sync_every=args.sync_every,
-        max_total_tokens=args.max_total_tokens
-        or args.prompt_len + args.max_new, num_pages=args.num_pages,
-        prefix_cache=not args.no_prefix_cache,
-        paged_attn_impl=args.paged_attn_impl, spec_k=args.spec_k,
-        spec_ngram_max=args.spec_ngram,
-        spec_rescore=not args.no_spec_rescore, host=args.host,
-        port=args.port, max_queue=args.max_queue,
-        default_deadline_s=args.deadline_s, seed=args.seed, mesh=args.mesh)
+    serve = parse_serve_config(args)
     rl = RLConfig(temperature=args.temperature, top_k=args.top_k,
                   top_p=args.top_p, max_new_tokens=args.max_new,
                   engine=serve.engine)

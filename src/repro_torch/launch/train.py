@@ -3,8 +3,7 @@
 The port of ``repro/launch/train.py``: an SFT warm start, then GEPO (or
 any of the paper's loss types), online or heterogeneous, on the reduced
 (smoke) variant of ``--arch`` with random weights from ``--seed``, on
-``--device`` (default ``cuda``; the smoke variants have head_dim 64,
-which the kernels take). It prints a summary JSON at the end.
+``--device`` (default ``cuda``). It prints a summary JSON at the end.
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-1.7b \

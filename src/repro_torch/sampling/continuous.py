@@ -286,6 +286,15 @@ class ContinuousEngine:
     def free_pages(self) -> int:
         return self.sched.allocator.available
 
+    @property
+    def evictable_pages(self) -> int:
+        """Pages a prefix-cache flush could return to the free list."""
+        if self.prefix_cache is None:
+            return 0
+        alloc = self.sched.allocator
+        return sum(1 for ent in self.prefix_cache._entries.values()
+                   for pg in ent.pages if alloc.refcount(pg) == 1)
+
     def has_work(self) -> bool:
         return (bool(self._inbox) or self.sched.queue_depth > 0
                 or any(r is not None for r in self.sched.slots))

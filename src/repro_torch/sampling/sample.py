@@ -12,7 +12,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.sampling.prng import categorical
+from repro_torch.sampling.prng import categorical, gumbel
 
 NEG_INF = -1e30
 
@@ -51,6 +51,26 @@ def filter_logits(logits: torch.Tensor, *, temperature: float = 1.0,
         kth = sorted_logits.gather(-1, keep_sorted.sum(-1, keepdim=True) - 1)
         logits = torch.where(logits < kth, NEG_INF, logits)
     return logits
+
+
+def sample_token(key: torch.Tensor, logits: torch.Tensor, *,
+                 temperature: float = 1.0, top_k: int = 0,
+                 top_p: float = 1.0):
+    """One draw from one threefry key (2,) over float32 logits (..., V),
+    as the JAX package's ``sample_token``: ``jax.random.categorical(key,
+    filtered)`` takes noise of the logits' whole shape from the one key.
+    Returns (token (...), logp under the sampling distribution (...),
+    logp under the model (...)). The model logp (pre-filter, temperature
+    1) is what the learner recomputes; the filtered distribution is only
+    used to draw."""
+    filt = filter_logits(logits, temperature=temperature, top_k=top_k,
+                         top_p=top_p)
+    tok = torch.argmax(filt + gumbel(key, filt.shape), dim=-1)
+    lp_model = torch.log_softmax(logits, dim=-1).gather(
+        -1, tok[..., None])[..., 0]
+    lp_filt = torch.log_softmax(filt, dim=-1).gather(
+        -1, tok[..., None])[..., 0]
+    return tok, lp_filt, lp_model
 
 
 def sample_token_rows(keys: torch.Tensor, logits: torch.Tensor, *,

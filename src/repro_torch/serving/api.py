@@ -79,6 +79,14 @@ class SamplingParams:
                    top_p=rl.top_p,
                    max_new_tokens=max_new or rl.max_new_tokens)
 
+    def rl(self, base: Optional[RLConfig] = None) -> RLConfig:
+        """An RLConfig carrying this profile (the engines' sampling
+        argument)."""
+        base = base or RLConfig()
+        return dataclasses.replace(base, temperature=self.temperature,
+                                   top_k=self.top_k, top_p=self.top_p,
+                                   max_new_tokens=self.max_new_tokens)
+
 
 @dataclasses.dataclass
 class Request:

@@ -11,10 +11,11 @@ runs each case on its ``serve`` or ``long`` plan (``mode``, default
 ``serve``): ``generate_continuous`` ("generate"), the engine itself
 ("engine", "spec", "prefix"), the static engine ("static"), the engine
 with each rank running the next
-rank's experts ("control_experts"), or the threaded runtime on a 1x2
-sampler plan ("threads"). A MoE case (``drops``) also runs one device's
+rank's experts ("control_experts"), or the threaded runtime ("threads") on a 1x2
+sampler plan, on a live 2x1 learner plan (``learner``: its mode and
+mesh) or on both. A MoE case (``drops``) also runs one device's
 engine in the rank and records the ``moe_drop_frac`` of every MoE
-forward of both runs. It writes, per rank, ``WORKDIR/out_<rank>.npz``:
+forward of both runs, and the one device's tokens and log-probs. It writes, per rank, ``WORKDIR/out_<rank>.npz``:
 each case's tokens and log-probs, the element count and device of every
 param and pool leaf the rank holds, and what the case records besides.
 Imports torch and the port only.
@@ -319,9 +320,10 @@ def _refusals(cfg, params, plans, out):
 
 
 def _threads_case(case, cfg, params, plans, out):
-    """``ThreadedHeteroRuntime.run`` on the 1x2 sampler plan (rank 0 runs
-    the threads, rank 1 replays its sections): every batch a rank's
-    samplers generate, in order, and the learner's staleness."""
+    """``ThreadedHeteroRuntime.run`` on the 1x2 sampler plan (``sampler``,
+    default on) and/or a live learner plan (``learner``: [mode, mesh]);
+    rank 0 runs the threads, rank 1 replays its sections: every batch a
+    rank's samplers generate, in order, and the learner's staleness."""
     from repro_torch import training
     from repro_torch.config import HeteroConfig, RLConfig, TrainConfig
     from repro_torch.data import ArithmeticTask, Tokenizer
@@ -334,11 +336,15 @@ def _threads_case(case, cfg, params, plans, out):
     task = ArithmeticTask(max_operand=9, ops="+", prompt_width=5, seed=7)
     hc = HeteroConfig(num_samplers=2, max_delay_steps=16,
                       delay_median_s=120.0, seed=7)
+    learner = case.get("learner")
     rt = ThreadedHeteroRuntime(
         cfg, rl, tc, hc, task, Tokenizer(),
         training.init_state(cfg, tc, params), prompts_per_batch=4,
         time_scale=5e-3, device="cpu",
-        sampler_plan=plans[("serve", (1, 2))])
+        sampler_plan=plans[("serve", (1, 2))] if case.get("sampler", True)
+        else None,
+        learner_plan=None if learner is None
+        else plans[(learner[0], tuple(learner[1]))])
     seen = []
     for s in rt.samplers:
         def recorded(now_s, gen=s.generate_batch):
@@ -383,7 +389,7 @@ def main():
         meshes[tuple(dims)] = make_mesh(tuple(dims), ("data", "model"),
                                         device="cpu")
     _record_drops()
-    for mode in ("serve", "long", "train_fsdp"):
+    for mode in ("serve", "long", "train", "train_fsdp"):
         for dims, mesh in meshes.items():
             plans[(mode, dims)] = ExecutionPlan(mesh, mode)
     for case in spec["cases"]:
@@ -413,8 +419,10 @@ def main():
         if case.get("drops"):             # the plan's, then one device's
             out[f"{name}/drops"] = np.array(DROPS)
             DROPS.clear()
-            _drive(case, cfg, params, None, inputs, out)
+            _, one = _drive(case, cfg, params, None, inputs, out)
             out[f"{name}/drops_one"] = np.array(DROPS)
+            for key, val in zip(("tokens", "logps", "lengths"), one):
+                out[f"{name}/{key}_one"] = val
         out[f"{name}/tokens"], out[f"{name}/logps"] = toks, lps
         out[f"{name}/lengths"] = lens
         if eng is not None:

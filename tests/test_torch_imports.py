@@ -34,7 +34,9 @@ def test_modules_import_without_jax_or_repro():
     assert "repro_torch.kernels.paged_attention" in mods
     assert {"repro_torch.parallel.step", "repro_torch.parallel.collectives",
             "repro_torch.models.moe_ep", "repro_torch.runtime_context",
-            "repro_torch.launch.sharding"} <= set(mods)
+            "repro_torch.launch.sharding", "repro_torch.examples.quickstart",
+            "repro_torch.examples.hetero_train",
+            "repro_torch.examples.serve_batch"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"

@@ -303,9 +303,14 @@ def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
         decode_inputs(page=16, rep=2, d=128), cuda, torch.float32)
     with pytest.raises(TypeError):
         pa.paged_attention(q.half(), kp, vp, table, lengths)
-    with pytest.raises(ValueError, match="head_dim"):
-        pa.paged_attention(q[..., :96].contiguous(), kp[..., :96].contiguous(),
-                           vp[..., :96].contiguous(), table, lengths)
+    # every head dim 1 ... 256 is taken; one past it is refused
+    wide = [torch.cat([t, t, t[..., :1]], -1).contiguous()
+            for t in (q, kp, vp)]
+    with pytest.raises(ValueError, match="head_dim .* 1 to 256"):
+        pa.paged_attention(*wide, table, lengths)
+    with pytest.raises(ValueError, match="Hq/Hkv <= 32"):
+        pa.paged_attention(torch.cat([q] * 17, 1).contiguous(), kp, vp,
+                           table, lengths)
     with pytest.raises(ValueError, match="on"):
         pa.paged_attention(q, kp.cpu(), vp, table, lengths)
 
@@ -607,12 +612,14 @@ def test_flash_kernel_gqa_packing(cuda, dtype, hq, hkv, d):
 
 # the bf16 bodies on the tensor cores and the float32 bodies that must
 # stay on the CUDA cores, by the names of their kernels in the library,
-# with their instantiations: D 64, 128, 256 for K5 and K4; P slice 16, 32,
-# 64 x N 16, 32, 64, 128 for K6
-TC_KERNELS = {"flash_attention_tc_kernel": 3, "paged_prefill_tc_kernel": 3}
-F32_KERNELS = {"flash_attention_kernel": 3, "paged_prefill_kernel": 3}
-SSD_TC_KERNELS = {"ssd_scan_tc_kernel": 12}
-SSD_F32_KERNELS = {"ssd_scan_kernel": 12}
+# with their instantiations: K5 and K4 at D 64, 128, 256 and padded at the
+# 16 multiples of 16 (bf16), K5's float32 body padded at 64, 128, 192,
+# 256, K4's at the 8 multiples of 32; K6 at P slice 16, 32, 64 x N 16,
+# 32, 64, 128, exact and padded
+TC_KERNELS = {"flash_attention_tc_kernel": 19, "paged_prefill_tc_kernel": 19}
+F32_KERNELS = {"flash_attention_kernel": 7, "paged_prefill_kernel": 11}
+SSD_TC_KERNELS = {"ssd_scan_tc_kernel": 24}
+SSD_F32_KERNELS = {"ssd_scan_kernel": 24}
 
 
 def _check_tensor_cores(tc, f32):
@@ -635,9 +642,9 @@ def _check_tensor_cores(tc, f32):
 
 
 def test_bf16_attention_kernels_use_tensor_cores(cuda):
-    """Every bf16 instantiation of K5 and K4 (D 64, 128, 256) runs its
-    products on the tensor cores without spilling; their float32 bodies
-    do not use them."""
+    """Every bf16 instantiation of K5 and K4 (D 64, 128, 256 and the padded
+    widths) runs its products on the tensor cores without spilling; their
+    float32 bodies do not use them."""
     _check_tensor_cores(TC_KERNELS, F32_KERNELS)
 
 
@@ -662,8 +669,10 @@ def test_flash_wrapper_rejects_what_the_kernel_does_not_take(cuda):
     fa.reset_launch_counts()
     with pytest.raises(TypeError):
         fa.flash_attention(q.half(), k, v)
-    with pytest.raises(ValueError, match="head_dim"):
-        fa.flash_attention(*(t[..., :96].contiguous() for t in (q, k, v)))
+    # every head dim 1 ... 256 is taken; one past it is refused
+    with pytest.raises(ValueError, match="head_dim be 1 to 256"):
+        fa.flash_attention(*(torch.cat([t, t, t[..., :1]], -1).contiguous()
+                             for t in (q, k, v)))
     with pytest.raises(ValueError, match="on"):
         fa.flash_attention(q, k.cpu(), v)
     with pytest.raises(ValueError, match="CUDA"):
@@ -820,8 +829,13 @@ def test_ssd_wrapper_rejects_what_the_kernel_does_not_take(cuda):
         ss.ssd_scan(x.half(), dt, a, bm.half(), cm.half())
     with pytest.raises(ValueError, match="S %"):
         ss.ssd_scan(x, dt, a, bm, cm, chunk=48)
-    with pytest.raises(ValueError, match="P and N"):
-        ss.ssd_scan(x[..., :24].contiguous(), dt, a, bm, cm)
+    # every P and N 1 ... 128 is taken; one past it is refused
+    with pytest.raises(ValueError, match="P and N in 1 ... 128"):
+        ss.ssd_scan(torch.cat([x] * 5, -1)[..., :129].contiguous(), dt, a,
+                    bm, cm)
+    with pytest.raises(ValueError, match="P and N in 1 ... 128"):
+        ss.ssd_scan(x, dt, a, *(torch.cat([t] * 5, -1)[..., :129]
+                                .contiguous() for t in (bm, cm)))
     with pytest.raises(ValueError, match="H % G"):
         ss.ssd_scan(x[:, :, :3].contiguous(), dt[:, :, :3].contiguous(),
                     a[:3], bm, cm)
@@ -1344,3 +1358,116 @@ def test_moe_engine_pallas_matches_ref_greedy_on_card(cuda):
     for a, b in zip(out["pallas"], out["ref"]):
         np.testing.assert_array_equal(a.tokens, b.tokens)
         np.testing.assert_allclose(a.logps, b.logps, atol=1e-4, rtol=0)
+
+
+# --------------------------------------------------------------------------
+# Every head dim 1 ... 256 (K3, K4, K5) and every P, N 1 ... 128 (K6): the
+# padded instantiations against the twins at the bars above. The widths
+# straddle each padded width (31, 33; 127, 129), hit rows that are not
+# 16-byte aligned in bf16 (D 12, 20, 100) or in float32 (D 1, 31, 33, 127),
+# and include the repo's small models (bench-lm D 24, serve-bench and
+# spec-lm D 32, the tests' TINYs D 16 and 12) and the reference's kernel
+# tests (D 32, SSD N 8).
+
+WIDTHS = (1, 12, 16, 20, 24, 31, 32, 33, 48, 80, 96, 100, 127, 129, 200,
+          255)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", WIDTHS)
+@pytest.mark.parametrize("rep,window,cap", [(1, None, None), (4, 9, 30.0)])
+def test_decode_kernel_at_every_width(cuda, dtype, d, rep, window, cap):
+    q, kp, vp, table, lens = _dev(
+        decode_inputs(page=8, rep=rep, d=d, seed=d), cuda, dtype)
+    pa.reset_launch_counts()
+    got = pa.paged_attention(q, kp, vp, table, lens, window=window,
+                             softcap=cap)
+    want = pa.paged_decode_ref(q.float(), kp.float(), vp.float(), table,
+                               lens, window=window, softcap=cap)
+    torch.cuda.synchronize()
+    assert pa.LAUNCHES["paged_decode"] == 1
+    live = lens <= table.shape[1] * 8
+    torch.testing.assert_close(got[live].float(), want[live], rtol=0,
+                               atol=TOL[dtype])
+    assert not got[~live].any()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", WIDTHS)
+@pytest.mark.parametrize("rep,window,cap", [(2, None, None), (8, 20, 50.0)])
+def test_prefill_kernel_at_every_width(cuda, dtype, d, rep, window, cap):
+    q, kp, vp, table, positions = _dev(
+        prefill_inputs(page=16, rep=rep, d=d, c=77, seed=d), cuda, dtype)
+    kind = "local" if window else "causal"
+    pa.reset_launch_counts()
+    got = ops.paged_prefill(q, kp, vp, table, positions, kind=kind,
+                            window=window, softcap=cap, impl="pallas")
+    want = ops.paged_prefill(q.float(), kp.float(), vp.float(), table,
+                             positions, kind=kind, window=window,
+                             softcap=cap, impl="ref")
+    torch.cuda.synchronize()
+    assert pa.LAUNCHES["paged_prefill"] == 1
+    torch.testing.assert_close(got.float(), want, rtol=0, atol=TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", WIDTHS)
+@pytest.mark.parametrize("rep,mask", [(1, "causal"), (3, "window+softcap"),
+                                      (2, "bidir")])
+def test_flash_kernel_at_every_width(cuda, dtype, d, rep, mask):
+    kw = {"causal": dict(causal=True),
+          "window+softcap": dict(causal=True, window=50, softcap=30.0),
+          "bidir": dict(causal=False)}[mask]
+    q, k, v = _flash_inputs(cuda, dtype, s=160, rep=rep, d=d, seed=d)
+    _flash_check(q, k, v, **kw)
+
+
+def test_padded_widths_write_only_their_columns(cuda):
+    """Outputs of a padded width land in their own (B, ..., D) rows: a
+    view of a wider buffer beside them keeps its poison."""
+    q, kp, vp, table, lens = _dev(
+        decode_inputs(page=8, rep=2, d=20, seed=3), cuda, torch.bfloat16)
+    buf = torch.full((2,) + tuple(q.shape), float("nan"), device=cuda,
+                     dtype=q.dtype)
+    out = pa.paged_attention(q, kp, vp, table, lens)
+    buf[0] = out
+    assert torch.isnan(buf[1]).all()
+    live = lens <= table.shape[1] * 8
+    assert torch.isfinite(out[live].float()).all()
+
+
+# (B, S, H, P, G, N, chunk): the reference's sweep (tests/test_kernels.py,
+# chunk 32) and its bf16 shape, P 24 x N 48, P and N not multiples of 4
+# or 8, P 100 (two slices of 50) and 127, N 1 and 128 beside P 128
+SSD_PADDED = [(1, 64, 2, 16, 1, 8, 32), (2, 128, 4, 32, 2, 16, 32),
+              (1, 256, 8, 64, 1, 32, 32), (2, 192, 4, 24, 2, 48, 64),
+              (1, 96, 3, 13, 1, 21, 48), (2, 128, 2, 100, 2, 7, 64),
+              (1, 64, 2, 127, 1, 1, 64), (1, 128, 2, 128, 1, 100, 128),
+              (1, 160, 2, 5, 1, 128, 80)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", SSD_PADDED)
+def test_ssd_kernel_at_padded_sizes(cuda, dtype, case):
+    b, s, h, p, g, n, chunk = case
+    args = _ssd_inputs(cuda, dtype, b, s, h, p, g, n, seed=p + n)
+    ss.reset_launch_counts()
+    got = ss.ssd_scan(*args, chunk=chunk)
+    want = _ssd_twin(*args, chunk)
+    torch.cuda.synchronize()
+    assert ss.LAUNCHES["ssd_scan"] == 1
+    assert got.dtype == dtype and got.shape == args[0].shape
+    assert ss.error_ratio(got, want) <= 1.0
+
+
+def test_ssd_padded_slices_are_bit_identical(cuda):
+    """P 100 over 8 heads: a batch of 16 runs two slices of 50 rows a head,
+    its first row alone four of 25; both give the same bits."""
+    args = _ssd_inputs(cuda, torch.bfloat16, 16, 128, 8, 100, 1, 24, seed=5)
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    assert ss.p_splits(16 * 8, 100, sms) == 2
+    assert ss.p_splits(8, 100, sms) == 4
+    whole = ss.ssd_scan(*args, chunk=64)
+    first = ss.ssd_scan(*(t[:1] if t.dim() > 1 else t for t in args),
+                        chunk=64)
+    assert torch.equal(first.view(torch.int16), whole[:1].view(torch.int16))

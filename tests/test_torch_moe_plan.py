@@ -32,6 +32,15 @@ the reference's unplanned tokens through it on 1x2.
 
 Per rank, every param leaf holds the element count of the fitted serve
 shardings, and the pools their KV heads over 'model'.
+
+Speculative decoding on a plan: scout's smoke with ``spec_k`` 3 on the
+2x1 and 2x2 serve plans, at capacity 1.25 and 0.5, over prompts of
+repeated motifs (so drafts are proposed and verified), against one
+device's spec engine on the same weights, prompts and key in the rank:
+tokens equal, log-probs within 1e-4, the same drops in every MoE forward.
+A verify round forwards each slot's window, so its tokens share the
+capacity differently from a decode step's: one device's spec run, not
+the non-speculative reference, is the run to match.
 """
 import dataclasses
 import json
@@ -87,6 +96,9 @@ ENGINE = dict(max_new=6, vocab_limit=500, num_slots=2, page_size=4,
               sync_every=2, prefill_chunk=16)
 TRAFFIC = ("scout", "maverick", "scout_drop")
 TOL_LP = 1e-4
+# speculative decoding on the plans that split the slots over 'data'
+SPEC_PLANS = [(2, 1), (2, 2)]
+SPEC_MODELS = ("scout", "scout_drop")
 
 
 def _tag(dims):
@@ -104,10 +116,13 @@ def _jcfg(model):
 
 def _inputs():
     rng = np.random.default_rng(31)
+    motifs = np.random.default_rng(32)
     return {"p24": rng.integers(3, 500, (4, 24)),
             "fwd": rng.integers(3, 512, (4, 13)),
             "x": (0.5 * rng.standard_normal((4, 16, 64))).astype(
-                np.float32)}
+                np.float32),
+            "pat": np.stack([np.tile(motifs.integers(3, 500, n), 24)[:24]
+                             for n in (3, 4, 5, 6)])}
 
 
 def _cases(world):
@@ -124,6 +139,12 @@ def _cases(world):
                                max_new=ENGINE["max_new"],
                                vocab_limit=ENGINE["vocab_limit"],
                                drops=True))
+        if dims in SPEC_PLANS:
+            for model in SPEC_MODELS:
+                serve.append(dict(base, name=f"{tag}/{model}/spec",
+                                  kind="spec", model=model, drops=True,
+                                  prompts="pat",
+                                  engine=dict(ENGINE, spec_k=3, max_new=8)))
         static.append(dict(name=f"{tag}/forward", kind="forward",
                            model="scout_drop", mode="serve",
                            mesh=list(dims), prompts="fwd"))
@@ -280,6 +301,27 @@ def test_moe_plan_matches_the_unplanned_reference(request, reference, dims,
         assert len(out[f"{name}/drops"]) > 0
     if model == "scout_drop":
         assert max(ranks[0][f"{name}/drops"]) > 0
+
+
+@pytest.mark.parametrize("dims", SPEC_PLANS, ids=_tag)
+@pytest.mark.parametrize("model", SPEC_MODELS)
+def test_scout_spec_on_a_plan_matches_one_device(request, dims, model):
+    name = f"{_tag(dims)}/{model}/spec"
+    for r, out in enumerate(_ranks(request, dims)):
+        np.testing.assert_array_equal(out[f"{name}/lengths"],
+                                      out[f"{name}/lengths_one"])
+        np.testing.assert_array_equal(out[f"{name}/tokens"],
+                                      out[f"{name}/tokens_one"],
+                                      err_msg=f"rank {r}")
+        np.testing.assert_allclose(out[f"{name}/logps"],
+                                   out[f"{name}/logps_one"], rtol=0,
+                                   atol=TOL_LP, err_msg=f"rank {r}")
+        np.testing.assert_array_equal(out[f"{name}/drops"],
+                                      out[f"{name}/drops_one"])
+        rounds, drafted, rescore = out[f"{name}/spec"]
+        assert rounds > 0 and drafted > 0 and rescore == 0.0
+    if model == "scout_drop":
+        assert max(_ranks(request, dims)[0][f"{name}/drops"]) > 0
 
 
 @pytest.mark.parametrize("dims", PLANS, ids=_tag)

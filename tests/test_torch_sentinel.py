@@ -202,9 +202,11 @@ def test_front_door_metrics_carry_the_launch_series():
     for kernel in ("paged_decode", "paged_prefill"):
         assert (f'kernel_launch_shapes_total{{kernel="{kernel}",'
                 f'route="twin"}}') in text
+    # the series by its labels: other engines of the process may have
+    # added series of other routes, which sort anywhere
     launches = [line for line in text.splitlines()
                 if line.startswith('kernel_launches_total{kernel='
-                                   '"paged_decode"')]
+                                   '"paged_decode",route="twin"}')]
     assert launches and float(launches[0].split()[-1]) > 0
 
 

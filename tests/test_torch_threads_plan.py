@@ -12,6 +12,10 @@ reference's ``tests/test_hetero.py::TestThreadedRuntime`` on its ``TINY``
 (every learner step taken, staleness within the 16-step window, finite
 loss), and the run ends with rank 0's "stop", well inside the group's
 60 s collective timeout.
+
+The same holds with a live 2x1 learner plan (``train`` and ``train_fsdp``)
+alone, whose rank 0 then orders the sections, and beside the 1x2 sampler
+plan.
 """
 from pathlib import Path
 
@@ -31,6 +35,13 @@ TINY = dict(name="tiny", family="dense", num_layers=2, d_model=48,
             attn_impl="naive", remat=False, rope_theta=1e4,
             paged_attn_impl="ref")
 STEPS = 6
+# the threaded runtime on a live 2x1 learner plan, alone and beside the 1x2
+# sampler plan
+LEARNER_CASES = {
+    "train_2x1": dict(learner=["train", [2, 1]], sampler=False),
+    "fsdp_2x1": dict(learner=["train_fsdp", [2, 1]], sampler=False),
+    "fsdp_2x1_samplers_1x2": dict(learner=["train_fsdp", [2, 1]]),
+}
 
 
 @pytest.fixture(scope="module")
@@ -41,7 +52,9 @@ def ranks(tmp_path_factory):
     out = {"tiny/" + "/".join(p.key for p in path): np.asarray(leaf)
            for path, leaf in jax.tree_util.tree_flatten_with_path(params)[0]}
     spec = {"cases": [dict(name="threads", kind="threads", model="tiny",
-                           steps=STEPS)],
+                           steps=STEPS)]
+            + [dict(name=name, kind="threads", model="tiny", steps=STEPS,
+                    **kw) for name, kw in LEARNER_CASES.items()],
             "models": {"tiny": TINY}, "meshes": [[1, 2], [2, 1]]}
     return run_job(tmp_path_factory.mktemp("threads"), spec, out, world=2,
                    script=SCRIPT)
@@ -65,3 +78,20 @@ def test_the_reference_thresholds_hold_and_the_run_ends(ranks):
         assert out["threads/staleness"].max() <= 16
         assert np.isfinite(out["threads/loss"]).all()
         assert float(out["threads/seconds"]) < 60.0
+
+
+@pytest.mark.parametrize("case", sorted(LEARNER_CASES))
+def test_a_live_learner_plan_keeps_both_ranks_in_step(ranks, case):
+    lead, follow = ranks
+    assert bool(lead[f"{case}/leader"])
+    assert not bool(follow[f"{case}/leader"])
+    assert len(lead[f"{case}/batch_meta"]) >= STEPS
+    for key in ("batch_meta", "batch_tokens", "batch_lp", "staleness",
+                "loss", "kl", "iw_var"):
+        np.testing.assert_array_equal(lead[f"{case}/{key}"],
+                                      follow[f"{case}/{key}"], err_msg=key)
+    for out in ranks:
+        assert int(out[f"{case}/steps"]) == STEPS
+        assert out[f"{case}/staleness"].max() <= 16
+        assert np.isfinite(out[f"{case}/loss"]).all()
+        assert float(out[f"{case}/seconds"]) < 60.0
