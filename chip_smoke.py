@@ -688,6 +688,29 @@ def library_ms(q, k, v, attn_mask=None, iters=20, device=False, **kw):
         q, k, v, attn_mask=attn_mask, **kw), iters=iters)
 
 
+def k4_f32_ms(q, kp, vp, table, pos, splits):
+    """CUDA-event time of K4's float32 body on float32 inputs at a given
+    key split, through the C entry point (no launch counted): beside the
+    wrapper's own split (``pa.K4_F32_SPLITS``), what splitting buys."""
+    lib = build.load()
+    b, c, hq, d = q.shape
+    page, hkv = kp.shape[1], kp.shape[2]
+    table = table.to(torch.int32).contiguous()
+    starts = pos[:, 0].to(torch.int32).contiguous()
+    lens = (pos[:, -1] + 1).to(torch.int32).contiguous()
+    out = torch.empty_like(q)
+
+    def launch():  # noqa: RA004 — a yardstick beside the main path's split: counted nowhere
+        pa._check(q, kp, vp, table, {"lengths": lens, "starts": starts})
+        err = lib.paged_prefill_launch(
+            q.data_ptr(), kp.data_ptr(), vp.data_ptr(), table.data_ptr(),
+            lens.data_ptr(), starts.data_ptr(), out.data_ptr(), b, c, hq, hkv,
+            d, page, table.shape[1], -1, 0.0, 0, splits,
+            torch.cuda.current_stream(q.device).cuda_stream)
+        pa._raise_on(err, "paged_prefill_kernel")
+    return time_ms(launch)
+
+
 def max_err(got, want, rows=slice(None)):
     return float((got[rows].float() - want[rows].float()).abs().max())
 
@@ -861,14 +884,26 @@ def kernel_phase(dev, seed):
         ms_f32=time_ms(lambda: ops.paged_prefill(*f32, table, pos,
                                                  impl="pallas")),
         bound_ms_f32=b32_ms, bound_by_f32=b32_by,
+        library_ms_f32=library_ms(*sdpa_prefill(*f32, table, pos)),
+        device_ms_f32=device_ms(lambda: ops.paged_prefill(
+            *f32, table, pos, impl="pallas")),
+        splits_f32=pa.K4_F32_SPLITS,
+        ms_f32_split=k4_f32_ms(*f32, table, pos, pa.K4_F32_SPLITS),
+        ms_f32_unsplit=k4_f32_ms(*f32, table, pos, 1),
         shape=f"B=1 C={c} start={start} Hq={HQ} Hkv={HKV} D={D} "
               f"page={PAGE} bf16 (+ C=77 start=300 and the verify "
               f"windows B={SLOTS} C=2,3,5 after 300-1000 keys checked; "
               f"ms_f32: the float32 route at C=512)")
     log(f"[kernels] K4 C=512: bf16 {out['paged_prefill']['ms']:.4f} ms "
         f"(bound {b_ms:.5f} ms, {b_by}), float32 "
-        f"{out['paged_prefill']['ms_f32']:.4f} ms (bound {b32_ms:.5f} ms, "
-        f"{b32_by}), SDPA {out['paged_prefill']['library_ms']:.4f} ms")
+        f"{out['paged_prefill']['ms_f32']:.4f} ms (device "
+        f"{out['paged_prefill']['device_ms_f32']:.4f}; bound {b32_ms:.5f} "
+        f"ms, {b32_by}; the C entry at the plan's split of "
+        f"{out['paged_prefill']['splits_f32']} "
+        f"{out['paged_prefill']['ms_f32_split']:.4f} ms, unsplit "
+        f"{out['paged_prefill']['ms_f32_unsplit']:.4f} ms), "
+        f"SDPA {out['paged_prefill']['library_ms']:.4f} ms, SDPA float32 "
+        f"{out['paged_prefill']['library_ms_f32']:.4f} ms")
     return out
 
 
@@ -1588,9 +1623,13 @@ def flash_f32_row(q, k, v, kw, flops):
     b_ms, b_by = bound(4 * (2 * q.numel() + k.numel() + v.numel()), flops,
                        F32_FLOPS_S)
     ms = time_ms(lambda: fa.flash_attention(*f32, **kw), iters=10)
-    log(f"[kernels] K5 float32 route: {ms:.4f} ms, bound {b_ms:.4f} ms "
-        f"({b_by}), max|err| {err:.3e} (tol {TOL_FLASH[torch.float32]})")
-    return dict(ms_f32=ms, bound_ms_f32=b_ms, bound_by_f32=b_by,
+    dev_ms = device_ms(lambda: fa.flash_attention(*f32, **kw), iters=10)
+    lib_ms = sdpa_flash(*f32, kw["causal"], kw["window"])
+    log(f"[kernels] K5 float32 route: {ms:.4f} ms (device {dev_ms:.4f}), "
+        f"bound {b_ms:.4f} ms ({b_by}), SDPA float32 {lib_ms:.4f} ms, "
+        f"max|err| {err:.3e} (tol {TOL_FLASH[torch.float32]})")
+    return dict(ms_f32=ms, device_ms_f32=dev_ms, bound_ms_f32=b_ms,
+                bound_by_f32=b_by, library_ms_f32=lib_ms,
                 max_abs_err_f32_timed=err)
 
 
@@ -1677,8 +1716,9 @@ def flash_phase(dev, seed):
         tol=TOL_FLASH[torch.bfloat16], ms=head["ms"],
         plain_ms=head["plain_ms"], bound_ms=head["bound_ms"],
         bound_by=head["bound_by"], library_ms=head["library_ms"],
-        ms_f32=head["ms_f32"], bound_ms_f32=head["bound_ms_f32"],
-        bound_by_f32=head["bound_by_f32"],
+        ms_f32=head["ms_f32"], device_ms_f32=head["device_ms_f32"],
+        bound_ms_f32=head["bound_ms_f32"], bound_by_f32=head["bound_by_f32"],
+        library_ms_f32=head["library_ms_f32"],
         library="SDPA (GQA; causal, or a boolean band for the window; no "
                 "softcap)", shape=head["shape"], cases=rows)}
 
@@ -1979,11 +2019,16 @@ def width_timed(gen, dev):
     b_ms, b_by = bound(kv * f32b + 2 * q.numel() * f32b + table.numel() * 4,
                        sum(4 * W_HQ * W_D * (start + i + 1)
                            for i in range(c)), F32_FLOPS_S)
+    splits = pa.K4_F32_SPLITS
     out["paged_prefill"] = dict(
         shape=f"B=1 C={c} start={start} Hq={W_HQ} Hkv={W_HKV} D={W_D} "
-              f"page={PAGE} float32",
+              f"page={PAGE} float32 (the C entry at the plan's split of "
+              f"{splits} {k4_f32_ms(q, kp, vp, table, pos, splits):.4f} ms, "
+              f"unsplit {k4_f32_ms(q, kp, vp, table, pos, 1):.4f} ms)",
         ms=time_ms(lambda: ops.paged_prefill(q, kp, vp, table, pos,
                                              impl="pallas")),
+        device_ms=device_ms(lambda: ops.paged_prefill(q, kp, vp, table, pos,
+                                                      impl="pallas")),
         plain_ms=time_ms(lambda: ops.paged_prefill(q, kp, vp, table, pos,
                                                    impl="ref"), iters=5),
         bound_ms=b_ms, bound_by=b_by,
@@ -1997,6 +2042,7 @@ def width_timed(gen, dev):
     out["flash_attention"] = dict(
         shape=f"B={b} S={s} Hq={W_HQ} Hkv={W_HKV} D={W_D} causal float32",
         ms=time_ms(lambda: fa.flash_attention(q, k, v), iters=10),
+        device_ms=device_ms(lambda: fa.flash_attention(q, k, v), iters=10),
         plain_ms=time_ms(lambda: fa.flash_attention_ref(q, k, v), iters=3,
                          warmup=1),
         bound_ms=b_ms, bound_by=b_by,
@@ -2035,7 +2081,9 @@ def width_phase(dev, seed):
         log(f"[widths] {name}: {len(rs)} rows (D or P "
             f"{sorted({r['d'] for r in rs})}, bf16 and float32) against the "
             f"twin, max {key} bf16 {e16:.3e}, float32 {e32:.3e}; timed "
-            f"{t['shape']}: {t['ms']:.4f} ms, bound {t['bound_ms']:.5f} ms "
+            f"{t['shape']}: {t['ms']:.4f} ms"
+            + (f" (device {t['device_ms']:.4f})" if "device_ms" in t else "")
+            + f", bound {t['bound_ms']:.5f} ms "
             f"({t['bound_by']}), twin {t['plain_ms']:.3f} ms, library "
             + ("none" if t["library_ms"] is None
                else f"{t['library_ms']:.4f} ms"))
@@ -2079,12 +2127,26 @@ def tensor_core_check(built) -> None:
                                      f"spill")
 
 
+# the float32 bodies' launches (the wrappers' F32_LAUNCHES) over the
+# windows whose launches the script reads through counts(): each read adds
+# what the window launched since its last read, reset_counts() opens a new
+# window. The rank processes' tallies are added to the main process's.
+F32_BODIES = {"paged_prefill": pa, "flash_attention": fa, "ssd_scan": ss}
+F32_TALLY = {k: 0 for k in F32_BODIES}
+_F32_SEEN: dict = {}
+
+
 def reset_counts():
     for mod in (fa, fl, pa, ss):
         mod.reset_launch_counts()
+    _F32_SEEN.clear()
 
 
 def counts():
+    for k, mod in F32_BODIES.items():
+        n, seen = mod.F32_LAUNCHES[k], _F32_SEEN.get(k, 0)
+        F32_TALLY[k] += n - seen if n >= seen else n
+        _F32_SEEN[k] = n
     return {**fa.LAUNCHES, **fl.LAUNCHES, **pa.LAUNCHES, **ss.LAUNCHES}
 
 
@@ -5051,7 +5113,7 @@ def ranks_main(rank, world, work, seed, card):
         free()
         secs[name] = time.perf_counter() - t0
     with open(Path(work) / f"times{rank}.json", "w") as fh:
-        json.dump(secs, fh)
+        json.dump({**secs, "f32_launches": F32_TALLY}, fh)
     return 0
 
 
@@ -5087,6 +5149,10 @@ def rank_pair(seed, card):
         raise AssertionError("the rank processes failed:\n" + "\n".join(
             t[-3000:] for t in logs))
     secs = json.loads((work / "times0.json").read_text())
+    for r in range(2):
+        tally = json.loads((work / f"times{r}.json").read_text())
+        for k, n in tally["f32_launches"].items():
+            F32_TALLY[k] += n
     out = {}
     for part, stem in (("shard", "rank"), ("serve", "serve"),
                        ("static", "static"), ("moe", "moe")):
@@ -7221,6 +7287,7 @@ def main(argv=None) -> int:
         row["max_abs_err_f32"] = max(row["max_abs_err_f32"], e32)
     log(f"[time] widths phase {time.perf_counter() - t0:.1f}s")
     t0 = time.perf_counter()
+    F32_TALLY.update({k: 0 for k in F32_TALLY})    # the main path starts
     launches, twin = engine_phase(dev, args.seed, card, draws)
     log(f"[time] engine phase {time.perf_counter() - t0:.1f}s")
     torch.cuda.empty_cache()
@@ -7341,8 +7408,14 @@ def main(argv=None) -> int:
         small["flash_attention"]
     log(f"[small] phase 19 launches {small}")
     log(f"[time] small models phase {time.perf_counter() - t0:.1f}s")
+    log("[launches] float32 bodies on the main path (the windows counts() "
+        "reads, both rank processes included): " + ", ".join(
+            f"{kernels[k]['name_f32']} {n} of {launches[k]} {k} launches"
+            for k, n in F32_TALLY.items()))
     for name, row in kernels.items():
         row["launches"] = launches[name]
+        if name in F32_TALLY:
+            row["launches_f32"] = F32_TALLY[name]
         row["kernel_ms"], row["twin_ms"] = row["ms"], row["plain_ms"]
         row["card"] = card
     print(json.dumps({"kernels": list(kernels.values())}), flush=True)

@@ -45,15 +45,15 @@ ARGTYPES = {
     # softcap, dtype, stream
     "paged_decode_launch": [_P] * 6 + [_I] * 7 + [_F, _I, _P],
     # q, kp, vp, table, lengths, starts, out, B, C, Hq, Hkv, D, page,
-    # npages, window, softcap, dtype, stream
-    "paged_prefill_launch": [_P] * 7 + [_I] * 8 + [_F, _I, _P],
+    # npages, window, softcap, dtype, splits, stream
+    "paged_prefill_launch": [_P] * 7 + [_I] * 8 + [_F, _I, _I, _P],
     # logits, targets, logp, ent, lse, T, V, dtype, stream
     "logprob_fwd_launch": [_P] * 5 + [_I] * 3 + [_P],
     # logits, targets, lse, mu, g_lp, g_ent, dlogits, T, V, dtype, stream
     "logprob_bwd_launch": [_P] * 7 + [_I] * 3 + [_P],
     # q, k, v, out, B, Sq, Sk, Hq, Hkv, D, causal, window, softcap, dtype,
-    # stream
-    "flash_attention_launch": [_P] * 4 + [_I] * 8 + [_F, _I, _P],
+    # splits, stream
+    "flash_attention_launch": [_P] * 4 + [_I] * 8 + [_F, _I, _I, _P],
     # x, dt, a, b, c, y, B, S, H, G, P, N, L, nsplit, dtype, stream
     "ssd_scan_launch": [_P] * 6 + [_I] * 9 + [_P],
 }

@@ -61,24 +61,15 @@
 //   threads (2 warps, 32 rows = 32 / rep tokens x rep heads) per (tile,
 //   slot, kv head): a chunk of C 512 at rep 2 is 32 tiles x 8 kv heads =
 //   256 blocks, more than one wave on 132 SMs;
-// - float32: paged_prefill_kernel over attend_tile below, the body behind
-//   the tight float32 checks (1e-5 against the twin). attend_tile has no
-//   other caller.
-//
-// attend_tile design (simple first):
-// - one thread block of 128 threads per (slot, q-tile of bq = 32/rep
-//   tokens, kv_head); a block reads its own table row, length and start
-//   (no scalar prefetch here); the page loop is bounded by ceil(len/page)
-//   (<= npages) and by the tile's causal and window reach [first, last],
-//   so no block reads its table row out of bounds and unreachable pages
-//   cost nothing;
-// - each iteration stages up to 64 key columns (64/page pages) of K and V
-//   in shared memory with 16-byte loads, converted to float32; q rows stay
-//   in shared memory for the whole block; ragged prefill tails are masked
-//   rows, so a chunk of any length C runs (no C % bq requirement);
-// - scores are one thread per (row, column), the softmax one warp per row,
-//   P.V one thread per (row, d) with the accumulators in registers. All
-//   arithmetic is float32 on the CUDA cores.
+// - float32: paged_prefill_kernel, the float32 tile core of
+//   attention_f32.cuh (float32 FMAs on the CUDA cores, the same cp.async
+//   double-buffering, per-column page lookup and zero-filled rows past the
+//   length), the body behind the tight float32 checks (1e-5 against the
+//   twin). A cluster of 2 blocks of 4 warps per (tile of 64 / hr tokens x
+//   hr heads, slot, kv head, head group) splits the tile's keys and
+//   combines in rank order (paged_attention.K4_F32_SPLITS, the same at
+//   every shape, so that a launch folded over layers, or at a rank's
+//   heads, gives the bits of the per-layer or whole launch).
 //
 // Bound on the H100 (3.35 TB/s, 989 TFLOP/s bf16 dense):
 // - K3 is memory-bound. Per layer it must read the live KV,
@@ -99,9 +90,9 @@
 // every mask below compiles away). DP is the smallest width the body's
 // layout allows: 32, 64, 128 or 256 for K3 (a lane holds DP / 32 elements
 // of a row), a multiple of 16 for K4's tensor-core body (attention_tc.cuh)
-// and a multiple of 32 for its float32 body (attend_tile, DP / 4
-// accumulators a thread). Reads past D are zero-filled, so q.k
-// is unchanged, and the extra columns of P.V are never stored. K3 keeps
+// and a multiple of 32 for its float32 body (attention_f32.cuh: a lane
+// owns DP / 8 output dims as float4s). Reads past D are zero-filled, so
+// q.k is unchanged, and the extra columns of P.V are never stored. K3 keeps
 // its 16-byte cp.async copies where a row's D elements are whole 16-byte
 // pieces (the pieces past D zero-filled by the copy) and otherwise stages
 // a chunk with element loads into the same shared layout (bf16 at an odd
@@ -122,6 +113,7 @@
 
 #include <cooperative_groups.h>
 
+#include "attention_f32.cuh"
 #include "attention_tc.cuh"
 
 #ifdef REPRO_PART
@@ -145,7 +137,7 @@ int prefill_padded_f32(const void* q, const void* kp, const void* vp,
                        const void* table, const void* lengths,
                        const void* starts, void* out, int B, int C, int Hq,
                        int Hkv, int D, int page_size, int npages, int window,
-                       float softcap, void* stream);
+                       float softcap, int splits, void* stream);
 // K4's float32 body (part 3), its tensor-core body at D <= 128 (part 4)
 // and above (part 5)
 int prefill_padded_tc_lo(const void* q, const void* kp, const void* vp,
@@ -162,220 +154,25 @@ int prefill_padded_tc_hi(const void* q, const void* kp, const void* vp,
 
 namespace {
 
-constexpr int kThreads = 128;   // 4 warps
-constexpr int kMaxRows = 32;    // query rows (tokens x rep) per block
-constexpr int kTileK = 64;      // key columns staged per iteration
+constexpr int kMaxRep = 32;     // query heads per kv head (shape_ok)
+constexpr int kMaxPage = 64;    // rows of a page (shape_ok)
 constexpr float kNegInf = -1e30f;
 
+// a float32 value stored as T
 template <typename T>
 struct Vec;
 
 template <>
 struct Vec<float> {
-  static constexpr int N = 4;
-  __device__ __forceinline__ static void load(const float* src, float* dst) {
-    const float4 v = *reinterpret_cast<const float4*>(src);
-    dst[0] = v.x; dst[1] = v.y; dst[2] = v.z; dst[3] = v.w;
-  }
   __device__ __forceinline__ static float store(float x) { return x; }
 };
 
 template <>
 struct Vec<__nv_bfloat16> {
-  static constexpr int N = 8;
-  __device__ __forceinline__ static void load(const __nv_bfloat16* src,
-                                              float* dst) {
-    const uint4 v = *reinterpret_cast<const uint4*>(src);
-    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&v);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float2 f = __bfloat1622float2(h[i]);
-      dst[2 * i] = f.x;
-      dst[2 * i + 1] = f.y;
-    }
-  }
   __device__ __forceinline__ static __nv_bfloat16 store(float x) {
     return __float2bfloat16(x);
   }
 };
-
-// VN elements from src (element e0 of a row of D) as float32: the vector
-// load without PAD; with it, the vector load where D % VN == 0 (whole
-// aligned vectors, those past D zero), else element loads below D
-template <typename T, bool PAD>
-__device__ __forceinline__ void load_part(const T* src, float* dst, int e0,
-                                          int D) {
-  constexpr int VN = Vec<T>::N;
-  if constexpr (!PAD) {
-    Vec<T>::load(src, dst);
-  } else if (D % VN == 0) {
-    if (e0 < D) {
-      Vec<T>::load(src, dst);
-    } else {
-#pragma unroll
-      for (int e = 0; e < VN; ++e) dst[e] = 0.f;
-    }
-  } else {
-#pragma unroll
-    for (int e = 0; e < VN; ++e)
-      dst[e] = e0 + e < D ? static_cast<float>(src[e]) : 0.f;
-  }
-}
-
-__device__ __forceinline__ float warp_max(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1)
-    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
-  return x;
-}
-
-__device__ __forceinline__ float warp_sum(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
-}
-
-template <int DP>
-constexpr size_t smem_floats() {
-  return size_t(kTileK) * (DP + 1) + size_t(kTileK) * DP +
-         size_t(kMaxRows) * (DP + 1) + size_t(kMaxRows) * kTileK +
-         3 * size_t(kMaxRows);
-}
-
-// One block's work: `rows` query rows against pages [first, last] of one
-// slot's table row. Row r is token r / rep of the tile (absolute position
-// pos0 + r / rep) and query head (kvh * rep + r % rep); q and out point at
-// the tile's first token and the kv head's first query head, tokens
-// `tok_stride` elements apart. V is zeroed outside [v_lo, length). The
-// shared tiles are DP wide; with PAD, d is the real head dim (columns
-// past it staged as zeros and never stored).
-// Not inlined: inlined into paged_prefill_kernel, nvcc 12.9 at -O3
-// produced code that skipped the page loop (all-zero outputs) on an H100,
-// while the same body called out of line is correct.
-template <typename T, int DP, bool PAD>
-__device__ __noinline__ void attend_tile(
-    const T* __restrict__ q, const T* __restrict__ kp,
-    const T* __restrict__ vp, const int* __restrict__ table_row,
-    T* __restrict__ out, int rows, int rep, int tok_stride, int pos0,
-    int length, int v_lo, int first, int last, int kvh, int Hkv,
-    int page_size, int window, float softcap, float scale, int d) {
-  extern __shared__ float smem[];
-  float* Ks = smem;                          // kTileK x (DP + 1)
-  float* Vs = Ks + kTileK * (DP + 1);        // kTileK x DP
-  float* Qs = Vs + kTileK * DP;              // kMaxRows x (DP + 1)
-  float* Ps = Qs + kMaxRows * (DP + 1);      // kMaxRows x kTileK
-  float* m_s = Ps + kMaxRows * kTileK;
-  float* l_s = m_s + kMaxRows;
-  float* a_s = l_s + kMaxRows;
-
-  constexpr int VN = Vec<T>::N;
-  constexpr int DV = DP / VN;
-  constexpr int PT = kMaxRows * DP / kThreads;
-  const int D = PAD ? d : DP;
-  const int tid = threadIdx.x;
-  const int warp = tid / 32, lane = tid % 32;
-
-  for (int i = tid; i < rows * DV; i += kThreads) {
-    const int r = i / DV, v = i % DV;
-    float t[VN];
-    load_part<T, PAD>(
-        q + size_t(r / rep) * tok_stride + (r % rep) * D + v * VN, t,
-        v * VN, D);
-#pragma unroll
-    for (int e = 0; e < VN; ++e) Qs[r * (DP + 1) + v * VN + e] = t[e];
-  }
-  if (tid < kMaxRows) {
-    m_s[tid] = kNegInf;
-    l_s[tid] = 0.f;
-  }
-  float acc[PT];
-#pragma unroll
-  for (int k = 0; k < PT; ++k) acc[k] = 0.f;
-
-  const int ppi = kTileK / page_size;        // pages per iteration
-  const size_t row_stride = size_t(Hkv) * D;
-  for (int j0 = first; j0 <= last; j0 += ppi) {
-    const int npg = min(ppi, last - j0 + 1);
-    const int ncols = npg * page_size;
-    const int col0 = j0 * page_size;
-    __syncthreads();   // previous tile consumed; q and m/l visible
-    for (int i = tid; i < ncols * DV; i += kThreads) {
-      const int c = i / DV, v = i % DV;
-      const int phys = table_row[j0 + c / page_size];
-      const size_t off = (size_t(phys) * page_size + c % page_size) *
-                             row_stride + size_t(kvh) * D + v * VN;
-      float tk[VN], tv[VN];
-      load_part<T, PAD>(kp + off, tk, v * VN, D);
-      load_part<T, PAD>(vp + off, tv, v * VN, D);
-      const int col = col0 + c;
-      const bool vok = col >= v_lo && col < length;
-#pragma unroll
-      for (int e = 0; e < VN; ++e) {
-        Ks[c * (DP + 1) + v * VN + e] = tk[e];
-        Vs[c * DP + v * VN + e] = vok ? tv[e] : 0.f;
-      }
-    }
-    __syncthreads();
-    for (int i = tid; i < rows * ncols; i += kThreads) {
-      const int r = i / ncols, c = i % ncols;
-      const float* qr = Qs + r * (DP + 1);
-      const float* kc = Ks + c * (DP + 1);
-      float s = 0.f;
-#pragma unroll 8
-      for (int e = 0; e < DP; ++e) s = fmaf(qr[e], kc[e], s);
-      s *= scale;
-      if (softcap > 0.f) s = softcap * tanhf(s / softcap);
-      const int col = col0 + c, pq = pos0 + r / rep;
-      const bool ok = col <= pq && (window < 0 || col > pq - window);
-      Ps[r * kTileK + c] = ok ? s : kNegInf;
-    }
-    __syncthreads();
-    for (int r = warp; r < rows; r += kThreads / 32) {
-      float* pr = Ps + r * kTileK;
-      float mloc = kNegInf;
-      for (int c = lane; c < ncols; c += 32) mloc = fmaxf(mloc, pr[c]);
-      mloc = warp_max(mloc);
-      const float m_prev = m_s[r];
-      const float m_new = fmaxf(m_prev, mloc);
-      float sum = 0.f;
-      for (int c = lane; c < ncols; c += 32) {
-        const float p = expf(pr[c] - m_new);
-        pr[c] = p;
-        sum += p;
-      }
-      sum = warp_sum(sum);
-      if (lane == 0) {
-        const float alpha = expf(m_prev - m_new);
-        a_s[r] = alpha;
-        l_s[r] = l_s[r] * alpha + sum;
-        m_s[r] = m_new;
-      }
-    }
-    __syncthreads();
-#pragma unroll
-    for (int k = 0; k < PT; ++k) {
-      const int idx = tid + k * kThreads;
-      const int r = idx / DP, e = idx % DP;
-      if (r < rows) {
-        const float* pr = Ps + r * kTileK;
-        float a = acc[k] * a_s[r];
-        for (int c = 0; c < ncols; ++c) a = fmaf(pr[c], Vs[c * DP + e], a);
-        acc[k] = a;
-      }
-    }
-  }
-  __syncthreads();
-#pragma unroll
-  for (int k = 0; k < PT; ++k) {
-    const int idx = tid + k * kThreads;
-    const int r = idx / DP, e = idx % DP;
-    if (r < rows && (!PAD || e < D)) {
-      const float l = fmaxf(l_s[r], 1e-30f);
-      out[size_t(r / rep) * tok_stride + (r % rep) * D + e] =
-          Vec<T>::store(acc[k] / l);
-    }
-  }
-}
 
 // ---------------------------------------------------------------------------
 // K3: split-K decode, one cluster of kSplits blocks per (slot, kv head)
@@ -759,36 +556,51 @@ paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ kp,
   }
 }
 
-template <typename T, int DP, bool PAD>
-__global__ void __launch_bounds__(kThreads)
-paged_prefill_kernel(const T* __restrict__ q, const T* __restrict__ kp,
-                     const T* __restrict__ vp, const int* __restrict__ table,
+// K4's float32 body: one block of 4 warps (64 rows) per (tile of 64 / hr
+// tokens, slot, kv head, group of hr of its rep heads), or a cluster of
+// `splits` blocks splitting its keys, over the float32 tile core
+template <int DP, bool PAD>
+__global__ void
+__launch_bounds__(128, attn_f32::Tile<DP>::kMinBlocks)
+paged_prefill_kernel(const float* __restrict__ q, const float* __restrict__ kp,
+                     const float* __restrict__ vp,
+                     const int* __restrict__ table,
                      const int* __restrict__ lengths,
-                     const int* __restrict__ starts, T* __restrict__ out,
+                     const int* __restrict__ starts, float* __restrict__ out,
                      int C, int Hq, int Hkv, int page_size, int npages,
-                     int window, float softcap, float scale, int d) {
+                     int window, float softcap, float scale, int d,
+                     int splits) {
   const int D = PAD ? d : DP;
-  const int b = blockIdx.x, tile = blockIdx.y, kvh = blockIdx.z;
-  const int rep = Hq / Hkv;
-  const int bq = kMaxRows / rep;
-  const int tok0 = tile * bq;
-  const int ntok = min(bq, C - tok0);       // ragged last tile: fewer rows
-  const int length = lengths[b];
-  const int q0 = starts[b] + tok0;
-  const int last_live = max((length + page_size - 1) / page_size - 1, 0);
-  const int last = min(min(last_live, (q0 + ntok - 1) / page_size),
-                       npages - 1);
-  int first = 0;
-  if (window >= 0) {
-    const int lo = q0 - window + 1;
-    first = lo > 0 ? lo / page_size : 0;
-  }
-  const size_t qoff =
-      ((size_t(b) * C + tok0) * Hq + size_t(kvh) * rep) * D;
-  attend_tile<T, DP, PAD>(q + qoff, kp, vp, table + size_t(b) * npages,
-                          out + qoff, ntok * rep, rep, Hq * D, q0, length, 0,
-                          first, last, kvh, Hkv, page_size, window, softcap,
-                          scale, D);
+  constexpr int M = attn_f32::kRows;
+  const int rep = Hq / Hkv, hr = min(rep, M), ng = (rep + hr - 1) / hr;
+  const int tq = M / hr;
+  // heavy tiles first; the blocks of a cluster share one tile
+  const int tile = gridDim.x / splits - 1 - blockIdx.x / splits;
+  const int y = blockIdx.y;
+  const int hg = y % ng, kvh = (y / ng) % Hkv, b = y / (ng * Hkv);
+  const int tok0 = tile * tq;
+  attn_f32::TileArgs a;
+  const size_t qoff = ((size_t(b) * C + tok0) * Hq + size_t(kvh) * rep +
+                       size_t(hg) * hr) * D;
+  a.q = q + qoff;
+  a.out = out + qoff;
+  a.tok_stride = size_t(Hq) * D;
+  a.hr = hr;
+  a.nh = min(hr, rep - hg * hr);
+  a.ntok = min(tq, C - tok0);
+  a.pos0 = starts[b] + tok0;
+  a.nkeys = min(lengths[b], npages * page_size);
+  a.hi = min(a.nkeys, a.pos0 + a.ntok);
+  a.lo = window > 0 ? max(0, a.pos0 - window + 1) : 0;
+  a.d = D;
+  a.causal = 1;
+  a.window = window;
+  a.softcap = softcap;
+  a.scale = scale;
+  a.splits = splits;
+  const attn_tc::PagedKeys keys{table + size_t(b) * npages, page_size,
+                                size_t(kvh) * D, size_t(Hkv) * D};
+  attn_f32::attend_f32<DP, PAD>(a, kp, vp, keys);
 }
 
 template <int DP, bool PAD>
@@ -830,8 +642,8 @@ paged_prefill_tc_kernel(const attn_tc::bf16* __restrict__ q,
 }
 
 bool shape_ok(int Hq, int Hkv, int D, int page_size) {
-  return Hkv > 0 && Hq % Hkv == 0 && Hq / Hkv <= kMaxRows && D >= 1 &&
-         D <= 256 && page_size >= 1 && page_size <= kTileK;
+  return Hkv > 0 && Hq % Hkv == 0 && Hq / Hkv <= kMaxRep && D >= 1 &&
+         D <= 256 && page_size >= 1 && page_size <= kMaxPage;
 }
 
 bool exact_width(int D) { return D == 64 || D == 128 || D == 256; }
@@ -872,26 +684,27 @@ int launch_decode(const void* q, const void* kp, const void* vp,
                                          window, softcap, stream);
 }
 
-template <typename T, int DP, bool PAD>
-int launch_prefill(const void* q, const void* kp, const void* vp,
-                   const void* table, const void* lengths, const void* starts,
-                   void* out, int B, int C, int Hq, int Hkv, int D,
-                   int page_size, int npages, int window, float softcap,
-                   cudaStream_t stream) {
-  const size_t smem = smem_floats<DP>() * sizeof(float);
-  auto kern = paged_prefill_kernel<T, DP, PAD>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
-  if (err != cudaSuccess) return int(err);
-  if (B == 0 || C == 0) return int(cudaGetLastError());
-  const int bq = kMaxRows / (Hq / Hkv);
-  kern<<<dim3(B, (C + bq - 1) / bq, Hkv), kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(kp),
-      static_cast<const T*>(vp), static_cast<const int*>(table),
+// float32: splits (paged_attention.py's K4_F32_SPLITS) blocks of a cluster
+// split each tile's keys; the grid is (tiles * splits, B * Hkv * head
+// groups)
+template <int DP, bool PAD>
+int launch_prefill_f32(const void* q, const void* kp, const void* vp,
+                       const void* table, const void* lengths,
+                       const void* starts, void* out, int B, int C, int Hq,
+                       int Hkv, int D, int page_size, int npages, int window,
+                       float softcap, int splits, cudaStream_t stream) {
+  auto kern = paged_prefill_kernel<DP, PAD>;
+  constexpr int M = attn_f32::kRows;
+  const int rep = Hq / Hkv, hr = rep < M ? rep : M;
+  const int tq = M / hr, ng = (rep + hr - 1) / hr;
+  return attn_f32::launch(
+      kern, dim3((C + tq - 1) / tq, B * Hkv * ng), splits,
+      attn_f32::smem_bytes<DP>(), stream, B == 0 || C == 0,
+      static_cast<const float*>(q), static_cast<const float*>(kp),
+      static_cast<const float*>(vp), static_cast<const int*>(table),
       static_cast<const int*>(lengths), static_cast<const int*>(starts),
-      static_cast<T*>(out), C, Hq, Hkv, page_size, npages, window, softcap,
-      1.0f / sqrtf(float(D)), D);
-  return int(cudaGetLastError());
+      static_cast<float*>(out), C, Hq, Hkv, page_size, npages, window,
+      softcap, 1.0f / sqrtf(float(D)), D, splits);
 }
 
 // bfloat16 only
@@ -966,14 +779,13 @@ int prefill_padded_f32(const void* q, const void* kp, const void* vp,
                        const void* table, const void* lengths,
                        const void* starts, void* out, int B, int C, int Hq,
                        int Hkv, int D, int page_size, int npages, int window,
-                       float softcap, void* stream) {
+                       float softcap, int splits, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define CASE(W)                                                            \
   if (D <= W)                                                              \
-    return launch_prefill<float, W, true>(q, kp, vp, table, lengths,       \
-                                          starts, out, B, C, Hq, Hkv, D,   \
-                                          page_size, npages, window,       \
-                                          softcap, s);
+    return launch_prefill_f32<W, true>(q, kp, vp, table, lengths, starts,  \
+                                       out, B, C, Hq, Hkv, D, page_size,   \
+                                       npages, window, softcap, splits, s);
   K4_F32_WIDTHS(CASE)
 #undef CASE
   return int(cudaErrorInvalidValue);
@@ -1020,8 +832,9 @@ int prefill_padded_tc_hi(const void* q, const void* kp, const void* vp,
 
 // dtype: 0 = float32, 1 = bfloat16. window < 0: no sliding window.
 // softcap <= 0: no softcap. D in 1 ... 256: 64, 128 and 256 run their
-// exact instantiations, any other D a padded one. Returns
-// cudaGetLastError() after the launch.
+// exact instantiations, any other D a padded one. splits (prefill, float32
+// only): blocks of a cluster splitting each tile's keys, 1, 2, 4 or 8.
+// Returns cudaGetLastError() after the launch.
 extern "C" int paged_decode_launch(const void* q, const void* kp,
                                    const void* vp, const void* table,
                                    const void* lengths, void* out, int B,
@@ -1055,14 +868,14 @@ extern "C" int paged_prefill_launch(const void* q, const void* kp,
                                     void* out, int B, int C, int Hq, int Hkv,
                                     int D, int page_size, int npages,
                                     int window, float softcap, int dtype,
-                                    void* stream) {
+                                    int splits, void* stream) {
   if (!shape_ok(Hq, Hkv, D, page_size) || (dtype != 0 && dtype != 1))
     return int(cudaErrorInvalidValue);
   if (!exact_width(D)) {
     if (dtype == 0)
       return paged_parts::prefill_padded_f32(
           q, kp, vp, table, lengths, starts, out, B, C, Hq, Hkv, D,
-          page_size, npages, window, softcap, stream);
+          page_size, npages, window, softcap, splits, stream);
     if (D <= 128)
       return paged_parts::prefill_padded_tc_lo(
           q, kp, vp, table, lengths, starts, out, B, C, Hq, Hkv, D,
@@ -1073,8 +886,17 @@ extern "C" int paged_prefill_launch(const void* q, const void* kp,
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) {
-    DISPATCH_D(float, launch_prefill, q, kp, vp, table, lengths, starts, out,
-               B, C, Hq, Hkv, D, page_size, npages, window, softcap, s)
+    switch (D) {
+      case 64: return launch_prefill_f32<64, false>(
+          q, kp, vp, table, lengths, starts, out, B, C, Hq, Hkv, D,
+          page_size, npages, window, softcap, splits, s);
+      case 128: return launch_prefill_f32<128, false>(
+          q, kp, vp, table, lengths, starts, out, B, C, Hq, Hkv, D,
+          page_size, npages, window, softcap, splits, s);
+      default: return launch_prefill_f32<256, false>(
+          q, kp, vp, table, lengths, starts, out, B, C, Hq, Hkv, D,
+          page_size, npages, window, softcap, splits, s);
+    }
   }
   switch (D) {
     case 64: return launch_prefill_tc<64, false>(

@@ -14,9 +14,11 @@ only when ``causal`` is true, keeps i - j < window.
   tensor. bfloat16 inputs run on the tensor cores (the tile core of
   ``csrc/attention_tc.cuh``, which also rounds the softmax weights to
   bfloat16 for the P.V product), float32 inputs on the CUDA cores in
-  float32. Both take every head dim from 1 to ``MAX_HEAD_DIM``: 64, 128
-  and 256 run their own instantiations, any other D a body instantiated
-  at a padded width that reads past D as zeros (no operand is padded).
+  float32 (the tile core of ``csrc/attention_f32.cuh``, shared with K4's
+  float32 body, its key split and grid chosen by ``f32_plan``). Both
+  take every head dim from 1 to ``MAX_HEAD_DIM``: 64, 128 and 256 run
+  their own instantiations, any other D a body instantiated at a padded
+  width that reads past D as zeros (no operand is padded).
   ``kernels.ops.flash_attention`` is the entry point that takes the twin
   for CPU tensors.
 - ``flash_attention_ref`` is the plain PyTorch twin: the function of the
@@ -27,11 +29,12 @@ only when ``causal`` is true, keeps i - j < window.
 The JAX package has no backward for this kernel: both paths are
 forward-only and raise when autograd asks for a gradient through them.
 
-``LAUNCHES`` counts kernel launches, one per wrapper call that launched.
+``LAUNCHES`` counts kernel launches, one per wrapper call that launched;
+``F32_LAUNCHES`` those of them that ran the float32 body.
 """
 from __future__ import annotations
 
-from typing import Callable, Dict, Optional
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 
@@ -40,15 +43,62 @@ from repro_torch.kernels import build
 NEG_INF = -1e30
 Q_ROWS = 1024       # query rows per block of the twin
 MAX_HEAD_DIM = 256  # K5 takes head dims 1 ... MAX_HEAD_DIM (check_shapes)
-MAX_GRID_Y = 65535  # B * Hq: the float32 body's grid rows
+# the grid's rows: B * Hq for the bf16 body, B * Hkv * ceil(rep / 64) for
+# the float32 core
+MAX_GRID_Y = 65535
+# the float32 core's rows a block (16 a warp), the most blocks of a cluster
+# that split a tile's keys, and the SMs of a wave on the H100 (K5's split
+# fills one)
+F32_ROWS = 64
+F32_MAX_SPLITS = 8
+WAVE_SMS = 132
 
-# launches of the CUDA kernel since the last reset_launch_counts()
+# launches of the CUDA kernel since the last reset_launch_counts(), and of
+# them those of the float32 body
 LAUNCHES: Dict[str, int] = {"flash_attention": 0}
+F32_LAUNCHES: Dict[str, int] = {"flash_attention": 0}
 
 
 def reset_launch_counts() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    for counts in (LAUNCHES, F32_LAUNCHES):
+        for k in counts:
+            counts[k] = 0
+
+
+def f32_width(d: int) -> int:
+    """The float32 core's instantiated width for head dim d: D at 64, 128
+    and 256, else D rounded up to a multiple of 32."""
+    return d if d in (64, 128, 256) else -(-d // 32) * 32
+
+
+def f32_grid(tokens: int, batch: int, hq: int, hkv: int,
+             splits: int) -> Tuple[int, int]:
+    """The float32 core's grid: (tiles * splits, B * Hkv * head groups), a
+    tile of ``F32_ROWS`` rows holding hr = min(rep, 64) heads of 64 // hr
+    tokens."""
+    rep = hq // hkv
+    hr = min(rep, F32_ROWS)
+    return (-(-tokens // (F32_ROWS // hr)) * splits,
+            batch * hkv * -(-rep // hr))
+
+
+def f32_plan(tokens: int, keys: int, batch: int, hq: int, hkv: int, d: int,
+             sms: int = WAVE_SMS) -> Tuple[int, Tuple[int, int], int]:
+    """K5's float32 launch as the kernel computes it from the split:
+    ``(splits, grid, padded width)``. Where the tiles leave the grid under
+    one wave of ``sms`` blocks, a cluster of 2, 4 or 8 blocks splits each
+    tile's keys: the fewest that fill the wave, while each block keeps at
+    least 4 key tiles of the ``keys`` (a tile is 64 keys up to width 64,
+    else 32)."""
+    width = f32_width(d)
+    key_tiles = -(-keys // (64 if width <= 64 else 32))
+    splits = 1
+    while splits < F32_MAX_SPLITS and key_tiles >= 8 * splits:
+        x, y = f32_grid(tokens, batch, hq, hkv, splits)
+        if x * y >= sms:
+            break
+        splits *= 2
+    return splits, f32_grid(tokens, batch, hq, hkv, splits), width
 
 
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -133,7 +183,13 @@ def check_shapes(q_shape, k_shape, v_shape, q_dtype, k_dtype,
                          f"to {MAX_HEAD_DIM}, got q {q_shape} k {k_shape}")
     if hkv < 1 or hq % hkv:
         raise ValueError(f"need Hq % Hkv == 0, got {hq}/{hkv}")
-    if b * hq > MAX_GRID_Y:
+    if q_dtype == torch.float32:
+        rep = hq // hkv
+        grid_y = b * hkv * -(-rep // min(rep, F32_ROWS))
+        if grid_y > MAX_GRID_Y:
+            raise ValueError(f"B * Hkv * ceil(rep / 64) = {grid_y} exceeds "
+                             f"the grid's {MAX_GRID_Y}")
+    elif b * hq > MAX_GRID_Y:
         raise ValueError(f"B * Hq = {b * hq} exceeds the grid's "
                          f"{MAX_GRID_Y}")
     return _DTYPES[q_dtype]
@@ -162,14 +218,20 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     out = torch.empty_like(q)
     win = -1 if window is None or not causal else int(window)
     cap = 0.0 if softcap is None else float(softcap)
+    splits = 0
+    if code == 0:
+        sms = torch.cuda.get_device_properties(q.device).multi_processor_count
+        splits = f32_plan(sq, sk, b, hq, hkv, d, sms)[0]
     lib = build.load()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = lib.flash_attention_launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, sq,
-            sk, hq, hkv, d, int(causal), win, cap, code, stream)
+            sk, hq, hkv, d, int(causal), win, cap, code, splits, stream)
     _raise_on(err, "flash_attention_kernel")
     build.count_launch(LAUNCHES, "flash_attention")
+    if code == 0:
+        build.count_launch(F32_LAUNCHES, "flash_attention")
     return out
 
 

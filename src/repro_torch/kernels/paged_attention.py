@@ -12,7 +12,9 @@ sits at absolute position ``starts[slot] + i``.
   ``_kernel`` and ``_prefill_kernel`` of ``repro/kernels/paged_attention.py``)
   or raise. On a CPU tensor they call the twin. K4 runs bfloat16 pools on
   the tensor cores (the tile core of ``csrc/attention_tc.cuh``, shared
-  with K5) and float32 pools on the CUDA cores. K3 is split-K: each
+  with K5) and float32 pools on the CUDA cores (the float32 tile core of
+  ``csrc/attention_f32.cuh``, shared with K5, each tile's keys split over
+  ``K4_F32_SPLITS`` blocks: ``k4_f32_plan``). K3 is split-K: each
   (slot, kv head) is one cluster of ``DECODE_SPLITS`` blocks of
   ``DECODE_WARPS`` warps; each warp takes a contiguous run of the slot's
   key chunks and the cluster combines the 32 partials in worker order,
@@ -34,15 +36,18 @@ multiply), so NaN in unwritten page tails or in the scratch page never
 reaches a live output.
 
 ``LAUNCHES`` counts kernel launches, one per wrapper call that launched;
-calls that took the twin are not counted.
+calls that took the twin are not counted. ``F32_LAUNCHES`` counts the
+launches of K4's float32 body among them.
 """
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.kernels.flash_attention import (MAX_GRID_Y, f32_grid,
+                                                 f32_width)
 
 NEG_INF = -1e30
 
@@ -62,13 +67,25 @@ MAX_HEAD_DIM = 256
 MAX_REP = 32
 MAX_PAGE = 64
 
-# launches of each CUDA kernel since the last reset_launch_counts()
+# blocks of a cluster that split each 64-row tile's keys in K4's float32
+# body, whatever the shape: a split that depended on the slots or the kv
+# heads would change the bits of a launch folded over layers
+# (ops.paged_prefill_layers) or of a rank's heads against one device's.
+# On the card 2 gained most where one slot's grid is under a wave and
+# cost least where many slots fill it (chip_smoke.py times both beside K4's
+# float32 row)
+K4_F32_SPLITS = 2
+
+# launches of each CUDA kernel since the last reset_launch_counts(), and
+# of them those of K4's float32 body
 LAUNCHES: Dict[str, int] = {"paged_decode": 0, "paged_prefill": 0}
+F32_LAUNCHES: Dict[str, int] = {"paged_prefill": 0}
 
 
 def reset_launch_counts() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    for counts in (LAUNCHES, F32_LAUNCHES):
+        for k in counts:
+            counts[k] = 0
 
 
 # --------------------------------------------------------------------------
@@ -182,9 +199,10 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 def check_shapes(q_shape, pool_shape, v_shape, q_dtype, k_dtype,
                  v_dtype) -> int:
-    """What K3 and K4 take, from shapes and dtypes alone: q (..., Hq, D),
-    pools (P, page, Hkv, D). Raises TypeError on the dtypes and ValueError
-    on the shapes they do not take; returns the dtype's code."""
+    """What K3 and K4 take, from shapes and dtypes alone: q (B, Hq, D) or
+    (B, C, Hq, D), pools (P, page, Hkv, D). Raises TypeError on the dtypes
+    and ValueError on the shapes they do not take; returns the dtype's
+    code."""
     if q_dtype not in _DTYPES or k_dtype != q_dtype or v_dtype != q_dtype:
         raise TypeError(f"paged kernels take float32 or bfloat16 q/kp/vp of "
                         f"one dtype, got {q_dtype}/{k_dtype}/{v_dtype}")
@@ -204,7 +222,21 @@ def check_shapes(q_shape, pool_shape, v_shape, q_dtype, k_dtype,
     if not 1 <= page_size <= MAX_PAGE:
         raise ValueError(f"page_size must be in [1, {MAX_PAGE}], got "
                          f"{page_size}")
+    # K4's float32 grid has B * Hkv rows (rep <= MAX_REP fits one tile)
+    if len(q_shape) == 4 and q_dtype == torch.float32 \
+            and q_shape[0] * hkv > MAX_GRID_Y:
+        raise ValueError(f"B * Hkv = {q_shape[0] * hkv} exceeds the float32 "
+                         f"grid's {MAX_GRID_Y}")
     return _DTYPES[q_dtype]
+
+
+def k4_f32_plan(tokens: int, batch: int, hq: int, hkv: int,
+                d: int) -> Tuple[int, Tuple[int, int], int]:
+    """K4's float32 launch as the kernel computes it: ``(splits, grid,
+    padded width)``, the float32 core's 64-row tiles split over
+    ``K4_F32_SPLITS`` blocks."""
+    return (K4_F32_SPLITS, f32_grid(tokens, batch, hq, hkv, K4_F32_SPLITS),
+            f32_width(d))
 
 
 def _check(q, kp, vp, page_table, ints):
@@ -298,6 +330,7 @@ def paged_prefill(q: torch.Tensor, kp: torch.Tensor, vp: torch.Tensor,
         raise ValueError("page_table (B, npages), lengths (B,) and starts "
                          "(B,) must match q")
     win, cap = _opts(window, softcap)
+    splits = K4_F32_SPLITS if code == 0 else 0
     out = torch.empty_like(q)
     lib = build.load()
     with torch.cuda.device(q.device):
@@ -305,7 +338,9 @@ def paged_prefill(q: torch.Tensor, kp: torch.Tensor, vp: torch.Tensor,
         err = lib.paged_prefill_launch(
             q.data_ptr(), kp.data_ptr(), vp.data_ptr(), table.data_ptr(),
             lens.data_ptr(), st.data_ptr(), out.data_ptr(), b, c, hq, hkv,
-            d, page_size, npages, win, cap, code, stream)
+            d, page_size, npages, win, cap, code, splits, stream)
     _raise_on(err, "paged_prefill_kernel")
     build.count_launch(LAUNCHES, "paged_prefill")
+    if code == 0:
+        build.count_launch(F32_LAUNCHES, "paged_prefill")
     return out

@@ -33,7 +33,8 @@ dtype. The JAX package has no
 backward for the kernel; ``kernels.ops.ssd_scan`` raises when autograd
 records a call.
 
-``LAUNCHES`` counts kernel launches, one per wrapper call that launched.
+``LAUNCHES`` counts kernel launches, one per wrapper call that launched;
+``F32_LAUNCHES`` those of them that ran the float32 body.
 """
 from __future__ import annotations
 
@@ -47,13 +48,16 @@ MAX_CHUNK = 2048       # per-row tables of a chunk sit in shared memory
 MAX_SIZE = 128         # head_dim P and state N: 1 ... MAX_SIZE
 ROWS_MAX = 64          # state rows of P one block owns
 
-# launches of the CUDA kernel since the last reset_launch_counts()
+# launches of the CUDA kernel since the last reset_launch_counts(), and of
+# them those of the float32 body
 LAUNCHES: Dict[str, int] = {"ssd_scan": 0}
+F32_LAUNCHES: Dict[str, int] = {"ssd_scan": 0}
 
 
 def reset_launch_counts() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    for counts in (LAUNCHES, F32_LAUNCHES):
+        for k in counts:
+            counts[k] = 0
 
 
 def _chunk_len(s: int, chunk: int) -> int:
@@ -213,4 +217,6 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a_log_neg: torch.Tensor,
             _DTYPES[x.dtype], stream)
     _raise_on(err, "ssd_scan_kernel")
     build.count_launch(LAUNCHES, "ssd_scan")
+    if x.dtype == torch.float32:
+        build.count_launch(F32_LAUNCHES, "ssd_scan")
     return y

@@ -613,11 +613,11 @@ def test_flash_kernel_gqa_packing(cuda, dtype, hq, hkv, d):
 # the bf16 bodies on the tensor cores and the float32 bodies that must
 # stay on the CUDA cores, by the names of their kernels in the library,
 # with their instantiations: K5 and K4 at D 64, 128, 256 and padded at the
-# 16 multiples of 16 (bf16), K5's float32 body padded at 64, 128, 192,
-# 256, K4's at the 8 multiples of 32; K6 at P slice 16, 32, 64 x N 16,
-# 32, 64, 128, exact and padded
+# 16 multiples of 16 (bf16), their float32 bodies (the float32 core of
+# csrc/attention_f32.cuh) padded at the 8 multiples of 32; K6 at P slice
+# 16, 32, 64 x N 16, 32, 64, 128, exact and padded
 TC_KERNELS = {"flash_attention_tc_kernel": 19, "paged_prefill_tc_kernel": 19}
-F32_KERNELS = {"flash_attention_kernel": 7, "paged_prefill_kernel": 11}
+F32_KERNELS = {"flash_attention_kernel": 11, "paged_prefill_kernel": 11}
 SSD_TC_KERNELS = {"ssd_scan_tc_kernel": 24}
 SSD_F32_KERNELS = {"ssd_scan_kernel": 24}
 
@@ -1420,6 +1420,138 @@ def test_flash_kernel_at_every_width(cuda, dtype, d, rep, mask):
           "bidir": dict(causal=False)}[mask]
     q, k, v = _flash_inputs(cuda, dtype, s=160, rep=rep, d=d, seed=d)
     _flash_check(q, k, v, **kw)
+
+
+# --------------------------------------------------------------------------
+# The float32 tile core (csrc/attention_f32.cuh) behind K4's and K5's
+# float32 bodies, at the bars above (TOL, TOL_FLASH): each key split (1, 2,
+# 4, 8 blocks a tile) either side of the plan's thresholds, GQA groups that
+# do not fill a tile's rows (rep 5: 60 of 64), a ragged last tile, pages of
+# 1, 16 and 64 rows with NaN past each slot's length, every padded width
+# (K5 unsplit here, split in the width tests above; K4 always split),
+# equal bits on two calls. Each call launches the float32 body once
+# (F32_LAUNCHES).
+
+
+def _sms(dev):
+    return torch.cuda.get_device_properties(dev).multi_processor_count
+
+
+def _f32_k5(dev, *, b, s, hkv, rep, d, seed, sq=None, **kw):
+    q, k, v = _flash_inputs(dev, torch.float32, b=b, s=s, hkv=hkv, rep=rep,
+                            d=d, seed=seed)
+    if sq is not None:
+        q = q[:, :sq].contiguous()
+    _flash_check(q, k, v, **kw)
+    assert fa.F32_LAUNCHES["flash_attention"] == 1
+    return fa.f32_plan(q.shape[1], k.shape[1], b, hkv * rep, hkv, d,
+                       _sms(dev))
+
+
+def _f32_k4(dev, *, c, rep=2, d=128, hkv=2, page=16, npages=12,
+                 seed=0, window=None, cap=None, poison=False):
+    q, kp, vp, table, positions = prefill_inputs(
+        page=page, rep=rep, d=d, c=c, hkv=hkv, npages=npages, seed=seed)
+    if poison:
+        _poison_tails(kp, vp, table, positions[:, -1] + 1, page)
+    q, kp, vp, table, positions = _dev((q, kp, vp, table, positions), dev,
+                                       torch.float32)
+    kind = "local" if window else "causal"
+    pa.reset_launch_counts()
+    got = ops.paged_prefill(q, kp, vp, table, positions, kind=kind,
+                            window=window, softcap=cap, impl="pallas")
+    want = ops.paged_prefill(q, kp, vp, table, positions, kind=kind,
+                             window=window, softcap=cap, impl="ref")
+    torch.cuda.synchronize()
+    assert pa.LAUNCHES["paged_prefill"] == 1
+    assert pa.F32_LAUNCHES["paged_prefill"] == 1
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(got, want, rtol=0, atol=TOL[torch.float32])
+    return pa.k4_f32_plan(c, q.shape[0], hkv * rep, hkv, d)
+
+
+# (kernel, tokens, Hkv, D, the split the plan takes on 132 SMs): K5 at B 1,
+# rep 2 either side of a wave (1025 / 1024 rows at Hkv 4), either side of
+# the key-tile floor (512 / 448), at 4 and 8 blocks (S 800 at Hkv 2, S 1024
+# at Hkv 1, D 128); K4 at B 3, rep 2, its one split at every size
+F32_SPLIT_CASES = [("flash", 1025, 4, 64, 1), ("flash", 1024, 4, 64, 2),
+                   ("flash", 512, 4, 64, 2), ("flash", 448, 4, 64, 1),
+                   ("flash", 800, 2, 128, 4), ("flash", 1024, 1, 128, 8),
+                   ("prefill", 704, 2, 64, 2), ("prefill", 320, 2, 64, 2),
+                   ("prefill", 5, 2, 64, 2)]
+
+
+@pytest.mark.parametrize("kernel,tokens,hkv,d,splits", F32_SPLIT_CASES)
+def test_f32_core_at_each_split(cuda, kernel, tokens, hkv, d, splits):
+    if kernel == "flash":
+        plan = _f32_k5(cuda, b=1, s=tokens, hkv=hkv, rep=2, d=d,
+                       seed=tokens, causal=True)
+    else:
+        plan = _f32_k4(cuda, c=tokens, d=d, hkv=hkv, npages=48, seed=tokens)
+    assert _sms(cuda) != 132 or plan[0] == splits, plan
+
+
+@pytest.mark.parametrize("rep", [2, 5, 8])
+@pytest.mark.parametrize("tokens", [131, 800])
+@pytest.mark.parametrize("kernel", ["flash", "prefill"])
+def test_f32_core_gqa_groups_across_tile_edges(cuda, kernel, rep, tokens):
+    """rep 5 fills 60 of 64 rows (12 tokens), rep 8 all 64, rep 2 all 64;
+    a tile's last 4 rows at rep 5 are dead. Window and softcap on; K4
+    splits every tile's keys over 2 blocks, K5 those of rep 2 at 800
+    tokens over 4."""
+    if kernel == "flash":
+        _f32_k5(cuda, b=1, s=tokens, hkv=2, rep=rep, d=128, seed=rep,
+                   causal=True, window=70, softcap=30.0)
+    else:
+        _f32_k4(cuda, c=tokens, rep=rep, npages=64, seed=rep,
+                     window=70, cap=30.0)
+
+
+def test_f32_core_ragged_tile_and_one_query_row(cuda):
+    """K4 at C 77 (a ragged last tile, keys split in 8), K5 non-causal at
+    Sq 1 x Sk 1601 (4 live rows of a tile against 51 key tiles, split in
+    8)."""
+    _f32_k4(cuda, c=77, seed=77)
+    _f32_k5(cuda, b=3, s=1601, sq=1, hkv=2, rep=4, d=128, seed=1601,
+               causal=False)
+
+
+@pytest.mark.parametrize("page", [1, 16, 64])
+def test_f32_core_page_sizes_and_nan_tail(cuda, page):
+    """K4's float32 body with pages of 1, 16 and 64 rows (a key tile spans
+    64, 4 or a part of one page), NaN in the pool rows past each slot's
+    length: the copy zero-fills them, the outputs are finite."""
+    _f32_k4(cuda, c=77, page=page, npages=-(-(2 * 77 + 2 * page) //
+                                                 page), seed=page,
+                 poison=True)
+
+
+@pytest.mark.parametrize("d", WIDTHS)
+@pytest.mark.parametrize("kernel", ["flash", "prefill"])
+def test_f32_core_every_width_at_a_full_grid(cuda, kernel, d):
+    if kernel == "flash":
+        plan = _f32_k5(cuda, b=4, s=512, hkv=8, rep=2, d=d, seed=d,
+                       causal=True, window=300, softcap=30.0)
+    else:
+        plan = _f32_k4(cuda, c=256, d=d, hkv=8, npages=20, seed=d,
+                       window=100, cap=30.0)
+    assert plan[0] == (1 if kernel == "flash" else 2)
+    assert plan[2] == (d if d in (64, 128, 256) else -(-d // 32) * 32)
+
+
+def test_f32_core_is_deterministic(cuda):
+    q, k, v = _flash_inputs(cuda, torch.float32, b=2, s=1023, hkv=2, rep=5,
+                            d=128)
+    kw = dict(causal=True, window=300, softcap=50.0)
+    first = fa.flash_attention(q, k, v, **kw)
+    assert torch.equal(fa.flash_attention(q, k, v, **kw).view(torch.int32),
+                       first.view(torch.int32))
+    q, kp, vp, table, positions = _dev(
+        prefill_inputs(page=16, rep=2, d=128, c=512, npages=48), cuda,
+        torch.float32)
+    first = ops.paged_prefill(q, kp, vp, table, positions, impl="pallas")
+    again = ops.paged_prefill(q, kp, vp, table, positions, impl="pallas")
+    assert torch.equal(again.view(torch.int32), first.view(torch.int32))
 
 
 def test_padded_widths_write_only_their_columns(cuda):

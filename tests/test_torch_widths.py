@@ -124,6 +124,100 @@ def test_p_splits_hold_every_slice_within_the_block(blocks, p, want):
     assert rows <= ss.ROWS_MAX and (n - 1) * rows < p
 
 
+# (tokens, keys, B, Hq, Hkv, D) -> K5's (splits, grid, padded width): the
+# timed rows (the static prefill; D 32), bench-lm's static prefill (D 24,
+# a grid of 128 whose 2 key tiles stay unsplit), the VLM's cross decode
+# and prefill, Whisper's encoder, a grid either side of one wave (1025 /
+# 1024), either side of the key-tile floor (512 / 448), splits of 4 and 8,
+# rep 80 past a tile (two head groups of 64 and 16), and the widths
+F32_PLANS = [
+    ((832, 832, 16, 16, 8, 128), (1, (26, 128), 128)),
+    ((832, 832, 16, 8, 4, 32), (1, (26, 64), 32)),
+    ((128, 128, 16, 4, 2, 24), (1, (4, 32), 32)),
+    ((1, 1601, 8, 32, 8, 128), (4, (4, 64), 128)),
+    ((832, 1601, 8, 32, 8, 128), (1, (52, 64), 128)),
+    ((1500, 1500, 8, 12, 12, 64), (1, (24, 96), 64)),
+    ((1025, 1025, 1, 8, 4, 64), (1, (33, 4), 64)),
+    ((1024, 1024, 1, 8, 4, 64), (2, (64, 4), 64)),
+    ((512, 512, 1, 8, 4, 64), (2, (32, 4), 64)),
+    ((448, 448, 1, 8, 4, 64), (1, (14, 4), 64)),
+    ((800, 800, 1, 4, 2, 128), (4, (100, 2), 128)),
+    ((1024, 1024, 1, 2, 1, 128), (8, (256, 1), 128)),
+    ((131, 131, 2, 80, 1, 256), (1, (131, 4), 256)),
+    ((3, 3, 1, 80, 1, 256), (1, (3, 2), 256)),
+    ((9, 9, 2, 4, 2, 1), (1, (1, 4), 32)),
+    ((9, 9, 2, 4, 2, 33), (1, (1, 4), 64)),
+    ((9, 9, 2, 4, 2, 129), (1, (1, 4), 160)),
+    ((9, 9, 2, 4, 2, 200), (1, (1, 4), 224)),
+    ((9, 9, 2, 4, 2, 255), (1, (1, 4), 256)),
+]
+
+
+@pytest.mark.parametrize("args,want", F32_PLANS)
+def test_f32_plan_splits_keys_only_under_a_wave(args, want):
+    """K5's float32 launch as the kernel computes it from the split:
+    64-row tiles of min(rep, 64) heads; where they leave the grid under
+    one wave, the fewest of 2, 4, 8 blocks a tile that fill it while each
+    keeps 4 key tiles; D padded to a multiple of 32 except 64, 128,
+    256."""
+    tokens, keys, b, hq, hkv, d = args
+    splits, grid, width = fa.f32_plan(tokens, keys, b, hq, hkv, d, 132)
+    assert (splits, grid, width) == want
+    hr = min(hq // hkv, fa.F32_ROWS)
+    tiles = grid[0] // splits
+    assert (64 // hr) * (tiles - 1) < tokens <= (64 // hr) * tiles
+    key_tiles = -(-keys // (64 if width <= 64 else 32))
+    assert splits == 1 or (grid[0] * grid[1] // 2 < 132
+                           and key_tiles >= 4 * splits)
+    assert (splits == 8 or grid[0] * grid[1] >= 132
+            or key_tiles < 8 * splits)
+
+
+@pytest.mark.parametrize("b,hkv", [(1, 8), (8, 8), (224, 8), (1, 4),
+                                   (3, 2), (1, 40)])
+def test_k4_f32_split_is_one_for_every_batch_and_head_count(b, hkv):
+    """K4's float32 body splits each tile's keys over K4_F32_SPLITS blocks
+    whatever the slots and kv heads, so a launch folded over 28 layers (B
+    8 -> 224) or at a rank's 4 of 8 kv heads splits as the per-layer or
+    whole launch does; its grid is the tiles' times the split."""
+    splits, grid, width = tpa.k4_f32_plan(512, b, 2 * hkv, hkv, 24)
+    assert splits == tpa.K4_F32_SPLITS == 2
+    assert grid == (16 * 2, b * hkv) and width == 32
+
+
+@pytest.mark.parametrize("b,hq,hkv,dtype,ok", [
+    (65535, 2, 1, F32, True), (65536, 2, 1, F32, False),
+    (32767, 80, 1, F32, True), (32768, 80, 1, F32, False),
+    (16384, 4, 2, F32, True), (16383, 4, 2, BF16, True),
+    (16384, 4, 2, BF16, False)])
+def test_flash_grid_rows_limit_by_body(b, hq, hkv, dtype, ok):
+    """K5's grid rows: B * Hkv * ceil(rep / 64) for the float32 core (rep
+    80 takes two head groups), B * Hq for the bf16 body; the last shape
+    each takes and the first it refuses."""
+    shapes = ((b, 9, hq, 24), (b, 9, hkv, 24), (b, 9, hkv, 24))
+    if ok:
+        assert fa.check_shapes(*shapes, dtype, dtype, dtype) == \
+            {F32: 0, BF16: 1}[dtype]
+    else:
+        with pytest.raises(ValueError, match="exceeds the grid's 65535"):
+            fa.check_shapes(*shapes, dtype, dtype, dtype)
+
+
+@pytest.mark.parametrize("q,dtype,ok", [
+    ((65535, 1, 4, 24), F32, True), ((65536, 1, 4, 24), F32, False),
+    ((65536, 1, 4, 24), BF16, True), ((65536, 4, 24), F32, True)])
+def test_paged_prefill_f32_grid_rows_limit(q, dtype, ok):
+    """K4's float32 grid has B * Hkv rows (rep <= 32 fits a tile): the
+    last prefill batch it takes and the first it refuses at Hkv 1; the
+    bf16 body and K3 (a 3-d q) are not held to it."""
+    pool = (9, 16, 1, 24)
+    if ok:
+        tpa.check_shapes(q, pool, pool, dtype, dtype, dtype)
+    else:
+        with pytest.raises(ValueError, match="exceeds the float32 grid's"):
+            tpa.check_shapes(q, pool, pool, dtype, dtype, dtype)
+
+
 # --------------------------------------------------------------------------
 # the twins against the JAX package's Pallas kernels in interpret mode
 
