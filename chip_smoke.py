@@ -36,12 +36,13 @@ never jax, never the JAX package. Phases, each fatal on failure:
    case at D 64, S 160, each against its twin, with controls showing that
    the check sees a dropped window or softcap, the first four timed, the
    first also in float32 (the CUDA-core body, held at 2e-5);
-   K6 (the Mamba2 SSD chunk scan; bf16 on the tensor cores) at
-   mamba2-1.3b's recompute shape (B 16, S 1024, H 64, P 64, N 128, chunk
-   256) and at B 1, S 8192 in bf16, and
-   a float32 case with two B/C groups, each against its twin element by
-   element, with a control (the twin without the state carried across
-   chunks) that the check must reject, the two mamba2 cases timed (no
+   K6 (the Mamba2 SSD chunk scan; bf16 on the tensor cores, float32 in
+   three chunk-parallel steps on the CUDA cores) at mamba2-1.3b's
+   recompute shape (B 16, S 1024, H 64, P 64, N 128, chunk 256) in bf16
+   and float32, at B 1, S 8192 in bf16, and a float32 case with two B/C
+   groups, each against its twin element by element, with a control (the
+   twin without the state carried across chunks) that the check must
+   reject, the three mamba2 cases timed, the float32 one by step (no
    PyTorch call computes an SSD scan, so K6 has no library yardstick);
    draws: the threefry token draw (``sampling/prng.py``, plain torch) at
    8 and 40 rows of the padded vocab 152064 on the card against the CPU
@@ -89,7 +90,8 @@ never jax, never the JAX package. Phases, each fatal on failure:
    model's chunked SSD on the inputs the recompute hands K6 in its first
    and last layer (with a control, K6 launched chunk by chunk from a zero
    state, that the check must reject), and again with the same weights in
-   float32 at 5e-3 nats; the weights are freed;
+   float32 at 5e-3 nats (three runs of each route in turns, timed); the
+   weights are freed;
 7. learner: one GEPO iteration on qwen3-1.7b at full width (bf16, random
    weights from --seed): ``generate_continuous`` makes 2 prompts x group 8
    rows of 832 prompt + 192 new tokens (temperature 1.0), ``token_logps``
@@ -1732,7 +1734,12 @@ SSD_CASES = (
      torch.bfloat16, True),
     ("mamba2 long", 1, GEMMA_LEN, 64, 64, 1, 128, 256, torch.bfloat16, True),
     ("f32 G 2", 2, 512, 8, 64, 2, 64, 128, torch.float32, False),
+    ("mamba2 recompute f32", 16, PROMPT_LEN + NEW_TOKENS, 64, 64, 1, 128,
+     256, torch.float32, True),
 )
+# the float32 route's three kernels, by step (csrc/ssd_scan.cu)
+SSD_F32_STEPS = {"A": "ssd_state_kernel", "B": "ssd_pass_kernel",
+                 "C": "ssd_chunk_scan_kernel"}
 
 
 def ssd_inputs(gen, dev, b, s, h, p, g, n, dtype):
@@ -1756,12 +1763,33 @@ def ssd_twin(args, chunk):
 def ssd_flops(b, s, h, p, g, n, lc):
     """2 pairs N per (batch, group, chunk), pairs = the L (L + 1) / 2 (t,
     s) pairs of the causal mask: the scores C_t B_s, which the heads of a
-    B/C group share (only the decay exp(cum_t - cum_s) is per head); and
-    2 (pairs P + 2 L N P) per (batch, head, chunk): the masked scores'
-    product with u, the carried state's term and the state update."""
-    pairs = lc * (lc + 1) // 2
-    return (2 * pairs * n * b * g
-            + 2 * (pairs * p + 2 * lc * n * p) * b * h) * (s // lc)
+    B/C group share (only the decay exp(cum_t - cum_s) is per head); 2
+    pairs P per (batch, head, chunk): the masked scores' product with u;
+    and 2 L N P per (batch, head) for each of the carried state's term
+    and the state update on all chunks but one (chunk 0 enters with a
+    zero state, the last chunk's end state is never read)."""
+    pairs, nc = lc * (lc + 1) // 2, s // lc
+    return (2 * pairs * (n * g + p * h) * b * nc
+            + 2 * 2 * lc * n * p * b * h * (nc - 1))
+
+
+def ssd_steps_ms(fn, iters: int = 10, steps=SSD_F32_STEPS) -> dict:
+    """Device ms of each step of K6's float32 route in one ``fn()`` call:
+    the profiler's kernel time by name (``steps``: step -> a part of its
+    kernel's name) over ``iters`` calls, over ``iters``. Steps B and C are
+    launched while the step before them drains, so their spans include
+    their wait for it: the spans overlap, and their sum is more than the
+    call's time."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()  # noqa: RA003 — timing
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()  # noqa: RA003 — timing
+    rows = prof.key_averages()
+    return {step: sum(dev_us(e) for e in rows if name in e.key) / 1e3 / iters
+            for step, name in steps.items()}
 
 
 def ssd_row(gen, dev, label, b, s, h, p, g, n, chunk, dtype, timed):
@@ -1780,8 +1808,10 @@ def ssd_row(gen, dev, label, b, s, h, p, g, n, chunk, dtype, timed):
                      for c0 in range(0, s, chunk)], 1)
     control = ss.error_ratio(cut.to(dtype), want)
     del cut
-    splits = ss.p_splits(b * h, p, torch.cuda.get_device_properties(
-        dev).multi_processor_count)
+    splits = (ss.f32_plan(b, s, h, g, p, n, min(chunk, s)).nsplit
+              if dtype == torch.float32 else
+              ss.p_splits(b * h, p, torch.cuda.get_device_properties(
+                  dev).multi_processor_count))
     log(f"[kernels] K6 ssd_scan {label} (B {b}, S {s}, H {h}, P {p}, G "
         f"{g}, N {n}, chunk {chunk}, {str(dtype)[6:]}, {splits} P "
         f"slice(s) per head): max|err| {err:.3e} (max|y| "
@@ -1803,7 +1833,9 @@ def ssd_row(gen, dev, label, b, s, h, p, g, n, chunk, dtype, timed):
         nbytes = (2 * args[0].numel() * es + args[1].numel() * 4
                   + args[2].numel() * 4 + 2 * args[3].numel() * es)
         b_ms, b_by = bound(nbytes, ssd_flops(b, s, h, p, g, n,
-                                             min(chunk, s)))
+                                             min(chunk, s)),
+                           F32_FLOPS_S if dtype == torch.float32
+                           else BF16_FLOPS_S)
         row.update(
             ms=time_ms(lambda: ss.ssd_scan(*args, chunk=chunk),
                        iters=10),
@@ -1814,6 +1846,14 @@ def ssd_row(gen, dev, label, b, s, h, p, g, n, chunk, dtype, timed):
             f"{b_ms:.4f} ms ({b_by}), twin {row['plain_ms']:.3f} ms, "
             f"library: none (no single PyTorch call computes an SSD "
             f"scan)")
+        if dtype == torch.float32:
+            row["steps_ms"] = ssd_steps_ms(
+                lambda: ss.ssd_scan(*args, chunk=chunk))
+            log(f"[kernels] K6 {label}: {100 * b_ms / row['ms']:.1f}% of "
+                f"the bound; device spans " + ", ".join(
+                    f"step {k} {v:.4f}" for k, v in row["steps_ms"].items())
+                + " ms (B and C start while the step before them drains: "
+                "their spans include that wait)")
     del args, got, want
     torch.cuda.empty_cache()
     return row
@@ -1821,19 +1861,24 @@ def ssd_row(gen, dev, label, b, s, h, p, g, n, chunk, dtype, timed):
 
 def ssd_phase(dev, seed):
     """K6 against its twin at mamba2-1.3b's recompute shape (B 16, S 1024)
-    and at B 1, S 8192 in bf16, and at a float32 case with two B/C groups;
-    a control (the twin chunk by chunk, i.e. without the carried state)
-    that the check must reject; the two mamba2 cases timed beside the
-    twin and the bound."""
+    in bf16 and float32, at B 1, S 8192 in bf16, and at a float32 case
+    with two B/C groups; a control (the twin chunk by chunk, i.e. without
+    the carried state) that the check must reject; the mamba2 cases timed
+    beside the twin and the bound, the float32 one by step too."""
     gen = torch.Generator(device=dev).manual_seed(seed + 12)
     rows = [ssd_row(gen, dev, *case) for case in SSD_CASES]
-    head = rows[0]
+    head, f32 = rows[0], rows[-1]
     return {"ssd_scan": dict(
-        name="ssd_scan_tc_kernel", name_f32="ssd_scan_kernel", route="cuda",
-        source="src/repro_torch/kernels/csrc/ssd_scan.cu",
+        name="ssd_scan_tc_kernel",
+        name_f32="ssd_state_kernel + ssd_pass_kernel + ssd_chunk_scan_kernel",
+        route="cuda", source="src/repro_torch/kernels/csrc/ssd_scan.cu",
         replaces="src/repro/kernels/ssd_scan.py:21 (_kernel; pallas_call "
                  "at :87): bf16 on the tensor cores (hi + lo operands), "
-                 "float32 on the CUDA cores",
+                 "float32 on the CUDA cores in three chunk-parallel steps",
+        ms_f32=f32["ms"], steps_ms_f32=f32["steps_ms"],
+        plain_ms_f32=f32["plain_ms"],
+        bound_ms_f32=f32["bound_ms"], bound_by_f32=f32["bound_by"],
+        library_ms_f32=None, shape_f32=f32["shape"],
         max_abs_err=max(r["max_abs_err"] for r in rows
                         if "bfloat16" in r["shape"]),
         max_abs_err_f32=max(r["max_abs_err"] for r in rows
@@ -2053,9 +2098,13 @@ def width_timed(gen, dev):
               + 2 * args[3].numel()) * f32b
     b_ms, b_by = bound(nbytes, ssd_flops(b, s, h, p, g, n, chunk),
                        F32_FLOPS_S)
+    steps = ssd_steps_ms(lambda: ss.ssd_scan(*args, chunk=chunk))
     out["ssd_scan"] = dict(
-        shape=f"B={b} S={s} H={h} P={p} G={g} N={n} chunk={chunk} float32",
+        shape=f"B={b} S={s} H={h} P={p} G={g} N={n} chunk={chunk} float32 "
+              f"(steps A/B/C device spans " + "/".join(
+                  f"{v:.4f}" for v in steps.values()) + " ms)",
         ms=time_ms(lambda: ss.ssd_scan(*args, chunk=chunk), iters=10),
+        steps_ms=steps,
         plain_ms=time_ms(lambda: ssd_twin(args, chunk), iters=3, warmup=1),
         bound_ms=b_ms, bound_by=b_by, library_ms=None)
     return out
@@ -2104,10 +2153,29 @@ TC_KERNELS = {"flash_attention_tc_kernel": 19, "paged_prefill_tc_kernel": 19,
               "ssd_scan_tc_kernel": 24}
 
 
+def ssd_f32_check(report) -> None:
+    """K6's float32 route: every instantiation of its three kernels (P
+    slice 16/32/64 x N 16/32/64/128, exact and padded, for steps A and C;
+    one step B) built, and 0 spill bytes in the ptxas report."""
+    for kern, count in {"ssd_state_kernel": 24, "ssd_pass_kernel": 1,
+                        "ssd_chunk_scan_kernel": 24}.items():
+        rs = [r for n, r in report.items() if kern in n]
+        regs = sorted({r.get("registers") for r in rs}) or [None]
+        spills = [r for r in rs if r.get("spill_stores") != 0
+                  or r.get("spill_loads") != 0]
+        log(f"[build] {kern}: {len(rs)} instantiations (want {count}), "
+            f"registers {regs[0]}-{regs[-1]}, {len(spills)} spilling")
+        if len(rs) != count or spills:
+            raise AssertionError(f"{kern}: {len(rs)} instantiations or a "
+                                 f"spill")
+
+
 def tensor_core_check(built) -> None:
     """Every instantiation of the bf16 K5/K4/K6 bodies has HMMA (or HGMMA)
-    instructions in its SASS and 0 spill bytes in the ptxas report."""
+    instructions in its SASS and 0 spill bytes in the ptxas report; K6's
+    float32 kernels spill nothing."""
     report = build.ptxas_report(built.log)
+    ssd_f32_check(report)
     sass = build.sass_functions(built.path, [
         n for n in report if any(k in n for k in TC_KERNELS)])
     for kern, count in TC_KERNELS.items():
@@ -2575,6 +2643,17 @@ def profile_recompute(cfg, params, tokens):
             f"{e.key[:90]}")
 
 
+# the float32 recompute's runs, K6 ("pallas") and the chunked SSD in turns
+F32_RECOMPUTE_ORDER = ("pallas", "chunked", "chunked", "pallas", "pallas",
+                       "chunked")
+
+
+def impl_ms(runs) -> str:
+    """'median <m> (<min>-<max>, n <k>)' of host-clock ms."""
+    return (f"median {statistics.median(runs):.1f} ({min(runs):.1f}-"
+            f"{max(runs):.1f}, n {len(runs)})")
+
+
 def mamba2_phase(dev, seed, card):
     """Mamba2-1.3B at full width (48 layers, d_model 2048, 64 SSM heads of
     64, state 128, bf16, random weights): the static engine at the
@@ -2582,8 +2661,9 @@ def mamba2_phase(dev, seed, card):
     then the App. B.1 recompute over its 16 x 1024 tokens through K6 and
     through the chunked SSD in turns, held against each other and against
     the sampler's logps, a profile of one K6 recompute and the layer check
-    (``ssd_layer_check``); then the same weights in float32, where the two
-    routes must agree to TOL_SSD_F32. Returns the K6 launches counted.
+    (``ssd_layer_check``); then the same weights in float32, the two routes
+    three runs each in turns (F32_RECOMPUTE_ORDER), where they must agree
+    to TOL_SSD_F32. Returns the K6 launches counted.
     Frees the weights."""
     cfg = get_config("mamba2-1.3b")
     torch.cuda.reset_peak_memory_stats()
@@ -2677,17 +2757,25 @@ def mamba2_phase(dev, seed, card):
     to_float32(params)
     torch.cuda.empty_cache()
     cfg32 = dataclasses.replace(cfg, dtype="float32")
-    lp32_k, ms32_k, n32 = ssd_recompute(cfg32, params, tokens, "pallas")
-    lp32_c, ms32_c, _ = ssd_recompute(cfg32, params, tokens, "chunked")
-    k6 += n32
+    lp32, ms32 = {}, {"pallas": [], "chunked": []}
+    for impl in F32_RECOMPUTE_ORDER:
+        lp, t, n = ssd_recompute(cfg32, params, tokens, impl)
+        k6 += n
+        lp32[impl] = lp
+        ms32[impl].append(t)
+    lp32_k, lp32_c = lp32["pallas"], lp32["chunked"]
     d32 = (lp32_k - lp32_c).abs()
     ctrl = (no_carry_recompute(cfg32, params, tokens) - lp32_c).abs()
     e_k = float((lps["pallas"] - lp32_c).abs().mean())
     e_c = float((lps["chunked"] - lp32_c).abs().mean())
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
-    log(f"[mamba2] float32 weights: token_logps through K6 {ms32_k:.1f} ms, "
-        f"chunked {ms32_c:.1f} ms; |K6 - chunked| max {float(d32.max()):.3e} "
-        f"(tol {TOL_SSD_F32}), mean {float(d32.mean()):.3e} nats; control, "
+    log(f"[mamba2] float32 weights: token_logps through K6 "
+        f"{impl_ms(ms32['pallas'])} ms, chunked {impl_ms(ms32['chunked'])} "
+        f"ms (runs {' / '.join(f'{t:.1f}' for t in ms32['pallas'])} and "
+        f"{' / '.join(f'{t:.1f}' for t in ms32['chunked'])}; order "
+        f"{', '.join(F32_RECOMPUTE_ORDER)}); |K6 - chunked| max "
+        f"{float(d32.max()):.3e} (tol {TOL_SSD_F32}), mean "
+        f"{float(d32.mean()):.3e} nats; control, "
         f"K6 without the carried state: max (must be > {TOL_SSD_F32}) "
         f"{float(ctrl.max()):.3e}, mean {float(ctrl.mean()):.3e} nats; mean "
         f"distance of the bf16 paths from the float32 model (not held): K6 "
@@ -2698,7 +2786,7 @@ def mamba2_phase(dev, seed, card):
     if not float(ctrl.max()) > TOL_SSD_F32:
         raise AssertionError("mamba2: the float32 check cannot see a K6 "
                              "that drops the carried state")
-    del params, lp32_k, lp32_c, lps
+    del params, lp32, lp32_k, lp32_c, lps
     torch.cuda.empty_cache()
     return k6
 
@@ -7411,7 +7499,9 @@ def main(argv=None) -> int:
     log("[launches] float32 bodies on the main path (the windows counts() "
         "reads, both rank processes included): " + ", ".join(
             f"{kernels[k]['name_f32']} {n} of {launches[k]} {k} launches"
-            for k, n in F32_TALLY.items()))
+            for k, n in F32_TALLY.items())
+        + "; a wrapper call counts once, and a float32 ssd_scan call runs "
+          "3 kernels (2 with one chunk: no step B)")
     for name, row in kernels.items():
         row["launches"] = launches[name]
         if name in F32_TALLY:

@@ -54,8 +54,11 @@ ARGTYPES = {
     # q, k, v, out, B, Sq, Sk, Hq, Hkv, D, causal, window, softcap, dtype,
     # splits, stream
     "flash_attention_launch": [_P] * 4 + [_I] * 8 + [_F, _I, _I, _P],
-    # x, dt, a, b, c, y, B, S, H, G, P, N, L, nsplit, dtype, stream
-    "ssd_scan_launch": [_P] * 6 + [_I] * 9 + [_P],
+    # x, dt, a, b, c, y, scratch, scratch_bytes, B, S, H, G, P, N, L,
+    # nsplit, dtype, stream
+    "ssd_scan_launch": [_P] * 7 + [ctypes.c_size_t] + [_I] * 9 + [_P],
+    # B, S, H, G, P, N, L, out (7 long longs): K6's float32 plan
+    "ssd_f32_plan": [_I] * 7 + [_P],
 }
 
 

@@ -17,11 +17,18 @@ head) the chunks run in order carrying a float32 state (P, N):
   that takes the twin for CPU tensors. bfloat16 inputs run the four
   products of a chunk on the tensor cores (bf16 ``mma.sync``, float32
   accumulation), each float32 operand (the decayed scores, the carried
-  state, x scaled for the state update) entering as a bf16 hi + lo pair;
-  float32 inputs run float32 on the CUDA cores. Both take every head dim
-  P and state width N from 1 to ``MAX_SIZE``: today's sizes (16, 32, 64,
-  128) run their own instantiations, any other a body instantiated at a
-  padded width that reads past P and N as zeros (no operand is padded).
+  state, x scaled for the state update) entering as a bf16 hi + lo pair,
+  the chunks walked in order inside a block. float32 inputs run float32
+  on the CUDA cores in three launches (the chunk-parallel form, planned by
+  ``f32_plan`` from the shapes alone): step A, every chunk's cumsum and
+  own end state and every (batch, group, chunk)'s scores C B^T; step B,
+  the states passed from chunk to chunk; step C, every chunk's y from its
+  entering state and the scores, which the heads of a group share. Their
+  intermediates live in a float32 scratch the wrapper allocates. Both take
+  every head dim P and state width N from 1 to ``MAX_SIZE``: today's sizes
+  (16, 32, 64, 128) run their own instantiations, any other a body
+  instantiated at a padded width that reads past P and N as zeros (no
+  operand is padded).
 - ``ssd_scan_ref`` is the plain PyTorch twin: the TPU kernel's formula,
   one chunk at a time (masked quadratic form, the carried state's term,
   the state update), batched over (batch, head). It is not the model's
@@ -33,12 +40,14 @@ dtype. The JAX package has no
 backward for the kernel; ``kernels.ops.ssd_scan`` raises when autograd
 records a call.
 
-``LAUNCHES`` counts kernel launches, one per wrapper call that launched;
-``F32_LAUNCHES`` those of them that ran the float32 body.
+``LAUNCHES`` counts wrapper calls that launched, one per call however many
+kernels it runs (the float32 route runs three); ``F32_LAUNCHES`` those of
+them that took the float32 route.
 """
 from __future__ import annotations
 
-from typing import Dict
+import dataclasses
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -48,8 +57,16 @@ MAX_CHUNK = 2048       # per-row tables of a chunk sit in shared memory
 MAX_SIZE = 128         # head_dim P and state N: 1 ... MAX_SIZE
 ROWS_MAX = 64          # state rows of P one block owns
 
-# launches of the CUDA kernel since the last reset_launch_counts(), and of
-# them those of the float32 body
+# the float32 route's sizes (csrc/ssd_scan.cu, namespace ssd_f32): t rows
+# of a step-C block and score tiles of F32_TILE x F32_TILE; (head, P slice)
+# units of a step-C block; step B's threads a block. The card tests hold
+# f32_plan, which uses them, to the C source's own plan (ssd_f32_plan).
+F32_TILE = 64
+F32_UNITS = 4
+F32_THREADS_B = 256
+
+# wrapper calls that launched since the last reset_launch_counts(), and of
+# them those of the float32 route
 LAUNCHES: Dict[str, int] = {"ssd_scan": 0}
 F32_LAUNCHES: Dict[str, int] = {"ssd_scan": 0}
 
@@ -125,17 +142,68 @@ def error_ratio(got: torch.Tensor, want: torch.Tensor) -> float:
 
 
 def p_splits(blocks: int, p: int, sms: int) -> int:
-    """Slices of the P state rows per (batch, head): at most ROWS_MAX rows
-    a block, halved (down to 16) while twice the blocks still fit one
-    wave of ``sms`` blocks. Both K6 bodies run one block per SM, so a grid
-    past ``sms`` blocks takes a second wave, and every slice recomputes
-    the scores C B^T. A slice holds ceil(P / n) rows, the last one fewer.
-    The slices compute the same values."""
+    """The bf16 route's slices of the P state rows per (batch, head): at
+    most ROWS_MAX rows a block, halved (down to 16) while twice the blocks
+    still fit one wave of ``sms`` blocks. Its body runs one block per SM,
+    so a grid past ``sms`` blocks takes a second wave, and every slice
+    recomputes the scores C B^T. A slice holds ceil(P / n) rows, the last
+    one fewer. The slices compute the same values. (The float32 route
+    splits P by shapes alone: ``f32_plan``.)"""
     n = 1
     while -(-p // n) > ROWS_MAX or (2 * blocks * n <= sms
                                     and -(-p // (2 * n)) >= 16):
         n *= 2
     return n
+
+
+def _pad(v: int, sizes) -> int:
+    return next(w for w in sizes if v <= w)
+
+
+@dataclasses.dataclass(frozen=True)
+class F32Plan:
+    """The float32 route's launches, from the shapes alone (no SM count):
+    P slices; (head, P slice) units a step-C block; the three grids (step
+    B's is None with one chunk); the scratch's size in bytes."""
+    nsplit: int
+    units: int
+    grid_a: int
+    grid_b: Optional[Tuple[int, int]]
+    grid_c: int
+    scratch_bytes: int
+
+
+def f32_plan(b: int, s: int, h: int, g: int, p: int, n: int,
+             lc: int) -> F32Plan:
+    """``csrc/ssd_scan.cu``'s float32 launches for x (b, s, h, p), b/c
+    (b, s, g, n) and chunk length ``lc``: P in ceil(P / 64) slices; step A
+    one block per (batch, head, chunk, slice) and per (batch, group,
+    chunk, lower 64 x 64 score tile); step B (batch x head, 256-float4
+    stretches of a state); step C one block per (batch, chunk, 64-row t
+    tile, group, F32_UNITS units). The scratch (ssd_f32::layout): (cum, dt)
+    per (b, h, s), a state of padded N x P per (b, h, chunk but the last),
+    the score tiles; each region at a multiple of 64 floats. The C entry
+    ``ssd_f32_plan`` returns the same fields from the code that launches
+    (``test_ssd_f32_plan_matches_the_c_entry`` on the card), and
+    ``ssd_scan_launch`` refuses a scratch shorter than its layout."""
+    nsplit = -(-p // ROWS_MAX)
+    nw = _pad(n, (16, 32, 64, 128))
+    pw = nsplit * _pad(-(-p // nsplit), (16, 32, 64))
+    nc, nt = s // lc, -(-lc // F32_TILE)
+    ntri = nt * (nt + 1) // 2
+
+    def up(v):
+        return -(-v // 64) * 64
+
+    floats = (up(b * h * s * 2) + up(b * h * max(nc - 1, 0) * nw * pw)
+              + b * g * nc * ntri * F32_TILE ** 2)
+    blocks = -(-(h // g) * nsplit // F32_UNITS)
+    return F32Plan(
+        nsplit=nsplit, units=F32_UNITS,
+        grid_a=b * h * nc * nsplit + b * g * nc * ntri,
+        grid_b=((b * h, -(-nw * pw // 4 // F32_THREADS_B)) if nc > 1
+                else None),
+        grid_c=b * nc * nt * g * blocks, scratch_bytes=4 * floats)
 
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -189,8 +257,9 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a_log_neg: torch.Tensor,
     ``ssd_scan``. x, b, c float32 or bfloat16 of one dtype, P and N in
     1 ... 128, H % G == 0, S % min(chunk, S) == 0, chunk <= 2048; dt
     and a_log_neg are used in float32. Returns y (B, S, H, P) in x's
-    dtype; the P state rows of a head are split across ``p_splits``
-    blocks. Raises on a CPU tensor."""
+    dtype. bfloat16: the P state rows of a head are split across
+    ``p_splits`` blocks; float32: ``f32_plan``'s three launches over a
+    scratch allocated here. Raises on a CPU tensor."""
     if x.device.type != "cuda":
         raise ValueError(f"ssd_scan launches the CUDA kernel K6 and needs "
                          f"CUDA tensors, got {x.device} (the twin is "
@@ -203,8 +272,16 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a_log_neg: torch.Tensor,
                       x.dtype, b.dtype, c.dtype, chunk)
     bsz, s, h, p = x.shape
     g, n = b.shape[2], b.shape[3]
-    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
-    nsplit = p_splits(bsz * h, p, sms)
+    scratch = None
+    if x.dtype == torch.float32:
+        plan = f32_plan(bsz, s, h, g, p, n, lc)
+        nsplit = plan.nsplit
+        scratch = torch.empty(plan.scratch_bytes // 4, dtype=torch.float32,
+                              device=x.device)
+    else:
+        sms = torch.cuda.get_device_properties(
+            x.device).multi_processor_count
+        nsplit = p_splits(bsz * h, p, sms)
     x, b, c = (_aligned(t) for t in (x, b, c))
     dt, a = (_aligned(t.float()) for t in (dt, a_log_neg))
     y = torch.empty_like(x)
@@ -213,9 +290,11 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a_log_neg: torch.Tensor,
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = lib.ssd_scan_launch(
             x.data_ptr(), dt.data_ptr(), a.data_ptr(), b.data_ptr(),
-            c.data_ptr(), y.data_ptr(), bsz, s, h, g, p, n, lc, nsplit,
-            _DTYPES[x.dtype], stream)
-    _raise_on(err, "ssd_scan_kernel")
+            c.data_ptr(), y.data_ptr(),
+            None if scratch is None else scratch.data_ptr(),
+            0 if scratch is None else scratch.numel() * 4, bsz, s, h, g, p,
+            n, lc, nsplit, _DTYPES[x.dtype], stream)
+    _raise_on(err, "ssd_scan")
     build.count_launch(LAUNCHES, "ssd_scan")
     if x.dtype == torch.float32:
         build.count_launch(F32_LAUNCHES, "ssd_scan")

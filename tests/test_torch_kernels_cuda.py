@@ -31,6 +31,7 @@ cumsum in another order), 2^-8 + 1e-5 for bfloat16 (one rounding of y to
 bf16 on top). Inputs decay slowly (a * dt in [-0.01, -1e-4]), so the state
 carried across chunks is a large part of y.
 """
+import ctypes
 import dataclasses
 
 import numpy as np
@@ -615,18 +616,20 @@ def test_flash_kernel_gqa_packing(cuda, dtype, hq, hkv, d):
 # with their instantiations: K5 and K4 at D 64, 128, 256 and padded at the
 # 16 multiples of 16 (bf16), their float32 bodies (the float32 core of
 # csrc/attention_f32.cuh) padded at the 8 multiples of 32; K6 at P slice
-# 16, 32, 64 x N 16, 32, 64, 128, exact and padded
+# 16, 32, 64 x N 16, 32, 64, 128, exact and padded: the bf16 body, and the
+# float32 route's steps A and C (step B, the state pass, is one kernel)
 TC_KERNELS = {"flash_attention_tc_kernel": 19, "paged_prefill_tc_kernel": 19}
 F32_KERNELS = {"flash_attention_kernel": 11, "paged_prefill_kernel": 11}
 SSD_TC_KERNELS = {"ssd_scan_tc_kernel": 24}
-SSD_F32_KERNELS = {"ssd_scan_kernel": 24}
+SSD_F32_KERNELS = {"ssd_state_kernel": 24, "ssd_pass_kernel": 1,
+                   "ssd_chunk_scan_kernel": 24}
 
 
-def _check_tensor_cores(tc, f32):
+def _check_tensor_cores(tc, f32, f32_spills=False):
     """Every instantiation of the ``tc`` kernels has HMMA (or HGMMA)
     instructions in its SASS and spills nothing (the ptxas -v report of
-    the build); the ``f32`` kernels have none; each name has its count of
-    instantiations."""
+    the build); the ``f32`` kernels have none, and with ``f32_spills``
+    spill nothing either; each name has its count of instantiations."""
     built = build.build()
     sass = build.sass_functions(built.path)
     report = build.ptxas_report(built.log)
@@ -636,7 +639,7 @@ def _check_tensor_cores(tc, f32):
         for n in names:
             mma = "HMMA" in sass[n] or "HGMMA" in sass[n]
             assert mma == (kern in tc), n
-            if kern in tc:
+            if kern in tc or f32_spills:
                 assert report[n]["spill_stores"] == 0, (n, report[n])
                 assert report[n]["spill_loads"] == 0, (n, report[n])
 
@@ -650,8 +653,9 @@ def test_bf16_attention_kernels_use_tensor_cores(cuda):
 
 def test_bf16_ssd_kernel_uses_tensor_cores(cuda):
     """Every bf16 instantiation of K6 runs its products on the tensor
-    cores without spilling; its float32 body does not use them."""
-    _check_tensor_cores(SSD_TC_KERNELS, SSD_F32_KERNELS)
+    cores without spilling; its float32 route's three kernels do not use
+    them and spill nothing."""
+    _check_tensor_cores(SSD_TC_KERNELS, SSD_F32_KERNELS, f32_spills=True)
 
 
 def test_flash_kernel_is_deterministic(cuda):
@@ -820,6 +824,84 @@ def test_ssd_kernel_is_deterministic_at_the_long_shape(cuda):
     for _ in range(20):
         again = ss.ssd_scan(*args, chunk=256)
         assert torch.equal(again.view(torch.int16), first.view(torch.int16))
+
+
+def test_ssd_f32_rows_and_heads_alone_are_bit_identical(cuda):
+    """The float32 route at mamba2's widths (B 16, S 512, H 64, P 64, N
+    128, 4 chunks): the first batch row alone and its first 16 heads alone
+    give the whole call's bits for those rows (a head's y depends only on
+    its own data and the shapes)."""
+    args = _ssd_inputs(cuda, torch.float32, 16, 512, 64, 64, 1, 128, seed=7)
+    whole = ss.ssd_scan(*args, chunk=128)
+    x, dt, a, bm, cm = (t[:1] if t.dim() > 1 else t for t in args)
+    first = ss.ssd_scan(x, dt, a, bm, cm, chunk=128)
+    heads = ss.ssd_scan(x[:, :, :16].contiguous(),
+                        dt[:, :, :16].contiguous(), a[:16], bm, cm,
+                        chunk=128)
+    assert torch.equal(first, whole[:1])
+    assert torch.equal(heads, whole[:1, :, :16])
+    assert ss.error_ratio(whole, _ssd_twin(*args, 128)) <= 1.0
+
+
+def test_ssd_f32_is_deterministic_at_the_long_shape(cuda):
+    """mamba2-1.3b's layer at B 1, S 8192 in float32 (32 chunks through
+    the state pass): 20 repeats bit for bit."""
+    args = _ssd_inputs(cuda, torch.float32, 1, 8192, 64, 64, 1, 128)
+    first = ss.ssd_scan(*args, chunk=256)
+    for _ in range(20):
+        assert torch.equal(ss.ssd_scan(*args, chunk=256), first)
+
+
+def test_ssd_f32_32_chunks_against_the_twin(cuda):
+    """32 chunks of 64 rows (slow decay: the state carried through 31
+    passes is a large part of y) against the twin, and the twin without
+    the carried state rejected by far."""
+    args = _ssd_inputs(cuda, torch.float32, 2, 2048, 8, 64, 1, 128, seed=3)
+    ss.reset_launch_counts()
+    got = ss.ssd_scan(*args, chunk=64)
+    want = _ssd_twin(*args, 64)
+    assert ss.LAUNCHES["ssd_scan"] == 1 and ss.F32_LAUNCHES["ssd_scan"] == 1
+    cut = torch.cat([_ssd_twin(*(t[:, c0:c0 + 64] if t.dim() > 1 else t
+                                 for t in args), 64)
+                     for c0 in range(0, 2048, 64)], 1)
+    assert ss.error_ratio(got, want) <= 1.0
+    assert ss.error_ratio(cut, want) > 100.0
+
+
+def test_ssd_f32_back_to_back_calls_of_other_shapes(cuda):
+    """Calls of other shapes in turn reuse the allocator's blocks for the
+    float32 scratch: a call's result does not depend on what an earlier
+    call left there (a wider call first, then a narrower one; each
+    repeated after the other, bit for bit)."""
+    big = _ssd_inputs(cuda, torch.float32, 4, 1024, 16, 64, 2, 128, seed=1)
+    small = _ssd_inputs(cuda, torch.float32, 2, 256, 8, 32, 1, 48, seed=2)
+    y_big = ss.ssd_scan(*big, chunk=128)
+    y_small = ss.ssd_scan(*small, chunk=64)
+    again_big = ss.ssd_scan(*big, chunk=128)
+    again_small = ss.ssd_scan(*small, chunk=64)
+    assert ss.error_ratio(y_big, _ssd_twin(*big, 128)) <= 1.0
+    assert ss.error_ratio(y_small, _ssd_twin(*small, 64)) <= 1.0
+    assert torch.equal(again_big, y_big)
+    assert torch.equal(again_small, y_small)
+
+
+@pytest.mark.parametrize("shape", [
+    (16, 1024, 64, 1, 64, 128, 256), (8, 1024, 16, 1, 32, 48, 256),
+    (1, 8192, 64, 1, 64, 128, 256), (4, 768, 128, 1, 64, 128, 256),
+    (1, 384, 2, 1, 128, 64, 384), (2, 128, 4, 2, 127, 1, 64),
+    (3, 96, 6, 3, 24, 100, 32)])
+def test_ssd_f32_plan_matches_the_c_entry(cuda, shape):
+    """``ssd_scan.f32_plan`` (b, s, h, g, p, n, lc), which sizes the
+    wrapper's scratch, against the C source's own plan for the same shapes
+    (``ssd_f32_plan``: the grids and the scratch layout its launches
+    use): P slices, units a step-C block, step A's blocks, step B's grid
+    (0, 0 with one chunk), step C's blocks, the scratch's bytes."""
+    out = (ctypes.c_longlong * 7)()
+    assert build.load().ssd_f32_plan(*shape, out) == 0
+    got = ss.f32_plan(*shape)
+    assert list(out) == [got.nsplit, got.units, got.grid_a,
+                         *(got.grid_b or (0, 0)), got.grid_c,
+                         got.scratch_bytes]
 
 
 def test_ssd_wrapper_rejects_what_the_kernel_does_not_take(cuda):

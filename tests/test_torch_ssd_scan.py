@@ -7,6 +7,8 @@ Tolerances: the JAX package's own for its sweep (rtol = atol = 2e-4,
 cumsum); bfloat16 inputs give bfloat16 outputs computed in float32 by
 both, which may round one bf16 ulp apart (rtol = atol = 2^-7).
 """
+import ctypes
+import inspect
 import re
 from pathlib import Path
 
@@ -140,16 +142,132 @@ def test_p_splits(blocks, p, splits):
 def test_argtypes_match_the_c_entry_points():
     """Every C entry point takes as many arguments as its ctypes argtypes
     declare (a short table makes ctypes refuse the call; a long one would
-    pass junk)."""
-    found = {}
+    pass junk); K6's takes the float32 scratch (a pointer, then its size
+    as a size_t) after y."""
+    found, params = {}, {}
     for src in build.sources():
         for m in re.finditer(r'extern "C" int (\w+)\(([^)]*)\)',
                              src.read_text()):
             found[m.group(1)] = len(m.group(2).split(","))
+            params[m.group(1)] = [" ".join(a.split()) for a in
+                                  m.group(2).split(",")]
     assert set(found) == set(build.ARGTYPES)
     for name, n in found.items():
         assert len(build.ARGTYPES[name]) == n, name
     assert (Path(build.CSRC) / "ssd_scan.cu").exists()
+    assert params["ssd_scan_launch"][5:8] == [
+        "void* y", "void* scratch", "size_t scratch_bytes"]
+    types = build.ARGTYPES["ssd_scan_launch"]
+    assert types[6] is ctypes.c_void_p and types[7] is ctypes.c_size_t
+    # the float32 plan: seven shapes in, seven long longs out
+    assert params["ssd_f32_plan"][-1] == "long long* out"
+    assert build.ARGTYPES["ssd_f32_plan"][-1] is ctypes.c_void_p
+
+
+def three_steps(x, dt, a, b, c, *, chunk):
+    """K6's float32 route in plain torch, step by step, on float32 inputs:
+    A, each chunk's cumsum, its own end state D_c = (x o dt exp(cum_L -
+    cum))^T B (all but the last chunk) and each (batch, group, chunk)'s
+    scores S = C B^T, made once for the group's heads; B, the states
+    entering each chunk, state_in[c + 1] = state_in[c] exp(cum_L[c]) +
+    D_c from state_in[0] = 0; C, y = exp(cum_t) C state_in^T + [S o
+    exp(cum_t - cum_s) dt_s]_{s <= t} x, the group's S for every head."""
+    bsz, s, h, p = x.shape
+    g, n = b.shape[2], b.shape[3]
+    rep, nc = h // g, s // chunk
+    ch = lambda t: t.reshape(bsz, nc, chunk, *t.shape[2:])  # noqa: E731
+    xc, dtc, bc, cc = ch(x), ch(dt), ch(b), ch(c)    # (B, nc, L, ...)
+    cum = torch.cumsum(a * dtc, dim=2)                # (B, nc, L, H)
+    keep = torch.ones((chunk, chunk), dtype=torch.bool).tril()
+    # step A: end states (B, nc - 1, H, N, P) and the group's scores
+    fw = dtc * torch.exp(cum[:, :, -1:] - cum)
+    grp = lambda t: t.repeat_interleave(rep, dim=3)  # noqa: E731
+    delta = torch.einsum("bcshp,bcshn->bchnp", xc * fw[..., None],
+                         grp(bc))[:, :-1]
+    scores = torch.einsum("bctgn,bcsgn->bcgts", cc, bc)   # (B, nc, G, L, L)
+    # step B: the states entering each chunk
+    state = torch.zeros((bsz, h, n, p))
+    states = [state]
+    for i in range(nc - 1):
+        state = (state * torch.exp(cum[:, i, -1])[..., None, None]
+                 + delta[:, i])
+        states.append(state)
+    states = torch.stack(states, 1)                   # (B, nc, H, N, P)
+    # step C
+    dec = torch.where(keep[..., None], cum[:, :, :, None] - cum[:, :, None],
+                      0.0)                            # (B, nc, t, s, H)
+    w = torch.where(keep[..., None],
+                    scores.repeat_interleave(rep, dim=2).permute(0, 1, 3, 4, 2)
+                    * torch.exp(dec) * dtc[:, :, None], 0.0)
+    y = torch.einsum("bctsh,bcshp->bcthp", w, xc)
+    y = y + torch.exp(cum)[..., None] * torch.einsum(
+        "bcthn,bchnp->bcthp", grp(cc), states)
+    return y.reshape(bsz, s, h, p)
+
+
+@pytest.mark.parametrize("shape,chunk,slow", [
+    ((1, 64, 2, 16, 1, 8), 32, False), ((2, 128, 4, 32, 2, 16), 32, False),
+    ((1, 256, 8, 64, 1, 32), 32, False), ((1, 1024, 4, 16, 2, 16), 32, True),
+])
+def test_three_steps_match_the_twin_and_the_pallas_kernel(shape, chunk,
+                                                          slow):
+    """The float32 route's three steps (``three_steps``) against the twin
+    at the float32 bar (``error_ratio`` <= 1) and against the JAX
+    package's Pallas kernel in interpret mode at its sweep's tolerance: the
+    reference's sweep shapes, and 32 chunks with slow decay (the state
+    passed through 31 chunks is a large part of y)."""
+    arrs = _inputs(shape, seed=shape[1] + 7, slow=slow)
+    got = three_steps(*(torch.from_numpy(t) for t in arrs), chunk=chunk)
+    assert ss.error_ratio(got, _twin(arrs, chunk)) <= 1.0
+    np.testing.assert_allclose(got.numpy(), _jax(arrs, chunk), rtol=TOL,
+                               atol=TOL)
+
+
+@pytest.mark.parametrize("shape,chunk,plan", [
+    # mamba2-1.3b's recompute layer: 4736 step-A blocks (4096 chunk
+    # states, 640 score tiles), 1024 x 8 step-B blocks, 4096 step-C blocks
+    ((16, 1024, 64, 64, 1, 128), 256,
+     (1, 4736, (1024, 8), 4096, 119537664)),
+    # the width row: step C 512 blocks (the first design: 128)
+    ((8, 1024, 16, 32, 1, 48), 256, (1, 832, (128, 2), 512, 9437184)),
+    # P 128 in two slices of 64; one chunk: no state pass
+    ((1, 384, 2, 128, 1, 64), 384, (2, 25, None, 6, 350208)),
+    # P 127, N 1 (padded to 16); two groups of two heads
+    ((2, 128, 4, 127, 2, 1), 64, (2, 40, (8, 2), 8, 204800)),
+])
+def test_f32_plan(shape, chunk, plan):
+    """The float32 route's plan at the main path's shapes and at padded
+    ones: P slices, the three grids and the scratch's bytes."""
+    b, s, h, p, g, n = shape
+    got = ss.f32_plan(b, s, h, g, p, n, chunk)
+    assert (got.nsplit, got.grid_a, got.grid_b, got.grid_c,
+            got.scratch_bytes) == plan
+    assert got.units == ss.F32_UNITS == 4
+
+
+def test_f32_plan_is_a_function_of_the_shapes_alone():
+    """No SM count or device enters the float32 plan: its arguments are
+    the shapes; P splits by ceil(P / 64) alone; a batch row alone or a
+    subset of a group's heads plans the same per-head work (the grids and
+    the state scratch scale with B and H), so a head's blocks and their
+    summation order do not depend on the call."""
+    assert list(inspect.signature(ss.f32_plan).parameters) == [
+        "b", "s", "h", "g", "p", "n", "lc"]
+    for p, nsplit in ((1, 1), (64, 1), (65, 2), (100, 2), (128, 2)):
+        assert ss.f32_plan(1, 64, 2, 1, p, 16, 64).nsplit == nsplit
+    whole = ss.f32_plan(16, 1024, 64, 1, 64, 128, 256)
+    row = ss.f32_plan(1, 1024, 64, 1, 64, 128, 256)
+    heads = ss.f32_plan(1, 1024, 16, 1, 64, 128, 256)
+    assert whole.grid_c == 16 * row.grid_c == 64 * heads.grid_c
+    assert whole.grid_b[0] == 16 * row.grid_b[0] == 64 * heads.grid_b[0]
+    assert whole.grid_b[1] == row.grid_b[1] == heads.grid_b[1]
+    # the (cum, dt) pairs and states per (batch, head), the scores per
+    # (batch, group)
+    per_bh = 4 * (1024 * 2 + 3 * 128 * 64)
+    per_b = 4 * 4 * 10 * 64 * 64
+    assert whole.scratch_bytes == 16 * 64 * per_bh + 16 * per_b
+    assert row.scratch_bytes == 64 * per_bh + per_b
+    assert heads.scratch_bytes == 16 * per_bh + per_b
 
 
 def _bf(t):

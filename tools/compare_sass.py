@@ -13,8 +13,9 @@ or an instantiation missing on either side.
 
 PARENT_CSRC is the parent's ``src/repro_torch/kernels/csrc`` (for example
 unpacked with ``git archive PARENT src/repro_torch/kernels/csrc``); the
-kernels default to those whose code the float32 core left alone: K1, K2,
-K3, the bf16 bodies of K4 and K5, and both bodies of K6. It needs
+kernels default to every kernel but K6's float32 route (the one whose
+code changed with its chunk-parallel redesign): K1, K2, K3, both bodies
+of K4 and K5, and the bf16 body of K6. It needs
 ``nvcc`` and ``cuobjdump`` (the machine with the card).
 """
 from __future__ import annotations
@@ -31,8 +32,9 @@ sys.path.insert(0, str(Path(__file__).resolve().parents[1] / "src"))
 from repro_torch.kernels import build  # noqa: E402
 
 KERNELS = ("logprob_fwd_kernel", "logprob_bwd_kernel", "paged_decode_kernel",
-           "paged_prefill_tc_kernel", "flash_attention_tc_kernel",
-           "ssd_scan_kernel", "ssd_scan_tc_kernel")
+           "paged_prefill_tc_kernel", "paged_prefill_kernel",
+           "flash_attention_tc_kernel", "flash_attention_kernel",
+           "ssd_scan_tc_kernel")
 
 
 def parent_library(csrc: Path, out: Path):
