@@ -248,9 +248,13 @@ never jax, never the JAX package. Phases, each fatal on failure:
    tests/test_parallel_parity.py, a control (the wrong microbatch order)
    that must miss them, and one bf16 step at SHARD_BF16_LAYERS of 28
    layers (B 8 x S 1024) for
-   its ms and peak GiB per rank. (c) One llama4-scout MoE layer at full
+   its ms and peak GiB per rank, and each rank's high-water mark of the
+   gathered weights' bytes, which must not pass the leaves outside the
+   blocks plus one block (the step gathers one block at a time under
+   remat). (c) One llama4-scout MoE layer at full
    width (E 16 top-1, d 5120, f 8192, shared expert; float32) through
-   ``moe_ep="train"`` on the 1x2 mesh against ``models/moe.py`` on one
+   ``moe_ep="train"`` on the 1x2 mesh (each rank given its own experts)
+   against ``models/moe.py`` on one
    rank, at a capacity that drops nothing, drop fractions printed.
 15. serve plan: ``ContinuousEngine`` on ``serve`` ``ExecutionPlan``s
    (tensor-parallel over 'model', slots over 'data'), qwen3-1.7b at full
@@ -415,6 +419,7 @@ from repro_torch.hetero import nodes as nodes_mod  # noqa: E402
 from repro_torch.hetero.nodes import copy_tree  # noqa: E402
 from repro_torch.launch.dryrun import rank_param_bytes  # noqa: E402
 from repro_torch.launch.train import sft_warmstart  # noqa: E402
+from repro_torch.parallel import axes  # noqa: E402
 from repro_torch.parallel.mesh import HBM_BYTES, abstract_mesh  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
@@ -5285,6 +5290,20 @@ def shard_batch(cfg, rows, s, seed, dev):
             "rewards": torch.from_numpy(r.astype(np.float32)).to(dev)}
 
 
+def gathered_bound(cfg):
+    """The bytes a sharded step's rank may hold gathered at once under
+    remat, from the param shapes alone: every leaf outside the blocks and
+    one block, whole, in ``cfg.dtype``."""
+    def walk(tree, block):
+        if isinstance(tree, dict):
+            return sum(walk(v, block or k == "blocks")
+                       for k, v in tree.items())
+        n = int(np.prod(tree))
+        return n // tree[0] if block else n
+    return walk(axes.param_shapes(cfg), False) * torch.empty(
+        (), dtype=getattr(torch, cfg.dtype)).element_size()
+
+
 def shard_steps(step, state, batch, n, label, card, rank=0):
     """``n`` steps of ``step``; their ms, peak GiB and metrics. Prints a
     line per step (rank 0)."""
@@ -5397,7 +5416,7 @@ def shard_rank_main(rank, world, work, seed, card, dev=None):
     import datetime
     import torch.distributed as dist
     from repro_torch.models.moe_ep import moe_ffn_ep
-    from repro_torch.parallel import (ExecutionPlan, make_mesh,
+    from repro_torch.parallel import (ExecutionPlan, collectives, make_mesh,
                                       make_sharded_train_step)
     from repro_torch.runtime_context import mesh_context
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -5469,12 +5488,15 @@ def shard_rank_main(rank, world, work, seed, card, dev=None):
         del params
         free()
         fl.reset_launch_counts()
+        collectives.reset_gathered_high_water()
         state, runs = shard_steps(
             make_sharded_train_step(c14, rl, tc_bf16, plan), state, batch,
             2, f"bf16 {plan.describe()}", card, rank=rank)
         rec["bf16_ms"] = [r[0] for r in runs]
         rec["bf16_peak_gib"] = [r[1] for r in runs]
         rec["bf16_launches"] = dict(fl.LAUNCHES)
+        rec["bf16_gathered_high"] = collectives.GATHERED_BYTES["high"]
+        rec["bf16_gathered_bound"] = gathered_bound(c14)
         del state, batch
         free()
     # (c) one llama4-scout MoE layer at full width, float32, through
@@ -5494,14 +5516,19 @@ def shard_rank_main(rank, world, work, seed, card, dev=None):
                     "w_down": normal((f, d), 0.02)}}
     x = normal((SHARD_MOE_ROWS, SHARD_MOE_S, d), 1.0)
     mesh = meshes[(1, 2)]
+    e_loc = e // mesh.shape["model"]                # the rank's experts
+    lo = mesh.axis_index(("model",)) * e_loc
+    mine = dict(p, **{k: p[k][lo:lo + e_loc]
+                      for k in ("w_gate", "w_up", "w_down")})
     with torch.no_grad(), mesh_context(mesh):
-        y, aux = moe_ffn_ep(ep, p, x)
+        y, aux = moe_ffn_ep(ep, mine, x)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         for _ in range(3):
-            moe_ffn_ep(ep, p, x)
+            moe_ffn_ep(ep, mine, x)
         torch.cuda.synchronize()
         ep_ms = (time.perf_counter() - t0) / 3 * 1e3
+    del mine
     moe = {"ep_ms": ep_ms, "ep_drop": float(aux["moe_drop_frac"]),
            "ep_lb": float(aux["moe_load_balance"]), "shape": [
                e, scout.experts_per_token, d, f, scout.num_layers]}
@@ -5538,14 +5565,23 @@ def sharded_phase(dev, seed, card, ranks):
     log(f"[time] sharded: (b)+(c) on the ranks {r0['t_part']:.1f}s")
     for name, rec in r0["plans"].items():
         peaks = [max(r["plans"][name]["bf16_peak_gib"]) for r in ranks]
+        high = [r["plans"][name]["bf16_gathered_high"] for r in ranks]
+        bound = rec["bf16_gathered_bound"]
         log(f"[sharded] (b) {name} over gloo (CUDA tensors, 2 ranks on one "
             f"card), qwen3-1.7b bf16, {SHARD_BF16_LAYERS}/28 layers, B "
             f"{SHARD_ROWS_B} x S "
             f"{SHARD_S}, grad_accum 2, after the float32 pair: step "
             f"{rec['bf16_ms'][1]:.1f} ms (the second; the first, a warm-up, "
             f"{rec['bf16_ms'][0]:.1f} ms), peak GiB per rank "
-            f"{[round(x, 2) for x in peaks]}, K1/K2 over both steps "
+            f"{[round(x, 4) for x in peaks]}, K1/K2 over both steps "
             f"{rec['bf16_launches']} | {card}")
+        log(f"[sharded] (b) {name}: gathered weights' high-water per rank "
+            f"{[x / 2 ** 30 for x in high]} GiB against the leaves outside "
+            f"the blocks + one block {bound / 2 ** 30} GiB ({high} vs "
+            f"{bound} bytes) | {card}")
+        if max(high) > bound:
+            raise AssertionError(f"(b) {name}: a rank held {max(high)} "
+                                 f"gathered bytes, past {bound}")
         for label in [k for k in rec if k.startswith(("sharded", "control"))]:
             v = rec[label]
             log(f"[sharded] (b) {name} float32 {SHARD_F32_LAYERS}/28 layers, "

@@ -54,7 +54,14 @@ SSM heads (``models.ssm.mamba_block``).
 
 Parameters are the JAX package's tree: block leaves are stacked
 ``(nb, ...)`` and applied one block at a time in a Python loop (the JAX
-package scans them). With ``cfg.local_ring_kv`` the dense cache of a
+package scans them). Under the sharded learner's step
+(``runtime_context.param_gather``) the tree holds this rank's shards:
+``forward`` and ``encode`` gather the leaves outside the blocks, and each
+block gathers its own leaves where it runs, inside the checkpointed
+function under ``cfg.remat``, so one block's weights are whole at a time
+(``parallel.step.ShardGather``).
+
+With ``cfg.local_ring_kv`` the dense cache of a
 local layer is a ring of ``min(max_len, sliding_window)`` rows: a prefill
 stores the prompt's last W keys in ring order (``fill_ring``), a decode
 step writes at ``pos mod W`` and attends the ring
@@ -517,6 +524,8 @@ def _run_dense(cfg: ModelConfig, params: Dict, x: torch.Tensor, *,
               memory: Optional[torch.Tensor]
               ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         aux = dict(aux)
+        if gather is not None:
+            bp = gather.block(bp, "blocks")
         for i, kind in enumerate(cfg.block_pattern):
             dense, mem = (None, None) if bc is None else bc[i]
             x = _apply_layer(cfg, kind, cfg.ffn_kind(i), bp[f"layer_{i}"], x,
@@ -540,6 +549,8 @@ def _run_dense(cfg: ModelConfig, params: Dict, x: torch.Tensor, *,
         return tuple(lc[key][n][bi] for n in names) + (pos,), mem
 
     remat = cfg.remat and torch.is_grad_enabled() and cache is None
+    # read here, not in ``block``: a recompute runs on autograd's thread
+    gather = runtime_context.param_gather()
     aux = _aux_init(cfg, x.device)
     for bi, bp in enumerate(_unstack(params["blocks"], cfg.num_blocks)):
         bc = None if cache is None else [
@@ -613,7 +624,9 @@ def _logits(cfg: ModelConfig, params: Dict, x: torch.Tensor) -> torch.Tensor:
 
 
 def _encoder_layer(cfg: ModelConfig, p: Dict, x: torch.Tensor,
-                   positions: torch.Tensor) -> torch.Tensor:
+                   positions: torch.Tensor, gather=None) -> torch.Tensor:
+    if gather is not None:
+        p = gather.block(p, "encoder", "blocks")
     return _apply_layer(cfg, ATTN, MLP, p, x, positions=positions,
                         paged=None, decode=False, contiguous=True,
                         encoder=True)
@@ -633,15 +646,18 @@ def encode(cfg: ModelConfig, params: Dict, frames: torch.Tensor
         raise ValueError(f"{cfg.name} has no encoder (encoder_layers 0)")
     b, s, _ = frames.shape
     positions = torch.arange(s, device=frames.device).expand(b, s)
-    enc = params["encoder"]
+    gather = runtime_context.param_gather()
+    enc = params["encoder"] if gather is None else \
+        gather.top(params["encoder"], "encoder")
     remat = cfg.remat and torch.is_grad_enabled()
     x = frames
     for lp in _unstack(enc["blocks"], cfg.encoder_layers):
         if remat:
             x = torch.utils.checkpoint.checkpoint(
-                _encoder_layer, cfg, lp, x, positions, use_reentrant=False)
+                _encoder_layer, cfg, lp, x, positions, gather,
+                use_reentrant=False)
         else:
-            x = _encoder_layer(cfg, lp, x, positions)
+            x = _encoder_layer(cfg, lp, x, positions, gather)
     return rmsnorm(x, enc["final_norm"], cfg.norm_eps)
 
 
@@ -679,6 +695,9 @@ def forward(cfg: ModelConfig, params: Dict, tokens: torch.Tensor, *,
         positions = torch.arange(s, device=tokens.device).expand(b, s)
     elif cfg.attn_impl == "pallas" and page_table is None:
         contiguous = standard_positions(positions)   # once, not per layer
+    gather = runtime_context.param_gather()
+    if gather is not None:           # a sharded step: this rank's shards
+        params = gather.top(params)
     x = _embed(cfg, params, _rows(tokens))
     if page_table is None and not _is_paged(cfg, cache):
         if record_queries:

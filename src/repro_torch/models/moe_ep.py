@@ -14,11 +14,13 @@ Layout, as in the JAX package's ``shard_map`` version:
   axes, as the reference's ``pmean`` chain does (so ``moe_drop_frac`` is
   the mean over model ranks of each rank's drops over t_loc k).
 
-In the learner (``moe_ep="train"``) the weights arrive whole: the
-sharded step gathers the param tree before the forward, so the
-reference's in-shard gather of the expert weights over a data axis (dim
-1 in ``train`` mode) is that tree gather here; a per-layer gather of a
-rank's own experts is ROADMAP queue 2. On a serving plan
+In the learner (``moe_ep="train"``) the weights arrive as this rank's
+experts, ``(E_loc, d, f)`` and ``(E_loc, f, d)``: the sharded step's
+block gather (``parallel.step.ShardGather``) leaves each expert leaf cut
+over 'model' and gathers it over the data axes only, as the reference
+all-gathers a rank's own experts inside its shard (a per-layer weight
+all-gather over the data axis). A caller that runs the layer alone
+passes its rank's experts too. On a serving plan
 (``moe_ep="serve"``, ``runtime_context.serve_shard``) the weights are the
 rank's shards, its experts with their FFN columns cut over 'data'
 (``(E_loc, d, f/D)`` and ``(E_loc, f/D, d)``), and the layer gathers the
@@ -27,9 +29,9 @@ those the forward was given (``ServeShard.token_rows``), cut over the
 config's ``ep_dp_axes`` where they divide the batch, as the reference's
 ``shard_map`` cuts them. It is forward-only there. In the learner the
 backward is exact on every rank: the rows and the router pass through
-``copy_to`` (their gradients summed over 'model'), a rank's experts
-through ``slice_from`` (each expert's gradient from its rank), so every
-model rank ends with the same full gradient.
+``copy_to`` (their gradients summed over 'model'), and a rank's experts
+get their gradient from that rank alone, which the block gather's
+backward sums over the data axes and cuts to the rank's shard.
 
 The expert products are plain ``torch`` matmuls, as the reference's are
 outside any Pallas kernel: the MoE adds no kernel. Requires a live mesh
@@ -59,27 +61,25 @@ def moe_ffn_ep(cfg: ModelConfig, p: Dict[str, torch.Tensor],
     tp = runtime_context.serve_shard()
     if tp is not None:
         return _moe_ffn_ep_serve(cfg, p, x, tp)
-    from repro_torch.parallel.collectives import (copy_to, reduce_from,
-                                                  slice_from)
+    from repro_torch.parallel.collectives import copy_to, reduce_from
     mesh = runtime_context.get_mesh()
     if not mesh.live:
         raise RuntimeError("moe_ep needs a live mesh (runtime_context); "
                            "the local plan runs models/moe.py")
     e = cfg.num_experts
     tp = ("model",)
-    if e % mesh.shape["model"]:
-        raise ValueError(f"{e} experts do not split over model="
-                         f"{mesh.shape['model']}")
+    w_gate, w_up, w_down = p["w_gate"], p["w_up"], p["w_down"]
+    e_loc = w_gate.shape[0]                   # (E_loc, d, f): its experts
+    if e_loc * mesh.shape["model"] != e:
+        raise ValueError(f"moe_ep takes this rank's experts: {e} experts "
+                         f"over model={mesh.shape['model']}, got "
+                         f"{e_loc}")
     # the axes the rows are split over: the step's, else the config's
     dp = runtime_context.row_axes() or tuple(cfg.ep_dp_axes or ())
     b, s, d = x.shape
     t = b * s
     xf = copy_to(x.reshape(t, d), mesh, tp)
     router = copy_to(p["router"], mesh, tp)
-    w_gate = slice_from(p["w_gate"], mesh, tp)           # (E_loc, d, f)
-    w_up = slice_from(p["w_up"], mesh, tp)
-    w_down = slice_from(p["w_down"], mesh, tp)           # (E_loc, f, d)
-    e_loc = w_gate.shape[0]
     lo = mesh.axis_index(tp) * e_loc
 
     logits, probs, gate, ids = route(cfg, router, xf)

@@ -12,7 +12,7 @@ update in float32, cast back to the param dtype once.
 """
 from __future__ import annotations
 
-from typing import Any, List, NamedTuple, Tuple
+from typing import Any, List, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -136,21 +136,37 @@ def adafactor_update(tc: TrainConfig, grads: Any, state: AdafactorState,
                                   vc=state.vc)
 
 
-def global_norm(tree: Any) -> torch.Tensor:
-    """sqrt of the sum of squares of every leaf, in float32 (0-dim)."""
+def sum_of_squares(tree: Any, counted: Optional[List[bool]] = None
+                   ) -> torch.Tensor:
+    """The sum of squares of every leaf, in float32 (0-dim), leaf by leaf
+    in ``tree_leaves`` order; with ``counted``, of the leaves it marks
+    True (a rank's part of a sharded norm)."""
+    leaves = tree_leaves(tree)
     total = None
-    for leaf in tree_leaves(tree):
+    for i, leaf in enumerate(leaves):
+        if counted is not None and not counted[i]:
+            continue
         sq = leaf.float().square().sum()
         total = sq if total is None else total + sq
-    return torch.sqrt(total)
+    if total is None:
+        return torch.zeros((), dtype=torch.float32, device=leaves[0].device)
+    return total
+
+
+def global_norm(tree: Any) -> torch.Tensor:
+    """sqrt of the sum of squares of every leaf, in float32 (0-dim)."""
+    return torch.sqrt(sum_of_squares(tree))
 
 
 @torch.no_grad()
-def clip_by_global_norm(tree: Any, max_norm: float
+def clip_by_global_norm(tree: Any, max_norm: float,
+                        norm: Optional[torch.Tensor] = None
                         ) -> Tuple[Any, torch.Tensor]:
     """Scale every leaf in place by min(1, max_norm / norm); returns
-    (tree, norm before clipping)."""
-    n = global_norm(tree)
+    (tree, norm before clipping). ``norm`` is the tree's global norm where
+    the caller took it (the sharded step, over every rank's shards);
+    default ``global_norm(tree)``."""
+    n = global_norm(tree) if norm is None else norm
     scale = torch.clamp(max_norm / torch.clamp(n, min=1e-12), max=1.0)
     for leaf in tree_leaves(tree):
         leaf.mul_(scale.to(leaf.dtype))

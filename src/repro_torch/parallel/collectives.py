@@ -22,19 +22,28 @@ The autograd-aware pieces:
   dispatch), so the rank's slice is the whole gradient of its rows.
 - ``copy_to`` (Megatron's f): identity forward, all-reduce backward.
 - ``reduce_from`` (Megatron's g): all-reduce forward, identity backward.
-- ``slice_from``: a rank's block of dim 0 forward, all-gather backward
-  (each model rank holds the gradient of its own experts).
+- ``gather_shards``: the sharded learner's weights where the model uses
+  them. Its forward all-gathers a set of shard leaves (one block's, or
+  the leaves outside the blocks) along the dims a plan gives; its
+  backward sums each leaf's full gradient over the row axes (one
+  all-reduce of it in float32: the transient is that leaf) and returns
+  this rank's slice, a fresh shard-shaped tensor in the leaf's dtype. No
+  collective but these two lists ever runs: gloo and NCCL serve both.
 
 ``COLLECTIVE_BYTES`` counts, by kind ("all-gather", "all-reduce",
 "broadcast"), the bytes of the result of every collective this process
 issues (a broadcast object's pickled size), as the kernels' ``LAUNCHES``
 count launches; ``reset_collective_bytes`` zeroes it. The dry-run reads
-it as its collective term (``launch.dryrun``).
+it as its collective term (``launch.dryrun``). ``GATHERED_BYTES`` holds
+the bytes of ``gather_shards``' outputs alive now (``"alive"``: added at
+each gather, taken off when the gathered tensor is freed) and the most
+alive at once since ``reset_gathered_high_water`` (``"high"``).
 """
 from __future__ import annotations
 
 import pickle
 import threading
+import weakref
 from typing import Dict, List, Tuple
 
 import torch
@@ -45,12 +54,28 @@ from repro_torch.parallel.mesh import Mesh
 COLLECTIVE_BYTES: Dict[str, int] = {"all-gather": 0, "all-reduce": 0,
                                     "broadcast": 0}
 _bytes_lock = threading.Lock()        # the threaded runtime's threads
+GATHERED_BYTES: Dict[str, int] = {"alive": 0, "high": 0}
+# reentrant: a finalizer may run inside the lock's block (a collection)
+_gathered_lock = threading.RLock()
 
 
 def reset_collective_bytes() -> None:
     with _bytes_lock:
         for k in COLLECTIVE_BYTES:
             COLLECTIVE_BYTES[k] = 0
+
+
+def reset_gathered_high_water() -> None:
+    """Start a new high-water mark of ``gather_shards``' alive bytes."""
+    with _gathered_lock:
+        GATHERED_BYTES["high"] = GATHERED_BYTES["alive"]
+
+
+def _alive(nbytes: int) -> None:
+    with _gathered_lock:
+        GATHERED_BYTES["alive"] += nbytes
+        GATHERED_BYTES["high"] = max(GATHERED_BYTES["high"],
+                                     GATHERED_BYTES["alive"])
 
 
 def _add(kind: str, nbytes: int) -> None:
@@ -125,14 +150,14 @@ def gather_leaf(shard: torch.Tensor, mesh: Mesh,
                 ) -> torch.Tensor:
     """The full leaf from this rank's shard: one all-gather per split dim
     (``NamedSharding.sharded_dims``). On a live mesh the result is a new
-    tensor even where nothing is split; off a live mesh it is ``shard``
-    itself."""
+    tensor even where nothing is split, outside autograd; off a live mesh
+    it is ``shard`` itself."""
     if not mesh.live:
         return shard
-    full = shard
+    full = shard.detach()
     for dim, axes in sharded:
         full = all_gather_dim(full, mesh, axes, dim)
-    return full if sharded else shard.clone()
+    return full if sharded else full.clone()
 
 
 class _GatherRows(torch.autograd.Function):
@@ -191,17 +216,30 @@ class _ReduceFrom(torch.autograd.Function):
         return g, None, None
 
 
-class _SliceFrom(torch.autograd.Function):
+class _GatherShards(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, t, mesh, axes, lo, n):
-        ctx.mesh, ctx.axes = mesh, axes
-        return t[lo:lo + n]
+    def forward(ctx, spec, *shards):
+        mesh, _, leaves = spec
+        ctx.spec = spec
+        out = []
+        for s, (dims, _) in zip(shards, leaves, strict=True):
+            full = gather_leaf(s, mesh, dims)
+            n = full.numel() * full.element_size()
+            _alive(n)
+            weakref.finalize(full, _alive, -n)
+            out.append(full)
+        return tuple(out)
 
     @staticmethod
-    def backward(ctx, g):
-        full = torch.cat(_gather_list(g.contiguous(), ctx.mesh, ctx.axes),
-                         dim=0)
-        return full, None, None, None, None
+    def backward(ctx, *grads):
+        mesh, rows, leaves = ctx.spec
+        out = []
+        for g, (_, index) in zip(grads, leaves, strict=True):
+            g32 = g.to(torch.float32, memory_format=torch.contiguous_format,
+                       copy=True)
+            out.append(all_reduce_sum(g32, mesh, rows)[index].to(
+                g.dtype, copy=True))
+        return (None,) + tuple(out)
 
 
 def copy_to(t: torch.Tensor, mesh: Mesh, axes: Tuple[str, ...]
@@ -216,19 +254,18 @@ def reduce_from(t: torch.Tensor, mesh: Mesh, axes: Tuple[str, ...]
     return _ReduceFrom.apply(t, mesh, axes) if axes else t
 
 
-def slice_from(t: torch.Tensor, mesh: Mesh, axes: Tuple[str, ...]
-               ) -> torch.Tensor:
-    """This rank's block of dim 0 over ``axes`` (dim 0 divisible by their
-    size); the backward all-gathers the blocks' gradients, so the full
-    tensor's gradient holds every rank's block."""
-    if not axes:
-        return t
-    n = t.shape[0] // mesh.axes_size(axes)
-    return _SliceFrom.apply(t, mesh, axes, mesh.axis_index(axes) * n, n)
+def gather_shards(shards: Tuple[torch.Tensor, ...], mesh: Mesh,
+                  rows: Tuple[str, ...], leaves) -> Tuple[torch.Tensor, ...]:
+    """The gathered leaves of ``shards`` on a live mesh: ``leaves`` holds,
+    for each, the (dim, axes) it is all-gathered along (in
+    ``NamedSharding.sharded_dims`` order) and the index of this rank's
+    slice of the gathered leaf. The backward sums each gathered leaf's
+    gradient over ``rows`` and returns that slice (see the module note)."""
+    return _GatherShards.apply((mesh, tuple(rows), tuple(leaves)), *shards)
 
 
-__all__ = ["COLLECTIVE_BYTES", "reset_collective_bytes",
-           "all_gather_dim", "all_reduce_sum", "all_reduce_mean",
-           "all_reduce_max", "broadcast_object",
-           "gather_leaf", "gather_rows", "own_rows", "copy_to",
-           "reduce_from", "slice_from"]
+__all__ = ["COLLECTIVE_BYTES", "reset_collective_bytes", "GATHERED_BYTES",
+           "reset_gathered_high_water", "all_gather_dim", "all_reduce_sum",
+           "all_reduce_mean", "all_reduce_max", "broadcast_object",
+           "gather_leaf", "gather_rows", "gather_shards", "own_rows",
+           "copy_to", "reduce_from"]

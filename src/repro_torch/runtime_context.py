@@ -17,8 +17,17 @@ context-parallel description: the cache's and the memory's global rows
 positions the rank holds (``ServeShard.span``), and the axes its rows and
 its Mamba2 channels and heads split over. It is None everywhere else, and
 then every model function runs its single-device arithmetic bit for bit.
-It is kept per thread: the threaded runtime's nodes forward on threads of
-their own."""
+
+The sharded learner has a third: ``param_gather()``, the step's gather of
+this rank's param shards (``parallel.step.ShardGather``), which the step
+sets around its forward and backward (``gather_context``). ``forward``
+and ``encode`` then take the leaves outside the blocks through it, and
+each block gathers its own leaves inside the function that
+``torch.utils.checkpoint`` wraps, so a rematerialised backward gathers
+the block again. It is None everywhere else.
+
+Both are kept per thread: the threaded runtime's nodes forward on threads
+of their own."""
 from __future__ import annotations
 
 import threading
@@ -28,10 +37,12 @@ from typing import TYPE_CHECKING, Optional, Tuple
 if TYPE_CHECKING:                    # no import cycle through the models
     from repro_torch.parallel.mesh import Mesh
     from repro_torch.parallel.plan import ServeShard
+    from repro_torch.parallel.step import ShardGather
 
 _MESH: Optional["Mesh"] = None
 _ROWS: Tuple[str, ...] = ()
 _SERVE = threading.local()
+_TRAIN = threading.local()
 
 
 def set_mesh(mesh: Optional["Mesh"], row_axes: Tuple[str, ...] = ()) -> None:
@@ -83,5 +94,21 @@ def serve_context(shard: Optional["ServeShard"]):
         _SERVE.shard = prev
 
 
+def param_gather() -> Optional["ShardGather"]:
+    """The sharded step's gather of this rank's param shards, or None."""
+    return getattr(_TRAIN, "gather", None)
+
+
+@contextmanager
+def gather_context(gather: Optional["ShardGather"]):
+    prev = param_gather()
+    _TRAIN.gather = gather
+    try:
+        yield gather
+    finally:
+        _TRAIN.gather = prev
+
+
 __all__ = ["set_mesh", "get_mesh", "active_mesh", "row_axes",
-           "mesh_context", "serve_shard", "serve_context"]
+           "mesh_context", "serve_shard", "serve_context", "param_gather",
+           "gather_context"]

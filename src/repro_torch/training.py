@@ -129,7 +129,10 @@ def _grads(cfg, rl, tc, params, mb, memory=None, rows=None, gather=None
     order, and its detached metrics. With ``rows`` (this rank's rows of
     ``mb``) and ``gather`` (their log-probs -> those of all of ``mb``'s
     rows), the forward runs on ``rows`` and the loss on the whole of
-    ``mb``: the global-batch loss of the sharded step."""
+    ``mb``: the global-batch loss of the sharded step, whose ``params``
+    are the rank's shards (the model gathers them,
+    ``runtime_context.param_gather``), so the gradients are the shards'
+    too, already summed over the row axes."""
     leaves = tree_leaves(params)
     for p in leaves:
         p.requires_grad_(True)
@@ -152,7 +155,9 @@ def _accumulate(cfg, rl, tc, params, batch, memory=None, mb_constraint=None,
     and divided by ``accum``, and the metrics are averaged, except
     ``MAX_METRICS`` (max over microbatches). ``mb_constraint`` maps the
     cut (accum, mb, ...) tree to the rows the forward runs on (a plan's
-    ``constrain_microbatches``); ``gather`` is handed to ``_grads``."""
+    ``constrain_microbatches``); ``gather`` is handed to ``_grads``. The
+    accumulator has the shapes of ``params``: a rank's shards in the
+    sharded step."""
     accum = tc.grad_accum
     if accum == 1 and mb_constraint is None:
         return _grads(cfg, rl, tc, params, batch, memory)

@@ -8,9 +8,11 @@ Joins a gloo group of WORLD ranks through a ``file://`` store (60 s
 timeout, one torch thread), reads the numpy inputs of every case from
 ``WORKDIR/inputs.npz`` and ``WORKDIR/cases.json``, runs each case's
 sharded step and writes, per rank, ``WORKDIR/out_<rank>.npz``: the
-gathered params after the step and the metrics (rank 0), and the shapes
-of the shards the rank stores (every rank). Imports torch and the port
-only.
+gathered params after the step and the metrics (rank 0); the shapes of
+the shards the rank stores, of the gradients of its first loss
+evaluation and of the gradient the step clips (the accumulator under
+``grad_accum`` > 1), and the high-water mark of the gathered weights'
+bytes over the step (every rank). Imports torch and the port only.
 """
 import dataclasses
 import datetime
@@ -71,14 +73,29 @@ def main():
     dist.init_process_group("gloo", init_method=f"file://{store}",
                             rank=rank, world_size=world,
                             timeout=datetime.timedelta(seconds=60))
+    from repro_torch import training
     from repro_torch.checkpoint import PolicyStore
     from repro_torch.config import ModelConfig, RLConfig, TrainConfig
     from repro_torch.models import params_from_numpy
     from repro_torch.parallel import (ExecutionPlan, make_mesh,
                                       make_sharded_sft_step,
                                       make_sharded_train_step)
+    from repro_torch.parallel import collectives, step as step_mod
     from repro_torch.training import init_state
     from repro_torch.transport import publish_params
+
+    seen = {}                         # the leaves' shapes the step saw
+    grads_fn, clip_fn = training._grads, step_mod._clip
+
+    def grads_seen(*a, **kw):
+        grads, m = grads_fn(*a, **kw)
+        seen.setdefault("grad", [tuple(g.shape) for g in grads])
+        return grads, m
+
+    def clip_seen(plan, sh, grads, max_norm):
+        seen["acc"] = [tuple(g.shape) for g in grads]
+        return clip_fn(plan, sh, grads, max_norm)
+    training._grads, step_mod._clip = grads_seen, clip_seen
 
     inputs = np.load(os.path.join(work, "inputs.npz"))
     with open(os.path.join(work, "cases.json")) as f:
@@ -109,10 +126,12 @@ def main():
         opt = case.get("optimizer", "adamw")
         state = init_state(cfg, tc, params, optimizer=opt, plan=plan)
         b = case["batch"]
-        batch = {k: torch.from_numpy(inputs[f"batch{b}/{k}"])
-                 for k in ("tokens", "mask", "sampler_lp", "rewards")}
+        batch = {k.split("/", 1)[1]: torch.from_numpy(inputs[k])
+                 for k in inputs.files if k.startswith(f"batch{b}/")}
         if case.get("perm"):
             batch = {k: v[case["perm"]] for k, v in batch.items()}
+        seen.clear()
+        collectives.reset_gathered_high_water()
         if case["kind"] == "sft":
             step = make_sharded_sft_step(cfg, tc, plan)
             state, loss = step(state, batch["tokens"], batch["mask"])
@@ -121,6 +140,14 @@ def main():
             step = make_sharded_train_step(cfg, RLConfig(**spec["rl"]), tc,
                                            plan, optimizer=opt)
             state, metrics = step(state, batch)
+        out[f"{name}/high_water"] = np.array(
+            collectives.GATHERED_BYTES["high"])
+        keys = [key for key, _ in _leaves_with_paths(state.params)]
+        if case["kind"] != "sft":
+            for key, shape in zip(keys, seen["grad"], strict=True):
+                out[f"{name}/grad/{key}"] = np.array(shape)
+        for key, shape in zip(keys, seen["acc"], strict=True):
+            out[f"{name}/acc/{key}"] = np.array(shape)
         for key, leaf in _leaves_with_paths(state.params):
             out[f"{name}/shard/params/{key}"] = np.array(leaf.shape)
         for field in state.opt._fields:
@@ -153,6 +180,9 @@ def _moe_layer(case, cfg, plan, params, inputs, out):
         return ({k: first(v) for k, v in tree.items()}
                 if isinstance(tree, dict) else tree[0])
     p = first(params["blocks"]["layer_0"]["moe"])
+    if cfg.moe_ep:                           # the rank's experts
+        p = dict(p, **{k: own_rows(p[k], plan.mesh, ("model",))
+                       for k in ("w_gate", "w_up", "w_down")})
     x = torch.from_numpy(inputs[case["x"]])
     rows = plan.dp_axes
     with mesh_context(plan.mesh, rows):

@@ -12,9 +12,12 @@ tensors, and:
 - the rank's input bytes equal the sum over the fitted
   ``state_shardings`` and ``batch_shardings`` of its shard shapes;
 - the all-gather bytes the collectives counted equal an independent sum:
-  every param leaf gathered one split dim at a time, the loss's row
-  gathers of the log-probs and entropies, and (the MoE smoke) each MoE
-  forward's gather of its token rows, which the remat runs twice;
+  each microbatch gathers, one split dim at a time, the leaves outside
+  the blocks once (at the start of its forward) and every block's leaves
+  twice (in its forward and in the backward's recompute: the smokes run
+  with remat), plus the loss's row gathers of the log-probs and
+  entropies, and (the MoE smoke) each MoE forward's gather of its token
+  rows, which the remat runs twice;
 - the all-reduce bytes are nonzero (the gradients' sum over the rows).
 
 A serve-mode decode at 64 positions on a (2, 4) mesh runs a smoke of 6 q
@@ -44,25 +47,26 @@ SCRIPT = textwrap.dedent("""
     mesh = make_debug_mesh(2, 2, multi_pod=True, device="cpu")
     shape = ShapeConfig("tiny_train", 64, 16, "train")
 
-    def pairs(sh, tree):
+    def pairs(sh, tree, path=()):
         if isinstance(tree, dict):
             for k in tree:
-                yield from pairs(sh[k], tree[k])
+                yield from pairs(sh[k], tree[k], path + (k,))
         elif isinstance(tree, tuple):
             for s, t in zip(sh, tree):
-                yield from pairs(s, t)
+                yield from pairs(s, t, path)
         else:
-            yield sh, tree
+            yield sh, tree, path
 
     def nbytes(shape, t):
         return int(np.prod(shape)) * t.element_size()
 
-    def gathered(s, t):
-        # one all-gather per split dim, each returning the wider leaf
+    def gathered(s, t, block):
+        # one all-gather per split dim, each returning the wider leaf; a
+        # block's leaf without the stacked blocks' axis (never split)
         shp, tot = list(s.shard_shape(tuple(t.shape))), 0
         for dim, axes_ in s.sharded_dims():
             shp[dim] *= mesh.axes_size(axes_)
-            tot += nbytes(shp, t)
+            tot += nbytes(shp[1:] if block else shp, t)
         return tot
 
     out = {}
@@ -76,12 +80,17 @@ SCRIPT = textwrap.dedent("""
         batch = sf.abstract_batch(cfg, shape)
         bsh = plan.batch_shardings(cfg, batch)
         inputs = sum(nbytes(s.shard_shape(tuple(t.shape)), t)
-                     for s, t in pairs(sh, state))
+                     for s, t, _ in pairs(sh, state))
         inputs += sum(nbytes(bsh[k].shard_shape(tuple(v.shape)), v)
                       for k, v in batch.items())
-        gathers = sum(gathered(s, t) for s, t in pairs(sh.params,
-                                                       state.params))
         b, s = shape.global_batch, shape.seq_len
+        accum = max(1, min(sf.grad_accum_for(cfg), b // 4))   # pod x data
+        gathers = 0
+        for sh_, t, path in pairs(sh.params, state.params):
+            if "blocks" in path:            # per block: forward, recompute
+                gathers += accum * 2 * t.shape[0] * gathered(sh_, t, True)
+            else:
+                gathers += accum * gathered(sh_, t, False)
         gathers += 2 * b * (s - 1) * 4          # log-probs and entropies
         moe = cfg.num_layers // cfg.period * sum(
             cfg.ffn_kind(i) == MOE for i in range(cfg.period))

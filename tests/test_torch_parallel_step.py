@@ -8,7 +8,11 @@ each, the job under a 240 s timeout) runs ``make_sharded_train_step`` /
 and two pod meshes (2x2x1 ``train``, 2x1x2 ``train_fsdp``), with AdamW and
 Adafactor at ``grad_accum`` 1 and 2, a tiny MoE at a capacity that drops
 tokens, the expert-parallel MoE (``moe_ep="train"``) at a capacity that
-drops none, and SFT. Each is held against the JAX package's
+drops none, SFT, and ``remat=True`` cases (a 4-layer ``tiny4`` on
+``train_fsdp`` with AdamW and on ``train`` with Adafactor, the
+expert-parallel MoE, an encoder-decoder model whose batch carries stub
+frames through the encoder), whose blocks gather their weights inside the
+checkpointed function. Each is held against the JAX package's
 ``train_step`` / SFT step on one device from the same numpy inputs (the
 JAX weights carried across), at the bars of
 ``tests/test_parallel_parity.py``: params rtol 5e-4 / atol 1e-5, metrics
@@ -21,7 +25,15 @@ test allows 0.1), not the product of global means.
 
 Controls: the wrong microbatch order (the batch sharded first and cut
 into microbatches locally, fed as the permutation it amounts to) must
-miss the bars. Every rank's stored shards have the shapes of the JAX
+miss the bars.
+
+What a rank holds during a step: the gradients of a loss evaluation and
+the gradient the step clips (the float32 accumulator) have the shapes of
+the rank's shards, and the high-water mark of the gathered weights' bytes
+(``collectives.GATHERED_BYTES``) over a ``tiny4`` remat step is, on every
+rank, the leaves outside the blocks plus one block, counted from the JAX
+package's param shapes; its control, the same step without remat, holds
+all four blocks at once. Every rank's stored shards have the shapes of the JAX
 package's fitted specs on the same mesh, and every rank's publish of the
 sharded params writes the manifest the abstract 2x2 plan writes for the
 gathered params.
@@ -59,8 +71,13 @@ MOE = dict(name="moe-tiny", family="moe", num_layers=2, d_model=32,
            block_pattern=("attn",), ffn_pattern=("moe",), num_experts=4,
            experts_per_token=2, capacity_factor=0.5, dtype="float32",
            attn_impl="naive", remat=False, rope_theta=1e4)
-MODELS = {"tiny": TINY, "moe": MOE, "moe_nodrop": dict(MOE,
-                                                       capacity_factor=8.0)}
+TINY4 = dict(TINY, name="tiny4", num_layers=4, remat=True)
+MODELS = {"tiny": TINY, "moe": MOE,
+          "moe_nodrop": dict(MOE, capacity_factor=8.0),
+          "moe_nodrop_remat": dict(MOE, capacity_factor=8.0, remat=True),
+          "tiny4": TINY4, "tiny4_noremat": dict(TINY4, remat=False),
+          "encdec": dict(TINY, name="tiny-encdec", encoder_layers=2,
+                         encoder_seq=6, remat=True)}
 RL = dict(loss_type="gepo", group_size=4, beta_kl=0.005)
 
 
@@ -69,9 +86,9 @@ def _tc(accum):
 
 
 def _case(name, mesh=(2, 2), mode="train", model="tiny", opt="adamw",
-          accum=2, **kw):
+          accum=2, batch=0, **kw):
     return dict(name=name, mesh=list(mesh), mode=mode, model=model,
-                optimizer=opt, tc=_tc(accum), batch=0, kind="rl", **kw)
+                optimizer=opt, tc=_tc(accum), batch=batch, kind="rl", **kw)
 
 
 CASES = [
@@ -87,6 +104,14 @@ CASES = [
     _case("sft-train", accum=1, kind_sft=True),
     _case("moe-drops-a2", model="moe"),
     _case("moe-ep-nodrop-a1", model="moe_nodrop", accum=1, moe_ep="train"),
+    _case("fsdp-adamw-a2-remat", mode="train_fsdp", model="tiny4"),
+    _case("train-adafactor-a2-remat", opt="adafactor", model="tiny4"),
+    _case("moe-ep-nodrop-a1-remat", model="moe_nodrop_remat", accum=1,
+          moe_ep="train"),
+    _case("fsdp-encdec-a2-remat", mode="train_fsdp", model="encdec",
+          batch=2),
+    # the high-water control: tiny4's step without remat
+    _case("fsdp-adamw-a2-noremat", mode="train_fsdp", model="tiny4_noremat"),
     # the batch sharded first and cut into microbatches on each rank:
     # rank r's microbatch i is rows 4r + 2i, 4r + 2i + 1, so the
     # microbatches are rows {0, 1, 4, 5} and {2, 3, 6, 7}
@@ -126,6 +151,8 @@ def _batches():
             "sampler_lp": -np.abs(rng.standard_normal((8, 9))).astype(
                 np.float32),
             "rewards": (rng.uniform(size=8) > 0.5).astype(np.float32)}
+    frames = np.random.default_rng(4).standard_normal((8, 6, 48))
+    out[2] = dict(out[0], frames=frames.astype(np.float32))
     return out
 
 
@@ -148,7 +175,7 @@ def _reference(case, monkeypatch):
     metrics) as flat numpy dicts."""
     model = case["model"]
     jcfg = JModelConfig(**MODELS[model])
-    if model != "tiny":
+    if model.startswith("moe"):
         patch_jax_moe(monkeypatch)
     jtc = JTrainConfig(**case["tc"])
     batch = {k: jnp.asarray(v) for k, v in _batches()[case["batch"]].items()}
@@ -245,6 +272,42 @@ def test_stored_shards_have_the_fitted_shapes(job, name):
     assert any(np.prod(s) < np.prod(a.shape) for s, a in zip(
         [want[k] for k in sorted(want) if "/shard/params/" in k],
         [a for a in jax.tree_util.tree_leaves(avals)]))
+
+
+@pytest.mark.parametrize("name", [c["name"] for c in CASES])
+def test_gradients_and_accumulator_are_shard_shaped(job, name):
+    kinds = ("acc",) if BY_NAME[name]["kind"] == "sft" else ("grad", "acc")
+    for out in job:
+        shards = {k.split("/shard/params/")[1]: tuple(v) for k, v in
+                  out.items() if k.startswith(f"{name}/shard/params/")}
+        for kind in kinds:
+            got = {k.split(f"/{kind}/", 1)[1]: tuple(v) for k, v in
+                   out.items() if k.startswith(f"{name}/{kind}/")}
+            assert got == shards, kind
+
+
+def _gathered_bytes(model, blocks):
+    """The bytes of the leaves outside the blocks plus ``blocks`` blocks'
+    (float32), from the JAX package's param shapes."""
+    jcfg = JModelConfig(**MODELS[model])
+    total = 0
+    for path, a in jax.tree_util.tree_flatten_with_path(
+            jabstract_params(jcfg))[0]:
+        n = int(np.prod(a.shape)) * 4
+        if path[0].key == "blocks":
+            n = n // a.shape[0] * blocks
+        total += n
+    return total
+
+
+@pytest.mark.parametrize("name,blocks", [("fsdp-adamw-a2-remat", 1),
+                                         ("fsdp-adamw-a2-noremat", 4)])
+def test_gathered_weights_high_water(job, name, blocks):
+    """remat: the leaves outside the blocks and one block whole at a time
+    on every rank; without remat (the control) autograd keeps every
+    gathered block for the backward."""
+    want = _gathered_bytes(BY_NAME[name]["model"], blocks)
+    assert [int(out[f"{name}/high_water"]) for out in job] == [want] * WORLD
 
 
 def test_every_rank_publishes_the_abstract_plans_manifest(job):
